@@ -1,0 +1,18 @@
+"""egnn_tpu_torch — the PyTorch/CUDA port of egnn_tpu, for NVIDIA Hopper.
+
+The same E(n)-equivariant graph networks as the JAX package ``egnn_tpu``
+(the reference egnn-pytorch's dense path, Satorras, Hoogeboom, Welling 2021,
+arXiv:2102.09844), written in PyTorch, with the TPU's Pallas kernels
+replaced by kernels written by hand for the H100 (``csrc/``). Entry points
+run on CUDA unless given ``device="cpu"``; on the CPU every kernel is
+replaced by its plain PyTorch version.
+
+This slice covers the serving forward of ``EGNNNetwork`` with kNN
+neighbourhoods; see ROADMAP.md for what is still to be ported.
+"""
+
+from .models.egnn import EGNN, EGNN_Network, EGNNNetwork
+
+__version__ = "0.1.0"
+
+__all__ = ["EGNN", "EGNNNetwork", "EGNN_Network"]

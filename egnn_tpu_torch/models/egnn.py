@@ -1,0 +1,411 @@
+"""The EGNN layer and the EGNN_Network stack, in PyTorch.
+
+Counterpart of ``egnn_tpu/models/egnn.py`` (the reference's dense path,
+egnn_pytorch.py:148-454), with the same math, option names, parameter
+names and (in, out) weight layout:
+
+- The edge MLP's first layer is factorised: with input
+  ``[f_i, f_j, dist_feats, edges]`` and weight rows ``[Wi; Wj; Wd; We]``,
+  ``h1_ij = f_i @ Wi + f_j @ Wj + dist_ij @ Wd + e_ij @ We + b1``.
+- kNN selection and the gather of the neighbours' ``[coors | mask | feats]``
+  rows are one call (``ops/neighbors.py:knn_select_gather``): kernel K1 on
+  the card, its plain version on the CPU. The rest of the layer is plain
+  torch (matmuls on cuBLAS).
+
+Reference quirks kept on purpose: ``valid_radius`` acts only with a
+``mask``; with ``only_sparse_neighbors`` k is the max row degree including
+the self slot; without a mask the mean divisor is k.
+
+Not ported yet (they raise ``NotImplementedError``): the streamed all-pairs
+path (``stream_pairwise``, or n >= 1024 without kNN), ``ring_axis``,
+``fused_knn``, ``fused_pairs``, global linear attention and dropout in
+training mode.
+"""
+from __future__ import annotations
+
+import inspect
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import neighbors as nb
+from ..ops.core import (
+    batched_index_select,
+    coors_norm,
+    fourier_encode_dist,
+    layer_norm,
+    safe_div,
+)
+from ..utils.device import resolve_device
+from . import init as inits
+
+
+class _ParamFactory:
+    """Creates a module's parameters by name from an initialiser, drawing
+    from one generator and placing them on one device in one dtype."""
+
+    def __init__(self, module, device, dtype, generator):
+        self.module = module
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.gen = generator if generator is not None else torch.Generator().manual_seed(0)
+
+    def __call__(self, name, init, shape):
+        value = init(shape, self.gen).to(device=self.device, dtype=self.dtype)
+        self.module.register_parameter(name, nn.Parameter(value))
+
+    def linear(self, name, d_in, d_out, init_eps):
+        self(f"{name}_w", inits.normal_init(init_eps), (d_in, d_out))
+        self(f"{name}_b", inits.torch_linear_bias_init(d_in), (d_out,))
+
+
+class EGNN(nn.Module):
+    """One E(n)-equivariant message-passing layer (egnn_pytorch.py:148-222).
+
+    Keyword options keep the reference's names and defaults. ``device``
+    (default ``"cuda"``), ``dtype`` and ``generator`` say where and how the
+    parameters are made.
+    """
+
+    def __init__(
+        self,
+        dim: int,
+        edge_dim: int = 0,
+        m_dim: int = 16,
+        fourier_features: int = 0,
+        num_nearest_neighbors: int = 0,
+        dropout: float = 0.0,
+        init_eps: float = 1e-3,
+        norm_feats: bool = False,
+        norm_coors: bool = False,
+        norm_coors_scale_init: float = 1e-2,
+        update_feats: bool = True,
+        update_coors: bool = True,
+        only_sparse_neighbors: bool = False,
+        valid_radius: float = float("inf"),
+        m_pool_method: str = "sum",
+        soft_edges: bool = False,
+        coor_weights_clamp_value: Optional[float] = None,
+        stream_pairwise: Optional[bool] = None,
+        ring_axis: Optional[str] = None,
+        fused_knn: bool = False,
+        fused_pairs: bool = False,
+        compute_dtype: Optional[torch.dtype] = None,
+        tp_hidden_multiple: Optional[int] = None,
+        *,
+        device=None,
+        dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        param = _ParamFactory(self, device, dtype, generator)
+        if m_pool_method not in ("sum", "mean"):
+            raise ValueError("pool method must be either sum or mean")
+        if not (update_feats or update_coors):
+            raise ValueError("you must update either features, coordinates, or both")
+        for name, value in (("ring_axis", ring_axis), ("fused_knn", fused_knn),
+                            ("fused_pairs", fused_pairs)):
+            if value:
+                raise NotImplementedError(f"EGNN({name}=...) is not ported yet")
+        self.dim = dim
+        self.edge_dim = edge_dim
+        self.m_dim = m_dim
+        self.fourier_features = fourier_features
+        self.num_nearest_neighbors = num_nearest_neighbors
+        self.dropout = dropout
+        self.norm_feats = norm_feats
+        self.norm_coors = norm_coors
+        self.update_feats = update_feats
+        self.update_coors = update_coors
+        self.only_sparse_neighbors = only_sparse_neighbors
+        self.valid_radius = valid_radius
+        self.m_pool_method = m_pool_method
+        self.soft_edges = soft_edges
+        self.coor_weights_clamp_value = coor_weights_clamp_value
+        self.stream_pairwise = stream_pairwise
+        self.compute_dtype = compute_dtype
+
+        d = dim
+        self.dist_dim = 2 * fourier_features + 1
+        ein = self.dist_dim + 2 * d + edge_dim
+        hidden = ein * 2
+        hidden_pad = -(-hidden // tp_hidden_multiple) * tp_hidden_multiple \
+            if tp_hidden_multiple else hidden
+
+        if hidden_pad != hidden:
+            # zero-padded inert hidden units (JAX egnn.py:146-175)
+            param("edge_mlp_0_w", inits.zero_pad_axis(
+                inits.normal_init(init_eps), 1, hidden), (ein, hidden_pad))
+            param("edge_mlp_0_b", inits.zero_pad_axis(
+                inits.torch_linear_bias_init(ein), 0, hidden), (hidden_pad,))
+            param("edge_mlp_1_w", inits.zero_pad_axis(
+                inits.normal_init(init_eps), 0, hidden), (hidden_pad, m_dim))
+            param("edge_mlp_1_b", inits.torch_linear_bias_init(hidden), (m_dim,))
+        else:
+            param.linear("edge_mlp_0", ein, hidden, init_eps)
+            param.linear("edge_mlp_1", hidden, m_dim, init_eps)
+        if soft_edges:
+            param.linear("edge_gate", m_dim, 1, init_eps)
+        if norm_feats:
+            param("node_norm_gamma", inits.ones_init, (d,))
+            param("node_norm_beta", inits.zeros_init, (d,))
+        if norm_coors:
+            param("coors_norm_scale", inits.constant_init(norm_coors_scale_init), (1,))
+        if update_feats:
+            param.linear("node_mlp_0", d + m_dim, d * 2, init_eps)
+            param.linear("node_mlp_1", d * 2, d, init_eps)
+        if update_coors:
+            param.linear("coors_mlp_0", m_dim, m_dim * 4, init_eps)
+            param.linear("coors_mlp_1", m_dim * 4, 1, init_eps)
+
+    def _mp(self, x):
+        """Mixed-precision cast of the message path (identity by default)."""
+        return x if self.compute_dtype is None else x.to(self.compute_dtype)
+
+    def _node_update(self, feats, m_i):
+        """LayerNorm? -> concat with the pooled message -> node MLP ->
+        residual (egnn_pytorch.py:335-337)."""
+        mp = self._mp
+        normed = layer_norm(feats, self.node_norm_gamma, self.node_norm_beta) \
+            if self.norm_feats else feats
+        h = torch.cat([mp(normed), m_i.to(mp(normed).dtype)], dim=-1)
+        h = F.silu(h @ mp(self.node_mlp_0_w) + mp(self.node_mlp_0_b))
+        return (h @ mp(self.node_mlp_1_w) + mp(self.node_mlp_1_b)).to(feats.dtype) + feats
+
+    def forward(
+        self,
+        feats: torch.Tensor,                    # (b, n, dim)
+        coors: torch.Tensor,                    # (b, n, c)
+        edges: Optional[torch.Tensor] = None,   # (b, n, n, edge_dim)
+        mask: Optional[torch.Tensor] = None,    # (b, n) bool
+        adj_mat: Optional[torch.Tensor] = None,  # (n, n) or (b, n, n) bool
+    ):
+        if self.dropout > 0.0 and self.training:
+            raise NotImplementedError(
+                "dropout in training mode is not ported yet; call .eval()")
+        b, n, d = feats.shape
+        if d != self.dim:
+            raise ValueError(f"feats dim {d} != configured dim {self.dim}")
+        mp = self._mp
+        num_nearest = self.num_nearest_neighbors
+        valid_radius = self.valid_radius
+        use_nearest = num_nearest > 0 or self.only_sparse_neighbors
+        do_stream = self.stream_pairwise if self.stream_pairwise is not None else n >= 1024
+        if not use_nearest and edges is None and do_stream:
+            raise NotImplementedError(
+                "the streamed all-pairs path (stream_pairwise, or n >= 1024 "
+                "without kNN) is not ported yet; stream_pairwise=False "
+                "materialises the pairs")
+
+        w1 = self.edge_mlp_0_w
+        w_i = w1[:d]
+        w_j = w1[d:2 * d]
+        w_d = w1[2 * d:2 * d + self.dist_dim]
+        w_e = w1[2 * d + self.dist_dim:]
+
+        # ---- pairwise geometry ----
+        if use_nearest:
+            if self.only_sparse_neighbors:
+                if adj_mat is None:
+                    raise ValueError("only_sparse_neighbors requires adj_mat")
+                # the reference overrides k with the max row degree
+                num_nearest = nb.max_degree(adj_mat)
+                valid_radius = 0.0
+            adj_b = None
+            if adj_mat is not None:
+                adj_b = adj_mat if adj_mat.dim() == 3 else adj_mat.expand(b, n, n)
+            nbhd, g = nb.knn_select_gather(
+                coors, num_nearest, valid_radius, mask=mask, adj_mat=adj_b,
+                payload=feats)
+            c_sp = coors.shape[-1]
+            coors_j = g[..., :c_sp]
+            off = c_sp
+            if mask is not None:
+                mask_j = g[..., off] > 0.5
+                off += 1
+            feats_j = g[..., off:].to(feats.dtype)             # (b, n, k, d)
+            rel_coors = coors[:, :, None, :] - coors_j
+            rel_dist = (rel_coors**2).sum(dim=-1)
+            if edges is not None:
+                edges = batched_index_select(edges, nbhd.indices, axis=2)
+        else:
+            rel_coors, rel_dist = nb.pairwise_geometry(coors)   # (b,n,n,c), (b,n,n)
+
+        # ---- distance features ----
+        if self.fourier_features > 0:
+            dist_feats = fourier_encode_dist(rel_dist, num_encodings=self.fourier_features)
+        else:
+            dist_feats = rel_dist[..., None]
+
+        # ---- factorised edge MLP layer 1 ----
+        if use_nearest:
+            kk = feats_j.shape[2]
+            proj_j = mp(feats_j) @ mp(w_j)
+            proj_i = mp(feats)[:, :, None, :].expand(b, n, kk, d) @ mp(w_i)
+            h1 = proj_i + proj_j + mp(dist_feats) @ mp(w_d) + mp(self.edge_mlp_0_b)
+        else:
+            proj_i = mp(feats) @ mp(w_i)                        # (b, n, hidden)
+            proj_j = (mp(feats) @ mp(w_j))[:, None, :, :]       # (b, 1, n, hidden)
+            h1 = proj_i[:, :, None, :] + proj_j \
+                + mp(dist_feats) @ mp(w_d) + mp(self.edge_mlp_0_b)
+        if edges is not None:
+            h1 = h1 + mp(edges) @ mp(w_e)
+
+        m_ij = F.silu(h1)
+        m_ij = F.silu(m_ij @ mp(self.edge_mlp_1_w) + mp(self.edge_mlp_1_b))
+        if self.soft_edges:
+            m_ij = m_ij * torch.sigmoid(m_ij @ mp(self.edge_gate_w) + mp(self.edge_gate_b))
+
+        # ---- pair mask (reference order: mask_i * mask_j [& nbhd]) ----
+        pair_mask = None
+        if mask is not None:
+            if use_nearest:
+                pair_mask = (mask[:, :, None] & mask_j) & nbhd.valid
+            else:
+                pair_mask = mask[:, :, None] & mask[:, None, :]
+
+        # ---- coordinate update (equivariant) ----
+        if self.update_coors:
+            cw = F.silu(m_ij @ mp(self.coors_mlp_0_w) + mp(self.coors_mlp_0_b))
+            coor_weights = (cw @ mp(self.coors_mlp_1_w) + mp(self.coors_mlp_1_b)).to(coors.dtype)
+            rel_coors_n = coors_norm(rel_coors, self.coors_norm_scale) \
+                if self.norm_coors else rel_coors
+            if pair_mask is not None:
+                coor_weights = torch.where(pair_mask[..., None], coor_weights, 0.0)
+            if self.coor_weights_clamp_value is not None:
+                clamp = self.coor_weights_clamp_value
+                coor_weights = coor_weights.clamp(-clamp, clamp)
+            coors_out = (coor_weights * rel_coors_n).sum(dim=-2) + coors
+        else:
+            coors_out = coors
+
+        # ---- feature update (invariant) ----
+        if self.update_feats:
+            if pair_mask is not None:
+                m_ij = torch.where(pair_mask[..., None], m_ij, 0.0)
+            if self.m_pool_method == "mean":
+                if pair_mask is not None:
+                    mask_sum = pair_mask[..., None].sum(dim=-2).to(m_ij.dtype)
+                    m_i = safe_div(m_ij.sum(dim=-2), mask_sum)
+                else:
+                    m_i = m_ij.mean(dim=-2)
+            else:
+                m_i = m_ij.sum(dim=-2)
+            node_out = self._node_update(feats, m_i)
+        else:
+            node_out = feats
+        return node_out, coors_out
+
+
+class EGNNNetwork(nn.Module):
+    """Depth-N EGNN stack with token, position, edge and adjacency-degree
+    embeddings (egnn_pytorch.py:343-454). ``layer_kwargs`` go to every
+    ``EGNN``; ``norm_feats=True`` is forced, as in the reference. Layers are
+    the submodules ``egnn_0`` ... ``egnn_{depth-1}``."""
+
+    def __init__(
+        self,
+        depth: int,
+        dim: int,
+        num_tokens: Optional[int] = None,
+        num_edge_tokens: Optional[int] = None,
+        num_positions: Optional[int] = None,
+        edge_dim: int = 0,
+        num_adj_degrees: Optional[int] = None,
+        adj_dim: int = 0,
+        global_linear_attn_every: int = 0,
+        global_linear_attn_heads: int = 8,
+        global_linear_attn_dim_head: int = 64,
+        num_global_tokens: int = 4,
+        layer_kwargs: Optional[dict[str, Any]] = None,
+        *,
+        device=None,
+        dtype: torch.dtype = torch.float32,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        param = _ParamFactory(self, device, dtype, generator)
+        if num_adj_degrees is not None and num_adj_degrees < 1:
+            raise ValueError("make sure adjacent degrees is greater than 1")
+        if global_linear_attn_every > 0:
+            raise NotImplementedError("global linear attention is not ported yet")
+        self.depth = depth
+        self.dim = dim
+        self.num_tokens = num_tokens
+        self.num_edge_tokens = num_edge_tokens
+        self.num_positions = num_positions
+        self.num_adj_degrees = num_adj_degrees
+
+        if num_tokens is not None:
+            param("token_emb", inits.unit_normal_init, (num_tokens, dim))
+        if num_positions is not None:
+            param("pos_emb", inits.unit_normal_init, (num_positions, dim))
+        if num_edge_tokens is not None:
+            param("edge_emb", inits.unit_normal_init, (num_edge_tokens, edge_dim))
+        adj_dim = adj_dim if num_adj_degrees is not None else 0
+        if adj_dim > 0:
+            param("adj_emb", inits.unit_normal_init, (num_adj_degrees + 1, adj_dim))
+        self.adj_dim = adj_dim
+        layer_edge_dim = (edge_dim if edge_dim > 0 else 0) + adj_dim
+        for ind in range(depth):
+            self.add_module(f"egnn_{ind}", EGNN(
+                dim=dim, edge_dim=layer_edge_dim, norm_feats=True,
+                **(layer_kwargs or {}), device=param.device, dtype=dtype,
+                generator=param.gen))
+
+    def forward(
+        self,
+        feats: torch.Tensor,
+        coors: torch.Tensor,
+        adj_mat: Optional[torch.Tensor] = None,
+        edges: Optional[torch.Tensor] = None,
+        mask: Optional[torch.Tensor] = None,
+        return_coor_changes: bool = False,
+    ):
+        b = feats.shape[0]
+        if self.num_tokens is not None:
+            feats = self.token_emb[feats]
+        if self.num_positions is not None:
+            n = feats.shape[1]
+            if n > self.num_positions:
+                raise ValueError(
+                    f"given sequence length {n} must be less than the number "
+                    f"of positions {self.num_positions} set at init")
+            feats = feats + self.pos_emb[None, :n, :]
+        if edges is not None and self.num_edge_tokens is not None:
+            edges = self.edge_emb[edges]
+
+        # Nth-degree adjacency expansion with per-degree embedding
+        # (egnn_pytorch.py:414-432); the layers see the expanded adjacency.
+        if self.num_adj_degrees is not None:
+            if adj_mat is None:
+                raise ValueError(
+                    "adjacency matrix must be passed in (keyword argument adj_mat)")
+            if adj_mat.dim() == 2:
+                adj_mat = adj_mat.expand(b, *adj_mat.shape)
+            adj_mat, adj_indices = nb.expand_adjacency_degrees(adj_mat, self.num_adj_degrees)
+            if self.adj_dim > 0:
+                adj_feats = self.adj_emb[adj_indices]
+                edges = torch.cat([edges, adj_feats], dim=-1) if edges is not None \
+                    else adj_feats
+
+        coor_changes = [coors]
+        for ind in range(self.depth):
+            feats, coors = getattr(self, f"egnn_{ind}")(
+                feats, coors, edges=edges, mask=mask, adj_mat=adj_mat)
+            coor_changes.append(coors)
+        if return_coor_changes:
+            return feats, coors, coor_changes
+        return feats, coors
+
+
+def EGNN_Network(**kwargs) -> EGNNNetwork:
+    """Reference-style constructor: keyword arguments that ``EGNNNetwork``
+    does not take go to every layer, as the reference's ``**kwargs``
+    passthrough does (egnn_pytorch.py:344,387)."""
+    fields = set(inspect.signature(EGNNNetwork.__init__).parameters) - {"self"}
+    layer_kwargs = dict(kwargs.pop("layer_kwargs", None) or {})
+    extra = {k: kwargs.pop(k) for k in list(kwargs) if k not in fields}
+    return EGNNNetwork(**kwargs, layer_kwargs={**extra, **layer_kwargs})

@@ -1,0 +1,90 @@
+"""Primitive numerics shared by the EGNN layer and the kNN selection.
+
+PyTorch counterparts of ``egnn_tpu/ops/core.py``: the same behaviour (the
+reference library's helpers, egnn_pytorch.py:10-77) as plain tensor
+functions. Forward only in this slice: ``gather_nodes`` is a plain index,
+differentiable through autograd's own scatter.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def safe_div(num: torch.Tensor, den: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Masked-mean division: clamp the denominator to ``eps``, zero where it
+    is 0 (egnn_pytorch.py:13-16)."""
+    res = num / den.clamp(min=eps)
+    return torch.where(den == 0, torch.zeros((), dtype=res.dtype, device=res.device), res)
+
+
+def fourier_encode_dist(
+    x: torch.Tensor, num_encodings: int = 4, include_self: bool = True
+) -> torch.Tensor:
+    """(...,) -> (..., 2*num_encodings + include_self): ``[sin(x/s), cos(x/s), x]``
+    with scales ``2**arange(num_encodings)`` (egnn_pytorch.py:34-41)."""
+    x = x[..., None]
+    scales = 2 ** torch.arange(num_encodings, dtype=x.dtype, device=x.device)
+    xs = x / scales
+    out = torch.cat([torch.sin(xs), torch.cos(xs)], dim=-1)
+    if include_self:
+        out = torch.cat([out, x], dim=-1)
+    return out
+
+
+def batched_index_select(values: torch.Tensor, indices: torch.Tensor, axis: int = 1) -> torch.Tensor:
+    """Gather ``values`` along ``axis`` with a batched index tensor
+    (egnn_pytorch.py:18-32): ``indices`` has the batch dims of
+    ``values[:axis]`` plus any extra dims, and the result keeps ``values``'
+    trailing dims. values (b, n, d), indices (b, i, k), axis=1 ->
+    (b, i, k, d) with out[b, i, k] = values[b, indices[b, i, k]]."""
+    value_dims = values.shape[axis + 1:]
+    n_extra = indices.dim() - axis
+    v = values
+    for _ in range(n_extra - 1):
+        v = v.unsqueeze(axis)
+    idx = indices.reshape(indices.shape + (1,) * len(value_dims))
+    gather_axis = axis + n_extra - 1
+    # take_along_axis broadcasts; torch.gather needs the shapes spelled out
+    shape = [max(a, b) for a, b in zip(v.shape, idx.shape)]
+    v_shape, idx_shape = list(shape), list(shape)
+    v_shape[gather_axis] = v.shape[gather_axis]
+    idx_shape[gather_axis] = idx.shape[gather_axis]
+    return torch.gather(v.expand(v_shape), gather_axis, idx.long().expand(idx_shape))
+
+
+def gather_bool(mask: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Boolean gather of a (b, n) mask at (b, n, k) indices."""
+    return batched_index_select(mask.float(), indices, axis=1) > 0.5
+
+
+def gather_nodes(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Neighbour gather (b, n, d) x (b, n, k) -> (b, n, k, d)."""
+    return batched_index_select(values, indices, axis=1)
+
+
+def coors_norm(coors: torch.Tensor, scale: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """CoorsNorm (egnn_pytorch.py:67-77): unit-length rows rescaled by a
+    learned (1,) scalar. The clamp sits inside the sqrt, as in the JAX
+    package, so the gradient at the zero self-pair vector is 0."""
+    sum_sq = (coors**2).sum(dim=-1, keepdim=True)
+    norm = torch.sqrt(sum_sq.clamp(min=eps * eps))
+    return coors / norm * scale
+
+
+def layer_norm(
+    x: torch.Tensor,
+    gamma: Optional[torch.Tensor],
+    beta: Optional[torch.Tensor],
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """torch.nn.LayerNorm semantics over the last axis (biased variance)."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    if gamma is not None:
+        out = out * gamma
+    if beta is not None:
+        out = out + beta
+    return out

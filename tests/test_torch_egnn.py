@@ -1,0 +1,220 @@
+"""The port's EGNN layer and EGNN_Network against the JAX package's, on the
+CPU in float64: Flax parameters are carried into the torch modules by
+``load_flax_params``, the same numpy inputs go through both forwards, and
+the outputs agree at atol 1e-9 (float64 rounding in other orders)."""
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import egnn_tpu
+from egnn_tpu.ops.graph import chain_adjacency as jax_chain_adjacency
+from egnn_tpu_torch import EGNN, EGNN_Network, EGNNNetwork
+from egnn_tpu_torch.training.data import chain_adjacency, synthetic_chain_batch
+from egnn_tpu_torch.utils.port_weights import load_flax_params
+
+ATOL = 1e-9
+F64 = dict(device="cpu", dtype=torch.float64)
+
+
+def _inputs(seed, b, n, dim, with_mask=True, with_adj=True, edge_dim=0):
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(b, n, dim)
+    coors = rng.randn(b, n, 3) * 2.0
+    mask = None
+    if with_mask:
+        mask = np.arange(n)[None, :] < rng.randint(n // 2, n + 1, size=(b, 1))
+    adj = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :]) == 1 if with_adj else None
+    edges = rng.randn(b, n, n, edge_dim) if edge_dim else None
+    return feats, coors, mask, adj, edges
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.asarray(x))
+
+
+def _flax_params(module, *args, **kwargs):
+    variables = module.init(jax.random.PRNGKey(0), *args, **kwargs)
+    return jax.tree_util.tree_map(np.asarray, variables["params"])
+
+
+def _close(t, j, atol=ATOL):
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), rtol=0, atol=atol)
+
+
+LAYER_CASES = {
+    # the serving layer: kNN, node mask, chain adjacency, CoorsNorm, clamp
+    "knn_mask_adj": dict(kw=dict(num_nearest_neighbors=8, norm_coors=True,
+                                 coor_weights_clamp_value=2.0, norm_feats=True)),
+    "knn_no_mask": dict(kw=dict(num_nearest_neighbors=8, valid_radius=1.0),
+                        mask=False, adj=False),
+    "knn_mean_soft_fourier": dict(kw=dict(num_nearest_neighbors=8, m_pool_method="mean",
+                                          soft_edges=True, fourier_features=2,
+                                          valid_radius=3.0)),
+    "knn_mean_no_mask": dict(kw=dict(num_nearest_neighbors=8, m_pool_method="mean"),
+                             mask=False),
+    "knn_dense_edges": dict(kw=dict(num_nearest_neighbors=6, edge_dim=4), edge_dim=4),
+    "only_sparse_neighbors": dict(kw=dict(only_sparse_neighbors=True)),
+    "tp_hidden_padding": dict(kw=dict(num_nearest_neighbors=8, tp_hidden_multiple=16)),
+    "update_coors_only": dict(kw=dict(num_nearest_neighbors=8, update_feats=False)),
+    "all_pairs": dict(kw=dict(norm_coors=True, m_pool_method="mean"), adj=False),
+    "all_pairs_edges_no_mask": dict(kw=dict(edge_dim=3, soft_edges=True), mask=False,
+                                    adj=False, edge_dim=3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYER_CASES))
+def test_layer_matches_jax(case):
+    spec = LAYER_CASES[case]
+    kw = dict(spec["kw"], init_eps=0.1)
+    dim, n = 16, 40
+    feats, coors, mask, adj, edges = _inputs(
+        zlib.crc32(case.encode()), 2, n, dim, spec.get("mask", True), spec.get("adj", True),
+        spec.get("edge_dim", 0))
+    jlayer = egnn_tpu.EGNN(dim=dim, **kw)
+    jargs = (_j(feats), _j(coors), _j(edges), _j(mask), _j(adj))
+    params = _flax_params(jlayer, *jargs)
+    jf, jc = jlayer.apply({"params": params}, *jargs)
+
+    tlayer = EGNN(dim=dim, **kw, **F64)
+    load_flax_params(tlayer, params)
+    tf, tc = tlayer(_t(feats), _t(coors), _t(edges), _t(mask), _t(adj))
+    _close(tf, jf)
+    _close(tc, jc)
+
+
+def test_layer_compute_dtype_float32():
+    """The float32 message path on float64 parameters: both frameworks round
+    the message matmuls to float32, in their own orders (atol 1e-5)."""
+    kw = dict(num_nearest_neighbors=8, norm_coors=True, init_eps=0.1)
+    feats, coors, mask, adj, _ = _inputs(3, 2, 40, 16)
+    jlayer = egnn_tpu.EGNN(dim=16, compute_dtype=jnp.float32, **kw)
+    jargs = (_j(feats), _j(coors), None, _j(mask), _j(adj))
+    params = _flax_params(jlayer, *jargs)
+    jf, jc = jlayer.apply({"params": params}, *jargs)
+    tlayer = EGNN(dim=16, compute_dtype=torch.float32, **kw, **F64)
+    load_flax_params(tlayer, params)
+    tf, tc = tlayer(_t(feats), _t(coors), None, _t(mask), _t(adj))
+    assert tf.dtype == torch.float64 and tc.dtype == torch.float64
+    _close(tf, jf, atol=1e-5)
+    _close(tc, jc, atol=1e-5)
+
+
+NETWORK_CASES = {
+    # anchor-3 shape at depth 2, dim 16: tokens, positions, mask, chain
+    "anchor_like": dict(net=dict(num_tokens=21, num_positions=96),
+                        layer=dict(num_nearest_neighbors=8, norm_coors=True,
+                                   coor_weights_clamp_value=2.0)),
+    "no_mask": dict(net=dict(num_tokens=21), layer=dict(num_nearest_neighbors=8),
+                    mask=False),
+    "adj_degrees": dict(net=dict(num_tokens=21, num_adj_degrees=2, adj_dim=4),
+                        layer=dict(num_nearest_neighbors=8)),
+    "all_pairs": dict(net=dict(num_tokens=21, num_positions=64),
+                      layer=dict(norm_coors=True), n=64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NETWORK_CASES))
+def test_network_matches_jax(case):
+    spec = NETWORK_CASES[case]
+    n = spec.get("n", 96)
+    layer = dict(spec["layer"], init_eps=0.1)
+    rng = np.random.RandomState(zlib.crc32(case.encode()))
+    tokens = rng.randint(0, 21, size=(2, n))
+    _, coors, mask, adj, _ = _inputs(rng.randint(2**31), 2, n, 1, spec.get("mask", True))
+    jnet = egnn_tpu.EGNNNetwork(depth=2, dim=16, layer_kwargs=layer, **spec["net"])
+    jkw = dict(adj_mat=_j(adj), mask=_j(mask))
+    params = _flax_params(jnet, _j(tokens), _j(coors), **jkw)
+    jf, jc = jnet.apply({"params": params}, _j(tokens), _j(coors), **jkw)
+
+    tnet = EGNNNetwork(depth=2, dim=16, layer_kwargs=layer, **spec["net"], **F64)
+    load_flax_params(tnet, params)
+    tf, tc = tnet(_t(tokens), _t(coors), adj_mat=_t(adj), mask=_t(mask))
+    _close(tf, jf)
+    _close(tc, jc)
+
+
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_network_equivariance(with_mask):
+    """Rotating and translating the input coordinates leaves the features
+    unchanged and moves the output coordinates the same way (float64)."""
+    n = 64
+    net = EGNN_Network(depth=2, dim=16, num_tokens=21, num_nearest_neighbors=8,
+                       norm_coors=True, coor_weights_clamp_value=2.0, init_eps=0.1,
+                       generator=torch.Generator().manual_seed(3), **F64)
+    batch = synthetic_chain_batch(np.random.default_rng(1), 2, n, device="cpu",
+                                  dtype=torch.float64)
+    mask = batch.mask if with_mask else None
+    q, _ = torch.linalg.qr(torch.randn(3, 3, dtype=torch.float64,
+                                       generator=torch.Generator().manual_seed(2)))
+    shift = torch.tensor([0.3, -1.2, 2.0], dtype=torch.float64)
+    f0, c0 = net(batch.tokens, batch.noised_coors, adj_mat=batch.adj_mat, mask=mask)
+    f1, c1 = net(batch.tokens, batch.noised_coors @ q + shift, adj_mat=batch.adj_mat,
+                 mask=mask)
+    torch.testing.assert_close(f1, f0, rtol=0, atol=1e-9)
+    torch.testing.assert_close(c1, c0 @ q + shift, rtol=0, atol=1e-9)
+
+
+def test_egnn_network_alias_routes_layer_kwargs():
+    net = EGNN_Network(depth=2, dim=8, num_tokens=5, num_nearest_neighbors=4,
+                       norm_coors=True, device="cpu")
+    ref = EGNNNetwork(depth=2, dim=8, num_tokens=5, device="cpu",
+                      layer_kwargs=dict(num_nearest_neighbors=4, norm_coors=True))
+    assert net.egnn_1.num_nearest_neighbors == 4 and net.egnn_1.norm_coors
+    assert [k for k, _ in net.named_parameters()] == [k for k, _ in ref.named_parameters()]
+    for (_, a), (_, b) in zip(net.named_parameters(), ref.named_parameters()):
+        assert torch.equal(a, b)  # one default seed, one draw order
+
+
+def test_load_flax_params_rejects_mismatches():
+    layer = EGNN(dim=8, num_nearest_neighbors=4, device="cpu")
+    params = {name: p.detach().numpy().copy() for name, p in layer.named_parameters()}
+    load_flax_params(layer, params)
+    with pytest.raises(KeyError, match="missing"):
+        load_flax_params(layer, {k: v for k, v in params.items() if k != "edge_mlp_0_w"})
+    with pytest.raises(KeyError, match="unknown"):
+        load_flax_params(layer, {**params, "edge_gate_w": np.zeros((16, 1))})
+    with pytest.raises(ValueError, match="shape"):
+        load_flax_params(layer, {**params, "node_mlp_1_b": np.zeros(9)})
+
+
+def test_options_not_yet_ported_raise():
+    for kw in (dict(fused_knn=True), dict(fused_pairs=True), dict(ring_axis="x")):
+        with pytest.raises(NotImplementedError):
+            EGNN(dim=4, num_nearest_neighbors=2, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        EGNNNetwork(depth=1, dim=4, global_linear_attn_every=1, device="cpu")
+    layer = EGNN(dim=4, device="cpu")
+    with pytest.raises(NotImplementedError):  # streamed all-pairs at n >= 1024
+        layer(torch.zeros(1, 1024, 4, dtype=torch.float32),
+              torch.zeros(1, 1024, 3, dtype=torch.float32))
+    dropping = EGNN(dim=4, num_nearest_neighbors=2, dropout=0.1, device="cpu")
+    feats = torch.randn(1, 6, 4, dtype=torch.float32)
+    coors = torch.randn(1, 6, 3, dtype=torch.float32)
+    with pytest.raises(NotImplementedError):
+        dropping(feats, coors)
+    dropping.eval()(feats, coors)
+
+
+def test_chain_data_matches_jax_semantics():
+    np.testing.assert_array_equal(chain_adjacency(7, device="cpu").numpy(),
+                                  np.asarray(jax_chain_adjacency(7)))
+    batch = synthetic_chain_batch(np.random.default_rng(0), 3, 50, device="cpu")
+    assert batch.tokens.shape == (3, 50) and batch.tokens.dtype == torch.int64
+    assert 0 <= batch.tokens.min() and batch.tokens.max() < 21
+    assert batch.noised_coors.shape == (3, 50, 3) and batch.noised_coors.dtype == torch.float32
+    torch.testing.assert_close(batch.clean_coors.mean(dim=1),
+                               torch.zeros(3, 3, dtype=torch.float32),
+                               rtol=0, atol=1e-5)
+    lengths = batch.mask.sum(dim=1)
+    assert torch.all(lengths >= 30) and torch.all(lengths <= 50)
+    assert torch.all(batch.mask[:, :30])  # a valid prefix
+    again = synthetic_chain_batch(np.random.default_rng(0), 3, 50, device="cpu")
+    assert torch.equal(again.noised_coors, batch.noised_coors)
