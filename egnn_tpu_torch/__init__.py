@@ -7,8 +7,11 @@ replaced by kernels written by hand for the H100 (``csrc/``). Entry points
 run on CUDA unless given ``device="cpu"``; on the CPU every kernel is
 replaced by its plain PyTorch version.
 
-This slice covers the serving forward of ``EGNNNetwork`` with kNN
-neighbourhoods; see ROADMAP.md for what is still to be ported.
+Ported so far: the serving forward of ``EGNNNetwork`` with kNN
+neighbourhoods and its denoising train step (``egnn_tpu_torch.training``:
+``masked_mse``, ``make_fused_adam``, ``make_adam``, ``TrainState``,
+``make_denoise_train_step``, as in ``egnn_tpu.training``); see ROADMAP.md
+for what is still to be ported.
 """
 
 from .models.egnn import EGNN, EGNN_Network, EGNNNetwork

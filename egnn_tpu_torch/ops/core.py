@@ -2,14 +2,17 @@
 
 PyTorch counterparts of ``egnn_tpu/ops/core.py``: the same behaviour (the
 reference library's helpers, egnn_pytorch.py:10-77) as plain tensor
-functions. Forward only in this slice: ``gather_nodes`` is a plain index,
-differentiable through autograd's own scatter.
+functions. ``gather_nodes`` is the one with a backward of its own: the
+segment sum of ``ops/segment.py`` (kernel K2 on the card), as the JAX
+package's custom VJP routes it.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from .segment import batched_segment_sum
 
 
 def safe_div(num: torch.Tensor, den: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -59,9 +62,28 @@ def gather_bool(mask: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return batched_index_select(mask.float(), indices, axis=1) > 0.5
 
 
+class _GatherNodes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, indices):
+        ctx.save_for_backward(indices)
+        ctx.num_nodes = values.shape[1]
+        return batched_index_select(values, indices, axis=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (indices,) = ctx.saved_tensors
+        b, d = g.shape[0], g.shape[-1]
+        dv = batched_segment_sum(
+            g.contiguous().reshape(b, -1, d), indices.reshape(b, -1), ctx.num_nodes)
+        return dv, None
+
+
 def gather_nodes(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """Neighbour gather (b, n, d) x (b, n, k) -> (b, n, k, d)."""
-    return batched_index_select(values, indices, axis=1)
+    """Neighbour gather (b, n, d) x (b, n, k) -> (b, n, k, d), the
+    counterpart of ``egnn_tpu/ops/core.py:79-102``: the forward is a plain
+    index; the backward sums the rows' cotangents into node rows with
+    ``batched_segment_sum`` (kernel K2 on the card)."""
+    return _GatherNodes.apply(values, indices)
 
 
 def coors_norm(coors: torch.Tensor, scale: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

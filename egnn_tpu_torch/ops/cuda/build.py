@@ -75,3 +75,13 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``."""
     lib = _libs.get(name)
     return lib if lib is not None else build_all()[name]
+
+
+def function(name: str, entry: str, argtypes: list):
+    """The C function ``entry`` of ``csrc/<name>.cu``, typed on first use;
+    every launch function returns a CUDA error code."""
+    fn = getattr(library(name), entry)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

@@ -1,5 +1,5 @@
-"""Kernels K1 (selection + payload gather) and K3 (selection only), their
-plain PyTorch versions, and their launch counts.
+"""Kernels K1 (selection + payload gather) and K3 (selection only) and their
+plain PyTorch versions. Launches count into ``LAUNCH_COUNTS`` (``ops/cuda``).
 
 - K1 ``knn_select_gather`` replaces the TPU kernel
   ``egnn_tpu/ops/pallas/knn.py:knn_select_gather_pallas``
@@ -23,20 +23,12 @@ import torch
 
 from .. import neighbors as nb
 from ..core import gather_nodes
-from . import build
+from . import LAUNCH_COUNTS, build
+from . import raise_on_launch_error as _raise_on
 
 MAX_K = 128       # the TPU full-band kernels' reach: 1 <= k <= 128, n <= 16384
 MAX_N = 16384
 MAX_C = 16        # kMaxC in csrc/knn_select.cu
-
-# Launches of each kernel since the last reset_launch_counts(); the wrappers
-# add one where they launch and nowhere else.
-LAUNCH_COUNTS = {"knn_select_gather": 0, "knn_select": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCH_COUNTS:
-        LAUNCH_COUNTS[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -72,11 +64,7 @@ _ARGTYPES = {
 
 
 def _entry(name: str):
-    fn = getattr(build.library("knn_select"), name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-    return fn
+    return build.function("knn_select", name, _ARGTYPES[name])
 
 
 def _check_inputs(coors, k, mask, adj_mat):
@@ -109,11 +97,6 @@ def _check_inputs(coors, k, mask, adj_mat):
         adj_ptr = adj_mat.data_ptr()
         adj_bstride = adj_mat.stride(0)  # 0 for one (n, n) expanded over b
     return mask_ptr, adj_ptr, adj_bstride, keep
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
 def _launch_knn_select_gather(coors, k, table, mask, adj_mat):

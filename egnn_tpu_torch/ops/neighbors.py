@@ -13,14 +13,20 @@ the reference's selection rules (egnn_pytorch.py:230-268, 414-432):
 
 ``knn_select_gather`` dispatches by device: a CUDA tensor goes to the
 hand-written kernels of ``ops/cuda/knn.py`` (K1 with a payload, K3 without),
-a CPU tensor to their plain versions. The JAX package's grid, packed, tiled
-and window selection routes are not ported yet.
+a CPU tensor to their plain versions. The gathered rows are differentiable
+with respect to the table: the backward sums their cotangents into the
+table's rows with ``ops/segment.py:batched_segment_sum`` (kernel K2 on the
+card), as the JAX package's custom VJP does (``neighbors.py:727-746``);
+selection is not differentiated. The JAX package's grid, packed, tiled and
+window selection routes are not ported yet.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
 import torch
+
+from .segment import batched_segment_sum
 
 MASKED_RANK_FILL = 1e5
 
@@ -105,6 +111,30 @@ def knn_select(
     return nbhd
 
 
+class _KnnSelectGather(torch.autograd.Function):
+    """K1 (or its plain version) with the table's backward: the rows'
+    cotangents summed into the table's rows at the saved indices."""
+
+    @staticmethod
+    def forward(ctx, table, coors_sg, k, mask, adj_mat):
+        from .cuda import knn as knn_kernels
+
+        vals, idx, rows = knn_kernels.knn_select_gather(
+            coors_sg, k, table, mask=mask, adj_mat=adj_mat)
+        ctx.mark_non_differentiable(vals, idx)
+        ctx.save_for_backward(idx)
+        return vals, idx, rows
+
+    @staticmethod
+    def backward(ctx, d_vals, d_idx, d_rows):
+        (idx,) = ctx.saved_tensors
+        b, n, k = idx.shape
+        tw = d_rows.shape[-1]
+        d_table = batched_segment_sum(
+            d_rows.contiguous().reshape(b, n * k, tw), idx.reshape(b, n * k), n)
+        return d_table, None, None, None, None
+
+
 def knn_select_gather(
     coors: torch.Tensor,
     num_nearest: int,
@@ -119,8 +149,10 @@ def knn_select_gather(
     Returns ``(nbhd, gathered)``. With a ``payload`` (b, n, w), ``gathered``
     is the (b, n, k, c [+1 with a mask] + w) rows of the table
     ``[coors | mask | payload]`` at the selected neighbours: the one combined
-    gather the EGNN layer needs. Selection is not differentiated; on the CPU
-    the gathered rows carry gradients back to the payload.
+    gather the EGNN layer needs. Selection is not differentiated (``vals``
+    and ``indices`` carry no gradient); the gathered rows carry gradients
+    back to ``coors`` and the payload through the table, whose backward is
+    a segment sum over the selected indices (kernel K2 on the card).
 
     Dispatch: CUDA tensor with a payload -> kernel K1, CUDA tensor without
     one -> kernel K3, CPU tensor -> their plain versions. ``backend`` is
@@ -144,12 +176,7 @@ def knn_select_gather(
             parts.append(mask[..., None].to(coors.dtype))
         parts.append(payload.to(coors.dtype))
         table = torch.cat(parts, dim=-1)
-        if table.is_cuda and table.requires_grad:
-            raise NotImplementedError(
-                "the backward of the kNN gather kernel is not ported yet: run "
-                "the forward under torch.inference_mode() or torch.no_grad()")
-        vals, indices, gathered = knn_kernels.knn_select_gather(
-            coors_sg, k, table, mask=mask, adj_mat=adj_mat)
+        vals, indices, gathered = _KnnSelectGather.apply(table, coors_sg, k, mask, adj_mat)
     nbhd = Neighborhood(indices=indices, ranking=vals, valid=vals <= valid_radius)
     return nbhd, gathered
 

@@ -1,0 +1,192 @@
+"""Training state, loss, optimizers and the denoising train step.
+
+PyTorch counterpart of ``egnn_tpu/training/state.py:21-132``: the masked
+MSE of the reference's denoising loop (denoise_sparse.py:68-74), Adam as
+optax computes it (with global-norm clipping and ``optax.MultiSteps``
+gradient accumulation), the flat-buffer Adam, and a train step that runs
+zero-grad, forward, loss, backward and the optimizer step. The optimizers
+are ``torch.optim.Optimizer`` subclasses whose update is the JAX code's
+arithmetic, step for step. They keep their Adam step counts on the
+parameters' device, so a step syncs nothing to the host, and a step with
+``FusedAdam`` can be captured in a CUDA graph. The sharded, ring and
+partitioned steps are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterable, Optional
+
+import torch
+from torch import nn
+
+
+def masked_mse(pred: torch.Tensor, target: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MSE over valid entries (reference: F.mse_loss(denoised[masks],
+    coords[masks]), denoise_sparse.py:72): the denominator is the mask count
+    times the coordinate width, clamped at 1."""
+    err = (pred - target) ** 2
+    if mask is None:
+        return err.mean()
+    m = mask[..., None].to(err.dtype)
+    den = mask.sum().to(err.dtype) * pred.shape[-1]
+    return (err * m).sum() / den.clamp(min=1.0)
+
+
+def _grads(params: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Each parameter's gradient, zeros where it has none (as JAX's
+    gradient of an unused parameter)."""
+    return [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+
+
+class FusedAdam(torch.optim.Optimizer):
+    """Adam with its moments held as one flat buffer per order over all
+    parameters (``egnn_tpu/training/state.py:make_fused_adam``): a handful
+    of elementwise ops over one buffer in place of several per parameter.
+    The parameters share one device and dtype."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-3, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+        ps = self.param_groups[0]["params"]
+        if len(self.param_groups) != 1 or len({(p.device, p.dtype) for p in ps}) != 1:
+            raise ValueError("FusedAdam takes one group of parameters of one device and dtype")
+        total = sum(p.numel() for p in ps)
+        zeros = dict(dtype=ps[0].dtype, device=ps[0].device)
+        self.state["flat"] = dict(count=torch.zeros((), dtype=torch.int32, device=ps[0].device),
+                                  m=torch.zeros(total, **zeros), v=torch.zeros(total, **zeros))
+
+    @torch.no_grad()
+    def step(self, closure: Optional[Callable[[], torch.Tensor]] = None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        group = self.param_groups[0]
+        params = group["params"]
+        lr, b1, b2, eps = group["lr"], group["b1"], group["b2"], group["eps"]
+        st = self.state["flat"]
+        g = torch.cat([x.reshape(-1) for x in _grads(params)])
+        st["count"] += 1
+        m = st["m"].mul_(b1).add_((1.0 - b1) * g)
+        v = st["v"].mul_(b2).add_((1.0 - b2) * g * g)
+        c = st["count"].to(g.dtype)
+        mhat = m / (1.0 - b1 ** c)
+        vhat = v / (1.0 - b2 ** c)
+        upd = (-lr) * mhat / (torch.sqrt(vhat) + eps)
+        torch._foreach_add_(params, [u.view_as(p) for u, p in
+                                     zip(upd.split([p.numel() for p in params]), params)])
+        return loss
+
+
+def make_fused_adam(params: Iterable[torch.Tensor], learning_rate: float = 1e-3,
+                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> FusedAdam:
+    """Adam with one flat first-moment and one flat second-moment buffer."""
+    return FusedAdam(params, lr=learning_rate, b1=b1, b2=b2, eps=eps)
+
+
+class Adam(torch.optim.Optimizer):
+    """``optax.adam`` with optional ``optax.clip_by_global_norm`` before it
+    and ``optax.MultiSteps`` around it (``make_adam``): the gradients of
+    ``grad_accum`` calls are averaged (Welford: ``acc += (g - acc) / (i + 1)``)
+    and the parameters move on every ``grad_accum``-th call only."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-3,
+                 grad_accum: int = 1, clip_norm: Optional[float] = None,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        if grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+        self.grad_accum = grad_accum
+        self.clip_norm = clip_norm
+        self.mini_step = 0
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p] = dict(count=torch.zeros((), dtype=torch.int32, device=p.device),
+                                     m=torch.zeros_like(p), v=torch.zeros_like(p),
+                                     acc=torch.zeros_like(p))
+
+    @torch.no_grad()
+    def step(self, closure: Optional[Callable[[], torch.Tensor]] = None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        items = [(group, p) for group in self.param_groups for p in group["params"]]
+        params = [p for _, p in items]
+        grads = _grads(params)
+        if self.grad_accum > 1:
+            i = self.mini_step
+            for p, g in zip(params, grads):
+                acc = self.state[p]["acc"]
+                acc.add_((g - acc) / (i + 1))
+            self.mini_step = (i + 1) % self.grad_accum
+            if self.mini_step != 0:
+                return loss
+            grads = [self.state[p]["acc"].clone() for p in params]
+            for p in params:
+                self.state[p]["acc"].zero_()
+        if self.clip_norm is not None:
+            norm = torch.sqrt(sum((g * g).sum() for g in grads))
+            grads = [torch.where(norm < self.clip_norm, g, g / norm * self.clip_norm)
+                     for g in grads]
+        for (group, p), g in zip(items, grads):
+            b1, b2 = group["b1"], group["b2"]
+            st = self.state[p]
+            st["count"] += 1
+            m = st["m"].mul_(b1).add_((1.0 - b1) * g)
+            v = st["v"].mul_(b2).add_((1.0 - b2) * g * g)
+            c = st["count"].to(g.dtype)
+            upd = (m / (1.0 - b1 ** c)) / (torch.sqrt(v / (1.0 - b2 ** c)) + group["eps"])
+            p.add_((-group["lr"]) * upd)
+        return loss
+
+
+def make_adam(params: Iterable[torch.Tensor], learning_rate: float = 1e-3,
+              grad_accum: int = 1, clip_norm: Optional[float] = None) -> Adam:
+    """Adam matching the example's optimizer, with optional gradient
+    accumulation (the reference accumulates 16 micro-steps) and global-norm
+    clipping."""
+    return Adam(params, lr=learning_rate, grad_accum=grad_accum, clip_norm=clip_norm)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """A module, its optimizer and the count of optimizer steps taken."""
+
+    module: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+    def apply_gradients(self) -> None:
+        """One optimizer step on the gradients the module holds."""
+        self.optimizer.step()
+        self.step += 1
+
+
+def make_denoise_train_step(
+    net: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    loss_fn: Callable = masked_mse,
+) -> Callable:
+    """Denoising train step for the dense network: predict clean coordinates
+    from noised ones, loss on the masked coordinates (the reference's
+    end-to-end workload, denoise_sparse.py:68-74).
+
+    Returns ``step(tokens, noised_coors, target_coors, adj_mat, mask)``,
+    which runs zero-grad, forward, loss, backward and ``optimizer.step()``
+    and returns the loss as a 0-d tensor without waiting for the device.
+    The step's ``TrainState`` is ``step.state``.
+    """
+    state = TrainState(net, optimizer)
+
+    def step(tokens, noised_coors, target_coors, adj_mat, mask):
+        optimizer.zero_grad(set_to_none=True)
+        _, denoised = net(tokens, noised_coors, adj_mat=adj_mat, mask=mask)
+        loss = loss_fn(denoised, target_coors, mask)
+        loss.backward()
+        state.apply_gradients()
+        return loss.detach()
+
+    step.state = state
+    return step

@@ -166,3 +166,42 @@ def test_expand_adjacency_degrees_matches_jax():
 def test_max_degree_matches_jax():
     adj = np.random.RandomState(0).rand(2, 20, 20) < 0.2
     assert tnb.max_degree(_t(adj)) == jnb.max_degree(jnp.asarray(adj))
+
+
+@pytest.mark.parametrize("with_mask,with_adj", [(False, False), (True, True)])
+def test_gather_grad_matches_jax_float64(with_mask, with_adj):
+    """The gathered rows' backward (the table's gradient, summed over the
+    selected indices) reaches coors and the payload as jax.grad through the
+    JAX dispatcher does; selection itself is not differentiated."""
+    import jax
+
+    n, k = 64, 8
+    coors, mask, adj, payload = _case(13, 2, n, with_mask, with_adj, dtype=np.float64)
+    coors = coors + np.random.RandomState(14).randn(*coors.shape) * 0.1
+    tw = 3 + (1 if with_mask else 0) + payload.shape[-1]
+    w = np.random.RandomState(15).randn(2, n, k, tw)
+
+    def jloss(c, p):
+        _, g = jnb.knn_select_gather(c, k, math.inf, mask=_j(mask), adj_mat=_j(adj), payload=p)
+        return (g * jnp.asarray(w)).sum()
+
+    jc, jp = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(coors), jnp.asarray(payload))
+    tc, tp = _t(coors).requires_grad_(), _t(payload).requires_grad_()
+    nbhd, g = tnb.knn_select_gather(tc, k, math.inf, mask=_t(mask), adj_mat=_t(adj), payload=tp)
+    assert not nbhd.indices.requires_grad and not nbhd.ranking.requires_grad
+    (g * _t(w)).sum().backward()
+    np.testing.assert_allclose(tc.grad.numpy(), np.asarray(jc), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(tp.grad.numpy(), np.asarray(jp), rtol=0, atol=1e-10)
+
+
+def test_gather_gradcheck_float64():
+    n, k = 24, 4
+    coors, mask, adj, payload = _case(16, 2, n, True, True, dtype=np.float64)
+    coors = coors + np.random.RandomState(17).randn(*coors.shape) * 0.1
+    tc, tp = _t(coors).requires_grad_(), _t(payload).requires_grad_()
+
+    def rows(c, p):
+        return tnb.knn_select_gather(c, k, math.inf, mask=_t(mask), adj_mat=_t(adj),
+                                     payload=p)[1]
+
+    assert torch.autograd.gradcheck(rows, (tc, tp))
