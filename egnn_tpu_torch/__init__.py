@@ -8,7 +8,9 @@ run on CUDA unless given ``device="cpu"``; on the CPU every kernel is
 replaced by its plain PyTorch version.
 
 Ported so far: the serving forward of ``EGNNNetwork`` with kNN
-neighbourhoods and its denoising train step (``egnn_tpu_torch.training``:
+neighbourhoods at any n (the exact full-band selection up to 16384 nodes,
+the j-tiled exact selection and the packed-key candidates with their exact
+refine beyond), and its denoising train step (``egnn_tpu_torch.training``:
 ``masked_mse``, ``make_fused_adam``, ``make_adam``, ``TrainState``,
 ``make_denoise_train_step``, as in ``egnn_tpu.training``); see ROADMAP.md
 for what is still to be ported.

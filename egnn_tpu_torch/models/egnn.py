@@ -8,9 +8,12 @@ names and (in, out) weight layout:
   ``[f_i, f_j, dist_feats, edges]`` and weight rows ``[Wi; Wj; Wd; We]``,
   ``h1_ij = f_i @ Wi + f_j @ Wj + dist_ij @ Wd + e_ij @ We + b1``.
 - kNN selection and the gather of the neighbours' ``[coors | mask | feats]``
-  rows are one call (``ops/neighbors.py:knn_select_gather``): kernel K1 on
-  the card, its plain version on the CPU. The rest of the layer is plain
-  torch (matmuls on cuBLAS).
+  rows are one call (``ops/neighbors.py:knn_select_gather(wide=True)``):
+  kernel K1 on the card within the full-band reach, K4 or K5 beyond it,
+  their plain versions on the CPU. Where the packed-key route (K5) engages,
+  the layer runs over kc = k + 4 candidate slots under the winner mask
+  instead of compacting them to k. The rest of the layer is plain torch
+  (matmuls on cuBLAS).
 
 Reference quirks kept on purpose: ``valid_radius`` acts only with a
 ``mask``; with ``only_sparse_neighbors`` k is the max row degree including
@@ -218,14 +221,14 @@ class EGNN(nn.Module):
                 adj_b = adj_mat if adj_mat.dim() == 3 else adj_mat.expand(b, n, n)
             nbhd, g = nb.knn_select_gather(
                 coors, num_nearest, valid_radius, mask=mask, adj_mat=adj_b,
-                payload=feats)
+                payload=feats, wide=True)
             c_sp = coors.shape[-1]
             coors_j = g[..., :c_sp]
             off = c_sp
             if mask is not None:
                 mask_j = g[..., off] > 0.5
                 off += 1
-            feats_j = g[..., off:].to(feats.dtype)             # (b, n, k, d)
+            feats_j = g[..., off:].to(feats.dtype)             # (b, n, k or kc, d)
             rel_coors = coors[:, :, None, :] - coors_j
             rel_dist = (rel_coors**2).sum(dim=-1)
             if edges is not None:
@@ -265,6 +268,11 @@ class EGNN(nn.Module):
                 pair_mask = (mask[:, :, None] & mask_j) & nbhd.valid
             else:
                 pair_mask = mask[:, :, None] & mask[:, None, :]
+        elif use_nearest and nbhd.winner is not None:
+            # a wide kc-slot result without a node mask: the reference sums
+            # its k selected slots whatever their radius, so exactly the
+            # winner slots take part (mean pool: their count is k)
+            pair_mask = nbhd.winner
 
         # ---- coordinate update (equivariant) ----
         if self.update_coors:

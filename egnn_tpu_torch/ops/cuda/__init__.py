@@ -7,7 +7,10 @@ and nowhere else, so a run can show that its path went through the kernels.
 """
 from __future__ import annotations
 
-LAUNCH_COUNTS = {"knn_select_gather": 0, "knn_select": 0, "segment_sum": 0}
+LAUNCH_COUNTS = {
+    "knn_select_gather": 0, "knn_select": 0, "segment_sum": 0, "knn_select_tiled": 0,
+    "knn_candidates_packed_tiled": 0, "knn_candidates_packed": 0,
+}
 
 
 def reset_launch_counts() -> None:

@@ -1,17 +1,31 @@
-"""Kernels K1 (selection + payload gather) and K3 (selection only) and their
-plain PyTorch versions. Launches count into ``LAUNCH_COUNTS`` (``ops/cuda``).
+"""The kNN selection kernels K1, K3, K4, K5, K6, their plain PyTorch versions
+and the reference's routing gates. Launches count into ``LAUNCH_COUNTS``
+(``ops/cuda``).
 
 - K1 ``knn_select_gather`` replaces the TPU kernel
   ``egnn_tpu/ops/pallas/knn.py:knn_select_gather_pallas``
   (``_knn_gather_kernel``).
 - K3 ``knn_select`` replaces ``egnn_tpu/ops/pallas/knn.py:knn_select_pallas``
   (``_knn_kernel``).
+- K4 ``knn_select_tiled`` replaces
+  ``egnn_tpu/ops/pallas/knn.py:knn_select_pallas_tiled``
+  (``_knn_tiled_kernel``): K3's selection at any n.
+- K5 ``knn_candidates_packed_tiled`` replaces
+  ``egnn_tpu/ops/pallas/knn.py:knn_candidates_packed_tiled``
+  (``_knn_packed_tiled_kernel``): the kc smallest columns by (20-bit
+  truncated distance key, column).
+- K6 ``knn_candidates_packed`` replaces
+  ``egnn_tpu/ops/pallas/knn.py:knn_candidates_packed``
+  (``_knn_packed_kernel``): the same with 18-bit keys.
 
-Both run ``csrc/knn_select.cu`` (one template, ``kPayload`` on or off); its
-header says what bounds it on the card and how the design meets that. A
-wrapper given a CUDA tensor launches its kernel or raises; given a CPU
-tensor it runs the plain version, which the tests hold against the JAX
-package and ``chip_smoke.py`` holds the kernel against on the card.
+K1 and K3 run ``csrc/knn_select.cu`` (one template, ``kPayload`` on or
+off), K4, K5 and K6 ``csrc/knn_select_large.cu`` (one template, the ranking
+key as its parameter); the sources' headers say what bounds each on the card
+and how the design meets that. A wrapper given a CUDA tensor launches its kernel
+or raises; given a CPU tensor it runs the plain version, which the tests
+hold against the JAX package and ``chip_smoke.py`` holds the kernel against
+on the card. The plain versions take a ``row_chunk`` so that no (n, n)
+matrix is ever whole in memory at large n.
 """
 from __future__ import annotations
 
@@ -26,9 +40,60 @@ from ..core import gather_nodes
 from . import LAUNCH_COUNTS, build
 from . import raise_on_launch_error as _raise_on
 
-MAX_K = 128       # the TPU full-band kernels' reach: 1 <= k <= 128, n <= 16384
-MAX_N = 16384
-MAX_C = 16        # kMaxC in csrc/knn_select.cu
+MAX_K = 128       # longest top-k (and candidate) list the kernels keep
+MAX_C = 16        # kMaxC in csrc/knn_select.cu and csrc/knn_select_large.cu
+
+
+# ---------------------------------------------------------------------------
+# the reference's routing rules
+# ---------------------------------------------------------------------------
+# These gates are copies of the TPU kernels' VMEM and bit-packing limits
+# (egnn_tpu/ops/pallas/knn.py:82-89, :1146-1160, :1365-1384, :1455-1467),
+# as pure functions of the shape. The card needs none of them: they are kept
+# because they decide which route ``ops/neighbors.py:knn_select_gather``
+# takes, and with it the shape of its result (k slots or kc slots).
+
+LANE = 128
+FULL_BAND_MAX_N = 16384              # lane-padded n the full-band kernels reach
+PACKED_MASK_SENTINEL = 0x1FF00       # K6: above every real 18-bit key
+PACKED_MASK_SENTINEL_TILED = 0x7F800  # K5: above every real 20-bit key
+_PACKED_SHIFT, _PACKED_TILED_SHIFT = 14, 12
+_TILED_MAX_TJ, _TILED_MAX_NJ, _TILED_MAX_KC = 4096, 64, 32
+
+
+def _lane_pad(n: int) -> int:
+    return -(-n // LANE) * LANE
+
+
+def supports_knn_shapes(n: int) -> bool:
+    """Whether the reference's full-band kernels (K1, K3, K6) take this n."""
+    return _lane_pad(n) <= FULL_BAND_MAX_N
+
+
+def supports_knn_packed(n: int, kc: int) -> bool:
+    """The reference's gate of K6: the column must fit 14 bits."""
+    return (LANE <= n <= (1 << _PACKED_SHIFT) and 1 <= kc <= LANE
+            and supports_knn_shapes(n))
+
+
+def _packed_tiled_tj(n: int, tj: int = _TILED_MAX_TJ) -> Optional[int]:
+    """The reference's j-tile width at lane-padded ``n``: a power of two
+    that divides n with n / tj <= 64 and tj <= 4096, or None when there is
+    none (n whose odd part exceeds 64)."""
+    tj = min(tj, n, _TILED_MAX_TJ)
+    while n % tj:
+        tj //= 2
+    while n % (2 * tj) == 0 and n // tj > _TILED_MAX_NJ and tj < _TILED_MAX_TJ:
+        tj *= 2
+    if n % tj or n // tj > _TILED_MAX_NJ:
+        return None
+    return tj
+
+
+def supports_knn_packed_tiled(n: int, kc: int) -> bool:
+    """The reference's gate of K5."""
+    return (n >= LANE and 1 <= kc <= _TILED_MAX_KC
+            and _packed_tiled_tj(_lane_pad(n)) is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -36,11 +101,40 @@ MAX_C = 16        # kMaxC in csrc/knn_select.cu
 # ---------------------------------------------------------------------------
 
 
-def knn_select_plain(coors, k, mask=None, adj_mat=None):
-    """(vals, idx), each (b, n, k): the k smallest rankings per row."""
-    _, rel_dist = nb.pairwise_geometry(coors)
-    nbhd = nb.select_neighborhood(nb.knn_ranking(rel_dist, mask, adj_mat), k, math.inf)
-    return nbhd.ranking, nbhd.indices
+def _row_chunks(n: int, row_chunk: Optional[int]):
+    step = n if row_chunk is None else max(1, row_chunk)
+    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+def _default_row_chunk(b: int, n: int) -> int:
+    """Rows per chunk that keep a chunk's (b, rows, n) matrix at 2^24
+    elements."""
+    return max(1, min(n, (1 << 24) // max(1, b * n)))
+
+
+def _ranking_rows(coors, rows: slice, mask, adj_mat):
+    """The (b, r, n) ranking of the query rows ``rows`` against every column,
+    with the fills of ``ops/neighbors.py:knn_ranking`` in its order."""
+    n = coors.shape[1]
+    ranking = nb.sum_of_squares(coors[:, rows, None, :] - coors[:, None, :, :])
+    if mask is not None:
+        ranking = torch.where(mask[:, rows, None] & mask[:, None, :], ranking,
+                              nb.MASKED_RANK_FILL)
+    if adj_mat is not None:
+        ar = torch.arange(n, device=coors.device)
+        eye = ar[rows, None] == ar[None, :]
+        ranking = torch.where(eye, -1.0, ranking)
+        ranking = torch.where(adj_mat[:, rows].bool() & ~eye, 0.0, ranking)
+    return ranking
+
+
+def knn_select_plain(coors, k, mask=None, adj_mat=None, row_chunk: Optional[int] = None):
+    """(vals, idx), each (b, n, k): the k smallest rankings per row, lowest
+    j first among ties (a stable sort), ``row_chunk`` rows at a time."""
+    parts = [nb.select_neighborhood(_ranking_rows(coors, rows, mask, adj_mat), k, math.inf)
+             for rows in _row_chunks(coors.shape[1], row_chunk)]
+    return (torch.cat([p.ranking for p in parts], dim=1),
+            torch.cat([p.indices for p in parts], dim=1))
 
 
 def knn_select_gather_plain(coors, k, table, mask=None, adj_mat=None):
@@ -50,32 +144,72 @@ def knn_select_gather_plain(coors, k, table, mask=None, adj_mat=None):
     return vals, idx, gather_nodes(table, idx)
 
 
+def _candidates_plain(coors, kc, mask, shift, sentinel, row_chunk):
+    b, n, _ = coors.shape
+    if not 1 <= kc <= n:
+        raise ValueError(f"candidates need 1 <= kc <= n; got kc={kc}, n={n}")
+    coors = coors.float()
+    col = torch.arange(n, dtype=torch.int64, device=coors.device)
+    keys, cols = [], []
+    for rows in _row_chunks(n, row_chunk):
+        dist = nb.sum_of_squares(coors[:, rows, None, :] - coors[:, None, :, :])
+        key = (dist.contiguous().view(torch.int32) >> shift).to(torch.int64)
+        if mask is not None:
+            key = torch.where(mask[:, rows, None] & mask[:, None, :], key, sentinel)
+        # (key << 32) | col is distinct for every column of a row, so topk's
+        # unspecified order among equal values cannot show
+        top = torch.topk((key << 32) | col, kc, dim=-1, largest=False, sorted=True).values
+        keys.append((top >> 32).to(torch.int32))
+        cols.append(top & 0xFFFFFFFF)
+    return torch.cat(keys, dim=1), torch.cat(cols, dim=1)
+
+
+def knn_candidates_packed_tiled_plain(coors, kc, mask=None, row_chunk: Optional[int] = None):
+    """(keys int32, cols int64), each (b, n, kc): the kc smallest columns of
+    every row by (f32 bits of the squared distance >> 12, column); a masked
+    pair's key is ``PACKED_MASK_SENTINEL_TILED``."""
+    return _candidates_plain(coors, kc, mask, _PACKED_TILED_SHIFT,
+                             PACKED_MASK_SENTINEL_TILED, row_chunk)
+
+
+def knn_candidates_packed_plain(coors, kc, mask=None, row_chunk: Optional[int] = None):
+    """The same with the 18-bit key (bits >> 14) and ``PACKED_MASK_SENTINEL``."""
+    return _candidates_plain(coors, kc, mask, _PACKED_SHIFT, PACKED_MASK_SENTINEL,
+                             row_chunk)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = {
-    "knn_select_gather_launch": [_P, _P, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I,
-                                 _P, _P, _P, _P],
-    "knn_select_launch": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P],
+_SELECT_ARGS = [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P]
+_CANDIDATE_ARGS = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
+_ENTRIES = {  # launch function -> (source, argument types)
+    "knn_select_gather_launch": ("knn_select", [_P, _P, _P, ctypes.c_longlong, _P, _I, _I, _I,
+                                                _I, _I, _P, _P, _P, _P]),
+    "knn_select_launch": ("knn_select", _SELECT_ARGS),
+    "knn_select_tiled_launch": ("knn_select_large", _SELECT_ARGS),
+    "knn_candidates_packed_tiled_launch": ("knn_select_large", _CANDIDATE_ARGS),
+    "knn_candidates_packed_launch": ("knn_select_large", _CANDIDATE_ARGS),
 }
 
 
 def _entry(name: str):
-    return build.function("knn_select", name, _ARGTYPES[name])
+    source, argtypes = _ENTRIES[name]
+    return build.function(source, name, argtypes)
 
 
 def _check_inputs(coors, k, mask, adj_mat):
-    """Validate what the kernel takes; returns (mask_ptr, adj_ptr,
+    """Validate what the kernels take; returns (mask_ptr, adj_ptr,
     adj_batch_stride, the tensors behind the pointers)."""
     if coors.dim() != 3 or coors.dtype != torch.float32 or not coors.is_contiguous():
         raise ValueError(f"coors must be a contiguous (b, n, c) float32 tensor, "
                          f"got {tuple(coors.shape)} {coors.dtype}")
     b, n, c = coors.shape
-    if not (1 <= k <= MAX_K and k <= n <= MAX_N and 1 <= c <= MAX_C):
-        raise ValueError(f"kernel supports 1 <= k <= {MAX_K}, k <= n <= {MAX_N}, "
+    if not (1 <= k <= MAX_K and k <= n and 1 <= c <= MAX_C):
+        raise ValueError(f"kernel supports 1 <= k <= {MAX_K}, k <= n, "
                          f"1 <= c <= {MAX_C}; got k={k}, n={n}, c={c}")
     dev = coors.device
     keep = []
@@ -121,19 +255,43 @@ def _launch_knn_select_gather(coors, k, table, mask, adj_mat):
     return vals, idx, rows
 
 
-def _launch_knn_select(coors, k, mask, adj_mat):
+def _launch_select(name, coors, k, mask, adj_mat):
+    """K3 or K4: the selection-only kernel behind the entry ``name``_launch."""
     mask_ptr, adj_ptr, adj_bstride, keep = _check_inputs(coors, k, mask, adj_mat)
     b, n, c = coors.shape
     vals = torch.empty((b, n, k), dtype=torch.float32, device=coors.device)
     idx = torch.empty((b, n, k), dtype=torch.int64, device=coors.device)
     with torch.cuda.device(coors.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _entry("knn_select_launch")(
+        err = _entry(f"{name}_launch")(
             coors.data_ptr(), mask_ptr, adj_ptr, adj_bstride, b, n, c, k,
             vals.data_ptr(), idx.data_ptr(), stream)
-    _raise_on(err, "knn_select")
-    LAUNCH_COUNTS["knn_select"] += 1
+    _raise_on(err, name)
+    LAUNCH_COUNTS[name] += 1
     return vals, idx
+
+
+def _launch_candidates(name, coors, kc, mask):
+    """K5 or K6: the candidate kernel behind the entry ``name``_launch."""
+    mask_ptr, _, _, keep = _check_inputs(coors, kc, mask, None)
+    b, n, c = coors.shape
+    keys = torch.empty((b, n, kc), dtype=torch.int32, device=coors.device)
+    cols = torch.empty((b, n, kc), dtype=torch.int64, device=coors.device)
+    with torch.cuda.device(coors.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry(f"{name}_launch")(
+            coors.data_ptr(), mask_ptr, b, n, c, kc, keys.data_ptr(), cols.data_ptr(), stream)
+    _raise_on(err, name)
+    LAUNCH_COUNTS[name] += 1
+    return keys, cols
+
+
+def _on_card(coors: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU tensor; no other device has a
+    kernel or a plain version."""
+    if not coors.is_cuda and coors.device.type != "cpu":
+        raise ValueError(f"no kNN kernel for device {coors.device}")
+    return coors.is_cuda
 
 
 def knn_select_gather(
@@ -149,10 +307,8 @@ def knn_select_gather(
     (b, n, n) bool (an expanded (n, n) is read without a copy). A CUDA tensor
     launches the kernel; a CPU tensor runs ``knn_select_gather_plain``.
     """
-    if coors.is_cuda:
+    if _on_card(coors):
         return _launch_knn_select_gather(coors, k, table, mask, adj_mat)
-    if coors.device.type != "cpu":
-        raise ValueError(f"no kNN kernel for device {coors.device}")
     return knn_select_gather_plain(coors, k, table, mask, adj_mat)
 
 
@@ -163,8 +319,46 @@ def knn_select(
     adj_mat: Optional[torch.Tensor] = None,
 ):
     """K3: (vals, idx), the selection of ``knn_select_gather`` without rows."""
-    if coors.is_cuda:
-        return _launch_knn_select(coors, k, mask, adj_mat)
-    if coors.device.type != "cpu":
-        raise ValueError(f"no kNN kernel for device {coors.device}")
+    if _on_card(coors):
+        return _launch_select("knn_select", coors, k, mask, adj_mat)
     return knn_select_plain(coors, k, mask, adj_mat)
+
+
+def knn_select_tiled(
+    coors: torch.Tensor,
+    k: int,
+    mask: Optional[torch.Tensor] = None,
+    adj_mat: Optional[torch.Tensor] = None,
+):
+    """K4: (vals float32, idx int64), K3's selection at any n. Like the TPU
+    kernel it ranks in float32 whatever the coordinates' type; a CPU tensor
+    runs ``knn_select_plain`` over row chunks."""
+    if _on_card(coors):
+        return _launch_select("knn_select_tiled", coors, k, mask, adj_mat)
+    b, n, _ = coors.shape
+    return knn_select_plain(coors.float(), k, mask, adj_mat, _default_row_chunk(b, n))
+
+
+def knn_candidates_packed_tiled(
+    coors: torch.Tensor, kc: int, mask: Optional[torch.Tensor] = None
+):
+    """K5: (keys (b, n, kc) int32, cols (b, n, kc) int64), ascending in
+    (key, col). The TPU kernel returns int32 columns; these are int64, as
+    K1's indices, because they index ``gather_nodes``. Needs kc <= n, so
+    every slot holds a real column. A CPU tensor runs
+    ``knn_candidates_packed_tiled_plain``."""
+    if _on_card(coors):
+        return _launch_candidates("knn_candidates_packed_tiled", coors, kc, mask)
+    b, n, _ = coors.shape
+    return knn_candidates_packed_tiled_plain(coors, kc, mask, _default_row_chunk(b, n))
+
+
+def knn_candidates_packed(
+    coors: torch.Tensor, kc: int, mask: Optional[torch.Tensor] = None
+):
+    """K6: as ``knn_candidates_packed_tiled`` with 18-bit keys. A CPU tensor
+    runs ``knn_candidates_packed_plain``."""
+    if _on_card(coors):
+        return _launch_candidates("knn_candidates_packed", coors, kc, mask)
+    b, n, _ = coors.shape
+    return knn_candidates_packed_plain(coors, kc, mask, _default_row_chunk(b, n))

@@ -11,24 +11,42 @@ the reference's selection rules (egnn_pytorch.py:230-268, 414-432):
 - among equal rankings the lowest j wins (a stable sort; ``torch.topk``
   promises no tie order).
 
-``knn_select_gather`` dispatches by device: a CUDA tensor goes to the
-hand-written kernels of ``ops/cuda/knn.py`` (K1 with a payload, K3 without),
-a CPU tensor to their plain versions. The gathered rows are differentiable
-with respect to the table: the backward sums their cotangents into the
-table's rows with ``ops/segment.py:batched_segment_sum`` (kernel K2 on the
-card), as the JAX package's custom VJP does (``neighbors.py:727-746``);
-selection is not differentiated. The JAX package's grid, packed, tiled and
-window selection routes are not ported yet.
+``knn_select_gather`` picks a route from the shape, as the JAX dispatcher
+does (``egnn_tpu/ops/neighbors.py:262-422``), and each route's kernel by
+device: a CUDA tensor goes to the hand-written kernels of
+``ops/cuda/knn.py``, a CPU tensor to their plain versions.
+
+- Within the full-band reach (lane-padded n <= 16384): K1 with a payload,
+  K3 without.
+- Beyond it, or with ``backend="tiled"``: K4, the exact selection at any n,
+  then ``gather_nodes`` for the payload.
+- Beyond it without an adjacency, or with ``backend="packed_tiled"`` /
+  ``"packed"``: the packed-key candidates (K5 / K6), kc = k + 4 of them, one
+  kc-wide gather, an exact float32 re-rank, and a coverage certificate whose
+  failure sends the whole call to the exact kernel.
+
+The gathered rows are differentiable with respect to the table: the backward
+sums their cotangents into the table's rows with
+``ops/segment.py:batched_segment_sum`` (kernel K2 on the card), as the JAX
+package's custom VJP does (``neighbors.py:727-746``); selection is not
+differentiated. The JAX package's grid and window selection routes are not
+ported yet.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
+from .core import gather_nodes
 from .segment import batched_segment_sum
 
 MASKED_RANK_FILL = 1e5
+
+# Candidates extracted beyond k by the packed-key routes, so that the exact
+# re-rank covers the true top-k whenever keys[kc-1] > keys[k-1].
+CANDIDATE_SLACK = 4
 
 
 class Neighborhood(NamedTuple):
@@ -37,6 +55,9 @@ class Neighborhood(NamedTuple):
     indices: torch.Tensor  # (b, n, k) int64 neighbour ids (j-dimension)
     ranking: torch.Tensor  # (b, n, k) the ranking values that won the top-k
     valid: torch.Tensor    # (b, n, k) bool: ranking <= valid_radius
+    # (b, n, kc) bool, only on a wide result: the slots that hold the exact
+    # top-k; ``valid`` is then already restricted to them
+    winner: Optional[torch.Tensor] = None
 
 
 def max_degree(adj_mat: torch.Tensor) -> int:
@@ -56,10 +77,16 @@ def pairwise_geometry(coors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     then equal these bitwise.
     """
     rel_coors = coors[:, :, None, :] - coors[:, None, :, :]
-    rel_dist = rel_coors[..., 0] * rel_coors[..., 0]
-    for cc in range(1, coors.shape[-1]):
-        rel_dist = rel_dist + rel_coors[..., cc] * rel_coors[..., cc]
-    return rel_coors, rel_dist
+    return rel_coors, sum_of_squares(rel_coors)
+
+
+def sum_of_squares(rel: torch.Tensor) -> torch.Tensor:
+    """``((d0^2 + d1^2) + d2^2) + ...`` over the last axis, one coordinate at
+    a time: the rounding order of the kernels' rankings."""
+    out = rel[..., 0] * rel[..., 0]
+    for cc in range(1, rel.shape[-1]):
+        out = out + rel[..., cc] * rel[..., cc]
+    return out
 
 
 def knn_ranking(
@@ -102,8 +129,9 @@ def knn_select(
     backend: str = "auto",
 ) -> Neighborhood:
     """Neighbour selection from coordinates: squared distances -> ranking
-    fills -> the k smallest (egnn_pytorch.py:232-260). On a CUDA tensor this
-    is kernel K3 (``ops/cuda/knn.py``)."""
+    fills -> the k smallest (egnn_pytorch.py:232-260), by the route
+    ``knn_select_gather`` takes without a payload (K3 on a CUDA tensor within
+    the full-band reach)."""
     nbhd, _ = knn_select_gather(
         coors, num_nearest, valid_radius, mask=mask, adj_mat=adj_mat,
         backend=backend,
@@ -135,6 +163,93 @@ class _KnnSelectGather(torch.autograd.Function):
         return d_table, None, None, None, None
 
 
+def _table(coors, mask, payload):
+    """``[coors | mask | payload]`` rows, in the coordinates' type."""
+    parts = [coors]
+    if mask is not None:
+        parts.append(mask[..., None].to(coors.dtype))
+    if payload is not None:
+        parts.append(payload.to(coors.dtype))
+    return torch.cat(parts, dim=-1) if len(parts) > 1 else coors
+
+
+def _refine_candidates(coors, coors_sg, k, valid_radius, mask, payload, tiled, wide):
+    """The packed-key routes (``egnn_tpu/ops/neighbors.py:293-389``):
+    kc = k + CANDIDATE_SLACK candidates from K5 (``tiled``) or K6, certified,
+    gathered once kc-wide, re-ranked exactly in float32, and returned as kc
+    slots with a winner mask (``wide``) or compacted to the top k."""
+    from .cuda import knn as knn_kernels
+
+    n, c = coors.shape[1], coors.shape[2]
+    kc = k + CANDIDATE_SLACK
+    coors32 = coors_sg.float()
+    if tiled:
+        keys, cols = knn_kernels.knn_candidates_packed_tiled(coors32, kc, mask=mask)
+        sentinel = knn_kernels.PACKED_MASK_SENTINEL_TILED
+    else:
+        keys, cols = knn_kernels.knn_candidates_packed(coors32, kc, mask=mask)
+        sentinel = knn_kernels.PACKED_MASK_SENTINEL
+    # Coverage certificate: fewer than k columns lie strictly below the true
+    # k-th key, so keys[k-1] >= key(k-th value); a strictly larger last
+    # candidate key then proves that every column with key <= keys[k-1] was
+    # extracted. A boundary at the masked-fill sentinel is safe too: that tie
+    # group holds masked pairs only, whose exact rankings are all equal, so
+    # their column order is already the top-k order.
+    ok = ((keys[..., kc - 1] > keys[..., k - 1]) | (keys[..., k - 1] >= sentinel)).all()
+    # The reference branches on the device (lax.cond). Here the branch is
+    # taken on the host: one synchronisation per call.
+    ok = bool(ok)
+    if not ok:
+        # any failing row sends the whole call to the exact kernel; its k
+        # columns fill the first slots and the pad column n the rest
+        exact = knn_kernels.knn_select_tiled if tiled else knn_kernels.knn_select
+        _, idx_e = exact(coors32, k, mask=mask)
+        cols = torch.cat([idx_e, idx_e.new_full(idx_e.shape[:-1] + (kc - k,), n)], dim=-1)
+
+    # one kc-wide differentiable gather of [coors | mask | payload]
+    safe_cols = cols.clamp(max=n - 1)
+    g = gather_nodes(_table(coors, mask, payload), safe_cols)   # (b, n, kc, tw)
+    gj = g.detach()
+    rank = sum_of_squares(coors32[:, :, None, :] - gj[..., :c].float())  # (b, n, kc) f32
+    if mask is not None:
+        pair_ok = mask[:, :, None] & (gj[..., c] > 0.5)
+        rank = torch.where(pair_ok, rank, MASKED_RANK_FILL)
+    if not ok:  # the candidate kernels need kc <= n: pad columns arise only here
+        rank = torch.where(cols >= n, math.inf, rank)
+
+    if wide:
+        # Slots strictly below the k-th candidate's key are winners outright;
+        # the tie group at that key is resolved by exact (rank, slot) order,
+        # which is (rank, column) order: equal keys sit in ascending column.
+        slot = torch.arange(kc, device=coors.device)
+        if ok:
+            kb = keys[..., k - 1:k]
+            definite = keys < kb
+            group = keys == kb
+            t = k - definite.sum(dim=-1, keepdim=True)
+            r_before, r_slot = rank[..., :, None], rank[..., None, :]
+            precedes = (group[..., :, None] & group[..., None, :]
+                        & ((r_before < r_slot)
+                           | ((r_before == r_slot) & (slot[:, None] < slot[None, :]))))
+            winner = definite | (group & (precedes.sum(dim=-2) < t))
+        else:
+            winner = (slot < k).expand(cols.shape)
+        vals = rank.to(coors.dtype)
+        nbhd = Neighborhood(indices=safe_cols, ranking=vals,
+                            valid=winner & (vals <= valid_radius), winner=winner)
+        return nbhd, (g if payload is not None else None)
+
+    # compact: the k smallest ranks, the lowest slot first among equals (a
+    # stable sort; torch.topk promises no tie order)
+    order = torch.sort(rank, dim=-1, stable=True).indices[..., :k]
+    vals = torch.gather(rank, -1, order).to(coors.dtype)
+    nbhd = Neighborhood(indices=torch.gather(safe_cols, -1, order), ranking=vals,
+                        valid=vals <= valid_radius)
+    if payload is None:
+        return nbhd, None
+    return nbhd, torch.gather(g, 2, order[..., None].expand(*order.shape, g.shape[-1]))
+
+
 def knn_select_gather(
     coors: torch.Tensor,
     num_nearest: int,
@@ -143,6 +258,7 @@ def knn_select_gather(
     adj_mat: Optional[torch.Tensor] = None,
     payload: Optional[torch.Tensor] = None,
     backend: str = "auto",
+    wide: bool = False,
 ) -> tuple[Neighborhood, Optional[torch.Tensor]]:
     """Neighbour selection with an optional fused payload gather.
 
@@ -154,29 +270,67 @@ def knn_select_gather(
     back to ``coors`` and the payload through the table, whose backward is
     a segment sum over the selected indices (kernel K2 on the card).
 
-    Dispatch: CUDA tensor with a payload -> kernel K1, CUDA tensor without
-    one -> kernel K3, CPU tensor -> their plain versions. ``backend`` is
-    ``"auto"``; the JAX package's other routes are not ported and raise.
+    Routes (every one returns the same exact selection; the route is a
+    function of the shape, the same on the card and on the CPU, where each
+    kernel's plain version runs):
+
+    - ``"auto"`` within the full-band reach
+      (``ops/cuda/knn.py:supports_knn_shapes``): K1 with a payload, K3
+      without. Beyond it with an adjacency: K4. Beyond it without one, where
+      ``n >= 2 * kc`` and ``supports_knn_packed_tiled(n, kc)``: K5 and the
+      exact refine; otherwise K4.
+    - ``"tiled"``: K4, then ``gather_nodes`` for the payload.
+    - ``"packed_tiled"`` / ``"packed"``: K5 / K6 and the exact refine, which
+      needs no adjacency, 128 <= n, k <= 128, n >= 2 * kc and the kernel's
+      gate; a call that fails these takes the exact route ``"auto"`` would
+      (the JAX dispatcher lets a forced ``"packed"`` fall through the same
+      way).
+    - ``"grid"`` is not ported yet and raises.
+
+    ``wide=True`` matters only where a packed route engages: the result then
+    keeps all kc = k + ``CANDIDATE_SLACK`` slots, with ``nbhd.winner``
+    marking the exact top-k and ``nbhd.valid`` restricted to it, and the
+    consumer aggregates under that mask. Every other route returns k slots
+    and ``winner=None``. When the certificate fails, the exact kernel's k
+    columns take the first slots (``winner`` = the first k) and the rest
+    point at node n - 1 with an infinite ranking.
     """
     from .cuda import knn as knn_kernels
 
-    if backend != "auto":
+    if backend not in ("auto", "tiled", "packed", "packed_tiled"):
         raise NotImplementedError(
-            f"backend={backend!r}: only the exact full-band selection is "
-            "ported; the grid, packed, tiled and window routes are not")
+            f"backend={backend!r}: the exact, tiled and packed selections are "
+            "ported; the grid and window routes are not")
 
     coors_sg = coors.detach().contiguous()
+    n = coors.shape[1]
     k = num_nearest
-    if payload is None:
+    kc = k + CANDIDATE_SLACK
+    full_band = knn_kernels.supports_knn_shapes(n)
+    # the reference's gates of its packed routes (neighbors.py:261, :277-291)
+    lane = knn_kernels.LANE
+    packed_ok = adj_mat is None and n >= lane and 1 <= k <= lane and n >= 2 * kc
+    use_packed = (backend == "packed" and packed_ok
+                  and knn_kernels.supports_knn_packed(n, kc))
+    use_packed_tiled = (
+        (backend == "packed_tiled" or (backend == "auto" and not full_band))
+        and packed_ok and knn_kernels.supports_knn_packed_tiled(n, kc))
+    if use_packed or use_packed_tiled:
+        return _refine_candidates(coors, coors_sg, k, valid_radius, mask, payload,
+                                  tiled=use_packed_tiled, wide=wide)
+
+    if backend == "tiled" or not full_band:
+        vals, indices = knn_kernels.knn_select_tiled(
+            coors_sg.float(), k, mask=mask, adj_mat=adj_mat)
+        vals = vals.to(coors.dtype)
+        gathered = None if payload is None else gather_nodes(
+            _table(coors, mask, payload), indices)
+    elif payload is None:
         vals, indices = knn_kernels.knn_select(coors_sg, k, mask=mask, adj_mat=adj_mat)
         gathered = None
     else:
-        parts = [coors]
-        if mask is not None:
-            parts.append(mask[..., None].to(coors.dtype))
-        parts.append(payload.to(coors.dtype))
-        table = torch.cat(parts, dim=-1)
-        vals, indices, gathered = _KnnSelectGather.apply(table, coors_sg, k, mask, adj_mat)
+        vals, indices, gathered = _KnnSelectGather.apply(
+            _table(coors, mask, payload), coors_sg, k, mask, adj_mat)
     nbhd = Neighborhood(indices=indices, ranking=vals, valid=vals <= valid_radius)
     return nbhd, gathered
 

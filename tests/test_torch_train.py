@@ -13,7 +13,9 @@ import egnn_tpu
 from egnn_tpu import training as jtrain
 from egnn_tpu_torch import EGNNNetwork
 from egnn_tpu_torch import training as ttrain
+from egnn_tpu.ops import neighbors as jnb
 from egnn_tpu_torch.ops.cuda import build
+from egnn_tpu_torch.ops.cuda import knn as knn_kernels
 from egnn_tpu_torch.utils.port_weights import load_flax_params
 
 F64 = dict(device="cpu", dtype=torch.float64)
@@ -145,6 +147,68 @@ def test_denoise_train_step_matches_jax(case):
         assert tloss.dim() == 0 and not tloss.requires_grad
         np.testing.assert_allclose(tloss.numpy(), np.asarray(jloss), rtol=0, atol=1e-9)
     assert tstep.state.step == 3
+    jflat = _flat(jstate.params)
+    tparams = dict(tnet.named_parameters())
+    assert sorted(jflat) == sorted(tparams)
+    for name, value in jflat.items():
+        np.testing.assert_allclose(tparams[name].detach().numpy(), value, rtol=0, atol=1e-9,
+                                   err_msg=name)
+
+
+LARGE_N_TRAIN_CASES = {
+    # benchmarks/net65k.py's network: features in, no mask, no adjacency; the
+    # packed-tiled candidates, kc = k + 4 slots, the backward over n * kc rows
+    "net65k_packed_tiled": dict(net={}, tokens=False, mask=False, adj=False),
+    # the anchor-3 family: the exact tiled selection under the adjacency
+    "anchor_tiled": dict(net=dict(num_tokens=21, num_positions=256), tokens=True, mask=True,
+                         adj=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LARGE_N_TRAIN_CASES))
+def test_denoise_train_step_on_large_n_routes_matches_jax(case, monkeypatch):
+    """The unchanged train step over the large-n selection routes: the JAX
+    dispatcher forced onto its packed-tiled (or, with an adjacency, tiled)
+    kernel in interpret mode, the port through ``auto`` with its full-band
+    reach lowered. Three steps' losses and the final parameters at atol 1e-9
+    (float64 modules; both sides select and re-rank in float32)."""
+    spec = LARGE_N_TRAIN_CASES[case]
+    n, dim = 256, 16
+    real = jnb.knn_select_gather
+
+    def forced(coors, k, radius, mask=None, adj_mat=None, **kw):
+        kw.update(backend="tiled" if adj_mat is not None else "packed_tiled", interpret=True)
+        return real(coors, k, radius, mask=mask, adj_mat=adj_mat, **kw)
+
+    monkeypatch.setattr(jnb, "knn_select_gather", forced)
+    monkeypatch.setattr(knn_kernels, "FULL_BAND_MAX_N", 128)
+    layer = dict(num_nearest_neighbors=8, norm_coors=True, coor_weights_clamp_value=2.0,
+                 init_eps=0.1)
+    net_kw = dict(depth=2, dim=dim, layer_kwargs=layer, **spec["net"])
+    rng = np.random.RandomState(33)
+    tokens = rng.randint(0, 21, size=(2, n)) if spec["tokens"] else rng.randn(2, n, dim)
+    clean = rng.rand(2, n, 3) * 6.0
+    noised = clean + 0.3 * rng.randn(2, n, 3)
+    mask = (np.arange(n)[None, :] < rng.randint(n // 2, n + 1, size=(2, 1))
+            if spec["mask"] else None)
+    adj = np.abs(np.arange(n)[:, None] - np.arange(n)[None, :]) == 1 if spec["adj"] else None
+
+    def both(convert):
+        return tuple(None if a is None else convert(a) for a in (tokens, noised, clean, adj, mask))
+
+    jargs, targs = both(jnp.asarray), both(torch.from_numpy)
+    jnet = egnn_tpu.EGNNNetwork(**net_kw)
+    params = jnet.init(jax.random.PRNGKey(0), jargs[0], jargs[1], adj_mat=jargs[3],
+                       mask=jargs[4])["params"]
+    jstate = jtrain.TrainState.create(params, jtrain.make_fused_adam(1e-3))
+    jstep = jtrain.make_denoise_train_step(jnet, donate=False)
+    tnet = EGNNNetwork(**net_kw, **F64)
+    load_flax_params(tnet, jax.tree_util.tree_map(np.asarray, params))
+    tstep = ttrain.make_denoise_train_step(tnet, ttrain.make_fused_adam(tnet.parameters(), 1e-3))
+    for _ in range(3):
+        jstate, jloss = jstep(jstate, *jargs)
+        tloss = tstep(*targs)
+        np.testing.assert_allclose(tloss.numpy(), np.asarray(jloss), rtol=0, atol=1e-9)
     jflat = _flat(jstate.params)
     tparams = dict(tnet.named_parameters())
     assert sorted(jflat) == sorted(tparams)
