@@ -1,9 +1,10 @@
 """Smoke run of egnn_tpu_torch on one NVIDIA GPU: builds the CUDA kernels from
 the checkout, holds each against its plain PyTorch version, serves the
 anchor-3 EGNN_Network forward, trains it, then does the same beyond the
-full-band reach (n > 16384: the net65k network at 65 536 nodes and the
-anchor-3 family at 32 768), checks the outputs, and times the kernels, the
-forwards and the train steps.
+full-band reach (n > 16384: the net65k network at 65 536 nodes, through the
+packed-key candidates and through the spatial grid, and the anchor-3 family
+at 32 768), checks the outputs, and times the kernels, the forwards and the
+train steps.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -37,17 +38,31 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    candidates) on the card against their row-chunked plain versions,
    bitwise, over the cases below;
 12. the dispatcher on the card: ``backend="packed_tiled"``, ``"packed"``,
-   ``"tiled"`` and ``"auto"`` give K4's selection, compact and wide, and a
-   tie pile-up takes the certificate's exact fallback (K4 launches);
+   ``"tiled"``, ``"grid"`` and ``"auto"`` (with the grid, and with
+   ``GRID_AUTO`` off as before the grid) give K4's selection, compact and
+   wide, and a tie pile-up takes the certificate's exact fallback (K4);
 13. path A, the net65k network (depth 3, dim 32, kNN 16, 65 536 nodes, no
-   mask or adjacency): forwards through K5 and the kc-wide layer path,
-   equivariance, the fwd+bwd ``benchmarks/net65k.py`` times, and denoising
-   train steps (K5 forward, K2 backward at E = n * kc);
+   mask or adjacency) with ``GRID_AUTO`` off: forwards through K5 and the
+   kc-wide layer path, equivariance, the fwd+bwd ``benchmarks/net65k.py``
+   times, and denoising train steps (K5 forward, K2 backward at E = n * kc);
 14. path B, the anchor-3 family at 32 768 nodes with node mask and chain
    adjacency: forwards and train steps through K4;
-15. both families at n = 16 896, depth 1, on the card against the CPU;
+15. both families at n = 16 896, depth 1, on the card against the CPU (the
+   net65k family through the grid and through K5);
 16. timing of K4, K5, K6 beside their plain versions and bounds, and of K2
-   at the large paths' shapes.
+   at the large paths' shapes;
+17. the grid route's kernels: K7 (grid-blocked selection), K8 (query rows
+   against all points) and K9 (query rows against a window of the x-sorted
+   points) against their plain versions, bitwise, over the cases below;
+18. the grid route on the card: ``"grid"`` and ``"auto"`` give K4's
+   selection through every arm of the repair ladder, shown by the launches:
+   certified whole (K7), direct repair (K7, K8), the window tier (K7, K9,
+   K8), the n/4 bucket (K7, K8), the whole-call fallback (no K7; K5), and
+   the plain-torch grid below the kernel's gate (K8);
+19. path C, net65k as ``auto`` routes it: forwards through K7 on a uniform,
+   a Gaussian (K8) and a heavier-tailed cloud (K9), k slots a layer,
+   equivariance, the fwd+bwd and denoising train steps;
+20. timing of K7, K8, K9 beside their plain versions and bounds.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -208,7 +223,8 @@ def profile_forward(torch, fn, iters=10, label="b=1 forwards", unit="forward") -
               and not getattr(e, "is_user_annotation", False)]
     total = sum(e.self_device_time_total for e in events)
     print(f"profile of {iters} {label}: kernel time {total / iters / 1e3:.4f} ms "
-          f"per {unit} over {len(events)} kernels")
+          f"per {unit} over {len(events)} kernels, "
+          f"{sum(e.count for e in events) / iters:.1f} launches per {unit}")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / iters / 1e3:.5f} ms/{unit} "
               f"{e.count / iters:7.2f} calls  {e.key[:90]}")
@@ -238,15 +254,29 @@ def knn_bound(b, n, c, k, tw, with_mask, adj_bytes):
 
 def cloud(torch, n, c, kind, seed):
     """(1, n, c) float32 coordinates on the card: ``uniform`` * 40,
-    ``gaussian`` * 10 (benchmarks/net65k.py's clouds) or ``ties``: 64
-    integer points repeated, so that every distance ties n / 64 times over
-    and no candidate list covers a tie group."""
+    ``gaussian`` * 10 (benchmarks/net65k.py's clouds); ``heavy`` and
+    ``tail``: a Gaussian with its tails drawn out, 10 sign(z) |z|^p with
+    p = 1.08 and 1.3, whose wide outer cells fail the grid's certificate in
+    about 5.8% and 13% of the rows at n = 65 536, k = 16 (Gaussian: 4.2%);
+    ``diagonal``: points along a line, which overflow a grid cell whatever
+    the edges; ``lattice``: the integer lattice of side n^(1/3); ``ties``:
+    64 integer points repeated, so that every distance ties n / 64 times
+    over and no candidate list covers a tie group."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     if kind == "ties":
         base = torch.randint(-2, 3, (1, 64, c), generator=g, device="cuda").float()
         return base.repeat(1, n // 64, 1).contiguous()
-    if kind == "gaussian":
-        return 10.0 * torch.randn(1, n, c, generator=g, device="cuda")
+    if kind == "diagonal":
+        return (1e-3 * torch.arange(n, device="cuda", dtype=torch.float32))[None, :, None].expand(
+            1, n, c).contiguous()
+    if kind == "lattice":
+        side = round(n ** (1 / 3))
+        ax = torch.arange(side, device="cuda", dtype=torch.float32)
+        return torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(1, side ** 3, 3)
+    if kind in ("gaussian", "heavy", "tail"):
+        z = torch.randn(1, n, c, generator=g, device="cuda")
+        power = {"gaussian": 1.0, "heavy": 1.08, "tail": 1.3}[kind]
+        return 10.0 * z if power == 1.0 else 10.0 * z.sign() * z.abs() ** power
     return 40.0 * torch.rand(1, n, c, generator=g, device="cuda")
 
 
@@ -258,6 +288,16 @@ def chain_adj(torch, n):
     """One (n, n) bool chain i ~ i +- 1 on the card, expanded over b = 1."""
     ar = torch.arange(n, dtype=torch.int32, device="cuda")
     return ((ar[:, None] - ar[None, :]).abs() == 1).expand(1, n, n)
+
+
+def pairs_bound(nbytes, pairs, c=3):
+    """(bound_ms, bound_by, bytes_ms, operations_ms) of a kernel that ranks
+    ``pairs`` (row, candidate) pairs: ``nbytes`` moved once over the HBM
+    rate against 3c + 3 f32 operations a pair (the distance, one fill
+    select, two compares with the running k-th) over the f32 peak."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = pairs * (3 * c + 3) / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes, t_ops
 
 
 def check_outputs(torch, outs, shapes, what):
@@ -329,7 +369,9 @@ def main() -> int:
     from egnn_tpu_torch import EGNNNetwork
     from egnn_tpu_torch.ops import core
     from egnn_tpu_torch.ops import neighbors as nb
+    from egnn_tpu_torch.ops import spatial
     from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, build, reset_launch_counts
+    from egnn_tpu_torch.ops.cuda import grid_knn as GK
     from egnn_tpu_torch.ops.cuda import knn as K
     from egnn_tpu_torch.ops.cuda import segment as SK
     from egnn_tpu_torch.training import make_denoise_train_step, make_fused_adam
@@ -784,6 +826,15 @@ def main() -> int:
             route_counts[backend] = counts
 
     route_counts = {}
+    # with the grid, auto at n >= 8192 without an adjacency is the grid's
+    # (k slots, also when wide is asked): a uniform cloud certifies whole, the
+    # pile-up overflows its cells and takes the fallback (K5, then K4)
+    check_routes(20480, KNN_A, ("grid", "auto"), "uniform", SEED + 80, {
+        "grid": {"grid_knn_cells": 2}, "auto": {"grid_knn_cells": 2}})
+    check_routes(20480, KNN, ("auto",), "ties", SEED + 82,
+                 {"auto": {"knn_candidates_packed_tiled": 2, "knn_select_tiled": 2}})
+    # the reference's own flag: auto as it was before the grid
+    nb.GRID_AUTO = False
     check_routes(20480, KNN_A, ("packed_tiled", "tiled", "auto"), "uniform", SEED + 80, {
         "packed_tiled": {"knn_candidates_packed_tiled": 2},
         "tiled": {"knn_select_tiled": 2},
@@ -796,6 +847,7 @@ def main() -> int:
                  {"auto": {"knn_candidates_packed_tiled": 2, "knn_select_tiled": 2}})
     check_routes(16384, KNN, ("packed",), "ties", SEED + 83,
                  {"packed": {"knn_candidates_packed": 2, "knn_select": 2}})
+    nb.GRID_AUTO = True
 
     def time_segment_sum(what, ids, s, d, reps, trials, note=""):
         """K2 beside its plain version and bound on the (1, E) ids a large-n
@@ -815,97 +867,113 @@ def main() -> int:
         return EGNNNetwork(depth=depth, dim=DIM, layer_kwargs=LAYER_KWARGS_A, device="cuda",
                            generator=torch.Generator().manual_seed(seed))
 
-    net_a = make_net_a().eval()
     feats_a = torch.randn(1, N_A, DIM, device="cuda",
                           generator=torch.Generator(device="cuda").manual_seed(SEED + 90))
-    clouds_a = {kind: cloud(torch, N_A, 3, kind, SEED + 91) for kind in ("uniform", "gaussian")}
-    reset_launch_counts()
-    with torch.inference_mode():
-        outs_a = [net_a(feats_a, clouds_a[kind]) for kind in ("uniform", "uniform", "gaussian")]
-    torch.cuda.synchronize()
-    path_a_counts = dict(LAUNCH_COUNTS)
-    print(f"path A serving: {len(outs_a)} forwards at n={N_A} k={KNN_A}; launches "
-          f"{path_a_counts}")
-    if (path_a_counts["knn_candidates_packed_tiled"] != DEPTH * len(outs_a)
-            or path_a_counts["knn_select_tiled"] != 0):
-        raise AssertionError("path A: K5 did not run depth times a forward, or the "
-                             "certificate failed on a random cloud")
-    for f, c in outs_a:
-        check_outputs(torch, (f, c), ((1, N_A, DIM), (1, N_A, 3)), "path A forward")
-    check_equivariance(
-        torch, lambda c: net_a(feats_a, c), clouds_a["uniform"], "path A",
-        select=lambda c: K.knn_select_tiled(c.contiguous(), KNN_A)[1].sort(dim=-1).values,
-        swap_share=SWAP_SHARE)
-
-    def fwd_bwd_a(kind):
-        """The fwd+bwd benchmarks/net65k.py times: the gradient of
-        (f**2).mean() + (co**2).mean() with respect to the coordinates."""
-        c = clouds_a[kind].clone().requires_grad_()
-        f, co = net_a(feats_a, c)
-        ((f ** 2).mean() + (co ** 2).mean()).backward()
-        return c.grad
-
-    reset_launch_counts()
-    grad_a = fwd_bwd_a("uniform")
-    torch.cuda.synchronize()
-    fb_counts = dict(LAUNCH_COUNTS)
-    check_outputs(torch, (grad_a,), ((1, N_A, 3),), "path A fwd+bwd")
-    if (fb_counts["knn_candidates_packed_tiled"] != DEPTH
-            or fb_counts["segment_sum"] != DEPTH):
-        raise AssertionError(f"path A fwd+bwd: launches {fb_counts}")
-
-    net_a_train = make_net_a()
-    step_a = make_denoise_train_step(net_a_train, make_fused_adam(net_a_train.parameters(), LR))
-    noised_a = clouds_a["uniform"] + torch.randn_like(clouds_a["uniform"])
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    losses_a = torch.stack([step_a(feats_a, noised_a, clouds_a["uniform"], None, None)
-                            for _ in range(STEPS_A)]).cpu()
-    train_a_counts = dict(LAUNCH_COUNTS)
-    peak_a = torch.cuda.max_memory_allocated()
-    print(f"path A training on one batch: {STEPS_A} steps, losses {losses_a.tolist()}; "
-          f"launches {train_a_counts}; peak memory {peak_a / 2**30:.3f} GiB")
-    if not (bool(torch.isfinite(losses_a).all()) and losses_a[-1] < losses_a[0]):
-        raise AssertionError("path A: the loss is not finite and falling")
-    # the first layer gathers the inputs themselves, which carry no gradient
-    # in a train step (there is no embedding under them), so its gather has
-    # no backward: K2 runs depth - 1 times a step, and depth times in the
-    # fwd+bwd above, whose coordinates do require a gradient
-    for name, per_step in (("knn_candidates_packed_tiled", DEPTH), ("segment_sum", DEPTH - 1)):
-        if train_a_counts[name] != per_step * STEPS_A:
-            raise AssertionError(f"path A: {name} launched {train_a_counts[name]} times in "
-                                 f"{STEPS_A} steps, expected {per_step * STEPS_A}")
-
+    clouds_a = {kind: cloud(torch, N_A, 3, kind, SEED + 91)
+                for kind in ("uniform", "gaussian", "heavy")}
     edges_a = N_A * KNN_A * DEPTH
-    with torch.inference_mode():
-        ms = call_ms(torch, lambda: net_a(feats_a, clouds_a["uniform"]), iters=5, warmup=1)
-        kernel_ms = profile_forward(torch, lambda: net_a(feats_a, clouds_a["uniform"]), iters=3,
-                                    label="path A forwards")
-    print(f"path A forward n={N_A} k={KNN_A}: median {ms:.4f} ms, {edges_a / (ms / 1e3):.6e} "
-          f"edges/s; kernel time {kernel_ms:.4f} ms, busy {kernel_ms / ms:.3f}, so the host "
-          f"(the certificate's {DEPTH} synchronisations included) leaves the card idle "
-          f"{ms - kernel_ms:.4f} ms a forward")
-    for kind in ("uniform", "gaussian"):
-        ms = call_ms(torch, lambda: fwd_bwd_a(kind), iters=5, warmup=1)
-        print(f"path A fwd+bwd (gradient wrt coordinates) {kind}: median {ms:.4f} ms, "
-              f"{edges_a / (ms / 1e3):.6e} edges/s")
-    ms = call_ms(torch, lambda: step_a(feats_a, noised_a, clouds_a["uniform"], None, None),
-                 iters=5, warmup=1)
-    kernel_ms = profile_forward(
-        torch, lambda: step_a(feats_a, noised_a, clouds_a["uniform"], None, None), iters=3,
-        label="path A train steps", unit="step")
-    print(f"path A train step: median {ms:.4f} ms, {edges_a / (ms / 1e3):.6e} edges/s; "
-          f"kernel time {kernel_ms:.4f} ms, busy {kernel_ms / ms:.3f}")
+
+    def drive_net65k(tag, kernel, serve_kinds, idle, also=()):
+        """Serve, check, train and time net65k on the route ``auto`` takes
+        now. ``kernel`` must run depth times a forward, the selection kernels
+        in ``idle`` not at all, those in ``also`` at least once while
+        serving. Returns the serving run's launch counts."""
+        net = make_net_a().eval()
+        reset_launch_counts()
+        with torch.inference_mode():
+            outs = [net(feats_a, clouds_a[kind]) for kind in serve_kinds]
+        torch.cuda.synchronize()
+        counts = dict(LAUNCH_COUNTS)
+        print(f"path {tag} serving: {len(outs)} forwards ({', '.join(serve_kinds)}) at n={N_A} "
+              f"k={KNN_A}; launches {counts}")
+        if (counts[kernel] != DEPTH * len(outs) or any(counts[name] for name in idle)
+                or not all(counts[name] for name in also)):
+            raise AssertionError(f"path {tag}: {kernel} did not run depth times a forward, one "
+                                 f"of {idle} ran, or one of {also} did not")
+        for f, c in outs:
+            check_outputs(torch, (f, c), ((1, N_A, DIM), (1, N_A, 3)), f"path {tag} forward")
+        check_equivariance(
+            torch, lambda c: net(feats_a, c), clouds_a["uniform"], f"path {tag}",
+            select=lambda c: K.knn_select_tiled(c.contiguous(), KNN_A)[1].sort(dim=-1).values,
+            swap_share=SWAP_SHARE)
+
+        def fwd_bwd(kind):
+            """The fwd+bwd benchmarks/net65k.py times: the gradient of
+            (f**2).mean() + (co**2).mean() with respect to the coordinates."""
+            c = clouds_a[kind].clone().requires_grad_()
+            f, co = net(feats_a, c)
+            ((f ** 2).mean() + (co ** 2).mean()).backward()
+            return c.grad
+
+        reset_launch_counts()
+        grad = fwd_bwd("uniform")
+        torch.cuda.synchronize()
+        fb_counts = dict(LAUNCH_COUNTS)
+        check_outputs(torch, (grad,), ((1, N_A, 3),), f"path {tag} fwd+bwd")
+        if fb_counts[kernel] != DEPTH or fb_counts["segment_sum"] != DEPTH:
+            raise AssertionError(f"path {tag} fwd+bwd: launches {fb_counts}")
+
+        net_train = make_net_a()
+        step = make_denoise_train_step(net_train, make_fused_adam(net_train.parameters(), LR))
+        noised = clouds_a["uniform"] + torch.randn_like(clouds_a["uniform"])
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_launch_counts()
+        losses = torch.stack([step(feats_a, noised, clouds_a["uniform"], None, None)
+                              for _ in range(STEPS_A)]).cpu()
+        train_counts = dict(LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"path {tag} training on one batch: {STEPS_A} steps, losses {losses.tolist()}; "
+              f"launches {train_counts}; peak memory {peak / 2**30:.3f} GiB, of which "
+              f"{held / 2**30:.3f} GiB were held before the first step")
+        if not (bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]):
+            raise AssertionError(f"path {tag}: the loss is not finite and falling")
+        # the first layer gathers the inputs themselves, which carry no gradient
+        # in a train step (there is no embedding under them), so its gather has
+        # no backward: K2 runs depth - 1 times a step, and depth times in the
+        # fwd+bwd above, whose coordinates do require a gradient
+        for name, per_step in ((kernel, DEPTH), ("segment_sum", DEPTH - 1)):
+            if train_counts[name] != per_step * STEPS_A:
+                raise AssertionError(f"path {tag}: {name} launched {train_counts[name]} times in "
+                                     f"{STEPS_A} steps, expected {per_step * STEPS_A}")
+
+        with torch.inference_mode():
+            for kind in dict.fromkeys(serve_kinds):
+                ms = call_ms(torch, lambda: net(feats_a, clouds_a[kind]), iters=5, warmup=1)
+                kernel_ms = profile_forward(torch, lambda: net(feats_a, clouds_a[kind]), iters=3,
+                                            label=f"path {tag} forwards ({kind})")
+                print(f"path {tag} forward n={N_A} k={KNN_A} {kind}: median {ms:.4f} ms, "
+                      f"{edges_a / (ms / 1e3):.6e} edges/s; kernel time {kernel_ms:.4f} ms, busy "
+                      f"{kernel_ms / ms:.3f}, so the host (the route's reads of the card "
+                      f"included) leaves the card idle {ms - kernel_ms:.4f} ms a forward")
+        for kind in ("uniform", "gaussian"):
+            ms = call_ms(torch, lambda: fwd_bwd(kind), iters=5, warmup=1)
+            print(f"path {tag} fwd+bwd (gradient wrt coordinates) {kind}: median {ms:.4f} ms, "
+                  f"{edges_a / (ms / 1e3):.6e} edges/s")
+        ms = call_ms(torch, lambda: step(feats_a, noised, clouds_a["uniform"], None, None),
+                     iters=5, warmup=1)
+        kernel_ms = profile_forward(
+            torch, lambda: step(feats_a, noised, clouds_a["uniform"], None, None), iters=3,
+            label=f"path {tag} train steps", unit="step")
+        print(f"path {tag} train step: median {ms:.4f} ms, {edges_a / (ms / 1e3):.6e} edges/s; "
+              f"kernel time {kernel_ms:.4f} ms, busy {kernel_ms / ms:.3f}")
+
+        # K2 at the path's backward: the indices of one layer (kc-wide on path A)
+        with torch.inference_mode():
+            nbhd, _ = nb.knn_select_gather(clouds_a["uniform"], KNN_A, math.inf, wide=True)
+        time_segment_sum(f"path {tag}", nbhd.indices.reshape(1, -1), N_A, 3 + DIM, reps=3,
+                         trials=5)
+        del outs, net_train, step, grad, nbhd
+        torch.cuda.empty_cache()
+        return counts
+
+    nb.GRID_AUTO = False   # the reference's own flag: auto stays on K5 beyond the reach
+    path_a_counts = drive_net65k("A", "knn_candidates_packed_tiled", ("uniform", "uniform",
+                                 "gaussian"), idle=("knn_select_tiled", "grid_knn_cells"))
+    nb.GRID_AUTO = True
     ok_flag = torch.ones(N_A, dtype=torch.bool, device="cuda")
     sync_ms = call_ms(torch, lambda: bool(ok_flag.all()), iters=20, warmup=3)
-    print(f"the certificate's host read on an idle card (all() and bool()): {sync_ms:.4f} ms")
-
-    # K2 at path A's backward: the kc-wide indices of one layer
-    with torch.inference_mode():
-        wide_a, _ = nb.knn_select_gather(clouds_a["uniform"], KNN_A, math.inf, wide=True)
-    time_segment_sum("path A", wide_a.indices.reshape(1, -1), N_A, 3 + DIM, reps=3, trials=5)
-    del outs_a, wide_a, net_a_train, step_a, grad_a
-    torch.cuda.empty_cache()
+    print(f"a certificate's host read on an idle card (all() and bool()): {sync_ms:.4f} ms")
 
     # ---- 14. path B: the anchor-3 family at n = 32768 through K4 ----
     def make_net_b(n, depth=DEPTH, seed=SEED):
@@ -973,11 +1041,15 @@ def main() -> int:
     feats_s, coors_s = feats_a[:, :N_CPU].contiguous(), cloud(torch, N_CPU, 3, "uniform", SEED + 92)
     rq_s = synthetic_chain_batch(rng, 1, N_CPU, device="cuda")
     net_chain = make_net_b(N_CPU, depth=1, seed=SEED + 6).eval()
-    for what, model, args, kwargs, kernel in (
-        ("net65k family", net_small, (feats_s, coors_s), {}, "knn_candidates_packed_tiled"),
+    for what, model, args, kwargs, kernel, grid_auto in (
+        ("net65k family through the grid", net_small, (feats_s, coors_s), {}, "grid_knn_cells",
+         True),
+        ("net65k family through K5", net_small, (feats_s, coors_s), {},
+         "knn_candidates_packed_tiled", False),
         ("anchor-3 family", net_chain, (rq_s.tokens, rq_s.noised_coors),
-         dict(adj_mat=rq_s.adj_mat, mask=rq_s.mask), "knn_select_tiled"),
+         dict(adj_mat=rq_s.adj_mat, mask=rq_s.mask), "knn_select_tiled", True),
     ):
+        nb.GRID_AUTO = grid_auto
         reset_launch_counts()
         with torch.inference_mode():
             f, c = model(*args, **kwargs)
@@ -990,6 +1062,7 @@ def main() -> int:
               f"{ {kn: v for kn, v in LAUNCH_COUNTS.items() if v} }")
         if not (ef <= GPU_VS_CPU_ATOL and ec <= GPU_VS_CPU_ATOL) or LAUNCH_COUNTS[kernel] != 1:
             raise AssertionError(f"{what}: card and CPU forwards disagree")
+    nb.GRID_AUTO = True
 
     # ---- 16. timing of K4, K5, K6 at the shapes the paths give them ----
     coors_b, mask_b = rq_b.noised_coors, rq_b.mask
@@ -1037,6 +1110,343 @@ def main() -> int:
     t_bytes, t_ops = knn_bound_parts(1, N_A, 3, KNN_A, 0, False, 0)
     print(f"timing knn_select_tiled at n={N_A} k={KNN_A}, no mask or adjacency: kernel "
           f"{ms_k4_a:.5f} ms; bound bytes {t_bytes:.6f} ms, operations {t_ops:.6f} ms")
+
+    # path B's 1 GiB adjacencies are not needed again
+    del requests_b, rq_b, rq_s, adj_b, coors_b, mask_b, net_b, net_chain
+    torch.cuda.empty_cache()
+
+    # ---- 17. K7, K8, K9 against their plain versions, bitwise ----
+    for name in ("grid_knn_cells", "knn_select_queries", "knn_select_window"):
+        max_err[name] = 0.0
+
+    def tenth_mask(n):
+        return (torch.arange(n, device="cuda") % 10 != 3)[None, :]
+
+    def cell_tables(coors, mask, gdim):
+        _, counts, _, order = spatial.assign_cells(coors, mask, gdim)
+        return GK.cell_csr(counts, order) + (counts,)
+
+    k7_cases = [  # name, n, k, cloud, mask
+        ("n8192_k8", 8192, 8, "uniform", False),
+        ("n20480_k16_mask", 20480, 16, "gaussian", True),
+        ("n65536_k16", N_A, KNN_A, "uniform", False),        # the reference's resident kernel
+        ("n65536_k16_mask", N_A, KNN_A, "gaussian", True),
+        ("n131072_k16", 2 * N_A, KNN_A, "uniform", False),   # its streamed kernel (gdim 13)
+        ("n131072_k8_mask", 2 * N_A, 8, "gaussian", True),
+        ("k128", N_A, 128, "gaussian", False),               # four list slots a lane
+        ("lattice_ties", 32768, 16, "lattice", False),       # distance ties inside a block
+    ]
+    for i, (name, n, k, kind, wm) in enumerate(k7_cases):
+        coors = cloud(torch, n, 3, kind, SEED + 100 + i)
+        mask = tenth_mask(n) if wm else None
+        gdim = GK.grid_kernel_gdim(n)
+        cell_start, cell_nodes, counts = cell_tables(coors, mask, gdim)
+        v, ix = GK.grid_knn_cells(coors, cell_start, cell_nodes, k, gdim)
+        pv, pi = GK.grid_knn_cells_plain(coors, cell_start, cell_nodes, k, gdim, cell_chunk=16)
+        # the whole selection with its certificate: certified rows are K4's
+        sv, si, s_ok, s_rx = GK.grid_knn_select(coors, k, mask)
+        rv, ri = K.knn_select_tiled(coors, k, mask)
+        torch.cuda.synchronize()
+        ok = same_bits(torch, v, pv) and torch.equal(ix, pi)
+        certified = same_bits(torch, sv[s_rx], rv[s_rx]) and torch.equal(si[s_rx], ri[s_rx])
+        finite = torch.isfinite(pv)
+        err = (v[finite] - pv[finite]).abs().max().item()
+        max_err["grid_knn_cells"] = max(max_err["grid_knn_cells"], err)
+        print(f"K7 case {name}: n={n} k={k} gdim={gdim} cloud={kind} mask={wm}, fullest cell "
+              f"{counts[:, :-1].max().item()}: bitwise={ok} (max err {err}); certificate "
+              f"ok={bool(s_ok)}, {int((~s_rx).sum())} rows fail it, the others equal K4's "
+              f"bitwise={certified}")
+        if not (ok and certified):
+            raise AssertionError(f"K7 case {name}: kernel and plain version differ, or a "
+                                 "certified row differs from K4's")
+    # a batch of two clouds, the second masked
+    pair = torch.cat([cloud(torch, 8192, 3, "uniform", SEED + 111),
+                      cloud(torch, 8192, 3, "gaussian", SEED + 112)])
+    pair_mask = torch.cat([torch.ones_like(tenth_mask(8192)), tenth_mask(8192)])
+    gdim = GK.grid_kernel_gdim(8192)
+    cell_start, cell_nodes, _ = cell_tables(pair, pair_mask, gdim)
+    v, ix = GK.grid_knn_cells(pair, cell_start, cell_nodes, KNN, gdim)
+    pv, pi = GK.grid_knn_cells_plain(pair, cell_start, cell_nodes, KNN, gdim, cell_chunk=16)
+    ok = same_bits(torch, v, pv) and torch.equal(ix, pi)
+    print(f"K7 case batch_of_two: b=2 n=8192 k={KNN}: bitwise={ok}")
+    if not ok:
+        raise AssertionError("K7 case batch_of_two: kernel and plain version differ")
+    reset_launch_counts()
+    pile = GK.grid_knn_select(cloud(torch, 20480, 3, "ties", SEED + 110), KNN)
+    print(f"K7 duplicate pile-up (64 sites, 320 nodes each): ok={bool(pile[2])}, rows trusted "
+          f"{int(pile[3].sum())}, K7 launches {LAUNCH_COUNTS['grid_knn_cells']} (early reject)")
+    if bool(pile[2]) or bool(pile[3].any()) or LAUNCH_COUNTS["grid_knn_cells"]:
+        raise AssertionError("the pile-up must skip the kernel and trust no row")
+
+    def pick_rows(mask, n, r, seed):
+        """r valid rows, ascending."""
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        rows = torch.arange(n, device="cuda") if mask is None else torch.nonzero(mask[0])[:, 0]
+        return rows[torch.randperm(len(rows), generator=g, device="cuda")[:r]].sort().values[None]
+
+    def take_rows(t, fidx):
+        return torch.gather(t, 1, fidx if t.dim() == 2 else
+                            fidx[..., None].expand(*fidx.shape, t.shape[-1])).contiguous()
+
+    k8_cases = [  # name, n, k, R, cloud, mask
+        ("r128", N_A, KNN_A, 128, "gaussian", False),
+        ("r2800_mask", N_A, KNN_A, 2800, "gaussian", True),
+        ("r_quarter", N_A, KNN_A, N_A // 4, "uniform", False),
+        ("n20000_mask", 20000, KNN, 5000, "uniform", True),   # n not a multiple of 128
+        ("ties", 20480, KNN, 1280, "ties", True),
+        ("k128_mask", 4096, 128, 1024, "gaussian", True),
+    ]
+    for i, (name, n, k, r, kind, wm) in enumerate(k8_cases):
+        coors = cloud(torch, n, 3, kind, SEED + 120 + i)
+        mask = tenth_mask(n) if wm else None
+        # any rows, masked ones too: their result is the fill
+        fidx = pick_rows(None, n, r, SEED + 130 + i)
+        q, qm = take_rows(coors, fidx), (None if mask is None else take_rows(mask, fidx))
+        v, ix = K.knn_select_queries(q, coors, k, qm, mask)
+        pv, pi = K.knn_select_queries_plain(q, coors, k, qm, mask, row_chunk=chunk(n))
+        rv, ri = K.knn_select_tiled(coors, k, mask)
+        torch.cuda.synchronize()
+        ok = same_bits(torch, v, pv) and torch.equal(ix, pi)
+        rows_of_k4 = same_bits(torch, v, take_rows(rv, fidx)) and torch.equal(
+            ix, take_rows(ri, fidx))
+        err = (v - pv).abs().max().item()
+        max_err["knn_select_queries"] = max(max_err["knn_select_queries"], err)
+        print(f"K8 case {name}: n={n} k={k} R={r} cloud={kind} mask={wm}: bitwise={ok} (max err "
+              f"{err}); equals K4's rows bitwise={rows_of_k4}")
+        if not (ok and rows_of_k4):
+            raise AssertionError(f"K8 case {name}: kernel, plain version and K4 differ")
+
+    def window_inputs(coors, mask, fidx):
+        """The dispatcher's preparation: the x-sort (masked points last), the
+        nodes' x-ranks, the query rows sorted by rank."""
+        n = coors.shape[1]
+        xkey = coors[..., 0] if mask is None else torch.where(mask, coors[..., 0], math.inf)
+        order = torch.sort(xkey, dim=1, stable=True).indices
+        rank = torch.empty_like(order).scatter_(
+            1, order, torch.arange(n, device="cuda").expand_as(order))
+        fidx = take_rows(fidx, take_rows(rank, fidx).sort(dim=1).indices)
+        return (take_rows(coors, fidx), take_rows(rank, fidx), take_rows(coors, order), order,
+                None if mask is None else take_rows(mask, order), fidx)
+
+    k9_cases = [  # name, n, k, R, W, cloud, mask
+        ("w_quarter", N_A, KNN_A, 4096, N_A // 4, "gaussian", False),
+        ("w_quarter_mask", N_A, KNN_A, 3500, N_A // 4, "heavy", True),
+        ("w_full", N_A, KNN_A, 1000, N_A, "uniform", False),
+        ("n20000_mask", 20000, KNN, 1250, 5120, "gaussian", True),   # n not a multiple of 128
+        ("n20000_w_full", 20000, KNN, 500, 20096, "uniform", False),
+        ("ties", 20480, KNN, 1280, 5120, "ties", False),
+        ("k128_mask", 8192, 128, 512, 2048, "gaussian", True),
+    ]
+    for i, (name, n, k, r, w, kind, wm) in enumerate(k9_cases):
+        coors = cloud(torch, n, 3, kind, SEED + 140 + i)
+        mask = tenth_mask(n) if wm else None
+        q, qr, pts, order, pm, fidx = window_inputs(coors, mask,
+                                                    pick_rows(mask, n, r, SEED + 150 + i))
+        v, ix, mg = K.knn_select_window(q, qr, pts, order, k, w, pm)
+        pv, pi, pmg = K.knn_select_window_plain(q, qr, pts, order, k, w, pm,
+                                                row_chunk=max(1, (1 << 25) // w))
+        rv, ri = K.knn_select_tiled(coors, k, mask)
+        torch.cuda.synchronize()
+        ok = same_bits(torch, v, pv) and torch.equal(ix, pi) and same_bits(torch, mg, pmg)
+        cert = v[..., k - 1] < mg * mg
+        if mask is not None:
+            cert = cert & (v[..., k - 1] < nb.MASKED_RANK_FILL)
+        rows_of_k4 = same_bits(torch, v[cert], take_rows(rv, fidx)[cert]) and torch.equal(
+            ix[cert], take_rows(ri, fidx)[cert])
+        err = (v - pv).abs().max().item()
+        max_err["knn_select_window"] = max(max_err["knn_select_window"], err)
+        print(f"K9 case {name}: n={n} k={k} R={r} W={w} cloud={kind} mask={wm}: vals, idx and "
+              f"margin bitwise={ok} (max err {err}); its margin certifies "
+              f"{cert.float().mean().item():.4f} of the rows, which equal K4's "
+              f"bitwise={rows_of_k4}")
+        if not (ok and rows_of_k4):
+            raise AssertionError(f"K9 case {name}: kernel and plain version differ, or a "
+                                 "certified row differs from K4's")
+
+    # K8 and K9 on the batch of two
+    fidx = torch.cat([pick_rows(pair_mask[bi:bi + 1], 8192, 700, SEED + 113 + bi)
+                      for bi in range(2)])
+    q, qm = take_rows(pair, fidx), take_rows(pair_mask, fidx)
+    v, ix = K.knn_select_queries(q, pair, KNN, qm, pair_mask)
+    pv, pi = K.knn_select_queries_plain(q, pair, KNN, qm, pair_mask, row_chunk=chunk(8192))
+    ok8 = same_bits(torch, v, pv) and torch.equal(ix, pi)
+    q, qr, pts, order, pm, _ = window_inputs(pair, pair_mask, fidx)
+    v, ix, mg = K.knn_select_window(q, qr, pts, order, KNN, 2048, pm)
+    pv, pi, pmg = K.knn_select_window_plain(q, qr, pts, order, KNN, 2048, pm, row_chunk=4096)
+    ok9 = same_bits(torch, v, pv) and torch.equal(ix, pi) and same_bits(torch, mg, pmg)
+    print(f"K8 and K9 case batch_of_two: b=2 n=8192 k={KNN} R=700 (W=2048): K8 bitwise={ok8}, "
+          f"K9 bitwise={ok9}")
+    if not (ok8 and ok9):
+        raise AssertionError("batch_of_two: K8 or K9 differs from its plain version")
+
+    # ---- 18. the grid route on the card, arm by arm ----
+    repaired_rows = []          # the rows each K8 call of an arm was given
+    launch_queries = K.knn_select_queries
+
+    def recording_queries(queries, *args, **kwargs):
+        repaired_rows.append(queries.shape[1])
+        return launch_queries(queries, *args, **kwargs)
+
+    def check_arm(name, n, k, kind, seed, wm, backends, expect):
+        coors = cloud(torch, n, 3, kind, seed)
+        mask = tenth_mask(n) if wm else None
+        select = GK.grid_knn_select if GK.supports_grid_knn(n, k) else spatial.grid_knn_select
+        nbad = int((~select(coors, k, mask)[3]).sum())
+        ref_v, ref_i = K.knn_select_tiled(coors, k, mask)
+        for backend in backends:
+            reset_launch_counts()
+            repaired_rows.clear()
+            K.knn_select_queries = recording_queries
+            try:
+                nbhd, _ = nb.knn_select_gather(coors, k, math.inf, mask=mask, backend=backend)
+            finally:
+                K.knn_select_queries = launch_queries
+            torch.cuda.synchronize()
+            counts = {kn: v for kn, v in LAUNCH_COUNTS.items() if v}
+            ok = (torch.equal(nbhd.indices, ref_i) and same_bits(torch, nbhd.ranking, ref_v)
+                  and nbhd.winner is None)
+            print(f"grid arm {name}: n={n} k={k} cloud={kind} mask={wm} backend={backend}: "
+                  f"{nbad} rows fail the certificate (3n/64={3 * n // 64}, n/16={n // 16}, "
+                  f"n/4={n // 4}); K8 was given {repaired_rows} rows; equals K4 bitwise={ok}; "
+                  f"launches {counts}")
+            if not ok or not expect(counts):
+                raise AssertionError(f"grid arm {name}: selection differs from K4's or the "
+                                     f"launches {counts} are not the arm's")
+
+    def launched(**wanted):
+        """A check that exactly these kernels ran, each that many times."""
+        return lambda counts: counts == wanted
+
+    check_arm("certified whole", N_A, KNN_A, "uniform", SEED + 160, False, ("grid", "auto"),
+              launched(grid_knn_cells=1))
+    check_arm("direct repair", N_A, KNN_A, "gaussian", SEED + 161, False, ("grid", "auto"),
+              launched(grid_knn_cells=1, knn_select_queries=1))
+    check_arm("direct repair, mask", N_A, KNN_A, "gaussian", SEED + 162, True, ("auto",),
+              launched(grid_knn_cells=1, knn_select_queries=1))
+    # a share in (3n/64, n/16]: K9, then K8 on the rows its margin left
+    def window_arm(counts):
+        return (counts.get("grid_knn_cells") == 1 and counts.get("knn_select_window") == 1
+                and counts.get("knn_select_queries", 0) <= 1 and len(counts) <= 3)
+
+    check_arm("window tier", N_A, KNN_A, "heavy", SEED + 163, False, ("grid", "auto"), window_arm)
+    check_arm("window tier, mask", N_A, KNN_A, "heavy", SEED + 164, True, ("auto",), window_arm)
+    check_arm("n/4 bucket", N_A, KNN_A, "tail", SEED + 165, False, ("auto",),
+              launched(grid_knn_cells=1, knn_select_queries=1))
+    # a cell overflows in spite of the equal-mass edges: no K7, the packed fallback
+    check_arm("whole-call fallback", N_A, KNN_A, "diagonal", SEED + 166, False, ("auto",),
+              lambda c: "grid_knn_cells" not in c and c.get("knn_candidates_packed_tiled") == 1)
+    # below the kernel's gate backend="grid" is the plain-torch grid
+    check_arm("plain-torch grid", 4096, KNN, "gaussian", SEED + 167, True, ("grid",),
+              launched(knn_select_queries=1))
+
+    # a batch: the cloud with fewer failing rows pads its repair with certified ones
+    ref_v, ref_i = K.knn_select_tiled(pair, KNN, pair_mask)
+    reset_launch_counts()
+    nbhd, _ = nb.knn_select_gather(pair, KNN, math.inf, mask=pair_mask)
+    ok = torch.equal(nbhd.indices, ref_i) and same_bits(torch, nbhd.ranking, ref_v)
+    counts = {kn: v for kn, v in LAUNCH_COUNTS.items() if v}
+    print(f"grid arm batch of two: b=2 n=8192 k={KNN} backend=auto: equals K4 bitwise={ok}; "
+          f"launches {counts}")
+    if not ok or counts != {"grid_knn_cells": 1, "knn_select_queries": 1}:
+        raise AssertionError("grid arm batch of two: selection differs from K4's, or the "
+                             "launches are not K7 and K8 once each")
+
+    # ---- 19. path C: net65k as auto routes it, through the grid ----
+    path_c_counts = drive_net65k(
+        "C", "grid_knn_cells", ("uniform", "uniform", "gaussian", "heavy"),
+        idle=("knn_candidates_packed_tiled", "knn_select_tiled"),
+        also=("knn_select_queries", "knn_select_window"))
+
+    # ---- 20. timing of K7, K8, K9 at the shapes path C gives them ----
+    def time_rows_kernel(name, replaces, source, what, fn, plain, nbytes, pairs):
+        ms_plain_a = call_ms(torch, plain, iters=2, warmup=1)
+        ms_a = device_ms(torch, fn, reps=3, trials=5)
+        ms_b = device_ms(torch, fn, reps=3, trials=5)
+        ms_plain_b = call_ms(torch, plain, iters=2, warmup=1)
+        bound_ms, bound_by, t_bytes, t_ops = pairs_bound(nbytes, pairs)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": path_c_counts[name], "max_abs_err": max_err[name],
+            "ms": min(ms_a, ms_b), "plain_ms": min(ms_plain_a, ms_plain_b),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # no single PyTorch call selects by (distance, id) within cell
+            # blocks, a row subset or a window, with these fills
+            "library_ms": None,
+        })
+        print(f"timing {name} at {what}: kernel {ms_a:.5f}/{ms_b:.5f} ms, plain "
+              f"{ms_plain_a:.5f}/{ms_plain_b:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}; bytes "
+              f"{t_bytes:.6f} ms, operations {t_ops:.6f} ms over {pairs} real pairs); no library "
+              "call computes it")
+
+    def k7_work(coors, k):
+        """K7's inputs at ``coors`` and what it must do there: the bytes of
+        its tables and outputs, and the real pairs (every node times the
+        nodes of its 27 cells)."""
+        n = coors.shape[1]
+        gdim = GK.grid_kernel_gdim(n)
+        cell_start, cell_nodes, counts = cell_tables(coors, None, gdim)
+        cell_cand = counts[:, spatial.neighbor_cells(gdim, coors.device)].sum(dim=-1)
+        pairs = int((counts[:, :-1] * cell_cand).sum())
+        nbytes = 12 * n + 4 * (gdim ** 3 + 1) + 4 * n + 12 * n * k
+        return gdim, cell_start, cell_nodes, nbytes, pairs
+
+    gdim, cell_start, cell_nodes, nbytes, pairs = k7_work(coors_a, KNN_A)
+    time_rows_kernel(
+        "grid_knn_cells", "egnn_tpu/ops/pallas/grid_knn.py:225,281",
+        "egnn_tpu_torch/csrc/grid_knn.cu", f"n={N_A} k={KNN_A} gdim={gdim} (uniform)",
+        lambda: GK.grid_knn_cells(coors_a, cell_start, cell_nodes, KNN_A, gdim),
+        lambda: GK.grid_knn_cells_plain(coors_a, cell_start, cell_nodes, KNN_A, gdim,
+                                        cell_chunk=16), nbytes, pairs)
+    coors_2a = cloud(torch, 2 * N_A, 3, "uniform", SEED + 170)
+    gdim2, cs2, cn2, nbytes2, pairs2 = k7_work(coors_2a, KNN_A)
+    ms_k7b = device_ms(torch, lambda: GK.grid_knn_cells(coors_2a, cs2, cn2, KNN_A, gdim2), reps=3,
+                       trials=5)
+    bound2 = pairs_bound(nbytes2, pairs2)
+    print(f"timing grid_knn_cells at n={2 * N_A} k={KNN_A} gdim={gdim2} (the size of the "
+          f"reference's streamed kernel): kernel {ms_k7b:.5f} ms; bound {bound2[0]:.6f} ms "
+          f"({bound2[1]}) over {pairs2} real pairs")
+    with torch.inference_mode():
+        for kind in ("uniform", "gaussian", "heavy"):
+            c_kind = clouds_a[kind]
+            sel_ms = call_ms(torch, lambda: GK.grid_knn_select(c_kind, KNN_A), iters=10, warmup=2)
+            route_ms = call_ms(torch, lambda: nb.knn_select_gather(c_kind, KNN_A, math.inf),
+                               iters=10, warmup=2)
+            kernel_ms = profile_forward(
+                torch, lambda: nb.knn_select_gather(c_kind, KNN_A, math.inf), iters=5,
+                label=f"grid route calls ({kind})", unit="call")
+            print(f"one grid route call at n={N_A} k={KNN_A} {kind}: {route_ms:.4f} ms a call, "
+                  f"kernel time {kernel_ms:.4f} ms; grid_knn_select alone (cell assignment, "
+                  f"the early read, K7, certificate) {sel_ms:.4f} ms a call")
+
+    # K8 and K9 on the rows that fail the certificate on path C's clouds
+    for name, replaces, kind in (
+        ("knn_select_queries", "egnn_tpu/ops/pallas/knn.py:616", "gaussian"),
+        ("knn_select_window", "egnn_tpu/ops/pallas/knn.py:779", "heavy"),
+    ):
+        c_kind = clouds_a[kind]
+        bad = ~GK.grid_knn_select(c_kind, KNN_A)[3]
+        fidx = torch.nonzero(bad[0])[:, 0][None]
+        r = fidx.shape[1]
+        if name == "knn_select_queries":
+            q = take_rows(c_kind, fidx)
+            time_rows_kernel(
+                name, replaces, "egnn_tpu_torch/csrc/knn_select_large.cu",
+                f"R={r} rows of n={N_A}, k={KNN_A} ({kind})",
+                lambda: K.knn_select_queries(q, c_kind, KNN_A),
+                lambda: K.knn_select_queries_plain(q, c_kind, KNN_A, row_chunk=chunk(N_A)),
+                12 * r + 12 * N_A + 12 * r * KNN_A, r * N_A)
+        else:
+            w = N_A // 4
+            q, qr, pts, order, _, _ = window_inputs(c_kind, None, fidx)
+            time_rows_kernel(
+                name, replaces, "egnn_tpu_torch/csrc/knn_select_large.cu",
+                f"R={r} rows, W={w} of n={N_A}, k={KNN_A} ({kind}; the window's starts and "
+                "the margins, computed in torch, included)",
+                lambda: K.knn_select_window(q, qr, pts, order, KNN_A, w),
+                lambda: K.knn_select_window_plain(q, qr, pts, order, KNN_A, w,
+                                                  row_chunk=max(1, (1 << 25) // w)),
+                # queries, ranks, points, ids; vals, idx, margin
+                12 * r + 8 * r + 12 * N_A + 8 * N_A + 12 * r * KNN_A + 4 * r, r * w)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

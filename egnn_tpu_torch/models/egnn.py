@@ -9,11 +9,13 @@ names and (in, out) weight layout:
   ``h1_ij = f_i @ Wi + f_j @ Wj + dist_ij @ Wd + e_ij @ We + b1``.
 - kNN selection and the gather of the neighbours' ``[coors | mask | feats]``
   rows are one call (``ops/neighbors.py:knn_select_gather(wide=True)``):
-  kernel K1 on the card within the full-band reach, K4 or K5 beyond it,
-  their plain versions on the CPU. Where the packed-key route (K5) engages,
-  the layer runs over kc = k + 4 candidate slots under the winner mask
-  instead of compacting them to k. The rest of the layer is plain torch
-  (matmuls on cuBLAS).
+  on the card the grid route (K7, repaired by K8 and K9) for a 3-D cloud
+  without an adjacency from 8192 nodes on, else kernel K1 within the
+  full-band reach and K4 or K5 beyond it; their plain versions on the CPU.
+  Where the packed-key route (K5) engages, the layer runs over kc = k + 4
+  candidate slots under the winner mask instead of compacting them to k;
+  every other route, the grid included, returns k slots and no winner
+  mask. The rest of the layer is plain torch (matmuls on cuBLAS).
 
 Reference quirks kept on purpose: ``valid_radius`` acts only with a
 ``mask``; with ``only_sparse_neighbors`` k is the max row degree including

@@ -2,8 +2,9 @@
 
 Each ``egnn_tpu_torch/csrc/<name>.cu`` is compiled by its own ``nvcc`` (all
 started together) for ``sm_90a`` into ``build/egnn_tpu_torch/`` at the root
-of the checkout, named by a hash of its source and flags so that an edited
-source is rebuilt, and loaded with ``ctypes``. The sources have a plain C
+of the checkout, named by a hash of its source, the shared headers
+(``csrc/*.cuh``) and the flags so that an edited source is rebuilt, and loaded
+with ``ctypes``. The sources have a plain C
 interface (pointers and ints), so no PyTorch header is compiled. Nothing
 happens at import: the first kernel launch builds, or ``build_all()`` does
 it up front.
@@ -38,6 +39,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
 
 

@@ -1,5 +1,5 @@
-"""The kNN selection kernels K1, K3, K4, K5, K6, their plain PyTorch versions
-and the reference's routing gates. Launches count into ``LAUNCH_COUNTS``
+"""The kNN selection kernels K1, K3, K4, K5, K6, K8, K9, their plain PyTorch
+versions and the reference's routing gates. Launches count into ``LAUNCH_COUNTS``
 (``ops/cuda``).
 
 - K1 ``knn_select_gather`` replaces the TPU kernel
@@ -17,10 +17,18 @@ and the reference's routing gates. Launches count into ``LAUNCH_COUNTS``
 - K6 ``knn_candidates_packed`` replaces
   ``egnn_tpu/ops/pallas/knn.py:knn_candidates_packed``
   (``_knn_packed_kernel``): the same with 18-bit keys.
+- K8 ``knn_select_queries`` replaces
+  ``egnn_tpu/ops/pallas/knn.py:knn_select_queries_pallas``
+  (``_knn_query_kernel``): K4's selection for a subset of query rows, the
+  grid route's repair engine.
+- K9 ``knn_select_window`` replaces
+  ``egnn_tpu/ops/pallas/knn.py:knn_select_window_pallas``
+  (``_knn_window_kernel``): the same against a window of the points sorted
+  by x, with a margin per row that certifies it.
 
 K1 and K3 run ``csrc/knn_select.cu`` (one template, ``kPayload`` on or
-off), K4, K5 and K6 ``csrc/knn_select_large.cu`` (one template, the ranking
-key as its parameter); the sources' headers say what bounds each on the card
+off), K4, K5, K6, K8 and K9 ``csrc/knn_select_large.cu`` (one template, the
+ranking key and the window as its parameters); the sources' headers say what bounds each on the card
 and how the design meets that. A wrapper given a CUDA tensor launches its kernel
 or raises; given a CPU tensor it runs the plain version, which the tests
 hold against the JAX package and ``chip_smoke.py`` holds the kernel against
@@ -178,6 +186,110 @@ def knn_candidates_packed_plain(coors, kc, mask=None, row_chunk: Optional[int] =
                              row_chunk)
 
 
+def knn_select_queries_plain(queries, points, k, q_mask=None, p_mask=None,
+                             row_chunk: Optional[int] = None):
+    """(vals float32, idx int64), each (b, R, k): for every query row the k
+    smallest float32 squared distances to the n points, 1e5 where
+    ``q_mask_i & p_mask_j`` fails, lowest column first among ties."""
+    queries, points = queries.float(), points.float()
+    vals, idx = [], []
+    for rows in _row_chunks(queries.shape[1], row_chunk):
+        ranking = nb.sum_of_squares(queries[:, rows, None, :] - points[:, None, :, :])
+        if q_mask is not None:
+            ranking = torch.where(q_mask[:, rows, None] & p_mask[:, None, :], ranking,
+                                  nb.MASKED_RANK_FILL)
+        part = nb.select_neighborhood(ranking, k, math.inf)
+        vals.append(part.ranking)
+        idx.append(part.indices)
+    return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
+
+
+def _pick_ti_window(W: int, n_pad: int, R: int) -> int:
+    """The reference's group height of the windowed kernel
+    (``egnn_tpu/ops/pallas/knn.py:674``): the rows of a group share one
+    window. Its VMEM term is the TPU's; it is kept because the group decides
+    each row's window, and with it the margin that is part of the result."""
+    ti = LANE
+    while ti > 8 and 2 * ti * W * 4 + 10 * n_pad * 4 > 9 * 1024 * 1024:
+        ti //= 2
+    while ti > 8 and n_pad * ti > (R * W) // 4:
+        ti //= 2
+    return ti
+
+
+def _window_plan(queries, ranks, points_sorted, k, W, p_mask_sorted):
+    """(ti, starts (b, groups) int64, margin (b, R) float32) of a windowed
+    selection, by the reference's rule (``knn.py:771-773``, ``:810-829``):
+    a group's window is centred on its middle row's x-rank, clipped into
+    the lane-padded array and aligned down to 128. A row's margin is its
+    x-distance to the nearer end of the window, infinite where that end is
+    the end of the valid points, shaved by 1e-4: every point outside the
+    window is at least that far away."""
+    b, R, _ = queries.shape
+    n = points_sorted.shape[1]
+    n_pad = _lane_pad(n)
+    if W % LANE or not LANE <= W <= n_pad or W - (n_pad - n) < k:
+        raise ValueError(f"the window must be a multiple of {LANE} within the lane-padded n "
+                         f"and hold k real columns wherever it lies; got W={W}, n={n}, k={k}")
+    dev = queries.device
+    ti = _pick_ti_window(W, n_pad, R)
+    groups = -(-R // ti)
+    mid = ranks.long()[:, (ti // 2 + ti * torch.arange(groups, device=dev)).clamp(max=R - 1)]
+    starts = (mid - W // 2).clamp(0, n_pad - W) // LANE * LANE               # (b, groups)
+    x_sorted = points_sorted[..., 0].float()
+    x_lo = torch.gather(x_sorted, 1, starts)
+    x_hi = torch.gather(x_sorted, 1, (starts + (W - 1)).clamp(max=n - 1))
+    nv = n if p_mask_sorted is None else p_mask_sorted.sum(dim=1, keepdim=True)
+
+    def per_row(group_values):
+        return group_values.repeat_interleave(ti, dim=1)[:, :R]
+
+    qx = queries[..., 0].float()
+    m_lo = torch.where(per_row(starts == 0), math.inf, qx - per_row(x_lo))
+    m_hi = torch.where(per_row(starts + W >= nv), math.inf, per_row(x_hi) - qx)
+    margin = torch.minimum(m_lo, m_hi).clamp(min=0.0) * (1.0 - 1e-4)
+    return ti, starts, margin
+
+
+def _window_select_plain(queries, points_sorted, orig_ids, k, W, p_mask_sorted, ti, starts,
+                         row_chunk):
+    b, R, _ = queries.shape
+    n = points_sorted.shape[1]
+    dev = queries.device
+    queries, points_sorted = queries.float(), points_sorted.float()
+    bi = torch.arange(b, device=dev)[:, None, None]
+    row_start = starts.repeat_interleave(ti, dim=1)[:, :R]
+    empty = torch.iinfo(torch.int64).max
+    vals, idx = [], []
+    for rows in _row_chunks(R, row_chunk):
+        cols = row_start[:, rows, None] + torch.arange(W, device=dev)        # (b, r, W)
+        real = cols < n
+        cols = cols.clamp(max=n - 1)
+        ranking = nb.sum_of_squares(queries[:, rows, None, :] - points_sorted[bi, cols])
+        if p_mask_sorted is not None:
+            ranking = torch.where(p_mask_sorted[bi, cols], ranking, nb.MASKED_RANK_FILL)
+        # (ranking bits << 32) | id is distinct for every real column, so
+        # topk's unspecified order among equal values cannot show
+        key = (ranking.contiguous().view(torch.int32).long() << 32) | orig_ids.long()[bi, cols]
+        top = torch.topk(torch.where(real, key, empty), k, dim=-1, largest=False,
+                         sorted=True).values
+        vals.append((top >> 32).int().view(torch.float32))
+        idx.append(top & 0xFFFFFFFF)
+    return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
+
+
+def knn_select_window_plain(queries, ranks, points_sorted, orig_ids, k, W,
+                            p_mask_sorted=None, row_chunk: Optional[int] = None):
+    """(vals float32, idx int64, margin float32): for every query row the k
+    smallest of its window's columns by (squared distance, 1e5 at a masked
+    point; original id), reported by original id, and the row's margin
+    (``_window_plan``)."""
+    ti, starts, margin = _window_plan(queries, ranks, points_sorted, k, W, p_mask_sorted)
+    vals, idx = _window_select_plain(queries, points_sorted, orig_ids, k, W, p_mask_sorted, ti,
+                                     starts, row_chunk)
+    return vals, idx, margin
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -193,6 +305,10 @@ _ENTRIES = {  # launch function -> (source, argument types)
     "knn_select_tiled_launch": ("knn_select_large", _SELECT_ARGS),
     "knn_candidates_packed_tiled_launch": ("knn_select_large", _CANDIDATE_ARGS),
     "knn_candidates_packed_launch": ("knn_select_large", _CANDIDATE_ARGS),
+    "knn_select_queries_launch": ("knn_select_large", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                                       _P, _P, _P]),
+    "knn_select_window_launch": ("knn_select_large", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                                      _I, _I, _P, _P, _P]),
 }
 
 
@@ -362,3 +478,106 @@ def knn_candidates_packed(
         return _launch_candidates("knn_candidates_packed", coors, kc, mask)
     b, n, _ = coors.shape
     return knn_candidates_packed_plain(coors, kc, mask, _default_row_chunk(b, n))
+
+
+def _check_queries(queries, points, k, q_mask, p_mask):
+    """Validate what K8 and K9 take; returns (q_mask, p_mask) contiguous."""
+    if (queries.dim() != 3 or points.dim() != 3 or queries.shape[0] != points.shape[0]
+            or queries.shape[2] != points.shape[2] or queries.shape[1] < 1):
+        raise ValueError(f"queries (b, R, c) and points (b, n, c) expected, got "
+                         f"{tuple(queries.shape)} and {tuple(points.shape)}")
+    for name, t in (("queries", queries), ("points", points)):
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.device != queries.device:
+            raise ValueError(f"{name} must be a contiguous float32 tensor on one device")
+    n, c = points.shape[1], points.shape[2]
+    if not (1 <= k <= MAX_K and k <= n and 1 <= c <= MAX_C):
+        raise ValueError(f"kernel supports 1 <= k <= {MAX_K}, k <= n, 1 <= c <= {MAX_C}; "
+                         f"got k={k}, n={n}, c={c}")
+    out = []
+    for name, m, t in (("q_mask", q_mask, queries), ("p_mask", p_mask, points)):
+        if m is not None:
+            if m.shape != t.shape[:2] or m.dtype != torch.bool or m.device != t.device:
+                raise ValueError(f"{name} must be a bool tensor of shape {tuple(t.shape[:2])} "
+                                 "on the queries' device")
+            m = m.contiguous()
+        out.append(m)
+    return out
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def knn_select_queries(
+    queries: torch.Tensor,                   # (b, R, c)
+    points: torch.Tensor,                    # (b, n, c)
+    k: int,
+    q_mask: Optional[torch.Tensor] = None,   # (b, R) the query rows' own mask bits
+    p_mask: Optional[torch.Tensor] = None,   # (b, n)
+):
+    """K8: (vals float32, idx int64), each (b, R, k): the exact selection of
+    R query rows against all n points, with K4's ranking (no adjacency) and
+    tie order, so a row equals K4's row of the same node bit for bit. The
+    masks come together or not at all. A CPU tensor runs
+    ``knn_select_queries_plain``."""
+    if (q_mask is None) != (p_mask is None):
+        raise ValueError("q_mask and p_mask come together")
+    if not _on_card(queries):
+        b, n = points.shape[:2]
+        return knn_select_queries_plain(queries, points, k, q_mask, p_mask,
+                                        _default_row_chunk(b, n))
+    q_mask, p_mask = _check_queries(queries, points, k, q_mask, p_mask)
+    b, r, c = queries.shape
+    n = points.shape[1]
+    vals = torch.empty((b, r, k), dtype=torch.float32, device=queries.device)
+    idx = torch.empty((b, r, k), dtype=torch.int64, device=queries.device)
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry("knn_select_queries_launch")(
+            queries.data_ptr(), _ptr(q_mask), points.data_ptr(), _ptr(p_mask), b, r, n, c, k,
+            vals.data_ptr(), idx.data_ptr(), stream)
+    _raise_on(err, "knn_select_queries")
+    LAUNCH_COUNTS["knn_select_queries"] += 1
+    return vals, idx
+
+
+def knn_select_window(
+    queries: torch.Tensor,                   # (b, R, c): valid rows only
+    ranks: torch.Tensor,                     # (b, R) int: each query's rank in the x-sort
+    points_sorted: torch.Tensor,             # (b, n, c) ascending in x
+    orig_ids: torch.Tensor,                  # (b, n) int: the sorted rows' original ids
+    k: int,
+    W: int,                                  # window width, a multiple of 128
+    p_mask_sorted: Optional[torch.Tensor] = None,   # (b, n) the sorted points' mask
+):
+    """K9: (vals float32, idx int64, margin float32): the exact selection of
+    the query rows against a W-wide window of the x-sorted points, ties by
+    the lowest original id, indices original. A row with
+    ``vals[..., k-1] < margin**2`` (and, under a mask, ``< 1e5``) equals the
+    exact masked selection's row. The rows of a group of ``_pick_ti_window``
+    share one window, so sort the queries by rank. The kernel takes the
+    windows' starts as a tensor; starts and margins are computed here in
+    torch, by the reference's rule. A CPU tensor runs
+    ``knn_select_window_plain``."""
+    if not _on_card(queries):
+        b, n = points_sorted.shape[:2]
+        return knn_select_window_plain(queries, ranks, points_sorted, orig_ids, k, W,
+                                       p_mask_sorted, max(1, (1 << 24) // max(1, b * W)))
+    _, p_mask_sorted = _check_queries(queries, points_sorted, k, None, p_mask_sorted)
+    b, r, c = queries.shape
+    n = points_sorted.shape[1]
+    if orig_ids.shape != (b, n) or ranks.shape != (b, r) or orig_ids.device != queries.device:
+        raise ValueError("orig_ids must be (b, n) and ranks (b, R), on the queries' device")
+    ti, starts, margin = _window_plan(queries, ranks, points_sorted, k, W, p_mask_sorted)
+    starts32, ids32 = starts.int().contiguous(), orig_ids.int().contiguous()
+    vals = torch.empty((b, r, k), dtype=torch.float32, device=queries.device)
+    idx = torch.empty((b, r, k), dtype=torch.int64, device=queries.device)
+    with torch.cuda.device(queries.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry("knn_select_window_launch")(
+            queries.data_ptr(), points_sorted.data_ptr(), _ptr(p_mask_sorted),
+            ids32.data_ptr(), starts32.data_ptr(), ti, W, b, r, n, c, k,
+            vals.data_ptr(), idx.data_ptr(), stream)
+    _raise_on(err, "knn_select_window")
+    LAUNCH_COUNTS["knn_select_window"] += 1
+    return vals, idx, margin

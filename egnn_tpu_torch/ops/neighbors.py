@@ -12,12 +12,18 @@ the reference's selection rules (egnn_pytorch.py:230-268, 414-432):
   promises no tie order).
 
 ``knn_select_gather`` picks a route from the shape, as the JAX dispatcher
-does (``egnn_tpu/ops/neighbors.py:262-422``), and each route's kernel by
+does (``egnn_tpu/ops/neighbors.py:262-706``), and each route's kernel by
 device: a CUDA tensor goes to the hand-written kernels of
-``ops/cuda/knn.py``, a CPU tensor to their plain versions.
+``ops/cuda/knn.py`` and ``ops/cuda/grid_knn.py``, a CPU tensor to their plain
+versions.
 
-- Within the full-band reach (lane-padded n <= 16384): K1 with a payload,
-  K3 without.
+- A 3-D cloud without an adjacency at n >= 8192 (the grid kernel's gate), or
+  ``backend="grid"``: the grid route. K7 ranks each node against the 27 grid
+  cells around it and certifies every row; failing rows are repaired by K8
+  (against all points) or K9 (against a window of the x-sorted points), and
+  a cloud that cannot certify takes the whole-call exact fallback. k slots.
+- Otherwise within the full-band reach (lane-padded n <= 16384): K1 with a
+  payload, K3 without.
 - Beyond it, or with ``backend="tiled"``: K4, the exact selection at any n,
   then ``gather_nodes`` for the payload.
 - Beyond it without an adjacency, or with ``backend="packed_tiled"`` /
@@ -29,8 +35,7 @@ The gathered rows are differentiable with respect to the table: the backward
 sums their cotangents into the table's rows with
 ``ops/segment.py:batched_segment_sum`` (kernel K2 on the card), as the JAX
 package's custom VJP does (``neighbors.py:727-746``); selection is not
-differentiated. The JAX package's grid and window selection routes are not
-ported yet.
+differentiated.
 """
 from __future__ import annotations
 
@@ -47,6 +52,16 @@ MASKED_RANK_FILL = 1e5
 # Candidates extracted beyond k by the packed-key routes, so that the exact
 # re-rank covers the true top-k whenever keys[kc-1] > keys[k-1].
 CANDIDATE_SLACK = 4
+
+# ``backend="auto"`` takes the grid route where the grid kernel's gate takes
+# the shape (``ops/cuda/grid_knn.py:supports_grid_knn``), as the reference
+# does; False leaves ``auto`` on the exact and packed routes.
+GRID_AUTO = True
+
+# Least n at which the grid route repairs a failing share in (3n/64, n/16]
+# through the windowed kernel (K9); below it the full scan (K8) is short
+# enough. Tests lower it.
+_WINDOW_REPAIR_MIN_N = 16384
 
 
 class Neighborhood(NamedTuple):
@@ -250,6 +265,121 @@ def _refine_candidates(coors, coors_sg, k, valid_radius, mask, payload, tiled, w
     return nbhd, torch.gather(g, 2, order[..., None].expand(*order.shape, g.shape[-1]))
 
 
+def _grid_route(coors, coors_sg, k, valid_radius, mask, payload):
+    """The grid route (``egnn_tpu/ops/neighbors.py:480-706``): the grid
+    selection and its certificate, then by the number of failing rows
+
+    - none: the grid's result;
+    - up to n/16: a repair of exactly the failing rows. A share in
+      (3n/64, n/16] at n >= ``_WINDOW_REPAIR_MIN_N`` goes to the windowed
+      kernel K9 first, and the rows its margin does not certify to K8;
+      every other share to K8 directly;
+    - up to n/4: K8 again;
+    - more (an early reject leaves no row certified): the compact exact
+      selection ``auto`` gives without the grid.
+
+    The reference pads each repair to a static bucket (n/64, n/32, 3n/64,
+    n/16, n/4) with certified rows, because XLA needs static shapes; here the
+    failing rows are repaired alone, so the bucket sizes remain only where
+    they decide which kernel runs. With b > 1 the rows are padded to the
+    batch's largest count with certified rows, whose repair rewrites what
+    they hold: K8's rows equal K7's and the masked fill bit for bit. The
+    reference's branches on the device are host reads here: one in the grid
+    kernel's early check, one for (ok, failing rows), one for the rows the
+    window left, and the certificate's inside a packed fallback.
+    """
+    from .cuda import grid_knn as grid_kernels
+    from .cuda import knn as knn_kernels
+    from .spatial import grid_knn_select
+
+    b, n, c = coors.shape
+    c32 = coors_sg.float().contiguous()
+    if grid_kernels.supports_grid_knn(n, k):
+        vals, idx, ok, row_exact = grid_kernels.grid_knn_select(c32, k, mask=mask)
+    else:
+        vals, idx, ok, row_exact = grid_knn_select(c32, k, mask=mask)
+    bad = ~row_exact
+    ok, nbad = torch.stack([ok.long(), bad.sum(dim=1).max()]).tolist()
+
+    def failing_first(rows, count, key=None):
+        """(b, count) row ids: the rows of ``rows`` first, in ascending
+        ``key`` (default: row id), then others."""
+        if key is None:
+            return torch.sort(rows.int(), dim=1, descending=True, stable=True).indices[:, :count]
+        return torch.sort(torch.where(rows, key, 2 * n + key), dim=1).indices[:, :count]
+
+    def take(t, fidx):
+        return torch.gather(t, 1, fidx if t.dim() == 2 else
+                            fidx[..., None].expand(*fidx.shape, t.shape[-1]))
+
+    def put(t, fidx, rows):
+        return t.scatter(1, fidx[..., None].expand_as(rows), rows)
+
+    def repair(vals, idx, rows, count):
+        """K8 on the ``count`` first failing rows of every cloud."""
+        fidx = failing_first(rows, count)
+        rv, ri = knn_kernels.knn_select_queries(
+            take(c32, fidx).contiguous(), c32, k,
+            q_mask=None if mask is None else take(mask, fidx), p_mask=mask)
+        return put(vals, fidx, rv), put(idx, fidx, ri)
+
+    def window_tier(vals, idx):
+        """K9 on the failing rows, sorted by x-rank so that the rows of a
+        group lie within its window; then K8 on those it left."""
+        xkey = c32[..., 0] if mask is None else torch.where(mask, c32[..., 0], math.inf)
+        order = torch.sort(xkey, dim=1, stable=True).indices
+        rank = torch.empty_like(order).scatter_(
+            1, order, torch.arange(n, device=order.device).expand(b, n))
+        fidx = failing_first(bad, nbad, key=rank)
+        rv, ri, margin = knn_kernels.knn_select_window(
+            take(c32, fidx).contiguous(), take(rank, fidx), take(c32, order).contiguous(),
+            order, k, win_w, p_mask_sorted=None if mask is None else take(mask, order))
+        win_ok = rv[..., k - 1] < margin * margin
+        if mask is not None:
+            win_ok = win_ok & (rv[..., k - 1] < MASKED_RANK_FILL)
+        apply_row = take(bad, fidx) & win_ok
+        vals = put(vals, fidx, torch.where(apply_row[..., None], rv, take(vals, fidx)))
+        idx = put(idx, fidx, torch.where(apply_row[..., None], ri, take(idx, fidx)))
+        still_bad = bad & ~torch.zeros_like(bad).scatter_(1, fidx, apply_row)
+        left = int(still_bad.sum(dim=1).max())
+        return repair(vals, idx, still_bad, left) if left else (vals, idx)
+
+    lane = knn_kernels.LANE
+    r_3q = min(n, max(lane, (3 * n) // 64))
+    r_small = min(n, max(lane, n // 16))
+    r_big = min(n, max(2 * lane, n // 4))
+    n_pad = knn_kernels._lane_pad(n)
+    win_w = min(knn_kernels._lane_pad(n // 4), n_pad)
+    # the window must hold k real columns wherever it lies in the padded array
+    can_window = n >= _WINDOW_REPAIR_MIN_N and win_w - (n_pad - n) >= k
+    if ok:
+        pass
+    elif nbad <= r_small:
+        if nbad > r_3q and can_window:
+            vals, idx = window_tier(vals, idx)
+        else:
+            vals, idx = repair(vals, idx, bad, nbad)
+    elif nbad <= r_big:
+        vals, idx = repair(vals, idx, bad, nbad)
+    else:
+        # the compact exact selection: K3 within the full-band reach, K5 and
+        # the refine where its gate takes the shape, else K4
+        kc = k + CANDIDATE_SLACK
+        if knn_kernels.supports_knn_shapes(n):
+            vals, idx = knn_kernels.knn_select(c32, k, mask=mask)
+        elif n >= 2 * kc and knn_kernels.supports_knn_packed_tiled(n, kc):
+            exact, _ = _refine_candidates(c32, c32, k, math.inf, mask, None, tiled=True,
+                                          wide=False)
+            vals, idx = exact.ranking, exact.indices
+        else:
+            vals, idx = knn_kernels.knn_select_tiled(c32, k, mask=mask)
+
+    vals = vals.to(coors.dtype)
+    nbhd = Neighborhood(indices=idx, ranking=vals, valid=vals <= valid_radius)
+    gathered = None if payload is None else gather_nodes(_table(coors, mask, payload), idx)
+    return nbhd, gathered
+
+
 def knn_select_gather(
     coors: torch.Tensor,
     num_nearest: int,
@@ -274,18 +404,24 @@ def knn_select_gather(
     function of the shape, the same on the card and on the CPU, where each
     kernel's plain version runs):
 
-    - ``"auto"`` within the full-band reach
+    - ``"auto"`` on a 3-D cloud without an adjacency, 1 <= k <= 128, where
+      ``ops/cuda/grid_knn.py:supports_grid_knn`` takes the shape (n >= 8192)
+      and ``GRID_AUTO`` is set: the grid route (``_grid_route``).
+    - ``"auto"`` otherwise, within the full-band reach
       (``ops/cuda/knn.py:supports_knn_shapes``): K1 with a payload, K3
       without. Beyond it with an adjacency: K4. Beyond it without one, where
       ``n >= 2 * kc`` and ``supports_knn_packed_tiled(n, kc)``: K5 and the
       exact refine; otherwise K4.
+    - ``"grid"``: the grid route for a 3-D cloud without an adjacency at
+      128 <= n, 1 <= k <= 128 (through K7 where its gate takes the shape,
+      else the plain-torch grid of ``ops/spatial.py``); any other call takes
+      the exact route ``"auto"`` would without the grid.
     - ``"tiled"``: K4, then ``gather_nodes`` for the payload.
     - ``"packed_tiled"`` / ``"packed"``: K5 / K6 and the exact refine, which
       needs no adjacency, 128 <= n, k <= 128, n >= 2 * kc and the kernel's
       gate; a call that fails these takes the exact route ``"auto"`` would
       (the JAX dispatcher lets a forced ``"packed"`` fall through the same
       way).
-    - ``"grid"`` is not ported yet and raises.
 
     ``wide=True`` matters only where a packed route engages: the result then
     keeps all kc = k + ``CANDIDATE_SLACK`` slots, with ``nbhd.winner``
@@ -295,21 +431,30 @@ def knn_select_gather(
     columns take the first slots (``winner`` = the first k) and the rest
     point at node n - 1 with an infinite ranking.
     """
+    from .cuda import grid_knn as grid_kernels
     from .cuda import knn as knn_kernels
 
-    if backend not in ("auto", "tiled", "packed", "packed_tiled"):
+    if backend not in ("auto", "grid", "tiled", "packed", "packed_tiled"):
         raise NotImplementedError(
-            f"backend={backend!r}: the exact, tiled and packed selections are "
-            "ported; the grid and window routes are not")
+            f"backend={backend!r}: the exact, grid, tiled and packed selections are "
+            "ported; the fused and TPU-only backends are not")
 
     coors_sg = coors.detach().contiguous()
-    n = coors.shape[1]
+    n, c = coors.shape[1], coors.shape[2]
     k = num_nearest
     kc = k + CANDIDATE_SLACK
     full_band = knn_kernels.supports_knn_shapes(n)
-    # the reference's gates of its packed routes (neighbors.py:261, :277-291)
     lane = knn_kernels.LANE
-    packed_ok = adj_mat is None and n >= lane and 1 <= k <= lane and n >= 2 * kc
+    kernel_ok = n >= lane and 1 <= k <= lane
+    # the grid is resolved first, as in the reference (neighbors.py:264-275):
+    # it takes precedence over the packed-tiled route beyond the reach
+    if adj_mat is None and c == 3 and kernel_ok and (
+            backend == "grid"
+            or (backend == "auto" and GRID_AUTO and grid_kernels.supports_grid_knn(n, k))):
+        return _grid_route(coors, coors_sg, k, valid_radius, mask, payload)
+
+    # the reference's gates of its packed routes (neighbors.py:261, :277-291)
+    packed_ok = adj_mat is None and kernel_ok and n >= 2 * kc
     use_packed = (backend == "packed" and packed_ok
                   and knn_kernels.supports_knn_packed(n, kc))
     use_packed_tiled = (

@@ -1,0 +1,369 @@
+"""The grid route's kernels against the JAX package, on the CPU in float32:
+the plain versions of K7 (grid-blocked selection, with its host side), K8
+(query rows against all points) and K9 (query rows against a window of the
+x-sorted points), and the grid kernel's gate.
+
+On the CPU the port's wrappers run the kernels' plain versions, which
+``chip_smoke.py`` holds the CUDA kernels against bitwise on the card. Here
+they meet the TPU kernels in Pallas interpret mode: K7 through
+``grid_knn_select_pallas(gdim=4)``, table resident and streamed.
+
+Tolerances. ``idx``, ``ok``, ``row_exact`` and K9's ``margin`` are exact
+(the margin is one subtraction and one product). ``vals`` agree at rtol =
+atol = 1e-6 on random floats (XLA may contract an FMA) and exactly on integer
+coordinates.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from egnn_tpu.ops.pallas import grid_knn as jg
+from egnn_tpu.ops.pallas import knn as jk
+from egnn_tpu_torch.ops.cuda import grid_knn as G
+from egnn_tpu_torch.ops.cuda import knn as K
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _uniform(seed, b, n, scale=10.0, with_mask=False):
+    rng = np.random.RandomState(seed)
+    coors = (rng.rand(b, n, 3) * scale).astype(np.float32)
+    return coors, (rng.rand(b, n) > 0.1 if with_mask else None)
+
+
+def _lattice(g=10):
+    ax = np.arange(g, dtype=np.float32)
+    return np.stack(np.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(1, g ** 3, 3)
+
+
+def _grid_both(coors, k, mask=None, streamed=False):
+    jout = jg.grid_knn_select_pallas(_j(coors), k, mask=_j(mask), interpret=True, gdim=4,
+                                     streamed=streamed)
+    tout = G.grid_knn_select(_t(coors), k, mask=_t(mask), gdim=4)
+    return jout, tout
+
+
+def _assert_grid_same(jout, tout, exact_vals=False):
+    jv, ji, jok, jrx = jout
+    tv, ti, tok, trx = tout
+    assert bool(tok) == bool(jok)
+    np.testing.assert_array_equal(trx.numpy(), np.asarray(jrx))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    tol = dict(rtol=0, atol=0) if exact_vals else dict(rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **tol)
+    assert tv.dtype == torch.float32 and ti.dtype == torch.int64
+
+
+# ---------------------------------------------------------------------------
+# the gate
+# ---------------------------------------------------------------------------
+
+
+def test_gate_and_gdim_match_the_reference():
+    assert G.M_CAP == jg.M_CAP and G.SCALE_MAX == jg._SCALE_MAX
+    sizes = [128, 4096, 8191, 8192, 8193, 10000, 12288, 16384, 16896, 20480, 32768, 50000,
+             65536, 74000, 131072, 262144, 1 << 20, 1 << 21, 3 << 20, 1 << 22]
+    for n in sizes:
+        assert G.grid_kernel_gdim(n) == jg.grid_kernel_gdim(n), n
+        for k in (0, 1, 8, 16, 128, 129):
+            assert G.supports_grid_knn(n, k) == jg.supports_grid_knn(n, k, backend="tpu"), (n, k)
+    assert G.supports_grid_knn(65536, 16) and not G.supports_grid_knn(4096, 8)
+    # the reference splits here into its resident and its streamed kernel;
+    # the port's one kernel takes both
+    assert jg._grid_resident_ok(jg.grid_kernel_gdim(65536))
+    assert not jg._grid_resident_ok(jg.grid_kernel_gdim(131072))
+    assert G.supports_grid_knn(131072, 16)
+
+
+# ---------------------------------------------------------------------------
+# K7
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("seed,b,n,k,with_mask", [
+    (0, 1, 1024, 8, False),
+    (1, 2, 1024, 8, True),
+    (2, 1, 2048, 16, False),
+    (3, 1, 1000, 5, True),    # n not a power of two
+])
+def test_grid_kernel_matches_pallas_on_uniform_clouds(seed, b, n, k, with_mask, streamed):
+    coors, mask = _uniform(seed, b, n, with_mask=with_mask)
+    jout, tout = _grid_both(coors, k, mask, streamed)
+    _assert_grid_same(jout, tout)
+    assert bool(tout[2]), "a uniform cloud certifies"
+    ev, ei = K.knn_select_plain(_t(coors), k, _t(mask))
+    assert torch.equal(tout[1], ei) and torch.equal(tout[0], ev)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_grid_kernel_lattice_ties(streamed):
+    """Six neighbours at d^2 = 1 around every lattice point: the selection
+    orders ties by node id and still certifies."""
+    coors = _lattice()
+    jout, tout = _grid_both(coors, 4, streamed=streamed)
+    _assert_grid_same(jout, tout, exact_vals=True)
+    assert bool(tout[2])
+    ev, ei = K.knn_select_plain(_t(coors), 4)
+    assert torch.equal(tout[1], ei) and torch.equal(tout[0], ev)
+
+
+def test_grid_kernel_duplicate_pileup():
+    """128 copies of 8 sites fill their cells exactly and are exact through
+    ties alone; 256 copies overflow and take the early reject."""
+    base = np.random.RandomState(0).rand(8, 3).astype(np.float32)
+    coors = np.tile(base, (128, 1))[None]
+    jout, tout = _grid_both(coors, 4)
+    _assert_grid_same(jout, tout, exact_vals=True)
+    assert bool(tout[2])
+    _, ei = K.knn_select_plain(_t(coors), 4)
+    assert torch.equal(tout[1], ei)
+    jout, tout = _grid_both(np.tile(base, (256, 1))[None], 4)
+    _assert_grid_same(jout, tout, exact_vals=True)
+    assert not bool(tout[2]) and not tout[3].any() and not tout[1].any()
+
+
+def test_grid_kernel_early_skip(monkeypatch):
+    """A Gaussian cloud does not overflow equal-mass cells, and the kernel
+    runs; a cloud with 40 valid nodes leaves corner blocks with fewer than
+    k = 8 candidates, which is known before the kernel and skips it."""
+    calls = []
+
+    def spy(*a, _fn=G.grid_knn_cells_plain, **kw):
+        calls.append(1)
+        return _fn(*a, **kw)
+
+    monkeypatch.setattr(G, "grid_knn_cells_plain", spy)
+    rng = np.random.RandomState(5)
+    gauss = (rng.randn(1, 2048, 3) * 10.0).astype(np.float32)
+    jout, tout = _grid_both(gauss, 8)
+    _assert_grid_same(jout, tout)
+    assert calls == [1] and tout[3].float().mean() > 0.5
+    # an isolated 4-point cluster shares its equal-mass cells with the bulk
+    # and fails on its margin, not on its candidate count
+    bulk = rng.rand(1, 1020, 3).astype(np.float32)
+    far = (100.0 + 0.01 * rng.rand(1, 4, 3)).astype(np.float32)
+    jout, tout = _grid_both(np.concatenate([bulk, far], axis=1), 8)
+    _assert_grid_same(jout, tout)
+    assert not bool(tout[2])
+    calls.clear()
+    sparse = np.zeros((1, 1024), bool)
+    sparse[0, rng.permutation(1024)[:40]] = True
+    jout, tout = _grid_both(gauss[:, :1024], 8, sparse)
+    _assert_grid_same(jout, tout, exact_vals=True)
+    assert not bool(tout[2]) and not tout[3].any() and calls == []
+
+
+def test_grid_kernel_extreme_offsets_and_scale_guard():
+    base, _ = _uniform(6, 1, 1024, scale=1.0)
+    coors = base * np.float32(2e7) + np.float32(0.99e9)
+    jout, tout = _grid_both(coors, 8)
+    _assert_grid_same(jout, tout)
+    assert bool(tout[2])
+    _, ei = K.knn_select_plain(_t(coors), 8)
+    assert torch.equal(tout[1], ei)
+    jout, tout = _grid_both(coors * np.float32(1e7), 8)   # beyond SCALE_MAX
+    _assert_grid_same(jout, tout, exact_vals=True)
+    assert not bool(tout[2])
+
+
+def test_grid_cells_plain_contract():
+    """The kernel-level function on a hand-made CSR: rows by node, (inf, n)
+    where the block holds fewer than k, nodes beyond a cell's 128 slots left
+    out, nodes in no cell without a row."""
+    n, k, gdim = 600, 5, 4
+    coors = np.random.RandomState(1).rand(1, n, 3).astype(np.float32)
+    coors[0, :200] = 0.25
+    # cell 0 holds nodes 0..199 (72 beyond its slots), cell 41 = (2, 2, 1),
+    # in neither block, nodes 203..589 (259 beyond its slots), the corner cell 63 nodes 200..202,
+    # and nodes 590..599 are in no cell
+    counts = np.zeros((1, gdim ** 3 + 1), np.int64)
+    counts[0, [0, 41, 63]] = [200, 387, 3]
+    order = np.concatenate([np.arange(200), np.arange(203, 590), np.arange(200, 203),
+                            np.arange(590, 600)])[None]
+    cell_start, cell_nodes = G.cell_csr(_t(counts), _t(order))
+    assert cell_start.dtype == torch.int32 and cell_nodes.dtype == torch.int32
+    assert cell_start[0, [0, 1, 41, 42, 63, 64]].tolist() == [0, 200, 200, 587, 587, 590]
+    vals, idx = G.grid_knn_cells(_t(coors), cell_start, cell_nodes, k, gdim)
+    chunked = G.grid_knn_cells_plain(_t(coors), cell_start, cell_nodes, k, gdim, cell_chunk=5)
+    assert torch.equal(vals, chunked[0]) and torch.equal(idx, chunked[1])
+    # the first 128 of the pile rank each other by id; the rest have no row
+    assert idx[0, 7].tolist() == [0, 1, 2, 3, 4] and (vals[0, :128] == 0).all()
+    assert torch.isinf(vals[0, 128:200]).all() and (idx[0, 128:200] == n).all()
+    # the corner cell: three candidates, then the pad
+    assert sorted(idx[0, 200, :3].tolist()) == [200, 201, 202] and idx[0, 200, 0] == 200
+    assert torch.isinf(vals[0, 200, 3:]).all() and (idx[0, 200, 3:] == n).all()
+    # cell 41 ranks its own first 128 nodes only
+    ev, ei = K.knn_select_plain(_t(coors[:, 203:331]), k)
+    assert torch.equal(idx[:, 203:331], ei + 203) and torch.equal(vals[:, 203:331], ev)
+    assert torch.isinf(vals[0, 331:]).all() and (idx[0, 331:] == n).all()
+
+
+def test_grid_cells_order_is_distance_then_node_id():
+    """Two cells' worth of coincident points: within equal distances the
+    lowest node ids win whatever cell and slot they sit at."""
+    rng = np.random.RandomState(3)
+    coors = (rng.rand(1, 1024, 3) * 8.0).astype(np.float32)
+    coors[0, 900:920] = coors[0, 5]          # high ids tie with node 5 at distance 0
+    tv, ti, tok, _ = G.grid_knn_select(_t(coors), 8, gdim=4)
+    ev, ei = K.knn_select_plain(_t(coors), 8)
+    assert torch.equal(ti, ei) and torch.equal(tv, ev)
+    assert ti[0, 910, :8].tolist() == [5] + list(range(900, 907))
+
+
+def test_grid_cells_ties_across_cells_go_by_node_id():
+    """Every distance ties at 0 and the low ids sit in the neighbour cell:
+    the winners are the lowest node ids, not the block's first slots."""
+    n, k, gdim = 40, 5, 4
+    counts = np.zeros((1, gdim ** 3 + 1), np.int64)
+    counts[0, [0, 1]] = [10, 30]              # cell 0 holds nodes 30..39, cell 1 nodes 0..29
+    order = np.concatenate([np.arange(30, 40), np.arange(30)])[None]
+    cell_start, cell_nodes = G.cell_csr(_t(counts), _t(order))
+    vals, idx = G.grid_knn_cells(torch.zeros(1, n, 3, dtype=torch.float32), cell_start,
+                                 cell_nodes, k, gdim)
+    assert torch.equal(idx, torch.arange(k).expand(1, n, k)) and (vals == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# K8
+# ---------------------------------------------------------------------------
+
+
+def _queries(seed, b, n, R, kind="float"):
+    rng = np.random.RandomState(seed)
+    if kind == "int":
+        coors = rng.randint(-4, 5, size=(b, n, 3)).astype(np.float32)
+    else:
+        coors = (rng.randn(b, n, 3) * 3.0).astype(np.float32)
+    mask = rng.rand(b, n) > 0.15
+    fidx = rng.randint(0, n, size=(b, R))
+    return coors, mask, fidx
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("n,k,R,kind", [
+    (300, 6, 40, "float"),     # n not a multiple of the lane width
+    (256, 8, 128, "int"),      # distance ties: lowest column first
+    (512, 16, 9, "float"),
+])
+def test_query_kernel_plain_matches_pallas(n, k, R, kind, with_mask):
+    coors, mask, fidx = _queries(n + k, 2, n, R, kind)
+    m = mask if with_mask else None
+    q = np.take_along_axis(coors, fidx[..., None], axis=1)
+    qm = None if m is None else np.take_along_axis(m, fidx, axis=1)
+    jv, ji = jk.knn_select_queries_pallas(_j(q), _j(coors), k, q_mask=_j(qm), p_mask=_j(m),
+                                          interpret=True)
+    tv, ti = K.knn_select_queries(_t(q), _t(coors), k, q_mask=_t(qm), p_mask=_t(m))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    tol = dict(rtol=0, atol=0) if kind == "int" else dict(rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **tol)
+    assert tv.dtype == torch.float32 and ti.dtype == torch.int64
+    # the rows are the exact selection's rows, bit for bit
+    ev, ei = K.knn_select_plain(_t(coors), k, _t(m))
+    pick = _t(fidx)[..., None].expand(2, R, k)
+    assert torch.equal(ti, torch.gather(ei, 1, pick)) and torch.equal(tv, torch.gather(ev, 1, pick))
+    cv, ci = K.knn_select_queries_plain(_t(q), _t(coors), k, _t(qm), _t(m), row_chunk=7)
+    assert torch.equal(ci, ti) and torch.equal(cv, tv)
+
+
+def test_query_kernel_masks_come_together():
+    q, pts = torch.zeros(1, 4, 3, dtype=torch.float32), torch.zeros(1, 16, 3, dtype=torch.float32)
+    with pytest.raises(ValueError):
+        K.knn_select_queries(q, pts, 2, q_mask=torch.ones(1, 4, dtype=torch.bool))
+
+
+# ---------------------------------------------------------------------------
+# K9
+# ---------------------------------------------------------------------------
+
+
+def _window_inputs(coors, mask, fidx):
+    """The dispatcher's preparation: the x-sort (masked points last), the
+    nodes' x-ranks, and the query rows sorted by rank."""
+    xkey = coors[..., 0] if mask is None else np.where(mask, coors[..., 0], np.inf)
+    order = np.argsort(xkey, axis=1, kind="stable").astype(np.int32)
+    pts_s = np.take_along_axis(coors, order[..., None], axis=1)
+    pm_s = None if mask is None else np.take_along_axis(mask, order, axis=1)
+    rank = np.empty_like(order)
+    np.put_along_axis(rank, order, np.arange(coors.shape[1], dtype=np.int32)[None], axis=1)
+    qr = np.take_along_axis(rank, fidx, axis=1)
+    fidx = np.take_along_axis(fidx, np.argsort(qr, axis=1, kind="stable"), axis=1)
+    q = np.take_along_axis(coors, fidx[..., None], axis=1)
+    return q, np.take_along_axis(rank, fidx, axis=1), pts_s, order, pm_s, fidx
+
+
+def _window_both(q, qr, pts_s, order, k, W, pm_s):
+    jv, ji, jm = jk.knn_select_window_pallas(_j(q), _j(qr), _j(pts_s), _j(order), k, W,
+                                             p_mask_sorted=_j(pm_s), interpret=True)
+    tv, ti, tm = K.knn_select_window(_t(q), _t(qr), _t(pts_s), _t(order), k, W,
+                                     p_mask_sorted=_t(pm_s))
+    return (jv, ji, jm), (tv, ti, tm)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("n,k,R,W,kind", [
+    (256, 6, 64, 256, "float"),      # the full width: every margin infinite
+    (2048, 8, 256, 512, "float"),    # W = n / 4
+    (1000, 5, 100, 256, "float"),    # n not a multiple of the lane width
+    (1000, 5, 77, 1024, "float"),    # the full lane-padded width at such an n
+    (512, 8, 96, 128, "int"),        # distance ties: lowest original id first
+])
+def test_window_kernel_plain_matches_pallas(n, k, R, W, kind, with_mask):
+    rng = np.random.RandomState(n + W + k)
+    if kind == "int":
+        coors = rng.randint(-4, 5, size=(2, n, 3)).astype(np.float32)
+    else:
+        coors = rng.randn(2, n, 3).astype(np.float32)
+    mask = rng.rand(2, n) > 0.15 if with_mask else None
+    valid = np.ones((2, n), bool) if mask is None else mask
+    # R valid rows of each cloud
+    fidx = np.stack([rng.permutation(np.nonzero(valid[bi])[0])[:R] for bi in range(2)])
+    q, qr, pts_s, order, pm_s, fidx = _window_inputs(coors, mask, fidx)
+    (jv, ji, jm), (tv, ti, tm) = _window_both(q, qr, pts_s, order, k, W, pm_s)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tm.numpy().view(np.int32), np.asarray(jm).view(np.int32))
+    tol = dict(rtol=0, atol=0) if kind == "int" else dict(rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **tol)
+    assert tv.dtype == torch.float32 and ti.dtype == torch.int64 and tm.dtype == torch.float32
+    # certified rows are the exact selection's rows, bit for bit
+    cert = tv[..., k - 1] < tm * tm
+    if mask is not None:
+        cert &= tv[..., k - 1] < 1e5
+    if W >= n:
+        assert torch.isinf(tm).all() and cert.all()
+    elif kind == "float":
+        assert cert.float().mean() > 0.3
+    ev, ei = K.knn_select_plain(_t(coors), k, _t(mask))
+    pick = _t(fidx)[..., None].expand(2, R, k)
+    assert torch.equal(ti[cert], torch.gather(ei, 1, pick)[cert])
+    assert torch.equal(tv[cert], torch.gather(ev, 1, pick)[cert])
+    cv, ci, cm = K.knn_select_window_plain(_t(q), _t(qr), _t(pts_s), _t(order), k, W, _t(pm_s),
+                                           row_chunk=11)
+    assert torch.equal(ci, ti) and torch.equal(cv, tv) and torch.equal(cm, tm)
+
+
+def test_window_group_height_matches_the_reference():
+    for W, n_pad, R in [(128, 1024, 64), (256, 1024, 1024), (512, 2048, 256), (4096, 16384, 1024),
+                        (16384, 65536, 4096), (16384, 65536, 3100), (32768, 131072, 8192),
+                        (256, 1024, 5)]:
+        assert K._pick_ti_window(W, n_pad, R) == jk._pick_ti_window(W, n_pad, R), (W, n_pad, R)
+
+
+def test_window_kernel_refuses_a_window_without_k_columns():
+    """n = 129 pads to 256: a 128-wide window at the padded end holds one
+    real column."""
+    q = torch.zeros(1, 8, 3, dtype=torch.float32)
+    pts = torch.zeros(1, 129, 3, dtype=torch.float32)
+    ranks, ids = torch.zeros(1, 8, dtype=torch.int64), torch.arange(129)[None]
+    with pytest.raises(ValueError):
+        K.knn_select_window(q, ranks, pts, ids, 4, 128)
+    with pytest.raises(ValueError):
+        K.knn_select_window(q, ranks, pts, ids, 4, 100)    # not a multiple of 128
+    assert K.knn_select_window(q, ranks, pts, ids, 4, 256)[1].shape == (1, 8, 4)

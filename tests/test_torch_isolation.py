@@ -56,6 +56,15 @@ def test_cpu_path_never_builds_a_kernel(monkeypatch):
     feats, coors = net(batch.tokens, batch.noised_coors, adj_mat=batch.adj_mat,
                        mask=batch.mask)
     assert torch.isfinite(feats).all() and torch.isfinite(coors).all()
+    # the grid route: K7's, K8's and K9's plain versions
+    from egnn_tpu_torch.ops import neighbors
+    from egnn_tpu_torch.ops.cuda import grid_knn
+
+    monkeypatch.setattr(grid_knn, "_MIN_N", 1024)
+    monkeypatch.setattr(neighbors, "_WINDOW_REPAIR_MIN_N", 0)
+    coors = torch.from_numpy(np.random.RandomState(0).randn(1, 4096, 3).astype(np.float32))
+    nbhd = neighbors.knn_select(coors * 10.0, 5, float("inf"))
+    assert nbhd.indices.shape == (1, 4096, 5) and nbhd.winner is None
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):

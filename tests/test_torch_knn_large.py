@@ -312,7 +312,7 @@ def test_forced_packed_backends_fall_through_their_gates():
         big_k, _ = tnb.knn_select_gather(_t(coors), 100, math.inf, backend=backend, wide=True)
         assert big_k.winner is None and big_k.indices.shape == (1, 160, 100)
     with pytest.raises(NotImplementedError):
-        tnb.knn_select_gather(_t(coors), 8, math.inf, backend="grid")
+        tnb.knn_select_gather(_t(coors), 8, math.inf, backend="fused")
 
 
 @pytest.mark.parametrize("wide", [False, True])
