@@ -3,8 +3,9 @@ the checkout, holds each against its plain PyTorch version, serves the
 anchor-3 EGNN_Network forward, trains it, then does the same beyond the
 full-band reach (n > 16384: the net65k network at 65 536 nodes, through the
 packed-key candidates and through the spatial grid, and the anchor-3 family
-at 32 768), checks the outputs, and times the kernels, the forwards and the
-train steps.
+at 32 768), then serves and trains both through the fused pair pipeline
+(``fused_pairs``, ``fused_knn``), checks the outputs, and times the kernels,
+the forwards and the train steps.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -62,7 +63,25 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 19. path C, net65k as ``auto`` routes it: forwards through K7 on a uniform,
    a Gaussian (K8) and a heavier-tailed cloud (K9), k slots a layer,
    equivariance, the fwd+bwd and denoising train steps;
-20. timing of K7, K8, K9 beside their plain versions and bounds.
+20. timing of K7, K8, K9 beside their plain versions and bounds;
+21. the fused pair pipeline's kernels: K10f and K10b (pre-gathered rows), K11f
+   and K11b (gathering inside) against their plain versions in float64 over
+   the cases below, each error held to a multiple of the float32 plain
+   version's own; three forward and backward launches bitwise equal;
+22. anchor 3 with ``fused_pairs=True`` (K1 -> K10f; backward K10b -> K2) and
+   with ``fused_knn=True`` (K3 -> K11f; backward K11b and K2): serving at b=1
+   and b=8 against the unfused network and against the CPU, equivariance,
+   train steps with their launch counts, the loss falling on one batch, one
+   step against the CPU; latencies beside the unfused network's;
+23. net65k with ``fused_pairs=True``: path C (forwards, fwd+bwd, train steps,
+   peak memory) and path A (kc = 20 slots under the winner mask: a forward
+   and a train step), each beside the unfused path's numbers of this run;
+   the fwd+bwd's coordinate gradient (also without ``norm_coors``) and one
+   step's parameter gradients against the unfused network's;
+24. K10f, K10b, K11f, K11b on anchor 3's own neighbourhood and K10f, K10b on
+   path C's and path A's (n = 65 536): against their plain versions in
+   float64 as in phase 21, then timed beside their plain versions, their
+   bounds and the unfused pipeline of torch operators on the same pairs.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -97,6 +116,26 @@ SWAP_SHARE = 0.005
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_TOL = 1e-5  # measured: 3.6e-7 at most (H100, PERF.md)
 TRAIN_STEPS, FALL_STEPS, LR = 10, 50, 1e-3
+# a fused step's parameter gradients against the unfused network's, both
+# float32 on the card. Every kNN row holds its own node, and under
+# norm_coors that pair's term +-(scale / eps) * w * g, 1e6 times the
+# coordinate weight's share, stands in the i-side sum and in the j-side
+# scatter and cancels only to f32 rounding, in another order on the two
+# paths; the rest reaches the earlier layers' weights through the
+# coordinates. The same fused module on the CPU differs from the card only
+# in the order of the sums over the b * n * k pairs (the kernel adds a weight
+# gradient row after row, tile after tile, block after block; the CPU as its
+# matrix product blocks it), the self pairs' terms among them.
+FUSED_VS_UNFUSED_GRAD_TOL = 5e-3   # measured: 1.5e-3 at most (H100, PERF.md)
+FUSED_CARD_VS_CPU_GRAD_TOL = 1e-3  # measured: 1.1e-4 at most
+# net65k's fwd+bwd: the gradient with respect to the coordinates, fused
+# against unfused, ||g - g_u|| <= tol * ||g_u||. Under norm_coors the self
+# pairs' terms, some 1e6 times the entries that remain, stand in the compared
+# tensor itself (in d_ci and in the scattered d_cj) and leave their float32
+# rounding there on either path. Without norm_coors there is no such term
+# and the two paths differ by the order of their sums alone.
+FUSED_VS_UNFUSED_COORS_GRAD_TOL = 2e-2        # measured: 5.6e-3 (H100, PERF.md)
+FUSED_VS_UNFUSED_COORS_GRAD_TOL_BARE = 1e-5   # norm_coors=False; measured: 3.6e-7
 
 # the large-n paths: net65k (benchmarks/net65k.py:12-22) and the anchor-3
 # family at 32x the chain length
@@ -201,9 +240,9 @@ def call_ms(torch, fn, iters=30, warmup=5) -> float:
     return statistics.median(times)
 
 
-def profile_forward(torch, fn, iters=10, label="b=1 forwards", unit="forward") -> float:
+def profile_forward(torch, fn, iters=10, label="b=1 forwards", unit="forward"):
     """Device time by kernel over ``iters`` calls (torch.profiler); returns
-    the kernel time of one call in ms."""
+    (kernel time of one call in ms, kernel launches of one call)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     # one warm-up step inside the profiler, left out of the sums: without it
@@ -228,7 +267,7 @@ def profile_forward(torch, fn, iters=10, label="b=1 forwards", unit="forward") -
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / iters / 1e3:.5f} ms/{unit} "
               f"{e.count / iters:7.2f} calls  {e.key[:90]}")
-    return total / iters / 1e3
+    return total / iters / 1e3, sum(e.count for e in events) / iters
 
 
 def knn_bound_parts(b, n, c, k, tw, with_mask, adj_bytes):
@@ -356,6 +395,176 @@ def segment_reference(torch, plain, data, ids, s):
     return ref, deg * 2.0**-23 * plain(d64.abs(), ids, s)
 
 
+# K10 and K11 against the float64 plain version: the kernel's largest error
+# on a tensor may be PAIR_ERR_FACTOR times the float32 plain version's own,
+# plus PAIR_ERR_FLOOR of the tensor's largest magnitude (both sum the same
+# f32 terms, in other orders: the kernel row after row within a tile, tile
+# after tile, block after block; the plain version as cuBLAS blocks them)
+PAIR_ERR_FACTOR, PAIR_ERR_FLOOR = 8.0, 1e-5
+PAIR_WEIGHT_NAMES = ("wj", "wd", "w2", "b2", "gw", "gb", "cw1", "cb1", "cw2", "cb2", "scale")
+
+
+def pair_case(torch, seed, b, n, k, d=DIM, fourier=0, soft=False, norm=True, clamp=2.0,
+              gfo=False, masked=True, m=16, c=3, self_pairs=False, spread=3.0):
+    """Inputs of K10 and K11 on one random neighbourhood, float32 on the
+    card: coordinates, features, neighbour ids (the node itself in slot 0
+    when ``self_pairs``), pair validity (a quarter of the slots 0 when
+    ``masked``), upstream gradients and the eleven weights."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=g, device="cuda")
+
+    h, dd = 2 * (2 * d + 2 * fourier + 1), 2 * fourier + 1
+    ar = torch.arange(n, device="cuda")[None, :, None]
+    idx = (ar + torch.randint(1, n, (b, n, k), generator=g, device="cuda")) % n
+    if self_pairs:
+        idx[..., 0] = ar[..., 0]
+    pv = torch.rand(b, n, k, generator=g, device="cuda") > (0.25 if masked else -1.0)
+    weights = (rand(d, h, scale=0.3), rand(dd, h, scale=0.3), rand(h, m, scale=0.3),
+               rand(m, scale=0.3), rand(m, 1, scale=0.3), rand(1, scale=0.3),
+               rand(m, 4 * m, scale=0.3), rand(4 * m, scale=0.3), rand(4 * m, 1, scale=0.3),
+               rand(1, scale=0.3), 0.5 + torch.rand(1, generator=g, device="cuda"))
+    return dict(
+        coors=rand(b, n, c, scale=spread), feats=rand(b, n, d, scale=0.5), idx=idx, pv=pv,
+        proj_i=rand(b, n, h, scale=0.3), weights=weights, g_mi=rand(b, n, m), g_cd=rand(b, n, c),
+        opts=dict(fourier=fourier, soft_edges=soft, norm_coors=norm, clamp=clamp, eps=1e-8,
+                  gate_feats_only=gfo))
+
+
+def pair_args(torch, PM, case, gather, dtype):
+    """The case as the wrappers' positional tensors (K10: coors, cj, fj,
+    proj_i, pv; K11: coors, proj_i, proj_j, idx, pv) and weights, in
+    ``dtype``, and its PairOptions."""
+    cast = lambda t: t.to(dtype)  # noqa: E731
+    b, n, k = case["idx"].shape
+    weights = tuple(cast(w) for w in case["weights"])
+    opts = PM.PairOptions(**case["opts"])
+    coors, feats = cast(case["coors"]), cast(case["feats"])
+    if gather:
+        return (coors, cast(case["proj_i"]), feats @ weights[0], case["idx"], case["pv"]), \
+            weights[1:], opts._replace(gate_feats_only=False)
+    rows = lambda x: PM._gather_rows(x, case["idx"]).reshape(b, n * k, -1)  # noqa: E731
+    return (coors, rows(coors), rows(feats), cast(case["proj_i"]),
+            cast(case["pv"].reshape(b, n * k, 1))), weights, opts
+
+
+def check_pair_kernels(torch, PM, name, case, gather, repeats=3):
+    """One of K10 (``gather`` False) or K11 on ``case``: forward and
+    backward on the card against the plain versions in float64, within the
+    stated multiple of the float32 plain version's own error; ``repeats``
+    backward launches bitwise equal. Returns the largest absolute errors
+    (forward, backward)."""
+    kname = "K11" if gather else "K10"
+    plain_f = PM.fused_knn_messages_plain if gather else PM.fused_pair_messages_plain
+    plain_b = (PM.fused_knn_messages_backward_plain if gather
+               else PM.fused_pair_messages_backward_plain)
+    fused = PM.fused_knn_messages if gather else PM.fused_pair_messages
+    diff = (0, 1, 2) if gather else (0, 1, 2, 3)   # the tensors with a gradient
+
+    def flat(out):
+        """(d_inputs..., weight gradients) -> one list."""
+        return list(out[:-1]) + list(out[-1])
+
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        args, weights, opts = pair_args(torch, PM, case, gather, dtype)
+        g = (case["g_mi"].to(dtype), case["g_cd"].to(dtype))
+        results[dtype] = (plain_f(*args, weights, opts),
+                          flat(plain_b(*args, weights, *g, opts)))
+    args, weights, opts = pair_args(torch, PM, case, gather, torch.float32)
+    o = case["opts"]
+    static = (o["fourier"], o["soft_edges"], o["norm_coors"], o["clamp"], o["eps"])
+    if not gather:
+        static += (False, o["gate_feats_only"])
+    runs = []
+    for _ in range(repeats):
+        leaves = [a.clone().requires_grad_() if i in diff else a for i, a in enumerate(args)]
+        ws = [w.clone().requires_grad_() for w in weights]
+        out = fused(*leaves, *static, *ws)
+        grads = torch.autograd.grad(out, [leaves[i] for i in diff] + ws,
+                                    (case["g_mi"], case["g_cd"]))
+        runs.append(([t.detach() for t in out], list(grads)))
+    torch.cuda.synchronize()
+    repeatable = all(same_bits(torch, a, b) for run in runs[1:]
+                     for a, b in zip(run[0] + run[1], runs[0][0] + runs[0][1]))
+    names_f = ("m_i", "coors_delta")
+    names_b = (("d_coors", "d_proj_i", "d_proj_j") if gather
+               else ("d_coors", "d_cj", "d_fj", "d_proj_i")) + tuple(
+        "d_" + w for w in PAIR_WEIGHT_NAMES[1 if gather else 0:])
+    worst = []
+    errs = [0.0, 0.0]
+    for part, names in ((0, names_f), (1, names_b)):
+        for tname, ker, p32, ref in zip(names, runs[0][part], results[torch.float32][part],
+                                       results[torch.float64][part]):
+            e_k = (ker.double() - ref).abs().max().item()
+            e_p = (p32.double() - ref).abs().max().item()
+            limit = PAIR_ERR_FACTOR * e_p + PAIR_ERR_FLOOR * max(ref.abs().max().item(), 1e-30)
+            errs[part] = max(errs[part], e_k)
+            worst.append((e_k / limit, tname, e_k, e_p))
+            if not (e_k <= limit) or not bool(torch.isfinite(ker).all()):
+                raise AssertionError(
+                    f"{kname} case {name}: {tname} differs from the float64 plain version by "
+                    f"{e_k:.3e}, the float32 plain version by {e_p:.3e} (limit {limit:.3e})")
+    ratio, tname, e_k, e_p = max(worst)
+    b, n, k = case["idx"].shape
+    print(f"{kname} case {name}: b={b} n={n} k={k} d={case['feats'].shape[-1]} {o}: forward max "
+          f"err {errs[0]:.3e}, backward max err {errs[1]:.3e} against float64; nearest its limit "
+          f"{tname} ({e_k:.3e}, plain f32 {e_p:.3e}, {ratio:.3f} of the limit); {repeats} "
+          f"forward and backward launches bitwise={repeatable}")
+    if not repeatable:
+        raise AssertionError(f"{kname} case {name}: launches are not bitwise repeatable")
+    return errs
+
+
+def pair_bound(b, n, k, c, d, h, m, fourier, soft, gather, backward):
+    """(bound_ms, bound_by, bytes_ms, operations_ms) of K10 or K11. Bytes:
+    every input read once and every output written once (K10: the gathered
+    rows, a float32 validity and Wj; K11: proj_j, int64 ids and a bool
+    validity). Operations: 2 for each multiply-add of the products a pair,
+    d*h (K10 alone: K11 reads proj_j[idx] where K10 computes fj @ Wj) + dd*h
+    + h*m (+ m with a soft gate) + m*4m + 4m, once forward, three times
+    backward (the recomputation, the input gradients and the weight
+    gradients), over the f32 peak outside the tensor cores."""
+    dd, pairs, nodes = 2 * fourier + 1, b * n * k, b * n
+    wj = 0 if gather else d * h
+    weights = wj + dd * h + h * m + m + (m + 1 if soft else 0) + m * 4 * m + 4 * m + 4 * m + 2
+    j_side = pairs * 9 + nodes * h * 4 if gather else pairs * (c + d + 1) * 4
+    nbytes = nodes * (c + h) * 4 + j_side + weights * 4 + nodes * (m + c) * 4
+    if backward:
+        # the same inputs and the upstream gradients in; every gradient out
+        nbytes += nodes * (c + h) * 4 + weights * 4 + (
+            nodes * h * 4 if gather else pairs * (c + d) * 4)
+    macs = wj + dd * h + h * m + (m if soft else 0) + m * 4 * m + 4 * m
+    ops = 2 * macs * pairs * (3 if backward else 1)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes, t_ops
+
+
+def unfused_pipeline(torch, core, coors, cj, fj, proj_i, pv, weights, opts):
+    """What the unfused EGNN layer runs on the same pairs, in torch
+    operators as ``models/egnn.py`` has them (fused silu, ``where`` for the
+    mask, ``coors_norm``): (m_i, coors_delta) from K10's arguments."""
+    F = torch.nn.functional
+    wj, wd, w2, b2, gw, gb, cw1, cb1, cw2, cb2, scale = weights
+    b, n, c = coors.shape
+    pair_mask = pv.reshape(b, n, -1, 1) > 0.5
+    rel = coors[:, :, None, :] - cj.reshape(b, n, -1, c)
+    dist = (rel ** 2).sum(dim=-1)
+    distf = core.fourier_encode_dist(dist, num_encodings=opts.fourier) if opts.fourier \
+        else dist[..., None]
+    m_ij = F.silu(proj_i[:, :, None, :] + fj.reshape(b, n, -1, fj.shape[-1]) @ wj + distf @ wd)
+    m_ij = F.silu(m_ij @ w2 + b2)
+    if opts.soft_edges:
+        m_ij = m_ij * torch.sigmoid(m_ij @ gw + gb)
+    w = F.silu(m_ij @ cw1 + cb1) @ cw2 + cb2
+    rel_n = core.coors_norm(rel, scale) if opts.norm_coors else rel
+    w = torch.where(pair_mask, w, 0.0)
+    if opts.clamp is not None:
+        w = w.clamp(-opts.clamp, opts.clamp)
+    return torch.where(pair_mask, m_ij, 0.0).sum(dim=-2), (w * rel_n).sum(dim=-2)
+
+
 def main() -> int:
     import torch
 
@@ -373,6 +582,7 @@ def main() -> int:
     from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, build, reset_launch_counts
     from egnn_tpu_torch.ops.cuda import grid_knn as GK
     from egnn_tpu_torch.ops.cuda import knn as K
+    from egnn_tpu_torch.ops.cuda import pair_messages as PM
     from egnn_tpu_torch.ops.cuda import segment as SK
     from egnn_tpu_torch.training import make_denoise_train_step, make_fused_adam
     from egnn_tpu_torch.training.data import synthetic_chain_batch
@@ -689,7 +899,7 @@ def main() -> int:
         args = batch_args(fixed[b])
         ms = call_ms(torch, lambda: step(*args))
         edges = b * N * KNN * DEPTH
-        kernel_ms = profile_forward(torch, lambda: step(*args), label=f"b={b} train steps",
+        kernel_ms, _ = profile_forward(torch, lambda: step(*args), label=f"b={b} train steps",
                                     unit="step")
         dev = device_ms(torch, lambda: step(*args), reps=5)
         print(f"train step b={b}: median {ms:.4f} ms per step, {edges / (ms / 1e3):.6e} "
@@ -863,9 +1073,9 @@ def main() -> int:
               f"({bound_by}); in-degree up to {deg.max().item()}{note}")
 
     # ---- 13. path A: the net65k network through K5 and the kc-wide layers ----
-    def make_net_a(depth=DEPTH, seed=SEED):
-        return EGNNNetwork(depth=depth, dim=DIM, layer_kwargs=LAYER_KWARGS_A, device="cuda",
-                           generator=torch.Generator().manual_seed(seed))
+    def make_net_a(depth=DEPTH, seed=SEED, **extra):
+        return EGNNNetwork(depth=depth, dim=DIM, layer_kwargs={**LAYER_KWARGS_A, **extra},
+                           device="cuda", generator=torch.Generator().manual_seed(seed))
 
     feats_a = torch.randn(1, N_A, DIM, device="cuda",
                           generator=torch.Generator(device="cuda").manual_seed(SEED + 90))
@@ -873,12 +1083,47 @@ def main() -> int:
                 for kind in ("uniform", "gaussian", "heavy")}
     edges_a = N_A * KNN_A * DEPTH
 
-    def drive_net65k(tag, kernel, serve_kinds, idle, also=()):
+    def fused_step_against_unfused(tag):
+        """One train step of net65k with ``fused_pairs=True`` and one without
+        on the route ``auto`` takes now, the same weights and batch: the
+        losses and every parameter's gradient must agree."""
+        noised = clouds_a["uniform"] + torch.randn_like(clouds_a["uniform"])
+        got = {}
+        for kind, extra in (("fused", dict(fused_pairs=True)), ("unfused", {})):
+            net_s = make_net_a(**extra)   # the same seed: the same weights
+            step = make_denoise_train_step(net_s, make_fused_adam(net_s.parameters(), LR))
+            loss = step(feats_a, noised, clouds_a["uniform"], None, None).item()
+            got[kind] = (loss, {name: p.grad.detach().clone()
+                                for name, p in net_s.named_parameters() if p.grad is not None})
+            del net_s, step
+        (loss, grads), (loss_u, grads_u) = got["fused"], got["unfused"]
+        if grads.keys() != grads_u.keys():
+            raise AssertionError(f"{tag}: a parameter has a gradient on one path only")
+        errs = []
+        for name, g_u in grads_u.items():
+            diff, norm = (torch.linalg.vector_norm(x.double()).item()
+                          for x in (grads[name] - g_u, g_u))
+            errs.append((diff / max(norm, 1e-300), name))
+        print(f"{tag} one step, fused against unfused: loss {loss:.8f} beside {loss_u:.8f} (rtol "
+              f"{TRAIN_LOSS_RTOL}); gradient error ||g - g_u|| / ||g_u|| largest "
+              f"{max(errs)[0]:.3e} ({max(errs)[1]}) over {len(errs)} parameters (tol "
+              f"{FUSED_VS_UNFUSED_GRAD_TOL})")
+        if (not math.isfinite(loss) or abs(loss - loss_u) > TRAIN_LOSS_RTOL * abs(loss_u)
+                or max(errs)[0] > FUSED_VS_UNFUSED_GRAD_TOL):
+            raise AssertionError(f"{tag}: the fused step disagrees with the unfused one")
+        torch.cuda.empty_cache()
+
+    def drive_net65k(tag, kernel, serve_kinds, idle, also=(), fused=False):
         """Serve, check, train and time net65k on the route ``auto`` takes
         now. ``kernel`` must run depth times a forward, the selection kernels
         in ``idle`` not at all, those in ``also`` at least once while
-        serving. Returns the serving run's launch counts."""
-        net = make_net_a().eval()
+        serving. With ``fused`` the layers carry ``fused_pairs=True``: K10f
+        must run depth times a forward and K10b depth times a backward, and
+        the forwards must agree with the unfused network's. Returns the
+        serving run's launch counts and the measurements."""
+        extra = dict(fused_pairs=True) if fused else {}
+        metrics = {}
+        net = make_net_a(**extra).eval()
         reset_launch_counts()
         with torch.inference_mode():
             outs = [net(feats_a, clouds_a[kind]) for kind in serve_kinds]
@@ -887,21 +1132,32 @@ def main() -> int:
         print(f"path {tag} serving: {len(outs)} forwards ({', '.join(serve_kinds)}) at n={N_A} "
               f"k={KNN_A}; launches {counts}")
         if (counts[kernel] != DEPTH * len(outs) or any(counts[name] for name in idle)
-                or not all(counts[name] for name in also)):
+                or not all(counts[name] for name in also)
+                or counts["fused_pair_fwd"] != (DEPTH * len(outs) if fused else 0)):
             raise AssertionError(f"path {tag}: {kernel} did not run depth times a forward, one "
                                  f"of {idle} ran, or one of {also} did not")
         for f, c in outs:
             check_outputs(torch, (f, c), ((1, N_A, DIM), (1, N_A, 3)), f"path {tag} forward")
+        if fused:
+            plain_net = make_net_a().eval()   # the same seed: the same weights
+            with torch.inference_mode():
+                for kind, (f, c) in zip(serve_kinds, outs):
+                    f_u, c_u = plain_net(feats_a, clouds_a[kind])
+                    ef, ec = (f - f_u).abs().max().item(), (c - c_u).abs().max().item()
+                    print(f"path {tag} fused vs unfused forward ({kind}): feats max err {ef:.3e}, "
+                          f"coors max err {ec:.3e} (atol {GPU_VS_CPU_ATOL})")
+                    if not (ef <= GPU_VS_CPU_ATOL and ec <= GPU_VS_CPU_ATOL):
+                        raise AssertionError(f"path {tag}: fused and unfused forwards disagree")
         check_equivariance(
             torch, lambda c: net(feats_a, c), clouds_a["uniform"], f"path {tag}",
             select=lambda c: K.knn_select_tiled(c.contiguous(), KNN_A)[1].sort(dim=-1).values,
             swap_share=SWAP_SHARE)
 
-        def fwd_bwd(kind):
+        def fwd_bwd(kind, model=net):
             """The fwd+bwd benchmarks/net65k.py times: the gradient of
             (f**2).mean() + (co**2).mean() with respect to the coordinates."""
             c = clouds_a[kind].clone().requires_grad_()
-            f, co = net(feats_a, c)
+            f, co = model(feats_a, c)
             ((f ** 2).mean() + (co ** 2).mean()).backward()
             return c.grad
 
@@ -910,10 +1166,32 @@ def main() -> int:
         torch.cuda.synchronize()
         fb_counts = dict(LAUNCH_COUNTS)
         check_outputs(torch, (grad,), ((1, N_A, 3),), f"path {tag} fwd+bwd")
-        if fb_counts[kernel] != DEPTH or fb_counts["segment_sum"] != DEPTH:
+        if (fb_counts[kernel] != DEPTH or fb_counts["segment_sum"] != DEPTH
+                or fb_counts["fused_pair_bwd"] != (DEPTH if fused else 0)):
             raise AssertionError(f"path {tag} fwd+bwd: launches {fb_counts}")
+        if fused:
+            # as the path runs it, then without norm_coors: what is left of the
+            # difference once no self pair's 1 / eps term stands in the sums
+            bare = dict(norm_coors=False)
+            for what, tol, model, model_u in (
+                ("", FUSED_VS_UNFUSED_COORS_GRAD_TOL, net, plain_net),
+                (" without norm_coors", FUSED_VS_UNFUSED_COORS_GRAD_TOL_BARE,
+                 make_net_a(**extra, **bare).eval(), make_net_a(**bare).eval()),
+            ):
+                grad_f, grad_u = fwd_bwd("uniform", model), fwd_bwd("uniform", model_u)
+                diff, norm = (torch.linalg.vector_norm(x.double()).item()
+                              for x in (grad_f - grad_u, grad_u))
+                print(f"path {tag} fwd+bwd{what}, fused against unfused: gradient wrt the "
+                      f"coordinates ||g - g_u|| / ||g_u|| = {diff / norm:.3e} (tol {tol}), largest "
+                      f"difference {(grad_f - grad_u).abs().max().item():.3e} of entries up to "
+                      f"{grad_u.abs().max().item():.3e}")
+                if not (diff <= tol * norm and bool(torch.isfinite(grad_f).all())):
+                    raise AssertionError(
+                        f"path {tag}{what}: fused and unfused fwd+bwd gradients disagree")
+            del plain_net, grad_f, grad_u, model, model_u
+            fused_step_against_unfused(f"path {tag}")
 
-        net_train = make_net_a()
+        net_train = make_net_a(**extra)
         step = make_denoise_train_step(net_train, make_fused_adam(net_train.parameters(), LR))
         noised = clouds_a["uniform"] + torch.randn_like(clouds_a["uniform"])
         torch.cuda.reset_peak_memory_stats()
@@ -932,7 +1210,10 @@ def main() -> int:
         # in a train step (there is no embedding under them), so its gather has
         # no backward: K2 runs depth - 1 times a step, and depth times in the
         # fwd+bwd above, whose coordinates do require a gradient
-        for name, per_step in ((kernel, DEPTH), ("segment_sum", DEPTH - 1)):
+        metrics["peak_gib"], metrics["held_gib"] = peak / 2**30, held / 2**30
+        for name, per_step in ((kernel, DEPTH), ("segment_sum", DEPTH - 1),
+                               ("fused_pair_fwd", DEPTH if fused else 0),
+                               ("fused_pair_bwd", DEPTH if fused else 0)):
             if train_counts[name] != per_step * STEPS_A:
                 raise AssertionError(f"path {tag}: {name} launched {train_counts[name]} times in "
                                      f"{STEPS_A} steps, expected {per_step * STEPS_A}")
@@ -940,21 +1221,25 @@ def main() -> int:
         with torch.inference_mode():
             for kind in dict.fromkeys(serve_kinds):
                 ms = call_ms(torch, lambda: net(feats_a, clouds_a[kind]), iters=5, warmup=1)
-                kernel_ms = profile_forward(torch, lambda: net(feats_a, clouds_a[kind]), iters=3,
-                                            label=f"path {tag} forwards ({kind})")
+                kernel_ms, launches = profile_forward(
+                    torch, lambda: net(feats_a, clouds_a[kind]), iters=3,
+                    label=f"path {tag} forwards ({kind})")
+                metrics[f"forward_{kind}"] = (ms, kernel_ms, launches)
                 print(f"path {tag} forward n={N_A} k={KNN_A} {kind}: median {ms:.4f} ms, "
                       f"{edges_a / (ms / 1e3):.6e} edges/s; kernel time {kernel_ms:.4f} ms, busy "
                       f"{kernel_ms / ms:.3f}, so the host (the route's reads of the card "
                       f"included) leaves the card idle {ms - kernel_ms:.4f} ms a forward")
         for kind in ("uniform", "gaussian"):
             ms = call_ms(torch, lambda: fwd_bwd(kind), iters=5, warmup=1)
+            metrics[f"fwd_bwd_{kind}"] = ms
             print(f"path {tag} fwd+bwd (gradient wrt coordinates) {kind}: median {ms:.4f} ms, "
                   f"{edges_a / (ms / 1e3):.6e} edges/s")
         ms = call_ms(torch, lambda: step(feats_a, noised, clouds_a["uniform"], None, None),
                      iters=5, warmup=1)
-        kernel_ms = profile_forward(
+        kernel_ms, launches = profile_forward(
             torch, lambda: step(feats_a, noised, clouds_a["uniform"], None, None), iters=3,
             label=f"path {tag} train steps", unit="step")
+        metrics["step"] = (ms, kernel_ms, launches)
         print(f"path {tag} train step: median {ms:.4f} ms, {edges_a / (ms / 1e3):.6e} edges/s; "
               f"kernel time {kernel_ms:.4f} ms, busy {kernel_ms / ms:.3f}")
 
@@ -965,11 +1250,12 @@ def main() -> int:
                          trials=5)
         del outs, net_train, step, grad, nbhd
         torch.cuda.empty_cache()
-        return counts
+        return counts, metrics
 
     nb.GRID_AUTO = False   # the reference's own flag: auto stays on K5 beyond the reach
-    path_a_counts = drive_net65k("A", "knn_candidates_packed_tiled", ("uniform", "uniform",
-                                 "gaussian"), idle=("knn_select_tiled", "grid_knn_cells"))
+    path_a_counts, _ = drive_net65k(
+        "A", "knn_candidates_packed_tiled", ("uniform", "uniform", "gaussian"),
+        idle=("knn_select_tiled", "grid_knn_cells"))
     nb.GRID_AUTO = True
     ok_flag = torch.ones(N_A, dtype=torch.bool, device="cuda")
     sync_ms = call_ms(torch, lambda: bool(ok_flag.all()), iters=20, warmup=3)
@@ -1020,12 +1306,12 @@ def main() -> int:
     edges_b = N_B * KNN * DEPTH
     with torch.inference_mode():
         ms = call_ms(torch, lambda: serve(rq_b, net_b), iters=5, warmup=1)
-        kernel_ms = profile_forward(torch, lambda: serve(rq_b, net_b), iters=3,
+        kernel_ms, _ = profile_forward(torch, lambda: serve(rq_b, net_b), iters=3,
                                     label="path B forwards")
     print(f"path B forward n={N_B} k={KNN}: median {ms:.4f} ms, {edges_b / (ms / 1e3):.6e} "
           f"edges/s; kernel time {kernel_ms:.4f} ms, busy {kernel_ms / ms:.3f}")
     ms = call_ms(torch, lambda: step_b(*batch_args(rq_b)), iters=3, warmup=1)
-    kernel_ms = profile_forward(torch, lambda: step_b(*batch_args(rq_b)), iters=2,
+    kernel_ms, _ = profile_forward(torch, lambda: step_b(*batch_args(rq_b)), iters=2,
                                 label="path B train steps", unit="step")
     print(f"path B train step: median {ms:.4f} ms, {edges_b / (ms / 1e3):.6e} edges/s; "
           f"kernel time {kernel_ms:.4f} ms, busy {kernel_ms / ms:.3f}")
@@ -1352,7 +1638,7 @@ def main() -> int:
                              "launches are not K7 and K8 once each")
 
     # ---- 19. path C: net65k as auto routes it, through the grid ----
-    path_c_counts = drive_net65k(
+    path_c_counts, path_c_metrics = drive_net65k(
         "C", "grid_knn_cells", ("uniform", "uniform", "gaussian", "heavy"),
         idle=("knn_candidates_packed_tiled", "knn_select_tiled"),
         also=("knn_select_queries", "knn_select_window"))
@@ -1411,7 +1697,7 @@ def main() -> int:
             sel_ms = call_ms(torch, lambda: GK.grid_knn_select(c_kind, KNN_A), iters=10, warmup=2)
             route_ms = call_ms(torch, lambda: nb.knn_select_gather(c_kind, KNN_A, math.inf),
                                iters=10, warmup=2)
-            kernel_ms = profile_forward(
+            kernel_ms, _ = profile_forward(
                 torch, lambda: nb.knn_select_gather(c_kind, KNN_A, math.inf), iters=5,
                 label=f"grid route calls ({kind})", unit="call")
             print(f"one grid route call at n={N_A} k={KNN_A} {kind}: {route_ms:.4f} ms a call, "
@@ -1447,6 +1733,378 @@ def main() -> int:
                                                   row_chunk=max(1, (1 << 25) // w)),
                 # queries, ranks, points, ids; vals, idx, margin
                 12 * r + 8 * r + 12 * N_A + 8 * N_A + 12 * r * KNN_A + 4 * r, r * w)
+
+
+    # ---- 21. K10 and K11 against their plain versions in float64 ----
+    pair_cases = [  # name, arguments of pair_case
+        ("anchor", dict(b=1, n=N, k=KNN)),
+        ("anchor_self_pairs_b8", dict(b=8, n=N, k=KNN, self_pairs=True)),
+        ("net65k_k16", dict(b=1, n=8190, k=KNN_A, masked=False, spread=10.0)),
+        ("net65k_kc20_winners", dict(b=1, n=3001, k=KNN_A + nb.CANDIDATE_SLACK)),
+        ("k12_soft_fourier2", dict(b=2, n=1000, k=12, d=16, fourier=2, soft=True, norm=False,
+                                   clamp=None)),
+        ("gate_feats_only_fourier4", dict(b=2, n=777, k=8, d=8, fourier=4, soft=True, clamp=1.0,
+                                          gfo=True)),
+        ("bare_k5_b3", dict(b=3, n=500, k=5, d=16, norm=False, clamp=None, masked=False)),
+        ("c5_m8_k7", dict(b=1, n=600, k=7, d=12, m=8, c=5)),
+        ("dim64_tile_of_8", dict(b=1, n=512, k=8, d=64)),    # wider weights: K10's tile is 8 rows
+        ("k64", dict(b=1, n=300, k=64, d=16)),               # one node a tile
+    ]
+    pair_err = {"fused_pair_fwd": 0.0, "fused_pair_bwd": 0.0, "fused_knn_fwd": 0.0,
+                "fused_knn_bwd": 0.0}
+    for layout in ((64, 3, DIM, 130, 16, 64, 0, False), (8, 3, 64, 258, 16, 64, 0, False),
+                   (24, 5, 0, 74, 8, 32, 2, True), (64, 3, 16, 66, 16, 64, 4, True)):
+        for backward in (False, True):   # the gate's copy of the shared-memory layout
+            if PM._smem_floats(*layout, backward) != PM.kernel_smem_floats(*layout, backward):
+                raise AssertionError(f"the gate's layout {layout} differs from the source's")
+    for i, (name, kw) in enumerate(pair_cases):
+        case = pair_case(torch, SEED + 200 + i, **kw)
+        for gather, prefix in ((False, "fused_pair"), (True, "fused_knn")):
+            e_f, e_b = check_pair_kernels(torch, PM, name, case, gather)
+            pair_err[prefix + "_fwd"] = max(pair_err[prefix + "_fwd"], e_f)
+            pair_err[prefix + "_bwd"] = max(pair_err[prefix + "_bwd"], e_b)
+        del case
+    torch.cuda.empty_cache()
+
+    # ---- 22. anchor 3 through the fused pair pipeline ----
+    def make_anchor(seed=SEED, **extra):
+        return EGNNNetwork(
+            depth=DEPTH, dim=DIM, num_tokens=NUM_TOKENS, num_positions=N,
+            layer_kwargs={**LAYER_KWARGS, **extra}, device="cuda",
+            generator=torch.Generator().manual_seed(seed))
+
+    def time_anchor(model, label):
+        """(call ms, device ms, kernel ms, launches) of a b=1 forward, and of
+        a b=1 train step on a fresh trainer of the same kind."""
+        rq1 = requests[0]
+        with torch.inference_mode():
+            fwd = (call_ms(torch, lambda: serve(rq1, model)),
+                   device_ms(torch, lambda: serve(rq1, model), reps=5),
+                   *profile_forward(torch, lambda: serve(rq1, model),
+                                    label=f"{label} b=1 forwards"))
+        trainer = copy.deepcopy(model).train()
+        step = make_denoise_train_step(trainer, make_fused_adam(trainer.parameters(), LR))
+        args = batch_args(fixed[1])
+        stp = (call_ms(torch, lambda: step(*args)),
+               device_ms(torch, lambda: step(*args), reps=5),
+               *profile_forward(torch, lambda: step(*args), label=f"{label} b=1 train steps",
+                                unit="step"))
+        return fwd, stp
+
+    anchor_plain = make_anchor().eval()
+    with torch.inference_mode():
+        outs_plain = [serve(rq, anchor_plain) for rq in requests]
+    anchor_times = {"unfused": time_anchor(anchor_plain, "anchor-3 unfused")}
+    anchor_counts = {}
+    for flag, fwd_name, bwd_name, select_name in (
+        ("fused_pairs", "fused_pair_fwd", "fused_pair_bwd", "knn_select_gather"),
+        ("fused_knn", "fused_knn_fwd", "fused_knn_bwd", "knn_select"),
+    ):
+        model = make_anchor(**{flag: True}).eval()   # the same seed: the same weights
+        reset_launch_counts()
+        with torch.inference_mode():
+            outs_f = [serve(rq, model) for rq in requests]
+        torch.cuda.synchronize()
+        counts = dict(LAUNCH_COUNTS)
+        print(f"anchor-3 {flag} serving: {len(requests)} forwards, {n_requests} requests; "
+              f"launches { {kn: v for kn, v in counts.items() if v} }")
+        if (counts[fwd_name] != DEPTH * len(requests)
+                or counts[select_name] != DEPTH * len(requests)
+                or sum(counts.values()) != 2 * DEPTH * len(requests)):
+            raise AssertionError(f"{flag}: {fwd_name} and {select_name} did not each run depth "
+                                 "times a forward, or another kernel ran")
+        model_cpu = copy.deepcopy(model).to("cpu")
+        for idx, (rq, (f, c), (f_u, c_u)) in enumerate(zip(requests, outs_f, outs_plain)):
+            b = rq.tokens.shape[0]
+            check_outputs(torch, (f, c), ((b, N, DIM), (b, N, 3)), f"{flag} forward")
+            ef, ec = (f - f_u).abs().max().item(), (c - c_u).abs().max().item()
+            if not (ef <= GPU_VS_CPU_ATOL and ec <= GPU_VS_CPU_ATOL):
+                raise AssertionError(f"{flag}: fused and unfused forwards disagree "
+                                     f"({ef:.3e}, {ec:.3e})")
+            if idx in (0, len(requests) - 1):  # one b=1 and one b=8 forward
+                with torch.inference_mode():
+                    f_cpu, c_cpu = serve(type(rq)(*(t.cpu() for t in rq)), model_cpu)
+                gf = (f.cpu() - f_cpu).abs().max().item()
+                gc = (c.cpu() - c_cpu).abs().max().item()
+                print(f"anchor-3 {flag} b={b}: against the unfused network on the card feats "
+                      f"{ef:.3e}, coors {ec:.3e}; against the same module on the CPU feats "
+                      f"{gf:.3e}, coors {gc:.3e} (atol {GPU_VS_CPU_ATOL})")
+                if not (gf <= GPU_VS_CPU_ATOL and gc <= GPU_VS_CPU_ATOL):
+                    raise AssertionError(f"{flag}: card and CPU forwards disagree")
+        rq = requests[0]
+        check_equivariance(torch, lambda c: serve(rq._replace(noised_coors=c), model),
+                           rq.noised_coors, f"anchor-3 {flag} b=1")
+
+        def make_fused_trainer(seed=SEED):
+            net_f = make_anchor(seed, **{flag: True})
+            return net_f, make_denoise_train_step(net_f, make_fused_adam(net_f.parameters(), LR))
+
+        anchor_counts[flag] = {"serving": counts}
+        for b in (1, 8):
+            _, step = make_fused_trainer()
+            batches = [synthetic_chain_batch(rng, b, N, device="cuda") for _ in range(TRAIN_STEPS)]
+            reset_launch_counts()
+            losses = torch.stack([step(*batch_args(rq)) for rq in batches]).cpu()
+            torch.cuda.synchronize()
+            counts = dict(LAUNCH_COUNTS)
+            anchor_counts[flag][b] = counts
+            print(f"anchor-3 {flag} training b={b}: {TRAIN_STEPS} steps, losses "
+                  f"{losses.tolist()}; launches { {kn: v for kn, v in counts.items() if v} }")
+            if not bool(torch.isfinite(losses).all()):
+                raise AssertionError(f"{flag}: non-finite training loss")
+            # K2 is K1's backward under fused_pairs, K11b's j-side sum under fused_knn
+            for name in (fwd_name, bwd_name, select_name, "segment_sum"):
+                if counts[name] != DEPTH * TRAIN_STEPS:
+                    raise AssertionError(f"{flag}: {name} launched {counts[name]} times in "
+                                         f"{TRAIN_STEPS} steps, expected {DEPTH * TRAIN_STEPS}")
+        _, step = make_fused_trainer()
+        falling = torch.stack([step(*batch_args(fixed[1])) for _ in range(FALL_STEPS)]).cpu()
+        print(f"anchor-3 {flag} training b=1 on one batch: loss {falling[0].item():.6f} -> "
+              f"{falling[-1].item():.6f} over {FALL_STEPS} steps")
+        if not falling[-1] < falling[0]:
+            raise AssertionError(f"{flag}: the loss did not fall on a fixed batch")
+
+        # one step on the card against the CPU and against the unfused network
+        for b in (1, 8):
+            net_f, step = make_fused_trainer(SEED + 3)
+            net_c = copy.deepcopy(net_f).to("cpu")
+            step_c = make_denoise_train_step(net_c, make_fused_adam(net_c.parameters(), LR))
+            net_u = make_anchor(SEED + 3)
+            step_u = make_denoise_train_step(net_u, make_fused_adam(net_u.parameters(), LR))
+            rq = fixed[b]
+            loss = step(*batch_args(rq)).item()
+            loss_u = step_u(*batch_args(rq)).item()
+            loss_c = step_c(*(t.cpu() for t in batch_args(rq))).item()
+            errs = {"CPU": [], "unfused": []}
+            for (name, p), q, u in zip(net_f.named_parameters(), net_c.parameters(),
+                                       net_u.parameters()):
+                if p.grad is None:
+                    if q.grad is not None or u.grad is not None:
+                        raise AssertionError(f"{flag}: {name} has a gradient on one path only")
+                    continue
+                for key, other, tol in (("CPU", q.grad, FUSED_CARD_VS_CPU_GRAD_TOL),
+                                        ("unfused", u.grad.cpu(), FUSED_VS_UNFUSED_GRAD_TOL)):
+                    gp, go = p.grad.cpu().double(), other.double()
+                    diff, norm = (torch.linalg.vector_norm(x).item() for x in (gp - go, go))
+                    errs[key].append((diff / max(norm, 1e-300), name))
+                    if diff > tol * norm + 1e-12:
+                        raise AssertionError(f"{flag}: gradients of {name} on the card and "
+                                             f"{key} disagree: {diff:.3e} against {norm:.3e}")
+            print(f"anchor-3 {flag} one step b={b}: loss {loss:.8f}, unfused on the card "
+                  f"{loss_u:.8f}, the same module on the CPU {loss_c:.8f} (rtol "
+                  f"{TRAIN_LOSS_RTOL}); gradient error ||g - g_ref|| / ||g_ref|| largest "
+                  f"{max(errs['CPU'])[0]:.3e} ({max(errs['CPU'])[1]}) against the CPU, "
+                  f"{max(errs['unfused'])[0]:.3e} ({max(errs['unfused'])[1]}) against the unfused "
+                  f"network (tol {FUSED_CARD_VS_CPU_GRAD_TOL} and {FUSED_VS_UNFUSED_GRAD_TOL})")
+            if (abs(loss - loss_c) > TRAIN_LOSS_RTOL * abs(loss_c)
+                    or abs(loss - loss_u) > TRAIN_LOSS_RTOL * abs(loss_u)):
+                raise AssertionError(f"{flag}: the card's loss disagrees with the CPU's or the "
+                                     "unfused network's")
+        anchor_times[flag] = time_anchor(model, f"anchor-3 {flag}")
+        del model, model_cpu, outs_f
+    for kind, (fwd, stp) in anchor_times.items():
+        print(f"anchor-3 b=1 {kind}: forward {fwd[0]:.4f} ms a call, device {fwd[1]:.4f} ms (CUDA "
+              f"graph replay), kernel time {fwd[2]:.4f} ms, {fwd[3]:.1f} launches; train step "
+              f"{stp[0]:.4f} ms a call ({N * KNN * DEPTH / (stp[0] / 1e3):.6e} edges/s), device "
+              f"{stp[1]:.4f} ms, kernel time {stp[2]:.4f} ms, busy {stp[2] / stp[0]:.3f}, "
+              f"{stp[3]:.1f} launches")
+    del anchor_plain, outs_plain
+
+    # ---- 23. net65k through the fused pair pipeline: path C, then path A ----
+    path_cf_counts, path_cf_metrics = drive_net65k(
+        "C fused", "grid_knn_cells", ("uniform", "gaussian"),
+        idle=("knn_candidates_packed_tiled", "knn_select_tiled"), also=("knn_select_queries",),
+        fused=True)
+
+    def beside(what, fused_m, plain_m):
+        for key in ("forward_uniform", "forward_gaussian", "step"):
+            f, u = fused_m[key], plain_m[key]
+            print(f"{what} {key}: fused {f[0]:.4f} ms (kernel time {f[1]:.4f} ms, {f[2]:.1f} "
+                  f"launches) beside unfused {u[0]:.4f} ms ({u[1]:.4f} ms, {u[2]:.1f})")
+        for key in ("fwd_bwd_uniform", "fwd_bwd_gaussian"):
+            print(f"{what} {key}: fused {fused_m[key]:.4f} ms beside unfused {plain_m[key]:.4f} ms")
+        print(f"{what} peak memory of {STEPS_A} train steps: fused {fused_m['peak_gib']:.3f} GiB "
+              f"({fused_m['held_gib']:.3f} held before) beside unfused "
+              f"{plain_m['peak_gib']:.3f} GiB ({plain_m['held_gib']:.3f})")
+
+    beside("path C", path_cf_metrics, path_c_metrics)
+
+    # path A: K5's kc = 20 candidate slots, summed by K10 under the winner mask
+    nb.GRID_AUTO = False
+    kc_a = KNN_A + nb.CANDIDATE_SLACK
+    net_af, net_au = make_net_a(fused_pairs=True).eval(), make_net_a().eval()
+    reset_launch_counts()
+    with torch.inference_mode():
+        f_f, c_f = net_af(feats_a, clouds_a["uniform"])
+    torch.cuda.synchronize()
+    counts = {kn: v for kn, v in LAUNCH_COUNTS.items() if v}
+    with torch.inference_mode():
+        f_u, c_u = net_au(feats_a, clouds_a["uniform"])
+    check_outputs(torch, (f_f, c_f), ((1, N_A, DIM), (1, N_A, 3)), "path A fused forward")
+    ef, ec = (f_f - f_u).abs().max().item(), (c_f - c_u).abs().max().item()
+    print(f"path A fused forward at n={N_A} k={KNN_A} over kc={kc_a} slots: launches {counts}; "
+          f"against the unfused network feats max err {ef:.3e}, coors max err {ec:.3e} (atol "
+          f"{GPU_VS_CPU_ATOL})")
+    if (counts != {"knn_candidates_packed_tiled": DEPTH, "fused_pair_fwd": DEPTH}
+            or not (ef <= GPU_VS_CPU_ATOL and ec <= GPU_VS_CPU_ATOL)):
+        raise AssertionError("path A fused: K5 and K10f did not each run depth times, or the "
+                             "fused and unfused forwards disagree")
+    check_equivariance(
+        torch, lambda c: net_af(feats_a, c), clouds_a["uniform"], "path A fused",
+        select=lambda c: K.knn_select_tiled(c.contiguous(), KNN_A)[1].sort(dim=-1).values,
+        swap_share=SWAP_SHARE)
+    noised = clouds_a["uniform"] + torch.randn_like(clouds_a["uniform"])
+    path_af = {}
+    for kind, model in (("fused", net_af), ("unfused", net_au)):
+        trainer = copy.deepcopy(model).train()
+        step = make_denoise_train_step(trainer, make_fused_adam(trainer.parameters(), LR))
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        loss = step(feats_a, noised, clouds_a["uniform"], None, None).item()
+        counts = {kn: v for kn, v in LAUNCH_COUNTS.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        with torch.inference_mode():
+            fwd_ms = call_ms(torch, lambda: model(feats_a, clouds_a["uniform"]), iters=5, warmup=1)
+        step_ms = call_ms(torch, lambda: step(feats_a, noised, clouds_a["uniform"], None, None),
+                          iters=5, warmup=1)
+        path_af[kind] = (loss, fwd_ms, step_ms, peak / 2**30)
+        print(f"path A {kind}: one train step, loss {loss:.8f}, launches {counts}; forward "
+              f"{fwd_ms:.4f} ms, train step {step_ms:.4f} ms "
+              f"({edges_a / (step_ms / 1e3):.6e} edges/s), peak memory {peak / 2**30:.3f} GiB")
+        if kind == "fused" and counts != {
+                "knn_candidates_packed_tiled": DEPTH, "fused_pair_fwd": DEPTH,
+                "fused_pair_bwd": DEPTH, "segment_sum": DEPTH - 1}:
+            raise AssertionError("path A fused step: launches are not K5, K10f, K10b depth "
+                                 "times and K2 depth - 1 times")
+        del trainer, step
+    if not (math.isfinite(path_af["fused"][0]) and abs(path_af["fused"][0] - path_af["unfused"][0])
+            <= TRAIN_LOSS_RTOL * abs(path_af["unfused"][0])):
+        raise AssertionError("path A fused: the step's loss disagrees with the unfused network's")
+    fused_step_against_unfused("path A fused")
+    nb.GRID_AUTO = True
+    del net_af, net_au, f_f, c_f, f_u, c_u
+    torch.cuda.empty_cache()
+
+    # ---- 24. K10 and K11 at the shapes the paths give them: check, then timing ----
+    def real_case(coors, idx, pv, seed):
+        """pair_case at this neighbourhood: the path's coordinates, ids and
+        validity, random features, weights and upstream gradients."""
+        b, n, k = idx.shape
+        case = pair_case(torch, seed, b=b, n=n, k=k)
+        case.update(coors=coors.contiguous(), idx=idx.contiguous(), pv=pv.contiguous())
+        return case
+
+    rq = requests[0]
+    adj1 = rq.adj_mat.expand(1, N, N)
+    with torch.no_grad():   # not inference mode: the unfused pipeline's autograd saves the ids
+        idx_anchor = K.knn_select(rq.noised_coors, KNN, rq.mask, adj1)[1]
+        pv_anchor = rq.mask[:, :, None] & core.gather_bool(rq.mask, idx_anchor)
+        nbhd_c, _ = nb.knn_select_gather(clouds_a["uniform"], KNN_A, math.inf, wide=True)
+        nb.GRID_AUTO = False
+        nbhd_a, _ = nb.knn_select_gather(clouds_a["uniform"], KNN_A, math.inf, wide=True)
+        nb.GRID_AUTO = True
+    timing_cases = [  # what, case, the kernels timed there, (reps, trials)
+        (f"anchor 3's shape (b=1 n={N} k={KNN}, its mask, adjacency and self pairs)",
+         real_case(rq.noised_coors, idx_anchor, pv_anchor, SEED + 300), (False, True), (20, 7)),
+        (f"path C's shape (n={N_A} k={KNN_A}, the grid's neighbours)",
+         real_case(clouds_a["uniform"], nbhd_c.indices, torch.ones_like(nbhd_c.valid),
+                   SEED + 301), (False,), (3, 5)),
+        (f"path A's shape (n={N_A} kc={kc_a} slots, pv = the winner mask)",
+         real_case(clouds_a["uniform"], nbhd_a.indices, nbhd_a.winner, SEED + 302), (False,),
+         (3, 5)),
+    ]
+    site = {"fused_pair_fwd": "egnn_tpu/ops/pallas/pair_messages.py:379",
+            "fused_pair_bwd": "egnn_tpu/ops/pallas/pair_messages.py:425",
+            "fused_knn_fwd": "egnn_tpu/ops/pallas/knn_layer.py:380",
+            "fused_knn_bwd": "egnn_tpu/ops/pallas/knn_layer.py:419"}
+    launches = {"fused_pair_fwd": anchor_counts["fused_pairs"]["serving"]["fused_pair_fwd"],
+                "fused_pair_bwd": anchor_counts["fused_pairs"][1]["fused_pair_bwd"],
+                "fused_knn_fwd": anchor_counts["fused_knn"]["serving"]["fused_knn_fwd"],
+                "fused_knn_bwd": anchor_counts["fused_knn"][1]["fused_knn_bwd"]}
+    for case_no, (what, case, gathers, (reps, trials)) in enumerate(timing_cases):
+        b, n, k = case["idx"].shape
+        g = (case["g_mi"], case["g_cd"])
+        # the unfused pipeline starts from K10's gathered rows; under K11 its
+        # gathers (of coors and of the projected features) are part of it
+        pre_args, pre_weights, opts = pair_args(torch, PM, case, False, torch.float32)
+        table = torch.cat([case["coors"], case["feats"]], dim=-1)
+
+        def unfused_forward(gather, args=pre_args, weights=pre_weights, rows_of=table):
+            args = list(args)
+            if gather:
+                rows = core.gather_nodes(rows_of, case["idx"])
+                args[1], args[2] = (rows[..., :3].reshape(b, n * k, 3),
+                                    rows[..., 3:].reshape(b, n * k, -1))
+            return unfused_pipeline(torch, core, *args, weights, opts)
+
+        def unfused_fwd_bwd(gather):
+            """The gradient of everything K10 (or K11, whose j side is the
+            table under the gather) differentiates."""
+            leaf = lambda t: t.detach().requires_grad_()  # noqa: E731
+            args = [leaf(t) if i in ((0, 3) if gather else (0, 1, 2, 3)) else t
+                    for i, t in enumerate(pre_args)]
+            weights, rows_of = [leaf(w) for w in pre_weights], leaf(table)
+            out = unfused_forward(gather, args, weights, rows_of)
+            leaves = [t for t in args if t.requires_grad] + weights + ([rows_of] if gather else [])
+            return torch.autograd.grad(out, leaves, g, allow_unused=True)
+
+        for gather in gathers:
+            prefix = "fused_knn" if gather else "fused_pair"
+            # the path's own neighbourhood against the float64 plain versions
+            e_f, e_b = check_pair_kernels(torch, PM, what, case, gather)
+            pair_err[prefix + "_fwd"] = max(pair_err[prefix + "_fwd"], e_f)
+            pair_err[prefix + "_bwd"] = max(pair_err[prefix + "_bwd"], e_b)
+            torch.cuda.empty_cache()
+            args, weights, kopts = pair_args(torch, PM, case, gather, torch.float32)
+            fwd, bwd = ((PM.fused_knn_messages_forward, PM.fused_knn_messages_backward) if gather
+                        else (PM.fused_pair_messages_forward, PM.fused_pair_messages_backward))
+            plain_f, plain_b = ((PM.fused_knn_messages_plain, PM.fused_knn_messages_backward_plain)
+                                if gather else (PM.fused_pair_messages_plain,
+                                                PM.fused_pair_messages_backward_plain))
+            with torch.no_grad():
+                timed = {
+                    "fwd": [lambda: fwd(*args, weights, kopts),
+                            lambda: plain_f(*args, weights, kopts)],
+                    "bwd": [lambda: bwd(*args, weights, *g, kopts),
+                            lambda: plain_b(*args, weights, *g, kopts)],
+                }
+                ms = {}
+                for key, (kernel_fn, plain_fn) in timed.items():
+                    p_a = device_ms(torch, plain_fn, reps=reps, trials=trials)
+                    k_a = device_ms(torch, kernel_fn, reps=reps, trials=trials)
+                    k_b = device_ms(torch, kernel_fn, reps=reps, trials=trials)
+                    p_b = device_ms(torch, plain_fn, reps=reps, trials=trials)
+                    ms[key] = (k_a, k_b, p_a, p_b)
+            with torch.no_grad():
+                u_fwd = device_ms(torch, lambda: unfused_forward(gather), reps=reps, trials=trials)
+            u_both = device_ms(torch, lambda: unfused_fwd_bwd(gather), reps=reps, trials=trials)
+            unfused = {"fwd": u_fwd, "bwd": u_both - u_fwd}
+            for key in ("fwd", "bwd"):
+                k_a, k_b, p_a, p_b = ms[key]
+                bound_ms, bound_by, t_bytes, t_ops = pair_bound(
+                    b, n, k, 3, DIM, case["proj_i"].shape[-1], 16, 0, False, gather, key == "bwd")
+                print(f"timing {prefix}_{key} at {what}: kernel {k_a:.5f}/{k_b:.5f} ms"
+                      f"{' (K2 on the j-side rows included)' if gather and key == 'bwd' else ''}, "
+                      f"plain {p_a:.5f}/{p_b:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}; bytes "
+                      f"{t_bytes:.6f} ms, operations {t_ops:.6f} ms); no single library call "
+                      f"computes it: the unfused pipeline of torch operators on the same pairs "
+                      f"{unfused[key]:.5f} ms"
+                      f"{' (its fwd+bwd less its forward)' if key == 'bwd' else ''}")
+                if case_no == 0:   # the JSON line's row: anchor 3's shape
+                    kernels.append({
+                        "name": f"{prefix}_{key}", "route": "cuda",
+                        "source": "egnn_tpu_torch/csrc/pair_messages.cu",
+                        "replaces": site[f"{prefix}_{key}"],
+                        "launches": launches[f"{prefix}_{key}"],
+                        "max_abs_err": pair_err[f"{prefix}_{key}"],
+                        "ms": min(k_a, k_b), "plain_ms": min(p_a, p_b),
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        # no single PyTorch call computes the pipeline: this is the
+                        # unfused layer's chain of torch operators on the same pairs
+                        "library_ms": unfused[key],
+                    })
+        del case
+        torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -15,16 +15,30 @@ names and (in, out) weight layout:
   Where the packed-key route (K5) engages, the layer runs over kc = k + 4
   candidate slots under the winner mask instead of compacting them to k;
   every other route, the grid included, returns k slots and no winner
-  mask. The rest of the layer is plain torch (matmuls on cuBLAS).
+  mask. The rest of the layer is plain torch (matmuls on cuBLAS), unless
+  one of the fused flags takes it:
+- ``fused_pairs=True`` feeds that gather to the fused pair pipeline (kernels
+  K10f and K10b, ``ops/cuda/pair_messages.py:fused_pair_messages``): geometry,
+  edge MLP, gate, coordinate-weight MLP, CoorsNorm, clamp and both
+  aggregations in one kernel over the k or kc slots, with nothing of
+  (b, n, k, hidden) size in device memory, forward or backward.
+- ``fused_knn=True`` (tested first, as in the reference) selects only
+  (K3) and lets K11f and K11b gather ``coors[idx]`` and ``proj_j[idx]``
+  themselves (``fused_knn_messages``).
+  Both engage only with kNN, without dense ``edges``, with ``update_feats``
+  and ``update_coors``, and inside the kernel's gate
+  (``supports_fused_pair_messages`` / ``supports_fused_knn_layer``: k <= 64,
+  c <= 8, widths that fit a block's shared memory); otherwise the layer
+  takes the unfused pipeline silently, as the reference does. They ignore
+  ``compute_dtype``: operands go to the kernel in float32.
 
 Reference quirks kept on purpose: ``valid_radius`` acts only with a
 ``mask``; with ``only_sparse_neighbors`` k is the max row degree including
 the self slot; without a mask the mean divisor is k.
 
 Not ported yet (they raise ``NotImplementedError``): the streamed all-pairs
-path (``stream_pairwise``, or n >= 1024 without kNN), ``ring_axis``,
-``fused_knn``, ``fused_pairs``, global linear attention and dropout in
-training mode.
+path (``stream_pairwise``, or n >= 1024 without kNN), ``ring_axis``, global
+linear attention and dropout in training mode.
 """
 from __future__ import annotations
 
@@ -40,9 +54,11 @@ from ..ops.core import (
     batched_index_select,
     coors_norm,
     fourier_encode_dist,
+    gather_bool,
     layer_norm,
     safe_div,
 )
+from ..ops.cuda import pair_messages as pm
 from ..utils.device import resolve_device
 from . import init as inits
 
@@ -110,10 +126,8 @@ class EGNN(nn.Module):
             raise ValueError("pool method must be either sum or mean")
         if not (update_feats or update_coors):
             raise ValueError("you must update either features, coordinates, or both")
-        for name, value in (("ring_axis", ring_axis), ("fused_knn", fused_knn),
-                            ("fused_pairs", fused_pairs)):
-            if value:
-                raise NotImplementedError(f"EGNN({name}=...) is not ported yet")
+        if ring_axis:
+            raise NotImplementedError("EGNN(ring_axis=...) is not ported yet")
         self.dim = dim
         self.edge_dim = edge_dim
         self.m_dim = m_dim
@@ -130,6 +144,8 @@ class EGNN(nn.Module):
         self.soft_edges = soft_edges
         self.coor_weights_clamp_value = coor_weights_clamp_value
         self.stream_pairwise = stream_pairwise
+        self.fused_knn = fused_knn
+        self.fused_pairs = fused_pairs
         self.compute_dtype = compute_dtype
 
         d = dim
@@ -138,6 +154,7 @@ class EGNN(nn.Module):
         hidden = ein * 2
         hidden_pad = -(-hidden // tp_hidden_multiple) * tp_hidden_multiple \
             if tp_hidden_multiple else hidden
+        self.hidden = hidden_pad
 
         if hidden_pad != hidden:
             # zero-padded inert hidden units (JAX egnn.py:146-175)
@@ -169,15 +186,58 @@ class EGNN(nn.Module):
         """Mixed-precision cast of the message path (identity by default)."""
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
 
-    def _node_update(self, feats, m_i):
+    def _node_update(self, feats, m_i, mp=None):
         """LayerNorm? -> concat with the pooled message -> node MLP ->
-        residual (egnn_pytorch.py:335-337)."""
-        mp = self._mp
+        residual (egnn_pytorch.py:335-337). ``mp`` is the mixed-precision
+        cast: the layer's by default, the identity on the fused paths."""
+        mp = self._mp if mp is None else mp
         normed = layer_norm(feats, self.node_norm_gamma, self.node_norm_beta) \
             if self.norm_feats else feats
         h = torch.cat([mp(normed), m_i.to(mp(normed).dtype)], dim=-1)
         h = F.silu(h @ mp(self.node_mlp_0_w) + mp(self.node_mlp_0_b))
         return (h @ mp(self.node_mlp_1_w) + mp(self.node_mlp_1_b)).to(feats.dtype) + feats
+
+    def _pair_weights(self, w_d, coors):
+        """The fused kernels' weights after Wj; dummies stand for the gate
+        without ``soft_edges`` and for the scale without ``norm_coors``."""
+        if self.soft_edges:
+            gate_w, gate_b = self.edge_gate_w, self.edge_gate_b
+        else:
+            gate_w = torch.zeros(self.m_dim, 1, dtype=coors.dtype, device=coors.device)
+            gate_b = gate_w[:1, 0]
+        scale = self.coors_norm_scale if self.norm_coors else torch.ones(
+            1, dtype=coors.dtype, device=coors.device)
+        return (w_d, self.edge_mlp_1_w, self.edge_mlp_1_b, gate_w, gate_b,
+                self.coors_mlp_0_w, self.coors_mlp_0_b, self.coors_mlp_1_w, self.coors_mlp_1_b,
+                scale)
+
+    def _pool_kernel_messages(self, m_sum, pv, mask, num_nearest):
+        """Mean or sum pooling of the kernels' summed messages. Without a
+        mask the mean's divisor is the number of selected slots k
+        (egnn_pytorch.py:330-333), which is also the winner count of a wide
+        kc-slot result."""
+        if self.m_pool_method != "mean":
+            return m_sum
+        if mask is not None:
+            return safe_div(m_sum, pv.sum(dim=-1).to(m_sum.dtype)[..., None])
+        return m_sum / num_nearest
+
+    def _forward_fused_knn(self, feats, coors, mask, adj_b, num_nearest, valid_radius,
+                           w_i, w_j, w_d):
+        """The layer through K11: selection only, then one kernel that
+        gathers its neighbours' rows itself."""
+        nbhd = nb.knn_select(coors, num_nearest, valid_radius, mask=mask, adj_mat=adj_b)
+        if mask is not None:
+            pv = (mask[:, :, None] & gather_bool(mask, nbhd.indices)) & nbhd.valid
+        else:
+            # the reference's quirk: validity counts only under a mask
+            pv = torch.ones_like(nbhd.indices, dtype=torch.bool)
+        m_sum, coors_delta = pm.fused_knn_messages(
+            coors, feats @ w_i + self.edge_mlp_0_b, feats @ w_j, nbhd.indices, pv,
+            self.fourier_features, self.soft_edges, self.norm_coors,
+            self.coor_weights_clamp_value, 1e-8, *self._pair_weights(w_d, coors))
+        m_i = self._pool_kernel_messages(m_sum, pv, mask, num_nearest)
+        return self._node_update(feats, m_i, mp=lambda v: v), coors + coors_delta
 
     def forward(
         self,
@@ -221,6 +281,14 @@ class EGNN(nn.Module):
             adj_b = None
             if adj_mat is not None:
                 adj_b = adj_mat if adj_mat.dim() == 3 else adj_mat.expand(b, n, n)
+            # the fused paths take the whole layer: kNN, no dense edges, both
+            # updates (dropout in training mode was refused above)
+            fusable = edges is None and self.update_coors and self.update_feats
+            if (self.fused_knn and fusable and pm.supports_fused_knn_layer(
+                    num_nearest, self.hidden, self.m_dim, coors.shape[-1],
+                    self.fourier_features, self.soft_edges)):
+                return self._forward_fused_knn(feats, coors, mask, adj_b, num_nearest,
+                                               valid_radius, w_i, w_j, w_d)
             nbhd, g = nb.knn_select_gather(
                 coors, num_nearest, valid_radius, mask=mask, adj_mat=adj_b,
                 payload=feats, wide=True)
@@ -231,6 +299,28 @@ class EGNN(nn.Module):
                 mask_j = g[..., off] > 0.5
                 off += 1
             feats_j = g[..., off:].to(feats.dtype)             # (b, n, k or kc, d)
+            if (self.fused_pairs and fusable and pm.supports_fused_pair_messages(
+                    g.shape[2], self.hidden, self.m_dim, d, c_sp, self.fourier_features,
+                    self.soft_edges)):
+                # pair validity in the reference's order; a wide result's
+                # ``valid`` already lies inside its winner mask
+                if mask is not None:
+                    pvm = (mask[:, :, None] & mask_j) & nbhd.valid
+                elif nbhd.winner is not None:
+                    pvm = nbhd.winner
+                else:
+                    pvm = torch.ones(g.shape[:3], dtype=torch.bool, device=g.device)
+                kk = g.shape[2]
+                m_sum, coors_delta = pm.fused_pair_messages(
+                    coors, coors_j.reshape(b, n * kk, c_sp), feats_j.reshape(b, n * kk, d),
+                    feats @ w_i + self.edge_mlp_0_b,
+                    pvm.reshape(b, n * kk, 1).to(coors.dtype),
+                    self.fourier_features, self.soft_edges, self.norm_coors,
+                    self.coor_weights_clamp_value, 1e-8, False, False,
+                    w_j, *self._pair_weights(w_d, coors))
+                m_i = self._pool_kernel_messages(m_sum, pvm, mask, num_nearest)
+                return (self._node_update(feats, m_i.to(feats.dtype), mp=lambda v: v),
+                        coors + coors_delta.to(coors.dtype))
             rel_coors = coors[:, :, None, :] - coors_j
             rel_dist = (rel_coors**2).sum(dim=-1)
             if edges is not None:

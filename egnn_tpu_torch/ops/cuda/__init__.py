@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: their ctypes wrappers (``knn.py``,
-``grid_knn.py``, ``segment.py``), the build (``build.py``) and one launch
-count per kernel.
+``grid_knn.py``, ``segment.py``, ``pair_messages.py``), the build
+(``build.py``) and one launch count per kernel.
 
 ``LAUNCH_COUNTS`` holds the launches of each kernel since the last
 ``reset_launch_counts()``: a wrapper adds one where it launches its kernel
@@ -12,6 +12,7 @@ LAUNCH_COUNTS = {
     "knn_select_gather": 0, "knn_select": 0, "segment_sum": 0, "knn_select_tiled": 0,
     "knn_candidates_packed_tiled": 0, "knn_candidates_packed": 0,
     "grid_knn_cells": 0, "knn_select_queries": 0, "knn_select_window": 0,
+    "fused_pair_fwd": 0, "fused_pair_bwd": 0, "fused_knn_fwd": 0, "fused_knn_bwd": 0,
 }
 
 

@@ -1,0 +1,578 @@
+"""Kernels K10 and K11 (the fused pair pipeline of the dense kNN layer,
+forward and backward), their plain PyTorch versions and their gates.
+
+- K10f / K10b ``fused_pair_messages`` replace the TPU kernels of
+  ``egnn_tpu/ops/pallas/pair_messages.py:fused_pair_messages`` (``_fwd_kernel``,
+  ``_bwd_kernel``): the pipeline on pre-gathered neighbour rows.
+- K11f / K11b ``fused_knn_messages`` replace those of
+  ``egnn_tpu/ops/pallas/knn_layer.py:fused_knn_messages``: the same pipeline
+  reading ``coors[idx]`` and ``proj_j[idx]`` itself.
+
+For each pair row r = (node i, slot t)::
+
+    rel = c_i - c_j;  dist = |rel|^2;  distf = [sin(dist/2^f).., cos(dist/2^f).., dist]
+    h1 = proj_i[i] + fj @ Wj + distf @ Wd      (K11: proj_i[i] + proj_j[idx] + distf @ Wd)
+    m0 = silu(silu(h1) @ W2 + b2);  msg = m0 * sigmoid(m0 @ gw + gb) if soft_edges else m0
+    cmsg = m0 if gate_feats_only else msg
+    wz = silu(cmsg @ cW1 + cb1) @ cW2 + cb2;  w = clip(wz * pv, +-clamp)
+    rel_n = rel / sqrt(max(dist, eps^2)) * scale if norm_coors else rel
+    m_i[i] = sum_t msg * pv;  coors_delta[i] = sum_t w * rel_n
+
+All four run ``csrc/pair_messages.cu`` (one source, the gather a template
+flag); its header gives the design and the bound on the card. The backward
+recomputes the pipeline from the inputs and saves nothing of pair size. K11b
+writes its j-side gradients in pair layout and sums them per node with the
+segment-sum kernel K2, so both backwards repeat bit for bit.
+
+A CUDA tensor launches the kernels or raises; a CPU tensor runs the plain
+versions: ``*_plain`` (the pipeline in torch ops, any dtype) and
+``*_backward_plain`` (the backward derived by hand, line for line the
+kernel's formulas, not autograd of the forward), which the tests hold against
+the JAX kernels and against float64 autograd, and ``chip_smoke.py`` holds the
+kernels against on the card. Launches count into ``LAUNCH_COUNTS`` under
+``fused_pair_fwd``, ``fused_pair_bwd``, ``fused_knn_fwd``, ``fused_knn_bwd``.
+
+The gates state the kernel's own limits and nothing else: coordinate width
+c <= 8, at most 16 Fourier encodings, k <= 64 slots, and widths (h, m, 4m,
+d) whose staged weights, weight gradients and one tile of at least k pair
+rows fit a block's 227 KB of shared memory (dim = 32, h = 130, m = 16 takes
+172 KiB with a 64-row tile; dim = 64 leaves K10 an 8-row tile). The tensor-core mode of the TPU kernels
+(``mxu_bf16``) is not ported: the wrapper takes ``mxu_bf16=False`` only.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import torch
+from torch.autograd.function import once_differentiable
+
+from . import LAUNCH_COUNTS, build, raise_on_launch_error
+from . import segment as seg_kernels
+
+MAX_C = 8             # kMaxC in csrc/pair_messages.cu
+MAX_FOURIER = 16      # kMaxFourier
+MAX_ROWS = 64         # kMaxRows: pair rows of a tile, and so the most slots k
+MAX_SMEM_BYTES = 232448
+_ROW_SCALARS = 10     # kRowScalars
+_FWD_BLOCKS_PER_SM, _BWD_BLOCKS_PER_SM = 2, 1
+
+_I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+
+
+class _Shape(ctypes.Structure):
+    """``Shape`` of csrc/pair_messages.cu."""
+    _fields_ = [(name, _I) for name in (
+        "b", "n", "k", "c", "d", "h", "m", "m4", "fourier", "ti", "rows",
+        "soft_edges", "norm_coors", "has_clamp", "gate_feats_only")] + [
+        ("clamp", _F), ("eps", _F)]
+
+
+_TENSOR_FIELDS = (
+    "coors", "cj", "fj", "proj_i", "proj_j", "idx", "pv",
+    "wj", "wd", "w2", "b2", "gw", "gb", "cw1", "cb1", "cw2", "cb2", "scale",
+    "m_i", "cd", "g_mi", "g_cd", "d_ci", "d_cj", "d_fj", "d_pi", "d_pairs", "partial")
+
+
+class _Tensors(ctypes.Structure):
+    """``Tensors`` of csrc/pair_messages.cu: one pointer a field."""
+    _fields_ = [(name, _P) for name in _TENSOR_FIELDS]
+
+
+_ARGTYPES = [ctypes.POINTER(_Shape), ctypes.POINTER(_Tensors), _I, _I, _I, _P, _P]
+
+
+class PairOptions(NamedTuple):
+    """The pipeline's static options."""
+
+    fourier: int
+    soft_edges: bool
+    norm_coors: bool
+    clamp: Optional[float]
+    eps: float
+    gate_feats_only: bool = False
+
+
+# ---------------------------------------------------------------------------
+# the gates: the kernel's shared-memory layout, mirrored
+# ---------------------------------------------------------------------------
+
+
+def _grad_sizes(d, h, m, m4, fourier):
+    """Element counts of the weight gradients, in the weight tuple's order
+    (wj, wd, w2, b2, gw, gb, cw1, cb1, cw2, cb2, scale): ``grad_layout``."""
+    dd = 2 * fourier + 1
+    return [d * h, dd * h, h * m, m, m, 1, m * m4, m4, m4, 1, 1]
+
+
+def _smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward):
+    """Floats of shared memory a block keeps: ``make_layout`` of the source."""
+    dd = 2 * fourier + 1
+    odd = lambda x: x | 1  # noqa: E731
+    ldr = rows + 4    # a tile buffer's line: the rows of one feature, padded
+    total = (d * odd(h) + dd * odd(h) + h * odd(m) + 2 * m + m * odd(m4) + 2 * m4 + 3)
+    total = (total + 3) & ~3
+    total += ldr * (h * (2 if backward else 1) + d + m * (3 if soft_edges else 2) + m4 + c
+                    + dd + _ROW_SCALARS + 1)
+    if backward:
+        total += ldr * (m + c + dd) + sum(_grad_sizes(d, h, m, m4, fourier))
+    return total
+
+
+def _tile_rows(k, c, d, h, m, m4, fourier, soft_edges) -> Optional[int]:
+    """The largest tile (a multiple of 8 pair rows, at least k, at most 64)
+    whose backward layout fits a block's shared memory, or None."""
+    if not (1 <= k <= MAX_ROWS and 1 <= c <= MAX_C and 0 <= fourier <= MAX_FOURIER
+            and h >= 1 and m >= 1 and m4 >= 1):
+        return None
+    for rows in range(MAX_ROWS, 0, -8):
+        if rows < k:
+            return None
+        if 4 * _smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, True) <= MAX_SMEM_BYTES:
+            return rows
+    return None
+
+
+def kernel_smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward) -> int:
+    """What the built source says of the same layout (``chip_smoke.py`` holds
+    ``_smem_floats`` against it)."""
+    shape = _Shape(b=1, n=1, k=1, c=c, d=d, h=h, m=m, m4=m4, fourier=fourier, ti=1, rows=rows,
+                   soft_edges=int(soft_edges))
+    fn = build.function("pair_messages", "pair_messages_smem_floats",
+                        [ctypes.POINTER(_Shape), _I])
+    return fn(ctypes.byref(shape), int(backward))
+
+
+def supports_fused_pair_messages(k: int, hidden: int, m_dim: int, dim: int, c: int = 3,
+                                 fourier: int = 0, soft_edges: bool = False) -> bool:
+    """Whether K10 takes k slots a node at these widths (see the module's
+    docstring): a limit of the kernel's shared-memory layout, the same on
+    the card and on the CPU, where the plain version runs."""
+    return _tile_rows(k, c, dim, hidden, m_dim, 4 * m_dim, fourier, soft_edges) is not None
+
+
+def supports_fused_knn_layer(k: int, hidden: int, m_dim: int, c: int = 3, fourier: int = 0,
+                             soft_edges: bool = False) -> bool:
+    """The same for K11, which stages no Wj."""
+    return _tile_rows(k, c, 0, hidden, m_dim, 4 * m_dim, fourier, soft_edges) is not None
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _silu(x):
+    return x * torch.sigmoid(x)
+
+
+def _dsilu(x):
+    s = torch.sigmoid(x)
+    return s * (1.0 + x * (1.0 - s))
+
+
+def _fourier(dist, fourier: int):
+    """[sin(d/2^f)..., cos(d/2^f)..., d] over the last axis (``ops/core.py:
+    fourier_encode_dist``); dist (..., 1)."""
+    if fourier == 0:
+        return dist
+    xs = [dist / (2.0 ** f) for f in range(fourier)]
+    return torch.cat([torch.sin(x) for x in xs] + [torch.cos(x) for x in xs] + [dist], dim=-1)
+
+
+def _d_fourier(dist, g_distf, fourier: int):
+    """The chain rule of ``_fourier`` back to dist: (..., dd) -> (..., 1)."""
+    if fourier == 0:
+        return g_distf
+    g = g_distf[..., -1:]
+    for f in range(fourier):
+        xs = dist / (2.0 ** f)
+        g = g + g_distf[..., f:f + 1] * torch.cos(xs) / (2.0 ** f)
+        g = g - g_distf[..., fourier + f:fourier + f + 1] * torch.sin(xs) / (2.0 ** f)
+    return g
+
+
+def _tile_forward(coors, cj, hj, proj_i, pv, weights, opts: PairOptions):
+    """Every intermediate of the pipeline. coors (b, n, c), cj (b, n, k, c),
+    hj (b, n, k, h) the j-side term of h1, proj_i (b, n, h), pv (b, n, k, 1);
+    weights without Wj."""
+    wd, w2, b2, gw, gb, cw1, cb1, cw2, cb2, scale = weights
+    t = {}
+    t["rel"] = rel = coors[:, :, None, :] - cj
+    t["dist"] = dist = (rel * rel).sum(dim=-1, keepdim=True)
+    t["distf"] = distf = _fourier(dist, opts.fourier)
+    t["h1"] = h1 = proj_i[:, :, None, :] + hj + distf @ wd
+    t["s1"] = s1 = _silu(h1)
+    t["z2"] = z2 = s1 @ w2 + b2
+    t["m0"] = m0 = _silu(z2)
+    if opts.soft_edges:
+        t["gate"] = gate = torch.sigmoid(m0 @ gw.reshape(-1, 1) + gb.reshape(()))
+        t["msg"] = msg = m0 * gate
+    else:
+        t["msg"] = msg = m0
+    t["cmsg"] = cmsg = m0 if opts.gate_feats_only else msg
+    t["cz1"] = cz1 = cmsg @ cw1 + cb1
+    t["cs1"] = cs1 = _silu(cz1)
+    t["wz"] = wz = cs1 @ cw2.reshape(-1, 1) + cb2.reshape(())
+    t["wm"] = wm = wz * pv
+    t["w"] = wm.clamp(-opts.clamp, opts.clamp) if opts.clamp is not None else wm
+    if opts.norm_coors:
+        t["nrm"] = nrm = torch.sqrt(dist.clamp(min=opts.eps * opts.eps))
+        t["rel_n"] = rel / nrm * scale.reshape(())
+    else:
+        t["rel_n"] = rel
+    return t
+
+
+def _aggregate(t, pv):
+    return (t["msg"] * pv).sum(dim=2), (t["w"] * t["rel_n"]).sum(dim=2)
+
+
+def _tile_backward(t, pv, weights, g_mi, g_cd, opts: PairOptions):
+    """The hand-derived backward of ``_tile_forward`` and ``_aggregate``:
+    (d_rel (b, n, k, c), d_h1 (b, n, k, h), the gradients of the ten weights
+    without Wj), by the formulas of the kernel."""
+    wd, w2, b2, gw, gb, cw1, cb1, cw2, cb2, scale = weights
+    rows = lambda x: x.reshape(-1, x.shape[-1])  # noqa: E731
+    gm_b, gc_b = g_mi[:, :, None, :], g_cd[:, :, None, :]
+
+    # aggregation, clamp (strictly inside) and CoorsNorm
+    d_msg = gm_b * pv
+    d_w = (gc_b * t["rel_n"]).sum(dim=-1, keepdim=True)
+    d_rel_n = t["w"] * gc_b
+    if opts.clamp is not None:
+        inside = (t["wm"] > -opts.clamp) & (t["wm"] < opts.clamp)
+        d_w = d_w * inside.to(d_w.dtype)
+    d_wz = d_w * pv
+    d_dist = torch.zeros_like(t["dist"])
+    d_scale = torch.zeros_like(scale)
+    if opts.norm_coors:
+        s, nrm = scale.reshape(()), t["nrm"]
+        d_rel = d_rel_n * (s / nrm)
+        dot = (d_rel_n * t["rel"]).sum(dim=-1, keepdim=True)
+        live = (t["dist"] > opts.eps * opts.eps).to(dot.dtype)
+        d_dist = d_dist + dot * (-s / (nrm * nrm)) * live * 0.5 / nrm
+        d_scale = (dot / nrm).sum().reshape(scale.shape)
+    else:
+        d_rel = d_rel_n
+
+    # coordinate-weight MLP
+    d_cs1 = d_wz @ cw2.reshape(1, -1)
+    d_cw2 = (rows(t["cs1"]).T @ rows(d_wz)).reshape(cw2.shape)
+    d_cb2 = d_wz.sum().reshape(cb2.shape)
+    d_cz1 = d_cs1 * _dsilu(t["cz1"])
+    d_cmsg = d_cz1 @ cw1.T
+    d_cw1 = rows(t["cmsg"]).T @ rows(d_cz1)
+    d_cb1 = rows(d_cz1).sum(dim=0).reshape(cb1.shape)
+    gfo = opts.gate_feats_only
+    if not gfo:
+        d_msg = d_msg + d_cmsg
+
+    # soft gate
+    if opts.soft_edges:
+        gate = t["gate"]
+        d_g = (d_msg * t["m0"]).sum(dim=-1, keepdim=True)
+        d_zg = d_g * gate * (1.0 - gate)
+        d_m0 = d_msg * gate + d_zg @ gw.reshape(1, -1)
+        d_gw = (rows(t["m0"]).T @ rows(d_zg)).reshape(gw.shape)
+        d_gb = d_zg.sum().reshape(gb.shape)
+        if gfo:
+            d_m0 = d_m0 + d_cmsg   # the ungated coordinate branch
+    else:
+        d_m0 = d_msg + d_cmsg if gfo else d_msg
+        d_gw, d_gb = torch.zeros_like(gw), torch.zeros_like(gb)
+
+    # edge MLP
+    d_z2 = d_m0 * _dsilu(t["z2"])
+    d_s1 = d_z2 @ w2.T
+    d_w2 = rows(t["s1"]).T @ rows(d_z2)
+    d_b2 = rows(d_z2).sum(dim=0).reshape(b2.shape)
+    d_h1 = d_s1 * _dsilu(t["h1"])
+    d_distf = d_h1 @ wd.T
+    d_wd = rows(t["distf"]).T @ rows(d_h1)
+    d_dist = d_dist + _d_fourier(t["dist"], d_distf, opts.fourier)
+    d_rel = d_rel + 2.0 * t["rel"] * d_dist
+    return d_rel, d_h1, (d_wd, d_w2, d_b2, d_gw, d_gb, d_cw1, d_cb1, d_cw2, d_cb2, d_scale)
+
+
+def _pairs(x, n):
+    """(b, n*k, w) pair rows -> (b, n, k, w)."""
+    return x.reshape(x.shape[0], n, -1, x.shape[-1])
+
+
+def fused_pair_messages_plain(coors, cj, fj, proj_i, pv, weights, opts: PairOptions):
+    """K10f's plain version: (m_i (b, n, m), coors_delta (b, n, c))."""
+    n = coors.shape[1]
+    pv4 = _pairs(pv, n).to(coors.dtype)
+    t = _tile_forward(coors, _pairs(cj, n), _pairs(fj, n) @ weights[0], proj_i, pv4,
+                      weights[1:], opts)
+    return _aggregate(t, pv4)
+
+
+def fused_pair_messages_backward_plain(coors, cj, fj, proj_i, pv, weights, g_mi, g_cd,
+                                       opts: PairOptions):
+    """K10b's plain version: (d_coors, d_cj, d_fj, d_proj_i, the eleven
+    weight gradients), recomputing the forward."""
+    b, n, _ = coors.shape
+    pv4 = _pairs(pv, n).to(coors.dtype)
+    fj4 = _pairs(fj, n)
+    t = _tile_forward(coors, _pairs(cj, n), fj4 @ weights[0], proj_i, pv4, weights[1:], opts)
+    d_rel, d_h1, d_w = _tile_backward(t, pv4, weights[1:], g_mi, g_cd, opts)
+    d_fj = d_h1 @ weights[0].T
+    d_wj = fj4.reshape(-1, fj4.shape[-1]).T @ d_h1.reshape(-1, d_h1.shape[-1])
+    return (d_rel.sum(dim=2), (-d_rel).reshape(cj.shape), d_fj.reshape(fj.shape),
+            d_h1.sum(dim=2), (d_wj,) + d_w)
+
+
+def _gather_rows(x, idx):
+    """(b, n, w) at (b, n, k) -> (b, n, k, w)."""
+    b, n, k = idx.shape
+    flat = idx.reshape(b, n * k, 1).long().expand(-1, -1, x.shape[-1])
+    return torch.gather(x, 1, flat).reshape(b, n, k, x.shape[-1])
+
+
+def fused_knn_messages_plain(coors, proj_i, proj_j, idx, pv, weights, opts: PairOptions):
+    """K11f's plain version."""
+    pv4 = pv[..., None].to(coors.dtype)
+    t = _tile_forward(coors, _gather_rows(coors, idx), _gather_rows(proj_j, idx), proj_i, pv4,
+                      weights, opts)
+    return _aggregate(t, pv4)
+
+
+def fused_knn_messages_backward_plain(coors, proj_i, proj_j, idx, pv, weights, g_mi, g_cd,
+                                      opts: PairOptions):
+    """K11b's plain version: (d_coors, d_proj_i, d_proj_j, the ten weight
+    gradients); the j-side rows [-d_rel | d_h1] summed per node by K2's
+    plain version."""
+    b, n, c = coors.shape
+    pv4 = pv[..., None].to(coors.dtype)
+    t = _tile_forward(coors, _gather_rows(coors, idx), _gather_rows(proj_j, idx), proj_i, pv4,
+                      weights, opts)
+    d_rel, d_h1, d_w = _tile_backward(t, pv4, weights, g_mi, g_cd, opts)
+    j_side = seg_kernels.segment_sum_plain(
+        torch.cat([-d_rel, d_h1], dim=-1).reshape(b, -1, c + d_h1.shape[-1]),
+        idx.reshape(b, -1), n)
+    return d_rel.sum(dim=2) + j_side[..., :c], d_h1.sum(dim=2), j_side[..., c:], d_w
+
+
+# ---------------------------------------------------------------------------
+# launches
+# ---------------------------------------------------------------------------
+
+
+def _f32(x):
+    return x.detach().to(torch.float32).contiguous()
+
+
+def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx, pv, weights,
+            grads=None):
+    """One launch of csrc/pair_messages.cu: the forward, or with ``grads`` =
+    (g_mi, g_cd) the backward and its reduction of the weight gradients.
+    ``weights`` are the eleven of K10 (Wj None for K11); pv is (b, n, k)."""
+    backward = grads is not None
+    dev = coors.device
+    b, n, c = coors.shape
+    k = pv.shape[2]
+    wj, wd, w2, b2, gw, gb, cw1, cb1, cw2, cb2, scale = weights
+    h, m, m4 = proj_i.shape[-1], w2.shape[-1], cw1.shape[-1]
+    d = 0 if gather else fj.shape[-1]
+    dd = 2 * opts.fourier + 1
+    rows = _tile_rows(k, c, d, h, m, m4, opts.fourier, opts.soft_edges)
+    if rows is None:
+        raise ValueError(
+            f"the fused pair kernel takes k <= {MAX_ROWS}, c <= {MAX_C}, at most {MAX_FOURIER} "
+            f"Fourier encodings and widths that fit {MAX_SMEM_BYTES} bytes of shared memory; "
+            f"got k={k}, c={c}, d={d}, h={h}, m={m}, 4m={m4}, fourier={opts.fourier}")
+    expect = {"coors": ((b, n, c), coors), "proj_i": ((b, n, h), proj_i),
+              "pv": ((b, n, k), pv), "wd": ((dd, h), wd), "w2": ((h, m), w2),
+              "cw1": ((m, m4), cw1)}
+    if gather:
+        expect.update(proj_j=((b, n, h), proj_j), idx=((b, n, k), idx))
+    else:
+        expect.update(cj=((b, n * k, c), cj), fj=((b, n * k, d), fj), wj=((d, h), wj))
+    for name, (shape, x) in expect.items():
+        if tuple(x.shape) != shape or x.device != dev:
+            raise ValueError(f"{name} must have shape {shape} on {dev}, got {tuple(x.shape)} "
+                             f"on {x.device}")
+    sizes = {"b2": (b2, m), "cb1": (cb1, m4), "cw2": (cw2, m4), "cb2": (cb2, 1)}
+    if opts.soft_edges:
+        sizes.update(gw=(gw, m), gb=(gb, 1))
+    if opts.norm_coors:
+        sizes.update(scale=(scale, 1))
+    for name, (x, count) in sizes.items():
+        if x.numel() != count or x.device != dev:
+            raise ValueError(f"{name} must hold {count} elements on {dev}")
+
+    ti = rows // k
+    tiles = b * -(-n // ti)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = min(tiles, sms * (_BWD_BLOCKS_PER_SM if backward else _FWD_BLOCKS_PER_SM))
+    shape = _Shape(b=b, n=n, k=k, c=c, d=d, h=h, m=m, m4=m4, fourier=opts.fourier, ti=ti,
+                   rows=rows, soft_edges=int(opts.soft_edges), norm_coors=int(opts.norm_coors),
+                   has_clamp=int(opts.clamp is not None),
+                   gate_feats_only=int(opts.gate_feats_only),
+                   clamp=float(opts.clamp or 0.0), eps=float(opts.eps))
+    # float32 contiguous copies live until the launch has been queued
+    held = {"coors": _f32(coors), "proj_i": _f32(proj_i), "pv": _f32(pv)}
+    if gather:
+        held.update(proj_j=_f32(proj_j), idx=idx.detach().to(torch.int64).contiguous())
+    else:
+        held.update(cj=_f32(cj), fj=_f32(fj))
+    for name, w in zip(_TENSOR_FIELDS[7:18], weights):
+        if w is not None:
+            held[name] = _f32(w)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    out = {}
+    weight_grads = None
+    if not backward:
+        out.update(m_i=new(b, n, m), cd=new(b, n, c))
+    else:
+        held.update(g_mi=_f32(grads[0]), g_cd=_f32(grads[1]))
+        total = sum(_grad_sizes(d, h, m, m4, opts.fourier))
+        weight_grads = new(total)
+        out.update(d_ci=new(b, n, c), d_pi=new(b, n, h), partial=new(grid, total))
+        if gather:
+            out.update(d_pairs=new(b, n * k, c + h))
+        else:
+            out.update(d_cj=new(b, n * k, c), d_fj=new(b, n * k, d))
+    tensors = _Tensors(**{name: t.data_ptr() for name, t in {**held, **out}.items()})
+    name = ("fused_knn_" if gather else "fused_pair_") + ("bwd" if backward else "fwd")
+    with torch.cuda.device(dev):
+        # read here, not cached: autograd runs backward on its own thread
+        stream = torch.cuda.current_stream().cuda_stream
+        err = build.function("pair_messages", "pair_messages_launch", _ARGTYPES)(
+            ctypes.byref(shape), ctypes.byref(tensors), int(gather), int(backward), grid,
+            None if weight_grads is None else weight_grads.data_ptr(), stream)
+    raise_on_launch_error(err, name)
+    LAUNCH_COUNTS[name] += 1
+    if not backward:
+        return out["m_i"], out["cd"]
+    parts = weight_grads.split(_grad_sizes(d, h, m, m4, opts.fourier))
+    d_weights = tuple(None if w is None else g.reshape(w.shape).to(w.dtype)
+                      for g, w in zip(parts, weights))
+    return out, d_weights
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if not x.is_cuda and x.device.type != "cpu":
+        raise ValueError(f"no fused pair kernel for device {x.device}")
+    return x.is_cuda
+
+
+def fused_pair_messages_forward(coors, cj, fj, proj_i, pv, weights, opts: PairOptions):
+    """K10f: a CUDA tensor launches the kernel (operands cast to float32, the
+    results back), a CPU tensor runs ``fused_pair_messages_plain``."""
+    if not _on_card(coors):
+        return fused_pair_messages_plain(coors, cj, fj, proj_i, pv, weights, opts)
+    m_i, cd = _launch(False, opts, coors, cj, fj, proj_i, None, None,
+                      _pairs(pv, coors.shape[1])[..., 0], weights)
+    return m_i.to(proj_i.dtype), cd.to(coors.dtype)
+
+
+def fused_pair_messages_backward(coors, cj, fj, proj_i, pv, weights, g_mi, g_cd,
+                                 opts: PairOptions):
+    """K10b: (d_coors, d_cj, d_fj, d_proj_i, the eleven weight gradients)."""
+    if not _on_card(coors):
+        return fused_pair_messages_backward_plain(coors, cj, fj, proj_i, pv, weights, g_mi,
+                                                  g_cd, opts)
+    out, d_w = _launch(False, opts, coors, cj, fj, proj_i, None, None,
+                       _pairs(pv, coors.shape[1])[..., 0], weights, grads=(g_mi, g_cd))
+    return (out["d_ci"].to(coors.dtype), out["d_cj"].to(cj.dtype), out["d_fj"].to(fj.dtype),
+            out["d_pi"].to(proj_i.dtype), d_w)
+
+
+def fused_knn_messages_forward(coors, proj_i, proj_j, idx, pv, weights, opts: PairOptions):
+    """K11f, as ``fused_pair_messages_forward``."""
+    if not _on_card(coors):
+        return fused_knn_messages_plain(coors, proj_i, proj_j, idx, pv, weights, opts)
+    m_i, cd = _launch(True, opts, coors, None, None, proj_i, proj_j, idx, pv,
+                      (None,) + tuple(weights))
+    return m_i.to(proj_i.dtype), cd.to(coors.dtype)
+
+
+def fused_knn_messages_backward(coors, proj_i, proj_j, idx, pv, weights, g_mi, g_cd,
+                                opts: PairOptions):
+    """K11b: (d_coors, d_proj_i, d_proj_j, the ten weight gradients). The
+    kernel leaves the j-side rows [-d_rel | d_h1] in pair layout; K2 sums
+    them per node in edge order."""
+    if not _on_card(coors):
+        return fused_knn_messages_backward_plain(coors, proj_i, proj_j, idx, pv, weights, g_mi,
+                                                 g_cd, opts)
+    b, n, c = coors.shape
+    out, d_w = _launch(True, opts, coors, None, None, proj_i, proj_j, idx, pv,
+                       (None,) + tuple(weights), grads=(g_mi, g_cd))
+    j_side = seg_kernels.segment_sum(out["d_pairs"], idx.reshape(b, -1).contiguous(), n)
+    return ((out["d_ci"] + j_side[..., :c]).to(coors.dtype), out["d_pi"].to(proj_i.dtype),
+            j_side[..., c:].to(proj_j.dtype), d_w[1:])
+
+
+class _FusedPairMessages(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, opts, coors, cj, fj, proj_i, pv, *weights):
+        ctx.opts = opts
+        ctx.save_for_backward(coors, cj, fj, proj_i, pv, *weights)
+        return fused_pair_messages_forward(coors, cj, fj, proj_i, pv, weights, opts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_mi, g_cd):
+        coors, cj, fj, proj_i, pv, *weights = ctx.saved_tensors
+        d_ci, d_cj, d_fj, d_pi, d_w = fused_pair_messages_backward(
+            coors, cj, fj, proj_i, pv, weights, g_mi, g_cd, ctx.opts)
+        d_w = tuple(g.reshape(w.shape) for g, w in zip(d_w, weights))
+        return (None, d_ci, d_cj, d_fj, d_pi, None) + d_w
+
+
+class _FusedKnnMessages(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, opts, coors, proj_i, proj_j, idx, pv, *weights):
+        ctx.opts = opts
+        ctx.save_for_backward(coors, proj_i, proj_j, idx, pv, *weights)
+        return fused_knn_messages_forward(coors, proj_i, proj_j, idx, pv, weights, opts)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_mi, g_cd):
+        coors, proj_i, proj_j, idx, pv, *weights = ctx.saved_tensors
+        d_coors, d_pi, d_pj, d_w = fused_knn_messages_backward(
+            coors, proj_i, proj_j, idx, pv, weights, g_mi, g_cd, ctx.opts)
+        d_w = tuple(g.reshape(w.shape) for g, w in zip(d_w, weights))
+        return (None, d_coors, d_pi, d_pj, None, None) + d_w
+
+
+def fused_pair_messages(coors, cj, fj, proj_i, pv, fourier: int, soft_edges: bool,
+                        norm_coors: bool, clamp: Optional[float], eps: float,
+                        mxu_bf16: bool = False, gate_feats_only: bool = False, *weights):
+    """K10, differentiable: the fused pair pipeline on pre-gathered rows.
+
+    coors (b, n, c); cj (b, n*k, c) and fj (b, n*k, d) the neighbours' rows,
+    i-major (row i*k + t); proj_i (b, n, h) with the edge MLP's first bias
+    folded in; pv (b, n*k, 1) pair validity (no gradient; ones when nothing
+    is masked). ``weights`` = (wj, wd, w2, b2, gw, gb, cw1, cb1, cw2, cb2,
+    scale): pass dummies for unused options (gw and gb without
+    ``soft_edges``, scale without ``norm_coors``); their gradients are zero.
+    ``gate_feats_only``: the coordinate-weight MLP reads the ungated
+    messages. Returns (m_i (b, n, m), the sum of the pv-masked messages, and
+    coors_delta (b, n, c)); a mean pooling divides outside. Any k (or kc)
+    goes: nothing is padded.
+    """
+    if mxu_bf16:
+        raise NotImplementedError("the tensor-core mode (mxu_bf16) is not ported yet")
+    if len(weights) != 11:
+        raise ValueError(f"expected 11 weights, got {len(weights)}")
+    opts = PairOptions(fourier, soft_edges, norm_coors, clamp, eps, gate_feats_only)
+    return _FusedPairMessages.apply(opts, coors, cj, fj, proj_i, pv, *weights)
+
+
+def fused_knn_messages(coors, proj_i, proj_j, idx, pv, fourier: int, soft_edges: bool,
+                       norm_coors: bool, clamp: Optional[float], eps: float, *weights):
+    """K11, differentiable: the same pipeline gathering ``coors[idx]`` and
+    ``proj_j[idx]`` itself. proj_i, proj_j (b, n, h); idx (b, n, k) integer
+    neighbour ids and pv (b, n, k) pair validity (bool or integer), neither
+    with a gradient. ``weights`` = (wd, w2, b2, gw, gb, cw1, cb1, cw2, cb2,
+    scale), dummies as in ``fused_pair_messages``. Returns (m_i, coors_delta).
+    """
+    if len(weights) != 10:
+        raise ValueError(f"expected 10 weights, got {len(weights)}")
+    opts = PairOptions(fourier, soft_edges, norm_coors, clamp, eps, False)
+    return _FusedKnnMessages.apply(opts, coors, proj_i, proj_j, idx, pv, *weights)

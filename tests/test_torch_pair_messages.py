@@ -1,0 +1,309 @@
+"""The plain versions of the fused pair kernels K10 and K11
+(``egnn_tpu_torch/ops/cuda/pair_messages.py``) against the JAX package's
+Pallas kernels in interpret mode, and the hand-derived backward against
+float64 autograd of the plain forward.
+
+The JAX kernels compute in float32 whatever they are given, so comparisons
+with them hold float32 tolerances (those of ``tests/test_fused_pairs.py``
+and ``tests/test_pallas_knn_layer.py``: rtol 2e-4 / atol 2e-5 forward, rtol
+5e-4 / atol 5e-5 for gradients, the sums taken in other orders). Neighbour
+ids are self-free there: a self pair under ``norm_coors`` carries
+scale / eps = 1e8-sized terms that cancel only after the scatter, which
+float32 cannot resolve. Against autograd everything is float64 and agrees
+at 1e-10 relative to each tensor's largest value.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from egnn_tpu.ops.pallas.knn_layer import fused_knn_messages as jax_knn_messages
+from egnn_tpu.ops.pallas.pair_messages import fused_pair_messages as jax_pair_messages
+from egnn_tpu_torch.ops.cuda import pair_messages as PM
+
+WEIGHT_NAMES = ("wj", "wd", "w2", "b2", "gw", "gb", "cw1", "cb1", "cw2", "cb2", "scale")
+
+# tests/test_pallas_knn_layer.py's option grid, plus the sparse caller's gate
+# semantics and slot counts that are no multiple of 8
+CASES = {
+    "bare": dict(fourier=0, soft_edges=False, norm_coors=False, clamp=None),
+    "fourier_norm_clamp": dict(fourier=2, soft_edges=False, norm_coors=True, clamp=2.0),
+    "soft_norm": dict(fourier=0, soft_edges=True, norm_coors=True, clamp=None),
+    "fourier4_soft_clamp": dict(fourier=4, soft_edges=True, norm_coors=False, clamp=1.0),
+    "gate_feats_only": dict(fourier=0, soft_edges=True, norm_coors=True, clamp=1.5,
+                            gate_feats_only=True),
+    "k5": dict(fourier=0, soft_edges=False, norm_coors=True, clamp=2.0, k=5),
+    "k12_b2": dict(fourier=2, soft_edges=True, norm_coors=True, clamp=2.0, k=12, b=2),
+}
+
+
+def _case(seed, b=1, n=96, k=8, c=3, d=8, fourier=0, m=16, self_pairs=False):
+    """numpy inputs of both kernels on one neighbourhood: K10 reads the
+    gathered rows and Wj, K11 ``proj_j = feats @ Wj`` and the ids."""
+    rng = np.random.RandomState(seed)
+    h, dd = 2 * (2 * d + 2 * fourier + 1), 2 * fourier + 1
+    x = dict(
+        coors=rng.randn(b, n, c), feats=0.5 * rng.randn(b, n, d),
+        proj_i=0.3 * rng.randn(b, n, h), g_mi=rng.randn(b, n, m), g_cd=rng.randn(b, n, c))
+    idx = (np.arange(n)[None, :, None] + rng.randint(1, n, size=(b, n, k))) % n
+    if self_pairs:
+        idx[..., 0] = np.arange(n)[None, :]
+    x["idx"] = idx
+    x["pv"] = rng.rand(b, n, k) > 0.25
+    sc = 0.3
+    x["weights"] = (
+        sc * rng.randn(d, h), sc * rng.randn(dd, h), sc * rng.randn(h, m), sc * rng.randn(m),
+        sc * rng.randn(m, 1), sc * rng.randn(1), sc * rng.randn(m, 4 * m),
+        sc * rng.randn(4 * m), sc * rng.randn(4 * m, 1), sc * rng.randn(1), np.array([0.9]))
+    return x
+
+
+def _spec(case):
+    spec = dict(CASES[case])
+    shape = dict(k=spec.pop("k", 8), b=spec.pop("b", 1), fourier=spec["fourier"])
+    return shape, spec
+
+
+def _torch_args(x, gather, dtype):
+    """The wrappers' tensors (K10: coors, cj, fj, proj_i, pv; K11: coors,
+    proj_i, proj_j, idx, pv) and weights."""
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dtype)  # noqa: E731
+    idx = torch.from_numpy(x["idx"])
+    b, n, k = idx.shape
+    weights = tuple(t(w) for w in x["weights"])
+    coors, feats = t(x["coors"]), t(x["feats"])
+    if gather:
+        return [coors, t(x["proj_i"]), feats @ weights[0], idx, torch.from_numpy(x["pv"])], \
+            list(weights[1:])
+    rows = lambda v: PM._gather_rows(v, idx).reshape(b, n * k, -1)  # noqa: E731
+    return [coors, rows(coors), rows(feats), t(x["proj_i"]),
+            t(x["pv"].reshape(b, n * k, 1))], list(weights)
+
+
+def _jax_args(x, gather):
+    j = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+    b, n, k = x["idx"].shape
+    weights = tuple(j(w) for w in x["weights"])
+    if gather:
+        return (j(x["coors"]), j(x["proj_i"]), j(x["feats"]) @ weights[0],
+                jnp.asarray(x["idx"], jnp.int32), jnp.asarray(x["pv"], jnp.int32)), weights[1:]
+    take = lambda v: jnp.take_along_axis(  # noqa: E731
+        j(v)[:, :, None, :], jnp.asarray(x["idx"])[..., None], axis=1).reshape(b, n * k, -1)
+    return (j(x["coors"]), take(x["coors"]), take(x["feats"]), j(x["proj_i"]),
+            j(x["pv"].reshape(b, n * k, 1))), weights
+
+
+def _jax_call(gather, opts):
+    """f(tensors..., weights...) through the Pallas kernels in interpret mode."""
+    static = (opts["fourier"], opts["soft_edges"], opts["norm_coors"], opts["clamp"], 1e-8, True)
+    if gather:
+        return lambda *a: jax_knn_messages(*a[:5], *static, *a[5:])
+    static += (False, opts.get("gate_feats_only", False))
+    return lambda *a: jax_pair_messages(*a[:5], *static, *a[5:])
+
+
+def _torch_call(gather, opts):
+    static = (opts["fourier"], opts["soft_edges"], opts["norm_coors"], opts["clamp"], 1e-8)
+    if gather:
+        return lambda *a: PM.fused_knn_messages(*a[:5], *static, *a[5:])
+    static += (False, opts.get("gate_feats_only", False))
+    return lambda *a: PM.fused_pair_messages(*a[:5], *static, *a[5:])
+
+
+KERNELS = pytest.mark.parametrize("gather", [False, True], ids=["K10", "K11"])
+# every case on both kernels; K11 has no gate_feats_only option, in either package
+CASES_BY_KERNEL = pytest.mark.parametrize("case,gather", [
+    pytest.param(case, gather, id=f"{case}-{'K11' if gather else 'K10'}")
+    for case in sorted(CASES) for gather in (False, True)
+    if not (gather and CASES[case].get("gate_feats_only"))])
+
+
+@CASES_BY_KERNEL
+def test_plain_forward_matches_the_pallas_kernel(case, gather):
+    shape, opts = _spec(case)
+    x = _case(0, **shape)
+    tensors, weights = _torch_args(x, gather, torch.float32)
+    m_i, cd = _torch_call(gather, opts)(*tensors, *weights)
+    jt, jw = _jax_args(x, gather)
+    jm, jc = _jax_call(gather, opts)(*jt, *jw)
+    np.testing.assert_allclose(m_i.numpy(), np.asarray(jm), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(cd.numpy(), np.asarray(jc), rtol=2e-4, atol=2e-5)
+
+
+@CASES_BY_KERNEL
+def test_plain_backward_matches_jax_grad_of_the_pallas_kernel(case, gather):
+    """Every input and weight gradient: the hand-derived plain backward in
+    float32 against jax.grad through the Pallas forward and backward."""
+    shape, opts = _spec(case)
+    x = _case(1, n=64, **shape)
+    tensors, weights = _torch_args(x, gather, torch.float32)
+    diff = (0, 1, 2) if gather else (0, 1, 2, 3)
+    leaves = [t.requires_grad_() if i in diff else t for i, t in enumerate(tensors)]
+    ws = [w.requires_grad_() for w in weights]
+    m_i, cd = _torch_call(gather, opts)(*leaves, *ws)
+    g_mi, g_cd = (torch.from_numpy(x[key]).float() for key in ("g_mi", "g_cd"))
+    wanted = [leaves[i] for i in diff] + ws
+    tg = torch.autograd.grad((m_i * g_mi).sum() + (cd * g_cd).sum(), wanted)
+
+    jt, jw = _jax_args(x, gather)
+    call = _jax_call(gather, opts)
+    jg_mi, jg_cd = jnp.asarray(x["g_mi"], jnp.float32), jnp.asarray(x["g_cd"], jnp.float32)
+
+    def loss(*a):
+        jm, jc = call(*a)
+        return (jm * jg_mi).sum() + (jc * jg_cd).sum()
+
+    argnums = diff + tuple(range(5, 5 + len(jw)))
+    jg = jax.grad(loss, argnums=argnums)(*jt, *jw)
+    names = ([("coors", "proj_i", "proj_j"), ("coors", "cj", "fj", "proj_i")][not gather]
+             + WEIGHT_NAMES[1 if gather else 0:])
+    for name, a, b_ in zip(names, tg, jg):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b_).reshape(a.shape), rtol=5e-4,
+                                   atol=5e-5, err_msg=f"gradient of {name}")
+
+
+def _assert_close_scaled(a, b, name, tol=1e-10):
+    scale = max(b.abs().max().item(), 1e-30)
+    assert (a - b).abs().max().item() <= tol * scale, name
+
+
+@pytest.mark.parametrize("self_pairs", [False, True], ids=["self_free", "self_pairs"])
+@CASES_BY_KERNEL
+def test_hand_derived_backward_matches_float64_autograd(case, gather, self_pairs):
+    """The plain backward, called as the autograd.Function calls it, against
+    torch autograd of the plain forward in float64. With self pairs (dist = 0
+    <= eps^2: CoorsNorm's dead zone) the coordinate gradients carry
+    scale / eps-sized terms, so every tensor is held relative to its own
+    largest value."""
+    shape, opts = _spec(case)
+    x = _case(2, n=48, self_pairs=self_pairs, **shape)
+    tensors, weights = _torch_args(x, gather, torch.float64)
+    popts = PM.PairOptions(opts["fourier"], opts["soft_edges"], opts["norm_coors"], opts["clamp"],
+                           1e-8, opts.get("gate_feats_only", False))
+    g_mi, g_cd = torch.from_numpy(x["g_mi"]), torch.from_numpy(x["g_cd"])
+    if gather:
+        plain_f, plain_b = PM.fused_knn_messages_plain, PM.fused_knn_messages_backward_plain
+        diff = (0, 1, 2)
+    else:
+        plain_f, plain_b = PM.fused_pair_messages_plain, PM.fused_pair_messages_backward_plain
+        diff = (0, 1, 2, 3)
+    hand = plain_b(*tensors, tuple(weights), g_mi, g_cd, popts)
+    hand = list(hand[:-1]) + list(hand[-1])
+    leaves = [t.clone().requires_grad_() if i in diff else t for i, t in enumerate(tensors)]
+    ws = [w.clone().requires_grad_() for w in weights]
+    m_i, cd = plain_f(*leaves, tuple(ws), popts)
+    auto = torch.autograd.grad((m_i * g_mi).sum() + (cd * g_cd).sum(),
+                               [leaves[i] for i in diff] + ws, allow_unused=True)
+    assert len(hand) == len(auto)
+    for i, (a, b_) in enumerate(zip(hand, auto)):
+        if b_ is None:   # an unused dummy (gw, gb or scale): the hand gradient is zero
+            assert not a.any()
+            continue
+        _assert_close_scaled(a.reshape(b_.shape), b_, f"gradient {i}")
+    # and the Function's own backward is that plain backward
+    leaves = [t.clone().requires_grad_() if i in diff else t for i, t in enumerate(tensors)]
+    ws = [w.clone().requires_grad_() for w in weights]
+    out = _torch_call(gather, opts)(*leaves, *ws)
+    fn = torch.autograd.grad(out, [leaves[i] for i in diff] + ws, (g_mi, g_cd))
+    for a, b_ in zip(fn, hand):
+        assert torch.equal(a, b_.reshape(a.shape))
+
+
+@KERNELS
+def test_clamp_is_strict_and_masked_slots_get_no_gradient(gather):
+    """A coordinate weight exactly at the clamp value is outside (strict
+    ``inside``), so nothing flows through it into the coordinate-weight MLP;
+    a slot with pv = 0 gets no gradient at all, and its rows stay finite."""
+    x = _case(3, n=32, k=4)
+    opts = dict(fourier=0, soft_edges=False, norm_coors=True, clamp=None)
+    tensors, weights = _torch_args(x, gather, torch.float64)
+    b, n, k = x["idx"].shape
+    plain_b = PM.fused_knn_messages_backward_plain if gather \
+        else PM.fused_pair_messages_backward_plain
+    weights_wo_wj = weights if gather else weights[1:]
+    cj = PM._gather_rows(tensors[0], torch.from_numpy(x["idx"]))
+    hj = PM._gather_rows(tensors[2], torch.from_numpy(x["idx"])) if gather \
+        else PM._pairs(tensors[2], n) @ weights[0]
+    pv4 = torch.from_numpy(x["pv"])[..., None].double()
+    unclamped = PM._tile_forward(tensors[0], cj, hj, tensors[1 if gather else 3], pv4,
+                                 tuple(weights_wo_wj), PM.PairOptions(0, False, True, None, 1e-8))
+    wm = unclamped["wm"][0, :, :, 0]
+    node, slot = divmod(int(torch.argmax(wm.abs() * pv4[0, :, :, 0])), k)
+    edge = abs(wm[node, slot].item())
+    only = torch.zeros(b, n, k, dtype=torch.bool)
+    only[0, node, slot] = True
+    tensors[4] = only if gather else only.reshape(b, n * k, 1).double()
+    zeros_mi = torch.zeros_like(torch.from_numpy(x["g_mi"]))
+    g_cd = torch.from_numpy(x["g_cd"])
+
+    def grads(clamp):
+        popts = PM.PairOptions(0, False, True, clamp, 1e-8)
+        out = plain_b(*tensors, tuple(weights), zeros_mi, g_cd, popts)
+        return out[0], out[-1][-4], out[-1][-3]     # d_coors, d_cb1, d_cw2
+
+    d_coors, d_cb1, d_cw2 = grads(edge)             # wm == clamp: outside
+    assert not d_cb1.any() and not d_cw2.any() and d_coors.abs().max() > 0
+    _, d_cb1, d_cw2 = grads(edge * (1 + 1e-9))      # just inside
+    assert d_cb1.abs().max() > 0 and d_cw2.abs().max() > 0
+
+    # pv = 0 slots: exactly zero j-side gradients (K10's pair layout shows them)
+    if not gather:
+        tensors[4] = torch.from_numpy(x["pv"].reshape(b, n * k, 1)).double()
+        popts = PM.PairOptions(0, False, True, 2.0, 1e-8)
+        out = plain_b(*tensors, tuple(weights), torch.from_numpy(x["g_mi"]), g_cd, popts)
+        dead = ~torch.from_numpy(x["pv"]).reshape(b, n * k)
+        assert dead.any() and not out[1][dead].any() and not out[2][dead].any()
+        assert all(torch.isfinite(t).all() for t in out[:4])
+
+
+@pytest.mark.parametrize("case", sorted(c for c in CASES if "gate_feats_only" not in c))
+def test_k10_and_k11_agree_on_one_neighbourhood(case):
+    """K11 is K10 with the gather inside: the same neighbourhood gives the
+    same sums, and the j-side gradients of K10, summed per node, are K11's."""
+    shape, opts = _spec(case)
+    x = _case(4, n=40, **shape)
+    out, grads = {}, {}
+    for gather in (False, True):
+        tensors, weights = _torch_args(x, gather, torch.float64)
+        coors = tensors[0].requires_grad_()
+        ws = [w.requires_grad_() for w in weights]
+        if gather:   # proj_j = feats @ Wj stays in the graph on K11's side too
+            feats = torch.from_numpy(x["feats"]).requires_grad_()
+            tensors[2] = feats @ torch.from_numpy(x["weights"][0])
+        m_i, cd = _torch_call(gather, opts)(*tensors, *ws)
+        out[gather] = (m_i, cd)
+        loss = (m_i * torch.from_numpy(x["g_mi"])).sum() + (cd * torch.from_numpy(x["g_cd"])).sum()
+        grads[gather] = torch.autograd.grad(loss, ws[-10:])
+    for a, b_ in zip(out[False], out[True]):
+        torch.testing.assert_close(a, b_, rtol=0, atol=1e-12)
+    for a, b_ in zip(grads[False], grads[True]):
+        _assert_close_scaled(a, b_, "weight gradient", tol=1e-12)
+
+
+def test_gates_state_the_kernels_own_limits():
+    # anchor-3 and net65k widths, any slot count up to 64 (no multiple of 8 asked)
+    for k in (1, 5, 8, 12, 16, 20, 64):
+        assert PM.supports_fused_pair_messages(k, 130, 16, 32)
+        assert PM.supports_fused_knn_layer(k, 130, 16)
+    assert PM._tile_rows(8, 3, 32, 130, 16, 64, 0, False) == 64
+    assert not PM.supports_fused_pair_messages(65, 130, 16, 32)
+    assert not PM.supports_fused_pair_messages(8, 130, 16, 32, c=9)
+    assert not PM.supports_fused_pair_messages(8, 130, 16, 32, fourier=17)
+    # wider layers take a smaller tile, and at last none
+    wide = PM._tile_rows(8, 3, 64, 258, 16, 64, 0, False)
+    assert wide is not None and 8 <= wide < 64 and wide % 4 == 0
+    assert not PM.supports_fused_pair_messages(8, 1026, 16, 256)
+    # the layout the gate sums is within the card's 227 KB at the tile it picks
+    assert 4 * PM._smem_floats(64, 3, 32, 130, 16, 64, 0, False, True) <= PM.MAX_SMEM_BYTES
+
+
+def test_wrappers_refuse_what_is_not_ported():
+    x = _case(5, n=16, k=4)
+    tensors, weights = _torch_args(x, False, torch.float32)
+    with pytest.raises(NotImplementedError, match="mxu_bf16"):
+        PM.fused_pair_messages(*tensors, 0, False, True, 2.0, 1e-8, True, False, *weights)
+    with pytest.raises(ValueError, match="11 weights"):
+        PM.fused_pair_messages(*tensors, 0, False, True, 2.0, 1e-8, False, False, *weights[1:])
+    with pytest.raises(ValueError, match="no fused pair kernel"):
+        PM._on_card(torch.empty(1, device="meta"))
