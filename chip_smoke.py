@@ -23,16 +23,20 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 5. timing: forward latency (CUDA events around the call), its device time
    (a CUDA graph replay) and kernel time by name (torch.profiler); each
    kernel beside its plain version and its bound;
-6. K2 (segment sum) on the card against its plain version over the cases
-   below: three launches bitwise equal, and within the worst-case error of
-   a sequential f32 sum of the float64 result;
+6. K2 (segment sum) on the card over the cases below (K1's ids at b=1 and
+   b=8, padding, hubs up to 2^17 edges, magnitudes 1e-30 to 1e30 that
+   cancel, denormal inputs and sums, NaN and infinities): three launches
+   bitwise equal, bitwise equal to its model ``segment_sum_fixed_point`` and
+   to itself on the edges permuted, and within the worst-case error of a
+   sequential f32 sum of the float64 result (non-finite elements: the
+   float64 sum's NaN or infinity);
 7. K1's backward: the table's gradient through K1 + K2 on the card against
    a plain CPU gather's autograd, and one K2 launch per backward;
 8. training: the anchor-3 denoising train step (masked MSE, flat-buffer
    Adam, lr 1e-3) at b=1 and b=8: finite losses, K1 and K2 launched depth
    times a step, and the loss falling over 50 steps on one batch;
-9. one step on the card against the same step on the CPU: loss and every
-   parameter's gradient;
+9. one step on the card against the same step on the CPU (its segment sums
+   in K2's arithmetic, the model): loss and every parameter's gradient;
 10. timing of the train step (latency, edges/s, profile, CUDA graph replay)
    and of K2 beside its plain version, its bound and ``index_add_``;
 11. large-n kernels: K4 (exact selection at any n), K5 and K6 (packed-key
@@ -50,8 +54,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    adjacency: forwards and train steps through K4;
 15. both families at n = 16 896, depth 1, on the card against the CPU (the
    net65k family through the grid and through K5);
-16. timing of K4, K5, K6 beside their plain versions and bounds, and of K2
-   at the large paths' shapes;
+16. timing of K4, K5, K6 beside their plain versions and bounds (K2 on the
+   large paths' own ids, in phases 13, 14, 19 and 23: the gates of phase 6,
+   then timed beside its plain version, its bound and ``index_add_``);
 17. the grid route's kernels: K7 (grid-blocked selection), K8 (query rows
    against all points) and K9 (query rows against a window of the x-sorted
    points) against their plain versions, bitwise, over the cases below;
@@ -393,6 +398,41 @@ def segment_reference(torch, plain, data, ids, s):
     ref = plain(d64, ids, s).float().double()
     deg = plain(torch.ones_like(d64[..., :1]), ids, s)
     return ref, deg * 2.0**-23 * plain(d64.abs(), ids, s)
+
+
+def check_segment_sum(torch, SK, name, data, ids, s, gen):
+    """K2's gates on one case: three launches bitwise equal; bitwise equal to
+    its model ``segment_sum_fixed_point`` (CPU) and to itself on the edges
+    permuted by ``gen``; every finite element within deg * 2^-23 * sum|x| of
+    the float64 sum, every other one the float64 sum's NaN or infinity.
+    Raises on a failure; returns the largest error over the finite elements."""
+    outs = [SK.segment_sum(data, ids, s) for _ in range(3)]
+    perm = torch.randperm(ids.shape[1], generator=gen).to(ids.device)
+    permuted = SK.segment_sum(data[:, perm].contiguous(), ids[:, perm].contiguous(), s)
+    torch.cuda.synchronize()
+    repeat = all(same_bits(torch, o, outs[0]) for o in outs[1:])
+    order_free = same_bits(torch, permuted, outs[0])
+    out = outs[0].cpu()
+    model = same_bits(torch, out, SK.segment_sum_fixed_point(data, ids, s))
+    ref, limit = segment_reference(torch, SK.segment_sum_plain, data, ids, s)
+    finite = torch.isfinite(ref)
+    err = (out.double() - ref).abs()[finite]
+    within = bool((err <= limit[finite]).all())
+    special = out[~finite].double()
+    same_special = bool(((special == ref[~finite]) | (special.isnan() & ref[~finite].isnan()))
+                        .all())
+    cpu_bits = same_bits(torch, out, SK.segment_sum_plain(data.cpu(), ids.cpu(), s))
+    max_err = err.max().item() if err.numel() else 0.0
+    print(f"K2 case {name}: b={data.shape[0]} E={data.shape[1]} S={s} D={data.shape[2]} "
+          f"ids {ids.dtype}: 3 launches bitwise={repeat}; bitwise equal to the model="
+          f"{model}, to itself on permuted edges={order_free}; max err vs f64 {max_err:.3e}, "
+          f"within deg*2^-23*sum|x|={within} (max limit {limit[finite].max().item():.3e}); "
+          f"{int((~finite).sum())} non-finite elements as in f64={same_special}; equals the "
+          f"CPU plain f32 bitwise={cpu_bits}")
+    if not (repeat and model and order_free and within and same_special):
+        raise AssertionError(f"K2 case {name}: not repeatable, not its model's bits, not "
+                             f"order-free or outside its error")
+    return max_err
 
 
 # K10 and K11 against the float64 plain version: the kernel's largest error
@@ -766,23 +806,41 @@ def main() -> int:
         ("d128", rand(1, N * KNN, 128), ids1, N),
         ("int32_ids", rand(1, N * KNN, tw), ids1.int(), N),
     ]
+    # edge cases of the fixed-point sum, with a generator of their own
+    g_seg = torch.Generator().manual_seed(SEED + 21)
+
+    def rand_seg(*shape):
+        return torch.randn(*shape, generator=g_seg).cuda()
+
+    sign = torch.where(torch.rand(1, N * KNN // 2, tw, generator=g_seg) < 0.5, -1.0, 1.0)
+    wide = sign * 10.0 ** (60.0 * torch.rand(1, N * KNN // 2, tw, generator=g_seg) - 30.0)
+    tiny = rand_seg(1, N * KNN // 2, tw) * 1e-37
+    nonfinite = rand_seg(1, N * KNN, tw)
+    nonfinite[0, ::97, 0] = float("nan")
+    nonfinite[0, ::89, 1] = float("inf")
+    nonfinite[0, ::83, 2] = float("-inf")
+    nonfinite[0, 1::61, 3] = float("inf")
+    nonfinite[0, 2::67, 3] = float("-inf")
+    hub_e = 2**17 + 5
+    edge_cases = [
+        # one segment (a hub of 8192 edges): 1e-30 .. 1e30, each value beside its negation
+        ("magnitudes_1e-30_1e30", torch.cat([wide, -wide], dim=1).cuda(),
+         torch.zeros(1, N * KNN, dtype=torch.int64).cuda(), N),
+        ("denormals", rand_seg(1, N * KNN, tw) * 1e-40, ids1, N),
+        # x beside -x + t with |t| ~ 1e-42: sums in the denormal range
+        ("denormal_results", torch.cat([tiny, -tiny + rand_seg(1, N * KNN // 2, tw) * 1e-42],
+                                       dim=1), ids1[:, : N * KNN // 2].repeat(1, 2), N),
+        ("nan_inf", nonfinite, ids1, N),
+        ("hub_2^17", rand_seg(1, hub_e, tw), torch.zeros(1, hub_e, dtype=torch.int64).cuda(), N),
+    ]
+    # max_abs_err is taken over the unit-scale cases; the edge cases are held
+    # to their bound and their model's bits alone (sums near 1e30 are off by 1e16)
     max_err["segment_sum"] = 0.0
     for name, data, ids, s in seg_cases:
-        outs = [SK.segment_sum(data, ids, s) for _ in range(3)]
-        torch.cuda.synchronize()
-        repeat = all(same_bits(torch, o, outs[0]) for o in outs[1:])
-        ref, limit = segment_reference(torch, SK.segment_sum_plain, data, ids, s)
-        err = (outs[0].cpu().double() - ref).abs()
-        within = bool((err <= limit).all())
-        cpu_bits = same_bits(torch, outs[0].cpu(),
-                             SK.segment_sum_plain(data.cpu(), ids.cpu(), s))
-        max_err["segment_sum"] = max(max_err["segment_sum"], err.max().item())
-        print(f"K2 case {name}: b={data.shape[0]} E={data.shape[1]} S={s} D={data.shape[2]} "
-              f"ids {ids.dtype}: 3 launches bitwise={repeat}; max err vs f64 "
-              f"{err.max().item():.3e}, within deg*2^-23*sum|x|={within} (max limit "
-              f"{limit.max().item():.3e}); equals the CPU plain f32 bitwise={cpu_bits}")
-        if not (repeat and within):
-            raise AssertionError(f"K2 case {name}: not repeatable or outside its error")
+        max_err["segment_sum"] = max(max_err["segment_sum"],
+                                     check_segment_sum(torch, SK, name, data, ids, s, g_seg))
+    for name, data, ids, s in edge_cases:
+        check_segment_sum(torch, SK, name, data, ids, s, g_seg)
 
     # ---- 7. K1's backward (K2) on the card against a plain CPU gather ----
     coors, mask, adj, table = knn_inputs(torch, 1, N, KNN, True, True, False, SEED)
@@ -806,7 +864,8 @@ def main() -> int:
     d_cpu = torch.cat([c_cpu.grad, f_cpu.grad], dim=-1)
     _, limit = segment_reference(torch, SK.segment_sum_plain, w.reshape(1, N * KNN, tw),
                                  idx_cpu.reshape(1, N * KNN), N)
-    # both sides are f32 sums of the same terms, each within half this limit
+    # the CPU's sequential f32 sum and K2 (its error argument in
+    # csrc/segment_sum.cu) each stay within half this limit
     limit = torch.cat([limit[..., :3], limit[..., 4:]], dim=-1)
     err = (d_card[0].cpu().double() - d_cpu.double()).abs()
     print(f"K1 backward at b=1 n={N} k={KNN} tw={tw}: d_table max err vs the CPU plain "
@@ -866,13 +925,32 @@ def main() -> int:
           f"{all(same_bits(torch, a, b) for a, b in zip(*runs))} (information)")
 
     # ---- 9. one step on the card against the CPU ----
+    def with_k2_sums(fn, *args):
+        """``fn`` on the CPU with its segment sums in K2's arithmetic (the
+        model, bitwise K2's): the card and the CPU then sum the same terms to
+        the same bits, and what is left between them is the matmuls'
+        rounding. The plain version adds in edge order, and that order alone
+        moves a step's gradients far more (printed below, on the CPU)."""
+        plain = SK.segment_sum_plain
+        SK.segment_sum_plain = SK.segment_sum_fixed_point
+        try:
+            return fn(*args)
+        finally:
+            SK.segment_sum_plain = plain
+
     for b in (1, 8):
         net, step = make_trainer(SEED + 3)
-        net_cpu = copy.deepcopy(net).to("cpu")
+        net_cpu, net_plain = copy.deepcopy(net).to("cpu"), copy.deepcopy(net).to("cpu")
         step_cpu = make_denoise_train_step(net_cpu, make_fused_adam(net_cpu.parameters(), LR))
         rq = fixed[b]
         loss = step(*batch_args(rq)).item()
-        loss_cpu = step_cpu(*(t.cpu() for t in batch_args(rq))).item()
+        loss_cpu = with_k2_sums(step_cpu, *(t.cpu() for t in batch_args(rq))).item()
+        make_denoise_train_step(net_plain, make_fused_adam(net_plain.parameters(), LR))(
+            *(t.cpu() for t in batch_args(rq)))
+        order = max(  # the CPU alone: plain sums against K2's, information
+            (torch.linalg.vector_norm(q.grad.double() - r.grad.double())
+             / torch.linalg.vector_norm(q.grad.double())).item()
+            for q, r in zip(net_cpu.parameters(), net_plain.parameters()) if q.grad is not None)
         errs = []  # (relative error, name); a parameter off the loss's path has no grad
         for (name, p), q in zip(net.named_parameters(), net_cpu.parameters()):
             if (p.grad is None) != (q.grad is None):
@@ -889,7 +967,8 @@ def main() -> int:
               f"{TRAIN_LOSS_RTOL}); gradient error ||g_gpu - g_cpu|| / ||g_cpu|| largest "
               f"{max(errs)[0]:.3e} ({max(errs)[1]}), median "
               f"{statistics.median(e for e, _ in errs):.3e} over {len(errs)} parameters "
-              f"(tol {TRAIN_GRAD_TOL})")
+              f"(tol {TRAIN_GRAD_TOL}); the CPU with the plain version's sums against "
+              f"the CPU with K2's: largest {order:.3e} (information)")
         if abs(loss - loss_cpu) > TRAIN_LOSS_RTOL * abs(loss_cpu):
             raise AssertionError("card and CPU losses disagree")
 
@@ -928,7 +1007,10 @@ def main() -> int:
           f"{hubs.max().item()} (mean {e / N:.1f}); kernel on uniform random ids "
           f"{ms_uniform:.5f} ms; at S={big[3]} E={big[1].shape[1]} (uniform): kernel "
           f"{ms_big:.5f} ms; {train_counts[1]['segment_sum'] // TRAIN_STEPS} launches a b=1 step")
-    kernels.append({
+    # K2's own launches (memset, count, scan, place, hub max, reduce) by name
+    profile_forward(torch, lambda: SK.segment_sum(data, ids, N), iters=20,
+                    label="K2 calls at b=1 E=8192 S=1024 D=36", unit="call")
+    segment_entry = {
         "name": "segment_sum", "route": "cuda",
         "source": "egnn_tpu_torch/csrc/segment_sum.cu",
         "replaces": "egnn_tpu/ops/pallas/segment.py:115",
@@ -938,7 +1020,8 @@ def main() -> int:
         "bound_ms": bound_ms, "bound_by": bound_by,
         # torch.zeros(S, D).index_add_(0, ids, data): the same sum, with atomics
         "library_ms": ms_lib,
-    })
+    }
+    kernels.append(segment_entry)
 
 
     # ---- 11. K4, K5, K6 against their row-chunked plain versions, bitwise ----
@@ -1060,17 +1143,30 @@ def main() -> int:
     nb.GRID_AUTO = True
 
     def time_segment_sum(what, ids, s, d, reps, trials, note=""):
-        """K2 beside its plain version and bound on the (1, E) ids a large-n
-        path's backward gives it."""
+        """K2's gates on the (1, E) ids a large-n path's backward gives it,
+        then K2 timed beside its plain version, its bound and ``index_add_``
+        on the same ids."""
         data = torch.randn(1, ids.shape[1], d, device="cuda")
+        err = check_segment_sum(torch, SK, f"path {what}'s ids", data, ids, s, g_seg)
+        max_err["segment_sum"] = max(max_err["segment_sum"], err)
+        segment_entry["max_abs_err"] = max_err["segment_sum"]
+        flat_ids, flat_data = ids.reshape(-1), data.reshape(-1, d)
+        if not bool(((flat_ids >= 0) & (flat_ids < s)).all()):
+            raise AssertionError(f"{what}: ids outside [0, S): index_add_ would refuse them")
         ms = device_ms(torch, lambda: SK.segment_sum(data, ids, s), reps=reps, trials=trials)
         ms_plain = device_ms(torch, lambda: SK.segment_sum_plain(data, ids, s), reps=reps,
                              trials=trials)
+        ms_lib = device_ms(torch, lambda: torch.zeros(s, d, device="cuda").index_add_(
+            0, flat_ids, flat_data), reps=reps, trials=trials)
+        ms_b = device_ms(torch, lambda: SK.segment_sum(data, ids, s), reps=reps, trials=trials)
         bound_ms, bound_by = segment_bound(1, ids.shape[1], s, d)
         deg = torch.bincount(ids.reshape(-1), minlength=s)
         print(f"timing segment_sum at {what}'s backward, E={ids.shape[1]} S={s} D={d}: "
-              f"kernel {ms:.5f} ms, plain {ms_plain:.5f} ms, bound {bound_ms:.6f} ms "
-              f"({bound_by}); in-degree up to {deg.max().item()}{note}")
+              f"kernel {ms:.5f}/{ms_b:.5f} ms, plain {ms_plain:.5f} ms, index_add_ "
+              f"{ms_lib:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); in-degree up to "
+              f"{deg.max().item()}{note}")
+        profile_forward(torch, lambda: SK.segment_sum(data, ids, s), iters=5,
+                        label=f"K2 calls at {what}'s backward", unit="call")
 
     # ---- 13. path A: the net65k network through K5 and the kc-wide layers ----
     def make_net_a(depth=DEPTH, seed=SEED, **extra):

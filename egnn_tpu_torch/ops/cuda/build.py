@@ -80,11 +80,11 @@ def library(name: str) -> ctypes.CDLL:
     return lib if lib is not None else build_all()[name]
 
 
-def function(name: str, entry: str, argtypes: list):
+def function(name: str, entry: str, argtypes: list, restype=ctypes.c_int):
     """The C function ``entry`` of ``csrc/<name>.cu``, typed on first use;
-    every launch function returns a CUDA error code."""
+    every launch function returns a CUDA error code (``c_int``)."""
     fn = getattr(library(name), entry)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn

@@ -22,7 +22,8 @@ All four run ``csrc/pair_messages.cu`` (one source, the gather a template
 flag); its header gives the design and the bound on the card. The backward
 recomputes the pipeline from the inputs and saves nothing of pair size. K11b
 writes its j-side gradients in pair layout and sums them per node with the
-segment-sum kernel K2, so both backwards repeat bit for bit.
+segment-sum kernel K2 (order-free, bitwise equal to its model), so both
+backwards repeat bit for bit.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor runs the plain
 versions: ``*_plain`` (the pipeline in torch ops, any dtype) and
@@ -494,7 +495,7 @@ def fused_knn_messages_backward(coors, proj_i, proj_j, idx, pv, weights, g_mi, g
                                 opts: PairOptions):
     """K11b: (d_coors, d_proj_i, d_proj_j, the ten weight gradients). The
     kernel leaves the j-side rows [-d_rel | d_h1] in pair layout; K2 sums
-    them per node in edge order."""
+    them per node, order-free."""
     if not _on_card(coors):
         return fused_knn_messages_backward_plain(coors, proj_i, proj_j, idx, pv, weights, g_mi,
                                                  g_cd, opts)
