@@ -71,8 +71,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 20. timing of K7, K8, K9 beside their plain versions and bounds;
 21. the fused pair pipeline's kernels: K10f and K10b (pre-gathered rows), K11f
    and K11b (gathering inside) against their plain versions in float64 over
-   the cases below, each error held to a multiple of the float32 plain
-   version's own; three forward and backward launches bitwise equal;
+   the cases below (among them the backward's register blocks at their
+   edges: rows, columns and weight-gradient blocks cut short, a partial
+   last tile, and weight gradients past the register slots), each error
+   held to a multiple of the float32 plain version's own; three forward and
+   backward launches bitwise equal;
 22. anchor 3 with ``fused_pairs=True`` (K1 -> K10f; backward K10b -> K2) and
    with ``fused_knn=True`` (K3 -> K11f; backward K11b and K2): serving at b=1
    and b=8 against the unfused network and against the CPU, equivariance,
@@ -86,7 +89,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 24. K10f, K10b, K11f, K11b on anchor 3's own neighbourhood and K10f, K10b on
    path C's and path A's (n = 65 536): against their plain versions in
    float64 as in phase 21, then timed beside their plain versions, their
-   bounds and the unfused pipeline of torch operators on the same pairs.
+   bounds and the unfused pipeline of torch operators on the same pairs;
+   the backward's tile, grid and blocks an SM beside its time.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -1845,14 +1849,27 @@ def main() -> int:
         ("c5_m8_k7", dict(b=1, n=600, k=7, d=12, m=8, c=5)),
         ("dim64_tile_of_8", dict(b=1, n=512, k=8, d=64)),    # wider weights: K10's tile is 8 rows
         ("k64", dict(b=1, n=300, k=64, d=16)),               # one node a tile
+        # the backward's blocks at their edges at once: 30 rows of a 32-row
+        # tile (not a multiple of the 4-row group), the last tile of each
+        # graph 3 nodes of 6, odd dd; d + dd = 17 and 4m = 48 weight-gradient
+        # rows and columns (h = 54 takes one-column products)
+        ("k5_fourier3_soft_b2_partial", dict(b=2, n=333, k=5, d=10, fourier=3, soft=True, m=12)),
+        # the same edges under the five-column products: h = 134, not a
+        # multiple of five, d + dd = 35
+        ("k5_h134_fourier1_soft_b2_partial", dict(b=2, n=333, k=5, d=32, fourier=1, soft=True)),
+        # more encodings than the distance backward's eight lanes a row, and
+        # a lane a coordinate on all eight
+        ("fourier12_c8_k6", dict(b=2, n=301, k=6, d=8, fourier=12, c=8, soft=True)),
     ]
     pair_err = {"fused_pair_fwd": 0.0, "fused_pair_bwd": 0.0, "fused_knn_fwd": 0.0,
                 "fused_knn_bwd": 0.0}
     for layout in ((64, 3, DIM, 130, 16, 64, 0, False), (8, 3, 64, 258, 16, 64, 0, False),
-                   (24, 5, 0, 74, 8, 32, 2, True), (64, 3, 16, 66, 16, 64, 4, True)):
-        for backward in (False, True):   # the gate's copy of the shared-memory layout
+                   (24, 5, 0, 74, 8, 32, 2, True), (64, 3, 16, 66, 16, 64, 4, True),
+                   (32, 3, DIM, 130, 16, 64, 0, False), (24, 3, 0, 130, 16, 64, 0, False),
+                   (32, 3, 10, 54, 12, 48, 3, True)):
+        for backward in (False, True):   # the wrapper's copy of the shared-memory layout
             if PM._smem_floats(*layout, backward) != PM.kernel_smem_floats(*layout, backward):
-                raise AssertionError(f"the gate's layout {layout} differs from the source's")
+                raise AssertionError(f"the wrapper's layout {layout} differs from the source's")
     for i, (name, kw) in enumerate(pair_cases):
         case = pair_case(torch, SEED + 200 + i, **kw)
         for gather, prefix in ((False, "fused_pair"), (True, "fused_knn")):
@@ -2175,6 +2192,13 @@ def main() -> int:
                 u_fwd = device_ms(torch, lambda: unfused_forward(gather), reps=reps, trials=trials)
             u_both = device_ms(torch, lambda: unfused_fwd_bwd(gather), reps=reps, trials=trials)
             unfused = {"fwd": u_fwd, "bwd": u_both - u_fwd}
+            # the backward's tile, grid and blocks an SM at this shape
+            d_k = 0 if gather else DIM
+            h_k = case["proj_i"].shape[-1]
+            rows_b = PM._bwd_tile_rows(k, 3, d_k, h_k, 16, 64, 0, False)
+            _, grid_b = PM.launch_grid(b, n, k, rows_b, True, "cuda")
+            per_sm = PM.kernel_blocks_per_sm(rows_b, k, 3, d_k, h_k, 16, 64, 0, False, gather,
+                                             True)
             for key in ("fwd", "bwd"):
                 k_a, k_b, p_a, p_b = ms[key]
                 bound_ms, bound_by, t_bytes, t_ops = pair_bound(
@@ -2185,7 +2209,10 @@ def main() -> int:
                       f"{t_bytes:.6f} ms, operations {t_ops:.6f} ms); no single library call "
                       f"computes it: the unfused pipeline of torch operators on the same pairs "
                       f"{unfused[key]:.5f} ms"
-                      f"{' (its fwd+bwd less its forward)' if key == 'bwd' else ''}")
+                      f"{' (its fwd+bwd less its forward)' if key == 'bwd' else ''}"
+                      + (f"; {launches[prefix + '_bwd']} launches on the main path (anchor 3's "
+                         f"b=1 steps), here a tile of {rows_b} rows, a grid of {grid_b} blocks, "
+                         f"{per_sm} blocks an SM" if key == "bwd" else ""))
                 if case_no == 0:   # the JSON line's row: anchor 3's shape
                     kernels.append({
                         "name": f"{prefix}_{key}", "route": "cuda",

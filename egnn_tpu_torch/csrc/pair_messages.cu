@@ -23,29 +23,44 @@
 // indexed load, so the rows of coors and proj_j are read at idx where K10
 // reads its pre-gathered rows and multiplies by Wj.
 //
-// Design. A block takes tiles of whole nodes, ti nodes x k slots <= 64 pair
-// rows, in a loop (tile = blockIdx.x, += gridDim.x). The weights are staged in
-// shared memory once a block, every row stride odd, so that a product reads
-// them without bank conflicts both ways round (W and W^T). The tile's
-// activations lie transposed in shared memory, one feature a line of
-// rows + 4 floats: a thread that owns one output column of four rows reads
-// one weight and one float4 of activations for four FMAs, and the float4
-// accesses of a quarter warp fall on distinct banks because (rows + 4) / 4
-// is odd. Each stage of the pipeline is such a product by the whole block
-// with f32 FMAs (four rows a thread, or two where that gives the block's
-// threads more even work), and stages are separated by barriers. What
-// follows a product elementwise rides in its epilogue: the per-node and
-// gathered terms of h1, the silu after it and after z2, the dsilu of the
-// backward. The reductions over a node's k slots run over the tile's rows
-// in slot order.
+// Design. A block takes tiles of whole nodes, ti nodes x k slots pair rows,
+// in a loop (tile = blockIdx.x, += gridDim.x); the grid depends on the shape
+// and the SM count alone. The weights are staged in shared memory once a
+// block, every row stride odd, so that a product reads them without bank
+// conflicts both ways round (W and W^T). The tile's activations lie
+// transposed in shared memory, one feature a line of rows + 4 floats, so that
+// the float4 accesses of a quarter warp fall on distinct banks ((rows + 4) / 4
+// is odd). Each stage of the pipeline is a product by the whole block with
+// f32 FMAs, and stages are separated by barriers. What follows a product
+// elementwise rides in its epilogue: the per-node and gathered terms of h1,
+// the activations, silu' in the backward. The reductions over a node's k
+// slots run over the tile's rows in slot order.
+//
+// The forward (K10f, K11f): 256 threads, two blocks an SM, tiles of up to 64
+// rows; a thread owns one output column of four (or two) rows and reads one
+// weight and one float4 of activations for four FMAs.
+//
+// The backward (K10b, K11b): 256 threads, two blocks an SM, tiles of about 32
+// rows (the wrapper's _bwd_tile_rows), so that two blocks' layouts fit an
+// SM's shared memory and one block's barrier leaves the SM the other's work.
+// It recomputes the tile's forward with its own products, keeping each
+// sigmoid it evaluates (of h1, z2, cz1) so that silu' = sg + silu * (1 - sg)
+// needs no second exponential. Its products are register-blocked: a thread
+// owns four rows by one column, or by five interleaved columns for the
+// h-wide products (h1, d_h1), where one column would leave some threads five
+// rounds of items. The row-wise stages are spread over the block: eight
+// lanes a row for the clamp and CoorsNorm backward and for the distance
+// backward (the Fourier encodings split over the lanes), a thread a (row,
+// feature) for the silu backward, a warp a row for the soft gate's sum.
 //
 // Weight gradients. The TPU grid is sequential and adds into resident blocks
-// step after step. Here every block keeps the gradient of all weights in
-// shared memory; each entry is owned by one thread, which adds the tile's
-// rows to it in row order, tile after tile. At the end a block writes its
-// sums to its own row of `partial`, and a second kernel adds the rows in
-// block order. No float atomics: with the grid fixed by the shape, the
-// result repeats bit for bit.
+// step after step. Here each weight gradient of a tile is an outer product of
+// two sets of tile lines, cut into 4 x 4 blocks of entries (below, at
+// wgrad_plan). Each block has one owner thread, which keeps the sum in
+// registers for the whole tile loop, adds each tile's rows to it in row
+// order, and writes it to the block's row of `partial` at the end; a second
+// kernel adds the rows in block order. No float atomics: the result repeats
+// bit for bit.
 //
 // K11b's j-side sums (d_proj_j, and the neighbours' share of d_coors) are
 // written in pair layout, [-d_rel | d_h1] rows of width c + h, and summed
@@ -56,13 +71,13 @@
 // Bound on the H100: about 2 * (d*h + dd*h + h*m + m*4m + 4m) f32
 // operations a pair forward (14.8 K at d = 32, h = 130, m = 16) and three
 // times that backward, against (c + d + 1) * 4 bytes a pair read: bound by
-// operations (0.23 ms forward at 1 048 576 pairs against 0.05 ms of bytes).
-// This version makes two shared-memory loads for four FMAs in the products
-// and three float4 loads for eight in the weight gradients, and waits at a
-// barrier between stages with at most 16 warps an SM: it stays about ten
-// times above the bound (the times are in PERF.md). Overlapping a tile's
-// loads with the tile before it, and tensor cores (wgmma on bf16 or tf32
-// operands), are later work.
+// operations (0.23 ms forward, 0.70 ms backward at 1 048 576 pairs, against
+// 0.05 ms of bytes). The forward stays about ten times above its bound and
+// the backward about six (the times are in PERF.md): the exact expf and IEEE
+// division of the activations (about 400 sigmoids a pair in the backward),
+// the barriers between stages, and FMAs outside the tensor cores. Tensor
+// cores (wgmma on bf16 or tf32 operands: the TPU kernels' mxu_bf16) and
+// loading a tile's inputs under the tile before it are later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,7 +86,7 @@ constexpr int kMaxFourier = 16;  // Fourier encodings
 constexpr int kMaxRows = 64;     // pair rows of a tile
 constexpr int kRowScalars = 10;  // per-row scalars kept in shared memory
 constexpr int kFwdThreads = 256;
-constexpr int kBwdThreads = 512;
+constexpr int kBwdThreads = 256;
 constexpr int kMaxSmemBytes = 232448;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -140,7 +155,7 @@ struct Layout {
   int ld_h, ld_m, ld_m4;  // odd row strides of the staged weights
   int ldr;                // line stride of the tile buffers
   int wj, wd, w2, b2, gw, cw1, cb1, cw2, misc;  // misc: gb, cb2, scale
-  int H, S, X, DISTF, Z2, M0, MSG, DM, CZ1, REL, DREL, DDF, ROW, JDX, ACC;
+  int H, S, X, DISTF, Z2, M0, MSG, DM, CZ1, REL, DREL, DDF, ROW, JDX, DCZ1, ONES;
   int total;
 };
 
@@ -173,12 +188,13 @@ __host__ __device__ inline Layout make_layout(const Shape& s, bool backward) {
   L.REL = o; o += s.c * L.ldr;
   L.ROW = o; o += kRowScalars * L.ldr;
   L.JDX = o; o += L.ldr;
-  L.DM = L.DREL = L.DDF = L.ACC = o;
+  L.DM = L.DREL = L.DDF = L.DCZ1 = L.ONES = o;
   if (backward) {
     L.DM = o; o += s.m * L.ldr;
     L.DREL = o; o += s.c * L.ldr;
     L.DDF = o; o += dd * L.ldr;
-    L.ACC = o; o += grad_layout(s).total;
+    L.DCZ1 = o; o += s.m4 * L.ldr;
+    L.ONES = o; o += L.ldr;       // a line of ones: the biases' column
   }
   L.total = o;
   return L;
@@ -192,9 +208,10 @@ enum RowScalar { DIST = 0, PV, NRM, GATE, WZ, WCL, DWZ, DZG, DDIST, DSC };
 // (__expf, __fdividef) would save time and are left to a later redesign.
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 __device__ __forceinline__ float silu_f(float x) { return x * sigmoid_f(x); }
-__device__ __forceinline__ float dsilu_f(float x) {
-  const float s = sigmoid_f(x);
-  return s * (1.f + x * (1.f - s));
+// silu'(x) = sg + silu(x) * (1 - sg), sg = sigmoid(x): from the two values
+// the recomputation keeps, with no second exponential
+__device__ __forceinline__ float dsilu_from(float sg, float silu) {
+  return fmaf(silu, 1.f - sg, sg);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -233,9 +250,12 @@ __device__ __forceinline__ void store_rows(float* p, const float (&v)[kRows]) {
 //   v(r, j) = sum_i A(r, i) * W[i * wsi + j * wsj]          r < rows, j < J
 //             + bias[j], + node_bias[r / k][j], + row_bias[row_idx[r]][j]
 //                                                            (each where given)
-//   v *= dsilu(dsilu_of(r, j))                               (where given)
-//   out(r, j) = v, silu_out(r, j) = silu(v)                  (each where given)
-// A, out, silu_out and dsilu_of are tile buffers (line stride ldr); with
+//   v *= silu'(x) from sig_of(r, j) = sigmoid(x), silu_of(r, j) = silu(x)
+//                                                            (where given)
+//   out(r, j) = v, silu_out(r, j) = silu(v), sig_out(r, j) = sigmoid(v)
+//                                                            (each where given;
+//                                                             sig_out with silu_out)
+// A, out, silu_out, sig_out, sig_of and silu_of are tile buffers (line stride ldr); with
 // row_major_ld > 0 `out` is a row-major array in device memory with that row
 // stride. node_bias and row_bias are row-major (J wide) in device memory.
 struct MmArgs {
@@ -247,7 +267,9 @@ struct MmArgs {
   const float* bias;
   int rows, I, J, ldr;
   float* silu_out;
-  const float* dsilu_of;
+  float* sig_out;
+  const float* sig_of;
+  const float* silu_of;
   const float* node_bias;
   const float* row_bias;
   const int* row_idx;
@@ -259,13 +281,76 @@ __device__ __forceinline__ MmArgs mm_args(float* out, const float* A, const floa
   MmArgs a;
   a.out = out; a.row_major_ld = 0; a.A = A; a.W = W; a.wsi = wsi; a.wsj = wsj;
   a.bias = nullptr; a.rows = rows; a.I = I; a.J = J; a.ldr = ldr;
-  a.silu_out = nullptr; a.dsilu_of = nullptr; a.node_bias = nullptr; a.row_bias = nullptr;
+  a.silu_out = nullptr; a.sig_out = nullptr; a.sig_of = nullptr; a.silu_of = nullptr;
+  a.node_bias = nullptr; a.row_bias = nullptr;
   a.row_idx = nullptr; a.k = 1;
   return a;
 }
 
-// A thread owns column j of kRows rows: one weight and one float4 (float2) of
-// activations a step of the sum.
+// What follows a product elementwise, on the kRows rows r0.. of column j
+// that a thread holds in v (see MmArgs).
+template <int kRows>
+__device__ __forceinline__ void mm_epilogue(const MmArgs& m, int j, int r0, float (&v)[kRows]) {
+  const int ldr = m.ldr;
+  // the rows past `rows` of the last group hold no one's data: they are
+  // computed and stored like the others, and never read as results
+  if (m.bias != nullptr) {
+    const float base = m.bias[j];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) v[q] += base;
+  }
+  if (m.node_bias != nullptr) {
+    // the rows of a group lie in one node or a few: one load a node
+    int node = r0 / m.k, left = m.k - (r0 - node * m.k);
+    float base = r0 < m.rows ? m.node_bias[(size_t)node * m.J + j] : 0.f;
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      if (left == 0) {
+        ++node;
+        left = m.k;
+        base = r0 + q < m.rows ? m.node_bias[(size_t)node * m.J + j] : 0.f;
+      }
+      v[q] += base;
+      --left;
+    }
+  }
+  if (m.row_bias != nullptr) {
+#pragma unroll
+    for (int q = 0; q < kRows; ++q)
+      if (r0 + q < m.rows) v[q] += m.row_bias[(size_t)m.row_idx[r0 + q] * m.J + j];
+  }
+  if (m.sig_of != nullptr) {
+    float sg[kRows], sl[kRows];
+    load_rows<kRows>(m.sig_of + j * ldr + r0, sg);
+    load_rows<kRows>(m.silu_of + j * ldr + r0, sl);
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) v[q] *= dsilu_from(sg[q], sl[q]);
+  }
+  if (m.row_major_ld > 0) {
+#pragma unroll
+    for (int q = 0; q < kRows; ++q)
+      if (r0 + q < m.rows) m.out[(size_t)(r0 + q) * m.row_major_ld + j] = v[q];
+  } else if (m.out != nullptr) {
+    store_rows<kRows>(m.out + j * ldr + r0, v);
+  }
+  if (m.sig_out != nullptr) {
+    float sg[kRows];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      sg[q] = sigmoid_f(v[q]);
+      v[q] *= sg[q];  // silu_f(v), its sigmoid kept
+    }
+    store_rows<kRows>(m.sig_out + j * ldr + r0, sg);
+    store_rows<kRows>(m.silu_out + j * ldr + r0, v);
+  } else if (m.silu_out != nullptr) {
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) v[q] = silu_f(v[q]);
+    store_rows<kRows>(m.silu_out + j * ldr + r0, v);
+  }
+}
+
+// The forward's product. A thread owns column j of kRows rows: one weight
+// and one float4 (float2) of activations a step of the sum.
 template <int kRows>
 __device__ __noinline__ void tile_mm_rows(const MmArgs m) {
   const int groups = (m.rows + kRows - 1) / kRows;
@@ -284,100 +369,228 @@ __device__ __noinline__ void tile_mm_rows(const MmArgs m) {
 #pragma unroll
       for (int q = 0; q < kRows; ++q) v[q] = fmaf(av[q], wv, v[q]);
     }
-    // the rows past `rows` of the last group hold no one's data: they are
-    // computed and stored like the others, and never read as results
-    if (m.bias != nullptr) {
-      const float base = m.bias[j];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) v[q] += base;
-    }
-    if (m.node_bias != nullptr) {
-      // the rows of a group lie in one node or a few: one load a node
-      int node = r0 / m.k, left = m.k - (r0 - node * m.k);
-      float base = r0 < m.rows ? m.node_bias[(size_t)node * m.J + j] : 0.f;
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        if (left == 0) {
-          ++node;
-          left = m.k;
-          base = r0 + q < m.rows ? m.node_bias[(size_t)node * m.J + j] : 0.f;
-        }
-        v[q] += base;
-        --left;
-      }
-    }
-    if (m.row_bias != nullptr) {
-#pragma unroll
-      for (int q = 0; q < kRows; ++q)
-        if (r0 + q < m.rows) v[q] += m.row_bias[(size_t)m.row_idx[r0 + q] * m.J + j];
-    }
-    if (m.dsilu_of != nullptr) {
-      float x[kRows];
-      load_rows<kRows>(m.dsilu_of + j * ldr + r0, x);
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) v[q] *= dsilu_f(x[q]);
-    }
-    if (m.row_major_ld > 0) {
-#pragma unroll
-      for (int q = 0; q < kRows; ++q)
-        if (r0 + q < m.rows) m.out[(size_t)(r0 + q) * m.row_major_ld + j] = v[q];
-    } else if (m.out != nullptr) {
-      store_rows<kRows>(m.out + j * ldr + r0, v);
-    }
-    if (m.silu_out != nullptr) {
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) v[q] = silu_f(v[q]);
-      store_rows<kRows>(m.silu_out + j * ldr + r0, v);
-    }
+    mm_epilogue<kRows>(m, j, r0, v);
   }
 }
 
-// The product with the rows a thread takes (4 or 2) picked by the cost of
-// the block's rounds: rounds * (FMAs + loads of one step of the sum). Eight
-// rows a thread spill registers under the kernels' launch bounds.
-__device__ __forceinline__ void tile_mm(const MmArgs& m) {
-  const int nt = blockDim.x;
-  const int c4 = ((((m.rows + 3) >> 2) * m.J + nt - 1) / nt) * 6;
-  const int c2 = ((((m.rows + 1) >> 1) * m.J + nt - 1) / nt) * 4;
-  if (c4 <= c2) tile_mm_rows<4>(m);
-  else tile_mm_rows<2>(m);
+// The rows a thread takes (4 or 2) picked by the cost of the block's rounds:
+// rounds * (FMAs + loads of one step of the sum). Eight rows a thread spill
+// registers under the kernels' launch bounds.
+struct OutlinedMm {
+  __device__ __forceinline__ void operator()(const MmArgs& m) const {
+    const int nt = blockDim.x;
+    const int c4 = ((((m.rows + 3) >> 2) * m.J + nt - 1) / nt) * 6;
+    const int c2 = ((((m.rows + 1) >> 1) * m.J + nt - 1) / nt) * 4;
+    if (c4 <= c2) tile_mm_rows<4>(m);
+    else tile_mm_rows<2>(m);
+  }
+};
+
+// The backward's product, register-blocked: a thread owns four rows by kCols
+// columns, interleaved (jq, jq + nq, jq + 2 nq, ...; nq = ceil(J / kCols)), and
+// a step of the sum is one float4 of activations and kCols weights for
+// 4 * kCols FMAs. The threads of a warp take consecutive jq of one row group:
+// the float4 is one broadcast, and each weight load falls on 32 distinct banks
+// in either orientation (W and W^T) because the staged row strides are odd.
+// Columns past J read the last column and are not stored. Each output adds
+// its terms in the order of i, as the forward's routine does. Inlined, so
+// that the weight-gradient sums the backward keeps in registers are not
+// saved and restored around a call.
+template <int kCols>
+__device__ __forceinline__ void mm_blocked(const MmArgs& m) {
+  const int groups = (m.rows + 3) >> 2;
+  const int nq = (m.J + kCols - 1) / kCols;
+  const int ldr = m.ldr;
+  for (int o = threadIdx.x; o < groups * nq; o += blockDim.x) {
+    const int g = o / nq, jq = o - g * nq, r0 = g * 4;
+    const float* a = m.A + r0;
+    int wo[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) wo[c] = min(jq + nq * c, m.J - 1) * m.wsj;
+    float v[kCols][4];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[c][q] = 0.f;
+#pragma unroll 4  // four steps' loads in flight: K10b 4.48 -> 4.35 ms at path C on the H100
+    for (int i = 0; i < m.I; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(a + i * ldr);
+      const float* w = m.W + i * m.wsi;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float wv = w[wo[c]];
+        v[c][0] = fmaf(x.x, wv, v[c][0]);
+        v[c][1] = fmaf(x.y, wv, v[c][1]);
+        v[c][2] = fmaf(x.z, wv, v[c][2]);
+        v[c][3] = fmaf(x.w, wv, v[c][3]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (jq + nq * c < m.J) mm_epilogue<4>(m, jq + nq * c, r0, v[c]);
+  }
 }
 
-// acc[i * J + j] += sum over r < rows, in row order, of A(r, i) * dY(r, j), both
-// tile buffers; A == nullptr stands for a column of ones (a bias). Each entry
-// has one owner, so the order of its adds is fixed. A thread owns the entries
-// (i, j) and (i + 1, j): one float4 of dY feeds both.
-__device__ __noinline__ void tile_wgrad(float* acc, const float* A, const float* dY, int rows,
-                                        int I, int J, int ldr) {
-  const int pairs = (I + 1) >> 1;
-  for (int e = threadIdx.x; e < pairs * J; e += blockDim.x) {
-    const int ip = e / J, j = e - ip * J, i = ip << 1;
-    const bool two = i + 1 < I;
-    const float* a0 = A != nullptr ? A + i * ldr : nullptr;
-    const float* a1 = two ? a0 + ldr : a0;
-    const float* y = dY + j * ldr;
-    float s0 = 0.f, s1 = 0.f;
-    int r = 0;
-    if (a0 != nullptr) {
-      for (; r + 4 <= rows; r += 4) {
-        const float4 yv = *reinterpret_cast<const float4*>(y + r);
-        const float4 u = *reinterpret_cast<const float4*>(a0 + r);
-        const float4 w = *reinterpret_cast<const float4*>(a1 + r);
-        s0 = fmaf(u.x, yv.x, s0); s1 = fmaf(w.x, yv.x, s1);
-        s0 = fmaf(u.y, yv.y, s0); s1 = fmaf(w.y, yv.y, s1);
-        s0 = fmaf(u.z, yv.z, s0); s1 = fmaf(w.z, yv.z, s1);
-        s0 = fmaf(u.w, yv.w, s0); s1 = fmaf(w.w, yv.w, s1);
-      }
-      for (; r < rows; ++r) {
-        s0 = fmaf(a0[r], y[r], s0);
-        s1 = fmaf(a1[r], y[r], s1);
-      }
-    } else {
-      for (; r < rows; ++r) s0 += y[r];
-    }
-    acc[i * J + j] += s0;
-    if (two) acc[(i + 1) * J + j] += s1;
+template <int kCols>
+struct BlockedMm {
+  __device__ __forceinline__ void operator()(const MmArgs& m) const { mm_blocked<kCols>(m); }
+};
+
+// The backward's column blocks, fixed for a launch. The narrow products (m,
+// 4m or d wide) take one column: a wider block leaves threads idle and
+// lengthens the others' paths. The h-wide ones (h1, d_h1) take kWideCols,
+// one or five, which the launch picks by the shorter path through the block's
+// threads (wide_cost): at 32 rows and h = 130 five columns make 208 items,
+// one a thread, where one column makes 1040, five rounds for some threads
+// and twice the loads; at 20 rows (kc = 20) one column makes three rounds and
+// five leave half the threads idle. A choice made in the kernel, with both
+// variants inlined at a site, measured slower than either fixed one
+// (PERF.md): the choice is a template argument.
+template <bool kBackward, int kWideCols>
+struct Products {
+  using wide = BlockedMm<kWideCols>;
+  using narrow = BlockedMm<1>;
+};
+template <int kWideCols>
+struct Products<false, kWideCols> {
+  using wide = OutlinedMm;
+  using narrow = OutlinedMm;
+};
+
+// The path of one thread through an h-wide product of a tile of ti * k rows:
+// rounds of items (four rows by `cols` columns) times the instructions of a
+// step of the sum (4 cols FMAs, 1 + cols loads).
+inline int wide_cost(const Shape& s, int cols) {
+  const int items = ((s.ti * s.k + 3) / 4) * ((s.h + cols - 1) / cols);
+  return (items + kBwdThreads - 1) / kBwdThreads * (5 * cols + 1);
+}
+
+// ---- weight gradients in registers ----
+//
+// Every weight gradient of a tile is an outer product over its rows,
+// dW(i, j) = sum_r A(r, i) * dY(r, j), of two sets of tile lines; a bias is
+// one more A line of ones. The backward has five such products (six with the
+// soft gate), each written to the weight-gradient layout as a matrix of I x J
+// entries in order:
+//   [fj | distf]^T d_h1   -> [Wj; Wd]            (K11: distf^T d_h1 -> Wd)
+//   [s1 | 1]^T d_z2       -> [W2; b2]
+//   [m0 | 1]^T d_zg       -> [gw; gb]            (soft gate)
+//   [cmsg | 1]^T d_cz1    -> [cW1; cb1]
+//   [cs1 | 1]^T d_wz      -> [cW2; cb2]
+//   [1]^T d_scale         -> scale               (norm_coors)
+// Each matrix is cut into blocks of 4 x 4 entries, interleaved: block (iq, jq)
+// holds rows iq + P*a and columns jq + Q*c (a, c < 4; P = ceil(I/4), Q =
+// ceil(J/4)), so that the threads of a warp, which take consecutive blocks,
+// read consecutive lines, on distinct banks. Block b of the concatenated list
+// belongs to thread b % blockDim.x, in slot b / blockDim.x; a thread keeps its
+// first kWgSlots blocks in registers for the whole tile loop, adds each tile's
+// sum over its rows (in row order) to them, and writes them to its block's row
+// of `partial` at the end. Blocks beyond those slots (widths past the ones the
+// kernel is tuned for) add their tile sums to `partial` in device memory in
+// the same order. No two threads share an entry: the result repeats.
+constexpr int kWgSlots = 3;
+constexpr int kMaxWgMats = 6;
+
+struct WgMat {
+  int a, ia;    // A lines: ia lines from shared-memory offset a, then the ones line
+  int y;        // dY lines' offset
+  int I, J, P, Q, dest, first;  // first: index of its first block in the list
+};
+
+struct WgPlan {
+  WgMat mat[kMaxWgMats];
+  int count, blocks;
+};
+
+inline void add_mat(WgPlan& p, int a, int ia, int y, int I, int J, int dest) {
+  WgMat& M = p.mat[p.count++];
+  M.a = a; M.ia = ia; M.y = y; M.I = I; M.J = J;
+  M.P = (I + 3) >> 2; M.Q = (J + 3) >> 2;
+  M.dest = dest; M.first = p.blocks;
+  p.blocks += M.P * M.Q;
+}
+
+WgPlan wgrad_plan(const Shape& s, bool gather, const Layout& L, const GradLayout& G) {
+  const int dd = 2 * s.fourier + 1;
+  const int ldr = L.ldr;
+  WgPlan p;
+  p.count = 0; p.blocks = 0;
+  // [X | DISTF] are adjacent lines, as are the gradients of Wj and Wd
+  if (gather) add_mat(p, L.DISTF, dd, L.H, dd, s.h, G.wd);
+  else add_mat(p, L.X, s.d + dd, L.H, s.d + dd, s.h, G.wj);
+  add_mat(p, L.S, s.h, L.DM, s.h + 1, s.m, G.w2);            // b2 follows w2
+  if (s.soft_edges) add_mat(p, L.M0, s.m, L.ROW + DZG * ldr, s.m + 1, 1, G.gw);
+  add_mat(p, s.gate_feats_only ? L.M0 : L.MSG, s.m, L.DCZ1, s.m + 1, s.m4, G.cw1);
+  add_mat(p, L.CZ1, s.m4, L.ROW + DWZ * ldr, s.m4 + 1, 1, G.cw2);  // cb2 follows cw2
+  if (s.norm_coors) add_mat(p, 0, 0, L.ROW + DSC * ldr, 1, 1, G.scale);
+  return p;
+}
+
+// The matrix that block b of the plan belongs to.
+__device__ __forceinline__ WgMat find_mat(const WgPlan& p, int b) {
+  int q = 0;
+  for (int t = 1; t < p.count; ++t)
+    if (b >= p.mat[t].first) q = t;
+  return p.mat[q];
+}
+
+// v(a, c) = sum over r < rows, in row order, of A(r, i_a) * dY(r, j_c) for
+// block b of matrix M; entries past the matrix's edge read a valid line and
+// are never stored.
+__device__ __forceinline__ void wgrad_block(const float* sm, const WgMat& M, int b, int rows,
+                                            int ldr, int ones, float (&v)[4][4]) {
+  const int bb = b - M.first, iq = bb / M.Q, jq = bb - iq * M.Q;
+  int al[4], yl[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = iq + M.P * a;
+    al[a] = i < M.ia ? M.a + i * ldr : ones;
   }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) yl[c] = M.y + min(jq + M.Q * c, M.J - 1) * ldr;
+  const int ncols = M.J == 1 ? 1 : 4;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) v[a][c] = 0.f;
+  int r = 0;
+  for (; r + 4 <= rows; r += 4) {
+    float4 y[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) y[c] = *reinterpret_cast<const float4*>(sm + yl[c] + r);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float4 x = *reinterpret_cast<const float4*>(sm + al[a] + r);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (c > 0 && c >= ncols) break;  // a matrix one column wide (the J = 1 ones)
+        v[a][c] = fmaf(x.x, y[c].x, v[a][c]);
+        v[a][c] = fmaf(x.y, y[c].y, v[a][c]);
+        v[a][c] = fmaf(x.z, y[c].z, v[a][c]);
+        v[a][c] = fmaf(x.w, y[c].w, v[a][c]);
+      }
+    }
+  }
+  for (; r < rows; ++r) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) v[a][c] = fmaf(sm[al[a] + r], sm[yl[c] + r], v[a][c]);
+  }
+}
+
+// Calls f(a, c, offset) for the entries of block b that lie in its matrix,
+// with their offset in the weight-gradient layout.
+template <typename F>
+__device__ __forceinline__ void for_block_entries(const WgMat& M, int b, F f) {
+  const int bb = b - M.first, iq = bb / M.Q, jq = bb - iq * M.Q;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int i = iq + M.P * a, j = jq + M.Q * c;
+      if (i < M.I && j < M.J) f(a, c, M.dest + i * M.J + j);
+    }
 }
 
 __device__ void stage_matrix(float* dst, int ld, const float* src, int rows, int cols) {
@@ -404,13 +617,16 @@ __device__ void stage_weights(const Shape& s, const Tensors& t, const Layout& L,
   }
 }
 
-// The tile's forward: leaves in shared memory h1 (H; silu(h1) when H and S
-// are one buffer), silu(h1) (S), z2, m0, msg, cz1, rel, [fj | distf] and the
-// row scalars DIST, PV, NRM, GATE, WZ, WCL (the clipped weight). Ends on a
-// barrier.
-template <bool kGather>
-__device__ void tile_forward(const Shape& s, const Tensors& t, const Layout& L, float* sm,
-                             int ib, int i0, int rows) {
+// The tile's forward: leaves in shared memory silu(h1) (S), m0, msg, rel,
+// [fj | distf] and the row scalars DIST, PV, NRM, GATE, WZ, WCL (the clipped
+// weight); the forward kernel also cz1 (CZ1); the backward the sigmoids of
+// h1, z2, cz1 in H, Z2, CZ1 (for silu' without a second exponential) and
+// silu(cz1) in DCZ1, with its product routine. Ends on a barrier.
+template <bool kGather, bool kBackward, int kWideCols = 1>
+__device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, const Layout& L,
+                                             float* sm, int ib, int i0, int rows) {
+  const typename Products<kBackward, kWideCols>::wide wide_mm;
+  const typename Products<kBackward, kWideCols>::narrow tile_mm;
   const int dd = 2 * s.fourier + 1;
   const int ldr = L.ldr;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -455,13 +671,12 @@ __device__ void tile_forward(const Shape& s, const Tensors& t, const Layout& L, 
   }
   __syncthreads();
 
-  // h1 = proj_i[i] (+ proj_j[idx]) + [fj | distf] @ [Wj; Wd]; s1 = silu(h1).
-  // The backward keeps h1 beside s1; the forward has one buffer for both.
+  // h1 = proj_i[i] (+ proj_j[idx]) + [fj | distf] @ [Wj; Wd]; s1 = silu(h1)
   {
     MmArgs m = kGather ? mm_args(nullptr, sm + L.DISTF, sm + L.wd, L.ld_h, 1, rows, dd, s.h, ldr)
                        : mm_args(nullptr, sm + L.X, sm + L.wj, L.ld_h, 1, rows, s.d + dd, s.h,
                                  ldr);
-    if (L.S != L.H) m.out = sm + L.H;
+    if (kBackward) m.sig_out = sm + L.H;
     m.silu_out = sm + L.S;
     m.node_bias = t.proj_i + node0 * s.h;
     m.k = s.k;
@@ -469,15 +684,17 @@ __device__ void tile_forward(const Shape& s, const Tensors& t, const Layout& L, 
       m.row_bias = t.proj_j + (size_t)ib * s.n * s.h;
       m.row_idx = jdx;
     }
-    tile_mm(m);
+    wide_mm(m);
   }
   __syncthreads();
 
   // z2 = s1 @ W2 + b2; m0 = silu(z2)
   {
-    MmArgs m = mm_args(sm + L.Z2, sm + L.S, sm + L.w2, L.ld_m, 1, rows, s.h, s.m, ldr);
+    MmArgs m = mm_args(kBackward ? nullptr : sm + L.Z2, sm + L.S, sm + L.w2, L.ld_m, 1, rows,
+                       s.h, s.m, ldr);
     m.bias = sm + L.b2;
     m.silu_out = sm + L.M0;
+    if (kBackward) m.sig_out = sm + L.Z2;
     tile_mm(m);
   }
   __syncthreads();
@@ -497,8 +714,13 @@ __device__ void tile_forward(const Shape& s, const Tensors& t, const Layout& L, 
   // cz1 = cmsg @ cW1 + cb1
   const float* cmsg = sm + (s.gate_feats_only ? L.M0 : L.MSG);
   {
-    MmArgs m = mm_args(sm + L.CZ1, cmsg, sm + L.cw1, L.ld_m4, 1, rows, s.m, s.m4, ldr);
+    MmArgs m = mm_args(kBackward ? nullptr : sm + L.CZ1, cmsg, sm + L.cw1, L.ld_m4, 1, rows, s.m,
+                       s.m4, ldr);
     m.bias = sm + L.cb1;
+    if (kBackward) {
+      m.sig_out = sm + L.CZ1;
+      m.silu_out = sm + L.DCZ1;
+    }
     tile_mm(m);
   }
   __syncthreads();
@@ -507,7 +729,8 @@ __device__ void tile_forward(const Shape& s, const Tensors& t, const Layout& L, 
   for (int r = warp; r < rows; r += nwarps) {
     float acc = 0.f;
     for (int q = lane; q < s.m4; q += 32)
-      acc = fmaf(silu_f(sm[L.CZ1 + q * ldr + r]), sm[L.cw2 + q], acc);
+      acc = fmaf(kBackward ? sm[L.DCZ1 + q * ldr + r] : silu_f(sm[L.CZ1 + q * ldr + r]),
+                 sm[L.cw2 + q], acc);
     const float wz = warp_sum(acc) + sm[L.misc + 1];
     if (lane == 0) {
       const float wm = wz * row[PV * ldr + r];
@@ -532,7 +755,7 @@ pair_fwd_kernel(const Shape s, const Tensors t) {
   for (int tile = blockIdx.x; tile < s.b * tiles_per_b; tile += gridDim.x) {
     const int ib = tile / tiles_per_b, i0 = (tile - ib * tiles_per_b) * s.ti;
     const int tn = min(s.ti, s.n - i0), rows = tn * s.k;
-    tile_forward<kGather>(s, t, L, sm, ib, i0, rows);
+    tile_forward<kGather, false>(s, t, L, sm, ib, i0, rows);
     const size_t node0 = (size_t)ib * s.n + i0;
     const float scale = sm[L.misc + 2];
     // m_i[i] = sum_t msg * pv, coors_delta[i] = sum_t w * rel_n, in slot order
@@ -560,20 +783,40 @@ pair_fwd_kernel(const Shape s, const Tensors t) {
   }
 }
 
-template <bool kGather>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-pair_bwd_kernel(const Shape s, const Tensors t) {
+// The backward's offsets, computed on the host and read from the kernel's
+// parameter space, where they take no registers.
+struct BwdPlan {
+  Layout L;
+  GradLayout G;
+  WgPlan wg;
+};
+
+template <bool kGather, int kWideCols>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan p) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
-  const Layout L = make_layout(s, true);
-  const GradLayout G = grad_layout(s);
+  const Layout& L = p.L;
+  const GradLayout& G = p.G;
+  const WgPlan& plan = p.wg;
   const int dd = 2 * s.fourier + 1;
   const int ldr = L.ldr;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int nt = blockDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = nt >> 5;
   float* row = sm + L.ROW;
-  float* acc = sm + L.ACC;
+  float* mine = t.partial + (size_t)blockIdx.x * G.total;
   stage_weights(s, t, L, sm);
-  for (int e = threadIdx.x; e < G.total; e += blockDim.x) acc[e] = 0.f;
+  for (int r = threadIdx.x; r < ldr; r += nt) sm[L.ONES + r] = 1.f;
+  float acc[kWgSlots][4][4];
+#pragma unroll
+  for (int sl = 0; sl < kWgSlots; ++sl)
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[sl][a][c] = 0.f;
+  // the blocks past the register slots sum in the block's row of `partial`
+  for (int b = kWgSlots * nt + threadIdx.x; b < plan.blocks; b += nt)
+    for_block_entries(find_mat(plan, b), b, [&](int, int, int o) { mine[o] = 0.f; });
   __syncthreads();
   const float scale = sm[L.misc + 2];
   const float eps2 = s.eps * s.eps;
@@ -583,144 +826,180 @@ pair_bwd_kernel(const Shape s, const Tensors t) {
     const int tn = min(s.ti, s.n - i0), rows = tn * s.k;
     const size_t node0 = (size_t)ib * s.n + i0;
     const size_t p0 = node0 * s.k;
-    tile_forward<kGather>(s, t, L, sm, ib, i0, rows);
+    tile_forward<kGather, true, kWideCols>(s, t, L, sm, ib, i0, rows);
 
-    // ---- aggregation, clamp and CoorsNorm backward, one thread a row ----
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      const float* gc = t.g_cd + (node0 + r / s.k) * s.c;
-      const float pv = row[PV * ldr + r], nrm = row[NRM * ldr + r], w = row[WCL * ldr + r];
-      const float wm = row[WZ * ldr + r] * pv;
-      float d_w = 0.f, dot = 0.f;  // dot = sum_c d_rel_n * rel
-      for (int cc = 0; cc < s.c; ++cc) {
-        const float rel = sm[L.REL + cc * ldr + r];
-        const float rel_n = s.norm_coors ? rel / nrm * scale : rel;
-        const float d_rel_n = w * gc[cc];
-        d_w = fmaf(gc[cc], rel_n, d_w);
-        dot = fmaf(d_rel_n, rel, dot);
-        sm[L.DREL + cc * ldr + r] = s.norm_coors ? d_rel_n * (scale / nrm) : d_rel_n;
-      }
-      const bool inside = !s.has_clamp || (wm > -s.clamp && wm < s.clamp);
-      row[DWZ * ldr + r] = inside ? d_w * pv : 0.f;
-      float d_dist = 0.f, d_scale = 0.f;
-      if (s.norm_coors) {
-        const float d_nrm = dot * (-scale / (nrm * nrm));
-        if (row[DIST * ldr + r] > eps2) d_dist = d_nrm * 0.5f / nrm;
-        d_scale = dot / nrm;
-      }
-      row[DDIST * ldr + r] = d_dist;
-      row[DSC * ldr + r] = d_scale;
-    }
-    __syncthreads();
-
-    // ---- coordinate-weight MLP backward ----
-    // d_cW2[q] = sum_r silu(cz1) * d_wz: one warp an entry, lanes over the rows
-    for (int q = warp; q < s.m4; q += nwarps) {
-      float part = 0.f;
-      for (int r = lane; r < rows; r += 32)
-        part = fmaf(silu_f(sm[L.CZ1 + q * ldr + r]), row[DWZ * ldr + r], part);
-      part = warp_sum(part);
-      if (lane == 0) acc[G.cw2 + q] += part;
-    }
-    tile_wgrad(acc + G.cb2, nullptr, row + DWZ * ldr, rows, 1, 1, ldr);
-    if (s.norm_coors) tile_wgrad(acc + G.scale, nullptr, row + DSC * ldr, rows, 1, 1, ldr);
-    __syncthreads();
-    for (int q = warp; q < s.m4; q += nwarps) {
-      for (int r = lane; r < rows; r += 32) {
-        float* cz = sm + L.CZ1 + q * ldr + r;
-        *cz = row[DWZ * ldr + r] * sm[L.cw2 + q] * dsilu_f(*cz);  // d_cz1
+    // ---- aggregation, clamp and CoorsNorm backward: eight lanes a row, a
+    // lane a coordinate (c <= 8) ----
+    {
+      const int sub = threadIdx.x & 7, group = threadIdx.x >> 3, groups = nt >> 3;
+      for (int base = 0; base < rows; base += groups) {   // the same trips for every lane
+        const int r = base + group;
+        const bool live = r < rows;
+        const int rr = live ? r : 0;
+        const float pv = row[PV * ldr + rr], nrm = row[NRM * ldr + rr], w = row[WCL * ldr + rr];
+        float d_w = 0.f, dot = 0.f;  // dot = sum_c d_rel_n * rel
+        if (live && sub < s.c) {
+          const float gc = t.g_cd[(node0 + r / s.k) * s.c + sub];
+          const float rel = sm[L.REL + sub * ldr + r];
+          const float rel_n = s.norm_coors ? rel / nrm * scale : rel;
+          const float d_rel_n = w * gc;
+          d_w = gc * rel_n;
+          dot = d_rel_n * rel;
+          sm[L.DREL + sub * ldr + r] = s.norm_coors ? d_rel_n * (scale / nrm) : d_rel_n;
+        }
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) {
+          d_w += __shfl_xor_sync(kFull, d_w, o);
+          dot += __shfl_xor_sync(kFull, dot, o);
+        }
+        if (live && sub == 0) {
+          const float wm = row[WZ * ldr + r] * pv;
+          const bool inside = !s.has_clamp || (wm > -s.clamp && wm < s.clamp);
+          row[DWZ * ldr + r] = inside ? d_w * pv : 0.f;
+          float d_dist = 0.f, d_scale = 0.f;
+          if (s.norm_coors) {
+            const float d_nrm = dot * (-scale / (nrm * nrm));
+            if (row[DIST * ldr + r] > eps2) d_dist = d_nrm * 0.5f / nrm;
+            d_scale = dot / nrm;
+          }
+          row[DDIST * ldr + r] = d_dist;
+          row[DSC * ldr + r] = d_scale;
+        }
       }
     }
     __syncthreads();
-    const float* cmsg = sm + (s.gate_feats_only ? L.M0 : L.MSG);
-    tile_mm(mm_args(sm + L.DM, sm + L.CZ1, sm + L.cw1, 1, L.ld_m4, rows, s.m4, s.m,
-                    ldr));  // d_cmsg = d_cz1 @ cW1^T
-    tile_wgrad(acc + G.cw1, cmsg, sm + L.CZ1, rows, s.m, s.m4, ldr);
-    tile_wgrad(acc + G.cb1, nullptr, sm + L.CZ1, rows, 1, s.m4, ldr);
+
+    // ---- coordinate-weight MLP backward: CZ1 <- silu(cz1), DCZ1 <- d_cz1 ----
+    for (int e = threadIdx.x; e < s.m4 * rows; e += nt) {
+      const int q = e / rows, r = e - q * rows;
+      const float sg = sm[L.CZ1 + q * ldr + r], cs = sm[L.DCZ1 + q * ldr + r];
+      sm[L.DCZ1 + q * ldr + r] = row[DWZ * ldr + r] * sm[L.cw2 + q] * dsilu_from(sg, cs);
+      sm[L.CZ1 + q * ldr + r] = cs;
+    }
+    __syncthreads();
+    BlockedMm<1>()(mm_args(sm + L.DM, sm + L.DCZ1, sm + L.cw1, 1, L.ld_m4, rows, s.m4, s.m,
+                       ldr));  // d_cmsg = d_cz1 @ cW1^T
     __syncthreads();
 
-    // ---- messages, soft gate and silu backward, one thread a row: DM <- d_z2 ----
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      const float* gm = t.g_mi + (node0 + r / s.k) * s.m;
-      const float pv = row[PV * ldr + r];
-      float gate = 1.f, d_zg = 0.f;
-      if (s.soft_edges) {
-        gate = row[GATE * ldr + r];
+    // ---- messages, soft gate and silu backward: DM <- d_z2 ----
+    if (s.soft_edges) {  // d_zg, a warp a row
+      for (int r = warp; r < rows; r += nwarps) {
+        const float* gm = t.g_mi + (node0 + r / s.k) * s.m;
+        const float pv = row[PV * ldr + r];
         float d_g = 0.f;
-        for (int j = 0; j < s.m; ++j) {
+        for (int j = lane; j < s.m; j += 32) {
           const float d_msg = fmaf(gm[j], pv, s.gate_feats_only ? 0.f : sm[L.DM + j * ldr + r]);
           d_g = fmaf(d_msg, sm[L.M0 + j * ldr + r], d_g);
         }
-        d_zg = d_g * gate * (1.f - gate);
+        d_g = warp_sum(d_g);
+        if (lane == 0) {
+          const float gate = row[GATE * ldr + r];
+          row[DZG * ldr + r] = d_g * gate * (1.f - gate);
+        }
       }
-      row[DZG * ldr + r] = d_zg;
-      for (int j = 0; j < s.m; ++j) {
-        const float d_cmsg = sm[L.DM + j * ldr + r];
-        const float d_msg = fmaf(gm[j], pv, s.gate_feats_only ? 0.f : d_cmsg);
-        float d_m0 = s.soft_edges ? fmaf(d_zg, sm[L.gw + j], d_msg * gate) : d_msg;
-        if (s.gate_feats_only) d_m0 += d_cmsg;  // the ungated coordinate branch
-        sm[L.DM + j * ldr + r] = d_m0 * dsilu_f(sm[L.Z2 + j * ldr + r]);
-      }
+      __syncthreads();
+    }
+    for (int e = threadIdx.x; e < s.m * rows; e += nt) {
+      const int j = e / rows, r = e - j * rows;
+      const float gm = t.g_mi[(node0 + r / s.k) * s.m + j];
+      const float d_cmsg = sm[L.DM + j * ldr + r];
+      const float d_msg = fmaf(gm, row[PV * ldr + r], s.gate_feats_only ? 0.f : d_cmsg);
+      float d_m0 = d_msg;
+      if (s.soft_edges)
+        d_m0 = fmaf(row[DZG * ldr + r], sm[L.gw + j], d_msg * row[GATE * ldr + r]);
+      if (s.gate_feats_only) d_m0 += d_cmsg;  // the ungated coordinate branch
+      sm[L.DM + j * ldr + r] = d_m0 * dsilu_from(sm[L.Z2 + j * ldr + r], sm[L.M0 + j * ldr + r]);
     }
     __syncthreads();
-    if (s.soft_edges) {
-      tile_wgrad(acc + G.gw, sm + L.M0, row + DZG * ldr, rows, s.m, 1, ldr);
-      tile_wgrad(acc + G.gb, nullptr, row + DZG * ldr, rows, 1, 1, ldr);
-    }
 
-    // ---- edge MLP backward: S <- d_h1 ----
-    tile_wgrad(acc + G.w2, sm + L.S, sm + L.DM, rows, s.h, s.m, ldr);
-    tile_wgrad(acc + G.b2, nullptr, sm + L.DM, rows, 1, s.m, ldr);
-    __syncthreads();
+    // ---- edge MLP backward: H <- d_h1 = (d_z2 @ W2^T) * silu'(h1), in place ----
     {
-      // d_h1 = (d_z2 @ W2^T) * dsilu(h1)
-      MmArgs m = mm_args(sm + L.S, sm + L.DM, sm + L.w2, 1, L.ld_m, rows, s.m, s.h, ldr);
-      m.dsilu_of = sm + L.H;
-      tile_mm(m);
+      MmArgs m = mm_args(sm + L.H, sm + L.DM, sm + L.w2, 1, L.ld_m, rows, s.m, s.h, ldr);
+      m.sig_of = sm + L.H;
+      m.silu_of = sm + L.S;
+      BlockedMm<kWideCols>()(m);
     }
     __syncthreads();
 
-    // d_distf = d_h1 @ Wd^T; d[Wj; Wd] = [fj | distf]^T d_h1; the j-side rows
-    tile_mm(mm_args(sm + L.DDF, sm + L.S, sm + L.wd, 1, L.ld_h, rows, s.h, dd, ldr));
+    // ---- d_distf = d_h1 @ Wd^T, d_fj = d_h1 @ Wj^T (or the j-side rows),
+    // d_proj_i, and every weight gradient of the tile ----
+    for (int e = threadIdx.x; e < dd * rows; e += nt) {  // four chains of j mod 4
+      const int f = e / rows, r = e - f * rows;
+      const float* w = sm + L.wd + f * L.ld_h;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      int j = 0;
+      for (; j + 4 <= s.h; j += 4)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[q] = fmaf(sm[L.H + (j + q) * ldr + r], w[j + q], v[q]);
+      for (; j < s.h; ++j) v[j & 3] = fmaf(sm[L.H + j * ldr + r], w[j], v[j & 3]);
+      sm[L.DDF + f * ldr + r] = (v[0] + v[1]) + (v[2] + v[3]);
+    }
     if (!kGather) {
-      tile_wgrad(acc + G.wj, sm + L.X, sm + L.S, rows, s.d + dd, s.h, ldr);
-      MmArgs m = mm_args(t.d_fj + p0 * s.d, sm + L.S, sm + L.wj, 1, L.ld_h, rows, s.h, s.d, ldr);
-      m.row_major_ld = s.d;  // d_fj = d_h1 @ Wj^T, row-major into device memory
-      tile_mm(m);
+      MmArgs m = mm_args(t.d_fj + p0 * s.d, sm + L.H, sm + L.wj, 1, L.ld_h, rows, s.h, s.d, ldr);
+      m.row_major_ld = s.d;  // row-major into device memory
+      BlockedMm<1>()(m);
     } else {
-      tile_wgrad(acc + G.wd, sm + L.DISTF, sm + L.S, rows, dd, s.h, ldr);
       const int pw = s.c + s.h;
-      for (int e = threadIdx.x; e < rows * s.h; e += blockDim.x) {
+      for (int e = threadIdx.x; e < rows * s.h; e += nt) {
         const int r = e / s.h, j = e - r * s.h;
-        t.d_pairs[(p0 + r) * pw + s.c + j] = sm[L.S + j * ldr + r];
+        t.d_pairs[(p0 + r) * pw + s.c + j] = sm[L.H + j * ldr + r];
       }
     }
-    for (int e = threadIdx.x; e < tn * s.h; e += blockDim.x) {
+    for (int e = threadIdx.x; e < tn * s.h; e += nt) {
       const int i = e / s.h, j = e - i * s.h;
       float sum = 0.f;
-      for (int q = 0; q < s.k; ++q) sum += sm[L.S + j * ldr + i * s.k + q];
+      for (int q = 0; q < s.k; ++q) sum += sm[L.H + j * ldr + i * s.k + q];
       t.d_pi[(node0 + i) * s.h + j] = sum;
+    }
+#pragma unroll
+    for (int sl = 0; sl < kWgSlots; ++sl) {
+      const int b = sl * nt + threadIdx.x;
+      if (b < plan.blocks) {
+        float v[4][4];
+        wgrad_block(sm, find_mat(plan, b), b, rows, ldr, L.ONES, v);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[sl][a][c] += v[a][c];
+      }
+    }
+    for (int b = kWgSlots * nt + threadIdx.x; b < plan.blocks; b += nt) {
+      const WgMat M = find_mat(plan, b);
+      float v[4][4];
+      wgrad_block(sm, M, b, rows, ldr, L.ONES, v);
+      for_block_entries(M, b, [&](int a, int c, int o) { mine[o] += v[a][c]; });
     }
     __syncthreads();
 
-    // ---- distance backward, one thread a row ----
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      const float dist = row[DIST * ldr + r];
-      const float* ddf = sm + L.DDF + r;
-      float d_dist = row[DDIST * ldr + r] + ddf[(dd - 1) * ldr];
-      for (int f = 0; f < s.fourier; ++f) {
-        const float xs = ldexpf(dist, -f);
-        d_dist += ldexpf(ddf[f * ldr] * cosf(xs) - ddf[(s.fourier + f) * ldr] * sinf(xs), -f);
-      }
-      for (int cc = 0; cc < s.c; ++cc) {
-        const float d_rel = fmaf(2.f * sm[L.REL + cc * ldr + r], d_dist,
-                                 sm[L.DREL + cc * ldr + r]);
-        sm[L.DREL + cc * ldr + r] = d_rel;
-        if (kGather) t.d_pairs[(p0 + r) * (s.c + s.h) + cc] = -d_rel;
-        else t.d_cj[(p0 + r) * s.c + cc] = -d_rel;
+    // ---- distance backward: eight lanes a row, the Fourier encodings
+    // split over them and summed in a fixed order, a lane a coordinate ----
+    {
+      const int sub = threadIdx.x & 7, group = threadIdx.x >> 3, groups = nt >> 3;
+      for (int base = 0; base < rows; base += groups) {   // the same trips for every lane
+        const int r = base + group;
+        const bool live = r < rows;
+        const int rr = live ? r : 0;
+        const float dist = row[DIST * ldr + rr];
+        const float* ddf = sm + L.DDF + rr;
+        float d_dist = 0.f;
+        for (int f = sub; f < s.fourier; f += 8) {
+          const float xs = ldexpf(dist, -f);
+          d_dist += ldexpf(ddf[f * ldr] * cosf(xs) - ddf[(s.fourier + f) * ldr] * sinf(xs), -f);
+        }
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) d_dist += __shfl_xor_sync(kFull, d_dist, o);
+        d_dist += row[DDIST * ldr + rr] + ddf[(dd - 1) * ldr];
+        if (live && sub < s.c) {
+          const float d_rel =
+              fmaf(2.f * sm[L.REL + sub * ldr + r], d_dist, sm[L.DREL + sub * ldr + r]);
+          sm[L.DREL + sub * ldr + r] = d_rel;
+          if (kGather) t.d_pairs[(p0 + r) * (s.c + s.h) + sub] = -d_rel;
+          else t.d_cj[(p0 + r) * s.c + sub] = -d_rel;
+        }
       }
     }
     __syncthreads();
-    for (int e = threadIdx.x; e < tn * s.c; e += blockDim.x) {
+    for (int e = threadIdx.x; e < tn * s.c; e += nt) {
       const int i = e / s.c, cc = e - i * s.c;
       float sum = 0.f;
       for (int q = 0; q < s.k; ++q) sum += sm[L.DREL + cc * ldr + i * s.k + q];
@@ -728,8 +1007,17 @@ pair_bwd_kernel(const Shape s, const Tensors t) {
     }
     __syncthreads();  // the next tile rewrites the buffers
   }
-  float* mine = t.partial + (size_t)blockIdx.x * G.total;
-  for (int e = threadIdx.x; e < G.total; e += blockDim.x) mine[e] = acc[e];
+#pragma unroll
+  for (int sl = 0; sl < kWgSlots; ++sl) {
+    const int b = sl * nt + threadIdx.x;
+    if (b < plan.blocks)
+      for_block_entries(find_mat(plan, b), b,
+                        [&](int a, int c, int o) { mine[o] = acc[sl][a][c]; });
+  }
+  // the weights of options that are off have no block: their gradient is 0
+  for (int e = threadIdx.x; e <= s.m; e += nt)
+    if (!s.soft_edges) mine[G.gw + e] = 0.f;   // gw, then gb
+  if (!s.norm_coors && threadIdx.x == 0) mine[G.scale] = 0.f;
 }
 
 // out[e] = partial[0][e] + partial[1][e] + ... in block order
@@ -752,15 +1040,48 @@ bool shape_ok(const Shape& s, bool gather, bool backward) {
   return (size_t)make_layout(s, backward).total * sizeof(float) <= (size_t)kMaxSmemBytes;
 }
 
+using FwdKernel = decltype(&pair_fwd_kernel<false>);
+using BwdKernel = decltype(&pair_bwd_kernel<false, 1>);
+
+FwdKernel fwd_kernel(bool gather) {
+  return gather ? &pair_fwd_kernel<true> : &pair_fwd_kernel<false>;
+}
+
+// The backward's instance: five columns a thread in the h-wide products
+// where that gives the threads no longer a path (wide_cost), else one.
+BwdKernel bwd_kernel(const Shape& s, bool gather) {
+  if (wide_cost(s, 5) <= wide_cost(s, 1))
+    return gather ? &pair_bwd_kernel<true, 5> : &pair_bwd_kernel<false, 5>;
+  return gather ? &pair_bwd_kernel<true, 1> : &pair_bwd_kernel<false, 1>;
+}
+
+// Lets `kernel` take the shape's shared memory, `*bytes` of it.
 template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, const Shape& s, bool backward, size_t* bytes) {
+  *bytes = (size_t)make_layout(s, backward).total * sizeof(float);
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*bytes);
+}
+
+// The forward kernel takes (s, t); the backward kernel (s, t, plan).
+template <typename Kernel, typename... Extra>
 int launch_kernel(Kernel kernel, const Shape& s, const Tensors& t, bool backward, int grid,
-                  cudaStream_t stream) {
-  const size_t bytes = (size_t)make_layout(s, backward).total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+                  cudaStream_t stream, const Extra&... extra) {
+  size_t bytes;
+  const cudaError_t err = allow_smem(kernel, s, backward, &bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, backward ? kBwdThreads : kFwdThreads, bytes, stream>>>(s, t);
+  kernel<<<grid, backward ? kBwdThreads : kFwdThreads, bytes, stream>>>(s, t, extra...);
   return (int)cudaGetLastError();
+}
+
+template <typename Kernel>
+int occupancy(Kernel kernel, const Shape& s, bool backward) {
+  size_t bytes;
+  int blocks = 0;
+  if (allow_smem(kernel, s, backward, &bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, backward ? kBwdThreads : kFwdThreads, bytes) != cudaSuccess)
+    return -1;
+  return blocks;
 }
 
 }  // namespace
@@ -777,14 +1098,12 @@ int pair_messages_launch(const Shape* s, const Tensors* t, int gather, int backw
   const int tiles = s->b * ((s->n + s->ti - 1) / s->ti);
   if (!shape_ok(*s, gather != 0, backward != 0) || grid < 1 || grid > tiles)
     return (int)cudaErrorInvalidValue;
-  int err;
-  if (!backward) {
-    err = gather ? launch_kernel(pair_fwd_kernel<true>, *s, *t, false, grid, stream)
-                 : launch_kernel(pair_fwd_kernel<false>, *s, *t, false, grid, stream);
-    return err;
-  }
-  err = gather ? launch_kernel(pair_bwd_kernel<true>, *s, *t, true, grid, stream)
-               : launch_kernel(pair_bwd_kernel<false>, *s, *t, true, grid, stream);
+  if (!backward) return launch_kernel(fwd_kernel(gather != 0), *s, *t, false, grid, stream);
+  BwdPlan plan;
+  plan.L = make_layout(*s, true);
+  plan.G = grad_layout(*s);
+  plan.wg = wgrad_plan(*s, gather != 0, plan.L, plan.G);
+  const int err = launch_kernel(bwd_kernel(*s, gather != 0), *s, *t, true, grid, stream, plan);
   if (err != 0) return err;
   const int total = grad_layout(*s).total;
   reduce_partials_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
@@ -796,6 +1115,12 @@ int pair_messages_launch(const Shape* s, const Tensors* t, int gather, int backw
 // their own copy of the layout against it).
 int pair_messages_smem_floats(const Shape* s, int backward) {
   return make_layout(*s, backward != 0).total;
+}
+
+// Blocks of the kernel an SM holds at once for this shape (-1 on an error).
+int pair_messages_blocks_per_sm(const Shape* s, int gather, int backward) {
+  return backward ? occupancy(bwd_kernel(*s, gather != 0), *s, true)
+                  : occupancy(fwd_kernel(gather != 0), *s, false);
 }
 
 }  // extern "C"

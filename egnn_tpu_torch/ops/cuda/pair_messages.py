@@ -20,7 +20,9 @@ For each pair row r = (node i, slot t)::
 
 All four run ``csrc/pair_messages.cu`` (one source, the gather a template
 flag); its header gives the design and the bound on the card. The backward
-recomputes the pipeline from the inputs and saves nothing of pair size. K11b
+recomputes the pipeline from the inputs and saves nothing of pair size; it
+keeps its weight gradients in registers, one owner thread an entry, on tiles
+of its own (``_bwd_tile_rows``, about 32 pair rows, two blocks an SM). K11b
 writes its j-side gradients in pair layout and sums them per node with the
 segment-sum kernel K2 (order-free, bitwise equal to its model), so both
 backwards repeat bit for bit.
@@ -35,9 +37,11 @@ kernels against on the card. Launches count into ``LAUNCH_COUNTS`` under
 
 The gates state the kernel's own limits and nothing else: coordinate width
 c <= 8, at most 16 Fourier encodings, k <= 64 slots, and widths (h, m, 4m,
-d) whose staged weights, weight gradients and one tile of at least k pair
-rows fit a block's 227 KB of shared memory (dim = 32, h = 130, m = 16 takes
-172 KiB with a 64-row tile; dim = 64 leaves K10 an 8-row tile). The tensor-core mode of the TPU kernels
+d) whose staged weights, one tile of at least k pair rows and one float for
+each weight-gradient entry fit a block's 227 KB of shared memory (dim = 32,
+h = 130, m = 16: a 64-row tile; dim = 64 leaves K10 an 8-row tile). The
+forward takes that tile; the backward's own layout is smaller (99 KiB at
+32 rows for dim = 32). The tensor-core mode of the TPU kernels
 (``mxu_bf16``) is not ported: the wrapper takes ``mxu_bf16=False`` only.
 """
 from __future__ import annotations
@@ -55,8 +59,10 @@ MAX_C = 8             # kMaxC in csrc/pair_messages.cu
 MAX_FOURIER = 16      # kMaxFourier
 MAX_ROWS = 64         # kMaxRows: pair rows of a tile, and so the most slots k
 MAX_SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472   # an SM's shared memory, of which each block takes 1 KB more
 _ROW_SCALARS = 10     # kRowScalars
-_FWD_BLOCKS_PER_SM, _BWD_BLOCKS_PER_SM = 2, 1
+_FWD_BLOCKS_PER_SM, _BWD_BLOCKS_PER_SM = 2, 2
+_BWD_ROWS = 32        # the backward's tile: whole nodes up to this many pair rows
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
@@ -107,7 +113,9 @@ def _grad_sizes(d, h, m, m4, fourier):
 
 
 def _smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward):
-    """Floats of shared memory a block keeps: ``make_layout`` of the source."""
+    """Floats of shared memory a block keeps: ``make_layout`` of the source.
+    The backward adds the gradient lines d_z2, d_rel, d_distf, d_cz1 and a
+    line of ones; its weight gradients live in registers."""
     dd = 2 * fourier + 1
     odd = lambda x: x | 1  # noqa: E731
     ldr = rows + 4    # a tile buffer's line: the rows of one feature, padded
@@ -116,22 +124,59 @@ def _smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward):
     total += ldr * (h * (2 if backward else 1) + d + m * (3 if soft_edges else 2) + m4 + c
                     + dd + _ROW_SCALARS + 1)
     if backward:
-        total += ldr * (m + c + dd) + sum(_grad_sizes(d, h, m, m4, fourier))
+        total += ldr * (m + c + dd + m4 + 1)
     return total
 
 
+def _gate_floats(rows, c, d, h, m, m4, fourier, soft_edges):
+    """The gates' budget at a tile of ``rows``: the forward's layout, the
+    backward's gradient lines d_z2, d_rel, d_distf, and one float for every
+    weight-gradient entry. It is the limit the gates have stated since the
+    kernels were ported (when the backward kept its weight gradients in
+    shared memory); the backward's own layout is smaller at every shape it
+    passes."""
+    ldr = rows + 4
+    return (_smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, False)
+            + ldr * (h + m + c + 2 * fourier + 1) + sum(_grad_sizes(d, h, m, m4, fourier)))
+
+
 def _tile_rows(k, c, d, h, m, m4, fourier, soft_edges) -> Optional[int]:
-    """The largest tile (a multiple of 8 pair rows, at least k, at most 64)
-    whose backward layout fits a block's shared memory, or None."""
+    """The forward's tile and the gates' test: the largest tile (a multiple
+    of 8 pair rows, at least k, at most 64) within the gates' budget, or
+    None."""
     if not (1 <= k <= MAX_ROWS and 1 <= c <= MAX_C and 0 <= fourier <= MAX_FOURIER
             and h >= 1 and m >= 1 and m4 >= 1):
         return None
     for rows in range(MAX_ROWS, 0, -8):
         if rows < k:
             return None
-        if 4 * _smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, True) <= MAX_SMEM_BYTES:
+        if 4 * _gate_floats(rows, c, d, h, m, m4, fourier, soft_edges) <= MAX_SMEM_BYTES:
             return rows
     return None
+
+
+def _fits_sm(floats: int, blocks: int) -> bool:
+    """Whether ``blocks`` blocks of this many floats fit one SM's shared
+    memory (and one of them a block's limit)."""
+    return 4 * floats <= MAX_SMEM_BYTES and blocks * (4 * floats + 1024) <= SM_SMEM_BYTES
+
+
+def _bwd_tile_rows(k, c, d, h, m, m4, fourier, soft_edges) -> Optional[int]:
+    """The backward's tile: whole nodes, as many as fit in ``_BWD_ROWS`` pair
+    rows (at least one), rounded up to a multiple of 8, and fewer nodes
+    until ``_BWD_BLOCKS_PER_SM`` blocks fit an SM's shared memory; one node
+    whose layout fits a block alone is the last resort. None where the
+    gates refuse the shape (or no tile fits)."""
+    if _tile_rows(k, c, d, h, m, m4, fourier, soft_edges) is None:
+        return None
+    floats = lambda rows: _smem_floats(  # noqa: E731
+        rows, c, d, h, m, m4, fourier, soft_edges, True)
+    for ti in range(max(1, _BWD_ROWS // k), 0, -1):
+        rows = -(-ti * k // 8) * 8
+        if _fits_sm(floats(rows), _BWD_BLOCKS_PER_SM):
+            return rows
+    rows = -(-k // 8) * 8
+    return rows if _fits_sm(floats(rows), 1) else None
 
 
 def kernel_smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward) -> int:
@@ -142,6 +187,17 @@ def kernel_smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward) -> i
     fn = build.function("pair_messages", "pair_messages_smem_floats",
                         [ctypes.POINTER(_Shape), _I])
     return fn(ctypes.byref(shape), int(backward))
+
+
+def kernel_blocks_per_sm(rows, k, c, d, h, m, m4, fourier, soft_edges, gather,
+                         backward) -> int:
+    """Blocks of the kernel one SM of the current card holds at this shape
+    (the CUDA occupancy calculator, for ``chip_smoke.py``'s timing lines)."""
+    shape = _Shape(b=1, n=1, k=k, c=c, d=d, h=h, m=m, m4=m4, fourier=fourier, ti=rows // k,
+                   rows=rows, soft_edges=int(soft_edges))
+    fn = build.function("pair_messages", "pair_messages_blocks_per_sm",
+                        [ctypes.POINTER(_Shape), _I, _I])
+    return fn(ctypes.byref(shape), int(gather), int(backward))
 
 
 def supports_fused_pair_messages(k: int, hidden: int, m_dim: int, dim: int, c: int = 3,
@@ -378,7 +434,8 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
     h, m, m4 = proj_i.shape[-1], w2.shape[-1], cw1.shape[-1]
     d = 0 if gather else fj.shape[-1]
     dd = 2 * opts.fourier + 1
-    rows = _tile_rows(k, c, d, h, m, m4, opts.fourier, opts.soft_edges)
+    rows = (_bwd_tile_rows if backward else _tile_rows)(k, c, d, h, m, m4, opts.fourier,
+                                                        opts.soft_edges)
     if rows is None:
         raise ValueError(
             f"the fused pair kernel takes k <= {MAX_ROWS}, c <= {MAX_C}, at most {MAX_FOURIER} "
@@ -404,10 +461,7 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
         if x.numel() != count or x.device != dev:
             raise ValueError(f"{name} must hold {count} elements on {dev}")
 
-    ti = rows // k
-    tiles = b * -(-n // ti)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = min(tiles, sms * (_BWD_BLOCKS_PER_SM if backward else _FWD_BLOCKS_PER_SM))
+    ti, grid = launch_grid(b, n, k, rows, backward, dev)
     shape = _Shape(b=b, n=n, k=k, c=c, d=d, h=h, m=m, m4=m4, fourier=opts.fourier, ti=ti,
                    rows=rows, soft_edges=int(opts.soft_edges), norm_coors=int(opts.norm_coors),
                    has_clamp=int(opts.clamp is not None),
@@ -452,6 +506,16 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
     d_weights = tuple(None if w is None else g.reshape(w.shape).to(w.dtype)
                       for g, w in zip(parts, weights))
     return out, d_weights
+
+
+def launch_grid(b, n, k, rows, backward, device):
+    """(nodes a tile, blocks) of a launch on tiles of ``rows`` pair rows: one
+    block a tile up to the blocks the card's SMs hold at once (by the shape
+    and the SM count alone, so that the weight-gradient sums repeat)."""
+    ti = rows // k
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_sm = _BWD_BLOCKS_PER_SM if backward else _FWD_BLOCKS_PER_SM
+    return ti, min(b * -(-n // ti), sms * per_sm)
 
 
 def _on_card(x: torch.Tensor) -> bool:

@@ -12,6 +12,10 @@ scale / eps = 1e8-sized terms that cancel only after the scatter, which
 float32 cannot resolve. Against autograd everything is float64 and agrees
 at 1e-10 relative to each tensor's largest value.
 """
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -296,6 +300,126 @@ def test_gates_state_the_kernels_own_limits():
     assert not PM.supports_fused_pair_messages(8, 1026, 16, 256)
     # the layout the gate sums is within the card's 227 KB at the tile it picks
     assert 4 * PM._smem_floats(64, 3, 32, 130, 16, 64, 0, False, True) <= PM.MAX_SMEM_BYTES
+
+
+# ---------------------------------------------------------------------------
+# the host's copy of the kernels' shared-memory layout and tiles
+# ---------------------------------------------------------------------------
+
+_SOURCE = Path(PM.__file__).resolve().parents[2] / "csrc" / "pair_messages.cu"
+
+
+# make_layout's regions in the source's order: name, and when the region is
+# there (every other region aliases one before it, taking no floats)
+_REGIONS = [("wj", None), ("wd", None), ("w2", None), ("b2", None), ("gw", None),
+            ("cw1", None), ("cb1", None), ("cw2", None), ("misc", None), ("H", None),
+            ("S", "backward"), ("X", None), ("DISTF", None), ("Z2", None), ("M0", None),
+            ("MSG", "soft_edges"), ("CZ1", None), ("REL", None), ("ROW", None), ("JDX", None),
+            ("DM", "backward"), ("DREL", "backward"), ("DDF", "backward"),
+            ("DCZ1", "backward"), ("ONES", "backward")]
+
+
+def _source_layout_total(rows, c, d, h, m, m4, fourier, soft_edges, backward):
+    """``make_layout(s, backward).total`` of the CUDA source: the size of
+    each region read from its ``L.X = o; o += size;`` statement, the regions
+    taken as ``_REGIONS`` says, the tile buffers aligned to a float4."""
+    src = _SOURCE.read_text()
+    body = src.split("inline Layout make_layout(const Shape& s, bool backward) {")[1]
+    body = body.split("  return L;")[0]
+    sizes = re.findall(r"L\.(\w+) = o; o \+= ([\w.* ]+);", body)
+    assert [name for name, _ in sizes] == [name for name, _ in _REGIONS]
+    assert "o = (o + 3) & ~3;" in body.split("L.H = o;")[0]
+    for stride in ("L.ld_h = odd(s.h);", "L.ld_m = odd(s.m);", "L.ld_m4 = odd(s.m4);",
+                   "L.ldr = s.rows + 4;", "const int dd = 2 * s.fourier + 1;"):
+        assert stride in body
+    shape = SimpleNamespace(rows=rows, c=c, d=d, h=h, m=m, m4=m4, fourier=fourier)
+    lds = SimpleNamespace(ld_h=h | 1, ld_m=m | 1, ld_m4=m4 | 1, ldr=rows + 4)
+    scope = dict(s=shape, L=lds, dd=2 * fourier + 1,
+                 kRowScalars=int(re.search(r"kRowScalars = (\d+);", src).group(1)))
+    on = dict(backward=backward, soft_edges=soft_edges)
+    total = 0
+    for (name, size), (_, when) in zip(sizes, _REGIONS):
+        if name == "H":
+            total = (total + 3) & ~3
+        if when is None or on[when]:
+            total += eval(size, {}, scope)  # noqa: S307 (a product of the names above)
+    return total
+
+
+LAYOUTS = [  # rows, c, d, h, m, m4, fourier, soft_edges: anchor 3 and the paths, K11 (d = 0),
+    (32, 3, 32, 130, 16, 64, 0, False), (24, 3, 32, 130, 16, 64, 0, False),  # odd widths
+    (64, 3, 32, 130, 16, 64, 0, False), (32, 3, 0, 130, 16, 64, 0, False),
+    (8, 3, 64, 258, 16, 64, 0, False), (24, 5, 0, 74, 8, 32, 2, True),
+    (32, 3, 10, 54, 12, 48, 3, True), (64, 8, 16, 66, 16, 64, 16, True)]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda v: "_".join(map(str, v)))
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_host_layout_mirrors_the_source(layout, backward):
+    assert PM._smem_floats(*layout, backward) == _source_layout_total(*layout, backward)
+
+
+# PR 5's backward layout, which kept every weight gradient in shared
+# memory: the gates' limit, frozen here to hold them to the shapes they took
+def _gate_floats_then(rows, c, d, h, m, m4, fourier, soft_edges):
+    dd, ldr = 2 * fourier + 1, rows + 4
+    odd = lambda x: x | 1  # noqa: E731
+    total = (d * odd(h) + dd * odd(h) + h * odd(m) + 2 * m + m * odd(m4) + 2 * m4 + 3 + 3) & ~3
+    total += ldr * (2 * h + d + m * (3 if soft_edges else 2) + m4 + c + dd + 10 + 1)
+    grads = d * h + dd * h + h * m + m + m + 1 + m * m4 + m4 + m4 + 1 + 1
+    return total + ldr * (m + c + dd) + grads
+
+
+def _gate_then(k, c, d, h, m, fourier, soft_edges):
+    if not (1 <= k <= 64 and 1 <= c <= 8 and 0 <= fourier <= 16):
+        return False
+    return any(rows >= k and 4 * _gate_floats_then(rows, c, d, h, m, 4 * m, fourier, soft_edges)
+               <= 232448 for rows in range(64, 0, -8))
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 12, 16, 20, 64])
+@pytest.mark.parametrize("widths", [(130, 16, 32), (258, 16, 64), (1026, 16, 256)],
+                         ids=["dim32", "dim64", "dim256"])
+@pytest.mark.parametrize("fourier", [0, 4, 16])
+@pytest.mark.parametrize("c", [3, 8, 9])
+def test_gates_accept_the_shapes_they_accepted(k, widths, fourier, c):
+    h, m, dim = widths
+    for soft in (False, True):
+        assert PM.supports_fused_pair_messages(k, h, m, dim, c, fourier, soft) == \
+            _gate_then(k, c, dim, h, m, fourier, soft)
+        assert PM.supports_fused_knn_layer(k, h, m, c, fourier, soft) == \
+            _gate_then(k, c, 0, h, m, fourier, soft)
+        # the backward takes a tile wherever the gates pass, within the
+        # kernel's own limits (shape_ok): whole nodes, a multiple of 8 rows
+        for d in (dim, 0):
+            gate = _gate_then(k, c, d, h, m, fourier, soft)
+            rows = PM._bwd_tile_rows(k, c, d, h, m, 4 * m, fourier, soft)
+            assert (rows is not None) == gate
+            if rows is not None:
+                assert rows % 8 == 0 and k <= rows <= PM.MAX_ROWS
+                floats = PM._smem_floats(rows, c, d, h, m, 4 * m, fourier, soft, True)
+                assert 4 * floats <= PM.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("k,rows,nodes", [(8, 32, 4), (16, 32, 2), (20, 24, 1)],
+                         ids=["anchor3_k8", "pathC_k16", "pathA_kc20"])
+@pytest.mark.parametrize("gather", [False, True], ids=["K10", "K11"])
+def test_backward_tile_fits_two_blocks_an_sm(k, rows, nodes, gather, monkeypatch):
+    d = 0 if gather else 32
+    assert PM._bwd_tile_rows(k, 3, d, 130, 16, 64, 0, False) == rows
+    assert PM._BWD_BLOCKS_PER_SM == 2
+    # the tile holds the whole nodes it was sized for, padded to 8 rows at most
+    assert nodes >= 1 and nodes * k <= rows < nodes * k + 8
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(multi_processor_count=132))
+    assert PM.launch_grid(1, 65536, k, rows, True, "cuda") == (nodes, 264)
+    assert PM.launch_grid(1, 2 * nodes + 1, k, rows, True, "cuda") == (nodes, 3)
+    nbytes = 4 * PM._smem_floats(rows, 3, d, 130, 16, 64, 0, False, True)
+    # each block also holds 1 KB the card reserves; the SM has 228 KB
+    assert PM._BWD_BLOCKS_PER_SM * (nbytes + 1024) <= PM.SM_SMEM_BYTES
+    assert PM._BWD_BLOCKS_PER_SM * nbytes <= PM.MAX_SMEM_BYTES
+    # the forward keeps its 64-row tile
+    assert PM._tile_rows(k, 3, d, 130, 16, 64, 0, False) == 64
 
 
 def test_wrappers_refuse_what_is_not_ported():
