@@ -41,11 +41,16 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    and of K2 beside its plain version, its bound and ``index_add_``;
 11. large-n kernels: K4 (exact selection at any n), K5 and K6 (packed-key
    candidates) on the card against their row-chunked plain versions,
-   bitwise, over the cases below;
+   bitwise, over the cases below, among them the edges of their blocks
+   (n = 32m + 1 rows, a last tile of one column, rows of n % 4 != 0 bytes,
+   masked and unmasked rows in one warp); every instantiation (list slots,
+   rows a warp) is reached, and the source ranks as many columns a lane
+   as the CPU model ``ops/cuda/knn.py:knn_select_block_model``;
 12. the dispatcher on the card: ``backend="packed_tiled"``, ``"packed"``,
    ``"tiled"``, ``"grid"`` and ``"auto"`` (with the grid, and with
    ``GRID_AUTO`` off as before the grid) give K4's selection, compact and
    wide, and a tie pile-up takes the certificate's exact fallback (K4);
+   ``"pallas"`` and ``"fused"`` launch K1 with a payload, K3 without;
 13. path A, the net65k network (depth 3, dim 32, kNN 16, 65 536 nodes, no
    mask or adjacency) with ``GRID_AUTO`` off: forwards through K5 and the
    kc-wide layer path, equivariance, the fwd+bwd ``benchmarks/net65k.py``
@@ -54,7 +59,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    adjacency: forwards and train steps through K4;
 15. both families at n = 16 896, depth 1, on the card against the CPU (the
    net65k family through the grid and through K5);
-16. timing of K4, K5, K6 beside their plain versions and bounds (K2 on the
+16. timing of K4, K5, K6 beside their plain versions and bounds, with their
+   rows a warp and columns a lane (K2 on the
    large paths' own ids, in phases 13, 14, 19 and 23: the gates of phase 6,
    then timed beside its plain version, its bound and ``index_add_``);
 17. the grid route's kernels: K7 (grid-blocked selection), K8 (query rows
@@ -1032,7 +1038,35 @@ def main() -> int:
     def chunk(n):
         return max(1, (1 << 27) // n)
 
-    for name in ("knn_select_tiled", "knn_candidates_packed_tiled", "knn_candidates_packed"):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def block_plan(n, c, k, adjacency=False):
+        """K4-K6's launch plan (rows a warp, columns a lane a step) as the
+        built source computes it; the CPU model of the traversal
+        (``knn_select_block_model``) must rank as many columns a lane."""
+        rows, cols = K.built_block_plan(1, n, c, k, sms, adjacency)
+        if cols != K.BLOCK_RUN:
+            raise AssertionError(f"the source ranks {cols} columns a lane a step, the CPU "
+                                 f"model {K.BLOCK_RUN}")
+        return rows, cols
+
+    def case_mask(kind, n, seed):
+        """None, the prefix mask, or ``rand``: 70% of the nodes at random, so
+        that masked and unmasked rows share every warp."""
+        if kind == "rand":
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            return torch.rand(1, n, generator=g, device="cuda") < 0.7
+        return prefix_mask(torch, n) if kind else None
+
+    # (list slots a lane, rows a warp) of every c = 3 instantiation of
+    # knn_select_block_kernel, which the cases below must all reach; the
+    # edge cases: n = 32m + 1 rows (one real row in the last block), a last
+    # tile of one column, rows of n % 4 != 0 bytes (byte loads of the mask
+    # and the adjacency), a random mask
+    every_block = {(1, 4), (1, 2), (1, 1), (2, 2), (2, 1), (4, 1)}
+    block_kernels = ("knn_select_tiled", "knn_candidates_packed_tiled", "knn_candidates_packed")
+    covered = {name: set() for name in block_kernels}
+    for name in block_kernels:
         max_err[name] = 0.0
     k4_cases = [  # name, n, k, c, mask, adj, cloud
         ("n20480", 20480, 16, 3, False, False, "uniform"),
@@ -1042,10 +1076,18 @@ def main() -> int:
         ("k128", 4096, 128, 3, True, False, "gaussian"),   # four list slots a lane
         ("k48", 8192, 48, 3, True, True, "uniform"),        # two
         ("c5", 20480, KNN, 5, True, False, "uniform"),
+        ("n16385_rand_mask_adj", 16385, 16, 3, "rand", True, "uniform"),
+        ("n6001_rand_mask", 6001, 16, 3, "rand", False, "gaussian"),
+        ("n2049_rand_mask_adj", 2049, 16, 3, "rand", True, "gaussian"),
+        ("tie_pileup_rand_mask", 20480, 16, 3, "rand", True, "ties"),
+        ("k48_n8193_rand_mask_adj", 8193, 48, 3, "rand", True, "uniform"),
+        ("k48_n2000_rand_mask", 2000, 48, 3, "rand", False, "gaussian"),
+        ("k128_n4097_rand_mask_adj", 4097, 128, 3, "rand", True, "uniform"),
+        ("c5_n20481_rand_mask_adj", 20481, KNN, 5, "rand", True, "uniform"),
     ]
     for i, (name, n, k, c, wm, wa, kind) in enumerate(k4_cases):
         coors = cloud(torch, n, c, kind, SEED + 40 + i)
-        mask = prefix_mask(torch, n) if wm else None
+        mask = case_mask(wm, n, SEED + 140 + i)
         adj = chain_adj(torch, n) if wa else None
         v, ix = K.knn_select_tiled(coors, k, mask, adj)
         pv, pi = K.knn_select_plain(coors, k, mask, adj, row_chunk=chunk(n))
@@ -1053,8 +1095,11 @@ def main() -> int:
         ok = same_bits(torch, v, pv) and torch.equal(ix, pi)
         err = (v - pv).abs().max().item()
         max_err["knn_select_tiled"] = max(max_err["knn_select_tiled"], err)
-        print(f"K4 case {name}: n={n} k={k} c={c} mask={wm} adj={wa} cloud={kind}: "
-              f"bitwise={ok} (max err {err})")
+        rows, cols = block_plan(n, c, k, wa)
+        if c == 3:
+            covered["knn_select_tiled"].add((-(-k // 32), rows))
+        print(f"K4 case {name}: n={n} k={k} c={c} mask={wm} adj={wa} cloud={kind}, {rows} rows "
+              f"a warp, {cols} columns a lane: bitwise={ok} (max err {err})")
         if not ok:
             raise AssertionError(f"K4 case {name}: kernel and plain version differ")
         del adj
@@ -1067,10 +1112,14 @@ def main() -> int:
         ("c5_mask", 20480, 12, 5, True, "uniform"),
         ("kc52", 8192, 52, 3, True, "gaussian"),
         ("kc128", 4096, 128, 3, False, "uniform"),
+        ("n16385_rand_mask", 16385, 20, 3, "rand", "uniform"),
+        ("n6001_rand_mask", 6001, 12, 3, "rand", "gaussian"),
+        ("n2049_rand_mask", 2049, 20, 3, "rand", "uniform"),
+        ("kc48_n2000_rand_mask", 2000, 48, 3, "rand", "gaussian"),
     ]
     for i, (name, n, kc, c, wm, kind) in enumerate(cand_cases):
         coors = cloud(torch, n, c, kind, SEED + 60 + i)
-        mask = prefix_mask(torch, n) if wm else None
+        mask = case_mask(wm, n, SEED + 160 + i)
         for kname, fn, plain in (
             ("knn_candidates_packed_tiled", K.knn_candidates_packed_tiled,
              K.knn_candidates_packed_tiled_plain),
@@ -1083,10 +1132,19 @@ def main() -> int:
                   and torch.equal(keys, pk) and torch.equal(cols, pc))
             err = float(max((keys - pk).abs().max().item(), (cols - pc).abs().max().item()))
             max_err[kname] = max(max_err[kname], err)
-            print(f"{kname} case {name}: n={n} kc={kc} c={c} mask={wm} cloud={kind}: keys "
-                  f"and cols bitwise={ok} (max err {err})")
+            rows, run = block_plan(n, c, kc)
+            if c == 3:
+                covered[kname].add((-(-kc // 32), rows))
+            print(f"{kname} case {name}: n={n} kc={kc} c={c} mask={wm} cloud={kind}, {rows} "
+                  f"rows a warp, {run} columns a lane: keys and cols bitwise={ok} "
+                  f"(max err {err})")
             if not ok:
                 raise AssertionError(f"{kname} case {name}: kernel and plain version differ")
+    for name in block_kernels:
+        print(f"{name}: (list slots, rows a warp) of the cases {sorted(covered[name])}")
+        if covered[name] != every_block:
+            raise AssertionError(f"{name}: the cases reach {sorted(covered[name])}, not every "
+                                 f"instantiation {sorted(every_block)}")
 
     # ---- 12. the dispatcher on the card: every route gives K4's selection ----
     def winners_sorted(nbhd, n):
@@ -1145,6 +1203,24 @@ def main() -> int:
     check_routes(16384, KNN, ("packed",), "ties", SEED + 83,
                  {"packed": {"knn_candidates_packed": 2, "knn_select": 2}})
     nb.GRID_AUTO = True
+    # the reference's full-band and fused backends: K1 with a payload (within
+    # the fused gather's gate), K3 without
+    check_routes(4096, KNN_A, ("pallas", "fused"), "uniform", SEED + 84, {
+        "pallas": {"knn_select_gather": 2}, "fused": {"knn_select_gather": 2}})
+    coors = cloud(torch, 4096, 3, "uniform", SEED + 84)
+    mask = prefix_mask(torch, 4096)
+    ref_v, ref_i = K.knn_select_tiled(coors, KNN_A, mask)
+    for backend in ("pallas", "fused"):
+        reset_launch_counts()
+        plain_nbhd, _ = nb.knn_select_gather(coors, KNN_A, math.inf, mask=mask, backend=backend)
+        torch.cuda.synchronize()
+        counts = {kn: v for kn, v in LAUNCH_COUNTS.items() if v}
+        ok = torch.equal(plain_nbhd.indices, ref_i) and same_bits(torch, plain_nbhd.ranking, ref_v)
+        print(f"dispatcher n=4096 k={KNN_A} backend={backend} without a payload: equals K4="
+              f"{ok}; launches {counts}")
+        if not ok or counts != {"knn_select": 1}:
+            raise AssertionError(f"backend={backend} without a payload: selection differs from "
+                                 f"K4's or the launches {counts} are not K3's one")
 
     def time_segment_sum(what, ids, s, d, reps, trials, note=""):
         """K2's gates on the (1, E) ids a large-n path's backward gives it,
@@ -1488,14 +1564,18 @@ def main() -> int:
             # order, truncated keys)
             "library_ms": None,
         })
-        print(f"timing {name} at b={b} n={n} k={k} mask={wm} adjacency bytes={adj_bytes}: "
+        rows, cols = block_plan(n, c, k, adj_bytes > 0)
+        print(f"timing {name} at b={b} n={n} k={k} mask={wm} adjacency bytes={adj_bytes}, "
+              f"{rows} rows a warp, {cols} columns a lane a step: "
               f"kernel {ms_a:.5f}/{ms_b:.5f} ms, plain {ms_plain_a:.5f}/{ms_plain_b:.5f} ms "
               f"(row chunks of {chunk(n)}), bound {bound_ms:.6f} ms ({bound_by}; bytes "
               f"{t_bytes:.6f} ms, operations {t_ops:.6f} ms); no library call computes it")
     ms_k4_a = device_ms(torch, lambda: K.knn_select_tiled(coors_a, KNN_A), reps=3, trials=5)
     t_bytes, t_ops = knn_bound_parts(1, N_A, 3, KNN_A, 0, False, 0)
-    print(f"timing knn_select_tiled at n={N_A} k={KNN_A}, no mask or adjacency: kernel "
-          f"{ms_k4_a:.5f} ms; bound bytes {t_bytes:.6f} ms, operations {t_ops:.6f} ms")
+    rows, cols = block_plan(N_A, 3, KNN_A)
+    print(f"timing knn_select_tiled at n={N_A} k={KNN_A}, no mask or adjacency, {rows} rows a "
+          f"warp, {cols} columns a lane a step: kernel {ms_k4_a:.5f} ms; bound bytes "
+          f"{t_bytes:.6f} ms, operations {t_ops:.6f} ms")
 
     # path B's 1 GiB adjacencies are not needed again
     del requests_b, rq_b, rq_s, adj_b, coors_b, mask_b, net_b, net_chain

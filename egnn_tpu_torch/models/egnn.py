@@ -110,6 +110,7 @@ class EGNN(nn.Module):
         soft_edges: bool = False,
         coor_weights_clamp_value: Optional[float] = None,
         stream_pairwise: Optional[bool] = None,
+        pairwise_chunk: Optional[int] = None,
         ring_axis: Optional[str] = None,
         fused_knn: bool = False,
         fused_pairs: bool = False,
@@ -144,6 +145,8 @@ class EGNN(nn.Module):
         self.soft_edges = soft_edges
         self.coor_weights_clamp_value = coor_weights_clamp_value
         self.stream_pairwise = stream_pairwise
+        # the streamed all-pairs path's j-chunk; that path is not ported yet
+        self.pairwise_chunk = pairwise_chunk
         self.fused_knn = fused_knn
         self.fused_pairs = fused_pairs
         self.compute_dtype = compute_dtype

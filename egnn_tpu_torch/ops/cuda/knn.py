@@ -27,9 +27,11 @@ versions and the reference's routing gates. Launches count into ``LAUNCH_COUNTS`
   by x, with a margin per row that certifies it.
 
 K1 and K3 run ``csrc/knn_select.cu`` (one template, ``kPayload`` on or
-off), K4, K5, K6, K8 and K9 ``csrc/knn_select_large.cu`` (one template, the
-ranking key and the window as its parameters); the sources' headers say what bounds each on the card
-and how the design meets that. A wrapper given a CUDA tensor launches its kernel
+off), K4, K5, K6, K8 and K9 ``csrc/knn_select_large.cu``: K4-K6 one
+template that ranks several rows a warp (the ranking key its parameter;
+``knn_select_block_model`` is its traversal on the CPU), K8 and K9 one that
+ranks a row a warp (the window its parameter); the sources' headers say what
+bounds each on the card and how the design meets that. A wrapper given a CUDA tensor launches its kernel
 or raises; given a CPU tensor it runs the plain version, which the tests
 hold against the JAX package and ``chip_smoke.py`` holds the kernel against
 on the card. The plain versions take a ``row_chunk`` so that no (n, n)
@@ -76,6 +78,17 @@ def _lane_pad(n: int) -> int:
 def supports_knn_shapes(n: int) -> bool:
     """Whether the reference's full-band kernels (K1, K3, K6) take this n."""
     return _lane_pad(n) <= FULL_BAND_MAX_N
+
+
+def supports_knn_gather(n: int, tw: int, k: int) -> bool:
+    """The reference's gate of its fused select-and-gather kernel (K1,
+    ``egnn_tpu/ops/pallas/knn.py:321-337``): the TPU's VMEM model of the
+    ranking band, the payload table in three bf16 planes, the coordinate
+    planes and the output block against 14 MB."""
+    n_pad, tw_pad, ktw_pad = _lane_pad(n), _lane_pad(tw), _lane_pad(k * tw)
+    used = (2 * LANE * n_pad * 4 + n_pad * tw_pad * 6 + 2 * n_pad * LANE * 4
+            + LANE * ktw_pad * 4)
+    return used <= 14 * 1024 * 1024
 
 
 def supports_knn_packed(n: int, kc: int) -> bool:
@@ -204,6 +217,139 @@ def knn_select_queries_plain(queries, points, k, q_mask=None, p_mask=None,
     return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
 
 
+# ---------------------------------------------------------------------------
+# the traversal of K4, K5 and K6 on the card, as a CPU model
+# ---------------------------------------------------------------------------
+# csrc/knn_select_large.cu:knn_select_block_kernel ranks `rows` rows a warp,
+# 8 warps a block, over tiles of 2048 columns (512 at c != 3); in each step lane l takes the
+# columns t0 + 4l .. t0 + 4l + 3 of the tile, and the warp takes the
+# insertion path only when one of its pairs is below its row's k-th value.
+
+BLOCK_WARPS = 8      # kWarps
+BLOCK_RUN = 4        # kRun: consecutive columns a lane ranks a step
+
+
+def block_tile(c: int) -> int:
+    """Columns a tile (``block_tile``): 2048 at c = 3, else 512."""
+    return 2048 if c == 3 else 512
+
+
+_I64_MIN, _I64_MAX = torch.iinfo(torch.int64).min, torch.iinfo(torch.int64).max
+
+
+def _u32(t):
+    """The 32 bits of an int32 or float32 tensor as an int64 in [0, 2^32)."""
+    return t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _as_i32(u):
+    """An int64 in [0, 2^32) as the int32 of the same bits."""
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
+
+
+def _row_thresholds(tau, shift, fill_key):
+    """(thr float32, mthr int64) of each row from its k-th packed value, as
+    ``csrc/knn_select_large.cu:row_thresholds``: an unmasked pair below tau
+    has ``!(v > thr)``; a masked pair is below tau exactly when its column
+    is below mthr."""
+    hi = (tau >> 32) + (1 << 31)
+    lo = tau & 0xFFFFFFFF
+    if shift == 0:
+        bits = torch.where(hi >= 1 << 31, hi ^ 0x80000000, hi ^ 0xFFFFFFFF)
+    else:
+        bits = torch.where(hi > (0x7F7FFFFF >> shift), 0x7FFFFFFF,
+                           (hi << shift) | ((1 << shift) - 1))
+    thr = _as_i32(bits).view(torch.float32)
+    mthr = torch.where(hi > fill_key, 0xFFFFFFFF, torch.where(hi == fill_key, lo, 0))
+    return thr, mthr
+
+
+def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, rows: int = 4,
+                           tile: Optional[int] = None):
+    """The traversal of ``knn_select_block_kernel`` in torch: K4 (``shift``
+    0, (vals float32, idx int64)), K5 (12) or K6 (14) ((keys int32, cols
+    int64)), each (b, n, k), and the counts of the run.
+
+    It takes the kernel's steps: ``rows`` rows a warp and 8 warps a block
+    (rows past n in the last block rank nothing), tiles of ``tile`` columns
+    (the kernel's ``block_tile(c)`` by default; +inf coordinates past the
+    last column), in each step lane l's columns
+    t0 + 4l + q, the pre-test of every pair against its row's thresholds
+    (``_row_thresholds``; a masked row tests only its columns, a row's self
+    and adjacent columns always pass), one vote a warp, then for each row
+    that a lane flagged the lanes' offers of their packed values
+    ``(key << 32) | j`` (ordered here as a signed int64), column q by column
+    q, each a merge into the row's ascending list, and the row's new
+    thresholds. The counts: warp steps (``steps``) and those that took the
+    insertion path (``votes``)."""
+    b, n, c = coors.shape
+    x = coors.float()
+    dev = x.device
+    tile = block_tile(c) if tile is None else tile
+    per_block = BLOCK_WARPS * rows
+    n_rows = -(-n // per_block) * per_block
+    ar = torch.arange(n_rows, device=dev)
+    live = ar < n
+    xi = torch.zeros(b, n_rows, c, dtype=torch.float32, device=dev)
+    xi[:, :n] = x
+    mask_i = torch.ones(b, n_rows, dtype=torch.bool, device=dev)
+    if mask is not None:
+        mask_i[:, :n] = mask
+    lists = torch.full((b, n_rows, k), _I64_MAX, dtype=torch.int64, device=dev)
+    sentinel = {12: PACKED_MASK_SENTINEL_TILED, 14: PACKED_MASK_SENTINEL}.get(shift)
+    fill_key = int(_u32(torch.tensor(nb.MASKED_RANK_FILL, dtype=torch.float32))) ^ 0x80000000 \
+        if shift == 0 else sentinel
+    thr, mthr = _row_thresholds(lists[..., k - 1], shift, fill_key)
+    steps = votes = 0
+    for j0 in range(0, n, tile):
+        span = min(tile, n - j0)
+        for t0 in range(0, span, 32 * BLOCK_RUN):
+            cols = j0 + t0 + torch.arange(32 * BLOCK_RUN, device=dev)  # lane l, run q: 4l + q
+            valid = cols < j0 + span
+            cj = cols.clamp(max=n - 1)
+            xj = torch.where(valid[:, None], x[:, cj], math.inf)
+            v = nb.sum_of_squares(xi[:, :, None, :] - xj[:, None])      # (b, rows, 128)
+            masked = torch.zeros_like(v, dtype=torch.bool)
+            if mask is not None:
+                masked = ~(mask_i[:, :, None] & (mask[:, cj] & valid)[:, None, :])
+            special = torch.zeros_like(masked)
+            fv = torch.where(masked, nb.MASKED_RANK_FILL, v)
+            if adj_mat is not None:
+                eye = ar[:, None] == cols[None, :]
+                a = torch.zeros_like(special)
+                a[:, :n] = adj_mat[:, :, cj].bool() & valid
+                special = eye | a
+                fv = torch.where(eye, -1.0, torch.where(a, 0.0, fv))
+            # the pre-test of every pair, per lane (its four columns) and row
+            below = torch.where(masked, cols < mthr[..., None], ~(v > thr[..., None]))
+            below = torch.where(mask_i[..., None], below, (cols // BLOCK_RUN * BLOCK_RUN)
+                                < mthr[..., None])
+            lane_flag = (below | special).view(b, n_rows, 32, BLOCK_RUN).any(dim=-1)
+            lane_flag = lane_flag & live[:, None]
+            vote = lane_flag.any(dim=-1).view(b, -1, rows).any(dim=-1)
+            steps += vote.numel()
+            votes += int(vote.sum())
+            if shift == 0:
+                u = _u32(fv)
+                hi = torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u ^ 0x80000000)
+            else:
+                hi = torch.where(masked, sentinel, _u32(v) >> shift)
+            p = ((hi - (1 << 31)) << 32) | cols
+            offered = lane_flag.repeat_interleave(BLOCK_RUN, dim=-1) & valid
+            for q in range(BLOCK_RUN):  # the warp's offers of column q, lanes in order
+                offer = torch.where(offered[..., q::BLOCK_RUN], p[..., q::BLOCK_RUN], _I64_MAX)
+                lists = torch.sort(torch.cat([lists, offer], dim=-1), dim=-1).values[..., :k]
+            thr, mthr = _row_thresholds(lists[..., k - 1], shift, fill_key)
+    lists = lists[:, :n]
+    hi = (lists >> 32) + (1 << 31)
+    lo = lists & 0xFFFFFFFF
+    counts = {"steps": steps, "votes": votes}
+    if shift == 0:
+        bits = torch.where(hi >= 1 << 31, hi ^ 0x80000000, hi ^ 0xFFFFFFFF)
+        return _as_i32(bits).view(torch.float32), lo, counts
+    return _as_i32(hi), lo, counts
+
+
 def _pick_ti_window(W: int, n_pad: int, R: int) -> int:
     """The reference's group height of the windowed kernel
     (``egnn_tpu/ops/pallas/knn.py:674``): the rows of a group share one
@@ -309,12 +455,25 @@ _ENTRIES = {  # launch function -> (source, argument types)
                                                        _P, _P, _P]),
     "knn_select_window_launch": ("knn_select_large", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                                       _I, _I, _P, _P, _P]),
+    "knn_select_block_plan": ("knn_select_large", [_I, _I, _I, _I, _I, _I,
+                                                   ctypes.POINTER(_I), ctypes.POINTER(_I)]),
 }
 
 
 def _entry(name: str):
     source, argtypes = _ENTRIES[name]
     return build.function(source, name, argtypes)
+
+
+def built_block_plan(b: int, n: int, c: int, k: int, sms: int,
+                     adjacency: bool = False) -> tuple[int, int]:
+    """(rows a warp, columns a lane a step) of K4-K6's launch at (b, n, c,
+    k) on a card of ``sms`` SMs, as the built source plans it
+    (``csrc/knn_select_large.cu:rows_a_warp``, the rule's one owner)."""
+    rows, cols = _I(), _I()
+    _entry("knn_select_block_plan")(b, n, c, k, int(adjacency), sms, ctypes.byref(rows),
+                                    ctypes.byref(cols))
+    return rows.value, cols.value
 
 
 def _check_inputs(coors, k, mask, adj_mat):

@@ -30,6 +30,8 @@ versions.
   ``"packed"``: the packed-key candidates (K5 / K6), kc = k + 4 of them, one
   kc-wide gather, an exact float32 re-rank, and a coverage certificate whose
   failure sends the whole call to the exact kernel.
+- ``backend="pallas"`` / ``"fused"``: the reference's full-band selection at
+  any n (K1 / K3) and its fused select-and-gather within its gate (K1).
 
 The gathered rows are differentiable with respect to the table: the backward
 sums their cotangents into the table's rows with
@@ -417,6 +419,12 @@ def knn_select_gather(
       else the plain-torch grid of ``ops/spatial.py``); any other call takes
       the exact route ``"auto"`` would without the grid.
     - ``"tiled"``: K4, then ``gather_nodes`` for the payload.
+    - ``"pallas"``: the full-band selection at any n, as the reference forces
+      its full-band kernel: K1 with a payload, K3 without.
+    - ``"fused"``: with a payload, inside the reference's gate of its fused
+      gather (128 <= n, k <= 128, ``ops/cuda/knn.py:supports_knn_gather``),
+      K1; otherwise the exact selection, K3 within the full-band reach and K4
+      beyond it, and ``gather_nodes`` apart, as the reference does there.
     - ``"packed_tiled"`` / ``"packed"``: K5 / K6 and the exact refine, which
       needs no adjacency, 128 <= n, k <= 128, n >= 2 * kc and the kernel's
       gate; a call that fails these takes the exact route ``"auto"`` would
@@ -434,10 +442,8 @@ def knn_select_gather(
     from .cuda import grid_knn as grid_kernels
     from .cuda import knn as knn_kernels
 
-    if backend not in ("auto", "grid", "tiled", "packed", "packed_tiled"):
-        raise NotImplementedError(
-            f"backend={backend!r}: the exact, grid, tiled and packed selections are "
-            "ported; the fused and TPU-only backends are not")
+    if backend not in ("auto", "grid", "tiled", "packed", "packed_tiled", "pallas", "fused"):
+        raise ValueError(f"unknown backend {backend!r}")
 
     coors_sg = coors.detach().contiguous()
     n, c = coors.shape[1], coors.shape[2]
@@ -464,15 +470,24 @@ def knn_select_gather(
         return _refine_candidates(coors, coors_sg, k, valid_radius, mask, payload,
                                   tiled=use_packed_tiled, wide=wide)
 
-    if backend == "tiled" or not full_band:
+    # the reference's full-band and fused routes (neighbors.py:622-625,
+    # :716-723): "pallas" takes the full-band kernel at any n; "fused" the
+    # fused gather inside its gate, else the exact selection and a gather
+    fused = (backend == "fused" and payload is not None and kernel_ok
+             and knn_kernels.supports_knn_gather(
+                 n, c + (mask is not None) + payload.shape[-1], k))
+    full_band_route = backend == "pallas" or fused or (
+        backend != "tiled" and full_band)
+    if not full_band_route:
         vals, indices = knn_kernels.knn_select_tiled(
             coors_sg.float(), k, mask=mask, adj_mat=adj_mat)
         vals = vals.to(coors.dtype)
         gathered = None if payload is None else gather_nodes(
             _table(coors, mask, payload), indices)
-    elif payload is None:
+    elif payload is None or (backend == "fused" and not fused):
         vals, indices = knn_kernels.knn_select(coors_sg, k, mask=mask, adj_mat=adj_mat)
-        gathered = None
+        gathered = None if payload is None else gather_nodes(
+            _table(coors, mask, payload), indices)
     else:
         vals, indices, gathered = _KnnSelectGather.apply(
             _table(coors, mask, payload), coors_sg, k, mask, adj_mat)

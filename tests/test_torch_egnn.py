@@ -173,6 +173,27 @@ def test_egnn_network_alias_routes_layer_kwargs():
         assert torch.equal(a, b)  # one default seed, one draw order
 
 
+def test_egnn_network_takes_pairwise_chunk():
+    """``pairwise_chunk`` reaches every layer, as in the reference; a kNN
+    network built with it computes what the reference's does."""
+    n = 48
+    kw = dict(depth=2, dim=16, num_tokens=21, num_nearest_neighbors=8, norm_coors=True,
+              init_eps=0.1, pairwise_chunk=64)
+    rng = np.random.RandomState(5)
+    tokens = rng.randint(0, 21, size=(2, n))
+    _, coors, mask, adj, _ = _inputs(6, 2, n, 1)
+    jnet = egnn_tpu.EGNN_Network(**kw)
+    jkw = dict(adj_mat=_j(adj), mask=_j(mask))
+    params = _flax_params(jnet, _j(tokens), _j(coors), **jkw)
+    jf, jc = jnet.apply({"params": params}, _j(tokens), _j(coors), **jkw)
+    tnet = EGNN_Network(**kw, **F64)
+    assert all(getattr(tnet, f"egnn_{i}").pairwise_chunk == 64 for i in range(2))
+    load_flax_params(tnet, params)
+    tf, tc = tnet(_t(tokens), _t(coors), adj_mat=_t(adj), mask=_t(mask))
+    _close(tf, jf)
+    _close(tc, jc)
+
+
 def test_load_flax_params_rejects_mismatches():
     layer = EGNN(dim=8, num_nearest_neighbors=4, device="cpu")
     params = {name: p.detach().numpy().copy() for name, p in layer.named_parameters()}

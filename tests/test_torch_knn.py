@@ -145,14 +145,14 @@ def test_expanded_adjacency_matches_batched():
 
 
 def test_later_backends_raise():
-    """The TPU-only backend names raise; the tiled and packed routes
-    (tests/test_torch_knn_large.py) and the grid route
-    (tests/test_torch_grid_dispatch.py) are ported."""
+    """Every backend of the reference is ported: the full-band and fused
+    routes (tests/test_torch_dispatch_backends.py), the tiled and packed
+    routes (tests/test_torch_knn_large.py) and the grid route
+    (tests/test_torch_grid_dispatch.py); an unknown name raises."""
     coors = torch.zeros(1, 16, 3, dtype=torch.float32)
-    for backend in ("fused", "pallas"):
-        with pytest.raises(NotImplementedError):
-            tnb.knn_select(coors, 4, math.inf, backend=backend)
-    for backend in ("tiled", "packed", "packed_tiled", "grid"):
+    with pytest.raises(ValueError):
+        tnb.knn_select(coors, 4, math.inf, backend="mosaic")
+    for backend in ("fused", "pallas", "tiled", "packed", "packed_tiled", "grid"):
         assert tnb.knn_select(coors, 4, math.inf, backend=backend).indices.shape == (1, 16, 4)
 
 

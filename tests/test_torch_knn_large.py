@@ -311,8 +311,10 @@ def test_forced_packed_backends_fall_through_their_gates():
         assert small.winner is None and small.indices.shape == (1, 100, 8)
         big_k, _ = tnb.knn_select_gather(_t(coors), 100, math.inf, backend=backend, wide=True)
         assert big_k.winner is None and big_k.indices.shape == (1, 160, 100)
-    with pytest.raises(NotImplementedError):
-        tnb.knn_select_gather(_t(coors), 8, math.inf, backend="fused")
+    # "fused" without a payload is the exact selection too
+    fused, _ = tnb.knn_select_gather(_t(coors), 8, math.inf, mask=_t(mask), adj_mat=_t(adj),
+                                     backend="fused")
+    assert fused.winner is None and torch.equal(fused.indices, ei)
 
 
 @pytest.mark.parametrize("wide", [False, True])
@@ -423,3 +425,55 @@ def test_large_route_gradients_match_jax(backend, wide):
     (g * _t(w)).sum().backward()
     np.testing.assert_allclose(tc.grad.numpy(), np.asarray(jc), rtol=1e-6, atol=1e-6)
     np.testing.assert_allclose(tp.grad.numpy(), np.asarray(jp), rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the card's traversal of K4-K6 (knn_select_block_kernel) as a CPU model
+# ---------------------------------------------------------------------------
+
+
+def _block_case(seed, n, c, kind, with_mask, with_adj):
+    """One batch of two: a random mask mixes masked and unmasked rows inside
+    every warp; the adjacency is a chain plus random edges."""
+    coors, _, adj = _case(seed, 2, n, c, with_adj=with_adj, kind=kind)
+    rng = np.random.RandomState(seed + 1)
+    mask = rng.rand(2, n) > 0.3 if with_mask else None
+    return _t(coors), _t(mask), _t(adj)
+
+
+_SHIFTS = {0: None, 12: K.knn_candidates_packed_tiled_plain, 14: K.knn_candidates_packed_plain}
+
+
+@pytest.mark.parametrize("n,k,c,kind,with_mask,with_adj,rows,tile", [
+    (2049, 16, 3, "int", True, True, 4, None),   # integer ties, last tile 1 column, nq % 32 = 1
+    (1025, 20, 3, "float", True, False, 4, 512),
+    (777, 8, 3, "int", True, True, 2, 128),      # seven tiles, the last 9 columns
+    (600, 16, 3, "dyadic", False, False, 1, None),
+    (700, 48, 3, "int", True, True, 2, None),    # two list slots a lane
+    (530, 48, 3, "float", True, False, 1, None),
+    (520, 128, 3, "int", True, True, 1, None),   # four slots a lane
+    (530, 12, 5, "int", True, True, 1, None),    # c = 5: 512-column tiles, the last 18 columns
+    (33, 5, 3, "int", True, True, 4, None),      # one real row in the second block
+    (1027, 32, 3, "int", True, False, 2, 256),   # a full slot; the last tile 3 columns
+])
+@pytest.mark.parametrize("shift", [0, 12, 14])
+def test_block_model_matches_plain(n, k, c, kind, with_mask, with_adj, rows, tile, shift):
+    """The kernel's steps (rows a warp, four columns a lane, the pre-test,
+    one vote a warp step, the offers) give the plain versions' selection
+    bit for bit: K4 with its fills and adjacency, K5 and K6 with their keys
+    and sentinels."""
+    coors, mask, adj = _block_case(n + k + c + rows, n, c, kind, with_mask, with_adj)
+    if shift == 0:
+        v, i, counts = K.knn_select_block_model(coors, k, mask, adj, 0, rows, tile)
+        pv, pi = K.knn_select_plain(coors, k, mask, adj)
+        assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+    else:
+        keys, cols, counts = K.knn_select_block_model(coors, k, mask, None, shift, rows, tile)
+        pk, pc = _SHIFTS[shift](coors, k, mask)
+        assert keys.dtype == torch.int32 and torch.equal(keys, pk) and torch.equal(cols, pc)
+    warps = 2 * -(-n // (8 * rows)) * 8
+    tile = K.block_tile(c) if tile is None else tile
+    assert counts["steps"] == warps * sum(-(-min(tile, n - j0) // 128)
+                                          for j0 in range(0, n, tile))
+    assert 0 < counts["votes"] <= counts["steps"]
+
