@@ -79,9 +79,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    and K11b (gathering inside) against their plain versions in float64 over
    the cases below (among them the backward's register blocks at their
    edges: rows, columns and weight-gradient blocks cut short, a partial
-   last tile, and weight gradients past the register slots), each error
-   held to a multiple of the float32 plain version's own; three forward and
-   backward launches bitwise equal;
+   last tile, and weight gradients past the register slots; and the
+   forward's tile loop at its edges: tiles below and at 64 rows, a partial
+   last tile, blocks with unequal tile counts, a block's tiles in two batch
+   elements, three nodes of kc = 20 a tile, h = 134 on small and 64-row
+   tiles, repeated ids, each shown reached), each error held to a
+   multiple of the float32 plain version's own; three forward and backward
+   launches bitwise equal;
 22. anchor 3 with ``fused_pairs=True`` (K1 -> K10f; backward K10b -> K2) and
    with ``fused_knn=True`` (K3 -> K11f; backward K11b and K2): serving at b=1
    and b=8 against the unfused network and against the CPU, equivariance,
@@ -92,11 +96,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    and a train step), each beside the unfused path's numbers of this run;
    the fwd+bwd's coordinate gradient (also without ``norm_coors``) and one
    step's parameter gradients against the unfused network's;
-24. K10f, K10b, K11f, K11b on anchor 3's own neighbourhood and K10f, K10b on
-   path C's and path A's (n = 65 536): against their plain versions in
+24. K10f, K10b, K11f, K11b on anchor 3's and path C's own neighbourhoods and
+   K10f, K10b on path A's (n = 65 536): against their plain versions in
    float64 as in phase 21, then timed beside their plain versions, their
    bounds and the unfused pipeline of torch operators on the same pairs;
-   the backward's tile, grid and blocks an SM beside its time.
+   each kernel's tile, grid and blocks an SM beside its time.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -455,11 +459,13 @@ PAIR_WEIGHT_NAMES = ("wj", "wd", "w2", "b2", "gw", "gb", "cw1", "cb1", "cw2", "c
 
 
 def pair_case(torch, seed, b, n, k, d=DIM, fourier=0, soft=False, norm=True, clamp=2.0,
-              gfo=False, masked=True, m=16, c=3, self_pairs=False, spread=3.0):
+              gfo=False, masked=True, m=16, c=3, self_pairs=False, spread=3.0, id_pool=None):
     """Inputs of K10 and K11 on one random neighbourhood, float32 on the
     card: coordinates, features, neighbour ids (the node itself in slot 0
-    when ``self_pairs``), pair validity (a quarter of the slots 0 when
-    ``masked``), upstream gradients and the eleven weights."""
+    when ``self_pairs``; drawn from the first ``id_pool`` nodes, so that
+    rows repeat ids and share them, when given), pair validity (a quarter of
+    the slots 0 when ``masked``), upstream gradients and the eleven
+    weights."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape, scale=1.0):
@@ -468,6 +474,8 @@ def pair_case(torch, seed, b, n, k, d=DIM, fourier=0, soft=False, norm=True, cla
     h, dd = 2 * (2 * d + 2 * fourier + 1), 2 * fourier + 1
     ar = torch.arange(n, device="cuda")[None, :, None]
     idx = (ar + torch.randint(1, n, (b, n, k), generator=g, device="cuda")) % n
+    if id_pool is not None:
+        idx = torch.randint(0, id_pool, (b, n, k), generator=g, device="cuda")
     if self_pairs:
         idx[..., 0] = ar[..., 0]
     pv = torch.rand(b, n, k, generator=g, device="cuda") > (0.25 if masked else -1.0)
@@ -1867,10 +1875,13 @@ def main() -> int:
     gdim2, cs2, cn2, nbytes2, pairs2 = k7_work(coors_2a, KNN_A)
     ms_k7b = device_ms(torch, lambda: GK.grid_knn_cells(coors_2a, cs2, cn2, KNN_A, gdim2), reps=3,
                        trials=5)
+    ms_k7b_plain = call_ms(torch, lambda: GK.grid_knn_cells_plain(
+        coors_2a, cs2, cn2, KNN_A, gdim2, cell_chunk=16), iters=2, warmup=1)
     bound2 = pairs_bound(nbytes2, pairs2)
     print(f"timing grid_knn_cells at n={2 * N_A} k={KNN_A} gdim={gdim2} (the size of the "
-          f"reference's streamed kernel): kernel {ms_k7b:.5f} ms; bound {bound2[0]:.6f} ms "
-          f"({bound2[1]}) over {pairs2} real pairs")
+          f"reference's streamed kernel): kernel {ms_k7b:.5f} ms, plain {ms_k7b_plain:.5f} ms; "
+          f"bound {bound2[0]:.6f} ms ({bound2[1]}) over {pairs2} real pairs; no library call "
+          f"computes it")
     with torch.inference_mode():
         for kind in ("uniform", "gaussian", "heavy"):
             c_kind = clouds_a[kind]
@@ -1940,6 +1951,15 @@ def main() -> int:
         # more encodings than the distance backward's eight lanes a row, and
         # a lane a coordinate on all eight
         ("fourier12_c8_k6", dict(b=2, n=301, k=6, d=8, fourier=12, c=8, soft=True)),
+        # the forward's tile loop: 64-row tiles, 519 of them on 264 blocks
+        # (unequal counts; a block's last tile stages nothing after it), the
+        # loop crossing batch elements, a last tile of 2 nodes of 4
+        ("k16_b3_cross_batch_partial", dict(b=3, n=690, k=16)),
+        # K11 gathering repeated ids (every row's 16 neighbours among 4 nodes)
+        # on 64-row tiles at h = 134, the h1 product's last column block cut
+        # short in its second round of items
+        ("k16_h134_repeated_ids_b2", dict(b=2, n=513, k=16, d=32, fourier=1, soft=True,
+                                          id_pool=4)),
     ]
     pair_err = {"fused_pair_fwd": 0.0, "fused_pair_bwd": 0.0, "fused_knn_fwd": 0.0,
                 "fused_knn_bwd": 0.0}
@@ -1947,17 +1967,53 @@ def main() -> int:
                    (24, 5, 0, 74, 8, 32, 2, True), (64, 3, 16, 66, 16, 64, 4, True),
                    (32, 3, DIM, 130, 16, 64, 0, False), (24, 3, 0, 130, 16, 64, 0, False),
                    (32, 3, 10, 54, 12, 48, 3, True)):
-        for backward in (False, True):   # the wrapper's copy of the shared-memory layout
-            if PM._smem_floats(*layout, backward) != PM.kernel_smem_floats(*layout, backward):
-                raise AssertionError(f"the wrapper's layout {layout} differs from the source's")
+        # the wrapper's copy of the shared-memory layout; the forward's with
+        # its staging region for one node and for rows / 8
+        for backward, ti in ((False, 1), (False, layout[0] // 8), (True, 1)):
+            if PM._smem_floats(*layout, backward, ti) != PM.kernel_smem_floats(*layout, backward,
+                                                                               ti):
+                raise AssertionError(f"the wrapper's layout {layout} (backward={backward}, "
+                                     f"ti={ti}) differs from the source's")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fwd_edges = dict.fromkeys(("a tile below the gates' 64 rows", "a 64-row tile",
+                               "a partial last tile", "blocks with unequal tile counts",
+                               "a block's tiles in two batch elements",
+                               "three nodes of kc = 20 a tile", "h not a multiple of 5",
+                               "a 64-row tile at h not a multiple of 5", "repeated ids"), False)
     for i, (name, kw) in enumerate(pair_cases):
         case = pair_case(torch, SEED + 200 + i, **kw)
+        b, n, k = case["idx"].shape
+        c_w, m_w = case["coors"].shape[-1], case["weights"][2].shape[-1]
+        h_w, o = case["proj_i"].shape[-1], case["opts"]
         for gather, prefix in ((False, "fused_pair"), (True, "fused_knn")):
+            # the forward's tile and grid here, and which of its edges they reach
+            d_w = 0 if gather else case["feats"].shape[-1]
+            widths = (c_w, d_w, h_w, m_w, 4 * m_w, o["fourier"], o["soft_edges"])
+            rows_f = PM._fwd_tile_rows(b, n, k, *widths, sms)
+            ti, grid = PM.launch_grid(b, n, k, rows_f, False, "cuda")
+            per_b = -(-n // ti)
+            tiles = b * per_b
+            fwd_edges["a tile below the gates' 64 rows"] |= rows_f < PM._tile_rows(k, *widths)
+            fwd_edges["a 64-row tile"] |= rows_f == 64
+            fwd_edges["a partial last tile"] |= n % ti != 0
+            fwd_edges["blocks with unequal tile counts"] |= tiles % grid != 0
+            fwd_edges["a block's tiles in two batch elements"] |= any(
+                len({t // per_b for t in range(blk, tiles, grid)}) > 1 for blk in range(grid))
+            fwd_edges["three nodes of kc = 20 a tile"] |= k == 20 and ti == 3
+            fwd_edges["h not a multiple of 5"] |= h_w % 5 != 0
+            fwd_edges["a 64-row tile at h not a multiple of 5"] |= rows_f == 64 and h_w % 5 != 0
+            fwd_edges["repeated ids"] |= gather and "id_pool" in kw
+            print(f"{'K11' if gather else 'K10'}f case {name}: a forward tile of {rows_f} rows "
+                  f"({ti} nodes), {tiles} tiles on a grid of {grid} blocks")
             e_f, e_b = check_pair_kernels(torch, PM, name, case, gather)
             pair_err[prefix + "_fwd"] = max(pair_err[prefix + "_fwd"], e_f)
             pair_err[prefix + "_bwd"] = max(pair_err[prefix + "_bwd"], e_b)
         del case
     torch.cuda.empty_cache()
+    missed = [edge for edge, seen in fwd_edges.items() if not seen]
+    print(f"the forward's edges reached by phase 21's cases: {sorted(fwd_edges)}")
+    if missed:
+        raise AssertionError(f"phase 21's cases no longer reach the forward's edges {missed}")
 
     # ---- 22. anchor 3 through the fused pair pipeline ----
     def make_anchor(seed=SEED, **extra):
@@ -2201,7 +2257,7 @@ def main() -> int:
          real_case(rq.noised_coors, idx_anchor, pv_anchor, SEED + 300), (False, True), (20, 7)),
         (f"path C's shape (n={N_A} k={KNN_A}, the grid's neighbours)",
          real_case(clouds_a["uniform"], nbhd_c.indices, torch.ones_like(nbhd_c.valid),
-                   SEED + 301), (False,), (3, 5)),
+                   SEED + 301), (False, True), (3, 5)),
         (f"path A's shape (n={N_A} kc={kc_a} slots, pv = the winner mask)",
          real_case(clouds_a["uniform"], nbhd_a.indices, nbhd_a.winner, SEED + 302), (False,),
          (3, 5)),
@@ -2272,13 +2328,18 @@ def main() -> int:
                 u_fwd = device_ms(torch, lambda: unfused_forward(gather), reps=reps, trials=trials)
             u_both = device_ms(torch, lambda: unfused_fwd_bwd(gather), reps=reps, trials=trials)
             unfused = {"fwd": u_fwd, "bwd": u_both - u_fwd}
-            # the backward's tile, grid and blocks an SM at this shape
+            # each kernel's tile, grid and blocks an SM at this shape
             d_k = 0 if gather else DIM
             h_k = case["proj_i"].shape[-1]
-            rows_b = PM._bwd_tile_rows(k, 3, d_k, h_k, 16, 64, 0, False)
-            _, grid_b = PM.launch_grid(b, n, k, rows_b, True, "cuda")
-            per_sm = PM.kernel_blocks_per_sm(rows_b, k, 3, d_k, h_k, 16, 64, 0, False, gather,
-                                             True)
+            tile_line = {}
+            for key, backward in (("fwd", False), ("bwd", True)):
+                rows_t = (PM._bwd_tile_rows(k, 3, d_k, h_k, 16, 64, 0, False) if backward else
+                          PM._fwd_tile_rows(b, n, k, 3, d_k, h_k, 16, 64, 0, False, sms))
+                _, grid_t = PM.launch_grid(b, n, k, rows_t, backward, "cuda")
+                per_sm = PM.kernel_blocks_per_sm(rows_t, k, 3, d_k, h_k, 16, 64, 0, False,
+                                                 gather, backward)
+                tile_line[key] = (f"a tile of {rows_t} rows, a grid of {grid_t} blocks, "
+                                  f"{per_sm} blocks an SM")
             for key in ("fwd", "bwd"):
                 k_a, k_b, p_a, p_b = ms[key]
                 bound_ms, bound_by, t_bytes, t_ops = pair_bound(
@@ -2291,8 +2352,7 @@ def main() -> int:
                       f"{unfused[key]:.5f} ms"
                       f"{' (its fwd+bwd less its forward)' if key == 'bwd' else ''}"
                       + (f"; {launches[prefix + '_bwd']} launches on the main path (anchor 3's "
-                         f"b=1 steps), here a tile of {rows_b} rows, a grid of {grid_b} blocks, "
-                         f"{per_sm} blocks an SM" if key == "bwd" else ""))
+                         f"b=1 steps)" if key == "bwd" else "") + f"; here {tile_line[key]}")
                 if case_no == 0:   # the JSON line's row: anchor 3's shape
                     kernels.append({
                         "name": f"{prefix}_{key}", "route": "cuda",

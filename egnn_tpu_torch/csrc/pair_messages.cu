@@ -36,9 +36,21 @@
 // the activations, silu' in the backward. The reductions over a node's k
 // slots run over the tile's rows in slot order.
 //
-// The forward (K10f, K11f): 256 threads, two blocks an SM, tiles of up to 64
-// rows; a thread owns one output column of four (or two) rows and reads one
-// weight and one float4 of activations for four FMAs.
+// The forward (K10f, K11f): 256 threads, two blocks an SM, on a tile of its
+// own (the wrapper's _fwd_tile_rows: whole nodes, at most the gates' 64 rows,
+// fewer where the tiles would leave some of the card's block slots empty). A
+// block loads the next tile's inputs with cp.async into a staging region (K10:
+// cj, fj and pv rows; K11: idx and pv; both: the tile's own coordinates and
+// proj_i rows) while it computes the current tile, then unpacks them into the
+// tile buffers with every thread at work: the geometry a thread a (row,
+// encoding), fj transposed with no bank conflicts, and H filled with proj_i[i]
+// (K11: + proj_j[idx], gathered there), which the h1 product's epilogue adds.
+// The weights are staged with cp.async too, under the first tile's copies.
+// The products are the backward's register-blocked routine (four rows by
+// five columns a thread in h1, by one in z2 and by two in cz1); the
+// coordinate weight takes eight lanes a row, each lane's share summed in a
+// fixed order, and the k-sums a thread an output, so that launches repeat bit
+// for bit.
 //
 // The backward (K10b, K11b): 256 threads, two blocks an SM, tiles of about 32
 // rows (the wrapper's _bwd_tile_rows), so that two blocks' layouts fit an
@@ -72,12 +84,14 @@
 // operations a pair forward (14.8 K at d = 32, h = 130, m = 16) and three
 // times that backward, against (c + d + 1) * 4 bytes a pair read: bound by
 // operations (0.23 ms forward, 0.70 ms backward at 1 048 576 pairs, against
-// 0.05 ms of bytes). The forward stays about ten times above its bound and
-// the backward about six (the times are in PERF.md): the exact expf and IEEE
-// division of the activations (about 400 sigmoids a pair in the backward),
-// the barriers between stages, and FMAs outside the tensor cores. Tensor
-// cores (wgmma on bf16 or tf32 operands: the TPU kernels' mxu_bf16) and
-// loading a tile's inputs under the tile before it are later work.
+// 0.05 ms of bytes). The forward stays five to six times above its bound
+// and the backward about six (the times are in PERF.md): the exact expf and
+// IEEE division of the activations (210 sigmoids a pair forward, about 400
+// backward), the barriers between stages, and FMAs outside the tensor cores.
+// Tensor cores (wgmma on bf16 or tf32 operands: the TPU kernels' mxu_bf16)
+// and, in the backward, loading a tile's inputs under the tile before it are
+// later work.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -154,8 +168,10 @@ __host__ __device__ inline GradLayout grad_layout(const Shape& s) {
 struct Layout {
   int ld_h, ld_m, ld_m4;  // odd row strides of the staged weights
   int ldr;                // line stride of the tile buffers
+  int ldn;                // floats a pair row takes in the forward's staging region
   int wj, wd, w2, b2, gw, cw1, cb1, cw2, misc;  // misc: gb, cb2, scale
   int H, S, X, DISTF, Z2, M0, MSG, DM, CZ1, REL, DREL, DDF, ROW, JDX, DCZ1, ONES;
+  int NXT;                // the forward's staging region (next_inputs)
   int total;
 };
 
@@ -166,6 +182,9 @@ __host__ __device__ inline Layout make_layout(const Shape& s, bool backward) {
   L.ld_m = odd(s.m);
   L.ld_m4 = odd(s.m4);
   L.ldr = s.rows + 4;
+  // the forward's staging region, a pair row: K10 cj (c), fj (d, at an odd
+  // stride), pv; K11 (d = 0) idx (int64), pv
+  L.ldn = s.d > 0 ? s.c + odd(s.d) + 1 : 3;
   int o = 0;
   L.wj = o; o += s.d * L.ld_h;
   L.wd = o; o += dd * L.ld_h;   // straight after wj: [Wj; Wd] is one matrix
@@ -181,20 +200,24 @@ __host__ __device__ inline Layout make_layout(const Shape& s, bool backward) {
   if (backward) { L.S = o; o += s.h * L.ldr; } else { L.S = L.H; }
   L.X = o; o += s.d * L.ldr;
   L.DISTF = o; o += dd * L.ldr;  // straight after X: [fj | distf] is one operand
-  L.Z2 = o; o += s.m * L.ldr;
+  if (backward) { L.Z2 = o; o += s.m * L.ldr; } else { L.Z2 = -1; }  // the forward keeps no z2
   L.M0 = o; o += s.m * L.ldr;
   if (s.soft_edges) { L.MSG = o; o += s.m * L.ldr; } else { L.MSG = L.M0; }
   L.CZ1 = o; o += s.m4 * L.ldr;
   L.REL = o; o += s.c * L.ldr;
   L.ROW = o; o += kRowScalars * L.ldr;
   L.JDX = o; o += L.ldr;
-  L.DM = L.DREL = L.DDF = L.DCZ1 = L.ONES = o;
+  L.DM = L.DREL = L.DDF = L.DCZ1 = L.ONES = L.NXT = o;
   if (backward) {
     L.DM = o; o += s.m * L.ldr;
     L.DREL = o; o += s.c * L.ldr;
     L.DDF = o; o += dd * L.ldr;
     L.DCZ1 = o; o += s.m4 * L.ldr;
     L.ONES = o; o += L.ldr;       // a line of ones: the biases' column
+  } else {
+    // the staging region: rows pair rows, then the tile's nodes' coordinates
+    // and proj_i rows
+    L.NXT = o; o += s.rows * L.ldn + s.ti * (s.c + s.h);
   }
   L.total = o;
   return L;
@@ -220,42 +243,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// kRows consecutive floats, 16-byte (kRows = 2: 8-byte) aligned
+// kRows (a multiple of 4) consecutive floats, 16-byte aligned
 template <int kRows>
 __device__ __forceinline__ void load_rows(const float* p, float (&v)[kRows]) {
-  if constexpr (kRows == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    v[0] = a.x; v[1] = a.y;
-  } else {
 #pragma unroll
-    for (int q = 0; q < kRows; q += 4) {
-      const float4 a = *reinterpret_cast<const float4*>(p + q);
-      v[q] = a.x; v[q + 1] = a.y; v[q + 2] = a.z; v[q + 3] = a.w;
-    }
+  for (int q = 0; q < kRows; q += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p + q);
+    v[q] = a.x; v[q + 1] = a.y; v[q + 2] = a.z; v[q + 3] = a.w;
   }
 }
 
 template <int kRows>
 __device__ __forceinline__ void store_rows(float* p, const float (&v)[kRows]) {
-  if constexpr (kRows == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
-  } else {
 #pragma unroll
-    for (int q = 0; q < kRows; q += 4)
-      *reinterpret_cast<float4*>(p + q) = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
-  }
+  for (int q = 0; q < kRows; q += 4)
+    *reinterpret_cast<float4*>(p + q) = make_float4(v[q], v[q + 1], v[q + 2], v[q + 3]);
 }
 
 // One product of the tile and what is done with it where it lands:
 //   v(r, j) = sum_i A(r, i) * W[i * wsi + j * wsj]          r < rows, j < J
-//             + bias[j], + node_bias[r / k][j], + row_bias[row_idx[r]][j]
-//                                                            (each where given)
+//             + bias[j], + node_bias[r / k][j], + row_bias[row_idx[r]][j],
+//             + add_of(r, j)                                 (each where given)
 //   v *= silu'(x) from sig_of(r, j) = sigmoid(x), silu_of(r, j) = silu(x)
 //                                                            (where given)
 //   out(r, j) = v, silu_out(r, j) = silu(v), sig_out(r, j) = sigmoid(v)
 //                                                            (each where given;
 //                                                             sig_out with silu_out)
-// A, out, silu_out, sig_out, sig_of and silu_of are tile buffers (line stride ldr); with
+// A, out, silu_out, sig_out, sig_of, silu_of and add_of are tile buffers (line stride ldr); with
 // row_major_ld > 0 `out` is a row-major array in device memory with that row
 // stride. node_bias and row_bias are row-major (J wide) in device memory.
 struct MmArgs {
@@ -270,6 +284,7 @@ struct MmArgs {
   float* sig_out;
   const float* sig_of;
   const float* silu_of;
+  const float* add_of;
   const float* node_bias;
   const float* row_bias;
   const int* row_idx;
@@ -282,7 +297,7 @@ __device__ __forceinline__ MmArgs mm_args(float* out, const float* A, const floa
   a.out = out; a.row_major_ld = 0; a.A = A; a.W = W; a.wsi = wsi; a.wsj = wsj;
   a.bias = nullptr; a.rows = rows; a.I = I; a.J = J; a.ldr = ldr;
   a.silu_out = nullptr; a.sig_out = nullptr; a.sig_of = nullptr; a.silu_of = nullptr;
-  a.node_bias = nullptr; a.row_bias = nullptr;
+  a.add_of = nullptr; a.node_bias = nullptr; a.row_bias = nullptr;
   a.row_idx = nullptr; a.k = 1;
   return a;
 }
@@ -319,6 +334,12 @@ __device__ __forceinline__ void mm_epilogue(const MmArgs& m, int j, int r0, floa
     for (int q = 0; q < kRows; ++q)
       if (r0 + q < m.rows) v[q] += m.row_bias[(size_t)m.row_idx[r0 + q] * m.J + j];
   }
+  if (m.add_of != nullptr) {
+    float ad[kRows];
+    load_rows<kRows>(m.add_of + j * ldr + r0, ad);
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) v[q] += ad[q];
+  }
   if (m.sig_of != nullptr) {
     float sg[kRows], sl[kRows];
     load_rows<kRows>(m.sig_of + j * ldr + r0, sg);
@@ -349,53 +370,15 @@ __device__ __forceinline__ void mm_epilogue(const MmArgs& m, int j, int r0, floa
   }
 }
 
-// The forward's product. A thread owns column j of kRows rows: one weight
-// and one float4 (float2) of activations a step of the sum.
-template <int kRows>
-__device__ __noinline__ void tile_mm_rows(const MmArgs m) {
-  const int groups = (m.rows + kRows - 1) / kRows;
-  const int ldr = m.ldr;
-  for (int o = threadIdx.x; o < groups * m.J; o += blockDim.x) {
-    const int g = o / m.J, j = o - g * m.J, r0 = g * kRows;
-    const float* a = m.A + r0;
-    const float* w = m.W + j * m.wsj;
-    float v[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) v[q] = 0.f;
-    for (int i = 0; i < m.I; ++i) {
-      const float wv = w[i * m.wsi];
-      float av[kRows];
-      load_rows<kRows>(a + i * ldr, av);
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) v[q] = fmaf(av[q], wv, v[q]);
-    }
-    mm_epilogue<kRows>(m, j, r0, v);
-  }
-}
-
-// The rows a thread takes (4 or 2) picked by the cost of the block's rounds:
-// rounds * (FMAs + loads of one step of the sum). Eight rows a thread spill
-// registers under the kernels' launch bounds.
-struct OutlinedMm {
-  __device__ __forceinline__ void operator()(const MmArgs& m) const {
-    const int nt = blockDim.x;
-    const int c4 = ((((m.rows + 3) >> 2) * m.J + nt - 1) / nt) * 6;
-    const int c2 = ((((m.rows + 1) >> 1) * m.J + nt - 1) / nt) * 4;
-    if (c4 <= c2) tile_mm_rows<4>(m);
-    else tile_mm_rows<2>(m);
-  }
-};
-
-// The backward's product, register-blocked: a thread owns four rows by kCols
+// The products, register-blocked: a thread owns four rows by kCols
 // columns, interleaved (jq, jq + nq, jq + 2 nq, ...; nq = ceil(J / kCols)), and
 // a step of the sum is one float4 of activations and kCols weights for
 // 4 * kCols FMAs. The threads of a warp take consecutive jq of one row group:
 // the float4 is one broadcast, and each weight load falls on 32 distinct banks
 // in either orientation (W and W^T) because the staged row strides are odd.
 // Columns past J read the last column and are not stored. Each output adds
-// its terms in the order of i, as the forward's routine does. Inlined, so
-// that the weight-gradient sums the backward keeps in registers are not
-// saved and restored around a call.
+// its terms in the order of i. Inlined, so that the weight-gradient sums
+// the backward keeps in registers are not saved and restored around a call.
 template <int kCols>
 __device__ __forceinline__ void mm_blocked(const MmArgs& m) {
   const int groups = (m.rows + 3) >> 2;
@@ -431,11 +414,6 @@ __device__ __forceinline__ void mm_blocked(const MmArgs& m) {
   }
 }
 
-template <int kCols>
-struct BlockedMm {
-  __device__ __forceinline__ void operator()(const MmArgs& m) const { mm_blocked<kCols>(m); }
-};
-
 // The backward's column blocks, fixed for a launch. The narrow products (m,
 // 4m or d wide) take one column: a wider block leaves threads idle and
 // lengthens the others' paths. The h-wide ones (h1, d_h1) take kWideCols,
@@ -445,21 +423,10 @@ struct BlockedMm {
 // and twice the loads; at 20 rows (kc = 20) one column makes three rounds and
 // five leave half the threads idle. A choice made in the kernel, with both
 // variants inlined at a site, measured slower than either fixed one
-// (PERF.md): the choice is a template argument.
-template <bool kBackward, int kWideCols>
-struct Products {
-  using wide = BlockedMm<kWideCols>;
-  using narrow = BlockedMm<1>;
-};
-template <int kWideCols>
-struct Products<false, kWideCols> {
-  using wide = OutlinedMm;
-  using narrow = OutlinedMm;
-};
-
-// The path of one thread through an h-wide product of a tile of ti * k rows:
-// rounds of items (four rows by `cols` columns) times the instructions of a
-// step of the sum (4 cols FMAs, 1 + cols loads).
+// (PERF.md): the choice is a template argument. The path of one thread
+// through an h-wide product of a tile of ti * k rows: rounds of items (four
+// rows by `cols` columns) times the instructions of a step of the sum (4 cols
+// FMAs, 1 + cols loads).
 inline int wide_cost(const Shape& s, int cols) {
   const int items = ((s.ti * s.k + 3) / 4) * ((s.h + cols - 1) / cols);
   return (items + kBwdThreads - 1) / kBwdThreads * (5 * cols + 1);
@@ -593,23 +560,28 @@ __device__ __forceinline__ void for_block_entries(const WgMat& M, int b, F f) {
     }
 }
 
+// kAsync: by cp.async (the caller commits and waits), so that every thread's
+// loads are in flight at once
+template <bool kAsync>
 __device__ void stage_matrix(float* dst, int ld, const float* src, int rows, int cols) {
   for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
     const int r = e / cols, j = e - r * cols;
-    dst[r * ld + j] = src[e];
+    if (kAsync) __pipeline_memcpy_async(dst + r * ld + j, src + e, sizeof(float));
+    else dst[r * ld + j] = src[e];
   }
 }
 
+template <bool kAsync = false>
 __device__ void stage_weights(const Shape& s, const Tensors& t, const Layout& L, float* sm) {
   const int dd = 2 * s.fourier + 1;
-  stage_matrix(sm + L.wj, L.ld_h, t.wj, s.d, s.h);
-  stage_matrix(sm + L.wd, L.ld_h, t.wd, dd, s.h);
-  stage_matrix(sm + L.w2, L.ld_m, t.w2, s.h, s.m);
-  stage_matrix(sm + L.b2, s.m, t.b2, 1, s.m);
-  if (s.soft_edges) stage_matrix(sm + L.gw, s.m, t.gw, 1, s.m);
-  stage_matrix(sm + L.cw1, L.ld_m4, t.cw1, s.m, s.m4);
-  stage_matrix(sm + L.cb1, s.m4, t.cb1, 1, s.m4);
-  stage_matrix(sm + L.cw2, s.m4, t.cw2, 1, s.m4);
+  stage_matrix<kAsync>(sm + L.wj, L.ld_h, t.wj, s.d, s.h);
+  stage_matrix<kAsync>(sm + L.wd, L.ld_h, t.wd, dd, s.h);
+  stage_matrix<kAsync>(sm + L.w2, L.ld_m, t.w2, s.h, s.m);
+  stage_matrix<kAsync>(sm + L.b2, s.m, t.b2, 1, s.m);
+  if (s.soft_edges) stage_matrix<kAsync>(sm + L.gw, s.m, t.gw, 1, s.m);
+  stage_matrix<kAsync>(sm + L.cw1, L.ld_m4, t.cw1, s.m, s.m4);
+  stage_matrix<kAsync>(sm + L.cb1, s.m4, t.cb1, 1, s.m4);
+  stage_matrix<kAsync>(sm + L.cw2, s.m4, t.cw2, 1, s.m4);
   if (threadIdx.x == 0) {
     sm[L.misc + 0] = s.soft_edges ? t.gb[0] : 0.f;
     sm[L.misc + 1] = t.cb2[0];
@@ -617,16 +589,263 @@ __device__ void stage_weights(const Shape& s, const Tensors& t, const Layout& L,
   }
 }
 
-// The tile's forward: leaves in shared memory silu(h1) (S), m0, msg, rel,
-// [fj | distf] and the row scalars DIST, PV, NRM, GATE, WZ, WCL (the clipped
-// weight); the forward kernel also cz1 (CZ1); the backward the sigmoids of
-// h1, z2, cz1 in H, Z2, CZ1 (for silu' without a second exponential) and
-// silu(cz1) in DCZ1, with its product routine. Ends on a barrier.
-template <bool kGather, bool kBackward, int kWideCols = 1>
+// The soft gate, one thread a row, the sum over m in order: GATE, and
+// MSG = m0 * gate.
+__device__ __forceinline__ void soft_gate(const Shape& s, const Layout& L, float* sm, int rows) {
+  const int ldr = L.ldr;
+  float* row = sm + L.ROW;
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+    float zg = sm[L.misc + 0];
+    for (int j = 0; j < s.m; ++j) zg = fmaf(sm[L.M0 + j * ldr + r], sm[L.gw + j], zg);
+    const float gate = sigmoid_f(zg);
+    row[GATE * ldr + r] = gate;
+    for (int j = 0; j < s.m; ++j) sm[L.MSG + j * ldr + r] = sm[L.M0 + j * ldr + r] * gate;
+  }
+}
+
+// ---- the forward (K10f, K11f) ----
+
+// The pointers into the forward's staging region, for one tile: K10's cj
+// (rows x c), fj (rows x odd(d)) and pv, or K11's idx (int64) and pv; then
+// the tile's own coordinates (ti x c) and proj_i rows (ti x h).
+struct Staged {
+  float *cj, *fj, *pv, *ci, *pi;
+  long long* idx;
+};
+
+__device__ __forceinline__ Staged staged(const Shape& s, const Layout& L, float* sm) {
+  Staged g;
+  float* o = sm + L.NXT;
+  g.idx = reinterpret_cast<long long*>(o);   // K11; 16-byte aligned
+  g.cj = o;                                  // K10
+  g.fj = o + s.rows * s.c;
+  g.pv = s.d > 0 ? g.fj + s.rows * odd(s.d) : o + 2 * s.rows;
+  g.ci = g.pv + s.rows;
+  g.pi = g.ci + s.ti * s.c;
+  return g;
+}
+
+// Queues the copies of a tile's inputs into the staging region (cp.async,
+// four or eight bytes each: any alignment, any width) and commits them.
+template <bool kGather>
+__device__ __forceinline__ void stage_inputs(const Shape& s, const Tensors& t, const Layout& L,
+                                             float* sm, int tile) {
+  const int tiles_per_b = (s.n + s.ti - 1) / s.ti;
+  const int ib = tile / tiles_per_b, i0 = (tile - ib * tiles_per_b) * s.ti;
+  const int tn = min(s.ti, s.n - i0), rows = tn * s.k;
+  const size_t node0 = (size_t)ib * s.n + i0, p0 = node0 * s.k;
+  const int nt = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = nt >> 5;
+  const Staged g = staged(s, L, sm);
+  if (kGather) {
+    for (int e = threadIdx.x; e < rows; e += nt)
+      __pipeline_memcpy_async(g.idx + e, t.idx + p0 + e, sizeof(long long));
+  } else {
+    for (int e = threadIdx.x; e < rows * s.c; e += nt)
+      __pipeline_memcpy_async(g.cj + e, t.cj + p0 * s.c + e, sizeof(float));
+    const int ldf = odd(s.d);
+    for (int r = warp; r < rows; r += nwarps)   // a warp a row, coalesced
+      for (int j = lane; j < s.d; j += 32)
+        __pipeline_memcpy_async(g.fj + r * ldf + j, t.fj + (p0 + r) * s.d + j, sizeof(float));
+  }
+  for (int e = threadIdx.x; e < rows; e += nt)
+    __pipeline_memcpy_async(g.pv + e, t.pv + p0 + e, sizeof(float));
+  for (int e = threadIdx.x; e < tn * s.c; e += nt)
+    __pipeline_memcpy_async(g.ci + e, t.coors + node0 * s.c + e, sizeof(float));
+  for (int e = threadIdx.x; e < tn * s.h; e += nt)
+    __pipeline_memcpy_async(g.pi + e, t.proj_i + node0 * s.h + e, sizeof(float));
+  __pipeline_commit();
+}
+
+// From the staging region (and, in K11, the gathered rows) into the tile
+// buffers: REL, DIST, PV, NRM, [fj | distf] transposed, H = proj_i[i]
+// (+ proj_j[idx]). The rows past `rows` are left as they are.
+template <bool kGather>
+__device__ __forceinline__ void unpack_inputs(const Shape& s, const Tensors& t, const Layout& L,
+                                              float* sm, int ib, int rows) {
+  const int dd = 2 * s.fourier + 1;
+  const int ldr = L.ldr;
+  const int nt = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = nt >> 5;
+  const Staged g = staged(s, L, sm);
+  const float* coors_b = t.coors + (size_t)ib * s.n * s.c;
+  float* row = sm + L.ROW;
+  // geometry: a thread a (row, encoding); item f = 0 of a row writes its
+  // rel, distance and scalars, item f > 0 the encodings of scale 2^(f-1)
+  for (int e = threadIdx.x; e < rows * (s.fourier + 1); e += nt) {
+    const int f = e / rows, r = e - f * rows;
+    const float* ci = g.ci + (r / s.k) * s.c;
+    const float* cj = kGather ? coors_b + (size_t)g.idx[r] * s.c : g.cj + r * s.c;
+    float dist = 0.f;
+    for (int cc = 0; cc < s.c; ++cc) {
+      const float rel = ci[cc] - cj[cc];
+      if (f == 0) sm[L.REL + cc * ldr + r] = rel;
+      dist = fmaf(rel, rel, dist);
+    }
+    if (f == 0) {
+      row[DIST * ldr + r] = dist;
+      row[PV * ldr + r] = g.pv[r];
+      row[NRM * ldr + r] = sqrtf(fmaxf(dist, s.eps * s.eps));
+      sm[L.DISTF + (dd - 1) * ldr + r] = dist;
+    } else {
+      const float xs = ldexpf(dist, -(f - 1));
+      sm[L.DISTF + (f - 1) * ldr + r] = sinf(xs);
+      sm[L.DISTF + (s.fourier + f - 1) * ldr + r] = cosf(xs);
+    }
+  }
+  // fj transposed: lanes over rows; the staged row stride is odd, so both
+  // the reads and the writes fall on 32 distinct banks
+  if (!kGather) {
+    const int ldf = odd(s.d);
+    for (int j = warp; j < s.d; j += nwarps)
+      for (int r = lane; r < rows; r += 32) sm[L.X + j * ldr + r] = g.fj[r * ldf + j];
+  }
+  // H = proj_i[i] (+ proj_j[idx]): a warp takes four rows by eight features
+  // a step (32-byte pieces of the rows in device memory; 32 distinct banks,
+  // ldr being four times an odd number)
+  for (int r4 = warp * 4; r4 < rows; r4 += nwarps * 4) {
+    const int r = r4 + (lane & 3);
+    if (r >= rows) continue;
+    const float* pi = g.pi + (r / s.k) * s.h;
+    const float* pj = kGather ? t.proj_j + ((size_t)ib * s.n + g.idx[r]) * s.h : nullptr;
+#pragma unroll 4
+    for (int j = lane >> 2; j < s.h; j += 8)
+      sm[L.H + j * ldr + r] = kGather ? pi[j] + __ldg(pj + j) : pi[j];
+  }
+}
+
+// The tile's pipeline after the unpacking: H <- silu(h1), M0, MSG (GATE),
+// CZ1 <- silu(cz1), and REL <- w * rel_n with w = clip(wz * pv). Ends on a
+// barrier.
+template <bool kGather>
+__device__ __forceinline__ void forward_products(const Shape& s, const Layout& L, float* sm,
+                                                 int rows) {
+  const int dd = 2 * s.fourier + 1;
+  const int ldr = L.ldr;
+  const int nt = blockDim.x;
+  float* row = sm + L.ROW;
+
+  // h1 = H + [fj | distf] @ [Wj; Wd] (K11: distf @ Wd); H <- silu(h1)
+  {
+    MmArgs m = kGather ? mm_args(nullptr, sm + L.DISTF, sm + L.wd, L.ld_h, 1, rows, dd, s.h, ldr)
+                       : mm_args(nullptr, sm + L.X, sm + L.wj, L.ld_h, 1, rows, s.d + dd, s.h,
+                                 ldr);
+    m.add_of = sm + L.H;
+    m.silu_out = sm + L.H;   // each element read and rewritten by its owner
+    mm_blocked<5>(m);
+  }
+  __syncthreads();
+
+  // m0 = silu(s1 @ W2 + b2)
+  {
+    MmArgs m = mm_args(nullptr, sm + L.H, sm + L.w2, L.ld_m, 1, rows, s.h, s.m, ldr);
+    m.bias = sm + L.b2;
+    m.silu_out = sm + L.M0;
+    mm_blocked<1>(m);
+  }
+  __syncthreads();
+
+  if (s.soft_edges) {
+    soft_gate(s, L, sm, rows);
+    __syncthreads();
+  }
+
+  // CZ1 <- silu(cmsg @ cW1 + cb1)
+  {
+    MmArgs m = mm_args(nullptr, sm + (s.gate_feats_only ? L.M0 : L.MSG), sm + L.cw1, L.ld_m4, 1,
+                       rows, s.m, s.m4, ldr);
+    m.bias = sm + L.cb1;
+    m.silu_out = sm + L.CZ1;
+    mm_blocked<2>(m);
+  }
+  __syncthreads();
+
+  // wz = silu(cz1) @ cW2 + cb2, w = clip(wz * pv), REL <- w * rel_n: eight
+  // lanes a row, a lane every eighth feature, summed by a butterfly (each
+  // lane ends with the same bits) and then a lane a coordinate
+  {
+    const int sub = threadIdx.x & 7, group = threadIdx.x >> 3, groups = nt >> 3;
+    const float scale = sm[L.misc + 2];
+    for (int base = 0; base < rows; base += groups) {   // the same trips for every lane
+      const int r = base + group;
+      const bool live = r < rows;
+      const int rr = live ? r : 0;
+      float acc = 0.f;
+      for (int q = sub; q < s.m4; q += 8)
+        acc = fmaf(sm[L.CZ1 + q * ldr + rr], sm[L.cw2 + q], acc);
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+      if (live && sub < s.c) {
+        const float wm = (acc + sm[L.misc + 1]) * row[PV * ldr + r];
+        const float w = s.has_clamp ? fminf(fmaxf(wm, -s.clamp), s.clamp) : wm;
+        float rel_n = sm[L.REL + sub * ldr + r];
+        if (s.norm_coors) rel_n = rel_n / row[NRM * ldr + r] * scale;
+        sm[L.REL + sub * ldr + r] = w * rel_n;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// m_i[i] = sum_t msg * pv, coors_delta[i] = sum_t (w * rel_n): a thread an
+// output, its node's slots in order. (Two, four or eight lanes an output,
+// combined by a butterfly, measured slower for K10 at anchor 3's, path C's
+// and path A's shapes: PERF.md.)
+__device__ __forceinline__ void forward_sums(const Shape& s, const Tensors& t, const Layout& L,
+                                             const float* sm, size_t node0, int tn) {
+  const int ldr = L.ldr;
+  const int width = s.m + s.c;
+  const float* pv = sm + L.ROW + PV * ldr;
+  for (int o = threadIdx.x; o < tn * width; o += blockDim.x) {
+    const int i = o / width, j = o - i * width;
+    const int r0 = i * s.k;
+    float acc = 0.f;
+    if (j < s.m) {
+      const float* msg = sm + L.MSG + j * ldr + r0;
+      for (int q = 0; q < s.k; ++q) acc = fmaf(msg[q], pv[r0 + q], acc);
+      t.m_i[(node0 + i) * s.m + j] = acc;
+    } else {
+      const float* wrel = sm + L.REL + (j - s.m) * ldr + r0;
+      for (int q = 0; q < s.k; ++q) acc += wrel[q];
+      t.cd[(node0 + i) * s.c + (j - s.m)] = acc;
+    }
+  }
+}
+
+// A block walks its tiles (tile = blockIdx.x, += gridDim.x, across batch
+// elements): it waits for the tile's staged inputs, unpacks them, queues the
+// next tile's copies (none after its last) and computes.
+template <bool kGather>
+__global__ void __launch_bounds__(kFwdThreads, 2)
+pair_fwd_kernel(const Shape s, const Tensors t) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const Layout L = make_layout(s, false);
+  const int tiles_per_b = (s.n + s.ti - 1) / s.ti, tiles = s.b * tiles_per_b;
+  if ((int)blockIdx.x < tiles) stage_inputs<kGather>(s, t, L, sm, blockIdx.x);
+  stage_weights<true>(s, t, L, sm);
+  __pipeline_commit();
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int ib = tile / tiles_per_b, i0 = (tile - ib * tiles_per_b) * s.ti;
+    const int tn = min(s.ti, s.n - i0), rows = tn * s.k;
+    __pipeline_wait_prior(0);
+    __syncthreads();   // the inputs have landed; the last tile's sums are read
+    unpack_inputs<kGather>(s, t, L, sm, ib, rows);
+    __syncthreads();   // the staging region is free
+    if (tile + (int)gridDim.x < tiles) stage_inputs<kGather>(s, t, L, sm, tile + gridDim.x);
+    forward_products<kGather>(s, L, sm, rows);
+    forward_sums(s, t, L, sm, (size_t)ib * s.n + i0, tn);
+  }
+}
+
+// ---- the backward (K10b, K11b) ----
+
+// The backward's recomputation of a tile's forward: leaves in shared memory
+// silu(h1) (S), m0, msg, rel, [fj | distf], the row scalars DIST, PV, NRM,
+// GATE, WZ, WCL (the clipped weight), the sigmoids of h1, z2, cz1 in H, Z2,
+// CZ1 (for silu' without a second exponential) and silu(cz1) in DCZ1. Ends
+// on a barrier.
+template <bool kGather, int kWideCols>
 __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, const Layout& L,
                                              float* sm, int ib, int i0, int rows) {
-  const typename Products<kBackward, kWideCols>::wide wide_mm;
-  const typename Products<kBackward, kWideCols>::narrow tile_mm;
   const int dd = 2 * s.fourier + 1;
   const int ldr = L.ldr;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -676,7 +895,7 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
     MmArgs m = kGather ? mm_args(nullptr, sm + L.DISTF, sm + L.wd, L.ld_h, 1, rows, dd, s.h, ldr)
                        : mm_args(nullptr, sm + L.X, sm + L.wj, L.ld_h, 1, rows, s.d + dd, s.h,
                                  ldr);
-    if (kBackward) m.sig_out = sm + L.H;
+    m.sig_out = sm + L.H;
     m.silu_out = sm + L.S;
     m.node_bias = t.proj_i + node0 * s.h;
     m.k = s.k;
@@ -684,53 +903,40 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
       m.row_bias = t.proj_j + (size_t)ib * s.n * s.h;
       m.row_idx = jdx;
     }
-    wide_mm(m);
+    mm_blocked<kWideCols>(m);
   }
   __syncthreads();
 
   // z2 = s1 @ W2 + b2; m0 = silu(z2)
   {
-    MmArgs m = mm_args(kBackward ? nullptr : sm + L.Z2, sm + L.S, sm + L.w2, L.ld_m, 1, rows,
-                       s.h, s.m, ldr);
+    MmArgs m = mm_args(nullptr, sm + L.S, sm + L.w2, L.ld_m, 1, rows, s.h, s.m, ldr);
     m.bias = sm + L.b2;
     m.silu_out = sm + L.M0;
-    if (kBackward) m.sig_out = sm + L.Z2;
-    tile_mm(m);
+    m.sig_out = sm + L.Z2;
+    mm_blocked<1>(m);
   }
   __syncthreads();
 
-  // the soft gate, one thread a row, the sum over m in order
   if (s.soft_edges) {
-    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-      float zg = sm[L.misc + 0];
-      for (int j = 0; j < s.m; ++j) zg = fmaf(sm[L.M0 + j * ldr + r], sm[L.gw + j], zg);
-      const float gate = sigmoid_f(zg);
-      row[GATE * ldr + r] = gate;
-      for (int j = 0; j < s.m; ++j) sm[L.MSG + j * ldr + r] = sm[L.M0 + j * ldr + r] * gate;
-    }
+    soft_gate(s, L, sm, rows);
     __syncthreads();
   }
 
   // cz1 = cmsg @ cW1 + cb1
-  const float* cmsg = sm + (s.gate_feats_only ? L.M0 : L.MSG);
   {
-    MmArgs m = mm_args(kBackward ? nullptr : sm + L.CZ1, cmsg, sm + L.cw1, L.ld_m4, 1, rows, s.m,
-                       s.m4, ldr);
+    MmArgs m = mm_args(nullptr, sm + (s.gate_feats_only ? L.M0 : L.MSG), sm + L.cw1, L.ld_m4, 1,
+                       rows, s.m, s.m4, ldr);
     m.bias = sm + L.cb1;
-    if (kBackward) {
-      m.sig_out = sm + L.CZ1;
-      m.silu_out = sm + L.DCZ1;
-    }
-    tile_mm(m);
+    m.sig_out = sm + L.CZ1;
+    m.silu_out = sm + L.DCZ1;
+    mm_blocked<1>(m);
   }
   __syncthreads();
 
   // wz = silu(cz1) @ cW2 + cb2; w = clip(wz * pv); one warp a row
   for (int r = warp; r < rows; r += nwarps) {
     float acc = 0.f;
-    for (int q = lane; q < s.m4; q += 32)
-      acc = fmaf(kBackward ? sm[L.DCZ1 + q * ldr + r] : silu_f(sm[L.CZ1 + q * ldr + r]),
-                 sm[L.cw2 + q], acc);
+    for (int q = lane; q < s.m4; q += 32) acc = fmaf(sm[L.DCZ1 + q * ldr + r], sm[L.cw2 + q], acc);
     const float wz = warp_sum(acc) + sm[L.misc + 1];
     if (lane == 0) {
       const float wm = wz * row[PV * ldr + r];
@@ -739,48 +945,6 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
     }
   }
   __syncthreads();
-}
-
-template <bool kGather>
-__global__ void __launch_bounds__(kFwdThreads, 2)
-pair_fwd_kernel(const Shape s, const Tensors t) {
-  extern __shared__ float4 sm4[];
-  float* sm = reinterpret_cast<float*>(sm4);
-  const Layout L = make_layout(s, false);
-  const int ldr = L.ldr;
-  const float* row = sm + L.ROW;
-  stage_weights(s, t, L, sm);
-  __syncthreads();
-  const int tiles_per_b = (s.n + s.ti - 1) / s.ti;
-  for (int tile = blockIdx.x; tile < s.b * tiles_per_b; tile += gridDim.x) {
-    const int ib = tile / tiles_per_b, i0 = (tile - ib * tiles_per_b) * s.ti;
-    const int tn = min(s.ti, s.n - i0), rows = tn * s.k;
-    tile_forward<kGather, false>(s, t, L, sm, ib, i0, rows);
-    const size_t node0 = (size_t)ib * s.n + i0;
-    const float scale = sm[L.misc + 2];
-    // m_i[i] = sum_t msg * pv, coors_delta[i] = sum_t w * rel_n, in slot order
-    for (int e = threadIdx.x; e < tn * (s.m + s.c); e += blockDim.x) {
-      const int i = e / (s.m + s.c), j = e - i * (s.m + s.c);
-      float acc = 0.f;
-      if (j < s.m) {
-        for (int q = 0; q < s.k; ++q) {
-          const int r = i * s.k + q;
-          acc = fmaf(sm[L.MSG + j * ldr + r], row[PV * ldr + r], acc);
-        }
-        t.m_i[(node0 + i) * s.m + j] = acc;
-      } else {
-        const int cc = j - s.m;
-        for (int q = 0; q < s.k; ++q) {
-          const int r = i * s.k + q;
-          float rel_n = sm[L.REL + cc * ldr + r];
-          if (s.norm_coors) rel_n = rel_n / row[NRM * ldr + r] * scale;
-          acc = fmaf(row[WCL * ldr + r], rel_n, acc);
-        }
-        t.cd[(node0 + i) * s.c + cc] = acc;
-      }
-    }
-    __syncthreads();  // the next tile rewrites the buffers
-  }
 }
 
 // The backward's offsets, computed on the host and read from the kernel's
@@ -826,7 +990,7 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
     const int tn = min(s.ti, s.n - i0), rows = tn * s.k;
     const size_t node0 = (size_t)ib * s.n + i0;
     const size_t p0 = node0 * s.k;
-    tile_forward<kGather, true, kWideCols>(s, t, L, sm, ib, i0, rows);
+    tile_forward<kGather, kWideCols>(s, t, L, sm, ib, i0, rows);
 
     // ---- aggregation, clamp and CoorsNorm backward: eight lanes a row, a
     // lane a coordinate (c <= 8) ----
@@ -877,8 +1041,8 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
       sm[L.CZ1 + q * ldr + r] = cs;
     }
     __syncthreads();
-    BlockedMm<1>()(mm_args(sm + L.DM, sm + L.DCZ1, sm + L.cw1, 1, L.ld_m4, rows, s.m4, s.m,
-                       ldr));  // d_cmsg = d_cz1 @ cW1^T
+    mm_blocked<1>(mm_args(sm + L.DM, sm + L.DCZ1, sm + L.cw1, 1, L.ld_m4, rows, s.m4, s.m,
+                             ldr));  // d_cmsg = d_cz1 @ cW1^T
     __syncthreads();
 
     // ---- messages, soft gate and silu backward: DM <- d_z2 ----
@@ -917,7 +1081,7 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
       MmArgs m = mm_args(sm + L.H, sm + L.DM, sm + L.w2, 1, L.ld_m, rows, s.m, s.h, ldr);
       m.sig_of = sm + L.H;
       m.silu_of = sm + L.S;
-      BlockedMm<kWideCols>()(m);
+      mm_blocked<kWideCols>(m);
     }
     __syncthreads();
 
@@ -937,7 +1101,7 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
     if (!kGather) {
       MmArgs m = mm_args(t.d_fj + p0 * s.d, sm + L.H, sm + L.wj, 1, L.ld_h, rows, s.h, s.d, ldr);
       m.row_major_ld = s.d;  // row-major into device memory
-      BlockedMm<1>()(m);
+      mm_blocked<1>(m);
     } else {
       const int pw = s.c + s.h;
       for (int e = threadIdx.x; e < rows * s.h; e += nt) {

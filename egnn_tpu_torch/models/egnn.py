@@ -408,6 +408,13 @@ class EGNNNetwork(nn.Module):
     ``EGNN``; ``norm_feats=True`` is forced, as in the reference. Layers are
     the submodules ``egnn_0`` ... ``egnn_{depth-1}``."""
 
+    # Parameters that the reference creates on first use, only when their
+    # branch runs (``edge_emb`` when edges reach the call), so that its tree
+    # may lack them. The port makes them at construction, so that an
+    # optimiser built before the first call holds them; ``load_flax_params``
+    # leaves them as they are where the reference's tree has none.
+    lazy_parameters = ("edge_emb",)
+
     def __init__(
         self,
         depth: int,

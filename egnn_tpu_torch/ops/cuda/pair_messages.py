@@ -19,10 +19,14 @@ For each pair row r = (node i, slot t)::
     m_i[i] = sum_t msg * pv;  coors_delta[i] = sum_t w * rel_n
 
 All four run ``csrc/pair_messages.cu`` (one source, the gather a template
-flag); its header gives the design and the bound on the card. The backward
-recomputes the pipeline from the inputs and saves nothing of pair size; it
-keeps its weight gradients in registers, one owner thread an entry, on tiles
-of its own (``_bwd_tile_rows``, about 32 pair rows, two blocks an SM). K11b
+flag); its header gives the design and the bound on the card. The forward
+takes a tile of its own (``_fwd_tile_rows``: whole nodes, at most the gates'
+tile, sized to the pair count so that the card's block slots fill: 32 rows at
+anchor 3's 8192 pairs, 64 at path C's million) and loads the next tile's
+inputs while it computes. The backward recomputes the pipeline from the
+inputs and saves nothing of pair size; it keeps its weight gradients in
+registers, one owner thread an entry, on tiles of its own
+(``_bwd_tile_rows``, about 32 pair rows, two blocks an SM). K11b
 writes its j-side gradients in pair layout and sums them per node with the
 segment-sum kernel K2 (order-free, bitwise equal to its model), so both
 backwards repeat bit for bit.
@@ -40,8 +44,9 @@ c <= 8, at most 16 Fourier encodings, k <= 64 slots, and widths (h, m, 4m,
 d) whose staged weights, one tile of at least k pair rows and one float for
 each weight-gradient entry fit a block's 227 KB of shared memory (dim = 32,
 h = 130, m = 16: a 64-row tile; dim = 64 leaves K10 an 8-row tile). The
-forward takes that tile; the backward's own layout is smaller (99 KiB at
-32 rows for dim = 32). The tensor-core mode of the TPU kernels
+forward's and the backward's own layouts are smaller (the forward 110 KiB at
+64 rows with its staging region, the backward 99 KiB at 32 rows, for dim =
+32). The tensor-core mode of the TPU kernels
 (``mxu_bf16``) is not ported: the wrapper takes ``mxu_bf16=False`` only.
 """
 from __future__ import annotations
@@ -63,6 +68,7 @@ SM_SMEM_BYTES = 233472   # an SM's shared memory, of which each block takes 1 KB
 _ROW_SCALARS = 10     # kRowScalars
 _FWD_BLOCKS_PER_SM, _BWD_BLOCKS_PER_SM = 2, 2
 _BWD_ROWS = 32        # the backward's tile: whole nodes up to this many pair rows
+_FWD_TILE_COST_ROWS = 16   # a forward tile's fixed cost (staging, barriers) in pair rows
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
@@ -112,32 +118,49 @@ def _grad_sizes(d, h, m, m4, fourier):
     return [d * h, dd * h, h * m, m, m, 1, m * m4, m4, m4, 1, 1]
 
 
-def _smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward):
-    """Floats of shared memory a block keeps: ``make_layout`` of the source.
-    The backward adds the gradient lines d_z2, d_rel, d_distf, d_cz1 and a
-    line of ones; its weight gradients live in registers."""
+def _weight_floats(d, h, m, m4, fourier):
+    """Floats of the staged weights (odd row strides) and the misc scalars,
+    rounded up to a float4: where the tile buffers begin."""
     dd = 2 * fourier + 1
     odd = lambda x: x | 1  # noqa: E731
+    total = d * odd(h) + dd * odd(h) + h * odd(m) + 2 * m + m * odd(m4) + 2 * m4 + 3
+    return (total + 3) & ~3
+
+
+def _smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward, ti=1):
+    """Floats of shared memory a block keeps: ``make_layout`` of the source.
+    Both keep the weights and the tile lines h1, fj, distf, m0, (msg), cz1,
+    rel, the row scalars and the ids. The forward adds its staging region:
+    a pair row's inputs (K10: cj, fj at an odd stride, pv; K11: int64 idx
+    and pv) and the ``ti`` nodes' coordinates and proj_i rows. The backward
+    adds the lines silu(h1), z2 and the gradient lines d_z2, d_rel, d_distf,
+    d_cz1 and a line of ones; its weight gradients live in registers."""
+    dd = 2 * fourier + 1
     ldr = rows + 4    # a tile buffer's line: the rows of one feature, padded
-    total = (d * odd(h) + dd * odd(h) + h * odd(m) + 2 * m + m * odd(m4) + 2 * m4 + 3)
-    total = (total + 3) & ~3
-    total += ldr * (h * (2 if backward else 1) + d + m * (3 if soft_edges else 2) + m4 + c
-                    + dd + _ROW_SCALARS + 1)
+    msg = m if soft_edges else 0
+    total = _weight_floats(d, h, m, m4, fourier)
+    total += ldr * (h + d + dd + m + msg + m4 + c + _ROW_SCALARS + 1)
     if backward:
-        total += ldr * (m + c + dd + m4 + 1)
+        total += ldr * (h + m) + ldr * (m + c + dd + m4 + 1)
+    else:
+        ldn = c + (d | 1) + 1 if d > 0 else 3
+        total += rows * ldn + ti * (c + h)
     return total
 
 
 def _gate_floats(rows, c, d, h, m, m4, fourier, soft_edges):
-    """The gates' budget at a tile of ``rows``: the forward's layout, the
+    """The gates' budget at a tile of ``rows``: the first forward layout
+    (the lines of the backward's recomputation but silu(h1)), the
     backward's gradient lines d_z2, d_rel, d_distf, and one float for every
     weight-gradient entry. It is the limit the gates have stated since the
     kernels were ported (when the backward kept its weight gradients in
-    shared memory); the backward's own layout is smaller at every shape it
-    passes."""
+    shared memory); the forward's and the backward's own layouts are smaller
+    at every shape it passes."""
     ldr = rows + 4
-    return (_smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, False)
-            + ldr * (h + m + c + 2 * fourier + 1) + sum(_grad_sizes(d, h, m, m4, fourier)))
+    first_forward = _weight_floats(d, h, m, m4, fourier) + ldr * (
+        h + d + 2 * fourier + 1 + m * (3 if soft_edges else 2) + m4 + c + _ROW_SCALARS + 1)
+    return (first_forward + ldr * (h + m + c + 2 * fourier + 1)
+            + sum(_grad_sizes(d, h, m, m4, fourier)))
 
 
 def _tile_rows(k, c, d, h, m, m4, fourier, soft_edges) -> Optional[int]:
@@ -179,10 +202,36 @@ def _bwd_tile_rows(k, c, d, h, m, m4, fourier, soft_edges) -> Optional[int]:
     return rows if _fits_sm(floats(rows), 1) else None
 
 
-def kernel_smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward) -> int:
+def _fwd_tile_rows(b, n, k, c, d, h, m, m4, fourier, soft_edges, sms) -> Optional[int]:
+    """The forward's tile on a card of ``sms`` SMs: whole nodes (ti = rows //
+    k), a multiple of 8 rows, at most the gates' tile (``_tile_rows``), and
+    the one whose waves of tiles cost least, ``waves * (rows +
+    _FWD_TILE_COST_ROWS)`` with ``waves = ceil(b * ceil(n / ti) / (sms *
+    _FWD_BLOCKS_PER_SM))``: fewer rows where the tiles would leave block
+    slots empty (anchor 3's 8192 pairs: 32 rows, 256 tiles for 264 slots on
+    132 SMs), the gates' tile where every slot takes many (path C). Ties go
+    to the larger tile. Only tiles whose layout fits ``_FWD_BLOCKS_PER_SM``
+    blocks an SM compete, or, where none does, those that fit one. None
+    where the gates refuse the shape."""
+    gate = _tile_rows(k, c, d, h, m, m4, fourier, soft_edges)
+    if gate is None:
+        return None
+    tiles = [rows for rows in range(gate, 0, -8) if rows >= k]
+    floats = lambda rows: _smem_floats(  # noqa: E731
+        rows, c, d, h, m, m4, fourier, soft_edges, False, rows // k)
+    fit = ([rows for rows in tiles if _fits_sm(floats(rows), _FWD_BLOCKS_PER_SM)]
+           or [rows for rows in tiles if _fits_sm(floats(rows), 1)])
+    if not fit:
+        return None
+    slots = sms * _FWD_BLOCKS_PER_SM
+    waves = lambda rows: -(-(b * -(-n // (rows // k))) // slots)  # noqa: E731
+    return min(fit, key=lambda rows: waves(rows) * (rows + _FWD_TILE_COST_ROWS))
+
+
+def kernel_smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward, ti=1) -> int:
     """What the built source says of the same layout (``chip_smoke.py`` holds
     ``_smem_floats`` against it)."""
-    shape = _Shape(b=1, n=1, k=1, c=c, d=d, h=h, m=m, m4=m4, fourier=fourier, ti=1, rows=rows,
+    shape = _Shape(b=1, n=1, k=1, c=c, d=d, h=h, m=m, m4=m4, fourier=fourier, ti=ti, rows=rows,
                    soft_edges=int(soft_edges))
     fn = build.function("pair_messages", "pair_messages_smem_floats",
                         [ctypes.POINTER(_Shape), _I])
@@ -434,8 +483,11 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
     h, m, m4 = proj_i.shape[-1], w2.shape[-1], cw1.shape[-1]
     d = 0 if gather else fj.shape[-1]
     dd = 2 * opts.fourier + 1
-    rows = (_bwd_tile_rows if backward else _tile_rows)(k, c, d, h, m, m4, opts.fourier,
-                                                        opts.soft_edges)
+    if backward:
+        rows = _bwd_tile_rows(k, c, d, h, m, m4, opts.fourier, opts.soft_edges)
+    else:
+        rows = _fwd_tile_rows(b, n, k, c, d, h, m, m4, opts.fourier, opts.soft_edges,
+                              _sm_count(dev))
     if rows is None:
         raise ValueError(
             f"the fused pair kernel takes k <= {MAX_ROWS}, c <= {MAX_C}, at most {MAX_FOURIER} "
@@ -508,14 +560,17 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
     return out, d_weights
 
 
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def launch_grid(b, n, k, rows, backward, device):
     """(nodes a tile, blocks) of a launch on tiles of ``rows`` pair rows: one
     block a tile up to the blocks the card's SMs hold at once (by the shape
     and the SM count alone, so that the weight-gradient sums repeat)."""
     ti = rows // k
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     per_sm = _BWD_BLOCKS_PER_SM if backward else _FWD_BLOCKS_PER_SM
-    return ti, min(b * -(-n // ti), sms * per_sm)
+    return ti, min(b * -(-n // ti), _sm_count(device) * per_sm)
 
 
 def _on_card(x: torch.Tensor) -> bool:

@@ -28,16 +28,26 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]
     return flat
 
 
+def _lazy_names(module: nn.Module) -> set[str]:
+    """The full names of the parameters that the submodules list in their
+    ``lazy_parameters``: those the reference creates on first use."""
+    return {f"{prefix}.{name}" if prefix else name
+            for prefix, sub in module.named_modules()
+            for name in getattr(sub, "lazy_parameters", ())}
+
+
 def load_flax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
     """Copy ``params`` into ``module``'s parameters, in place.
 
-    Raises ``KeyError`` for a parameter missing from ``params`` or a key of
-    ``params`` the module lacks, and ``ValueError`` for a shape mismatch;
-    nothing is copied then.
+    A parameter that the reference creates on first use (a submodule's
+    ``lazy_parameters``, such as ``EGNNNetwork``'s ``edge_emb``) and that
+    ``params`` lacks is left as it is. Raises ``KeyError`` for any other
+    parameter missing from ``params`` or a key of ``params`` the module
+    lacks, and ``ValueError`` for a shape mismatch; nothing is copied then.
     """
     flat = _flatten(params)
     own = dict(module.named_parameters())
-    missing = sorted(set(own) - set(flat))
+    missing = sorted(set(own) - set(flat) - _lazy_names(module))
     unknown = sorted(set(flat) - set(own))
     if missing or unknown:
         raise KeyError(f"parameter names differ: missing {missing}, unknown {unknown}")

@@ -206,6 +206,64 @@ def test_load_flax_params_rejects_mismatches():
         load_flax_params(layer, {**params, "node_mlp_1_b": np.zeros(9)})
 
 
+@pytest.mark.parametrize("with_edges", [False, True], ids=["no_edges", "edges"])
+def test_network_with_edge_tokens_loads_the_reference(with_edges):
+    """``num_edge_tokens`` set: the reference creates ``edge_emb`` only when
+    edges reach its call, so a tree initialised without edges has none. The
+    port's network, which makes it at construction, loads either tree and
+    computes the reference's forward, with edges and without."""
+    n = 24
+    kw = dict(depth=2, dim=16, num_tokens=5, num_edge_tokens=4, edge_dim=3,
+              layer_kwargs=dict(num_nearest_neighbors=6, norm_coors=True, init_eps=0.1))
+    rng = np.random.RandomState(11)
+    tokens = rng.randint(0, 5, size=(2, n))
+    edges = rng.randint(0, 4, size=(2, n, n)) if with_edges else None
+    _, coors, mask, adj, _ = _inputs(12, 2, n, 1)
+    jnet = egnn_tpu.EGNNNetwork(**kw)
+    jkw = dict(edges=_j(edges), adj_mat=_j(adj), mask=_j(mask))
+    params = _flax_params(jnet, _j(tokens), _j(coors), **jkw)
+    assert ("edge_emb" in params) == with_edges
+    jf, jc = jnet.apply({"params": params}, _j(tokens), _j(coors), **jkw)
+
+    tnet = EGNNNetwork(**kw, **F64)
+    assert "edge_emb" in dict(tnet.named_parameters())
+    before = tnet.edge_emb.detach().clone()
+    load_flax_params(tnet, params)
+    if with_edges:
+        np.testing.assert_array_equal(tnet.edge_emb.detach().numpy(), params["edge_emb"])
+    else:
+        assert torch.equal(tnet.edge_emb.detach(), before)   # left as it was
+    tf, tc = tnet(_t(tokens), _t(coors), edges=_t(edges), adj_mat=_t(adj), mask=_t(mask))
+    _close(tf, jf)
+    _close(tc, jc)
+
+
+def test_load_flax_params_still_refuses_other_missing_names():
+    """Only the parameters that the reference creates on first use may be
+    absent: any other missing name raises, and nothing is copied."""
+    n = 12
+    kw = dict(depth=1, dim=8, num_tokens=5, num_edge_tokens=4, edge_dim=2,
+              layer_kwargs=dict(num_nearest_neighbors=3))
+    rng = np.random.RandomState(13)
+    tokens = rng.randint(0, 5, size=(1, n))
+    coors = rng.randn(1, n, 3)
+    params = _flax_params(egnn_tpu.EGNNNetwork(**kw), _j(tokens), _j(coors))
+    assert "edge_emb" not in params
+    tnet = EGNNNetwork(**kw, **F64)
+    before = {k: v.detach().clone() for k, v in tnet.named_parameters()}
+    with pytest.raises(KeyError, match=r"missing \['token_emb'\]"):
+        load_flax_params(tnet, {k: v for k, v in params.items() if k != "token_emb"})
+    with pytest.raises(KeyError, match="edge_mlp_0_w"):
+        load_flax_params(tnet, {**params, "egnn_0": {
+            k: v for k, v in params["egnn_0"].items() if k != "edge_mlp_0_w"}})
+    assert all(torch.equal(v, before[k]) for k, v in tnet.named_parameters())
+    # a plain layer lists no lazy parameter: its every name is required
+    layer = EGNN(dim=8, num_nearest_neighbors=4, device="cpu")
+    own = {name: p.detach().numpy().copy() for name, p in layer.named_parameters()}
+    with pytest.raises(KeyError, match="missing"):
+        load_flax_params(layer, {k: v for k, v in own.items() if k != "node_mlp_0_w"})
+
+
 def test_options_not_yet_ported_raise():
     with pytest.raises(NotImplementedError):
         EGNN(dim=4, num_nearest_neighbors=2, device="cpu", ring_axis="x")

@@ -313,30 +313,32 @@ _SOURCE = Path(PM.__file__).resolve().parents[2] / "csrc" / "pair_messages.cu"
 # there (every other region aliases one before it, taking no floats)
 _REGIONS = [("wj", None), ("wd", None), ("w2", None), ("b2", None), ("gw", None),
             ("cw1", None), ("cb1", None), ("cw2", None), ("misc", None), ("H", None),
-            ("S", "backward"), ("X", None), ("DISTF", None), ("Z2", None), ("M0", None),
+            ("S", "backward"), ("X", None), ("DISTF", None), ("Z2", "backward"), ("M0", None),
             ("MSG", "soft_edges"), ("CZ1", None), ("REL", None), ("ROW", None), ("JDX", None),
             ("DM", "backward"), ("DREL", "backward"), ("DDF", "backward"),
-            ("DCZ1", "backward"), ("ONES", "backward")]
+            ("DCZ1", "backward"), ("ONES", "backward"), ("NXT", "forward")]
 
 
-def _source_layout_total(rows, c, d, h, m, m4, fourier, soft_edges, backward):
+def _source_layout_total(rows, c, d, h, m, m4, fourier, soft_edges, backward, ti=1):
     """``make_layout(s, backward).total`` of the CUDA source: the size of
     each region read from its ``L.X = o; o += size;`` statement, the regions
     taken as ``_REGIONS`` says, the tile buffers aligned to a float4."""
     src = _SOURCE.read_text()
     body = src.split("inline Layout make_layout(const Shape& s, bool backward) {")[1]
     body = body.split("  return L;")[0]
-    sizes = re.findall(r"L\.(\w+) = o; o \+= ([\w.* ]+);", body)
+    sizes = re.findall(r"L\.(\w+) = o; o \+= ([^;]+);", body)
     assert [name for name, _ in sizes] == [name for name, _ in _REGIONS]
     assert "o = (o + 3) & ~3;" in body.split("L.H = o;")[0]
     for stride in ("L.ld_h = odd(s.h);", "L.ld_m = odd(s.m);", "L.ld_m4 = odd(s.m4);",
-                   "L.ldr = s.rows + 4;", "const int dd = 2 * s.fourier + 1;"):
+                   "L.ldr = s.rows + 4;", "const int dd = 2 * s.fourier + 1;",
+                   "L.ldn = s.d > 0 ? s.c + odd(s.d) + 1 : 3;"):
         assert stride in body
-    shape = SimpleNamespace(rows=rows, c=c, d=d, h=h, m=m, m4=m4, fourier=fourier)
-    lds = SimpleNamespace(ld_h=h | 1, ld_m=m | 1, ld_m4=m4 | 1, ldr=rows + 4)
+    shape = SimpleNamespace(rows=rows, c=c, d=d, h=h, m=m, m4=m4, fourier=fourier, ti=ti)
+    lds = SimpleNamespace(ld_h=h | 1, ld_m=m | 1, ld_m4=m4 | 1, ldr=rows + 4,
+                          ldn=c + (d | 1) + 1 if d > 0 else 3)
     scope = dict(s=shape, L=lds, dd=2 * fourier + 1,
                  kRowScalars=int(re.search(r"kRowScalars = (\d+);", src).group(1)))
-    on = dict(backward=backward, soft_edges=soft_edges)
+    on = dict(backward=backward, forward=not backward, soft_edges=soft_edges)
     total = 0
     for (name, size), (_, when) in zip(sizes, _REGIONS):
         if name == "H":
@@ -356,7 +358,10 @@ LAYOUTS = [  # rows, c, d, h, m, m4, fourier, soft_edges: anchor 3 and the paths
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda v: "_".join(map(str, v)))
 @pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
 def test_host_layout_mirrors_the_source(layout, backward):
-    assert PM._smem_floats(*layout, backward) == _source_layout_total(*layout, backward)
+    # the forward's staging region holds the tile's ti nodes' rows
+    for ti in sorted({1, max(1, layout[0] // 16), layout[0] // 8}):
+        assert PM._smem_floats(*layout, backward, ti) == \
+            _source_layout_total(*layout, backward, ti)
 
 
 # PR 5's backward layout, which kept every weight gradient in shared
@@ -420,6 +425,64 @@ def test_backward_tile_fits_two_blocks_an_sm(k, rows, nodes, gather, monkeypatch
     assert PM._BWD_BLOCKS_PER_SM * nbytes <= PM.MAX_SMEM_BYTES
     # the forward keeps its 64-row tile
     assert PM._tile_rows(k, 3, d, 130, 16, 64, 0, False) == 64
+
+
+@pytest.mark.parametrize("shape,rows,nodes", [
+    ((1, 1024, 8), 32, 4), ((8, 1024, 8), 64, 8), ((1, 65536, 16), 64, 4),
+    ((1, 65536, 20), 64, 3)], ids=["anchor3_b1", "anchor3_b8", "pathC_k16", "pathA_kc20"])
+@pytest.mark.parametrize("gather", [False, True], ids=["K10", "K11"])
+def test_forward_tile_is_sized_to_the_pairs_and_fits_two_blocks_an_sm(shape, rows, nodes,
+                                                                       gather, monkeypatch):
+    b, n, k = shape
+    d = 0 if gather else 32
+    got = PM._fwd_tile_rows(b, n, k, 3, d, 130, 16, 64, 0, False, 132)
+    assert got == rows and got // k == nodes
+    # whole nodes, a multiple of 8 rows, never more than the gates' tile
+    assert got % 8 == 0 and nodes * k <= got < nodes * k + 8
+    assert got <= PM._tile_rows(k, 3, d, 130, 16, 64, 0, False)
+    # two blocks an SM, each with the 1 KB the card reserves, and one alone
+    nbytes = 4 * PM._smem_floats(got, 3, d, 130, 16, 64, 0, False, False, nodes)
+    assert PM._FWD_BLOCKS_PER_SM == 2
+    assert PM._FWD_BLOCKS_PER_SM * (nbytes + 1024) <= PM.SM_SMEM_BYTES
+    assert nbytes <= PM.MAX_SMEM_BYTES
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(multi_processor_count=132))
+    ti, grid = PM.launch_grid(b, n, k, got, False, "cuda")
+    assert ti == nodes and grid == min(b * -(-n // nodes), 264)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_forward_tile_fills_the_block_slots_at_anchor_3(sms):
+    """Anchor 3's 8192 pairs: the gates' 64-row tile makes 128 tiles, half
+    the block slots of an H100 or fewer. The forward's tile takes fewer
+    nodes so that the tiles fill more slots, in one wave of blocks where
+    one wave holds them."""
+    b, n, k = 1, 1024, 8
+    slots = sms * PM._FWD_BLOCKS_PER_SM
+    rows = PM._fwd_tile_rows(b, n, k, 3, 32, 130, 16, 64, 0, False, sms)
+    tiles = b * -(-n // (rows // k))
+    gate_tiles = b * -(-n // (PM._tile_rows(k, 3, 32, 130, 16, 64, 0, False) // k))
+    assert gate_tiles < slots          # the gates' tile leaves slots empty
+    assert slots // 2 < tiles <= slots  # one wave, more than half the slots busy
+    assert rows < 64
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 12, 16, 20, 64])
+@pytest.mark.parametrize("widths", [(130, 16, 32), (258, 16, 64)], ids=["dim32", "dim64"])
+@pytest.mark.parametrize("fourier", [0, 16])
+def test_forward_takes_a_tile_wherever_the_gates_pass(k, widths, fourier):
+    h, m, dim = widths
+    for soft in (False, True):
+        for d in (dim, 0):
+            gate = PM._tile_rows(k, 3, d, h, m, 4 * m, fourier, soft)
+            for b, n in ((1, 1), (1, 1000), (4, 70000)):
+                rows = PM._fwd_tile_rows(b, n, k, 3, d, h, m, 4 * m, fourier, soft, 132)
+                assert (rows is None) == (gate is None)
+                if rows is not None:
+                    assert rows % 8 == 0 and k <= rows <= gate
+                    floats = PM._smem_floats(rows, 3, d, h, m, 4 * m, fourier, soft, False,
+                                             rows // k)
+                    assert 4 * floats <= PM.MAX_SMEM_BYTES
 
 
 def test_wrappers_refuse_what_is_not_ported():
