@@ -65,7 +65,13 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    then timed beside its plain version, its bound and ``index_add_``);
 17. the grid route's kernels: K7 (grid-blocked selection), K8 (query rows
    against all points) and K9 (query rows against a window of the x-sorted
-   points) against their plain versions, bitwise, over the cases below;
+   points) against their plain versions, bitwise, over the cases below
+   (among them K7 on hand-made cells of 1, 61, 128, 129 and more nodes at
+   one to four list slots, K8 at R = 1 and 5, with stripes of unequal
+   length, k = 48 and 128); K7 and K8 against their CPU models
+   (``grid_knn_cells_model``, ``knn_select_block_model``) at the plan the
+   source makes, which ranks as many candidates a lane and merges as many
+   values as the models;
 18. the grid route on the card: ``"grid"`` and ``"auto"`` give K4's
    selection through every arm of the repair ladder, shown by the launches:
    certified whole (K7), direct repair (K7, K8), the window tier (K7, K9,
@@ -74,7 +80,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 19. path C, net65k as ``auto`` routes it: forwards through K7 on a uniform,
    a Gaussian (K8) and a heavier-tailed cloud (K9), k slots a layer,
    equivariance, the fwd+bwd and denoising train steps;
-20. timing of K7, K8, K9 beside their plain versions and bounds;
+20. timing of K7, K8, K9 beside their plain versions and bounds, K7 at
+   k = 128, K8 at R = n/4 and on the rows K9 leaves on the heavy cloud too;
+   ptxas's registers and spills of K7's and K8's instantiations;
 21. the fused pair pipeline's kernels: K10f and K10b (pre-gathered rows), K11f
    and K11b (gathering inside) against their plain versions in float64 over
    the cases below (among them the backward's register blocks at their
@@ -110,6 +118,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -175,6 +184,32 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip()
+
+
+def ptxas_kernels(build, source, keep):
+    """(kernel, registers, spill stores, spill loads) of the kernels of
+    ``csrc/<source>.cu`` whose mangled names match ``keep``, from what ptxas
+    reported at the build (names demangled by cu++filt where it exists)."""
+    rows, cur = [], None
+    for line in build.ptxas_report(source).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = [m.group(1), None, None, None]
+            rows.append(cur)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur[2], cur[3] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur[1] = int(m.group(1))
+    rows = [r for r in rows if re.search(keep, r[0])]
+    filt = Path("/usr/local/cuda/bin/cu++filt")
+    if filt.exists() and rows:
+        names = subprocess.run([str(filt)], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+        for r, name in zip(rows, names):
+            r[0] = name.replace("<unnamed>::", "").split("(const")[0]
+    return [tuple(r) for r in rows]
 
 
 def knn_inputs(torch, b, n, k, with_mask, with_adj, ties, seed):
@@ -1609,6 +1644,9 @@ def main() -> int:
         ("n131072_k8_mask", 2 * N_A, 8, "gaussian", True),
         ("k128", N_A, 128, "gaussian", False),               # four list slots a lane
         ("lattice_ties", 32768, 16, "lattice", False),       # distance ties inside a block
+        ("k48", 20480, 48, "gaussian", False),               # two list slots a lane
+        ("k64_mask", 32768, 64, "uniform", True),
+        ("ties", 20480, 16, "ties", False),                  # 320 copies a site: cells past 128
     ]
     for i, (name, n, k, kind, wm) in enumerate(k7_cases):
         coors = cloud(torch, n, 3, kind, SEED + 100 + i)
@@ -1633,6 +1671,41 @@ def main() -> int:
         if not (ok and certified):
             raise AssertionError(f"K7 case {name}: kernel and plain version differ, or a "
                                  "certified row differs from K4's")
+    # K7's plan as the source makes it: candidates a lane a step, the values
+    # a merge takes and the cells' order; the CPU model must take the same
+    k7_plan = GK.built_grid_plan()
+    if k7_plan != (GK.GRID_RUN, GK.GRID_BATCH, GK.GRID_ORDER):
+        raise AssertionError(f"K7's source takes (candidates a lane, values a merge, cell "
+                             f"order) {k7_plan}, the CPU model ({GK.GRID_RUN}, "
+                             f"{GK.GRID_BATCH}, {GK.GRID_ORDER})")
+    print(f"K7 plan (candidates a lane, values a merge, cell order): {k7_plan}")
+    # hand-made cells: one of a single node, one of exactly 128, two past 128
+    # (their nodes beyond the 128th have no row), 61 and 221 nodes (no
+    # multiple of queries a warp x warps), nodes in no cell; on the card
+    # against the plain version and against the CPU model at the source's plan
+    n_hand, gdim_hand = 900, 4
+    g_hand = torch.Generator(device="cuda").manual_seed(SEED + 114)
+    coors_hand = torch.rand(1, n_hand, 3, generator=g_hand, device="cuda")
+    coors_hand[0, 300:340] = coors_hand[0, 7]                  # a pile at distance 0
+    counts_hand = torch.zeros(1, gdim_hand ** 3 + 1, dtype=torch.int64, device="cuda")
+    counts_hand[0, [0, 1, 5, 21, 22, 42, 63]] = torch.tensor([1, 61, 128, 200, 150, 129, 221],
+                                                            device="cuda")
+    order_hand = torch.randperm(n_hand, generator=g_hand, device="cuda")[None]
+    cs_hand, cn_hand = GK.cell_csr(counts_hand, order_hand)
+    for k in (1, 16, 48, 128):
+        v, ix = GK.grid_knn_cells(coors_hand, cs_hand, cn_hand, k, gdim_hand)
+        pv, pi = GK.grid_knn_cells_plain(coors_hand, cs_hand, cn_hand, k, gdim_hand)
+        mv, mi, mcounts = GK.grid_knn_cells_model(coors_hand.cpu(), cs_hand.cpu(), cn_hand.cpu(), k,
+                                                  gdim_hand)
+        torch.cuda.synchronize()
+        ok = same_bits(torch, v, pv) and torch.equal(ix, pi)
+        ok_model = same_bits(torch, v.cpu(), mv) and torch.equal(ix.cpu(), mi)
+        print(f"K7 case hand_cells_k{k}: cells of 1, 61, 128, 129, 150, 200, 221 nodes: "
+              f"bitwise={ok}, the CPU model's bitwise={ok_model} ({mcounts})")
+        if not (ok and ok_model):
+            raise AssertionError(f"K7 case hand_cells_k{k}: kernel, plain version and model "
+                                 "differ")
+
     # a batch of two clouds, the second masked
     pair = torch.cat([cloud(torch, 8192, 3, "uniform", SEED + 111),
                       cloud(torch, 8192, 3, "gaussian", SEED + 112)])
@@ -1662,16 +1735,22 @@ def main() -> int:
         return torch.gather(t, 1, fidx if t.dim() == 2 else
                             fidx[..., None].expand(*fidx.shape, t.shape[-1])).contiguous()
 
-    k8_cases = [  # name, n, k, R, cloud, mask
-        ("r128", N_A, KNN_A, 128, "gaussian", False),
-        ("r2800_mask", N_A, KNN_A, 2800, "gaussian", True),
-        ("r_quarter", N_A, KNN_A, N_A // 4, "uniform", False),
-        ("n20000_mask", 20000, KNN, 5000, "uniform", True),   # n not a multiple of 128
-        ("ties", 20480, KNN, 1280, "ties", True),
-        ("k128_mask", 4096, 128, 1024, "gaussian", True),
+    k8_cases = [  # name, n, k, R, cloud, mask, c
+        ("r128", N_A, KNN_A, 128, "gaussian", False, 3),
+        ("r2800_mask", N_A, KNN_A, 2800, "gaussian", True, 3),
+        ("r_quarter", N_A, KNN_A, N_A // 4, "uniform", False, 3),
+        ("n20000_mask", 20000, KNN, 5000, "uniform", True, 3),   # n not a multiple of 128
+        ("ties", 20480, KNN, 1280, "ties", True, 3),
+        ("k128_mask", 4096, 128, 1024, "gaussian", True, 3),
+        ("r1", N_A, KNN_A, 1, "gaussian", True, 3),             # eight warps a row
+        ("r5", N_A, KNN_A, 5, "uniform", False, 3),             # fewer rows than a block's warps
+        ("n20000_r700_mask", 20000, KNN, 700, "gaussian", True, 3),   # stripes of 20 and 19 steps
+        ("k48_r300_mask", 20000, 48, 300, "uniform", True, 3),
+        ("c5_r700", 20000, KNN_A, 700, "gaussian", False, 5),      # c != 3: the predicated loop
+        ("c5_r2000_mask", 20000, KNN_A, 2000, "uniform", True, 5),
     ]
-    for i, (name, n, k, r, kind, wm) in enumerate(k8_cases):
-        coors = cloud(torch, n, 3, kind, SEED + 120 + i)
+    for i, (name, n, k, r, kind, wm, c) in enumerate(k8_cases):
+        coors = cloud(torch, n, c, kind, SEED + 120 + i)
         mask = tenth_mask(n) if wm else None
         # any rows, masked ones too: their result is the fill
         fidx = pick_rows(None, n, r, SEED + 130 + i)
@@ -1685,10 +1764,33 @@ def main() -> int:
             ix, take_rows(ri, fidx))
         err = (v - pv).abs().max().item()
         max_err["knn_select_queries"] = max(max_err["knn_select_queries"], err)
-        print(f"K8 case {name}: n={n} k={k} R={r} cloud={kind} mask={wm}: bitwise={ok} (max err "
-              f"{err}); equals K4's rows bitwise={rows_of_k4}")
+        rows, cols, stripes = K.built_query_plan(1, r, c, k, sms)
+        if cols != K.BLOCK_RUN:
+            raise AssertionError(f"K8's source ranks {cols} columns a lane a step, the CPU model "
+                                 f"{K.BLOCK_RUN}")
+        print(f"K8 case {name}: n={n} c={c} k={k} R={r} cloud={kind} mask={wm}, {rows} rows a "
+              f"warp, {stripes} warps a row: bitwise={ok} (max err {err}); equals K4's rows "
+              f"bitwise={rows_of_k4}")
         if not (ok and rows_of_k4):
             raise AssertionError(f"K8 case {name}: kernel, plain version and K4 differ")
+
+    # the CPU model of K8's traversal at the source's plan, against the card
+    for name, n, k, r, wm in (("n20000_r700_mask", 20000, KNN, 700, True),
+                              ("n4100_r9_k48", 4100, 48, 9, True)):
+        coors = cloud(torch, n, 3, "gaussian", SEED + 135)
+        mask = tenth_mask(n) if wm else None
+        fidx = pick_rows(None, n, r, SEED + 136)
+        q, qm = take_rows(coors, fidx), (None if mask is None else take_rows(mask, fidx))
+        v, ix = K.knn_select_queries(q, coors, k, qm, mask)
+        rows, _, stripes = K.built_query_plan(1, r, 3, k, sms)
+        mv, mi, mcounts = K.knn_select_block_model(
+            coors.cpu(), k, None if mask is None else mask.cpu(), None, 0, rows, None, q.cpu(),
+            None if qm is None else qm.cpu(), stripes)
+        ok = same_bits(torch, v.cpu(), mv) and torch.equal(ix.cpu(), mi)
+        print(f"K8 model {name}: {rows} rows a warp, {stripes} warps a row: the CPU model's "
+              f"bitwise={ok} ({mcounts})")
+        if not ok:
+            raise AssertionError(f"K8 model {name}: kernel and CPU model differ")
 
     def window_inputs(coors, mask, fidx):
         """The dispatcher's preparation: the x-sort (masked points last), the
@@ -1882,6 +1984,16 @@ def main() -> int:
           f"reference's streamed kernel): kernel {ms_k7b:.5f} ms, plain {ms_k7b_plain:.5f} ms; "
           f"bound {bound2[0]:.6f} ms ({bound2[1]}) over {pairs2} real pairs; no library call "
           f"computes it")
+    # first timed here: K7 at k = 128 (four list slots, one query a warp)
+    ms_k128 = device_ms(torch, lambda: GK.grid_knn_cells(coors_a, cell_start, cell_nodes, 128,
+                                                         gdim), reps=3, trials=5)
+    b128 = pairs_bound(12 * N_A + 4 * (gdim ** 3 + 1) + 4 * N_A + 12 * N_A * 128, pairs)
+    print(f"timing grid_knn_cells at n={N_A} k=128 gdim={gdim} (uniform): kernel {ms_k128:.5f} "
+          f"ms, bound {b128[0]:.6f} ms ({b128[1]})")
+    for source, keep in (("grid_knn", r"grid_knn_kernel"),
+                         ("knn_select_large", r"knn_select_block_kernel.*Lb1EE")):
+        for name, regs, st, ld in ptxas_kernels(build, source, keep):
+            print(f"ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
     with torch.inference_mode():
         for kind in ("uniform", "gaussian", "heavy"):
             c_kind = clouds_a[kind]
@@ -1912,6 +2024,15 @@ def main() -> int:
                 lambda: K.knn_select_queries(q, c_kind, KNN_A),
                 lambda: K.knn_select_queries_plain(q, c_kind, KNN_A, row_chunk=chunk(N_A)),
                 12 * r + 12 * N_A + 12 * r * KNN_A, r * N_A)
+            # first timed here: K8 at R = n/4, the n/4 bucket's largest repair
+            rq = N_A // 4
+            q4 = take_rows(c_kind, pick_rows(None, N_A, rq, SEED + 171))
+            ms_q4 = device_ms(torch, lambda: K.knn_select_queries(q4, c_kind, KNN_A), reps=3,
+                              trials=5)
+            bq4 = pairs_bound(12 * rq + 12 * N_A + 12 * rq * KNN_A, rq * N_A)
+            print(f"timing knn_select_queries at R={rq} rows of n={N_A}, k={KNN_A} ({kind}), "
+                  f"{K.built_query_plan(1, rq, 3, KNN_A, sms)} (rows a warp, columns a lane, "
+                  f"warps a row): kernel {ms_q4:.5f} ms, bound {bq4[0]:.6f} ms ({bq4[1]})")
         else:
             w = N_A // 4
             q, qr, pts, order, _, _ = window_inputs(c_kind, None, fidx)
@@ -1924,6 +2045,29 @@ def main() -> int:
                                                   row_chunk=max(1, (1 << 25) // w)),
                 # queries, ranks, points, ids; vals, idx, margin
                 12 * r + 8 * r + 12 * N_A + 8 * N_A + 12 * r * KNN_A + 4 * r, r * w)
+            # K8 on the rows that K9's margin leaves, as the route hands them
+            # over: below two blocks an SM at one row a warp (stripes_a_row)
+            handed = []
+
+            def keep_queries(queries, *args, **kwargs):
+                handed.append((queries, args, kwargs))
+                return launch_queries(queries, *args, **kwargs)
+
+            K.knn_select_queries = keep_queries
+            try:
+                nb.knn_select_gather(c_kind, KNN_A, math.inf)
+            finally:
+                K.knn_select_queries = launch_queries
+            if len(handed) != 1:
+                raise AssertionError(f"the {kind} cloud's route called K8 {len(handed)} times")
+            qh, args, kwargs = handed[0]
+            rh = qh.shape[1]
+            ms_h = device_ms(torch, lambda: launch_queries(qh, *args, **kwargs), reps=10,
+                             trials=5)
+            bh = pairs_bound(12 * rh + 12 * N_A + 12 * rh * KNN_A, rh * N_A)
+            print(f"timing knn_select_queries at the R={rh} rows K9 leaves on the {kind} cloud, "
+                  f"{K.built_query_plan(1, rh, 3, KNN_A, sms)} (rows a warp, columns a lane, "
+                  f"warps a row): kernel {ms_h:.5f} ms, bound {bh[0]:.6f} ms ({bh[1]})")
 
 
     # ---- 21. K10 and K11 against their plain versions in float64 ----

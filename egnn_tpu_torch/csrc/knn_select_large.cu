@@ -12,7 +12,8 @@
 //      (_knn_packed_kernel):       18-bit keys, masked pairs at 0x1FF00
 //   K8 egnn_tpu/ops/pallas/knn.py:knn_select_queries_pallas
 //      (_knn_query_kernel): K4's ranking of R query rows, given apart from
-//      the points with their own mask bits, without an adjacency
+//      the points with their own mask bits, without an adjacency (K4's
+//      kernel, kQuery)
 //   K9 egnn_tpu/ops/pallas/knn.py:knn_select_window_pallas
 //      (_knn_window_kernel): K8 over the columns [start, start + W) of the
 //      points sorted by x, one start for each group of rows, ordered and
@@ -64,7 +65,7 @@
 // 32768^2 adjacency its 1 GiB of bytes (0.32 ms) is the larger bound.
 //
 // Design of K4, K5, K6 (knn_select_block_kernel). The first version (one
-// row a warp, kept for K8 and K9) ranked one pair a lane a step and paid for
+// row a warp, kept for K9) ranked one pair a lane a step and paid for
 // each pair three shared loads, the mask and fills, a 64-bit pack and a
 // warp ballot against tau (some 25 instructions for 8 of distance),
 // re-staged all columns for every 8 rows and exposed each tile's load. Now:
@@ -103,9 +104,22 @@
 //    predicated loop holds 16 coordinates a row).
 //  - Rows past n get thresholds that nothing passes: they take part in
 //    every vote and barrier but never insert.
-// K8 and K9 (knn_select_rows_kernel) keep one row a warp and one column a
-// lane a step: their few thousand rows would leave SMs idle at 4 rows a
-// warp.
+// K8 is an instantiation of the same kernel (kQuery): its rows are the
+// query rows, its row mask qmask, and it has no adjacency. Its rows are
+// few (2820 on path C's Gaussian cloud), so rows_a_warp's halving gives
+// them one row a warp (353 blocks), which on the H100 beat two and four
+// rows a warp there (PERF.md §6). Where even one row
+// a warp leaves fewer than two blocks an SM (stripes_a_row: R under 2112 on
+// 132 SMs; the 1401 rows that K9 leaves on path C's heavy cloud), `stripes`
+// warps share a row: warp s of the group takes the steps
+// s, s + stripes, ... of every tile into lists of its own, and at the end
+// the group's first warp merges the others' lists, parked in shared memory,
+// into its own (warp_topk.cuh, merge_list): the union's top k is one,
+// whatever the split. Each stripe fills a list of its own, so a split
+// inserts more in all: at R = 2820 two stripes were slower than one, at
+// 1401 rows two were 4% faster on the H100 (PERF.md §6).
+// K9 (knn_select_rows_kernel) keeps one row a warp and one column a lane a
+// step (the first version's loop).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -188,8 +202,10 @@ __device__ __forceinline__ void row_thresholds(unsigned long long tau, unsigned 
 // kSlots: list entries a lane holds, ceil(k / 32). kRows: rows a warp.
 // kC: the coordinate dimension when it is 3, else 0: any c <= kMaxC through
 // a predicated loop (one row a warp). kMask, kAdj: the mask (adjacency) is
-// given; at kC == 0 they say it may be, and the pointer decides.
-template <int kShift, int kSlots, int kRows, int kC, bool kMask, bool kAdj>
+// given; at kC == 0 they say it may be, and the pointer decides. kQuery
+// (K8): the rows are the nq query rows with their mask qmask, ranked by
+// `stripes` warps each (K4-K6: the n points, one warp each).
+template <int kShift, int kSlots, int kRows, int kC, bool kMask, bool kAdj, bool kQuery = false>
 __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block_kernel(
     const float* __restrict__ coors,         // (b, n, c)
     const unsigned char* __restrict__ mask,  // (b, n)
@@ -197,19 +213,30 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
     long long adj_bstride,                   // 0 when one (n, n) is shared
     bool aligned4,                           // mask and adjacency rows 4-byte aligned
     int n, int c, int k, unsigned sentinel,
-    unsigned* __restrict__ out_hi,           // (b, n, k): vals f32 bits, or keys
-    long long* __restrict__ out_idx) {       // (b, n, k)
+    const float* __restrict__ queries,       // (b, nq, c), K8 only
+    const unsigned char* __restrict__ qmask, // (b, nq), K8 only: given with mask
+    int nq, int stripes,                     // K8 only
+    unsigned* __restrict__ out_hi,           // (b, nrows, k): vals f32 bits, or keys
+    long long* __restrict__ out_idx) {       // (b, nrows, k)
   extern __shared__ __align__(16) float smem[];  // two tiles of c planes
   constexpr int kDims = kC > 0 ? kC : kMaxC;
   constexpr int kBlockTile = block_tile<kC>();
   const bool has_mask = kMask && (kC > 0 || mask != nullptr);
-  const bool has_adj = kShift == 0 && kAdj && (kC > 0 || adj != nullptr);
+  const bool has_adj = kShift == 0 && kAdj && !kQuery && (kC > 0 || adj != nullptr);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y;
-  const int row0 = (blockIdx.x * kWarps + warp) * kRows;  // the warp's first row
+  // K8: `stripes` warps a group of rows, warp `stripe` of it taking every
+  // stripes-th step of a tile
+  const int stripe = kQuery ? warp % stripes : 0;
+  const int groups = kQuery ? kWarps / stripes : kWarps;
+  const int stride = kQuery ? stripes * kStep : kStep;  // between a warp's steps
+  const int nrows = kQuery ? nq : n;
+  const int row0 = (blockIdx.x * groups + (kQuery ? warp / stripes : warp)) * kRows;
   const float* cb = coors + (size_t)b * n * c;
+  const float* rb = kQuery ? queries + (size_t)b * nq * c : cb;  // the rows' coordinates
   const unsigned char* mb = has_mask ? mask + (size_t)b * n : nullptr;
+  const unsigned char* rmb = has_mask ? (kQuery ? qmask + (size_t)b * nq : mb) : nullptr;
 
   float xi[kRows][kDims];
   bool mask_i[kRows];
@@ -218,11 +245,11 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = row0 + r;
-    const bool ok = i < n;
+    const bool ok = i < nrows;
 #pragma unroll
     for (int cc = 0; cc < kDims; ++cc)
-      xi[r][cc] = (ok && (kC > 0 || cc < c)) ? cb[(size_t)i * c + cc] : 0.f;
-    mask_i[r] = has_mask && ok && mb[i] != 0;
+      xi[r][cc] = (ok && (kC > 0 || cc < c)) ? rb[(size_t)i * c + cc] : 0.f;
+    mask_i[r] = has_mask && ok && rmb[i] != 0;
     adj_row[r] = has_adj && ok ? adj + (size_t)b * adj_bstride + (size_t)i * n : nullptr;
     list[r].init(k, lane);
   }
@@ -236,7 +263,7 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
   for (int r = 0; r < kRows; ++r) {
     row_thresholds<kShift>(list[r].tau, fill_key, thr[r], mthr[r]);
     self_col[r] = row0 + r;
-    if (row0 + r >= n) {  // a row past n passes no pre-test and never inserts
+    if (row0 + r >= nrows) {  // a row past the last passes no pre-test and never inserts
       thr[r] = __uint_as_float(0xff800000u);  // -inf
       mthr[r] = 0u;
       self_col[r] = -2 * kRun;
@@ -253,7 +280,7 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
                                                : 0u;
   };
   unsigned mnext, anext[kRows];
-  load_words(kRun * lane, mnext, anext);
+  load_words(stripe * kStep + kRun * lane, mnext, anext);
 
   const int tile_floats = kBlockTile * c;  // one of the two buffers
   const int ntiles = (n + kBlockTile - 1) / kBlockTile;
@@ -270,7 +297,7 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
     const int j0 = tile * kBlockTile;
     const int span = min(kBlockTile, n - j0);
 #pragma unroll 2
-    for (int t0 = 0; t0 < span; t0 += kStep) {  // the whole warp takes every step
+    for (int t0 = stripe * kStep; t0 < span; t0 += stride) {  // the whole warp takes every step
       const int t = t0 + kRun * lane;             // the lane's first column of the step
       const int j = j0 + t;
       float xj[kDims][kRun];  // +inf past the last column (stage_tile)
@@ -285,7 +312,9 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
       unsigned aword[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) aword[r] = anext[r];
-      load_words(j + kStep, mnext, anext);  // the next step's columns, across tiles too
+      // the warp's next step's columns, across tiles too (stripes divides a
+      // tile's steps)
+      load_words(j + stride, mnext, anext);
 
       auto dist = [&](int r, int q) {
         float d = __fsub_rn(xi[r][0], xj[0][q]);
@@ -352,11 +381,32 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
     }
   }
 
+  if (kQuery && stripes > 1) {  // the group's first warp takes the others' lists
+    // every warp is past its last tile: the tiles' buffers hold the lists,
+    // (warp, row, 32 * kSlots)
+    unsigned long long* parked = reinterpret_cast<unsigned long long*>(smem);
+    __syncthreads();
+    if (stripe != 0) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s)
+          parked[((warp * kRows + r) * kSlots + s) * 32 + lane] = list[r].entry[s];
+    }
+    __syncthreads();
+    if (stripe != 0) return;  // whole warp: no block barrier follows
+    for (int o = 1; o < stripes; ++o) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        list[r].merge_list(parked + ((warp + o) * kRows + r) * kSlots * 32);
+    }
+  }
+
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = row0 + r;
-    if (i >= n) continue;
-    const size_t row = (size_t)b * n + i;
+    if (i >= nrows) continue;
+    const size_t row = (size_t)b * nrows + i;
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
       const int e = s * 32 + lane;
@@ -369,17 +419,31 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
   }
 }
 
+// The blocks of knn_select_block_kernel for b * n rows at `rows` rows a
+// warp and `stripes` warps a row.
+long long block_count(int b, int n, int rows, int stripes) {
+  const int per_block = kWarps / stripes * rows;
+  return (long long)b * ((n + per_block - 1) / per_block);
+}
+
 // Rows a warp of knn_select_block_kernel: 4 at k <= 32 (one list slot a
 // lane), 2 at k <= 64, 1 beyond, and 1 at c != 3; 2 at most with an
 // adjacency, whose bytes are each row's own (no reuse across rows) and
 // whose latency twice the warps hide better (K4 on path B's chain ran
 // slower at 4 on the H100); halved while the grid would hold fewer than two
-// blocks an SM. knn_select_block_plan exports it.
-int rows_a_warp(int b, int n, int c, int k, bool adj, int sms) {
+// blocks an SM. knn_select_block_plan and knn_select_queries_plan export it.
+int rows_a_warp(int b, int n, int c, int k, bool adj, int sms, int stripes = 1) {
   int rows = c != 3 ? 1 : k <= 32 ? (adj ? 2 : 4) : k <= 64 ? 2 : 1;
-  while (rows > 1 && (long long)b * ((n + kWarps * rows - 1) / (kWarps * rows)) < 2LL * sms)
-    rows /= 2;
+  while (rows > 1 && block_count(b, n, rows, stripes) < 2LL * sms) rows /= 2;
   return rows;
+}
+
+// K8's warps a row: 1 while one row a warp gives two blocks an SM, else the
+// fewest of 2, 4, 8 that do; 1 at c != 3.
+int stripes_a_row(int b, int nq, int c, int sms) {
+  int stripes = 1;
+  while (c == 3 && stripes < kWarps && block_count(b, nq, 1, stripes) < 2LL * sms) stripes *= 2;
+  return stripes;
 }
 
 struct SelfArgs {
@@ -391,11 +455,14 @@ struct SelfArgs {
   unsigned sentinel;
   unsigned* out_hi;
   long long* out_idx;
+  const float* queries = nullptr;       // K8: the query rows and their mask
+  const unsigned char* qmask = nullptr;
+  int nq = 0, stripes = 1;
 };
 
-template <int kShift, int kSlots, int kRows, int kC, bool kMask, bool kAdj>
+template <int kShift, int kSlots, int kRows, int kC, bool kMask, bool kAdj, bool kQuery>
 int launch_block_kernel(const SelfArgs& a, cudaStream_t stream) {
-  auto kernel = knn_select_block_kernel<kShift, kSlots, kRows, kC, kMask, kAdj>;
+  auto kernel = knn_select_block_kernel<kShift, kSlots, kRows, kC, kMask, kAdj, kQuery>;
   const size_t smem = 2 * sizeof(float) * block_tile<kC>() * a.c;
   if (smem > 48 * 1024) {
     const cudaError_t err =
@@ -404,76 +471,86 @@ int launch_block_kernel(const SelfArgs& a, cudaStream_t stream) {
   }
   const uintptr_t m = reinterpret_cast<uintptr_t>(a.mask), j = reinterpret_cast<uintptr_t>(a.adj);
   const bool aligned4 = a.n % 4 == 0 && m % 4 == 0 && j % 4 == 0 && a.adj_bstride % 4 == 0;
-  const dim3 grid((a.n + kWarps * kRows - 1) / (kWarps * kRows), a.b);
+  const int nrows = kQuery ? a.nq : a.n;
+  const int per_block = kWarps / a.stripes * kRows;
+  const dim3 grid((nrows + per_block - 1) / per_block, a.b);
   kernel<<<grid, kWarps * 32, smem, stream>>>(a.coors, a.mask, a.adj, a.adj_bstride, aligned4,
-                                              a.n, a.c, a.k, a.sentinel, a.out_hi, a.out_idx);
+                                              a.n, a.c, a.k, a.sentinel, a.queries, a.qmask,
+                                              a.nq, a.stripes, a.out_hi, a.out_idx);
   return (int)cudaGetLastError();
 }
 
 // the instantiation for the given mask and adjacency
-template <int kShift, int kSlots, int kRows, int kC>
+template <int kShift, int kSlots, int kRows, int kC, bool kQuery>
 int launch_block_flags(const SelfArgs& a, cudaStream_t stream) {
   if constexpr (kC == 0) {
-    return launch_block_kernel<kShift, kSlots, kRows, 0, true, kShift == 0>(a, stream);
+    return launch_block_kernel<kShift, kSlots, kRows, 0, true, kShift == 0 && !kQuery, kQuery>(
+        a, stream);
   } else {
     const bool m = a.mask != nullptr;
-    if constexpr (kShift == 0 && kRows <= 2) {  // rows_a_warp: 2 at most with an adjacency
+    // rows_a_warp: 2 at most with an adjacency; K8 takes none
+    if constexpr (kShift == 0 && kRows <= 2 && !kQuery) {
       if (a.adj != nullptr)
-        return m ? launch_block_kernel<kShift, kSlots, kRows, kC, true, true>(a, stream)
-                 : launch_block_kernel<kShift, kSlots, kRows, kC, false, true>(a, stream);
+        return m ? launch_block_kernel<kShift, kSlots, kRows, kC, true, true, false>(a, stream)
+                 : launch_block_kernel<kShift, kSlots, kRows, kC, false, true, false>(a, stream);
     } else {
       if (a.adj != nullptr) return (int)cudaErrorInvalidValue;
     }
-    return m ? launch_block_kernel<kShift, kSlots, kRows, kC, true, false>(a, stream)
-             : launch_block_kernel<kShift, kSlots, kRows, kC, false, false>(a, stream);
+    return m ? launch_block_kernel<kShift, kSlots, kRows, kC, true, false, kQuery>(a, stream)
+             : launch_block_kernel<kShift, kSlots, kRows, kC, false, false, kQuery>(a, stream);
   }
 }
 
-template <int kShift>
-int launch_self(const SelfArgs& a, cudaStream_t stream) {
+// K4-K6 (kQuery false: the points against themselves) and K8 (the query
+// rows against the points), at the plan of rows_a_warp and stripes_a_row.
+template <int kShift, bool kQuery>
+int launch_self(SelfArgs a, cudaStream_t stream) {
+  const int nrows = kQuery ? a.nq : a.n;
   // k <= n: every list element ends as a real column
-  if (a.b < 1 || a.n < 1 || a.c < 1 || a.c > kMaxC || a.k < 1 || a.k > kMaxK || a.k > a.n)
+  if (a.b < 1 || a.n < 1 || nrows < 1 || a.c < 1 || a.c > kMaxC || a.k < 1 || a.k > kMaxK ||
+      a.k > a.n)
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const int rows = rows_a_warp(a.b, a.n, a.c, a.k, a.adj != nullptr, sms);
+  if (kQuery) a.stripes = stripes_a_row(a.b, nrows, a.c, sms);
+  const int rows = rows_a_warp(a.b, nrows, a.c, a.k, a.adj != nullptr, sms, a.stripes);
   if (a.c != 3) {
-    if (a.k <= 32) return launch_block_flags<kShift, 1, 1, 0>(a, stream);
-    if (a.k <= 64) return launch_block_flags<kShift, 2, 1, 0>(a, stream);
-    return launch_block_flags<kShift, 4, 1, 0>(a, stream);
+    if (a.k <= 32) return launch_block_flags<kShift, 1, 1, 0, kQuery>(a, stream);
+    if (a.k <= 64) return launch_block_flags<kShift, 2, 1, 0, kQuery>(a, stream);
+    return launch_block_flags<kShift, 4, 1, 0, kQuery>(a, stream);
   }
   if (a.k <= 32) {
-    if (rows == 4) return launch_block_flags<kShift, 1, 4, 3>(a, stream);
-    if (rows == 2) return launch_block_flags<kShift, 1, 2, 3>(a, stream);
-    return launch_block_flags<kShift, 1, 1, 3>(a, stream);
+    if (rows == 4) return launch_block_flags<kShift, 1, 4, 3, kQuery>(a, stream);
+    if (rows == 2) return launch_block_flags<kShift, 1, 2, 3, kQuery>(a, stream);
+    return launch_block_flags<kShift, 1, 1, 3, kQuery>(a, stream);
   }
   if (a.k <= 64) {
-    if (rows == 2) return launch_block_flags<kShift, 2, 2, 3>(a, stream);
-    return launch_block_flags<kShift, 2, 1, 3>(a, stream);
+    if (rows == 2) return launch_block_flags<kShift, 2, 2, 3, kQuery>(a, stream);
+    return launch_block_flags<kShift, 2, 1, 3, kQuery>(a, stream);
   }
-  return launch_block_flags<kShift, 4, 1, 3>(a, stream);
+  return launch_block_flags<kShift, 4, 1, 3, kQuery>(a, stream);
 }
 
 // ---------------------------------------------------------------------------
-// K8, K9: query rows apart from the points, one row a warp
+// K9: query rows against a window of the points, one row a warp
 // ---------------------------------------------------------------------------
 
-// K4's exact ranking of the query rows against the points. kSlots: list
-// entries a lane holds, ceil(k / 32). kC: as above. kWindow (K9): a block's
-// rows rank the columns [win_start, win_start + win_width) only, clipped to
-// n, and a column goes by col_ids[j]. A block of 8 warps shares a tile of
-// coordinates (and mask bits) staged in shared memory; each lane ranks the
-// column tile + lane a step and offers its value to the warp's list.
-template <int kSlots, int kC, bool kWindow>
+// K4's exact ranking of the query rows, all unmasked, against a window of
+// the points, the first version's loop. kSlots: list entries a lane holds,
+// ceil(k / 32). kC: as above. A block's rows rank the columns
+// [win_start, win_start + win_width) only, clipped to n, and a column goes
+// by col_ids[j]. A block of 8 warps shares a tile of coordinates (and mask
+// bits) staged in shared memory; each lane ranks the column tile + lane a
+// step and offers its value to the warp's list.
+template <int kSlots, int kC>
 __global__ void __launch_bounds__(kWarps * 32) knn_select_rows_kernel(
     const float* __restrict__ queries,       // (b, nq, c): the rows
-    const unsigned char* __restrict__ qmask, // (b, nq) the rows' mask bits; null: all set
     const float* __restrict__ coors,         // (b, n, c): the columns
     const unsigned char* __restrict__ mask,  // (b, n) or null: no pair is masked
-    const int* __restrict__ win_start,       // (b, ceil(nq / win_rows)), K9 only
-    const int* __restrict__ col_ids,         // (b, n), K9 only
+    const int* __restrict__ win_start,       // (b, ceil(nq / win_rows))
+    const int* __restrict__ col_ids,         // (b, n)
     int win_rows, int win_width,             // rows that share a window; its width
     int nq, int n, int c, int k,
     unsigned* __restrict__ out_hi,           // (b, nq, k): vals f32 bits
@@ -481,7 +558,7 @@ __global__ void __launch_bounds__(kWarps * 32) knn_select_rows_kernel(
   extern __shared__ float smem[];
   float* tile_x = smem;               // kTile * c
   float* tile_m = smem + kTile * c;   // kTile
-  int* tile_id = reinterpret_cast<int*>(tile_m + kTile);  // kTile, K9 only
+  int* tile_id = reinterpret_cast<int*>(tile_m + kTile);  // kTile
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y;
@@ -495,19 +572,16 @@ __global__ void __launch_bounds__(kWarps * 32) knn_select_rows_kernel(
 #pragma unroll
   for (int cc = 0; cc < kDims; ++cc) xi[cc] = (row_ok && cc < c) ? qb[(size_t)i * c + cc] : 0.f;
   const bool has_mask = mask != nullptr;
-  const bool mask_i =
-      has_mask && row_ok && (qmask == nullptr || qmask[(size_t)b * nq + i] != 0);
+  const bool mask_i = has_mask && row_ok;
 
   warp_topk::List<kSlots> list;
   list.init(k, lane);
   const int stride = kC > 0 ? kC : c;  // floats a staged column takes
 
-  int j_begin = 0, j_end = n;
-  if (kWindow) {  // win_rows is a multiple of kWarps: one window a block
-    const int groups = (nq + win_rows - 1) / win_rows;
-    j_begin = win_start[(size_t)b * groups + (blockIdx.x * kWarps) / win_rows];
-    j_end = min(j_begin + win_width, n);
-  }
+  // win_rows is a multiple of kWarps: one window a block
+  const int groups = (nq + win_rows - 1) / win_rows;
+  const int j_begin = win_start[(size_t)b * groups + (blockIdx.x * kWarps) / win_rows];
+  const int j_end = min(j_begin + win_width, n);
 
   for (int j0 = j_begin; j0 < j_end; j0 += kTile) {
     __syncthreads();
@@ -517,9 +591,8 @@ __global__ void __launch_bounds__(kWarps * 32) knn_select_rows_kernel(
     if (has_mask)
       for (int t = threadIdx.x; t < span; t += blockDim.x)
         tile_m[t] = mask[(size_t)b * n + j0 + t] != 0 ? 1.f : 0.f;
-    if (kWindow)
-      for (int t = threadIdx.x; t < span; t += blockDim.x)
-        tile_id[t] = col_ids[(size_t)b * n + j0 + t];
+    for (int t = threadIdx.x; t < span; t += blockDim.x)
+      tile_id[t] = col_ids[(size_t)b * n + j0 + t];
     __syncthreads();
     if (!row_ok) continue;
     for (int t0 = 0; t0 < span; t0 += 32) {  // the whole warp takes every step
@@ -536,8 +609,7 @@ __global__ void __launch_bounds__(kWarps * 32) knn_select_rows_kernel(
         }
         if (has_mask && !(mask_i && tile_m[t] != 0.f)) r = 1e5f;
         const unsigned hi = warp_topk::ordered_bits(r);
-        const unsigned lo = kWindow ? (unsigned)tile_id[t] : (unsigned)(j0 + t);
-        p = ((unsigned long long)hi << 32) | (unsigned long long)lo;
+        p = ((unsigned long long)hi << 32) | (unsigned long long)(unsigned)tile_id[t];
       }
       list.offer(p);
     }
@@ -555,11 +627,10 @@ __global__ void __launch_bounds__(kWarps * 32) knn_select_rows_kernel(
   }
 }
 
-// What a K8 or K9 launch ranks: the query rows against the columns (coors),
-// all of them or a window.
+// What a K9 launch ranks: the query rows against a window of the columns
+// (coors).
 struct Problem {
   const float* queries;
-  const unsigned char* qmask;
   const float* coors;
   const unsigned char* mask;
   const int* win_start;
@@ -568,24 +639,22 @@ struct Problem {
   int b, nq, n, c, k;
 };
 
-template <bool kWindow>
 int launch_rows(const Problem& q, void* out_hi, long long* out_idx, cudaStream_t stream) {
   // k <= the columns a row ranks: every list element ends as a real column
   // (a window clipped at n may hold fewer than win_width: the caller's care)
   if (q.b < 1 || q.nq < 1 || q.n < 1 || q.c < 1 || q.c > kMaxC || q.k < 1 || q.k > kMaxK ||
-      q.k > (kWindow ? q.win_width : q.n))
+      q.k > q.win_width)
     return (int)cudaErrorInvalidValue;
-  if (kWindow && (q.win_rows < kWarps || q.win_rows % kWarps != 0 || q.win_start == nullptr ||
-                  q.col_ids == nullptr))
+  if (q.win_rows < kWarps || q.win_rows % kWarps != 0 || q.win_start == nullptr ||
+      q.col_ids == nullptr)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)kTile * q.c + kTile) +
-                      (kWindow ? sizeof(int) * kTile : 0);
+  const size_t smem = sizeof(float) * ((size_t)kTile * q.c + kTile) + sizeof(int) * kTile;
   const dim3 grid((q.nq + kWarps - 1) / kWarps, q.b);
   unsigned* hi = static_cast<unsigned*>(out_hi);
-#define LAUNCH_ROWS(SLOTS, C)                                                              \
-  knn_select_rows_kernel<SLOTS, C, kWindow><<<grid, kWarps * 32, smem, stream>>>(           \
-      q.queries, q.qmask, q.coors, q.mask, q.win_start, q.col_ids, q.win_rows, q.win_width, \
-      q.nq, q.n, q.c, q.k, hi, out_idx)
+#define LAUNCH_ROWS(SLOTS, C)                                                                \
+  knn_select_rows_kernel<SLOTS, C><<<grid, kWarps * 32, smem, stream>>>(                      \
+      q.queries, q.coors, q.mask, q.win_start, q.col_ids, q.win_rows, q.win_width, q.nq, q.n, \
+      q.c, q.k, hi, out_idx)
   if (q.c == 3) {
     if (q.k <= 32) LAUNCH_ROWS(1, 3);
     else if (q.k <= 64) LAUNCH_ROWS(2, 3);
@@ -614,23 +683,26 @@ extern "C" {
 int knn_select_tiled_launch(const void* coors, const void* mask, const void* adj,
                             long long adj_bstride, int b, int n, int c, int k,
                             void* vals, void* idx, void* stream) {
-  return launch_self<0>(self_args(coors, mask, adj, adj_bstride, b, n, c, k, 0u, vals, idx),
-                        static_cast<cudaStream_t>(stream));
+  return launch_self<0, false>(
+      self_args(coors, mask, adj, adj_bstride, b, n, c, k, 0u, vals, idx),
+      static_cast<cudaStream_t>(stream));
 }
 
 // K5: 20-bit keys (f32 bits >> 12), masked pairs keyed 0x7F800. mask may be null.
 int knn_candidates_packed_tiled_launch(const void* coors, const void* mask, int b, int n,
                                        int c, int kc, void* keys, void* cols,
                                        void* stream) {
-  return launch_self<12>(self_args(coors, mask, nullptr, 0, b, n, c, kc, 0x7F800u, keys, cols),
-                         static_cast<cudaStream_t>(stream));
+  return launch_self<12, false>(
+      self_args(coors, mask, nullptr, 0, b, n, c, kc, 0x7F800u, keys, cols),
+      static_cast<cudaStream_t>(stream));
 }
 
 // K6: 18-bit keys (f32 bits >> 14), masked pairs keyed 0x1FF00. mask may be null.
 int knn_candidates_packed_launch(const void* coors, const void* mask, int b, int n, int c,
                                  int kc, void* keys, void* cols, void* stream) {
-  return launch_self<14>(self_args(coors, mask, nullptr, 0, b, n, c, kc, 0x1FF00u, keys, cols),
-                         static_cast<cudaStream_t>(stream));
+  return launch_self<14, false>(
+      self_args(coors, mask, nullptr, 0, b, n, c, kc, 0x1FF00u, keys, cols),
+      static_cast<cudaStream_t>(stream));
 }
 
 // The launch plan of K4, K5, K6 at (b, n, c, k), with an adjacency or not,
@@ -647,13 +719,21 @@ int knn_select_queries_launch(const void* queries, const void* qmask, const void
                               const void* pmask, int b, int r, int n, int c, int k,
                               void* vals, void* idx, void* stream) {
   if ((qmask == nullptr) != (pmask == nullptr)) return (int)cudaErrorInvalidValue;
-  const Problem q{static_cast<const float*>(queries),
-                  static_cast<const unsigned char*>(qmask),
-                  static_cast<const float*>(points),
-                  static_cast<const unsigned char*>(pmask),
-                  nullptr, nullptr, 0, 0, b, r, n, c, k};
-  return launch_rows<false>(q, vals, static_cast<long long*>(idx),
-                            static_cast<cudaStream_t>(stream));
+  SelfArgs a = self_args(points, pmask, nullptr, 0, b, n, c, k, 0u, vals, idx);
+  a.queries = static_cast<const float*>(queries);
+  a.qmask = static_cast<const unsigned char*>(qmask);
+  a.nq = r;
+  return launch_self<0, true>(a, static_cast<cudaStream_t>(stream));
+}
+
+// The launch plan of K8 at (b, r, c, k) on a card of `sms` SMs: rows a
+// warp, columns a lane a step, and warps a row.
+int knn_select_queries_plan(int b, int r, int c, int k, int sms, int* rows, int* cols,
+                            int* stripes) {
+  *stripes = stripes_a_row(b, r, c, sms);
+  *rows = rows_a_warp(b, r, c, k, false, sms, *stripes);
+  *cols = kRun;
+  return 0;
 }
 
 // K9: r query rows, all unmasked, against the columns [start, start + width)
@@ -665,12 +745,11 @@ int knn_select_window_launch(const void* queries, const void* points, const void
                              const void* ids, const void* starts, int rows, int width, int b,
                              int r, int n, int c, int k, void* vals, void* idx,
                              void* stream) {
-  const Problem q{static_cast<const float*>(queries), nullptr,
-                  static_cast<const float*>(points),
+  const Problem q{static_cast<const float*>(queries), static_cast<const float*>(points),
                   static_cast<const unsigned char*>(pmask),
                   static_cast<const int*>(starts), static_cast<const int*>(ids),
                   rows, width, b, r, n, c, k};
-  return launch_rows<true>(q, vals, static_cast<long long*>(idx),
+  return launch_rows(q, vals, static_cast<long long*>(idx),
                            static_cast<cudaStream_t>(stream));
 }
 

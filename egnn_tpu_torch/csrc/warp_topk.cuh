@@ -9,6 +9,16 @@
 // are distinct (their low word is a column or a node id), so any insertion
 // order ends in the same list. A row of N candidates in random order inserts
 // about k * ln(N / k) times in all.
+//
+// merge and merge_list take many values at once: a batch of one value a
+// lane, or a whole sorted list of another warp. The K = 32 * kSlots smallest
+// of the list and the batch, element by element min(list[e], batch[K-1-e])
+// with the batch ascending and padded with kEmpty, form a bitonic sequence,
+// which a bitonic merge sorts (log2 K compare-exchange stages, the first
+// log2 kSlots in registers, the last five across lanes). Sorting a batch of
+// 32 costs 15 more stages: some 42 shuffles a batch in all at one slot,
+// against about 6 a value offered one at a time. Any order of batches ends
+// in the same list, for the same reason as offer's.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +84,75 @@ struct List {
         if (s == tau_slot) last = entry[s];
       tau = __shfl_sync(kFull, last, tau_lane);
     }
+  }
+
+  // Every lane of the warp calls this together, each with one value of the
+  // batch (kEmpty for none).
+  __device__ __forceinline__ void merge(unsigned long long v) {
+    // the batch sorted descending across the lanes (bitonic sort)
+#pragma unroll
+    for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+      for (int d = size >> 1; d > 0; d >>= 1) {
+        const unsigned long long o = __shfl_xor_sync(kFull, v, d);
+        v = (((lane & d) == 0) == ((lane & size) != 0)) ? umin(v, o) : umax(v, o);
+      }
+    }
+    unsigned long long m[kSlots];  // the batch ascending is element 31 - lane of slot 0
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) m[s] = entry[s];
+    m[kSlots - 1] = umin(m[kSlots - 1], v);
+    settle(m);
+  }
+
+  // Every lane calls this together; `other` holds another ascending list of
+  // 32 * kSlots values, element e at other[e] (shared memory).
+  __device__ __forceinline__ void merge_list(const unsigned long long* other) {
+    unsigned long long m[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) m[s] = umin(entry[s], other[(kSlots - s) * 32 - 1 - lane]);
+    settle(m);
+  }
+
+ private:
+  static __device__ __forceinline__ unsigned long long umin(unsigned long long a,
+                                                            unsigned long long b) {
+    return a < b ? a : b;
+  }
+  static __device__ __forceinline__ unsigned long long umax(unsigned long long a,
+                                                            unsigned long long b) {
+    return a < b ? b : a;
+  }
+
+  // m, a bitonic sequence of 32 * kSlots values (element s * 32 + lane in
+  // m[s]), sorted ascending into the list; then tau.
+  __device__ __forceinline__ void settle(unsigned long long (&m)[kSlots]) {
+#pragma unroll
+    for (int ds = kSlots >> 1; ds > 0; ds >>= 1) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        if ((s & ds) == 0) {
+          const unsigned long long lo = umin(m[s], m[s + ds]), hi = umax(m[s], m[s + ds]);
+          m[s] = lo;
+          m[s + ds] = hi;
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        const unsigned long long o = __shfl_xor_sync(kFull, m[s], d);
+        m[s] = (lane & d) == 0 ? umin(m[s], o) : umax(m[s], o);
+      }
+    }
+    unsigned long long last = m[0];  // m[tau_slot], kept in registers
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      entry[s] = m[s];
+      if (s == tau_slot) last = m[s];
+    }
+    tau = __shfl_sync(kFull, last, tau_lane);
   }
 };
 

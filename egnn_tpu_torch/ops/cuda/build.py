@@ -7,7 +7,8 @@ of the checkout, named by a hash of its source, the shared headers
 with ``ctypes``. The sources have a plain C
 interface (pointers and ints), so no PyTorch header is compiled. Nothing
 happens at import: the first kernel launch builds, or ``build_all()`` does
-it up front.
+it up front. What ``ptxas`` reports (each kernel's registers, spills and
+shared memory) is kept beside each library, as ``<library>.log``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "egnn_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -65,6 +66,7 @@ def build_all() -> dict[str, ctypes.CDLL]:
                 if proc.returncode != 0:
                     failed.append(f"{src.name}:\n{out.decode(errors='replace')}")
                 else:
+                    _target(src).with_suffix(".log").write_bytes(out)
                     os.replace(tmp, _target(src))
             if failed:
                 raise RuntimeError("nvcc failed for " + "\n".join(failed))
@@ -72,6 +74,12 @@ def build_all() -> dict[str, ctypes.CDLL]:
             if src.stem not in _libs:
                 _libs[src.stem] = ctypes.CDLL(str(_target(src)))
         return dict(_libs)
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas reported when it built ``csrc/<name>.cu``."""
+    build_all()
+    return _target(CSRC / f"{name}.cu").with_suffix(".log").read_text(errors="replace")
 
 
 def library(name: str) -> ctypes.CDLL:

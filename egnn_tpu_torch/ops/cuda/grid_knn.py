@@ -27,6 +27,7 @@ A CUDA tensor launches ``csrc/grid_knn.cu`` or raises; a CPU tensor runs
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -114,8 +115,143 @@ def grid_knn_cells_plain(coors, cell_start, cell_nodes, k, gdim, cell_chunk: int
     return vals[:, :n].contiguous(), idx[:, :n].contiguous()
 
 
+# ---------------------------------------------------------------------------
+# the traversal of K7 on the card, as a CPU model
+# ---------------------------------------------------------------------------
+# csrc/grid_knn.cu:grid_knn_kernel takes one cell a block of 8 warps; a
+# warp ranks one query of the cell at a time against the block's candidates
+# (its 27 cells, the cell itself first, then kOrder), in steps of 128: lane l
+# takes the candidates t0 + 4l .. t0 + 4l + 3. A pair passes the pre-test
+# when its distance is not above the query's threshold; a step whose pairs
+# all fail costs one vote. A passing pair below the query's k-th packed
+# value is queued, and 32 queued values are merged into the list at once.
+
+GRID_RUN = 4         # kRun: consecutive candidates a lane ranks a step
+GRID_BATCH = 32      # kBatch: queued values a merge takes
+# the cell offsets of a block in the kernel's order (kOrder), packed
+# (dx + 1) * 9 + (dy + 1) * 3 + (dz + 1): the cell, its faces, edges, corners
+GRID_ORDER = (13, 4, 10, 12, 14, 16, 22, 1, 3, 5, 7, 9, 11, 15, 17, 19, 21, 23, 25, 0, 2, 6,
+              8, 18, 20, 24, 26)
+_EMPTY = torch.iinfo(torch.int64).max
+
+
+def grid_knn_cells_model(coors, cell_start, cell_nodes, k, gdim):
+    """The traversal of ``grid_knn_kernel`` in torch: (vals, idx) as
+    ``grid_knn_cells_plain`` defines them, and the counts of the run.
+
+    It takes the kernel's steps for every query of every cell at once: the
+    block's candidates in the kernel's order (+inf past the last), in each
+    step lane l's candidates t0 + 4l + q, the pre-test of every pair against
+    the query's threshold (the float of its k-th packed value; NaN, so every
+    pair passes, while the list is not full), one vote a warp step, then
+    column q by column q the exact test of each flagged lane's packed value
+    ``(bits(r) << 32) | id`` against the k-th, the values that pass appended
+    to the query's queue in lane order, and a merge of the queue's last 32
+    into the list whenever it holds 32; at the end a merge of what is left.
+    The counts: warp steps (``steps``), those that took the insertion path
+    (``votes``) and list merges (``merges``)."""
+    b, n, _ = coors.shape
+    G = gdim ** 3
+    dev = coors.device
+    x = coors.float()
+    table = _cell_table(cell_start.long(), cell_nodes.long(), n)         # (b, G + 1, 128)
+    nbrs = neighbor_cells(gdim, dev)[:, list(GRID_ORDER)]                # (G, 27)
+    bi = torch.arange(b, device=dev)[:, None, None]
+    cand = table[bi, nbrs[None]].reshape(b, G, 27 * M_CAP)                # n: an empty slot
+    # the real candidates first, in order (a stable sort moves the empty slots last)
+    cand = torch.gather(cand, 2, torch.sort((cand == n).to(torch.int8), dim=2,
+                                            stable=True).indices)
+    total = (cand < n).sum(dim=2)                                        # (b, G)
+    steps_total = 27 * M_CAP // (32 * GRID_RUN)
+    x_pad = torch.cat([x, x.new_full((b, 1, 3), math.inf)], dim=1)
+    q_count = (cell_start[:, 1:G + 1] - cell_start[:, :G]).long().clamp(0, M_CAP)   # (b, G)
+    slot = torch.arange(M_CAP, device=dev)
+    live = slot < q_count[..., None]                                     # (b, G, 128)
+    xi = x_pad[bi, cand[..., :M_CAP]]                                    # (b, G, 128, 3)
+    lists = torch.full((b, G, M_CAP, k), _EMPTY, dtype=torch.int64, device=dev)
+    cap = 2 * GRID_BATCH                                                 # kQueue
+    queue = torch.full((b, G, M_CAP, cap + 1), _EMPTY, dtype=torch.int64, device=dev)
+    cnt = torch.zeros((b, G, M_CAP), dtype=torch.int64, device=dev)
+    counts = {"steps": 0, "votes": 0, "merges": 0}
+
+    def thresholds():
+        tau = lists[..., k - 1]
+        thr = _bits_as_float(tau >> 32)
+        return tau, torch.where(live, thr, -math.inf)
+
+    def merge(rows_mask, batch):
+        nonlocal lists
+        merged = torch.sort(torch.cat([lists, batch], dim=-1), dim=-1).values[..., :k]
+        lists = torch.where(rows_mask[..., None], merged, lists)
+        counts["merges"] += int(rows_mask.sum())
+
+    tau, thr = thresholds()
+    for st in range(steps_total):
+        t0 = st * 32 * GRID_RUN
+        pos = t0 + torch.arange(32 * GRID_RUN, device=dev)               # lane l, run q: 4l + q
+        active = t0 < total                                              # (b, G): the block steps
+        ids = cand[..., t0:t0 + 32 * GRID_RUN]                           # (b, G, 128)
+        xj = x_pad[bi, ids]                                              # +inf past the last
+        dist = sum_of_squares(xi[:, :, :, None, :] - xj[:, :, None, :, :])   # (b, G, 128, 128)
+        lane_flag = (~(dist > thr[..., None])).view(b, G, M_CAP, 32, GRID_RUN).any(dim=-1)
+        lane_flag &= active[..., None, None]
+        warp_steps = live & active[..., None]
+        vote = lane_flag.any(dim=-1)
+        counts["steps"] += int(warp_steps.sum())
+        counts["votes"] += int((vote & warp_steps).sum())
+        packed = (_u32(dist) << 32) | ids[:, :, None, :]
+        offered = lane_flag.repeat_interleave(GRID_RUN, dim=-1) & (pos < total[..., None])[
+            :, :, None, :]
+        for q in range(GRID_RUN):  # the row's values of column q, lanes in order
+            p = torch.where(offered[..., q::GRID_RUN], packed[..., q::GRID_RUN], _EMPTY)
+            take = p < tau[..., None]                                    # (b, G, 128, 32)
+            at = cnt[..., None] + torch.cumsum(take.long(), dim=-1) - 1
+            queue.scatter_(-1, torch.where(take, at, cap), p)            # the last: a bin
+            cnt += take.sum(dim=-1)
+            full = cnt >= GRID_BATCH
+            if bool(full.any()):
+                cnt = torch.where(full, cnt - GRID_BATCH, cnt)
+                batch = queue.gather(-1, cnt[..., None] + torch.arange(GRID_BATCH, device=dev))
+                merge(full, batch)
+                tau, thr = thresholds()
+    left = cnt > 0
+    if bool(left.any()):
+        batch = torch.where(torch.arange(GRID_BATCH, device=dev) < cnt[..., None],
+                            queue[..., :GRID_BATCH], _EMPTY)
+        merge(left, batch)
+    found = lists != _EMPTY
+    vals = torch.full((b, n + 1, k), math.inf, dtype=torch.float32, device=dev)
+    idx = torch.full((b, n + 1, k), n, dtype=torch.int64, device=dev)
+    out_rows = torch.where(live, cand[..., :M_CAP], n).reshape(b, -1)    # n: no row
+    vals[bi[..., 0], out_rows] = torch.where(found, _bits_as_float(lists >> 32), math.inf).reshape(
+        b, -1, k)
+    idx[bi[..., 0], out_rows] = torch.where(found, lists & 0xFFFFFFFF, n).reshape(b, -1, k)
+    vals[:, n], idx[:, n] = math.inf, n
+    return vals[:, :n].contiguous(), idx[:, :n].contiguous(), counts
+
+
+def _u32(t):
+    """The bits of a float32 tensor as an int64 in [0, 2^32)."""
+    return t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _bits_as_float(u):
+    """An int64 in [0, 2^32) as the float32 of those bits."""
+    return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32).view(torch.float32)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+
+
+def built_grid_plan() -> tuple[int, int, tuple[int, ...]]:
+    """(candidates a lane a step, queued values a merge takes, the order of
+    the 27 cells) of K7's launch, as the built source plans it
+    (``csrc/grid_knn.cu:grid_knn_plan``)."""
+    run, batch, order = _I(), _I(), (_I * 27)()
+    build.function("grid_knn", "grid_knn_plan", [ctypes.POINTER(_I)] * 3)(
+        ctypes.byref(run), ctypes.byref(batch), order)
+    return run.value, batch.value, tuple(order)
 
 
 def _launch_grid_knn_cells(coors, cell_start, cell_nodes, k, gdim):

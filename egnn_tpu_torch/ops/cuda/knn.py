@@ -27,10 +27,11 @@ versions and the reference's routing gates. Launches count into ``LAUNCH_COUNTS`
   by x, with a margin per row that certifies it.
 
 K1 and K3 run ``csrc/knn_select.cu`` (one template, ``kPayload`` on or
-off), K4, K5, K6, K8 and K9 ``csrc/knn_select_large.cu``: K4-K6 one
-template that ranks several rows a warp (the ranking key its parameter;
-``knn_select_block_model`` is its traversal on the CPU), K8 and K9 one that
-ranks a row a warp (the window its parameter); the sources' headers say what
+off), K4, K5, K6, K8 and K9 ``csrc/knn_select_large.cu``: K4-K6 and K8 one
+template that ranks several rows a warp (the ranking key its parameter, and
+for K8 the query rows and several warps a row;
+``knn_select_block_model`` is its traversal on the CPU), K9 one that
+ranks a row a warp; the sources' headers say what
 bounds each on the card and how the design meets that. A wrapper given a CUDA tensor launches its kernel
 or raises; given a CPU tensor it runs the plain version, which the tests
 hold against the JAX package and ``chip_smoke.py`` holds the kernel against
@@ -265,13 +266,18 @@ def _row_thresholds(tau, shift, fill_key):
 
 
 def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, rows: int = 4,
-                           tile: Optional[int] = None):
+                           tile: Optional[int] = None, queries=None, q_mask=None,
+                           stripes: int = 1):
     """The traversal of ``knn_select_block_kernel`` in torch: K4 (``shift``
     0, (vals float32, idx int64)), K5 (12) or K6 (14) ((keys int32, cols
-    int64)), each (b, n, k), and the counts of the run.
+    int64)), each (b, n, k), and the counts of the run; with ``queries``
+    (b, R, c) and their mask ``q_mask``, K8: the query rows against the
+    points, (vals, idx) each (b, R, k).
 
     It takes the kernel's steps: ``rows`` rows a warp and 8 warps a block
-    (rows past n in the last block rank nothing), tiles of ``tile`` columns
+    (rows past the last in the last block rank nothing), ``stripes`` warps a
+    group of rows (K8; warp s of a group takes the steps s, s + stripes, ...
+    of every tile into lists of its own), tiles of ``tile`` columns
     (the kernel's ``block_tile(c)`` by default; +inf coordinates past the
     last column), in each step lane l's columns
     t0 + 4l + q, the pre-test of every pair against its row's thresholds
@@ -280,22 +286,30 @@ def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, ro
     that a lane flagged the lanes' offers of their packed values
     ``(key << 32) | j`` (ordered here as a signed int64), column q by column
     q, each a merge into the row's ascending list, and the row's new
-    thresholds. The counts: warp steps (``steps``) and those that took the
-    insertion path (``votes``)."""
+    thresholds; at the end, with stripes, the group's first warp merges the
+    others' lists into its own. The counts: warp steps (``steps``), those
+    that took the insertion path (``votes``) and list merges (``merges``)."""
     b, n, c = coors.shape
     x = coors.float()
     dev = x.device
+    if queries is not None and adj_mat is not None:
+        raise ValueError("the query rows take no adjacency")
+    if (BLOCK_WARPS // stripes) * stripes != BLOCK_WARPS:
+        raise ValueError(f"stripes must divide {BLOCK_WARPS}; got {stripes}")
+    xq = x if queries is None else queries.float()
+    nq = xq.shape[1]
     tile = block_tile(c) if tile is None else tile
-    per_block = BLOCK_WARPS * rows
-    n_rows = -(-n // per_block) * per_block
+    per_block = BLOCK_WARPS // stripes * rows
+    n_rows = -(-nq // per_block) * per_block
     ar = torch.arange(n_rows, device=dev)
-    live = ar < n
+    live = ar < nq
     xi = torch.zeros(b, n_rows, c, dtype=torch.float32, device=dev)
-    xi[:, :n] = x
+    xi[:, :nq] = xq
     mask_i = torch.ones(b, n_rows, dtype=torch.bool, device=dev)
     if mask is not None:
-        mask_i[:, :n] = mask
-    lists = torch.full((b, n_rows, k), _I64_MAX, dtype=torch.int64, device=dev)
+        mask_i[:, :nq] = mask if queries is None else q_mask
+    # the lists of each row, one a stripe
+    lists = torch.full((b, n_rows, stripes, k), _I64_MAX, dtype=torch.int64, device=dev)
     sentinel = {12: PACKED_MASK_SENTINEL_TILED, 14: PACKED_MASK_SENTINEL}.get(shift)
     fill_key = int(_u32(torch.tensor(nb.MASKED_RANK_FILL, dtype=torch.float32))) ^ 0x80000000 \
         if shift == 0 else sentinel
@@ -304,6 +318,7 @@ def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, ro
     for j0 in range(0, n, tile):
         span = min(tile, n - j0)
         for t0 in range(0, span, 32 * BLOCK_RUN):
+            s = t0 // (32 * BLOCK_RUN) % stripes                       # the warp of the step
             cols = j0 + t0 + torch.arange(32 * BLOCK_RUN, device=dev)  # lane l, run q: 4l + q
             valid = cols < j0 + span
             cj = cols.clamp(max=n - 1)
@@ -321,9 +336,9 @@ def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, ro
                 special = eye | a
                 fv = torch.where(eye, -1.0, torch.where(a, 0.0, fv))
             # the pre-test of every pair, per lane (its four columns) and row
-            below = torch.where(masked, cols < mthr[..., None], ~(v > thr[..., None]))
-            below = torch.where(mask_i[..., None], below, (cols // BLOCK_RUN * BLOCK_RUN)
-                                < mthr[..., None])
+            thr_s, mthr_s = thr[..., s, None], mthr[..., s, None]
+            below = torch.where(masked, cols < mthr_s, ~(v > thr_s))
+            below = torch.where(mask_i[..., None], below, (cols // BLOCK_RUN * BLOCK_RUN) < mthr_s)
             lane_flag = (below | special).view(b, n_rows, 32, BLOCK_RUN).any(dim=-1)
             lane_flag = lane_flag & live[:, None]
             vote = lane_flag.any(dim=-1).view(b, -1, rows).any(dim=-1)
@@ -336,14 +351,17 @@ def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, ro
                 hi = torch.where(masked, sentinel, _u32(v) >> shift)
             p = ((hi - (1 << 31)) << 32) | cols
             offered = lane_flag.repeat_interleave(BLOCK_RUN, dim=-1) & valid
+            lst = lists[:, :, s]
             for q in range(BLOCK_RUN):  # the warp's offers of column q, lanes in order
                 offer = torch.where(offered[..., q::BLOCK_RUN], p[..., q::BLOCK_RUN], _I64_MAX)
-                lists = torch.sort(torch.cat([lists, offer], dim=-1), dim=-1).values[..., :k]
+                lst = torch.sort(torch.cat([lst, offer], dim=-1), dim=-1).values[..., :k]
+            lists[:, :, s] = lst
             thr, mthr = _row_thresholds(lists[..., k - 1], shift, fill_key)
-    lists = lists[:, :n]
+    # the stripes' lists merged (the union's top k)
+    lists = torch.sort(lists.flatten(2), dim=-1).values[:, :nq, :k]
     hi = (lists >> 32) + (1 << 31)
     lo = lists & 0xFFFFFFFF
-    counts = {"steps": steps, "votes": votes}
+    counts = {"steps": steps, "votes": votes, "merges": b * n_rows * (stripes - 1)}
     if shift == 0:
         bits = torch.where(hi >= 1 << 31, hi ^ 0x80000000, hi ^ 0xFFFFFFFF)
         return _as_i32(bits).view(torch.float32), lo, counts
@@ -457,6 +475,8 @@ _ENTRIES = {  # launch function -> (source, argument types)
                                                       _I, _I, _P, _P, _P]),
     "knn_select_block_plan": ("knn_select_large", [_I, _I, _I, _I, _I, _I,
                                                    ctypes.POINTER(_I), ctypes.POINTER(_I)]),
+    "knn_select_queries_plan": ("knn_select_large",
+                                [_I, _I, _I, _I, _I] + [ctypes.POINTER(_I)] * 3),
 }
 
 
@@ -474,6 +494,17 @@ def built_block_plan(b: int, n: int, c: int, k: int, sms: int,
     _entry("knn_select_block_plan")(b, n, c, k, int(adjacency), sms, ctypes.byref(rows),
                                     ctypes.byref(cols))
     return rows.value, cols.value
+
+
+def built_query_plan(b: int, r: int, c: int, k: int, sms: int) -> tuple[int, int, int]:
+    """(rows a warp, columns a lane a step, warps a row) of K8's launch for
+    r query rows at (b, c, k) on a card of ``sms`` SMs, as the built source
+    plans it (``csrc/knn_select_large.cu:stripes_a_row`` and
+    ``rows_a_warp``)."""
+    rows, cols, stripes = _I(), _I(), _I()
+    _entry("knn_select_queries_plan")(b, r, c, k, sms, ctypes.byref(rows), ctypes.byref(cols),
+                                      ctypes.byref(stripes))
+    return rows.value, cols.value, stripes.value
 
 
 def _check_inputs(coors, k, mask, adj_mat):

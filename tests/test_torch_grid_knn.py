@@ -22,6 +22,7 @@ from egnn_tpu.ops.pallas import grid_knn as jg
 from egnn_tpu.ops.pallas import knn as jk
 from egnn_tpu_torch.ops.cuda import grid_knn as G
 from egnn_tpu_torch.ops.cuda import knn as K
+from egnn_tpu_torch.ops.spatial import neighbor_cells
 
 
 def _j(x):
@@ -367,3 +368,86 @@ def test_window_kernel_refuses_a_window_without_k_columns():
     with pytest.raises(ValueError):
         K.knn_select_window(q, ranks, pts, ids, 4, 100)    # not a multiple of 128
     assert K.knn_select_window(q, ranks, pts, ids, 4, 256)[1].shape == (1, 8, 4)
+
+
+# ---------------------------------------------------------------------------
+# K7's traversal on the card (its CPU model)
+# ---------------------------------------------------------------------------
+
+
+def _model_counts_hold(counts, cell_start, gdim):
+    """The model's steps are every query's steps over its block; every
+    query merges at least once (its own node is a candidate)."""
+    cells = gdim ** 3
+    q_count = (cell_start[0, 1:cells + 1] - cell_start[0, :cells]).clamp(0, G.M_CAP)
+    nb = _block_candidates(cell_start, gdim)
+    steps = int((q_count * ((nb + 127) // 128)).sum())
+    assert counts["steps"] == steps
+    assert 0 < counts["votes"] <= counts["steps"]
+    assert counts["merges"] >= int(q_count.sum())
+
+
+def _block_candidates(cell_start, gdim):
+    """Real candidates of each cell's block: its 27 cells' first 128 nodes."""
+    cells = gdim ** 3
+    per_cell = (cell_start[0, 1:cells + 1] - cell_start[0, :cells]).clamp(0, G.M_CAP)
+    padded = torch.cat([per_cell, per_cell.new_zeros(1)])
+    return padded[neighbor_cells(gdim)].sum(dim=-1)
+
+
+@pytest.mark.parametrize("k", [1, 16, 32, 33, 48, 64, 65, 128])
+def test_grid_model_edges_match_plain(k):
+    """A cell of one node, a cell of exactly 128, cells beyond 128, nodes in
+    no cell, query counts that are no multiple of the warps, one to four
+    list slots: the model's steps give the plain version's selection bit for
+    bit."""
+    n, gdim = 900, 4
+    rng = np.random.RandomState(k)
+    coors = rng.rand(1, n, 3).astype(np.float32)
+    coors[0, 300:340] = coors[0, 7]               # a pile of ties at distance 0
+    counts = np.zeros((1, gdim ** 3 + 1), np.int64)
+    counts[0, [0, 1, 5, 21, 22, 42, 63]] = [1, 61, 128, 200, 150, 129, 221]
+    order = rng.permutation(n)[None]
+    cell_start, cell_nodes = G.cell_csr(_t(counts), _t(order))
+    v, i, cnt = G.grid_knn_cells_model(_t(coors), cell_start, cell_nodes, k, gdim)
+    pv, pi = G.grid_knn_cells_plain(_t(coors), cell_start, cell_nodes, k, gdim)
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+    _model_counts_hold(cnt, cell_start, gdim)
+    # the cell of one node ranks its block (cells 1 and 5 are its
+    # neighbours): itself, or a copy of it, at distance 0 first
+    node = int(order[0, 0])
+    assert v[0, node, 0] == 0 and torch.isfinite(v[0, node]).all()
+
+
+@pytest.mark.parametrize("seed,n,k,kind,with_mask", [
+    (0, 1024, 8, "uniform", False),
+    (1, 2048, 16, "gaussian", True),
+    (2, 1000, 5, "uniform", True),
+    (3, 1000, 6, "lattice", False),   # six neighbours at d^2 = 1: ties by node id
+    (4, 1024, 4, "pile", False),      # 128 copies of 8 sites: cells of exactly 128
+])
+def test_grid_model_matches_pallas(monkeypatch, seed, n, k, kind, with_mask):
+    """The whole grid selection with the model in place of K7's plain
+    version against the TPU kernel in interpret mode."""
+    if kind == "lattice":
+        coors, mask = _lattice(), None
+    elif kind == "pile":
+        base = np.random.RandomState(seed).rand(8, 3).astype(np.float32)
+        coors, mask = np.tile(base, (128, 1))[None], None
+    elif kind == "gaussian":
+        rng = np.random.RandomState(seed)
+        coors = (rng.randn(1, n, 3) * 3.0).astype(np.float32)
+        mask = rng.rand(1, n) > 0.1 if with_mask else None
+    else:
+        coors, mask = _uniform(seed, 1, n, with_mask=with_mask)
+    counts = []
+
+    def model(c, s, m, kk, gdim):
+        v, i, cnt = G.grid_knn_cells_model(c, s, m, kk, gdim)
+        counts.append(cnt)
+        return v, i
+
+    monkeypatch.setattr(G, "grid_knn_cells_plain", model)
+    jout, tout = _grid_both(coors, k, mask)
+    _assert_grid_same(jout, tout, exact_vals=kind in ("lattice", "pile"))
+    assert len(counts) == 1 and 0 < counts[0]["votes"] <= counts[0]["steps"]

@@ -477,3 +477,88 @@ def test_block_model_matches_plain(n, k, c, kind, with_mask, with_adj, rows, til
                                           for j0 in range(0, n, tile))
     assert 0 < counts["votes"] <= counts["steps"]
 
+
+
+# ---------------------------------------------------------------------------
+# K8 on the same traversal: the query rows, several warps a row
+# ---------------------------------------------------------------------------
+
+
+def _query_case(seed, n, R, kind, with_mask, c=3):
+    """A batch of two: the points, R query rows picked among them (repeats
+    allowed) and the mask on both sides."""
+    coors, _, _ = _case(seed, 2, n, c=c, kind=kind)
+    rng = np.random.RandomState(seed + 2)
+    mask = rng.rand(2, n) > 0.25 if with_mask else None
+    fidx = rng.randint(0, n, size=(2, R))
+    q = np.take_along_axis(coors, fidx[..., None], axis=1)
+    qm = None if mask is None else np.take_along_axis(mask, fidx, axis=1)
+    return coors, mask, q, qm, fidx
+
+
+@pytest.mark.parametrize("n,R,k,kind,with_mask,rows,stripes", [
+    (20000, 1, 16, "float", True, 1, 8),     # one row; stripes of 20 and 19 steps
+    (20000, 5, 16, "float", False, 1, 8),    # fewer rows than a block holds
+    (20000, 700, 16, "dyadic", True, 2, 8),  # masks on both sides
+    (3000, 37, 16, "int", True, 4, 4),       # integer ties across the stripes
+    (2100, 64, 128, "float", True, 1, 8),    # four list slots a lane
+    (5000, 100, 48, "int", True, 2, 2),      # two
+    (4000, 300, 16, "float", False, 4, 1),   # one warp a row
+])
+def test_query_model_matches_plain(n, R, k, kind, with_mask, rows, stripes):
+    """K8's steps (rows a warp, stripes of every tile a warp each, the
+    pre-test, one vote a warp step, the offers, the stripes' lists merged)
+    give the plain version's selection bit for bit."""
+    coors, mask, q, qm, _ = _query_case(n + R + k, n, R, kind, with_mask)
+    v, i, counts = K.knn_select_block_model(_t(coors), k, _t(mask), None, 0, rows, None, _t(q),
+                                            _t(qm), stripes)
+    pv, pi = K.knn_select_queries_plain(_t(q), _t(coors), k, _t(qm), _t(mask))
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+    n_rows = -(-R // (8 // stripes * rows)) * (8 // stripes * rows)
+    tile = K.block_tile(3)
+    steps = sum(-(-min(tile, n - j0) // 128) for j0 in range(0, n, tile))
+    assert counts["steps"] == 2 * n_rows // rows * steps
+    assert 0 < counts["votes"] <= counts["steps"]
+    assert counts["merges"] == 2 * n_rows * (stripes - 1)
+
+
+@pytest.mark.parametrize("n,R,k,kind,with_mask,rows,stripes", [
+    (300, 40, 6, "float", True, 2, 2),       # three steps: stripes of two and one
+    (512, 9, 16, "float", False, 1, 4),
+    (256, 128, 8, "int", True, 4, 8),        # ties; eight stripes, six of them empty
+])
+def test_query_model_matches_pallas(n, R, k, kind, with_mask, rows, stripes):
+    coors, mask, q, qm, fidx = _query_case(n + R, n, R, kind, with_mask)
+    jv, ji = jk.knn_select_queries_pallas(_j(q), _j(coors), k, q_mask=_j(qm), p_mask=_j(mask),
+                                          interpret=True)
+    v, i, _ = K.knn_select_block_model(_t(coors), k, _t(mask), None, 0, rows, None, _t(q), _t(qm),
+                                       stripes)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    tol = dict(rtol=0, atol=0) if kind == "int" else dict(rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), **tol)
+    # the rows are K4's rows, bit for bit
+    ev, ei = K.knn_select_plain(_t(coors), k, _t(mask))
+    pick = _t(fidx)[..., None].expand(2, R, k)
+    assert torch.equal(i, torch.gather(ei, 1, pick)) and torch.equal(v, torch.gather(ev, 1, pick))
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_query_model_matches_plain_at_c5(with_mask):
+    """c != 3: one row a warp through the predicated loop over 512-column
+    tiles, as K4 takes it, bit for bit with the plain version."""
+    n, R, k = 1300, 21, 16
+    coors, mask, q, qm, _ = _query_case(n + R, n, R, "dyadic", with_mask, c=5)
+    v, i, counts = K.knn_select_block_model(_t(coors), k, _t(mask), None, 0, 1, None, _t(q),
+                                            _t(qm))
+    pv, pi = K.knn_select_queries_plain(_t(q), _t(coors), k, _t(qm), _t(mask))
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+    assert 0 < counts["votes"] <= counts["steps"]
+
+
+def test_query_model_refuses_an_adjacency():
+    coors = torch.zeros(1, 16, 3)
+    with pytest.raises(ValueError):
+        K.knn_select_block_model(coors, 2, None, torch.zeros(1, 16, 16, dtype=torch.bool),
+                                 queries=coors[:, :4])
+    with pytest.raises(ValueError):
+        K.knn_select_block_model(coors, 2, queries=coors[:, :4], stripes=3)
