@@ -12,7 +12,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure raises and exits non-zero; nothing is skipped):
 1. the card's name and power limit; the kernels' build time;
 2. kernels: K1 (kNN selection + payload gather) and K3 (selection only) on
-   the card against their plain versions, bitwise, over the cases below;
+   the card against their plain versions and their CPU model
+   (``knn_select_block_model`` with stripes and K1's payload) at the plan
+   the source makes, bitwise, over the cases below (among them c = 5 and
+   NaN rankings, whose values meet the CPU model's as NaN: the card writes
+   the canonical NaN);
 3. serving: EGNNNetwork at anchor-3 width (depth 3, dim 32, 21 tokens, 1024
    positions and nodes, kNN 8, node mask, chain adjacency, norm_coors, clamp
    2.0; random weights from a seed) answers requests at b=1 and b=8; the
@@ -21,8 +25,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 4. selection: the neighbour-list entry point ``knn_select`` answers the same
    requests through K3;
 5. timing: forward latency (CUDA events around the call), its device time
-   (a CUDA graph replay) and kernel time by name (torch.profiler); each
-   kernel beside its plain version and its bound;
+   (a CUDA graph replay) and kernel time by name (torch.profiler); K1 and K3
+   at b=1 and K1 at b=8, each beside its plain version, its bound and its
+   plan (rows a warp, warps a row);
 6. K2 (segment sum) on the card over the cases below (K1's ids at b=1 and
    b=8, padding, hubs up to 2^17 edges, magnitudes 1e-30 to 1e30 that
    cancel, denormal inputs and sums, NaN and infinities): three launches
@@ -68,10 +73,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    points) against their plain versions, bitwise, over the cases below
    (among them K7 on hand-made cells of 1, 61, 128, 129 and more nodes at
    one to four list slots, K8 at R = 1 and 5, with stripes of unequal
-   length, k = 48 and 128); K7 and K8 against their CPU models
-   (``grid_knn_cells_model``, ``knn_select_block_model``) at the plan the
-   source makes, which ranks as many candidates a lane and merges as many
-   values as the models;
+   length, k = 48 and 128, K9 with windows that start on any column); K7,
+   K8 and K9 against their CPU models (``grid_knn_cells_model``,
+   ``knn_select_block_model``) at the plan the source makes, which ranks as
+   many candidates a lane and merges as many values as the models;
 18. the grid route on the card: ``"grid"`` and ``"auto"`` give K4's
    selection through every arm of the repair ladder, shown by the launches:
    certified whole (K7), direct repair (K7, K8), the window tier (K7, K9,
@@ -82,7 +87,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    equivariance, the fwd+bwd and denoising train steps;
 20. timing of K7, K8, K9 beside their plain versions and bounds, K7 at
    k = 128, K8 at R = n/4 and on the rows K9 leaves on the heavy cloud too;
-   ptxas's registers and spills of K7's and K8's instantiations;
+   ptxas's registers and spills of K7's instantiations and of those of
+   ``knn_select_block_kernel`` that K1, K3, K8 and K9 launch;
 21. the fused pair pipeline's kernels: K10f and K10b (pre-gathered rows), K11f
    and K11b (gathering inside) against their plain versions in float64 over
    the cases below (among them the backward's register blocks at their
@@ -99,7 +105,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    and b=8 against the unfused network and against the CPU, equivariance,
    train steps with their launch counts, the loss falling on one batch, one
    step against the CPU; latencies beside the unfused network's;
-23. net65k with ``fused_pairs=True``: path C (forwards, fwd+bwd, train steps,
+23. net65k with ``fused_pairs=True``: path C (forwards on the uniform, the
+   Gaussian (K8) and the heavier-tailed cloud (K9), fwd+bwd, train steps,
    peak memory) and path A (kc = 20 slots under the winner mask: a forward
    and a train step), each beside the unfused path's numbers of this run;
    the fwd+bwd's coordinate gradient (also without ``norm_coors``) and one
@@ -212,14 +219,15 @@ def ptxas_kernels(build, source, keep):
     return [tuple(r) for r in rows]
 
 
-def knn_inputs(torch, b, n, k, with_mask, with_adj, ties, seed):
-    """coors, mask, adj (b, n, n; an expanded chain when b == 1, else a chain
-    plus random edges per graph) and the [coors | mask | feats] table."""
+def knn_inputs(torch, b, n, k, with_mask, with_adj, ties, seed, c=3):
+    """coors (b, n, c), mask, adj (b, n, n; an expanded chain when b == 1,
+    else a chain plus random edges per graph) and the [coors | mask | feats]
+    table."""
     g = torch.Generator().manual_seed(seed)
     if ties:  # integer grid: every distance ties many times over
-        coors = torch.randint(-2, 3, (b, n, 3), generator=g).float()
+        coors = torch.randint(-2, 3, (b, n, c), generator=g).float()
     else:
-        coors = 3.0 * torch.randn(b, n, 3, generator=g)
+        coors = 3.0 * torch.randn(b, n, c, generator=g)
     feats = torch.randn(b, n, DIM, generator=g)
     mask = adj = None
     parts = [coors]
@@ -238,6 +246,22 @@ def knn_inputs(torch, b, n, k, with_mask, with_adj, ties, seed):
             adj = chain | extra | extra.transpose(1, 2)
     cuda = lambda t: None if t is None else t.cuda()  # noqa: E731
     return cuda(coors), cuda(mask), cuda(adj), cuda(torch.cat(parts, dim=-1))
+
+
+def finite_err(torch, a, b) -> float:
+    """The largest |a - b| over the entries where it is finite (NaN rankings
+    are held by their bits alone)."""
+    d = (a - b).abs()
+    d = d[torch.isfinite(d)]
+    return d.max().item() if d.numel() else 0.0
+
+
+def same_bits_or_nan(torch, a, b) -> bool:
+    """``same_bits`` with a NaN equal to any NaN: the card writes the
+    canonical NaN where the CPU keeps another payload."""
+    if a.shape != b.shape or not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return False
+    return same_bits(torch, torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
 
 
 def same_bits(torch, a, b) -> bool:
@@ -690,34 +714,56 @@ def main() -> int:
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, {build.BUILD_DIR.name})")
 
-    # ---- 2. kernels against their plain versions, bitwise ----
-    cases = [  # name, b, n, k, mask, adj, ties
-        ("anchor", 1, N, KNN, True, True, False),
-        ("b4", 4, N, KNN, True, True, False),
-        ("ragged_n1000", 1, 1000, KNN, True, True, False),
-        ("no_mask_no_adj", 1, N, KNN, False, False, False),
-        ("tie_pileup", 1, N, KNN, True, True, True),
-        ("k1", 1, N, 1, True, True, False),
-        ("k128", 1, N, 128, True, True, False),
+    # ---- 2. kernels against their plain versions and CPU model, bitwise ----
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def cpu(t):
+        return None if t is None else t.cpu()
+
+    cases = [  # name, b, n, k, mask, adj, ties, c
+        ("anchor", 1, N, KNN, True, True, False, 3),
+        ("b4", 4, N, KNN, True, True, False, 3),
+        ("ragged_n1000", 1, 1000, KNN, True, True, False, 3),
+        ("no_mask_no_adj", 1, N, KNN, False, False, False, 3),
+        ("tie_pileup", 1, N, KNN, True, True, True, 3),
+        ("k1", 1, N, 1, True, True, False, 3),
+        ("k128", 1, N, 128, True, True, False, 3),
+        ("c5", 1, N, KNN, True, True, False, 5),            # the predicated loop
+        # a NaN coordinate: its row and its column rank NaN, above +inf; every
+        # row still ends with k real columns (the kernel's header says why)
+        ("nan_rankings", 1, N, KNN, False, True, False, 3),
     ]
     max_err = {"knn_select_gather": 0.0, "knn_select": 0.0}
-    for i, (name, b, n, k, wm, wa, ties) in enumerate(cases):
-        coors, mask, adj, table = knn_inputs(torch, b, n, k, wm, wa, ties, SEED + i)
+    for i, (name, b, n, k, wm, wa, ties, c) in enumerate(cases):
+        coors, mask, adj, table = knn_inputs(torch, b, n, k, wm, wa, ties, SEED + i, c)
+        if name == "nan_rankings":
+            coors[0, 17, 1] = math.nan
         v1, i1, r1 = K.knn_select_gather(coors, k, table, mask, adj)
         v3, i3 = K.knn_select(coors, k, mask, adj)
         pv, pi, pr = K.knn_select_gather_plain(coors, k, table, mask, adj)
         torch.cuda.synchronize()
         ok1 = same_bits(torch, v1, pv) and torch.equal(i1, pi) and same_bits(torch, r1, pr)
         ok3 = same_bits(torch, v3, pv) and torch.equal(i3, pi)
-        e1 = max((v1 - pv).abs().max().item(), (r1 - pr).abs().max().item())
-        e3 = (v3 - pv).abs().max().item()
+        e1 = max(finite_err(torch, v1, pv), finite_err(torch, r1, pr))
+        e3 = finite_err(torch, v3, pv)
         max_err["knn_select_gather"] = max(max_err["knn_select_gather"], e1)
         max_err["knn_select"] = max(max_err["knn_select"], e3)
-        print(f"kernel case {name}: b={b} n={n} k={k} tw={table.shape[-1]} "
-              f"mask={wm} adj={wa} ties={ties}: K1 bitwise={ok1} (max err {e1}), "
-              f"K3 bitwise={ok3} (max err {e3})")
-        if not (ok1 and ok3):
-            raise AssertionError(f"kernel case {name}: kernel and plain version differ")
+        # the CPU model of the traversal at the source's plan
+        rows, cols, stripes = K.built_plan("knn_select_gather", b, n, c, k, sms, adjacency=wa)
+        if cols != K.BLOCK_RUN:
+            raise AssertionError(f"the source ranks {cols} columns a lane a step, the CPU model "
+                                 f"{K.BLOCK_RUN}")
+        mv, mi, mr, mcounts = K.knn_select_block_model(
+            coors.cpu(), k, cpu(mask), cpu(adj), 0, rows, None, stripes=stripes, table=table.cpu())
+        ok_model = (same_bits_or_nan(torch, v1.cpu(), mv) and torch.equal(i1.cpu(), mi)
+                    and same_bits(torch, r1.cpu(), mr))
+        print(f"kernel case {name}: b={b} n={n} c={c} k={k} tw={table.shape[-1]} mask={wm} "
+              f"adj={wa} ties={ties}, {rows} rows a warp, {stripes} warps a row: K1 "
+              f"bitwise={ok1} (max err {e1}), K3 bitwise={ok3} (max err {e3}); the CPU model's "
+              f"bitwise={ok_model} ({mcounts})")
+        if not (ok1 and ok3 and ok_model):
+            raise AssertionError(f"kernel case {name}: kernel, plain version and CPU model "
+                                 "differ")
 
     # ---- 3. serving the anchor-3 forward ----
     net = EGNNNetwork(
@@ -793,42 +839,49 @@ def main() -> int:
                   f"(CUDA graph replay), device busy {dev / ms:.3f} of the call")
         profile_forward(torch, lambda: serve(requests[0]))
 
-        coors, mask, adj, table = knn_inputs(torch, 1, N, KNN, True, True, False, SEED)
-        b, n, c = coors.shape
-        tw = table.shape[-1]
-        adj_bytes = n * n  # one (n, n) bool chain, expanded over the batch
         kernels = []
-        for name, fn, plain, width, replaces in (
-            ("knn_select_gather",
-             lambda: K.knn_select_gather(coors, KNN, table, mask, adj),
-             lambda: K.knn_select_gather_plain(coors, KNN, table, mask, adj),
-             tw, "egnn_tpu/ops/pallas/knn.py:466"),
-            ("knn_select",
-             lambda: K.knn_select(coors, KNN, mask, adj),
-             lambda: K.knn_select_plain(coors, KNN, mask, adj),
-             0, "egnn_tpu/ops/pallas/knn.py:203"),
-        ):
-            ms_plain_a = device_ms(torch, plain)
-            ms_a = device_ms(torch, fn)
-            ms_b = device_ms(torch, fn)
-            ms_plain_b = device_ms(torch, plain)
-            bound_ms, bound_by = knn_bound(b, n, c, KNN, width, True, adj_bytes)
-            launches = (serving_counts if name == "knn_select_gather"
-                        else selection_counts)[name]
-            kernels.append({
-                "name": name, "route": "cuda",
-                "source": "egnn_tpu_torch/csrc/knn_select.cu",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max_err[name],
-                "ms": min(ms_a, ms_b), "plain_ms": min(ms_plain_a, ms_plain_b),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                # no single PyTorch call computes masked kNN with these fills
-                # and this tie order
-                "library_ms": None,
-            })
-            print(f"timing {name} at b={b} n={n} k={KNN} tw={width}: kernel "
-                  f"{ms_a:.5f}/{ms_b:.5f} ms, plain {ms_plain_a:.5f}/{ms_plain_b:.5f} ms, "
-                  f"bound {bound_ms:.6f} ms ({bound_by}); no library call computes it")
+        # b=1 first (the JSON line's rows), then K1 at b=8 (its own adjacencies)
+        for b in (1, 8):
+            coors, mask, adj, table = knn_inputs(torch, b, N, KNN, True, True, False, SEED)
+            n, c = coors.shape[1:]
+            tw = table.shape[-1]
+            # b=1: one (n, n) bool chain, expanded over the batch; b=8: b of them
+            adj_bytes = n * n * (1 if b == 1 else b)
+            for name, fn, plain, width, replaces in (
+                ("knn_select_gather",
+                 lambda: K.knn_select_gather(coors, KNN, table, mask, adj),
+                 lambda: K.knn_select_gather_plain(coors, KNN, table, mask, adj),
+                 tw, "egnn_tpu/ops/pallas/knn.py:466"),
+                ("knn_select",
+                 lambda: K.knn_select(coors, KNN, mask, adj),
+                 lambda: K.knn_select_plain(coors, KNN, mask, adj),
+                 0, "egnn_tpu/ops/pallas/knn.py:203"),
+            )[:2 if b == 1 else 1]:
+                ms_plain_a = device_ms(torch, plain)
+                ms_a = device_ms(torch, fn)
+                ms_b = device_ms(torch, fn)
+                ms_plain_b = device_ms(torch, plain)
+                bound_ms, bound_by = knn_bound(b, n, c, KNN, width, True, adj_bytes)
+                rows, _, stripes = K.built_plan(name, b, n, c, KNN, sms, adjacency=True)
+                print(f"timing {name} at b={b} n={n} k={KNN} tw={width}, {rows} rows a warp, "
+                      f"{stripes} warps a row: kernel {ms_a:.5f}/{ms_b:.5f} ms, plain "
+                      f"{ms_plain_a:.5f}/{ms_plain_b:.5f} ms, bound {bound_ms:.6f} ms "
+                      f"({bound_by}); no library call computes it")
+                if b > 1:
+                    continue
+                launches = (serving_counts if name == "knn_select_gather"
+                            else selection_counts)[name]
+                kernels.append({
+                    "name": name, "route": "cuda",
+                    "source": "egnn_tpu_torch/csrc/knn_select_large.cu",
+                    "replaces": replaces, "launches": launches,
+                    "max_abs_err": max_err[name],
+                    "ms": min(ms_a, ms_b), "plain_ms": min(ms_plain_a, ms_plain_b),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    # no single PyTorch call computes masked kNN with these fills
+                    # and this tie order
+                    "library_ms": None,
+                })
 
     # ---- 6. K2 against its plain version: repeatable, within its error ----
     g = torch.Generator().manual_seed(SEED + 20)
@@ -1081,16 +1134,15 @@ def main() -> int:
     def chunk(n):
         return max(1, (1 << 27) // n)
 
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-
     def block_plan(n, c, k, adjacency=False):
         """K4-K6's launch plan (rows a warp, columns a lane a step) as the
         built source computes it; the CPU model of the traversal
-        (``knn_select_block_model``) must rank as many columns a lane."""
-        rows, cols = K.built_block_plan(1, n, c, k, sms, adjacency)
-        if cols != K.BLOCK_RUN:
-            raise AssertionError(f"the source ranks {cols} columns a lane a step, the CPU "
-                                 f"model {K.BLOCK_RUN}")
+        (``knn_select_block_model``) must rank as many columns a lane, and
+        K4-K6 take one warp a row."""
+        rows, cols, stripes = K.built_plan("knn_select_tiled", 1, n, c, k, sms, adjacency)
+        if cols != K.BLOCK_RUN or stripes != 1:
+            raise AssertionError(f"the source ranks {cols} columns a lane a step at {stripes} "
+                                 f"warps a row, the CPU model {K.BLOCK_RUN} at 1")
         return rows, cols
 
     def case_mask(kind, n, seed):
@@ -1764,7 +1816,7 @@ def main() -> int:
             ix, take_rows(ri, fidx))
         err = (v - pv).abs().max().item()
         max_err["knn_select_queries"] = max(max_err["knn_select_queries"], err)
-        rows, cols, stripes = K.built_query_plan(1, r, c, k, sms)
+        rows, cols, stripes = K.built_plan("knn_select_queries", 1, r, c, k, sms)
         if cols != K.BLOCK_RUN:
             raise AssertionError(f"K8's source ranks {cols} columns a lane a step, the CPU model "
                                  f"{K.BLOCK_RUN}")
@@ -1782,7 +1834,7 @@ def main() -> int:
         fidx = pick_rows(None, n, r, SEED + 136)
         q, qm = take_rows(coors, fidx), (None if mask is None else take_rows(mask, fidx))
         v, ix = K.knn_select_queries(q, coors, k, qm, mask)
-        rows, _, stripes = K.built_query_plan(1, r, 3, k, sms)
+        rows, _, stripes = K.built_plan("knn_select_queries", 1, r, 3, k, sms)
         mv, mi, mcounts = K.knn_select_block_model(
             coors.cpu(), k, None if mask is None else mask.cpu(), None, 0, rows, None, q.cpu(),
             None if qm is None else qm.cpu(), stripes)
@@ -1831,13 +1883,38 @@ def main() -> int:
             ix[cert], take_rows(ri, fidx)[cert])
         err = (v - pv).abs().max().item()
         max_err["knn_select_window"] = max(max_err["knn_select_window"], err)
-        print(f"K9 case {name}: n={n} k={k} R={r} W={w} cloud={kind} mask={wm}: vals, idx and "
-              f"margin bitwise={ok} (max err {err}); its margin certifies "
+        ti = K._pick_ti_window(w, K._lane_pad(n), r)
+        rows, _, stripes = K.built_plan("knn_select_window", 1, r, 3, k, sms, ti=ti)
+        print(f"K9 case {name}: n={n} k={k} R={r} W={w} cloud={kind} mask={wm}, groups of {ti} "
+              f"rows, {rows} rows a warp, {stripes} warps a row: vals, idx and margin "
+              f"bitwise={ok} (max err {err}); its margin certifies "
               f"{cert.float().mean().item():.4f} of the rows, which equal K4's "
               f"bitwise={rows_of_k4}")
         if not (ok and rows_of_k4):
             raise AssertionError(f"K9 case {name}: kernel and plain version differ, or a "
                                  "certified row differs from K4's")
+        if name in ("n20000_mask", "ties"):
+            # the CPU model of K9's traversal at the source's plan, and windows
+            # that start on any column: the kernel against the plain selection
+            # at the same starts
+            ti, starts, _ = K._window_plan(q, qr, pts, k, w, pm)
+            mv, mi, mcounts = K.knn_select_block_model(
+                pts.cpu(), k, cpu(pm), None, 0, rows, None, q.cpu(), None, stripes,
+                window=(starts.cpu(), ti, w, order.cpu()))
+            ok_model = same_bits(torch, v.cpu(), mv) and torch.equal(ix.cpu(), mi)
+            g_start = torch.Generator(device="cuda").manual_seed(SEED + 158 + i)
+            odd = torch.randint(0, n - w // 2, starts.shape, generator=g_start, device="cuda")
+            odd[0, :3] = torch.tensor([1, 2, 3], device="cuda")
+            ov, oi = K._launch_window(q, pts, order, k, w, pm, ti, odd)
+            opv, opi = K._window_select_plain(q.float(), pts, order, k, w, pm, ti, odd,
+                                              max(1, (1 << 25) // w))
+            ok_odd = same_bits(torch, ov, opv) and torch.equal(oi, opi)
+            print(f"K9 case {name}: the CPU model's bitwise={ok_model} ({mcounts}); at "
+                  f"{odd.shape[1]} windows from columns {odd[0, :6].tolist()}...: "
+                  f"bitwise={ok_odd}")
+            if not (ok_model and ok_odd):
+                raise AssertionError(f"K9 case {name}: kernel and CPU model differ, or a window "
+                                     "from an odd column differs from the plain selection")
 
     # K8 and K9 on the batch of two
     fidx = torch.cat([pick_rows(pair_mask[bi:bi + 1], 8192, 700, SEED + 113 + bi)
@@ -1991,7 +2068,9 @@ def main() -> int:
     print(f"timing grid_knn_cells at n={N_A} k=128 gdim={gdim} (uniform): kernel {ms_k128:.5f} "
           f"ms, bound {b128[0]:.6f} ms ({b128[1]})")
     for source, keep in (("grid_knn", r"grid_knn_kernel"),
-                         ("knn_select_large", r"knn_select_block_kernel.*Lb1EE")):
+                         # the c = 3 instantiations of K1 and K3, K8, K9 (the last
+                         # template argument: 1, 2, 3)
+                         ("knn_select_large", r"knn_select_block_kernel.*Li3ELb.ELb.ELi[123]EE")):
         for name, regs, st, ld in ptxas_kernels(build, source, keep):
             print(f"ptxas {name}: {regs} registers, spill stores {st} B, spill loads {ld} B")
     with torch.inference_mode():
@@ -2031,22 +2110,26 @@ def main() -> int:
                               trials=5)
             bq4 = pairs_bound(12 * rq + 12 * N_A + 12 * rq * KNN_A, rq * N_A)
             print(f"timing knn_select_queries at R={rq} rows of n={N_A}, k={KNN_A} ({kind}), "
-                  f"{K.built_query_plan(1, rq, 3, KNN_A, sms)} (rows a warp, columns a lane, "
-                  f"warps a row): kernel {ms_q4:.5f} ms, bound {bq4[0]:.6f} ms ({bq4[1]})")
+                  f"{K.built_plan('knn_select_queries', 1, rq, 3, KNN_A, sms)} (rows a warp, "
+                  f"columns a lane, warps a row): kernel {ms_q4:.5f} ms, bound {bq4[0]:.6f} ms "
+                  f"({bq4[1]})")
         else:
             w = N_A // 4
             q, qr, pts, order, _, _ = window_inputs(c_kind, None, fidx)
+            ti = K._pick_ti_window(w, K._lane_pad(N_A), r)
+            rows, _, stripes = K.built_plan(name, 1, r, 3, KNN_A, sms, ti=ti)
             time_rows_kernel(
                 name, replaces, "egnn_tpu_torch/csrc/knn_select_large.cu",
                 f"R={r} rows, W={w} of n={N_A}, k={KNN_A} ({kind}; the window's starts and "
-                "the margins, computed in torch, included)",
+                f"the margins, computed in torch, included), groups of {ti} rows, {rows} rows "
+                f"a warp, {stripes} warps a row",
                 lambda: K.knn_select_window(q, qr, pts, order, KNN_A, w),
                 lambda: K.knn_select_window_plain(q, qr, pts, order, KNN_A, w,
                                                   row_chunk=max(1, (1 << 25) // w)),
                 # queries, ranks, points, ids; vals, idx, margin
                 12 * r + 8 * r + 12 * N_A + 8 * N_A + 12 * r * KNN_A + 4 * r, r * w)
             # K8 on the rows that K9's margin leaves, as the route hands them
-            # over: below two blocks an SM at one row a warp (stripes_a_row)
+            # over: below two blocks an SM at one row a warp (block_plan)
             handed = []
 
             def keep_queries(queries, *args, **kwargs):
@@ -2066,8 +2149,9 @@ def main() -> int:
                              trials=5)
             bh = pairs_bound(12 * rh + 12 * N_A + 12 * rh * KNN_A, rh * N_A)
             print(f"timing knn_select_queries at the R={rh} rows K9 leaves on the {kind} cloud, "
-                  f"{K.built_query_plan(1, rh, 3, KNN_A, sms)} (rows a warp, columns a lane, "
-                  f"warps a row): kernel {ms_h:.5f} ms, bound {bh[0]:.6f} ms ({bh[1]})")
+                  f"{K.built_plan('knn_select_queries', 1, rh, 3, KNN_A, sms)} (rows a warp, "
+                  f"columns a lane, warps a row): kernel {ms_h:.5f} ms, bound {bh[0]:.6f} ms "
+                  f"({bh[1]})")
 
 
     # ---- 21. K10 and K11 against their plain versions in float64 ----
@@ -2305,12 +2389,12 @@ def main() -> int:
 
     # ---- 23. net65k through the fused pair pipeline: path C, then path A ----
     path_cf_counts, path_cf_metrics = drive_net65k(
-        "C fused", "grid_knn_cells", ("uniform", "gaussian"),
-        idle=("knn_candidates_packed_tiled", "knn_select_tiled"), also=("knn_select_queries",),
-        fused=True)
+        "C fused", "grid_knn_cells", ("uniform", "gaussian", "heavy"),
+        idle=("knn_candidates_packed_tiled", "knn_select_tiled"),
+        also=("knn_select_queries", "knn_select_window"), fused=True)
 
     def beside(what, fused_m, plain_m):
-        for key in ("forward_uniform", "forward_gaussian", "step"):
+        for key in ("forward_uniform", "forward_gaussian", "forward_heavy", "step"):
             f, u = fused_m[key], plain_m[key]
             print(f"{what} {key}: fused {f[0]:.4f} ms (kernel time {f[1]:.4f} ms, {f[2]:.1f} "
                   f"launches) beside unfused {u[0]:.4f} ms ({u[1]:.4f} ms, {u[2]:.1f})")

@@ -1,10 +1,15 @@
-// kNN selection at any n for Hopper (sm_90a): the exact j-tiled selection,
-// the packed-key candidates, and the exact selection of a subset of query
-// rows against all points or against a window of them. Plain C interface,
-// loaded with ctypes (egnn_tpu_torch/ops/cuda/build.py,
-// egnn_tpu_torch/ops/cuda/knn.py).
+// kNN selection for Hopper (sm_90a): the exact selection of every row (with
+// or without the gather of the winners' payload rows), the packed-key
+// candidates, and the exact selection of a subset of query rows against all
+// points or against a window of them. Plain C interface, loaded with ctypes
+// (egnn_tpu_torch/ops/cuda/build.py, egnn_tpu_torch/ops/cuda/knn.py).
 //
 // Replaces the TPU kernels
+//   K1 egnn_tpu/ops/pallas/knn.py:knn_select_gather_pallas
+//      (_knn_gather_kernel): K3 and the payload rows table[b, j] of every
+//      winner, copied as raw floats
+//   K3 egnn_tpu/ops/pallas/knn.py:knn_select_pallas (_knn_kernel): K4's
+//      selection within the full-band reach (n <= 16384)
 //   K4 egnn_tpu/ops/pallas/knn.py:knn_select_pallas_tiled (_knn_tiled_kernel)
 //   K5 egnn_tpu/ops/pallas/knn.py:knn_candidates_packed_tiled
 //      (_knn_packed_tiled_kernel): 20-bit keys, masked pairs at 0x7F800
@@ -18,10 +23,10 @@
 //      (_knn_window_kernel): K8 over the columns [start, start + W) of the
 //      points sorted by x, one start for each group of rows, ordered and
 //      reported by the columns' original ids; every query row counts as
-//      unmasked
+//      unmasked (K4's kernel, kWindow)
 // For every row i and column j, with d = x_i - x_j,
 //   r_ij = (d_0^2 + d_1^2) + ...                             (f32, no FMA)
-// K4 ranks by r with the fills of K1 and K3 (csrc/knn_select.cu):
+// K1, K3 and K4 rank by r with the fills
 //   r_ij = 1e5 where !(mask_i && mask_j), then with an adjacency
 //   r_ij = -1 where j == i and r_ij = 0 where adj_ij && j != i,
 // and keeps the k smallest in (r, j) order as vals (f32) and idx.
@@ -47,13 +52,16 @@
 // lane-aligned window starts in units of 128, its lane padding and the
 // window-wide plane of ids are the vector unit's too: here a block's window
 // is a loop range, clipped to the real columns, and the low word of the
-// packed value is the column's original id in place of j.
+// packed value is the column's original id in place of j. K1's TPU kernel
+// gathers its payload from a table split into bf16 planes by one-hot
+// matrix products (the matrix unit's way to gather); here the winners'
+// rows are copied as they are.
 //
 // Every warp keeps, for each of its rows, one ascending list of the k best
 // packed values in registers (warp_topk.cuh). A row inserts about
-// k * ln(n / k) times in all. A list per lane, as K1 and K3 keep at their
-// small n, inserts some 32 times as often: measured on the H100 at
-// n = 65536, kc = 20, 40.2 ms with per-lane lists against 6.5 ms.
+// k * ln(n / k) times in all. A list per lane inserts some 32 times as
+// often: measured on the H100 at n = 65536, kc = 20, 40.2 ms with per-lane
+// lists against 6.5 ms.
 //
 // Bound on the H100: at n = 65536, c = 3 without an adjacency the function
 // moves under 20 MB (0.005 ms at 3.35 TB/s) and does n^2 * (3c + 3) = 5.2e10
@@ -65,11 +73,11 @@
 // 32768^2 adjacency its 1 GiB of bytes (0.32 ms) is the larger bound.
 //
 // Design of K4, K5, K6 (knn_select_block_kernel). The first version (one
-// row a warp, kept for K9) ranked one pair a lane a step and paid for
+// row a warp) ranked one pair a lane a step and paid for
 // each pair three shared loads, the mask and fills, a 64-bit pack and a
 // warp ballot against tau (some 25 instructions for 8 of distance),
 // re-staged all columns for every 8 rows and exposed each tile's load. Now:
-//  - kRows rows a warp (rows_a_warp: 4 at k <= 32, 2 with an adjacency or
+//  - kRows rows a warp (block_plan: 4 at k <= 32, 2 with an adjacency or
 //    at k <= 64, 1 beyond and at c != 3; fewer where the grid would not
 //    fill the card), each with its list and tau in registers. A staged
 //    column is loaded once and ranked against all of the warp's rows, and
@@ -104,22 +112,45 @@
 //    predicated loop holds 16 coordinates a row).
 //  - Rows past n get thresholds that nothing passes: they take part in
 //    every vote and barrier but never insert.
-// K8 is an instantiation of the same kernel (kQuery): its rows are the
-// query rows, its row mask qmask, and it has no adjacency. Its rows are
-// few (2820 on path C's Gaussian cloud), so rows_a_warp's halving gives
-// them one row a warp (353 blocks), which on the H100 beat two and four
-// rows a warp there (PERF.md §6). Where even one row
-// a warp leaves fewer than two blocks an SM (stripes_a_row: R under 2112 on
-// 132 SMs; the 1401 rows that K9 leaves on path C's heavy cloud), `stripes`
-// warps share a row: warp s of the group takes the steps
-// s, s + stripes, ... of every tile into lists of its own, and at the end
-// the group's first warp merges the others' lists, parked in shared memory,
-// into its own (warp_topk.cuh, merge_list): the union's top k is one,
-// whatever the split. Each stripe fills a list of its own, so a split
-// inserts more in all: at R = 2820 two stripes were slower than one, at
-// 1401 rows two were 4% faster on the H100 (PERF.md §6).
-// K9 (knn_select_rows_kernel) keeps one row a warp and one column a lane a
-// step (the first version's loop).
+// K1, K3, K8 and K9 are instantiations of the same kernel for rows that are
+// few: K1 and K3 the points at n <= 16384 (anchor 3: 1024 rows at b = 1),
+// K8 the query rows with their mask qmask (kQuery; 2820 on path C's
+// Gaussian cloud), K9 the query rows, all unmasked, each against the
+// window of its group of rows (kWindow; 3802 on path C's `heavy` cloud).
+// Where one row a warp would leave fewer than two blocks an SM (block_plan:
+// under 2112 rows on 132 SMs), `stripes` warps share a row: warp s of the
+// group takes the steps s, s + stripes, ... of every tile into lists of its
+// own, and at the end the group's first warp merges the others' lists,
+// parked in shared memory, into its own (warp_topk.cuh, merge_list): the
+// union's top k is one, whatever the split. Each stripe fills a list of its
+// own, so a split inserts more in all: at R = 2820 two stripes were slower
+// than one, at the 1401 rows K9 leaves on `heavy` two were 4% faster on the
+// H100 (PERF.md §6); anchor 3's 1024 rows at b = 1 take four (512
+// blocks; eight were slower), at b = 8 none (two rows a warp). K4-K6 take
+// no stripes, at compile time (kTiled): their plan at any n is the one
+// above. Further:
+//  - K1, K3 (kPoints): a row's adjacency bytes are its own, so a stripe
+//    reads only its columns' bytes. K1's epilogue copies the k winners'
+//    table rows, tw floats each, into the row's contiguous k * tw output
+//    floats, a float a lane (coalesced stores; each winner's row is read in
+//    order). Every column ranks as a packed value below kEmpty, a NaN
+//    ranking too (by its bits, above +inf where it is positive), so with
+//    k <= n every list ends with k real columns and every copied row exists.
+//  - K9: all rows of a block lie in one group of ti rows (block_plan halves
+//    rows a warp until the block's rows divide ti, a multiple of kWarps), so
+//    a block ranks one window [start, min(start + W, n)), start any column:
+//    its tiles are copied by 4-byte cp.async, and the mask bytes loaded
+//    byte by byte where start is not a multiple of 4. The columns' original
+//    ids are one more plane of each tile, copied with the coordinates; the
+//    low word of a packed value is the id, and a masked pair's pre-test
+//    compares its id with the row's column threshold. Past the window the
+//    coordinates are +inf and the ids ~0u. The window's columns ascend in
+//    x, so a sweep from its start would meet a row's nearest columns last
+//    and insert all the way: the block ranks first the tile that holds its
+//    first row by x, then the tiles after it, then those before it
+//    downwards (an ascending sweep was far slower at path C's heavy shape
+//    on the H100). Tiles of 1024 columns at c = 3 (32 KB in two buffers
+//    with the ids) keep four blocks an SM (2048: three, and slower).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -131,19 +162,44 @@ namespace {
 using warp_topk::kEmpty;
 using warp_topk::kFull;
 
-constexpr int kTile = 512;   // columns staged per shared-memory tile
 constexpr int kWarps = 8;    // warps a block
 constexpr int kMaxC = 16;    // largest coordinate dimension handled
 constexpr int kMaxK = 128;   // longest list: 4 slots a lane
-// K4-K6: columns a tile, 2048 at c = 3 (48 KB in two buffers), else 512
-template <int kC>
-__host__ __device__ constexpr int block_tile() { return kC == 3 ? 2048 : 512; }
-constexpr int kRun = 4;          // K4-K6: consecutive columns a lane ranks a step
+constexpr int kRun = 4;      // consecutive columns a lane ranks a step
 constexpr int kStep = 32 * kRun;
 
-// ---------------------------------------------------------------------------
-// K4, K5, K6: the points against themselves, kRows rows a warp
-// ---------------------------------------------------------------------------
+// The rows of knn_select_block_kernel: the points against themselves, one
+// warp a row (K4-K6) or `stripes` (K1, K3), query rows against all points
+// (K8), query rows against a window of the points (K9). K4-K6 keep one
+// warp a row at compile time: with the split of their steps a run-time
+// argument K4 and K5 ran slower on the H100.
+enum Rows : int { kTiled = 0, kPoints = 1, kQuery = 2, kWindow = 3 };
+
+// whether the rows are the points themselves
+__host__ __device__ constexpr bool self_rows(int mode) {
+  return mode == kTiled || mode == kPoints;
+}
+
+// Columns a tile: 2048 at c = 3 (48 KB in two buffers), 1024 for K9, whose
+// tiles carry the ids too (32 KB), 512 at any other c.
+template <int kC, int kMode>
+__host__ __device__ constexpr int block_tile() {
+  return kC != 3 ? 512 : kMode == kWindow ? 1024 : 2048;
+}
+
+// K9's windows: one start for each group of ti consecutive query rows.
+struct Window {
+  const int* start;  // (b, ceil(nq / ti))
+  const int* ids;    // (b, n): the columns' original ids
+  int ti, width;
+};
+
+// K1's payload: the winners' rows of a table.
+struct Payload {
+  const float* table;  // (b, n, tw); null: none
+  int tw;
+  float* rows;         // (b, n, k, tw)
+};
 
 // The 4 bytes p[0..3], of which `avail` exist (0 past the end), as one word:
 // one load where the caller knows them 4-byte aligned.
@@ -157,35 +213,42 @@ __device__ __forceinline__ unsigned load_bytes4(const unsigned char* p, int avai
   return w;
 }
 
-// Columns [j0, j0 + kBlockTile) of cb (clipped to n) into `planes` plane-major:
-// planes[cc * kBlockTile + t] = cb[(j0 + t) * c + cc], as asynchronous copies.
-// A partial tile's planes are +inf from its last column to the end of its
-// last step, so that those columns fail every distance pre-test.
-template <int kC>
-__device__ __forceinline__ void stage_tile(const float* __restrict__ cb, int j0, int n, int c,
-                                           float* planes) {
-  constexpr int kBlockTile = block_tile<kC>();
-  const int span = min(kBlockTile, n - j0);
+// Columns [j0, min(j0 + kBlockTile, j_end)) of cb into `planes` plane-major,
+// planes[cc * kBlockTile + t] = cb[(j0 + t) * c + cc], and given `ids` (K9)
+// their ids as plane c, as asynchronous copies. A partial tile's planes are
+// +inf (the ids ~0u) from its last column to the end of its last step, so
+// that those columns fail every distance pre-test.
+template <int kC, int kBlockTile>
+__device__ __forceinline__ void stage_tile(const float* __restrict__ cb,
+                                           const int* __restrict__ ids, int j0, int j_end,
+                                           int c, float* planes) {
+  const int span = min(kBlockTile, j_end - j0);
   const int count = span * c;
   const float* src = cb + (size_t)j0 * c;
   for (int e = threadIdx.x; e < count; e += blockDim.x) {
     const int t = kC > 0 ? e / kC : e / c;
     __pipeline_memcpy_async(planes + (e - t * c) * kBlockTile + t, src + e, sizeof(float));
   }
+  if (ids != nullptr)
+    for (int t = threadIdx.x; t < span; t += blockDim.x)
+      __pipeline_memcpy_async(planes + c * kBlockTile + t, ids + j0 + t, sizeof(int));
   __pipeline_commit();
   const int pad = (kStep - span % kStep) % kStep;
-  for (int e = threadIdx.x; e < pad * c; e += blockDim.x) {
+  const int nplanes = ids != nullptr ? c + 1 : c;
+  for (int e = threadIdx.x; e < pad * nplanes; e += blockDim.x) {
     const int cc = e / pad;
-    planes[cc * kBlockTile + span + (e - cc * pad)] = __uint_as_float(0x7f800000u);
+    planes[cc * kBlockTile + span + (e - cc * pad)] =
+        __uint_as_float(cc < c ? 0x7f800000u : 0xffffffffu);
   }
 }
 
 // The pre-tests of a row whose k-th packed value is tau. A pair whose packed
 // value is below tau has, unless it is masked, a distance v with
 // !(v > thr) (thr NaN: every pair passes, the list is not full or tau is
-// NaN); a masked pair, whose key is fill_key, exactly when its column is
-// below mthr. K4's key is the order of v itself; K5's and K6's keep the
-// bits of v above kShift, so thr is the largest float of tau's key.
+// NaN); a masked pair, whose key is fill_key, exactly when the low word of
+// its packed value (its column, K9: its id) is below mthr. K4's key is the
+// order of v itself; K5's and K6's keep the bits of v above kShift, so thr
+// is the largest float of tau's key.
 template <int kShift>
 __device__ __forceinline__ void row_thresholds(unsigned long long tau, unsigned fill_key,
                                                float& thr, unsigned& mthr) {
@@ -198,45 +261,58 @@ __device__ __forceinline__ void row_thresholds(unsigned long long tau, unsigned 
   mthr = hi > fill_key ? 0xffffffffu : hi == fill_key ? (unsigned)tau : 0u;
 }
 
-// kShift: 0 (K4: exact ranking, fills, adjacency), 12 (K5), 14 (K6).
-// kSlots: list entries a lane holds, ceil(k / 32). kRows: rows a warp.
+// kShift: 0 (K1, K3, K4, K8, K9: exact ranking and fills), 12 (K5), 14
+// (K6). kSlots: list entries a lane holds, ceil(k / 32). kRows: rows a warp.
 // kC: the coordinate dimension when it is 3, else 0: any c <= kMaxC through
 // a predicated loop (one row a warp). kMask, kAdj: the mask (adjacency) is
-// given; at kC == 0 they say it may be, and the pointer decides. kQuery
-// (K8): the rows are the nq query rows with their mask qmask, ranked by
-// `stripes` warps each (K4-K6: the n points, one warp each).
-template <int kShift, int kSlots, int kRows, int kC, bool kMask, bool kAdj, bool kQuery = false>
+// given; at kC == 0 they say it may be, and the pointer decides. kMode: the
+// rows (Rows), each ranked by `stripes` warps (kTiled: one).
+template <int kShift, int kSlots, int kRows, int kC, bool kMask, bool kAdj, int kMode>
 __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block_kernel(
-    const float* __restrict__ coors,         // (b, n, c)
-    const unsigned char* __restrict__ mask,  // (b, n)
-    const unsigned char* __restrict__ adj,   // rows of n bytes (K4 only)
+    const float* __restrict__ coors,         // (b, n, c): the columns
+    const unsigned char* __restrict__ mask,  // (b, n): the columns' mask
+    const unsigned char* __restrict__ adj,   // rows of n bytes (K1, K3, K4)
     long long adj_bstride,                   // 0 when one (n, n) is shared
     bool aligned4,                           // mask and adjacency rows 4-byte aligned
     int n, int c, int k, unsigned sentinel,
-    const float* __restrict__ queries,       // (b, nq, c), K8 only
+    const float* __restrict__ queries,       // (b, nq, c): the rows of K8 and K9
     const unsigned char* __restrict__ qmask, // (b, nq), K8 only: given with mask
-    int nq, int stripes,                     // K8 only
+    int nq, int stripes,
+    Window win,                              // K9
+    Payload pay,                             // K1
     unsigned* __restrict__ out_hi,           // (b, nrows, k): vals f32 bits, or keys
     long long* __restrict__ out_idx) {       // (b, nrows, k)
-  extern __shared__ __align__(16) float smem[];  // two tiles of c planes
+  extern __shared__ __align__(16) float smem[];  // two tiles of c planes (K9: c + 1)
   constexpr int kDims = kC > 0 ? kC : kMaxC;
-  constexpr int kBlockTile = block_tile<kC>();
+  constexpr int kBlockTile = block_tile<kC, kMode>();
   const bool has_mask = kMask && (kC > 0 || mask != nullptr);
-  const bool has_adj = kShift == 0 && kAdj && !kQuery && (kC > 0 || adj != nullptr);
+  const bool has_adj = kShift == 0 && kAdj && self_rows(kMode) && (kC > 0 || adj != nullptr);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y;
-  // K8: `stripes` warps a group of rows, warp `stripe` of it taking every
+  // `stripes` warps a group of rows, warp `stripe` of it taking every
   // stripes-th step of a tile
-  const int stripe = kQuery ? warp % stripes : 0;
-  const int groups = kQuery ? kWarps / stripes : kWarps;
-  const int stride = kQuery ? stripes * kStep : kStep;  // between a warp's steps
-  const int nrows = kQuery ? nq : n;
-  const int row0 = (blockIdx.x * groups + (kQuery ? warp / stripes : warp)) * kRows;
+  const int stripe = kMode == kTiled ? 0 : warp % stripes;
+  const int groups = kMode == kTiled ? kWarps : kWarps / stripes;
+  const int stride = kMode == kTiled ? kStep : stripes * kStep;  // between a warp's steps
+  const int nrows = self_rows(kMode) ? n : nq;
+  const int row0 = (blockIdx.x * groups + (kMode == kTiled ? warp : warp / stripes)) * kRows;
   const float* cb = coors + (size_t)b * n * c;
-  const float* rb = kQuery ? queries + (size_t)b * nq * c : cb;  // the rows' coordinates
+  // the rows' coordinates
+  const float* rb = self_rows(kMode) ? cb : queries + (size_t)b * nq * c;
   const unsigned char* mb = has_mask ? mask + (size_t)b * n : nullptr;
-  const unsigned char* rmb = has_mask ? (kQuery ? qmask + (size_t)b * nq : mb) : nullptr;
+  const unsigned char* rmb = has_mask ? (kMode == kQuery ? qmask + (size_t)b * nq : mb) : nullptr;
+
+  // the block's columns: all n, or (K9) the window of its rows' group
+  int j_begin = 0, j_end = n;
+  const int* ids = nullptr;
+  if (kMode == kWindow) {
+    const int group = blockIdx.x * groups * kRows / win.ti;
+    j_begin = win.start[(size_t)b * ((nq + win.ti - 1) / win.ti) + group];
+    j_end = min(j_begin + win.width, n);
+    ids = win.ids + (size_t)b * n;
+    aligned4 = aligned4 && j_begin % 4 == 0;
+  }
 
   float xi[kRows][kDims];
   bool mask_i[kRows];
@@ -249,7 +325,7 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
 #pragma unroll
     for (int cc = 0; cc < kDims; ++cc)
       xi[r][cc] = (ok && (kC > 0 || cc < c)) ? rb[(size_t)i * c + cc] : 0.f;
-    mask_i[r] = has_mask && ok && rmb[i] != 0;
+    mask_i[r] = has_mask && ok && (kMode == kWindow || rmb[i] != 0);
     adj_row[r] = has_adj && ok ? adj + (size_t)b * adj_bstride + (size_t)i * n : nullptr;
     list[r].init(k, lane);
   }
@@ -273,29 +349,47 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
   // the mask bytes and each row's adjacency bytes of the lane's columns,
   // loaded a step ahead of their use
   auto load_words = [&](int j, unsigned& mw, unsigned (&aw)[kRows]) {
-    mw = has_mask ? load_bytes4(mb + j, n - j, aligned4) : 0u;
+    mw = has_mask ? load_bytes4(mb + j, j_end - j, aligned4) : 0u;
 #pragma unroll
     for (int r = 0; r < kRows; ++r)
       aw[r] = has_adj && adj_row[r] != nullptr ? load_bytes4(adj_row[r] + j, n - j, aligned4)
                                                : 0u;
   };
-  unsigned mnext, anext[kRows];
-  load_words(stripe * kStep + kRun * lane, mnext, anext);
+  const int tile_floats = kBlockTile * (kMode == kWindow ? c + 1 : c);  // one of the two buffers
+  const int ntiles = (j_end - j_begin + kBlockTile - 1) / kBlockTile;
+  // K9: the tile that holds the block's first row by x (the window's
+  // columns ascend in x) is ranked first, then the tiles after it, then
+  // those before it downwards: the nearest columns come early and the
+  // row's k-th value falls fast
+  int first = 0;
+  if (kMode == kWindow) {
+    const float xq = rb[(size_t)blockIdx.x * groups * kRows * c];
+    const int t = threadIdx.x + 1;  // of the first kWarps * 32 tiles
+    first = __syncthreads_count(t < ntiles && cb[(size_t)(j_begin + t * kBlockTile) * c] <= xq);
+  }
+  // the first column of the v-th tile ranked (K9: j_end past the last)
+  auto tile_start = [&](int v) {
+    if (kMode != kWindow) return v * kBlockTile;
+    if (v >= ntiles) return j_end;
+    return j_begin + (v < ntiles - first ? first + v : ntiles - 1 - v) * kBlockTile;
+  };
 
-  const int tile_floats = kBlockTile * c;  // one of the two buffers
-  const int ntiles = (n + kBlockTile - 1) / kBlockTile;
-  stage_tile<kC>(cb, 0, n, c, smem);
+  unsigned mnext, anext[kRows];
+  load_words(tile_start(0) + stripe * kStep + kRun * lane, mnext, anext);
+  stage_tile<kC, kBlockTile>(cb, ids, tile_start(0), j_end, c, smem);
   for (int tile = 0; tile < ntiles; ++tile) {
     // this thread's copies of the tile have landed; after the barrier every
     // thread's have, and no warp still ranks the tile before, whose buffer
     // the next copies overwrite
     __pipeline_wait_prior(0);
     __syncthreads();
+    const int j_next = tile_start(tile + 1);
     if (tile + 1 < ntiles)
-      stage_tile<kC>(cb, (tile + 1) * kBlockTile, n, c, smem + ((tile + 1) & 1) * tile_floats);
+      stage_tile<kC, kBlockTile>(cb, ids, j_next, j_end, c, smem + ((tile + 1) & 1) * tile_floats);
     const float* xt = smem + (tile & 1) * tile_floats;
-    const int j0 = tile * kBlockTile;
-    const int span = min(kBlockTile, n - j0);
+    const unsigned* idt = reinterpret_cast<const unsigned*>(xt + c * kBlockTile);  // K9's ids
+    const int j0 = tile_start(tile);
+    const int span = min(kBlockTile, j_end - j0);
 #pragma unroll 2
     for (int t0 = stripe * kStep; t0 < span; t0 += stride) {  // the whole warp takes every step
       const int t = t0 + kRun * lane;             // the lane's first column of the step
@@ -308,13 +402,24 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
           xj[cc][0] = v.x; xj[cc][1] = v.y; xj[cc][2] = v.z; xj[cc][3] = v.w;
         }
       }
+      // the low words of the lane's packed values: the columns, K9 their ids
+      unsigned col[kRun];
+      if (kMode == kWindow) {
+        const uint4 u = *reinterpret_cast<const uint4*>(idt + t);
+        col[0] = u.x; col[1] = u.y; col[2] = u.z; col[3] = u.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < kRun; ++q) col[q] = (unsigned)(j + q);
+      }
       const unsigned mword = mnext;
       unsigned aword[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) aword[r] = anext[r];
       // the warp's next step's columns, across tiles too (stripes divides a
-      // tile's steps)
-      load_words(j + stride, mnext, anext);
+      // tile's steps; K9's next tile may lie anywhere)
+      load_words(kMode != kWindow || t0 + stride < span ? j + stride
+                                                        : j_next + stripe * kStep + kRun * lane,
+                 mnext, anext);
 
       auto dist = [&](int r, int q) {
         float d = __fsub_rn(xi[r][0], xj[0][q]);
@@ -343,13 +448,13 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
         } else {
           hi = masked ? sentinel : (__float_as_uint(v) >> kShift);
         }
-        return ((unsigned long long)hi << 32) | (unsigned)(j + q);
+        return ((unsigned long long)hi << 32) | col[q];
       };
 
       // bit r: a pair of row r may be below the row's tau. Unmasked pairs
-      // test their distance against thr, masked ones (one key) their column
-      // against mthr; a row's self and adjacent columns (fills -1 and 0)
-      // always take the insertion path.
+      // test their distance against thr, masked ones (one key) their low
+      // word against mthr; a row's self and adjacent columns (fills -1 and
+      // 0) always take the insertion path.
       unsigned flags = 0;
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
@@ -358,11 +463,11 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
 #pragma unroll
           for (int q = 0; q < kRun; ++q) {
             bool below = !(dist(r, q) > thr[r]);
-            if (has_mask && ((mword >> (8 * q)) & 0xffu) == 0) below = (unsigned)(j + q) < mthr[r];
+            if (has_mask && ((mword >> (8 * q)) & 0xffu) == 0) below = col[q] < mthr[r];
             pass = pass || below;
           }
         } else {
-          pass = (unsigned)j < mthr[r];  // every pair of the row is masked
+          pass = (unsigned)j < mthr[r];  // every pair of the row is masked (not K9)
         }
         if (has_adj && (aword[r] != 0 || (unsigned)(self_col[r] - j) < (unsigned)kRun)) pass = true;
         flags |= (unsigned)pass << r;
@@ -381,7 +486,7 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
     }
   }
 
-  if (kQuery && stripes > 1) {  // the group's first warp takes the others' lists
+  if (kMode != kTiled && stripes > 1) {  // the group's first warp takes the others' lists
     // every warp is past its last tile: the tiles' buffers hold the lists,
     // (warp, row, 32 * kSlots)
     unsigned long long* parked = reinterpret_cast<unsigned long long*>(smem);
@@ -405,7 +510,7 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int i = row0 + r;
-    if (i >= nrows) continue;
+    if (i >= nrows) continue;  // uniform
     const size_t row = (size_t)b * nrows + i;
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
@@ -416,37 +521,68 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
         out_idx[row * k + e] = (long long)(list[r].entry[s] & 0xffffffffull);
       }
     }
+    if (kMode == kPoints && pay.table != nullptr) {
+      // K1: the winners' table rows into the row's k * tw floats, float f
+      // of them float f % tw of winner f / tw, one float a lane
+      const int tw = pay.tw;
+      const float* tb = pay.table + (size_t)b * n * tw;
+      float* dst = pay.rows + row * k * tw;
+      int e = lane / tw, t = lane % tw;  // of the lane's float f0 + lane
+      const int de = 32 / tw, dt = 32 % tw;
+      for (int f0 = 0; f0 < k * tw; f0 += 32) {
+        unsigned col = 0;  // winner e's column: lane e % 32 of slot e / 32
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) {
+          const unsigned v = __shfl_sync(kFull, (unsigned)list[r].entry[s], e & 31);
+          if (s == e >> 5) col = v;
+        }
+        if (f0 + lane < k * tw) dst[f0 + lane] = __ldg(tb + (size_t)col * tw + t);
+        e += de;
+        t += dt;
+        if (t >= tw) {
+          t -= tw;
+          ++e;
+        }
+      }
+    }
   }
 }
 
-// The blocks of knn_select_block_kernel for b * n rows at `rows` rows a
+// The blocks of knn_select_block_kernel for b * nrows rows at `rows` rows a
 // warp and `stripes` warps a row.
-long long block_count(int b, int n, int rows, int stripes) {
+long long block_count(int b, int nrows, int rows, int stripes) {
   const int per_block = kWarps / stripes * rows;
-  return (long long)b * ((n + per_block - 1) / per_block);
+  return (long long)b * ((nrows + per_block - 1) / per_block);
 }
 
-// Rows a warp of knn_select_block_kernel: 4 at k <= 32 (one list slot a
-// lane), 2 at k <= 64, 1 beyond, and 1 at c != 3; 2 at most with an
-// adjacency, whose bytes are each row's own (no reuse across rows) and
-// whose latency twice the warps hide better (K4 on path B's chain ran
-// slower at 4 on the H100); halved while the grid would hold fewer than two
-// blocks an SM. knn_select_block_plan and knn_select_queries_plan export it.
-int rows_a_warp(int b, int n, int c, int k, bool adj, int sms, int stripes = 1) {
-  int rows = c != 3 ? 1 : k <= 32 ? (adj ? 2 : 4) : k <= 64 ? 2 : 1;
-  while (rows > 1 && block_count(b, n, rows, stripes) < 2LL * sms) rows /= 2;
-  return rows;
+struct Plan {
+  int rows, stripes;  // rows a warp, warps a row
+};
+
+// The launch plan of knn_select_block_kernel, its one owner
+// (knn_select_plan exports it):
+//  - warps a row: 1 for K4-K6 (`striped` false); for K1, K3, K8 and K9, 1
+//    while one row a warp gives two blocks an SM, else the fewest of 2, 4,
+//    8 that do; 1 at c != 3;
+//  - rows a warp: 4 at k <= 32 (one list slot a lane), 2 at k <= 64, 1
+//    beyond, and 1 at c != 3; 2 at most with an adjacency, whose bytes are
+//    each row's own (no reuse across rows) and whose latency twice the
+//    warps hide better (K4 on path B's chain ran slower at 4 on the H100);
+//    halved while the grid would hold fewer than two blocks an SM, and
+//    (K9: ti > 0, the rows that share a window, a multiple of kWarps) while
+//    a block's rows do not divide ti.
+Plan block_plan(int b, int nrows, int c, int k, bool adj, bool striped, int ti, int sms) {
+  Plan p{c != 3 ? 1 : k <= 32 ? (adj ? 2 : 4) : k <= 64 ? 2 : 1, 1};
+  while (striped && c == 3 && p.stripes < kWarps &&
+         block_count(b, nrows, 1, p.stripes) < 2LL * sms)
+    p.stripes *= 2;
+  while (p.rows > 1 && (block_count(b, nrows, p.rows, p.stripes) < 2LL * sms ||
+                        (ti > 0 && ti % (kWarps / p.stripes * p.rows) != 0)))
+    p.rows /= 2;
+  return p;
 }
 
-// K8's warps a row: 1 while one row a warp gives two blocks an SM, else the
-// fewest of 2, 4, 8 that do; 1 at c != 3.
-int stripes_a_row(int b, int nq, int c, int sms) {
-  int stripes = 1;
-  while (c == 3 && stripes < kWarps && block_count(b, nq, 1, stripes) < 2LL * sms) stripes *= 2;
-  return stripes;
-}
-
-struct SelfArgs {
+struct BlockArgs {
   const float* coors;
   const unsigned char* mask;
   const unsigned char* adj;
@@ -455,15 +591,23 @@ struct SelfArgs {
   unsigned sentinel;
   unsigned* out_hi;
   long long* out_idx;
-  const float* queries = nullptr;       // K8: the query rows and their mask
+  const float* queries = nullptr;  // K8, K9: the query rows; K8 their mask
   const unsigned char* qmask = nullptr;
-  int nq = 0, stripes = 1;
+  int nq = 0;
+  Window win = {nullptr, nullptr, 0, 0};
+  Payload pay = {nullptr, 0, nullptr};
+  Plan plan = {1, 1};
 };
 
-template <int kShift, int kSlots, int kRows, int kC, bool kMask, bool kAdj, bool kQuery>
-int launch_block_kernel(const SelfArgs& a, cudaStream_t stream) {
-  auto kernel = knn_select_block_kernel<kShift, kSlots, kRows, kC, kMask, kAdj, kQuery>;
-  const size_t smem = 2 * sizeof(float) * block_tile<kC>() * a.c;
+template <int kShift, int kSlots, int kRows, int kC, bool kMask, bool kAdj, int kMode>
+int launch_block_kernel(const BlockArgs& a, cudaStream_t stream) {
+  auto kernel = knn_select_block_kernel<kShift, kSlots, kRows, kC, kMask, kAdj, kMode>;
+  // two tiles of c planes (K9: c + 1); at the end the stripes' lists take
+  // their place
+  const size_t tiles = 2 * sizeof(float) * block_tile<kC, kMode>() *
+                       (kMode == kWindow ? a.c + 1 : a.c);
+  const size_t lists = a.plan.stripes > 1 ? 8 * 32 * kSlots * kRows * kWarps : 0;
+  const size_t smem = tiles > lists ? tiles : lists;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -471,41 +615,41 @@ int launch_block_kernel(const SelfArgs& a, cudaStream_t stream) {
   }
   const uintptr_t m = reinterpret_cast<uintptr_t>(a.mask), j = reinterpret_cast<uintptr_t>(a.adj);
   const bool aligned4 = a.n % 4 == 0 && m % 4 == 0 && j % 4 == 0 && a.adj_bstride % 4 == 0;
-  const int nrows = kQuery ? a.nq : a.n;
-  const int per_block = kWarps / a.stripes * kRows;
+  const int nrows = self_rows(kMode) ? a.n : a.nq;
+  const int per_block = kWarps / a.plan.stripes * kRows;
   const dim3 grid((nrows + per_block - 1) / per_block, a.b);
   kernel<<<grid, kWarps * 32, smem, stream>>>(a.coors, a.mask, a.adj, a.adj_bstride, aligned4,
                                               a.n, a.c, a.k, a.sentinel, a.queries, a.qmask,
-                                              a.nq, a.stripes, a.out_hi, a.out_idx);
+                                              a.nq, a.plan.stripes, a.win, a.pay, a.out_hi,
+                                              a.out_idx);
   return (int)cudaGetLastError();
 }
 
 // the instantiation for the given mask and adjacency
-template <int kShift, int kSlots, int kRows, int kC, bool kQuery>
-int launch_block_flags(const SelfArgs& a, cudaStream_t stream) {
+template <int kShift, int kSlots, int kRows, int kC, int kMode>
+int launch_block_flags(const BlockArgs& a, cudaStream_t stream) {
   if constexpr (kC == 0) {
-    return launch_block_kernel<kShift, kSlots, kRows, 0, true, kShift == 0 && !kQuery, kQuery>(
-        a, stream);
+    return launch_block_kernel<kShift, kSlots, kRows, 0, true, kShift == 0 && self_rows(kMode),
+                               kMode>(a, stream);
   } else {
     const bool m = a.mask != nullptr;
-    // rows_a_warp: 2 at most with an adjacency; K8 takes none
-    if constexpr (kShift == 0 && kRows <= 2 && !kQuery) {
+    // block_plan: 2 rows at most with an adjacency; K8 and K9 take none
+    if constexpr (kShift == 0 && kRows <= 2 && self_rows(kMode)) {
       if (a.adj != nullptr)
-        return m ? launch_block_kernel<kShift, kSlots, kRows, kC, true, true, false>(a, stream)
-                 : launch_block_kernel<kShift, kSlots, kRows, kC, false, true, false>(a, stream);
+        return m ? launch_block_kernel<kShift, kSlots, kRows, kC, true, true, kMode>(a, stream)
+                 : launch_block_kernel<kShift, kSlots, kRows, kC, false, true, kMode>(a, stream);
     } else {
       if (a.adj != nullptr) return (int)cudaErrorInvalidValue;
     }
-    return m ? launch_block_kernel<kShift, kSlots, kRows, kC, true, false, kQuery>(a, stream)
-             : launch_block_kernel<kShift, kSlots, kRows, kC, false, false, kQuery>(a, stream);
+    return m ? launch_block_kernel<kShift, kSlots, kRows, kC, true, false, kMode>(a, stream)
+             : launch_block_kernel<kShift, kSlots, kRows, kC, false, false, kMode>(a, stream);
   }
 }
 
-// K4-K6 (kQuery false: the points against themselves) and K8 (the query
-// rows against the points), at the plan of rows_a_warp and stripes_a_row.
-template <int kShift, bool kQuery>
-int launch_self(SelfArgs a, cudaStream_t stream) {
-  const int nrows = kQuery ? a.nq : a.n;
+// Every kernel of this source at the plan of block_plan.
+template <int kShift, int kMode>
+int launch_rows(BlockArgs a, cudaStream_t stream) {
+  const int nrows = self_rows(kMode) ? a.n : a.nq;
   // k <= n: every list element ends as a real column
   if (a.b < 1 || a.n < 1 || nrows < 1 || a.c < 1 || a.c > kMaxC || a.k < 1 || a.k > kMaxK ||
       a.k > a.n)
@@ -514,177 +658,63 @@ int launch_self(SelfArgs a, cudaStream_t stream) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  if (kQuery) a.stripes = stripes_a_row(a.b, nrows, a.c, sms);
-  const int rows = rows_a_warp(a.b, nrows, a.c, a.k, a.adj != nullptr, sms, a.stripes);
+  a.plan = block_plan(a.b, nrows, a.c, a.k, a.adj != nullptr, kMode != kTiled,
+                      kMode == kWindow ? a.win.ti : 0, sms);
+  const int rows = a.plan.rows;
   if (a.c != 3) {
-    if (a.k <= 32) return launch_block_flags<kShift, 1, 1, 0, kQuery>(a, stream);
-    if (a.k <= 64) return launch_block_flags<kShift, 2, 1, 0, kQuery>(a, stream);
-    return launch_block_flags<kShift, 4, 1, 0, kQuery>(a, stream);
+    if (a.k <= 32) return launch_block_flags<kShift, 1, 1, 0, kMode>(a, stream);
+    if (a.k <= 64) return launch_block_flags<kShift, 2, 1, 0, kMode>(a, stream);
+    return launch_block_flags<kShift, 4, 1, 0, kMode>(a, stream);
   }
   if (a.k <= 32) {
-    if (rows == 4) return launch_block_flags<kShift, 1, 4, 3, kQuery>(a, stream);
-    if (rows == 2) return launch_block_flags<kShift, 1, 2, 3, kQuery>(a, stream);
-    return launch_block_flags<kShift, 1, 1, 3, kQuery>(a, stream);
+    if (rows == 4) return launch_block_flags<kShift, 1, 4, 3, kMode>(a, stream);
+    if (rows == 2) return launch_block_flags<kShift, 1, 2, 3, kMode>(a, stream);
+    return launch_block_flags<kShift, 1, 1, 3, kMode>(a, stream);
   }
   if (a.k <= 64) {
-    if (rows == 2) return launch_block_flags<kShift, 2, 2, 3, kQuery>(a, stream);
-    return launch_block_flags<kShift, 2, 1, 3, kQuery>(a, stream);
+    if (rows == 2) return launch_block_flags<kShift, 2, 2, 3, kMode>(a, stream);
+    return launch_block_flags<kShift, 2, 1, 3, kMode>(a, stream);
   }
-  return launch_block_flags<kShift, 4, 1, 3, kQuery>(a, stream);
+  return launch_block_flags<kShift, 4, 1, 3, kMode>(a, stream);
 }
 
-// ---------------------------------------------------------------------------
-// K9: query rows against a window of the points, one row a warp
-// ---------------------------------------------------------------------------
-
-// K4's exact ranking of the query rows, all unmasked, against a window of
-// the points, the first version's loop. kSlots: list entries a lane holds,
-// ceil(k / 32). kC: as above. A block's rows rank the columns
-// [win_start, win_start + win_width) only, clipped to n, and a column goes
-// by col_ids[j]. A block of 8 warps shares a tile of coordinates (and mask
-// bits) staged in shared memory; each lane ranks the column tile + lane a
-// step and offers its value to the warp's list.
-template <int kSlots, int kC>
-__global__ void __launch_bounds__(kWarps * 32) knn_select_rows_kernel(
-    const float* __restrict__ queries,       // (b, nq, c): the rows
-    const float* __restrict__ coors,         // (b, n, c): the columns
-    const unsigned char* __restrict__ mask,  // (b, n) or null: no pair is masked
-    const int* __restrict__ win_start,       // (b, ceil(nq / win_rows))
-    const int* __restrict__ col_ids,         // (b, n)
-    int win_rows, int win_width,             // rows that share a window; its width
-    int nq, int n, int c, int k,
-    unsigned* __restrict__ out_hi,           // (b, nq, k): vals f32 bits
-    long long* __restrict__ out_idx) {       // (b, nq, k)
-  extern __shared__ float smem[];
-  float* tile_x = smem;               // kTile * c
-  float* tile_m = smem + kTile * c;   // kTile
-  int* tile_id = reinterpret_cast<int*>(tile_m + kTile);  // kTile
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * kWarps + warp;
-  const bool row_ok = i < nq;
-
-  const float* cb = coors + (size_t)b * n * c;
-  const float* qb = queries + (size_t)b * nq * c;
-  constexpr int kDims = kC > 0 ? kC : kMaxC;
-  float xi[kDims];
-#pragma unroll
-  for (int cc = 0; cc < kDims; ++cc) xi[cc] = (row_ok && cc < c) ? qb[(size_t)i * c + cc] : 0.f;
-  const bool has_mask = mask != nullptr;
-  const bool mask_i = has_mask && row_ok;
-
-  warp_topk::List<kSlots> list;
-  list.init(k, lane);
-  const int stride = kC > 0 ? kC : c;  // floats a staged column takes
-
-  // win_rows is a multiple of kWarps: one window a block
-  const int groups = (nq + win_rows - 1) / win_rows;
-  const int j_begin = win_start[(size_t)b * groups + (blockIdx.x * kWarps) / win_rows];
-  const int j_end = min(j_begin + win_width, n);
-
-  for (int j0 = j_begin; j0 < j_end; j0 += kTile) {
-    __syncthreads();
-    const int span = min(kTile, j_end - j0);
-    for (int t = threadIdx.x; t < span * c; t += blockDim.x)
-      tile_x[t] = cb[(size_t)j0 * c + t];
-    if (has_mask)
-      for (int t = threadIdx.x; t < span; t += blockDim.x)
-        tile_m[t] = mask[(size_t)b * n + j0 + t] != 0 ? 1.f : 0.f;
-    for (int t = threadIdx.x; t < span; t += blockDim.x)
-      tile_id[t] = col_ids[(size_t)b * n + j0 + t];
-    __syncthreads();
-    if (!row_ok) continue;
-    for (int t0 = 0; t0 < span; t0 += 32) {  // the whole warp takes every step
-      const int t = t0 + lane;
-      unsigned long long p = kEmpty;
-      if (t < span) {
-        float r = 0.f;
-#pragma unroll
-        for (int cc = 0; cc < kDims; ++cc) {
-          if (kC > 0 || cc < c) {
-            const float d = __fsub_rn(xi[cc], tile_x[t * stride + cc]);
-            r = __fadd_rn(r, __fmul_rn(d, d));
-          }
-        }
-        if (has_mask && !(mask_i && tile_m[t] != 0.f)) r = 1e5f;
-        const unsigned hi = warp_topk::ordered_bits(r);
-        p = ((unsigned long long)hi << 32) | (unsigned long long)(unsigned)tile_id[t];
-      }
-      list.offer(p);
-    }
-  }
-  if (!row_ok) return;  // whole warp: no block barrier follows
-
-  const size_t row = (size_t)b * nq + i;
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int e = s * 32 + lane;
-    if (e < k) {
-      out_hi[row * k + e] = warp_topk::float_bits_of_ordered((unsigned)(list.entry[s] >> 32));
-      out_idx[row * k + e] = (long long)(list.entry[s] & 0xffffffffull);
-    }
-  }
-}
-
-// What a K9 launch ranks: the query rows against a window of the columns
-// (coors).
-struct Problem {
-  const float* queries;
-  const float* coors;
-  const unsigned char* mask;
-  const int* win_start;
-  const int* col_ids;
-  int win_rows, win_width;
-  int b, nq, n, c, k;
-};
-
-int launch_rows(const Problem& q, void* out_hi, long long* out_idx, cudaStream_t stream) {
-  // k <= the columns a row ranks: every list element ends as a real column
-  // (a window clipped at n may hold fewer than win_width: the caller's care)
-  if (q.b < 1 || q.nq < 1 || q.n < 1 || q.c < 1 || q.c > kMaxC || q.k < 1 || q.k > kMaxK ||
-      q.k > q.win_width)
-    return (int)cudaErrorInvalidValue;
-  if (q.win_rows < kWarps || q.win_rows % kWarps != 0 || q.win_start == nullptr ||
-      q.col_ids == nullptr)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)kTile * q.c + kTile) + sizeof(int) * kTile;
-  const dim3 grid((q.nq + kWarps - 1) / kWarps, q.b);
-  unsigned* hi = static_cast<unsigned*>(out_hi);
-#define LAUNCH_ROWS(SLOTS, C)                                                                \
-  knn_select_rows_kernel<SLOTS, C><<<grid, kWarps * 32, smem, stream>>>(                      \
-      q.queries, q.coors, q.mask, q.win_start, q.col_ids, q.win_rows, q.win_width, q.nq, q.n, \
-      q.c, q.k, hi, out_idx)
-  if (q.c == 3) {
-    if (q.k <= 32) LAUNCH_ROWS(1, 3);
-    else if (q.k <= 64) LAUNCH_ROWS(2, 3);
-    else LAUNCH_ROWS(4, 3);
-  } else {
-    if (q.k <= 32) LAUNCH_ROWS(1, 0);
-    else if (q.k <= 64) LAUNCH_ROWS(2, 0);
-    else LAUNCH_ROWS(4, 0);
-  }
-#undef LAUNCH_ROWS
-  return (int)cudaGetLastError();
-}
-
-SelfArgs self_args(const void* coors, const void* mask, const void* adj, long long adj_bstride,
-                   int b, int n, int c, int k, unsigned sentinel, void* out_hi, void* out_idx) {
-  return SelfArgs{static_cast<const float*>(coors), static_cast<const unsigned char*>(mask),
-                  static_cast<const unsigned char*>(adj), adj_bstride, b, n, c, k, sentinel,
-                  static_cast<unsigned*>(out_hi), static_cast<long long*>(out_idx)};
+BlockArgs block_args(const void* coors, const void* mask, const void* adj, long long adj_bstride,
+                     int b, int n, int c, int k, unsigned sentinel, void* out_hi, void* out_idx) {
+  return BlockArgs{static_cast<const float*>(coors), static_cast<const unsigned char*>(mask),
+                   static_cast<const unsigned char*>(adj), adj_bstride, b, n, c, k, sentinel,
+                   static_cast<unsigned*>(out_hi), static_cast<long long*>(out_idx)};
 }
 
 }  // namespace
 
 extern "C" {
 
+// K1: selection and the winners' payload rows; vals f32, idx i64 (b, n, k),
+// rows f32 (b, n, k, tw). mask and adj may be null.
+int knn_select_gather_launch(const void* coors, const void* mask, const void* adj,
+                             long long adj_bstride, const void* table, int b, int n, int c,
+                             int k, int tw, void* vals, void* idx, void* rows, void* stream) {
+  if (table == nullptr || rows == nullptr || tw < 1) return (int)cudaErrorInvalidValue;
+  BlockArgs a = block_args(coors, mask, adj, adj_bstride, b, n, c, k, 0u, vals, idx);
+  a.pay = Payload{static_cast<const float*>(table), tw, static_cast<float*>(rows)};
+  return launch_rows<0, kPoints>(a, static_cast<cudaStream_t>(stream));
+}
+
+// K3: K1's selection alone. mask and adj may be null.
+int knn_select_launch(const void* coors, const void* mask, const void* adj,
+                      long long adj_bstride, int b, int n, int c, int k, void* vals, void* idx,
+                      void* stream) {
+  return launch_rows<0, kPoints>(
+      block_args(coors, mask, adj, adj_bstride, b, n, c, k, 0u, vals, idx),
+      static_cast<cudaStream_t>(stream));
+}
+
 // K4: exact selection at any n; vals f32 and idx i64. mask and adj may be null.
 int knn_select_tiled_launch(const void* coors, const void* mask, const void* adj,
                             long long adj_bstride, int b, int n, int c, int k,
                             void* vals, void* idx, void* stream) {
-  return launch_self<0, false>(
-      self_args(coors, mask, adj, adj_bstride, b, n, c, k, 0u, vals, idx),
+  return launch_rows<0, kTiled>(
+      block_args(coors, mask, adj, adj_bstride, b, n, c, k, 0u, vals, idx),
       static_cast<cudaStream_t>(stream));
 }
 
@@ -692,25 +722,17 @@ int knn_select_tiled_launch(const void* coors, const void* mask, const void* adj
 int knn_candidates_packed_tiled_launch(const void* coors, const void* mask, int b, int n,
                                        int c, int kc, void* keys, void* cols,
                                        void* stream) {
-  return launch_self<12, false>(
-      self_args(coors, mask, nullptr, 0, b, n, c, kc, 0x7F800u, keys, cols),
+  return launch_rows<12, kTiled>(
+      block_args(coors, mask, nullptr, 0, b, n, c, kc, 0x7F800u, keys, cols),
       static_cast<cudaStream_t>(stream));
 }
 
 // K6: 18-bit keys (f32 bits >> 14), masked pairs keyed 0x1FF00. mask may be null.
 int knn_candidates_packed_launch(const void* coors, const void* mask, int b, int n, int c,
                                  int kc, void* keys, void* cols, void* stream) {
-  return launch_self<14, false>(
-      self_args(coors, mask, nullptr, 0, b, n, c, kc, 0x1FF00u, keys, cols),
+  return launch_rows<14, kTiled>(
+      block_args(coors, mask, nullptr, 0, b, n, c, kc, 0x1FF00u, keys, cols),
       static_cast<cudaStream_t>(stream));
-}
-
-// The launch plan of K4, K5, K6 at (b, n, c, k), with an adjacency or not,
-// on a card of `sms` SMs: rows a warp and columns a lane a step.
-int knn_select_block_plan(int b, int n, int c, int k, int adj, int sms, int* rows, int* cols) {
-  *rows = rows_a_warp(b, n, c, k, adj != 0, sms);
-  *cols = kRun;
-  return 0;
 }
 
 // K8: r query rows (b, r, c) against the n points; vals f32 and idx i64,
@@ -719,38 +741,43 @@ int knn_select_queries_launch(const void* queries, const void* qmask, const void
                               const void* pmask, int b, int r, int n, int c, int k,
                               void* vals, void* idx, void* stream) {
   if ((qmask == nullptr) != (pmask == nullptr)) return (int)cudaErrorInvalidValue;
-  SelfArgs a = self_args(points, pmask, nullptr, 0, b, n, c, k, 0u, vals, idx);
+  BlockArgs a = block_args(points, pmask, nullptr, 0, b, n, c, k, 0u, vals, idx);
   a.queries = static_cast<const float*>(queries);
   a.qmask = static_cast<const unsigned char*>(qmask);
   a.nq = r;
-  return launch_self<0, true>(a, static_cast<cudaStream_t>(stream));
-}
-
-// The launch plan of K8 at (b, r, c, k) on a card of `sms` SMs: rows a
-// warp, columns a lane a step, and warps a row.
-int knn_select_queries_plan(int b, int r, int c, int k, int sms, int* rows, int* cols,
-                            int* stripes) {
-  *stripes = stripes_a_row(b, r, c, sms);
-  *rows = rows_a_warp(b, r, c, k, false, sms, *stripes);
-  *cols = kRun;
-  return 0;
+  return launch_rows<0, kQuery>(a, static_cast<cudaStream_t>(stream));
 }
 
 // K9: r query rows, all unmasked, against the columns [start, start + width)
 // of the sorted points, clipped to n; starts (b, ceil(r / rows)) holds one
-// start for each group of `rows` consecutive query rows (a multiple of 8);
-// ids (b, n) are the columns' original ids, by which ties are ordered and
-// columns reported. pmask (b, n) may be null.
+// start for each group of `rows` consecutive query rows (a multiple of 8),
+// any column; ids (b, n) are the columns' original ids, by which ties are
+// ordered and columns reported. pmask (b, n) may be null. Every window must
+// hold k columns of the n.
 int knn_select_window_launch(const void* queries, const void* points, const void* pmask,
                              const void* ids, const void* starts, int rows, int width, int b,
                              int r, int n, int c, int k, void* vals, void* idx,
                              void* stream) {
-  const Problem q{static_cast<const float*>(queries), static_cast<const float*>(points),
-                  static_cast<const unsigned char*>(pmask),
-                  static_cast<const int*>(starts), static_cast<const int*>(ids),
-                  rows, width, b, r, n, c, k};
-  return launch_rows(q, vals, static_cast<long long*>(idx),
-                           static_cast<cudaStream_t>(stream));
+  if (starts == nullptr || ids == nullptr || rows < kWarps || rows % kWarps != 0 || k > width)
+    return (int)cudaErrorInvalidValue;
+  BlockArgs a = block_args(points, pmask, nullptr, 0, b, n, c, k, 0u, vals, idx);
+  a.queries = static_cast<const float*>(queries);
+  a.nq = r;
+  a.win = Window{static_cast<const int*>(starts), static_cast<const int*>(ids), rows, width};
+  return launch_rows<0, kWindow>(a, static_cast<cudaStream_t>(stream));
+}
+
+// The launch plan of knn_select_block_kernel (block_plan) for b * nrows
+// rows at (c, k), with an adjacency or not, on a card of `sms` SMs: rows a
+// warp, columns a lane a step and warps a row. striped: K1, K3, K8 or K9
+// (0: K4-K6); ti: K9's rows that share a window (0: none).
+int knn_select_plan(int striped, int b, int nrows, int c, int k, int adj, int ti, int sms,
+                    int* rows, int* cols, int* stripes) {
+  const Plan p = block_plan(b, nrows, c, k, adj != 0, striped != 0, ti, sms);
+  *rows = p.rows;
+  *cols = kRun;
+  *stripes = p.stripes;
+  return 0;
 }
 
 }  // extern "C"

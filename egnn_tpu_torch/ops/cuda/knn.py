@@ -26,13 +26,14 @@ versions and the reference's routing gates. Launches count into ``LAUNCH_COUNTS`
   (``_knn_window_kernel``): the same against a window of the points sorted
   by x, with a margin per row that certifies it.
 
-K1 and K3 run ``csrc/knn_select.cu`` (one template, ``kPayload`` on or
-off), K4, K5, K6, K8 and K9 ``csrc/knn_select_large.cu``: K4-K6 and K8 one
-template that ranks several rows a warp (the ranking key its parameter, and
-for K8 the query rows and several warps a row;
-``knn_select_block_model`` is its traversal on the CPU), K9 one that
-ranks a row a warp; the sources' headers say what
-bounds each on the card and how the design meets that. A wrapper given a CUDA tensor launches its kernel
+All seven run ``csrc/knn_select_large.cu``: one template that ranks several
+rows a warp, with the ranking key its parameter, and for K1, K3, K8 and K9,
+whose rows are few, several warps a row where one would leave the card
+half empty (K8, K9: the query rows, K9 each group of rows against its
+window of the columns; K1: the winners' payload rows copied at the end).
+``knn_select_block_model`` is its traversal on the CPU, and the source's
+header says what bounds each kernel on the card and how the design meets
+that. A wrapper given a CUDA tensor launches its kernel
 or raises; given a CPU tensor it runs the plain version, which the tests
 hold against the JAX package and ``chip_smoke.py`` holds the kernel against
 on the card. The plain versions take a ``row_chunk`` so that no (n, n)
@@ -52,7 +53,7 @@ from . import LAUNCH_COUNTS, build
 from . import raise_on_launch_error as _raise_on
 
 MAX_K = 128       # longest top-k (and candidate) list the kernels keep
-MAX_C = 16        # kMaxC in csrc/knn_select.cu and csrc/knn_select_large.cu
+MAX_C = 16        # kMaxC in csrc/knn_select_large.cu
 
 
 # ---------------------------------------------------------------------------
@@ -219,20 +220,24 @@ def knn_select_queries_plain(queries, points, k, q_mask=None, p_mask=None,
 
 
 # ---------------------------------------------------------------------------
-# the traversal of K4, K5 and K6 on the card, as a CPU model
+# the traversal of the selection kernels on the card, as a CPU model
 # ---------------------------------------------------------------------------
 # csrc/knn_select_large.cu:knn_select_block_kernel ranks `rows` rows a warp,
-# 8 warps a block, over tiles of 2048 columns (512 at c != 3); in each step lane l takes the
-# columns t0 + 4l .. t0 + 4l + 3 of the tile, and the warp takes the
-# insertion path only when one of its pairs is below its row's k-th value.
+# `stripes` warps a row, 8 warps a block, over tiles of 2048 columns (1024
+# for K9's windows, 512 at c != 3); in each step lane l takes the columns
+# t0 + 4l .. t0 + 4l + 3 of the tile, and the warp takes the insertion path
+# only when one of its pairs is below its row's k-th value.
 
 BLOCK_WARPS = 8      # kWarps
 BLOCK_RUN = 4        # kRun: consecutive columns a lane ranks a step
 
 
-def block_tile(c: int) -> int:
-    """Columns a tile (``block_tile``): 2048 at c = 3, else 512."""
-    return 2048 if c == 3 else 512
+def block_tile(c: int, window: bool = False) -> int:
+    """Columns a tile (``block_tile``): 2048 at c = 3 (1024 for K9's
+    windows, whose tiles carry the ids too), else 512."""
+    if c != 3:
+        return 512
+    return 1024 if window else 2048
 
 
 _I64_MIN, _I64_MAX = torch.iinfo(torch.int64).min, torch.iinfo(torch.int64).max
@@ -251,8 +256,8 @@ def _as_i32(u):
 def _row_thresholds(tau, shift, fill_key):
     """(thr float32, mthr int64) of each row from its k-th packed value, as
     ``csrc/knn_select_large.cu:row_thresholds``: an unmasked pair below tau
-    has ``!(v > thr)``; a masked pair is below tau exactly when its column
-    is below mthr."""
+    has ``!(v > thr)``; a masked pair is below tau exactly when the low word
+    of its packed value is below mthr."""
     hi = (tau >> 32) + (1 << 31)
     lo = tau & 0xFFFFFFFF
     if shift == 0:
@@ -267,38 +272,49 @@ def _row_thresholds(tau, shift, fill_key):
 
 def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, rows: int = 4,
                            tile: Optional[int] = None, queries=None, q_mask=None,
-                           stripes: int = 1):
-    """The traversal of ``knn_select_block_kernel`` in torch: K4 (``shift``
-    0, (vals float32, idx int64)), K5 (12) or K6 (14) ((keys int32, cols
-    int64)), each (b, n, k), and the counts of the run; with ``queries``
-    (b, R, c) and their mask ``q_mask``, K8: the query rows against the
-    points, (vals, idx) each (b, R, k).
+                           stripes: int = 1, window=None, table=None):
+    """The traversal of ``knn_select_block_kernel`` in torch: K3 and K4
+    (``shift`` 0, (vals float32, idx int64)), K5 (12) or K6 (14) ((keys
+    int32, cols int64)), each (b, n, k), and the counts of the run; with
+    ``table`` (b, n, tw), K1: the winners' rows (b, n, k, tw) before the
+    counts; with ``queries`` (b, R, c) and their mask ``q_mask``, K8: the
+    query rows against the points, (vals, idx) each (b, R, k); with
+    ``queries`` and ``window`` = (starts (b, groups), ti, W, ids (b, n)),
+    K9: every query row, unmasked, against the columns [start, min(start +
+    W, n)) of its group of ti rows (``mask`` the columns'), ranked and
+    reported by the columns' ids.
 
     It takes the kernel's steps: ``rows`` rows a warp and 8 warps a block
     (rows past the last in the last block rank nothing), ``stripes`` warps a
-    group of rows (K8; warp s of a group takes the steps s, s + stripes, ...
-    of every tile into lists of its own), tiles of ``tile`` columns
-    (the kernel's ``block_tile(c)`` by default; +inf coordinates past the
-    last column), in each step lane l's columns
-    t0 + 4l + q, the pre-test of every pair against its row's thresholds
-    (``_row_thresholds``; a masked row tests only its columns, a row's self
-    and adjacent columns always pass), one vote a warp, then for each row
-    that a lane flagged the lanes' offers of their packed values
-    ``(key << 32) | j`` (ordered here as a signed int64), column q by column
-    q, each a merge into the row's ascending list, and the row's new
-    thresholds; at the end, with stripes, the group's first warp merges the
-    others' lists into its own. The counts: warp steps (``steps``), those
-    that took the insertion path (``votes``) and list merges (``merges``)."""
+    group of rows (warp s of a group takes the steps s, s + stripes, ... of
+    every tile into lists of its own), tiles of ``tile`` columns from the
+    block's first column (the kernel's ``block_tile`` by default; +inf
+    coordinates, and K9 the id ~0, past the last column; K9 ranks first the
+    tile that holds the block's first row by x, then the tiles after it,
+    then those before it downwards), in each step lane
+    l's columns t0 + 4l + q, the pre-test of every pair against its row's
+    thresholds (``_row_thresholds``; a masked row tests only its columns, a
+    row's self and adjacent columns always pass), one vote a warp, then for
+    each row that a lane flagged the lanes' offers of their packed values
+    ``(key << 32) | j`` (K9: ``| id``; ordered here as a signed int64),
+    column q by column q, each a merge into the row's ascending list, and
+    the row's new thresholds; at the end, with stripes, the group's first
+    warp merges the others' lists into its own, and K1 copies float f of a
+    row's k * tw from float f % tw of winner f / tw. The counts: warp steps
+    (``steps``), those that took the insertion path (``votes``) and list
+    merges (``merges``)."""
     b, n, c = coors.shape
     x = coors.float()
     dev = x.device
-    if queries is not None and adj_mat is not None:
-        raise ValueError("the query rows take no adjacency")
+    if queries is None and (q_mask is not None or window is not None):
+        raise ValueError("q_mask and window come with the query rows")
+    if queries is not None and (adj_mat is not None or table is not None):
+        raise ValueError("the query rows take no adjacency and no payload")
     if (BLOCK_WARPS // stripes) * stripes != BLOCK_WARPS:
         raise ValueError(f"stripes must divide {BLOCK_WARPS}; got {stripes}")
     xq = x if queries is None else queries.float()
     nq = xq.shape[1]
-    tile = block_tile(c) if tile is None else tile
+    tile = block_tile(c, window is not None) if tile is None else tile
     per_block = BLOCK_WARPS // stripes * rows
     n_rows = -(-nq // per_block) * per_block
     ar = torch.arange(n_rows, device=dev)
@@ -306,8 +322,32 @@ def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, ro
     xi = torch.zeros(b, n_rows, c, dtype=torch.float32, device=dev)
     xi[:, :nq] = xq
     mask_i = torch.ones(b, n_rows, dtype=torch.bool, device=dev)
-    if mask is not None:
+    if mask is not None and window is None:
         mask_i[:, :nq] = mask if queries is None else q_mask
+    # each row's columns, [start, start + length) of the points (one row of
+    # each broadcasts over all rows but K9's); K9: their ids
+    bi = torch.arange(b, device=dev)[:, None, None]
+    start = torch.zeros(1, 1, dtype=torch.int64, device=dev)
+    length = torch.full((1, 1), n, dtype=torch.int64, device=dev)
+    ids = None
+    first = torch.zeros(1, 1, dtype=torch.int64, device=dev)  # the tile ranked first
+    if window is not None:
+        starts, ti, width, ids = window
+        if ti % per_block:
+            raise ValueError(f"a block's {per_block} rows must divide the window's {ti} rows")
+        block0 = ar // per_block * per_block                            # the block's first row
+        start = starts.long()[:, block0 // ti]                            # (b, n_rows)
+        length = (n - start).clamp(max=width)
+        ids = ids.long()
+        first = torch.zeros_like(start)
+        # the tile that holds the block's first row by x, ranked first: the
+        # tiles after the first (the block's thread t + 1 tests tile t + 1)
+        # whose first column's x is not above the row's
+        for t in range(1, min(BLOCK_WARPS * 32 + 1, -(-width // tile))):
+            col = start + t * tile
+            x_first = x[bi[..., 0], col.clamp(max=n - 1), 0]
+            first += (col < start + length) & (x_first <= xi[bi[..., 0], block0, 0])
+    ntiles = -(-length // tile)
     # the lists of each row, one a stripe
     lists = torch.full((b, n_rows, stripes, k), _I64_MAX, dtype=torch.int64, device=dev)
     sentinel = {12: PACKED_MASK_SENTINEL_TILED, 14: PACKED_MASK_SENTINEL}.get(shift)
@@ -315,41 +355,50 @@ def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, ro
         if shift == 0 else sentinel
     thr, mthr = _row_thresholds(lists[..., k - 1], shift, fill_key)
     steps = votes = 0
-    for j0 in range(0, n, tile):
-        span = min(tile, n - j0)
-        for t0 in range(0, span, 32 * BLOCK_RUN):
-            s = t0 // (32 * BLOCK_RUN) % stripes                       # the warp of the step
-            cols = j0 + t0 + torch.arange(32 * BLOCK_RUN, device=dev)  # lane l, run q: 4l + q
-            valid = cols < j0 + span
+    for visit in range(int(ntiles.max())):
+        # the block's tile of this visit: its first, the tiles after it, then
+        # those before it downwards
+        j0 = torch.where(visit < ntiles - first, first + visit, ntiles - 1 - visit) * tile
+        span = torch.where(visit < ntiles, (length - j0).clamp(0, tile), 0)
+        for t0 in range(0, tile, 32 * BLOCK_RUN):
+            taken = t0 < span                  # the blocks that take the step
+            if not bool(taken.any()):
+                break
+            s = t0 // (32 * BLOCK_RUN) % stripes                      # the warp of the step
+            rel = (j0 + t0)[..., None] + torch.arange(32 * BLOCK_RUN, device=dev)  # 4l + q
+            cols = start[..., None] + rel
+            valid = rel < length[..., None]
             cj = cols.clamp(max=n - 1)
-            xj = torch.where(valid[:, None], x[:, cj], math.inf)
-            v = nb.sum_of_squares(xi[:, :, None, :] - xj[:, None])      # (b, rows, 128)
+            xj = torch.where(valid[..., None], x[bi, cj], math.inf)
+            v = nb.sum_of_squares(xi[:, :, None, :] - xj)              # (b, rows, 128)
             masked = torch.zeros_like(v, dtype=torch.bool)
             if mask is not None:
-                masked = ~(mask_i[:, :, None] & (mask[:, cj] & valid)[:, None, :])
+                masked = ~(mask_i[:, :, None] & mask[bi, cj] & valid)
             special = torch.zeros_like(masked)
             fv = torch.where(masked, nb.MASKED_RANK_FILL, v)
             if adj_mat is not None:
-                eye = ar[:, None] == cols[None, :]
+                eye = ar[:, None] == cols[0]
                 a = torch.zeros_like(special)
-                a[:, :n] = adj_mat[:, :, cj].bool() & valid
+                a[:, :n] = adj_mat[:, :, cj[0, 0]].bool() & valid[0]
                 special = eye | a
                 fv = torch.where(eye, -1.0, torch.where(a, 0.0, fv))
+            # the low words of the packed values: the columns, K9 their ids
+            lo = cols if ids is None else torch.where(valid, ids[bi, cj], 0xFFFFFFFF)
             # the pre-test of every pair, per lane (its four columns) and row
             thr_s, mthr_s = thr[..., s, None], mthr[..., s, None]
-            below = torch.where(masked, cols < mthr_s, ~(v > thr_s))
+            below = torch.where(masked, lo < mthr_s, ~(v > thr_s))
             below = torch.where(mask_i[..., None], below, (cols // BLOCK_RUN * BLOCK_RUN) < mthr_s)
-            lane_flag = (below | special).view(b, n_rows, 32, BLOCK_RUN).any(dim=-1)
-            lane_flag = lane_flag & live[:, None]
+            lane_flag = (below | special).reshape(b, n_rows, 32, BLOCK_RUN).any(dim=-1)
+            lane_flag = lane_flag & live[:, None] & taken[..., None]
             vote = lane_flag.any(dim=-1).view(b, -1, rows).any(dim=-1)
-            steps += vote.numel()
+            steps += int(taken.expand(b, n_rows).reshape(b, -1, rows)[..., 0].sum())
             votes += int(vote.sum())
             if shift == 0:
                 u = _u32(fv)
                 hi = torch.where(u >= 1 << 31, u ^ 0xFFFFFFFF, u ^ 0x80000000)
             else:
                 hi = torch.where(masked, sentinel, _u32(v) >> shift)
-            p = ((hi - (1 << 31)) << 32) | cols
+            p = ((hi - (1 << 31)) << 32) | lo
             offered = lane_flag.repeat_interleave(BLOCK_RUN, dim=-1) & valid
             lst = lists[:, :, s]
             for q in range(BLOCK_RUN):  # the warp's offers of column q, lanes in order
@@ -362,10 +411,17 @@ def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, ro
     hi = (lists >> 32) + (1 << 31)
     lo = lists & 0xFFFFFFFF
     counts = {"steps": steps, "votes": votes, "merges": b * n_rows * (stripes - 1)}
-    if shift == 0:
-        bits = torch.where(hi >= 1 << 31, hi ^ 0x80000000, hi ^ 0xFFFFFFFF)
-        return _as_i32(bits).view(torch.float32), lo, counts
-    return _as_i32(hi), lo, counts
+    if shift != 0:
+        return _as_i32(hi), lo, counts
+    bits = torch.where(hi >= 1 << 31, hi ^ 0x80000000, hi ^ 0xFFFFFFFF)
+    vals = _as_i32(bits).view(torch.float32)
+    if table is None:
+        return vals, lo, counts
+    tw = table.shape[-1]
+    f = torch.arange(k * tw, device=dev)
+    src = (lo[..., f // tw] * tw + f % tw).reshape(b, -1)
+    rows_out = torch.gather(table.reshape(b, n * tw), 1, src).view(b, nq, k, tw)
+    return vals, lo, rows_out, counts
 
 
 def _pick_ti_window(W: int, n_pad: int, R: int) -> int:
@@ -462,48 +518,36 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SELECT_ARGS = [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P]
 _CANDIDATE_ARGS = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
-_ENTRIES = {  # launch function -> (source, argument types)
-    "knn_select_gather_launch": ("knn_select", [_P, _P, _P, ctypes.c_longlong, _P, _I, _I, _I,
-                                                _I, _I, _P, _P, _P, _P]),
-    "knn_select_launch": ("knn_select", _SELECT_ARGS),
-    "knn_select_tiled_launch": ("knn_select_large", _SELECT_ARGS),
-    "knn_candidates_packed_tiled_launch": ("knn_select_large", _CANDIDATE_ARGS),
-    "knn_candidates_packed_launch": ("knn_select_large", _CANDIDATE_ARGS),
-    "knn_select_queries_launch": ("knn_select_large", [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                                       _P, _P, _P]),
-    "knn_select_window_launch": ("knn_select_large", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                                      _I, _I, _P, _P, _P]),
-    "knn_select_block_plan": ("knn_select_large", [_I, _I, _I, _I, _I, _I,
-                                                   ctypes.POINTER(_I), ctypes.POINTER(_I)]),
-    "knn_select_queries_plan": ("knn_select_large",
-                                [_I, _I, _I, _I, _I] + [ctypes.POINTER(_I)] * 3),
+_ENTRIES = {  # launch function -> argument types, all in csrc/knn_select_large.cu
+    "knn_select_gather_launch": [_P, _P, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _P, _P,
+                                 _P, _P],
+    "knn_select_launch": _SELECT_ARGS,
+    "knn_select_tiled_launch": _SELECT_ARGS,
+    "knn_candidates_packed_tiled_launch": _CANDIDATE_ARGS,
+    "knn_candidates_packed_launch": _CANDIDATE_ARGS,
+    "knn_select_queries_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    "knn_select_window_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    "knn_select_plan": [_I] * 8 + [ctypes.POINTER(_I)] * 3,
 }
+# the kernels whose rows are few: several warps a row where one row a warp
+# would leave the card half empty (the source's block_plan)
+_STRIPED = ("knn_select_gather", "knn_select", "knn_select_queries", "knn_select_window")
 
 
 def _entry(name: str):
-    source, argtypes = _ENTRIES[name]
-    return build.function(source, name, argtypes)
+    return build.function("knn_select_large", name, _ENTRIES[name])
 
 
-def built_block_plan(b: int, n: int, c: int, k: int, sms: int,
-                     adjacency: bool = False) -> tuple[int, int]:
-    """(rows a warp, columns a lane a step) of K4-K6's launch at (b, n, c,
-    k) on a card of ``sms`` SMs, as the built source plans it
-    (``csrc/knn_select_large.cu:rows_a_warp``, the rule's one owner)."""
-    rows, cols = _I(), _I()
-    _entry("knn_select_block_plan")(b, n, c, k, int(adjacency), sms, ctypes.byref(rows),
-                                    ctypes.byref(cols))
-    return rows.value, cols.value
-
-
-def built_query_plan(b: int, r: int, c: int, k: int, sms: int) -> tuple[int, int, int]:
-    """(rows a warp, columns a lane a step, warps a row) of K8's launch for
-    r query rows at (b, c, k) on a card of ``sms`` SMs, as the built source
-    plans it (``csrc/knn_select_large.cu:stripes_a_row`` and
-    ``rows_a_warp``)."""
+def built_plan(kernel: str, b: int, nrows: int, c: int, k: int, sms: int,
+               adjacency: bool = False, ti: int = 0) -> tuple[int, int, int]:
+    """(rows a warp, columns a lane a step, warps a row) of the launch of
+    ``kernel`` (a ``LAUNCH_COUNTS`` name of this module) for b * nrows rows
+    at (c, k) on a card of ``sms`` SMs, with an adjacency or not, K9's
+    groups of ``ti`` rows sharing a window, as the built source plans it
+    (``csrc/knn_select_large.cu:block_plan``, the rule's one owner)."""
     rows, cols, stripes = _I(), _I(), _I()
-    _entry("knn_select_queries_plan")(b, r, c, k, sms, ctypes.byref(rows), ctypes.byref(cols),
-                                      ctypes.byref(stripes))
+    _entry("knn_select_plan")(int(kernel in _STRIPED), b, nrows, c, k, int(adjacency), ti, sms,
+                              ctypes.byref(rows), ctypes.byref(cols), ctypes.byref(stripes))
     return rows.value, cols.value, stripes.value
 
 
@@ -754,11 +798,21 @@ def knn_select_window(
         return knn_select_window_plain(queries, ranks, points_sorted, orig_ids, k, W,
                                        p_mask_sorted, max(1, (1 << 24) // max(1, b * W)))
     _, p_mask_sorted = _check_queries(queries, points_sorted, k, None, p_mask_sorted)
-    b, r, c = queries.shape
+    b, r, _ = queries.shape
     n = points_sorted.shape[1]
     if orig_ids.shape != (b, n) or ranks.shape != (b, r) or orig_ids.device != queries.device:
         raise ValueError("orig_ids must be (b, n) and ranks (b, R), on the queries' device")
     ti, starts, margin = _window_plan(queries, ranks, points_sorted, k, W, p_mask_sorted)
+    vals, idx = _launch_window(queries, points_sorted, orig_ids, k, W, p_mask_sorted, ti, starts)
+    return vals, idx, margin
+
+
+def _launch_window(queries, points_sorted, orig_ids, k, W, p_mask_sorted, ti, starts):
+    """K9's launch at the windows ``starts`` (b, ceil(R / ti)), any columns,
+    of groups of ``ti`` rows (a multiple of 8): (vals, idx), each (b, R, k).
+    Every window must hold k of the n columns."""
+    b, r, c = queries.shape
+    n = points_sorted.shape[1]
     starts32, ids32 = starts.int().contiguous(), orig_ids.int().contiguous()
     vals = torch.empty((b, r, k), dtype=torch.float32, device=queries.device)
     idx = torch.empty((b, r, k), dtype=torch.int64, device=queries.device)
@@ -770,4 +824,4 @@ def knn_select_window(
             vals.data_ptr(), idx.data_ptr(), stream)
     _raise_on(err, "knn_select_window")
     LAUNCH_COUNTS["knn_select_window"] += 1
-    return vals, idx, margin
+    return vals, idx

@@ -451,3 +451,83 @@ def test_grid_model_matches_pallas(monkeypatch, seed, n, k, kind, with_mask):
     jout, tout = _grid_both(coors, k, mask)
     _assert_grid_same(jout, tout, exact_vals=kind in ("lattice", "pile"))
     assert len(counts) == 1 and 0 < counts[0]["votes"] <= counts[0]["steps"]
+
+
+# ---------------------------------------------------------------------------
+# K9's traversal on the card (the block kernel over windows, its CPU model)
+# ---------------------------------------------------------------------------
+
+
+def _window_case(seed, n, R, kind, with_mask):
+    """A batch of two clouds, R valid query rows of each, prepared as the
+    dispatcher does (``_window_inputs``)."""
+    rng = np.random.RandomState(seed)
+    if kind == "int":
+        coors = rng.randint(-4, 5, size=(2, n, 3)).astype(np.float32)
+    else:
+        coors = rng.randn(2, n, 3).astype(np.float32)
+    mask = rng.rand(2, n) > 0.15 if with_mask else None
+    valid = np.ones((2, n), bool) if mask is None else mask
+    fidx = np.stack([rng.permutation(np.nonzero(valid[bi])[0])[:R] for bi in range(2)])
+    return _window_inputs(coors, mask, fidx)
+
+
+def _window_model(q, qr, pts_s, order, k, W, pm_s, rows, stripes):
+    """The CPU model of K9 at the host's plan of the windows (group height,
+    starts): (vals, idx, counts, ti)."""
+    q, qr, pts_s, order, pm_s = (_t(x) for x in (q, qr, pts_s, order, pm_s))
+    ti, starts, _ = K._window_plan(q, qr, pts_s, k, W, pm_s)
+    v, i, counts = K.knn_select_block_model(pts_s, k, pm_s, None, 0, rows, None, q, None,
+                                            stripes, window=(starts, ti, W, order))
+    return v, i, counts, ti
+
+
+@pytest.mark.parametrize("n,k,R,W,kind,with_mask,rows,stripes,ti", [
+    (2048, 16, 256, 256, "float", True, 1, 1, 8),    # eight rows a block, one group
+    (2048, 16, 256, 256, "int", False, 1, 4, 8),     # distance ties by id; four warps a row
+    (1000, 1, 100, 256, "int", True, 1, 8, 8),       # k = 1; eight warps a row
+    (1024, 16, 128, 1024, "float", True, 4, 1, 32),  # the whole width; 32 rows a block
+    (3000, 48, 400, 1024, "float", True, 2, 2, 32),  # windows clipped at n = 3000; two slots
+    (2048, 48, 256, 1024, "int", True, 2, 1, 32),    # ties under a mask
+])
+def test_window_model_matches_plain(n, k, R, W, kind, with_mask, rows, stripes, ti):
+    """K9's steps (a block's rows in one group, its window's tiles, the ids as
+    the packed values' low words, the masked pairs' pre-test on the ids)
+    give the plain version's selection bit for bit."""
+    q, qr, pts_s, order, pm_s, _ = _window_case(n + k + W, n, R, kind, with_mask)
+    v, i, counts, got_ti = _window_model(q, qr, pts_s, order, k, W, pm_s, rows, stripes)
+    assert got_ti == ti
+    pv, pi, _ = K.knn_select_window_plain(_t(q), _t(qr), _t(pts_s), _t(order), k, W, _t(pm_s))
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+    assert 0 < counts["votes"] <= counts["steps"]
+    n_rows = -(-R // (8 // stripes * rows)) * (8 // stripes * rows)
+    assert counts["merges"] == 2 * n_rows * (stripes - 1)
+
+
+def test_window_model_takes_any_start():
+    """Windows that start on any column (none a multiple of 4) and run past
+    n: the model against the plain selection at the same starts."""
+    n, k, R, W, ti = 700, 6, 40, 256, 8
+    q, qr, pts_s, order, pm_s, _ = _window_case(3, n, R, "int", True)
+    q, pts_s, order, pm_s = (_t(x) for x in (q, pts_s, order, pm_s))
+    starts = torch.tensor([[1, 3, 250, 445, 599], [7, 190, 201, 301, 443]])
+    v, i, _ = K.knn_select_block_model(pts_s, k, pm_s, None, 0, 1, None, q, None, 2,
+                                       window=(starts, ti, W, order))
+    pv, pi = K._window_select_plain(q, pts_s, order, k, W, pm_s, ti, starts, None)
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+    with pytest.raises(ValueError):   # a block's 16 rows span two groups of 8
+        K.knn_select_block_model(pts_s, k, pm_s, None, 0, 2, None, q, None, 1,
+                                 window=(starts, ti, W, order))
+
+
+@pytest.mark.parametrize("n,k,R,W,kind,with_mask,rows,stripes", [
+    (2048, 16, 256, 256, "int", True, 1, 2),
+    (1000, 5, 100, 512, "float", False, 1, 1),
+])
+def test_window_model_matches_pallas(n, k, R, W, kind, with_mask, rows, stripes):
+    q, qr, pts_s, order, pm_s, _ = _window_case(n + k, n, R, kind, with_mask)
+    (jv, ji, _), _ = _window_both(q, qr, pts_s, order, k, W, pm_s)
+    v, i, _, _ = _window_model(q, qr, pts_s, order, k, W, pm_s, rows, stripes)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    tol = dict(rtol=0, atol=0) if kind == "int" else dict(rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), **tol)

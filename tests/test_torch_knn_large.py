@@ -562,3 +562,69 @@ def test_query_model_refuses_an_adjacency():
                                  queries=coors[:, :4])
     with pytest.raises(ValueError):
         K.knn_select_block_model(coors, 2, queries=coors[:, :4], stripes=3)
+
+
+# ---------------------------------------------------------------------------
+# K1 and K3 on the same traversal: the points, several warps a row
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,k,c,kind,with_mask,with_adj,rows,stripes", [
+    (1024, 8, 3, "float", True, True, 1, 4),   # anchor 3 at b = 1: four warps a row
+    (300, 8, 3, "int", True, True, 1, 8),      # tie pile-ups; eight stripes of 0-1 steps
+    (777, 16, 3, "dyadic", False, False, 4, 2),
+    (530, 48, 3, "int", True, True, 2, 2),     # two list slots a lane
+    (200, 128, 3, "float", True, False, 1, 4), # four
+    (260, 5, 5, "int", True, True, 1, 1),      # c = 5, as the kernel plans it
+    (600, 12, 5, "float", True, False, 1, 2),  # c = 5 over 512-column tiles, split
+    (160, 8, 3, "nan", False, True, 1, 4),     # NaN rankings: still k real columns a row
+])
+def test_self_stripes_model_matches_plain(n, k, c, kind, with_mask, with_adj, rows, stripes):
+    """K3's and K1's steps (the points' rows, stripes of every tile a warp
+    each, the stripes' lists merged, K1's copy of the winners' rows) give the
+    plain versions' selection and rows bit for bit."""
+    coors, mask, adj = _block_case(n + k + c + stripes, n, c,
+                                   "float" if kind == "nan" else kind, with_mask, with_adj)
+    if kind == "nan":   # a NaN coordinate: its row and its column rank NaN
+        coors[0, 17, 1] = math.nan
+        coors[1, 90, 0] = math.nan
+    table = torch.from_numpy(np.random.RandomState(n).randn(2, n, 7).astype(np.float32))
+    v, i, got_rows, counts = K.knn_select_block_model(coors, k, mask, adj, 0, rows, None,
+                                                      stripes=stripes, table=table)
+    pv, pi, prows = K.knn_select_gather_plain(coors, k, table, mask, adj)
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32)) and torch.equal(i, pi)
+    assert torch.equal(got_rows.view(torch.int32), prows.view(torch.int32))
+    v3, i3, counts3 = K.knn_select_block_model(coors, k, mask, adj, 0, rows, None,
+                                               stripes=stripes)
+    sv, si = K.knn_select_plain(coors, k, mask, adj)
+    assert torch.equal(v3.view(torch.int32), sv.view(torch.int32)) and torch.equal(i3, si)
+    assert counts3 == counts
+    n_rows = -(-n // (8 // stripes * rows)) * (8 // stripes * rows)
+    tile = K.block_tile(c)
+    steps = sum(-(-min(tile, n - j0) // 128) for j0 in range(0, n, tile))
+    assert counts["steps"] == 2 * n_rows // rows * steps
+    assert 0 < counts["votes"] <= counts["steps"]
+    assert counts["merges"] == 2 * n_rows * (stripes - 1)
+
+
+def test_self_stripes_model_matches_gather_pallas():
+    """The striped model of K1 against the TPU kernel in interpret mode, on
+    integer coordinates (exact rankings) with a mask and a chain."""
+    n, k = 256, 8
+    coors, mask, adj = _case(7, 2, n, with_mask=True, with_adj=True, kind="int")
+    table = np.random.RandomState(8).randn(2, n, 36).astype(np.float32)
+    jv, ji, jrows = jk.knn_select_gather_pallas(_j(coors), k, _j(table), mask=_j(mask),
+                                                adj_mat=_j(adj), interpret=True)
+    v, i, got_rows, _ = K.knn_select_block_model(_t(coors), k, _t(mask), _t(adj), 0, 1, None,
+                                                 stripes=4, table=_t(table))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(got_rows.numpy(), np.asarray(jrows))
+
+
+def test_self_model_refuses_a_payload_for_query_rows():
+    coors = torch.zeros(1, 16, 3)
+    with pytest.raises(ValueError):
+        K.knn_select_block_model(coors, 2, queries=coors[:, :4], table=torch.zeros(1, 16, 2))
+    with pytest.raises(ValueError):
+        K.knn_select_block_model(coors, 2, window=(torch.zeros(1, 1), 8, 128, None))
