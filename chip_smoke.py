@@ -4,8 +4,10 @@ anchor-3 EGNN_Network forward, trains it, then does the same beyond the
 full-band reach (n > 16384: the net65k network at 65 536 nodes, through the
 packed-key candidates and through the spatial grid, and the anchor-3 family
 at 32 768), then serves and trains both through the fused pair pipeline
-(``fused_pairs``, ``fused_knn``), checks the outputs, and times the kernels,
-the forwards and the train steps.
+(``fused_pairs``, ``fused_knn``), then serves and trains the sparse family
+at anchor 5 (``EGNNSparseNetwork`` over kNN-built molecule graphs, four
+arms), checks the outputs, and times the kernels, the forwards and the
+train steps.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -115,7 +117,32 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    K10f, K10b on path A's (n = 65 536): against their plain versions in
    float64 as in phase 21, then timed beside their plain versions, their
    bounds and the unfused pipeline of torch operators on the same pairs;
-   each kernel's tile, grid and blocks an SM beside its time.
+   each kernel's tile, grid and blocks an SM beside its time;
+25. K10f and K10b at anchor 5's widths (dim 64, fourier 4, h = 274, the
+   sparse gate semantics ``gate_feats_only``), soft edge off and on, which
+   the gate must take: against the float64 plain version as in phase 21,
+   three launches bitwise equal;
+26. ``knn_graph`` on the card against the CPU, bitwise, per molecule, over
+   a packed batch (``graph_size``) and over a ragged ``batch``, on Gaussian
+   and on lattice coordinates (ties): K3 once a call;
+27. serving anchor 5 (``EGNNSparseNetwork``: 4 layers, dim-64 embeddings of
+   5 atom types, fourier 4, both norms; G = 32 molecules of up to 32 atoms,
+   kNN 8) in four arms: (a) the general segment path, (b)
+   ``uniform_degree=8, uniform_graph_size=32``, (c) (b) with
+   ``fused_uniform=True``, (d) (a) with global attention every second
+   layer; each request builds its edges (K3) and runs the network: finite
+   outputs, card against CPU, equivariance, (c) against (b), and the K2,
+   K3 and K10f launches the path implies;
+28. training anchor 5 in every arm: the fwd+bwd of bench_all.py's
+   ``(o[:, 3:]**2).mean()`` wrt x and one denoising step's parameter
+   gradients against the CPU (its segment sums in K2's arithmetic), five
+   steps of the denoising objective with ``make_adam`` (the loss falls;
+   K10f and K10b once a layer a step in (c)), (c)'s gradients against (b)'s;
+29. timing at G = 32 and G = 512: forward, fwd+bwd and train step of each
+   arm as a call (CUDA events) and as a CUDA graph replay, a step's kernel
+   time by name and busy share; K3, K2, K10f and K10b at anchor 5's shapes
+   beside their bounds, plain versions and ``index_add_`` or the unfused
+   pipeline.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -680,6 +707,417 @@ def unfused_pipeline(torch, core, coors, cj, fj, proj_i, pv, weights, opts):
     if opts.clamp is not None:
         w = w.clamp(-opts.clamp, opts.clamp)
     return torch.where(pair_mask, m_ij, 0.0).sum(dim=-2), (w * rel_n).sum(dim=-2)
+
+
+# anchor configuration 5 (examples/molecule_regression.py:133-149,
+# benchmarks/bench_all.py:127-171): EGNNSparseNetwork over packed molecules
+SP_G, SP_G_LARGE, SP_NA, SP_K, SP_LAYERS, SP_DIM = 32, 512, 32, 8, 4, 64
+SP_NET = dict(n_layers=SP_LAYERS, feats_dim=1, embedding_nums=[5], embedding_dims=[SP_DIM],
+              fourier_features=4, norm_feats=True, norm_coors=True, aggr="add")
+SP_HIDDEN = 2 * (2 * SP_DIM + 2 * 4 + 1)   # 274
+# the arms of bench_all.py:152-160 without its bfloat16 ones: (a) the general
+# segment path, (b) the example's uniform layout, (c) (b) through K10, (d) (a)
+# with global attention every second layer
+SP_ARMS = {
+    "a": {},
+    "b": dict(uniform_degree=SP_K, uniform_graph_size=SP_NA),
+    "c": dict(uniform_degree=SP_K, uniform_graph_size=SP_NA, fused_uniform=True),
+    "d": dict(global_linear_attn_every=2),
+}
+SP_STEPS = 5
+SP_GRAD_TOL = 1e-5   # card against CPU, relative, as the dense path's TRAIN_GRAD_TOL
+# a step's parameter gradients, arm (c) against arm (b) on the card: the
+# dense path's 5e-3 (FUSED_VS_UNFUSED_GRAD_TOL) covers the self pairs'
+# +-scale/eps terms under norm_coors; kNN edges of the sparse path hold no
+# self pair, and the two arms differ by the order of their f32 sums alone
+# (measured 5.2e-7, H100, PERF.md)
+SP_FUSED_GRAD_TOL = 1e-5
+CHARGES = (-0.8, -0.3, 0.1, 0.5, 1.0)   # molecule_regression.py's per-type charges
+
+
+def molecule_batch(torch, knn_graph, G, seed, lattice=False):
+    """(MoleculeBatch, clean coordinates): G packed molecules as
+    molecule_regression.py:94-124 builds them: SP_NA atom slots, 8 to SP_NA
+    of them valid, coordinates 2 N(0, 1) (or an integer lattice: ties), a
+    type column in [0, 5), the Coulomb-like target; here x holds the
+    coordinates plus N(0, 1) noise, the denoising objective's input
+    (denoise_sparse.py:68-74). Each molecule's kNN edges, offset into the
+    packed node set, come from ``knn_graph(graph_size=SP_NA)`` on the card:
+    one K3 launch with b = G. Drawn on the CPU from ``seed``."""
+    from egnn_tpu_torch.training.data import MoleculeBatch
+
+    g = torch.Generator().manual_seed(seed)
+    n = G * SP_NA
+    types = torch.randint(0, 5, (G, SP_NA), generator=g)
+    lengths = torch.randint(8, SP_NA + 1, (G, 1), generator=g)
+    mask = torch.arange(SP_NA)[None, :] < lengths
+    coors = (torch.randint(0, 4, (G, SP_NA, 3), generator=g).float() if lattice
+             else 2.0 * torch.randn(G, SP_NA, 3, generator=g))
+    noised = coors + torch.randn(G, SP_NA, 3, generator=g)
+    q = torch.tensor(CHARGES)[types]
+    pm = mask[:, :, None] & mask[:, None, :] & ~torch.eye(SP_NA, dtype=torch.bool)
+    r = ((coors[:, :, None] - coors[:, None]) ** 2).sum(-1).clamp(min=1e-2).sqrt()
+    target = 0.5 * torch.where(pm, q[:, :, None] * q[:, None, :] / r, 0.0).sum(dim=(1, 2))
+    x = torch.cat([noised.reshape(n, 3), types.reshape(n, 1).float()], dim=-1).cuda()
+    node_mask = mask.reshape(n).cuda()
+    es = knn_graph(x[:, :3], SP_K, node_mask=node_mask, graph_size=SP_NA)
+    batch = torch.arange(G, device="cuda").repeat_interleave(SP_NA)
+    return (MoleculeBatch(x=x, edge_index=es.edge_index, edge_mask=es.mask, batch_ids=batch,
+                          node_mask=node_mask, target=target.cuda()),
+            coors.reshape(n, 3).cuda())
+
+
+def sparse_phases(torch):
+    """Phases 25-29: anchor 5, the sparse family, on the card; each kernel's
+    time at the sparse shapes is printed (the kernels line keeps anchor 3's
+    rows). Raises on a failure."""
+    from egnn_tpu_torch import EGNNSparseNetwork
+    from egnn_tpu_torch.ops import core
+    from egnn_tpu_torch.ops import graph as GR
+    from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from egnn_tpu_torch.ops.cuda import knn as K
+    from egnn_tpu_torch.ops.cuda import pair_messages as PM
+    from egnn_tpu_torch.ops.cuda import segment as SK
+    from egnn_tpu_torch.training import make_adam, masked_mse
+
+    t_start = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    # ---- 25. K10f and K10b at anchor 5's widths (the F5 gate) ----
+    if not PM.supports_fused_pair_messages(SP_K, SP_HIDDEN, 16, SP_DIM, fourier=4):
+        raise AssertionError("the fused gate refuses anchor 5's widths (F5)")
+    sp_err = {"fused_pair_fwd": 0.0, "fused_pair_bwd": 0.0}
+    for i, soft in enumerate((False, True)):
+        case = pair_case(torch, SEED + 500 + i, b=1, n=SP_G * SP_NA, k=SP_K, d=SP_DIM,
+                         fourier=4, soft=soft, clamp=None, gfo=True)
+        rows_f = PM._fwd_tile_rows(1, SP_G * SP_NA, SP_K, 3, SP_DIM, SP_HIDDEN, 16, 64, 4, soft,
+                                   sms)
+        rows_b = PM._bwd_tile_rows(SP_K, 3, SP_DIM, SP_HIDDEN, 16, 64, 4, soft)
+        print(f"K10 at anchor 5's widths (d={SP_DIM}, fourier 4, h={SP_HIDDEN}, "
+              f"gate_feats_only, soft={soft}): forward tile {rows_f} rows, backward tile "
+              f"{rows_b} rows")
+        e_f, e_b = check_pair_kernels(torch, PM, f"anchor5_soft{int(soft)}", case, False)
+        sp_err["fused_pair_fwd"] = max(sp_err["fused_pair_fwd"], e_f)
+        sp_err["fused_pair_bwd"] = max(sp_err["fused_pair_bwd"], e_b)
+        del case
+
+    print(f"(phases 25-29 so far: {time.perf_counter() - t_start:.1f} s)")
+    # ---- 26. knn_graph on the card against the CPU, bitwise, every route ----
+    def same_edges(a, b):
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+    for lattice in (False, True):
+        mb, _ = molecule_batch(torch, GR.knn_graph, SP_G, SEED + 600 + lattice, lattice)
+        coors, nm = mb.x[:, :3].contiguous(), mb.node_mask
+        # SP_G graphs of random sizes over the same nodes
+        n = coors.shape[0]
+        cuts = torch.randperm(n - 1, generator=torch.Generator().manual_seed(
+            SEED + 610 + lattice))[:SP_G - 1].sort().values + 1
+        sizes = torch.diff(torch.cat([torch.zeros(1, dtype=cuts.dtype), cuts,
+                                      torch.tensor([n])]))
+        ragged = torch.arange(SP_G).repeat_interleave(sizes).cuda()
+        routes = {
+            "per_molecule": lambda c, m: [GR.knn_graph(c[g * SP_NA:(g + 1) * SP_NA], SP_K,
+                                                       node_mask=m[g * SP_NA:(g + 1) * SP_NA])
+                                          for g in range(SP_G)],
+            "graph_size": lambda c, m: [GR.knn_graph(c, SP_K, node_mask=m, graph_size=SP_NA)],
+            "ragged_batch": lambda c, m: [GR.knn_graph(c, SP_K, node_mask=m,
+                                                       batch=ragged.to(c.device))],
+        }
+        for route, build_edges in routes.items():
+            reset_launch_counts()
+            card = build_edges(coors, nm)
+            torch.cuda.synchronize()
+            k3 = LAUNCH_COUNTS["knn_select"]
+            cpu_edges = build_edges(coors.cpu(), nm.cpu())
+            ok = all(same_edges(a, b) for a, b in zip(card, cpu_edges))
+            print(f"knn_graph {route} ({'lattice ties' if lattice else 'Gaussian'}): "
+                  f"{sum(int(e.mask.sum()) for e in card)} live edges, card against CPU "
+                  f"bitwise={ok}; K3 launches {k3}")
+            if not ok or k3 != len(card):
+                raise AssertionError(f"knn_graph {route}: card and CPU edges differ or K3 did "
+                                     f"not launch once a call")
+            if route == "per_molecule":
+                # the same live edges as one graph_size call, offset per molecule
+                whole = GR.knn_graph(coors, SP_K, node_mask=nm, graph_size=SP_NA)
+                off = [e.senders + g * SP_NA for g, e in enumerate(card)]
+                live = torch.cat([e.mask for e in card])
+                if not (torch.equal(live, whole.mask)
+                        and torch.equal(torch.cat(off)[live], whole.senders[live])):
+                    raise AssertionError("per-molecule and graph_size edges differ")
+
+    print(f"(phases 25-29 so far: {time.perf_counter() - t_start:.1f} s)")
+    # ---- 27. serving anchor 5 in arms (a)-(d) ----
+    def make_net(arm, seed=SEED, device="cuda"):
+        return EGNNSparseNetwork(**SP_NET, **SP_ARMS[arm], device=device,
+                                 generator=torch.Generator().manual_seed(seed))
+
+    def forward(net, mb, x=None):
+        return net(mb.x if x is None else x, mb.edge_index, batch=mb.batch_ids,
+                   edge_mask=mb.edge_mask, num_graphs=mb.target.shape[0],
+                   node_mask=mb.node_mask)
+
+    def serve(net, mb):
+        """The serving path: the molecules' kNN edges (K3), then the network."""
+        es = GR.knn_graph(mb.x[:, :3], SP_K, node_mask=mb.node_mask, graph_size=SP_NA)
+        return forward(net, mb._replace(edge_index=es.edge_index, edge_mask=es.mask))
+
+    def cpu_batch(mb):
+        return type(mb)(*(t.cpu() for t in mb))
+
+    def expected_launches(arm, forwards):
+        """K2 and K10f launches of ``forwards`` forwards: the general path's
+        five segment sums a layer (two aggregations, the graph LayerNorm's
+        count and two sums), eight a global-attention block (two LayerNorms,
+        the softmax's denominator, the induced tokens); K10f one a layer in
+        (c)."""
+        seg = 0 if SP_ARMS[arm].get("uniform_degree") else 5 * SP_LAYERS
+        every = SP_ARMS[arm].get("global_linear_attn_every", 0)
+        seg += 8 * len(range(0, SP_LAYERS, every)) if every else 0
+        return {"segment_sum": seg * forwards,
+                "fused_pair_fwd": SP_LAYERS * forwards if arm == "c" else 0}
+
+    requests = [molecule_batch(torch, GR.knn_graph, SP_G, SEED + 700 + i)[0] for i in range(4)]
+    outs, sparse_counts = {}, {}
+    for arm in SP_ARMS:
+        net = make_net(arm).eval()
+        reset_launch_counts()
+        with torch.inference_mode():
+            outs[arm] = [serve(net, mb) for mb in requests]
+        torch.cuda.synchronize()
+        counts = sparse_counts[arm] = dict(LAUNCH_COUNTS)
+        expect = dict(expected_launches(arm, len(requests)), knn_select=len(requests))
+        print(f"anchor-5 arm ({arm}) {SP_ARMS[arm]} serving: {len(requests)} batches of {SP_G} "
+              f"molecules; launches { {k: v for k, v in counts.items() if v} } (expected "
+              f"{expect})")
+        if any(counts[k] != v for k, v in expect.items()) or sum(counts.values()) != sum(
+                expect.values()):
+            raise AssertionError(f"arm ({arm}): the launches are not what the path implies")
+        for o in outs[arm]:
+            check_outputs(torch, (o,), ((SP_G * SP_NA, 3 + SP_DIM),), f"arm ({arm})")
+        net_cpu = copy.deepcopy(net).to("cpu")
+        with torch.inference_mode():
+            o_cpu = serve(net_cpu, cpu_batch(requests[0]))
+        err = (outs[arm][0].cpu() - o_cpu).abs().max().item()
+        print(f"anchor-5 arm ({arm}): card against CPU max err {err:.3e} (atol {GPU_VS_CPU_ATOL})")
+        if not err <= GPU_VS_CPU_ATOL:
+            raise AssertionError(f"arm ({arm}): card and CPU forwards disagree")
+        mb0 = requests[0]
+
+        def moved(c, net=net, mb0=mb0):
+            o = serve(net, mb0._replace(x=torch.cat([c, mb0.x[:, 3:]], dim=-1)))
+            return o[:, 3:], o[:, :3]
+
+        check_equivariance(torch, moved, mb0.x[:, :3].contiguous(), f"anchor-5 arm ({arm})")
+        del net, net_cpu
+    err_cb = max((c - b).abs().max().item() for c, b in zip(outs["c"], outs["b"]))
+    print(f"anchor-5 arm (c) against arm (b) on the card: max err {err_cb:.3e} "
+          f"(atol {GPU_VS_CPU_ATOL})")
+    if not err_cb <= GPU_VS_CPU_ATOL:
+        raise AssertionError("the fused arm (c) and the per-edge arm (b) disagree")
+    del outs
+
+    print(f"(phases 25-29 so far: {time.perf_counter() - t_start:.1f} s)")
+    # ---- 28. training: fwd+bwd and the denoising objective in every arm ----
+    def fwd_bwd(net, mb):
+        """bench_all.py:162-165's objective: (o[:, 3:]**2).mean(), its gradient wrt x."""
+        x = mb.x.detach().requires_grad_()
+        return torch.autograd.grad((forward(net, mb, x)[:, 3:] ** 2).mean(), x)[0]
+
+    def make_step(net):
+        opt = make_adam(net.parameters(), LR)
+
+        def step(mb, clean):
+            opt.zero_grad(set_to_none=True)
+            loss = masked_mse(forward(net, mb)[:, :3], clean, mb.node_mask)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+        return step
+
+    def with_k2_sums(fn, *args):
+        """``fn`` on the CPU with its segment sums in K2's arithmetic (its
+        model), so that the card and the CPU differ by the matmuls alone."""
+        plain = SK.segment_sum_plain
+        SK.segment_sum_plain = SK.segment_sum_fixed_point
+        try:
+            return fn(*args)
+        finally:
+            SK.segment_sum_plain = plain
+
+    def step_grads(model, batch, target):
+        model.zero_grad(set_to_none=True)
+        masked_mse(forward(model, batch)[:, :3], target, batch.node_mask).backward()
+
+    mb, clean = molecule_batch(torch, GR.knn_graph, SP_G, SEED + 800)
+    grads, step_counts = {}, {}
+    for arm in SP_ARMS:
+        net = make_net(arm, SEED + 3)
+        net_cpu = copy.deepcopy(net).to("cpu")
+        g_x = fwd_bwd(net, mb)
+        g_x_cpu = with_k2_sums(fwd_bwd, net_cpu, cpu_batch(mb))
+        ex = (torch.linalg.vector_norm(g_x.cpu().double() - g_x_cpu.double())
+              / torch.linalg.vector_norm(g_x_cpu.double())).item()
+        # one step's parameter gradients, card against CPU
+        step_grads(net, mb, clean)
+        with_k2_sums(step_grads, net_cpu, cpu_batch(mb), clean.cpu())
+        grads[arm] = {name: p.grad.detach().clone() for name, p in net.named_parameters()
+                      if p.grad is not None}
+        errs = []
+        for (name, p), q in zip(net.named_parameters(), net_cpu.parameters()):
+            if (p.grad is None) != (q.grad is None):
+                raise AssertionError(f"arm ({arm}): {name} has a gradient on one device only")
+            if p.grad is not None:
+                diff = torch.linalg.vector_norm(p.grad.cpu().double() - q.grad.double()).item()
+                norm = torch.linalg.vector_norm(q.grad.double()).item()
+                errs.append((diff / max(norm, 1e-300), name))
+        worst = max(errs)
+        print(f"anchor-5 arm ({arm}) fwd+bwd: d x card against CPU ||g - g_cpu|| / ||g_cpu|| "
+              f"{ex:.3e}; one step's parameter gradients: largest {worst[0]:.3e} ({worst[1]}), "
+              f"median {statistics.median(e for e, _ in errs):.3e} over {len(errs)} "
+              f"(tol {SP_GRAD_TOL})")
+        if not (ex <= SP_GRAD_TOL and worst[0] <= SP_GRAD_TOL):
+            raise AssertionError(f"arm ({arm}): card and CPU gradients disagree")
+        step = make_step(make_net(arm, SEED + 4))
+        reset_launch_counts()
+        losses = torch.stack([step(mb, clean) for _ in range(SP_STEPS)]).cpu()
+        torch.cuda.synchronize()
+        counts = step_counts[arm] = dict(LAUNCH_COUNTS)
+        print(f"anchor-5 arm ({arm}) denoising, make_adam lr {LR}: {SP_STEPS} steps on one "
+              f"batch, losses {losses.tolist()}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        if not (bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]):
+            raise AssertionError(f"arm ({arm}): the loss did not fall")
+        fused = SP_LAYERS * SP_STEPS if arm == "c" else 0
+        if counts["fused_pair_fwd"] != fused or counts["fused_pair_bwd"] != fused:
+            raise AssertionError(f"arm ({arm}): K10f/K10b did not run once a layer a step")
+        del net, net_cpu, step
+    errs = [((torch.linalg.vector_norm((grads["c"][name] - g).double())
+              / torch.linalg.vector_norm(g.double())).item(), name)
+            for name, g in grads["b"].items()]
+    print(f"anchor-5 arm (c) against arm (b), one step's parameter gradients on the card: "
+          f"largest {max(errs)[0]:.3e} ({max(errs)[1]}) (tol {SP_FUSED_GRAD_TOL})")
+    if max(errs)[0] > SP_FUSED_GRAD_TOL:
+        raise AssertionError("the fused arm's gradients disagree with the per-edge arm's")
+
+    print(f"(phases 25-29 so far: {time.perf_counter() - t_start:.1f} s)")
+    # ---- 29. timing at G = 32 and G = 512 ----
+    for G in (SP_G, SP_G_LARGE):
+        mb, clean = molecule_batch(torch, GR.knn_graph, G, SEED + 900 + G)
+        n, e = G * SP_NA, G * SP_NA * SP_K
+        reps, trials = (5, 5) if G == SP_G else (2, 5)
+        for arm in SP_ARMS:
+            net = make_net(arm).eval()
+            with torch.inference_mode():
+                f_call = call_ms(torch, lambda: forward(net, mb), iters=10, warmup=3)
+                f_dev = device_ms(torch, lambda: forward(net, mb), reps=reps, trials=trials)
+            fb_call = call_ms(torch, lambda: fwd_bwd(net, mb), iters=10, warmup=3)
+            fb_dev = device_ms(torch, lambda: fwd_bwd(net, mb), reps=reps, trials=trials)
+            step = make_step(make_net(arm).train())
+            s_call = call_ms(torch, lambda: step(mb, clean), iters=10, warmup=3)
+            s_dev = device_ms(torch, lambda: step(mb, clean), reps=reps, trials=trials)
+            s_kernel, s_launches = profile_forward(
+                torch, lambda: step(mb, clean), iters=2,
+                label=f"anchor-5 arm ({arm}) G={G} train steps", unit="step")
+            print(f"anchor-5 arm ({arm}) G={G} ({n} nodes, {e} edges, {SP_LAYERS} layers): "
+                  f"forward {f_call:.4f} ms a call, {f_dev:.4f} ms replayed; fwd+bwd "
+                  f"{fb_call:.4f} ms a call, {fb_dev:.4f} ms replayed "
+                  f"({e * SP_LAYERS / (fb_call / 1e3):.6e} edges/s); train step {s_call:.4f} ms "
+                  f"a call, {s_dev:.4f} ms replayed, kernel time {s_kernel:.4f} ms, busy "
+                  f"{s_kernel / s_call:.3f}, {s_launches:.1f} launches")
+            del net, step
+        sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, sparse_counts,
+                             step_counts)
+    print(f"phases 25-29 (anchor 5): {time.perf_counter() - t_start:.1f} s")
+
+
+def sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, serving, steps):
+    """K3, K2, K10f and K10b at the shapes anchor 5 gives them, each beside
+    its plain version, its bound and the library call or the unfused
+    pipeline, and its launches on the main path (arm (a)'s and (c)'s serving
+    of four batches, their five steps)."""
+    n, e = G * SP_NA, G * SP_NA * SP_K
+    # K3: knn_graph's selection, b = G molecules of SP_NA atoms, k + 1 slots
+    cg = mb.x[:, :3].reshape(G, SP_NA, 3).contiguous()
+    mg = mb.node_mask.reshape(G, SP_NA).contiguous()
+    ms = [device_ms(torch, f) for f in (lambda: K.knn_select_plain(cg, SP_K + 1, mg),
+                                        lambda: K.knn_select(cg, SP_K + 1, mg),
+                                        lambda: K.knn_select(cg, SP_K + 1, mg),
+                                        lambda: K.knn_select_plain(cg, SP_K + 1, mg))]
+    bound_ms, bound_by = knn_bound(G, SP_NA, 3, SP_K + 1, 0, True, 0)
+    print(f"sparse timing knn_select G={G} (b={G} n={SP_NA} k={SP_K + 1}, mask): kernel "
+          f"{ms[1]:.5f}/{ms[2]:.5f} ms, plain {ms[0]:.5f}/{ms[3]:.5f} ms, bound {bound_ms:.6f} ms "
+          f"({bound_by}); no library call computes it; {serving['a']['knn_select']} launches "
+          f"serving arm (a)")
+    # K2: the sender gather's backward, (E, 3 + dim) rows into n nodes (padding
+    # rows point at node 0)
+    senders = mb.edge_index[0].reshape(1, e).contiguous()
+    data = torch.randn(1, e, 3 + SP_DIM, device="cuda")
+    ms = [device_ms(torch, f) for f in (lambda: SK.segment_sum_plain(data, senders, n),
+                                        lambda: SK.segment_sum(data, senders, n),
+                                        lambda: SK.segment_sum(data, senders, n),
+                                        lambda: SK.segment_sum_plain(data, senders, n))]
+    flat = senders.reshape(-1)
+    lib = device_ms(torch, lambda: torch.zeros(n, 3 + SP_DIM, device="cuda").index_add_(
+        0, flat, data[0]))
+    bound_ms, bound_by = segment_bound(1, e, n, 3 + SP_DIM)
+    print(f"sparse timing segment_sum G={G} (E={e} S={n} D={3 + SP_DIM}, the sender gather's "
+          f"backward): kernel {ms[1]:.5f}/{ms[2]:.5f} ms, plain {ms[0]:.5f}/{ms[3]:.5f} ms, "
+          f"index_add_ {lib:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); launches "
+          f"{steps['a']['segment_sum']} in arm (a)'s {SP_STEPS} steps, {steps['c']['segment_sum']} "
+          f"in arm (c)'s, {serving['a']['segment_sum']} serving arm (a)")
+    # K10f / K10b on the molecules' own edges, dim 64, fourier 4, gate_feats_only
+    case = pair_case(torch, SEED + 950 + G, b=1, n=n, k=SP_K, d=SP_DIM, fourier=4, clamp=None,
+                     gfo=True)
+    case.update(coors=mb.x[None, :, :3].contiguous(),
+                idx=mb.edge_index[0].reshape(1, n, SP_K).contiguous(),
+                pv=mb.edge_mask.reshape(1, n, SP_K).contiguous())
+    e_f, e_b = check_pair_kernels(torch, PM, f"anchor5_G{G}", case, False)
+    sp_err["fused_pair_fwd"] = max(sp_err["fused_pair_fwd"], e_f)
+    sp_err["fused_pair_bwd"] = max(sp_err["fused_pair_bwd"], e_b)
+    args, weights, opts = pair_args(torch, PM, case, False, torch.float32)
+    g = (case["g_mi"], case["g_cd"])
+
+    def unfused_fwd_bwd():
+        leaves = [a.detach().requires_grad_() if i in (0, 1, 2, 3) else a
+                  for i, a in enumerate(args)]
+        ws = [w.detach().requires_grad_() for w in weights]
+        out = unfused_pipeline(torch, core, *leaves, ws, opts)
+        return torch.autograd.grad(out, [t for t in leaves if t.requires_grad] + ws, g,
+                                   allow_unused=True)
+
+    with torch.no_grad():
+        timed = {
+            "fwd": (lambda: PM.fused_pair_messages_forward(*args, weights, opts),
+                    lambda: PM.fused_pair_messages_plain(*args, weights, opts)),
+            "bwd": (lambda: PM.fused_pair_messages_backward(*args, weights, *g, opts),
+                    lambda: PM.fused_pair_messages_backward_plain(*args, weights, *g, opts)),
+        }
+        res = {key: [device_ms(torch, f, reps=5) for f in (p, k, k, p)]
+               for key, (k, p) in timed.items()}
+        u_fwd = device_ms(torch, lambda: unfused_pipeline(torch, core, *args, weights, opts),
+                          reps=5)
+    u_both = device_ms(torch, unfused_fwd_bwd, reps=5)
+    unfused = {"fwd": u_fwd, "bwd": u_both - u_fwd}
+    for key, backward in (("fwd", False), ("bwd", True)):
+        rows = (PM._bwd_tile_rows(SP_K, 3, SP_DIM, SP_HIDDEN, 16, 64, 4, False) if backward else
+                PM._fwd_tile_rows(1, n, SP_K, 3, SP_DIM, SP_HIDDEN, 16, 64, 4, False, sms))
+        _, grid = PM.launch_grid(1, n, SP_K, rows, backward, "cuda")
+        per_sm = PM.kernel_blocks_per_sm(rows, SP_K, 3, SP_DIM, SP_HIDDEN, 16, 64, 4, False,
+                                         False, backward)
+        p_a, k_a, k_b, p_b = res[key]
+        bound_ms, bound_by, t_bytes, t_ops = pair_bound(1, n, SP_K, 3, SP_DIM, SP_HIDDEN, 16, 4,
+                                                        False, False, backward)
+        name = f"fused_pair_{key}"
+        print(f"sparse timing {name} G={G} (n={n} k={SP_K} d={SP_DIM} h={SP_HIDDEN} fourier 4, "
+              f"gate_feats_only, the molecules' edges): kernel {k_a:.5f}/{k_b:.5f} ms, plain "
+              f"{p_a:.5f}/{p_b:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}; bytes "
+              f"{t_bytes:.6f} ms, operations {t_ops:.6f} ms); the unfused pipeline of torch "
+              f"operators on the same pairs {unfused[key]:.5f} ms"
+              f"{' (its fwd+bwd less its forward)' if backward else ''}; {steps['c'][name]} "
+              f"launches in arm (c)'s {SP_STEPS} steps; max err against float64 "
+              f"{sp_err[name]:.3e}; a tile of {rows} rows, a grid of {grid} blocks, {per_sm} "
+              f"blocks an SM")
 
 
 def main() -> int:
@@ -2596,6 +3034,8 @@ def main() -> int:
                     })
         del case
         torch.cuda.empty_cache()
+
+    sparse_phases(torch)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

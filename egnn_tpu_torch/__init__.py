@@ -7,17 +7,42 @@ replaced by kernels written by hand for the H100 (``csrc/``). Entry points
 run on CUDA unless given ``device="cpu"``; on the CPU every kernel is
 replaced by its plain PyTorch version.
 
-Ported so far: the serving forward of ``EGNNNetwork`` with kNN
-neighbourhoods at any n (the exact full-band selection up to 16384 nodes,
-the j-tiled exact selection and the packed-key candidates with their exact
-refine beyond), and its denoising train step (``egnn_tpu_torch.training``:
-``masked_mse``, ``make_fused_adam``, ``make_adam``, ``TrainState``,
-``make_denoise_train_step``, as in ``egnn_tpu.training``); see ROADMAP.md
-for what is still to be ported.
+Ported so far: the dense family, ``EGNN`` and ``EGNNNetwork``, serving and
+training with kNN neighbourhoods at any n (the exact full-band selection up
+to 16384 nodes, the j-tiled exact selection, the packed-key candidates and
+the spatial grid beyond), also through the fused pair pipeline
+(``fused_pairs``, ``fused_knn``); the sparse family, ``EGNNSparse`` and
+``EGNNSparseNetwork`` (with ``AttentionSparse`` and
+``GlobalLinearAttentionSparse``; aliases ``EGNN_Sparse`` and
+``EGNN_Sparse_Network``) over COO edges from the graph builders of
+``egnn_tpu_torch.ops.graph`` (``knn_graph``, ``radius_graph_capped``, ...)
+and the segment reductions, also through the fused pair pipeline
+(``fused_uniform``); and the denoising train step
+(``egnn_tpu_torch.training``: ``masked_mse``, ``make_fused_adam``,
+``make_adam``, ``TrainState``, ``make_denoise_train_step``, as in
+``egnn_tpu.training``). See ROADMAP.md for what is still to be ported.
 """
 
 from .models.egnn import EGNN, EGNN_Network, EGNNNetwork
+from .models.egnn_sparse import (
+    EGNN_Sparse,
+    EGNN_Sparse_Network,
+    AttentionSparse,
+    EGNNSparse,
+    EGNNSparseNetwork,
+    GlobalLinearAttentionSparse,
+)
 
 __version__ = "0.1.0"
 
-__all__ = ["EGNN", "EGNNNetwork", "EGNN_Network"]
+__all__ = [
+    "EGNN",
+    "EGNNNetwork",
+    "EGNN_Network",
+    "AttentionSparse",
+    "EGNNSparse",
+    "EGNN_Sparse",
+    "EGNNSparseNetwork",
+    "EGNN_Sparse_Network",
+    "GlobalLinearAttentionSparse",
+]

@@ -3,6 +3,9 @@
 - Linear weights ~ Normal(0, init_eps) (egnn_pytorch.py:219-222), biases
   torch.nn.Linear's default U(-1/sqrt(fan_in), 1/sqrt(fan_in)).
 - Embedding tables ~ Normal(0, 1).
+- The sparse path's weights xavier-normal, its biases zero
+  (egnn_pytorch_geometric.py:176-180); its attention's weights torch.nn.Linear's
+  default U(-1/sqrt(fan_in), 1/sqrt(fan_in)).
 
 Every draw comes from an explicit ``torch.Generator`` on the CPU and is then
 moved to the target device, so one seed gives the same weights on every
@@ -35,6 +38,18 @@ def torch_linear_bias_init(fan_in: int) -> Init:
         return (2.0 * u - 1.0) * bound
 
     return init
+
+
+def torch_linear_weight_init(shape, gen):
+    """torch.nn.Linear's default weight for an (in, out) weight:
+    kaiming_uniform(a=sqrt(5)) on (out, in), U(-1/sqrt(in), 1/sqrt(in))."""
+    return torch_linear_bias_init(shape[-2])(shape, gen)
+
+
+def xavier_normal_init(shape, gen):
+    """Normal(0, sqrt(2 / (fan_in + fan_out))) for an (in, out) weight."""
+    std = (2.0 / (shape[-2] + shape[-1])) ** 0.5
+    return std * torch.randn(tuple(shape), generator=gen, dtype=torch.float64)
 
 
 def unit_normal_init(shape, gen):

@@ -4,9 +4,12 @@ port has, so that ``from egnn_tpu_torch.ops import ...`` reads as
 from .core import (
     batched_index_select,
     coors_norm,
+    embed_tokens,
+    exists,
     fourier_encode_dist,
     gather_bool,
     gather_nodes,
+    gather_rows,
     layer_norm,
     safe_div,
 )
@@ -19,13 +22,32 @@ from .neighbors import (
     pairwise_geometry,
     select_neighborhood,
 )
-from .segment import segment_sum
+from .graph import (
+    EdgeSet,
+    backbone_covalent_bonds,
+    chain_adjacency,
+    edges_from_dense_adj,
+    knn_graph,
+    radius_graph,
+)
+from .segment import (
+    graph_layer_norm,
+    segment_aggregate,
+    segment_max,
+    segment_mean,
+    segment_softmax,
+    segment_sum,
+    uniform_aggregate,
+)
 from .spatial import grid_knn_select
 
 __all__ = [
     "batched_index_select",
+    "exists",
+    "embed_tokens",
     "gather_bool",
     "gather_nodes",
+    "gather_rows",
     "coors_norm",
     "fourier_encode_dist",
     "layer_norm",
@@ -39,4 +61,16 @@ __all__ = [
     "knn_select",
     "grid_knn_select",
     "segment_sum",
+    "segment_mean",
+    "segment_max",
+    "segment_aggregate",
+    "segment_softmax",
+    "graph_layer_norm",
+    "uniform_aggregate",
+    "EdgeSet",
+    "knn_graph",
+    "radius_graph",
+    "backbone_covalent_bonds",
+    "chain_adjacency",
+    "edges_from_dense_adj",
 ]

@@ -2,9 +2,9 @@
 
 PyTorch counterparts of ``egnn_tpu/ops/core.py``: the same behaviour (the
 reference library's helpers, egnn_pytorch.py:10-77) as plain tensor
-functions. ``gather_nodes`` is the one with a backward of its own: the
-segment sum of ``ops/segment.py`` (kernel K2 on the card), as the JAX
-package's custom VJP routes it.
+functions. ``gather_nodes``, ``gather_rows`` and ``gather_rows_blocked``
+have a backward of their own: the segment sum of ``ops/segment.py`` (kernel
+K2 on the card), as the JAX package's custom VJPs route it.
 """
 from __future__ import annotations
 
@@ -12,7 +12,11 @@ from typing import Optional
 
 import torch
 
-from .segment import batched_segment_sum
+from .segment import batched_segment_sum, segment_sum
+
+
+def exists(val) -> bool:
+    return val is not None
 
 
 def safe_div(num: torch.Tensor, den: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -86,6 +90,52 @@ def gather_nodes(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return _GatherNodes.apply(values, indices)
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, indices):
+        ctx.save_for_backward(indices)
+        ctx.num_rows = values.shape[0]
+        return values[indices.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (indices,) = ctx.saved_tensors
+        return segment_sum(g.contiguous(), indices, ctx.num_rows), None
+
+
+def gather_rows(values: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """Row gather (n, ...) x (e,) -> (e, ...) for the COO path, the
+    counterpart of ``egnn_tpu/ops/core.py:106-124``: the forward is a plain
+    index; the backward sums the rows' cotangents into ``values``' rows with
+    ``segment_sum`` (kernel K2 on the card)."""
+    return _GatherRows.apply(values, indices)
+
+
+def gather_rows_blocked(
+    values: torch.Tensor,
+    indices: torch.Tensor,
+    num_blocks: int,
+    rows_per_block: int,
+) -> torch.Tensor:
+    """Row gather for block-local index sets (``egnn_tpu/ops/core.py:127``):
+    the g-th block of edge rows, positions [g*e_b, (g+1)*e_b), reads value
+    rows [g*r_b, (g+1)*r_b), the layout of batched graphs of one size. An
+    index outside its block gathers zeros. The JAX package takes a one-hot
+    matmul per block on the TPU; here it is the indexed load of
+    ``gather_rows`` under that contract, with K2 as its backward."""
+    n = values.shape[0]
+    if n != num_blocks * rows_per_block:
+        raise ValueError(f"{n} rows are not {num_blocks} blocks of {rows_per_block}")
+    e = indices.shape[0]
+    if e % num_blocks:
+        raise ValueError(f"{e} edge rows do not split into {num_blocks} blocks")
+    block = torch.arange(e, device=indices.device) // (e // num_blocks)
+    ok = (indices >= block * rows_per_block) & (indices < (block + 1) * rows_per_block)
+    rows = gather_rows(values, torch.where(ok, indices, 0))
+    ok = ok.reshape((e,) + (1,) * (values.dim() - 1))
+    return torch.where(ok, rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+
+
 def coors_norm(coors: torch.Tensor, scale: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """CoorsNorm (egnn_pytorch.py:67-77): unit-length rows rescaled by a
     learned (1,) scalar. The clamp sits inside the sqrt, as in the JAX
@@ -110,3 +160,19 @@ def layer_norm(
     if beta is not None:
         out = out + beta
     return out
+
+
+def embed_tokens(x: torch.Tensor, dims, tables) -> torch.Tensor:
+    """Replace the last ``len(dims)`` columns of ``x`` (integer token ids)
+    by their embeddings, left to right, each ``tables[i][token]``
+    concatenated on the right (egnn_pytorch.py:43-52,
+    ``egnn_tpu/ops/core.py:205``). The lookups are ``gather_rows``."""
+    if not dims:
+        return x
+    stop_concat = -len(dims)
+    to_embed = x[:, stop_concat:].long()
+    for i, table in enumerate(tables):
+        x = torch.cat([x[:, :stop_concat], gather_rows(table, to_embed[:, i]).to(x.dtype)],
+                      dim=-1)
+        stop_concat = x.shape[-1]
+    return x

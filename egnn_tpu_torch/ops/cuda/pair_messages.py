@@ -41,13 +41,17 @@ kernels against on the card. Launches count into ``LAUNCH_COUNTS`` under
 
 The gates state the kernel's own limits and nothing else: coordinate width
 c <= 8, at most 16 Fourier encodings, k <= 64 slots, and widths (h, m, 4m,
-d) whose staged weights, one tile of at least k pair rows and one float for
-each weight-gradient entry fit a block's 227 KB of shared memory (dim = 32,
-h = 130, m = 16: a 64-row tile; dim = 64 leaves K10 an 8-row tile). The
-forward's and the backward's own layouts are smaller (the forward 110 KiB at
-64 rows with its staging region, the backward 99 KiB at 32 rows, for dim =
-32). The tensor-core mode of the TPU kernels
-(``mxu_bf16``) is not ported: the wrapper takes ``mxu_bf16=False`` only.
+d) at which the layouts the kernels launch with (``_smem_floats``) fit a
+block's 227 KB of shared memory: the forward's on a tile of at least k pair
+rows, the backward's on its least tile, one node. Anchor 3 (dim = 32,
+h = 130, m = 16) takes a 64-row forward tile (110 KiB with its staging
+region) and a 32-row backward one (99 KiB); the sparse molecule layer
+(dim = 64, fourier 4, h = 274) forward tiles of up to 48 rows (176 KiB at
+32), one block an SM, and 8-row backward tiles (140 KiB). The backward keeps the weight
+gradients of the widths it is tuned for in registers and the rest in device
+memory (``csrc/pair_messages.cu``, ``kWgSlots``). The tensor-core mode of
+the TPU kernels (``mxu_bf16``) is not ported: the wrapper takes
+``mxu_bf16=False`` only.
 """
 from __future__ import annotations
 
@@ -148,32 +152,24 @@ def _smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward, ti=1):
     return total
 
 
-def _gate_floats(rows, c, d, h, m, m4, fourier, soft_edges):
-    """The gates' budget at a tile of ``rows``: the first forward layout
-    (the lines of the backward's recomputation but silu(h1)), the
-    backward's gradient lines d_z2, d_rel, d_distf, and one float for every
-    weight-gradient entry. It is the limit the gates have stated since the
-    kernels were ported (when the backward kept its weight gradients in
-    shared memory); the forward's and the backward's own layouts are smaller
-    at every shape it passes."""
-    ldr = rows + 4
-    first_forward = _weight_floats(d, h, m, m4, fourier) + ldr * (
-        h + d + 2 * fourier + 1 + m * (3 if soft_edges else 2) + m4 + c + _ROW_SCALARS + 1)
-    return (first_forward + ldr * (h + m + c + 2 * fourier + 1)
-            + sum(_grad_sizes(d, h, m, m4, fourier)))
-
-
 def _tile_rows(k, c, d, h, m, m4, fourier, soft_edges) -> Optional[int]:
-    """The forward's tile and the gates' test: the largest tile (a multiple
-    of 8 pair rows, at least k, at most 64) within the gates' budget, or
-    None."""
+    """The gates' test and the forward's largest tile: the largest tile (a
+    multiple of 8 pair rows, at least k, at most 64) whose forward layout,
+    rows // k nodes, fits one block, where the backward's layout on its
+    least tile (k rows rounded up to 8) fits one block too; else None. These
+    are the layouts the kernels launch with and ``shape_ok`` of the source
+    checks, so every shape that passes launches."""
     if not (1 <= k <= MAX_ROWS and 1 <= c <= MAX_C and 0 <= fourier <= MAX_FOURIER
             and h >= 1 and m >= 1 and m4 >= 1):
+        return None
+    fits = lambda rows, backward: 4 * _smem_floats(  # noqa: E731
+        rows, c, d, h, m, m4, fourier, soft_edges, backward, rows // k) <= MAX_SMEM_BYTES
+    if not fits(-(-k // 8) * 8, True):
         return None
     for rows in range(MAX_ROWS, 0, -8):
         if rows < k:
             return None
-        if 4 * _gate_floats(rows, c, d, h, m, m4, fourier, soft_edges) <= MAX_SMEM_BYTES:
+        if fits(rows, False):
             return rows
     return None
 

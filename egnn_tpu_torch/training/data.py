@@ -1,10 +1,11 @@
 """Synthetic chain batches: the denoising workload's inputs, and the requests
-``chip_smoke.py`` serves.
+``chip_smoke.py`` serves; and the layout of a packed molecule batch.
 
-Counterparts of ``egnn_tpu/ops/graph.py:chain_adjacency`` and
-``egnn_tpu/training/data.py:synthetic_chain_batch`` with the same shapes and
-distributions (random-walk 'backbone' chains, denoise_sparse.py:48-74),
-drawn from a numpy ``Generator`` instead of a JAX key.
+Counterparts of ``egnn_tpu/training/data.py:synthetic_chain_batch``, with
+the same shapes and distributions (random-walk 'backbone' chains,
+denoise_sparse.py:48-74) drawn from a numpy ``Generator`` instead of a JAX
+key, and of its ``MoleculeBatch``. The chain adjacency is
+``ops/graph.py:chain_adjacency``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.graph import chain_adjacency
 from ..utils.device import resolve_device
 
 
@@ -22,12 +24,6 @@ class DenoiseBatch(NamedTuple):
     noised_coors: torch.Tensor  # (b, n, 3)
     mask: torch.Tensor          # (b, n) bool
     adj_mat: torch.Tensor       # (n, n) bool, chain i ~ i±1
-
-
-def chain_adjacency(n: int, device=None) -> torch.Tensor:
-    """Chain graph i ~ i±1 (denoise_sparse.py:64-66), (n, n) bool."""
-    ar = torch.arange(n, device=resolve_device(device))
-    return (ar[:, None] - ar[None, :]).abs() == 1
 
 
 def synthetic_chain_batch(
@@ -59,3 +55,16 @@ def synthetic_chain_batch(
         mask=torch.as_tensor(mask, device=dev),
         adj_mat=chain_adjacency(n, device=dev),
     )
+
+
+class MoleculeBatch(NamedTuple):
+    """A packed variable-size molecule batch in the sparse path's layout
+    (x = [coors | feats], COO edges, batch vector: the PyG convention of the
+    reference's sparse stack, egnn_pytorch_geometric.py:182-191)."""
+
+    x: torch.Tensor           # (G*NA, 3+1) coordinates and a raw type column
+    edge_index: torch.Tensor  # (2, G*NA*K) [senders; receivers]
+    edge_mask: torch.Tensor   # (G*NA*K,) bool
+    batch_ids: torch.Tensor   # (G*NA,) graph ids
+    node_mask: torch.Tensor   # (G*NA,) bool
+    target: torch.Tensor      # (G,) regression target

@@ -2,11 +2,15 @@
 
 The counterpart, in the other direction, of ``egnn_tpu/utils/port_weights.py``:
 ``load_flax_params(module, params)`` copies the ``params`` tree of an
-``egnn_tpu`` ``EGNN`` or ``EGNNNetwork`` (nested dicts of numpy arrays, e.g.
-``jax.tree_util.tree_map(np.asarray, variables["params"])``) into the port's
-module of the same configuration. Both sides use the same names and the
-(in, out) layout, so nothing is transposed: Flax's ``egnn_0`` /
-``edge_mlp_0_w`` is the torch parameter ``egnn_0.edge_mlp_0_w``.
+``egnn_tpu`` module (``EGNN``, ``EGNNNetwork``, ``EGNNSparse``,
+``EGNNSparseNetwork``, ``GlobalLinearAttentionSparse``: nested dicts of
+numpy arrays, e.g. ``jax.tree_util.tree_map(np.asarray, variables["params"])``)
+into the port's module of the same configuration. Both sides use the same
+names and the (in, out) layout, so nothing is transposed: Flax's ``egnn_0``
+/ ``edge_mlp_0_w`` is the torch parameter ``egnn_0.edge_mlp_0_w``, and a
+sparse network's ``mpnn_0`` / ``edge_mlp_0_w``, ``global_attn_0`` /
+``attn1`` / ``to_q_w`` and ``emb_0`` are ``mpnn_0.edge_mlp_0_w``,
+``global_attn_0.attn1.to_q_w`` and ``emb_0``.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ def load_flax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
     """Copy ``params`` into ``module``'s parameters, in place.
 
     A parameter that the reference creates on first use (a submodule's
-    ``lazy_parameters``, such as ``EGNNNetwork``'s ``edge_emb``) and that
+    ``lazy_parameters``: ``EGNNNetwork``'s ``edge_emb``,
+    ``EGNNSparseNetwork``'s ``global_tokens``) and that
     ``params`` lacks is left as it is. Raises ``KeyError`` for any other
     parameter missing from ``params`` or a key of ``params`` the module
     lacks, and ``ValueError`` for a shape mismatch; nothing is copied then.

@@ -141,7 +141,7 @@ def test_ops_namespace_reexports_the_reference_names():
     """``egnn_tpu_torch.ops`` exports, under the reference's names, the ops
     the port has; each is the port's own function."""
     from egnn_tpu_torch.ops import gather_nodes, knn_select, segment_sum
-    from egnn_tpu_torch.ops import core, neighbors, segment, spatial
+    from egnn_tpu_torch.ops import core, graph, neighbors, segment, spatial
 
     assert set(tops.__all__) <= set(jops.__all__)
     assert gather_nodes is core.gather_nodes and segment_sum is segment.segment_sum
@@ -149,7 +149,8 @@ def test_ops_namespace_reexports_the_reference_names():
     for name in tops.__all__:
         obj = getattr(tops, name)
         assert obj.__module__.startswith("egnn_tpu_torch.ops."), name
-        assert obj is getattr({"core": core, "neighbors": neighbors, "segment": segment,
-                               "spatial": spatial}[obj.__module__.rsplit(".", 1)[1]], name)
+        assert obj is getattr({"core": core, "graph": graph, "neighbors": neighbors,
+                               "segment": segment, "spatial": spatial}[
+            obj.__module__.rsplit(".", 1)[1]], name)
     out = segment_sum(torch.ones(3, 2, dtype=torch.float32), torch.tensor([0, 2, 2]), 3)
     assert out[:, 0].tolist() == [1.0, 0.0, 2.0]

@@ -294,8 +294,9 @@ def test_gates_state_the_kernels_own_limits():
     assert not PM.supports_fused_pair_messages(65, 130, 16, 32)
     assert not PM.supports_fused_pair_messages(8, 130, 16, 32, c=9)
     assert not PM.supports_fused_pair_messages(8, 130, 16, 32, fourier=17)
-    # wider layers take a smaller tile, and at last none
-    wide = PM._tile_rows(8, 3, 64, 258, 16, 64, 0, False)
+    # wider layers take a smaller tile (the sparse molecule layer: dim 64,
+    # fourier 4, h = 274), and at last none
+    wide = PM._tile_rows(8, 3, 64, 274, 16, 64, 4, False)
     assert wide is not None and 8 <= wide < 64 and wide % 4 == 0
     assert not PM.supports_fused_pair_messages(8, 1026, 16, 256)
     # the layout the gate sums is within the card's 227 KB at the tile it picks
@@ -382,24 +383,38 @@ def _gate_then(k, c, d, h, m, fourier, soft_edges):
                <= 232448 for rows in range(64, 0, -8))
 
 
+def _layouts_fit(k, c, d, h, m, fourier, soft_edges):
+    """Whether the kernels launch at this shape within ``shape_ok``'s limits
+    (c <= 8, fourier <= 16, tiles of 8 to 64 rows in steps of 8 holding
+    whole nodes): some forward tile of rows // k nodes and some backward
+    tile whose layouts fit one block's shared memory."""
+    if not (1 <= k <= 64 and 1 <= c <= 8 and 0 <= fourier <= 16):
+        return False
+    tiles = [rows for rows in range(8, 65, 8) if rows >= k]
+    fits = lambda rows, backward: 4 * PM._smem_floats(  # noqa: E731
+        rows, c, d, h, m, 4 * m, fourier, soft_edges, backward, rows // k) <= PM.MAX_SMEM_BYTES
+    return any(fits(r, False) for r in tiles) and any(fits(r, True) for r in tiles)
+
+
 @pytest.mark.parametrize("k", [1, 5, 8, 12, 16, 20, 64])
 @pytest.mark.parametrize("widths", [(130, 16, 32), (258, 16, 64), (1026, 16, 256)],
                          ids=["dim32", "dim64", "dim256"])
 @pytest.mark.parametrize("fourier", [0, 4, 16])
 @pytest.mark.parametrize("c", [3, 8, 9])
 def test_gates_accept_the_shapes_they_accepted(k, widths, fourier, c):
+    """The gates take every shape the legacy budget took, and exactly those
+    whose launch layouts fit a block."""
     h, m, dim = widths
     for soft in (False, True):
-        assert PM.supports_fused_pair_messages(k, h, m, dim, c, fourier, soft) == \
-            _gate_then(k, c, dim, h, m, fourier, soft)
-        assert PM.supports_fused_knn_layer(k, h, m, c, fourier, soft) == \
-            _gate_then(k, c, 0, h, m, fourier, soft)
-        # the backward takes a tile wherever the gates pass, within the
-        # kernel's own limits (shape_ok): whole nodes, a multiple of 8 rows
-        for d in (dim, 0):
-            gate = _gate_then(k, c, d, h, m, fourier, soft)
+        for d, gate_now in ((dim, PM.supports_fused_pair_messages(k, h, m, dim, c, fourier, soft)),
+                            (0, PM.supports_fused_knn_layer(k, h, m, c, fourier, soft))):
+            assert gate_now == _layouts_fit(k, c, d, h, m, fourier, soft)
+            if _gate_then(k, c, d, h, m, fourier, soft):
+                assert gate_now
+            # the backward takes a tile wherever the gates pass, within the
+            # kernel's own limits (shape_ok): whole nodes, a multiple of 8 rows
             rows = PM._bwd_tile_rows(k, c, d, h, m, 4 * m, fourier, soft)
-            assert (rows is not None) == gate
+            assert (rows is not None) == gate_now
             if rows is not None:
                 assert rows % 8 == 0 and k <= rows <= PM.MAX_ROWS
                 floats = PM._smem_floats(rows, c, d, h, m, 4 * m, fourier, soft, True)
