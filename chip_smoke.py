@@ -6,8 +6,10 @@ packed-key candidates and through the spatial grid, and the anchor-3 family
 at 32 768), then serves and trains both through the fused pair pipeline
 (``fused_pairs``, ``fused_knn``), then serves and trains the sparse family
 at anchor 5 (``EGNNSparseNetwork`` over kNN-built molecule graphs, four
-arms), checks the outputs, and times the kernels, the forwards and the
-train steps.
+arms), then the dense family's last options (global attention, bf16,
+dropout in training mode, the streamed all-pairs layer at 8192 nodes,
+anchors 1 and 2), checks the outputs, and times the kernels, the forwards
+and the train steps.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -142,7 +144,26 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    arm as a call (CUDA events) and as a CUDA graph replay, a step's kernel
    time by name and busy share; K3, K2, K10f and K10b at anchor 5's shapes
    beside their bounds, plain versions and ``index_add_`` or the unfused
-   pipeline.
+   pipeline;
+30. anchor 3 with global attention every second layer (8 heads of 64, 4
+   global tokens): served at b=1 and b=8 (K1 depth times a forward, card
+   against CPU, equivariance), trained (K1 and K2 depth times a step, the
+   loss falling, one step against the CPU with and without ``norm_coors``),
+   served in bf16 (against the card's f32 and the CPU's bf16), and timed
+   as calls and replays beside plain anchor 3;
+31. anchor 3 at layer dropout 0.1 in training mode, unfused and with
+   ``fused_pairs``: one generator state gives the same bits twice and
+   another state other outputs; no K10 in training mode, K10f depth times in
+   eval mode; the train step equal to dropout 0's, bitwise;
+32. one streamed all-pairs layer (``stream_ab``: dim 64, norm_coors, b=1,
+   n = 8192, chunk from ``_auto_chunk``) in f32 and bf16: finite,
+   equivariant, forward and fwd+bwd timed with their launches, pairs/s and
+   the fwd+bwd's peak memory; at n = 2048 against the CPU (with and
+   without ``norm_coors``), at n = 1024 against the materialised layer;
+   dropout 0.1 at n = 2048: a generator state's bits twice, and the
+   materialised layer under the recorded masks within 1e-5;
+33. anchors 1 and 2 (one ``EGNN(dim=512)`` layer, n = 16, edge_dim 0 and
+   4): card against CPU, forward and every gradient, fwd+bwd timed.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -935,16 +956,6 @@ def sparse_phases(torch):
             return loss.detach()
         return step
 
-    def with_k2_sums(fn, *args):
-        """``fn`` on the CPU with its segment sums in K2's arithmetic (its
-        model), so that the card and the CPU differ by the matmuls alone."""
-        plain = SK.segment_sum_plain
-        SK.segment_sum_plain = SK.segment_sum_fixed_point
-        try:
-            return fn(*args)
-        finally:
-            SK.segment_sum_plain = plain
-
     def step_grads(model, batch, target):
         model.zero_grad(set_to_none=True)
         masked_mse(forward(model, batch)[:, :3], target, batch.node_mask).backward()
@@ -1029,6 +1040,456 @@ def sparse_phases(torch):
         sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, sparse_counts,
                              step_counts)
     print(f"phases 25-29 (anchor 5): {time.perf_counter() - t_start:.1f} s")
+
+
+# the dense family's last options (phases 30-33): anchor 3 with global
+# attention every second layer, the JAX defaults of 8 heads of 64 and 4
+# global tokens (egnn_tpu/models/egnn.py:591-594)
+ATTN_EVERY = 2
+# bf16 against f32, tests/test_mixed_precision.py:19-33; the card's bf16
+# against the CPU's bf16 is held to the same bound (each rounds the message
+# products to bf16 in its own order)
+BF16_ATOL = 0.05
+# one attention step's parameter gradients, card against CPU. Under
+# norm_coors the self pairs' +-(scale / 1e-8) terms in the coordinate
+# gradients cancel only to f32 rounding (see STREAM_NORM_COORS_GRAD_TOL)
+# and reach every weight through the later layers: plain anchor 3 meets
+# TRAIN_GRAD_TOL only because the card and the CPU round its sums in one
+# order. Attention's products are rounded in other orders on each: on the
+# CPU, this step's f32 gradients are up to 1.1e-3 from float64 (pos_emb;
+# 1.6e-3 without attention), within 1.8e-6 without norm_coors, where the
+# step is held to TRAIN_GRAD_TOL. Measured: 2.9e-4 (H100, PERF.md)
+ATTN_NORM_COORS_GRAD_TOL = 2e-3
+DROPOUT = 0.1
+# benchmarks/round2_measurements.py:48-70 (stream_ab): one streamed layer,
+# dim 64, norm_coors, b = 1; against the CPU at benchmarks/kbench.py:80's n
+N_STREAM, DIM_STREAM, N_STREAM_CPU, N_STREAM_MAT = 8192, 64, 2048, 1024
+STREAM_GRAD_TOL = 1e-5   # relative, as TRAIN_GRAD_TOL
+# The coordinate gradient under norm_coors: each node's self pair (rel = 0,
+# its norm clamped to 1e-8) puts +-(scale / 1e-8) w_ii g_i into the i-side
+# and the j-side sums of d coors, which cancel only to f32 rounding, in
+# another order on each device. On the CPU the f32 gradient is 1.57e-2 from
+# the float64 one at this layer (n = 2048; every other gradient within
+# 4.5e-7, and the coordinate gradient within 9.3e-7 without norm_coors):
+# two f32 results may differ by twice that. Measured: 2.4e-3 (H100, PERF.md)
+STREAM_NORM_COORS_GRAD_TOL = 5e-2
+# anchors 1 and 2 (benchmarks/bench_all.py:28-49): one layer, dim 512, n = 16
+N_ANCHOR12, DIM_ANCHOR12 = 16, 512
+
+
+def rel_err(torch, a, b) -> float:
+    """||a - b|| / ||b|| in float64 on the CPU (0 for two zero tensors)."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    norm = torch.linalg.vector_norm(b).item()
+    return torch.linalg.vector_norm(a - b).item() / max(norm, 1e-300)
+
+
+def device_launches(torch, fn):
+    """(kernel time in ms, device launches, seconds taken) of one ``fn()``
+    under torch.profiler with the device's activity alone, its events
+    counted raw: a streamed layer's call holds some 10^5 launches, which
+    ``key_averages`` (as ``profile_forward`` uses it) takes half a minute
+    to sort."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    return (sum(e.duration_ns() for e in events) / 1e6, len(events),
+            time.perf_counter() - t0)
+
+
+def with_k2_sums(fn, *args):
+    """``fn`` on the CPU with its segment sums in K2's arithmetic (the model,
+    bitwise K2's): the card and the CPU then sum the same terms to the same
+    bits, and what is left between them is the matmuls' rounding. The plain
+    version adds in edge order, and that order alone moves a step's
+    gradients far more (phase 9 prints it, on the CPU)."""
+    from egnn_tpu_torch.ops.cuda import segment as SK
+
+    plain = SK.segment_sum_plain
+    SK.segment_sum_plain = SK.segment_sum_fixed_point
+    try:
+        return fn(*args)
+    finally:
+        SK.segment_sum_plain = plain
+
+
+def dense_option_phases(torch):
+    """Phases 30-33: the dense family's last options on the card: anchor
+    3 with global attention (f32 and bf16), dropout in training mode, the
+    streamed all-pairs layer at n = 8192, anchors 1 and 2. Raises on a
+    failure."""
+    import numpy as np
+
+    from egnn_tpu_torch import EGNN, EGNNNetwork
+    from egnn_tpu_torch.models import egnn as egnn_mod
+    from egnn_tpu_torch.ops import pairwise_stream as PS
+    from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from egnn_tpu_torch.training import make_denoise_train_step, make_fused_adam
+    from egnn_tpu_torch.training.data import synthetic_chain_batch
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 30)
+
+    def anchor3(seed=SEED, every=ATTN_EVERY, **layer):
+        return EGNNNetwork(
+            depth=DEPTH, dim=DIM, num_tokens=NUM_TOKENS, num_positions=N,
+            global_linear_attn_every=every, layer_kwargs={**LAYER_KWARGS, **layer},
+            device="cuda", generator=torch.Generator().manual_seed(seed))
+
+    def trainer(seed=SEED, every=ATTN_EVERY, **layer):
+        net = anchor3(seed, every, **layer)
+        return net, make_denoise_train_step(net, make_fused_adam(net.parameters(), LR))
+
+    def serve(net, rq, **kw):
+        return net(rq.tokens, rq.noised_coors, adj_mat=rq.adj_mat, mask=rq.mask, **kw)
+
+    def to_cpu(rq):
+        return type(rq)(*(t.cpu() for t in rq))
+
+    def batch_args(rq):
+        return rq.tokens, rq.noised_coors, rq.clean_coors, rq.adj_mat, rq.mask
+
+    # ---- 30. anchor 3 with global attention: serving, training, bf16, timing ----
+    net = anchor3().eval()
+    requests = ([synthetic_chain_batch(rng, 1, N, device="cuda") for _ in range(4)]
+                + [synthetic_chain_batch(rng, 8, N, device="cuda")])
+    reset_launch_counts()
+    with torch.inference_mode():
+        outs = [serve(net, rq) for rq in requests]
+    torch.cuda.synchronize()
+    counts = dict(LAUNCH_COUNTS)
+    print(f"anchor 3 with global attention (every {ATTN_EVERY}, 8 heads of 64, 4 tokens): "
+          f"{len(requests)} forwards; launches {counts}")
+    if counts["knn_select_gather"] != DEPTH * len(requests):
+        raise AssertionError("K1 did not run depth times a forward with global attention")
+    for (f, c), rq in zip(outs, requests):
+        b = rq.tokens.shape[0]
+        check_outputs(torch, (f, c), ((b, N, DIM), (b, N, 3)), "anchor 3 with attention")
+    net_cpu = copy.deepcopy(net).to("cpu")
+    for idx in (0, len(requests) - 1):
+        rq = requests[idx]
+        with torch.inference_mode():
+            f_cpu, c_cpu = serve(net_cpu, to_cpu(rq))
+        ef = (outs[idx][0].cpu() - f_cpu).abs().max().item()
+        ec = (outs[idx][1].cpu() - c_cpu).abs().max().item()
+        print(f"attention gpu vs cpu, b={rq.tokens.shape[0]}: feats max err {ef:.3e}, coors "
+              f"max err {ec:.3e} (atol {GPU_VS_CPU_ATOL})")
+        if not (ef <= GPU_VS_CPU_ATOL and ec <= GPU_VS_CPU_ATOL):
+            raise AssertionError("card and CPU forwards disagree with global attention")
+    rq = requests[0]
+    check_equivariance(torch, lambda c: serve(net, rq._replace(noised_coors=c)),
+                       rq.noised_coors, "anchor-3 with global attention b=1")
+
+    fixed = {}
+    for b in (1, 8):
+        _, step = trainer()
+        batches = [synthetic_chain_batch(rng, b, N, device="cuda") for _ in range(TRAIN_STEPS)]
+        fixed[b] = batches[0]
+        reset_launch_counts()
+        losses = torch.stack([step(*batch_args(rq)) for rq in batches]).cpu()
+        counts = dict(LAUNCH_COUNTS)
+        _, step = trainer()
+        falling = torch.stack([step(*batch_args(fixed[b])) for _ in range(FALL_STEPS)]).cpu()
+        print(f"attention training b={b}: {TRAIN_STEPS} steps, losses {losses.tolist()}; "
+              f"launches {counts}; on one batch {falling[0].item():.6f} -> "
+              f"{falling[-1].item():.6f} over {FALL_STEPS} steps")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError("non-finite training loss with global attention")
+        for name in ("knn_select_gather", "segment_sum"):
+            if counts[name] != DEPTH * TRAIN_STEPS:
+                raise AssertionError(f"{name} launched {counts[name]} times in {TRAIN_STEPS} "
+                                     f"attention steps, expected {DEPTH * TRAIN_STEPS}")
+        if not falling[-1] < falling[0]:
+            raise AssertionError("the loss did not fall on a fixed batch with global attention")
+        for norm in (True, False):
+            net_s, step = trainer(SEED + 3, norm_coors=norm)
+            net_c = copy.deepcopy(net_s).to("cpu")
+            step_c = make_denoise_train_step(net_c, make_fused_adam(net_c.parameters(), LR))
+            loss = step(*batch_args(fixed[b])).item()
+            loss_c = with_k2_sums(step_c, *batch_args(to_cpu(fixed[b]))).item()
+            errs = sorted((rel_err(torch, p.grad, q.grad), name) for (name, p), q in zip(
+                net_s.named_parameters(), net_c.parameters()) if q.grad is not None)
+            tol = ATTN_NORM_COORS_GRAD_TOL if norm else TRAIN_GRAD_TOL
+            print(f"attention one step b={b} norm_coors={norm}, card vs CPU: loss {loss:.8f} "
+                  f"vs {loss_c:.8f} (rtol {TRAIN_LOSS_RTOL}); gradient error largest "
+                  f"{errs[-1][0]:.3e} ({errs[-1][1]}), median {errs[len(errs) // 2][0]:.3e} "
+                  f"over {len(errs)} parameters (tol {tol})")
+            if abs(loss - loss_c) > TRAIN_LOSS_RTOL * abs(loss_c) or errs[-1][0] > tol:
+                raise AssertionError("card and CPU steps disagree with global attention")
+
+    net_bf = anchor3(compute_dtype=torch.bfloat16).eval()   # the same weights
+    rq = requests[0]
+    with torch.inference_mode():
+        f_bf, c_bf = serve(net_bf, rq)
+        f_bc, c_bc = serve(copy.deepcopy(net_bf).to("cpu"), to_cpu(rq))
+    check_outputs(torch, (f_bf, c_bf), ((1, N, DIM), (1, N, 3)), "anchor 3 with attention, bf16")
+    e32 = max((f_bf - outs[0][0]).abs().max().item(), (c_bf - outs[0][1]).abs().max().item())
+    ecpu = max((f_bf.cpu() - f_bc).abs().max().item(), (c_bf.cpu() - c_bc).abs().max().item())
+    print(f"attention bf16 b=1: against the card's f32 max err {e32:.3e}, against the CPU's "
+          f"bf16 {ecpu:.3e} (atol {BF16_ATOL} each)")
+    if e32 > BF16_ATOL or ecpu > BF16_ATOL:
+        raise AssertionError("the bf16 network strays from f32 or from the CPU")
+
+    plain = anchor3(every=0).eval()
+    for model, what in ((plain, "anchor 3"), (net, "anchor 3 + attention"),
+                        (net_bf, "anchor 3 + attention, bf16")):
+        for rq in (requests[0], requests[-1])[:1 if model is net_bf else 2]:
+            b = rq.tokens.shape[0]
+            with torch.inference_mode():
+                ms = call_ms(torch, lambda: serve(model, rq), iters=10, warmup=3)
+                dev = device_ms(torch, lambda: serve(model, rq), reps=5)
+            print(f"timing {what} forward b={b}: {ms:.4f} ms a call, {dev:.4f} ms replayed")
+    for every, what in ((0, "anchor 3"), (ATTN_EVERY, "anchor 3 + attention")):
+        for b in (1, 8):
+            _, step = trainer(every=every)
+            args = batch_args(fixed[b])
+            ms = call_ms(torch, lambda: step(*args), iters=10, warmup=3)
+            dev = device_ms(torch, lambda: step(*args), reps=5)
+            print(f"timing {what} train step b={b}: {ms:.4f} ms a call, {dev:.4f} ms replayed")
+    del net, net_cpu, net_bf, plain, outs
+    print(f"phase 30: {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 31. dropout in training mode ----
+    t31 = time.perf_counter()
+    rq = requests[0]
+    for fused in (False, True):
+        net = anchor3(every=0, dropout=DROPOUT, fused_pairs=fused)   # training mode
+
+        def run(seed):
+            with torch.no_grad():
+                return serve(net, rq, generator=torch.Generator(device="cuda").manual_seed(seed))
+
+        reset_launch_counts()
+        first, again, other = run(7), run(7), run(8)
+        torch.cuda.synchronize()
+        counts = dict(LAUNCH_COUNTS)
+        same = all(same_bits(torch, x, y) for x, y in zip(first, again))
+        differs = not torch.equal(first[0], other[0])
+        net.eval()
+        reset_launch_counts()
+        with torch.inference_mode():
+            serve(net, rq)
+        torch.cuda.synchronize()
+        eval_counts = dict(LAUNCH_COUNTS)
+        print(f"dropout {DROPOUT} fused_pairs={fused}, training mode: one generator state twice "
+              f"bitwise={same}, another state differs={differs}; launches in 3 forwards "
+              f"{counts}; eval mode, one forward {eval_counts}")
+        if not (same and differs):
+            raise AssertionError("dropout masks are not fixed by the generator")
+        if counts["fused_pair_fwd"] != 0 or counts["knn_select_gather"] != 3 * DEPTH:
+            raise AssertionError("training mode with dropout must take the unfused layer (K1)")
+        if eval_counts["fused_pair_fwd"] != (DEPTH if fused else 0):
+            raise AssertionError("eval mode must take the fused layer where asked")
+        nets = [anchor3(every=0, dropout=p, fused_pairs=fused) for p in (DROPOUT, 0.0)]
+        losses = [make_denoise_train_step(m, make_fused_adam(m.parameters(), LR))(
+            *batch_args(fixed[1])) for m in nets]
+        bitwise = same_bits(torch, *losses) and all(
+            (p.grad is None and q.grad is None) or same_bits(torch, p.grad, q.grad)
+            for p, q in zip(nets[0].parameters(), nets[1].parameters()))
+        print(f"dropout {DROPOUT} fused_pairs={fused}: a train step's loss and gradients "
+              f"against dropout 0 bitwise={bitwise} (loss {losses[0].item():.8f}); the module "
+              f"stays in training mode: {nets[0].training}")
+        if not (bitwise and nets[0].training):
+            raise AssertionError("the train step applied dropout or changed the module's mode")
+    del net, nets
+    print(f"phase 31: {time.perf_counter() - t31:.1f} s")
+
+    # ---- 32. the streamed all-pairs layer ----
+    t32 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    feats = torch.randn(1, N_STREAM, DIM_STREAM, generator=g, device="cuda")
+    coors = torch.randn(1, N_STREAM, 3, generator=g, device="cuda")
+    hidden = 2 * (2 * DIM_STREAM + 1)
+    cj = PS._auto_chunk(1, N_STREAM, hidden)
+    print(f"streamed layer: n={N_STREAM} dim={DIM_STREAM} hidden={hidden}, chunk {cj} "
+          f"({N_STREAM // cj} chunks); the materialised (1, n, n, hidden) f32 tensor would be "
+          f"{N_STREAM * N_STREAM * hidden * 4 / 1e9:.1f} GB")
+
+    def stream_layer(norm_coors=True, **kw):
+        return EGNN(dim=DIM_STREAM, stream_pairwise=True, norm_coors=norm_coors, device="cuda",
+                    generator=torch.Generator().manual_seed(SEED), **kw)
+
+    def fwd_bwd(layer, f, c, **kw):
+        """(feats, coors, d loss / d coors, d loss / d weights...) of
+        stream_ab's loss (f^2).mean() + (co^2).mean()."""
+        c = c.detach().requires_grad_()
+        fo, co = layer(f, c, **kw)
+        grads = torch.autograd.grad((fo ** 2).mean() + (co ** 2).mean(),
+                                    [c] + list(layer.parameters()))
+        return [fo.detach(), co.detach()] + list(grads)
+
+    ms_fb = {}
+    for what, cd in (("f32", None), ("bf16", torch.bfloat16)):
+        layer = stream_layer(compute_dtype=cd).eval()
+        with torch.no_grad():
+            fo, co = layer(feats, coors)
+        check_outputs(torch, (fo, co), ((1, N_STREAM, DIM_STREAM), (1, N_STREAM, 3)),
+                      f"streamed {what}")
+        if cd is None:
+            check_equivariance(torch, lambda c: layer(feats, c), coors, f"streamed n={N_STREAM}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fwd_bwd(layer, feats, coors)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        check_outputs(torch, out[2:3], ((1, N_STREAM, 3),), f"streamed {what} coordinate grad")
+        del out
+
+        def forward():
+            with torch.no_grad():
+                return layer(feats, coors)
+
+        # calls of seconds, warm after the checks above: two of each
+        f_ms = call_ms(torch, forward, iters=2, warmup=0)
+        fb_ms = call_ms(torch, lambda: fwd_bwd(layer, feats, coors), iters=2, warmup=0)
+        ms_fb[what] = fb_ms
+        f_kernel, f_launches, f_s = device_launches(torch, forward)
+        fb_kernel, fb_launches, fb_s = device_launches(torch, lambda: fwd_bwd(layer, feats, coors))
+        pairs = N_STREAM * N_STREAM
+        print(f"streamed {what} n={N_STREAM}: forward {f_ms:.3f} ms a call "
+              f"({pairs / (f_ms / 1e3):.4e} pairs/s; kernel time {f_kernel:.3f} ms, busy "
+              f"{f_kernel / f_ms:.3f}, {f_launches} launches), fwd+bwd {fb_ms:.3f} ms "
+              f"({pairs / (fb_ms / 1e3):.4e} pairs/s; kernel time {fb_kernel:.3f} ms, busy "
+              f"{fb_kernel / fb_ms:.3f}, {fb_launches} launches); peak memory of the fwd+bwd "
+              f"above its inputs {peak / 2**30:.3f} GiB; the profiles took {f_s:.1f} and "
+              f"{fb_s:.1f} s")
+        del layer
+    print(f"streamed fwd+bwd f32 / bf16: {ms_fb['f32'] / ms_fb['bf16']:.3f}x")
+
+    # against the CPU at n = 2048 (kbench's layer) and, without norm_coors,
+    # at 1024; against the materialised layer at 1024
+    f2, c2 = feats[:, :N_STREAM_CPU].contiguous(), coors[:, :N_STREAM_CPU].contiguous()
+    for norm, n_cpu in ((True, N_STREAM_CPU), (False, N_STREAM_MAT)):
+        layer = stream_layer(norm_coors=norm).eval()
+        f_n, c_n = f2[:, :n_cpu], c2[:, :n_cpu]
+        card = fwd_bwd(layer, f_n, c_n)
+        t_cpu = time.perf_counter()
+        host = fwd_bwd(copy.deepcopy(layer).to("cpu"), f_n.cpu(), c_n.cpu())
+        ef = max((a.cpu() - b_).abs().max().item() for a, b_ in zip(card[:2], host[:2]))
+        eg = rel_err(torch, card[2], host[2])
+        ew = max(rel_err(torch, a, b_) for a, b_ in zip(card[3:], host[3:]))
+        tol = STREAM_NORM_COORS_GRAD_TOL if norm else STREAM_GRAD_TOL
+        print(f"streamed n={n_cpu} norm_coors={norm} card vs CPU: forward max err "
+              f"{ef:.3e} (atol {GPU_VS_CPU_ATOL}), coordinate gradient {eg:.3e} relative (tol "
+              f"{tol}), weights' gradients up to {ew:.3e} (tol {STREAM_GRAD_TOL}); the CPU's "
+              f"fwd+bwd {time.perf_counter() - t_cpu:.1f} s")
+        if ef > GPU_VS_CPU_ATOL or eg > tol or ew > STREAM_GRAD_TOL:
+            raise AssertionError("the streamed layer on the card disagrees with the CPU")
+    layer = stream_layer().eval()
+    f1, c1 = feats[:, :N_STREAM_MAT], coors[:, :N_STREAM_MAT]
+    materialised = copy.deepcopy(layer)
+    materialised.stream_pairwise = False
+    with torch.no_grad():
+        em = max((a - b_).abs().max().item()
+                 for a, b_ in zip(layer(f1, c1), materialised(f1, c1)))
+    print(f"streamed vs materialised n={N_STREAM_MAT} on the card: forward max err {em:.3e} "
+          f"(atol {GPU_VS_CPU_ATOL})")
+    if em > GPU_VS_CPU_ATOL:
+        raise AssertionError("the streamed and the materialised layer disagree")
+
+    # dropout in training mode: masks fixed by the generator, through the
+    # recompute, equal to the materialised path's under the same masks
+    # (without norm_coors, whose self pairs leave the coordinate gradient
+    # to f32 rounding: STREAM_NORM_COORS_GRAD_TOL)
+    dropping = stream_layer(norm_coors=False, dropout=DROPOUT)
+
+    def drop_run(model):
+        return fwd_bwd(model, f2, c2, generator=torch.Generator(device="cuda").manual_seed(9))
+
+    first, again = drop_run(dropping), drop_run(dropping)
+    same = all(same_bits(torch, a, b_) for a, b_ in zip(first, again))
+    real = PS.dropout
+    keeps = []
+
+    def recording(x, rate, generator):
+        """``ops/core.py:dropout`` with its mask kept (the run's bits are
+        held to the first run's below)."""
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=torch.float32) < 1.0 - rate
+        keeps.append(keep)
+        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                                 device=x.device))
+
+    num_chunks = -(-N_STREAM_CPU // PS._auto_chunk(1, N_STREAM_CPU, hidden))
+    PS.dropout = egnn_mod.dropout = recording
+    try:
+        recorded = drop_run(dropping)
+    finally:
+        PS.dropout = egnn_mod.dropout = real
+    keeps = keeps[:2 * num_chunks + 1]   # the forward's draws; then the recompute's
+    masks = [torch.cat(keeps[0:-1:2], dim=2)[:, :, :N_STREAM_CPU],
+             torch.cat(keeps[1:-1:2], dim=2)[:, :, :N_STREAM_CPU], keeps[-1]]
+    del keeps
+
+    def replay(x, rate, generator):
+        keep = masks.pop(0)
+        if keep.shape != x.shape:
+            raise AssertionError(f"replayed mask {tuple(keep.shape)} for {tuple(x.shape)}")
+        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                                 device=x.device))
+
+    materialised = copy.deepcopy(dropping)
+    materialised.stream_pairwise = False
+    egnn_mod.dropout = replay
+    try:
+        mat = drop_run(materialised)
+    finally:
+        egnn_mod.dropout = real
+    errs = [rel_err(torch, a, b_) for a, b_ in zip(recorded, mat)]
+    same_recorded = all(same_bits(torch, a, b_) for a, b_ in zip(first, recorded))
+    print(f"streamed dropout {DROPOUT} n={N_STREAM_CPU}: one generator state twice bitwise="
+          f"{same} (outputs and every gradient), the recording run too={same_recorded}; "
+          f"against the materialised layer under the same masks: outputs "
+          f"{max(errs[:2]):.3e}, coordinate gradient {errs[2]:.3e}, weights' gradients up to "
+          f"{max(errs[3:]):.3e} relative (tol {STREAM_GRAD_TOL})")
+    if not (same and same_recorded) or masks or max(errs) > STREAM_GRAD_TOL:
+        raise AssertionError("the streamed dropout path disagrees with itself or with the "
+                             "materialised path under its masks")
+    del first, again, recorded, mat, materialised, dropping, layer
+    torch.cuda.empty_cache()
+    print(f"phase 32: {time.perf_counter() - t32:.1f} s")
+
+    # ---- 33. anchors 1 and 2: one dim-512 layer over all pairs, n = 16 ----
+    t33 = time.perf_counter()
+    for edge_dim in (0, 4):
+        gc = torch.Generator().manual_seed(SEED + 33 + edge_dim)
+        feats = torch.randn(1, N_ANCHOR12, DIM_ANCHOR12, generator=gc)
+        coors = torch.randn(1, N_ANCHOR12, 3, generator=gc)
+        edges = torch.randn(1, N_ANCHOR12, N_ANCHOR12, edge_dim, generator=gc) \
+            if edge_dim else None
+        layer = EGNN(dim=DIM_ANCHOR12, edge_dim=edge_dim, device="cuda",
+                     generator=torch.Generator().manual_seed(SEED))
+
+        def fb(model, f, c, e):
+            f = f.detach().requires_grad_()
+            fo, co = model(f, c, e)
+            grads = torch.autograd.grad((fo ** 2).mean() + (co ** 2).mean(),
+                                        [f] + list(model.parameters()))
+            return [fo.detach(), co.detach()] + list(grads)
+
+        cuda = (feats.cuda(), coors.cuda(), None if edges is None else edges.cuda())
+        card = fb(layer, *cuda)
+        host = fb(copy.deepcopy(layer).to("cpu"), feats, coors, edges)
+        ef = max((a.cpu() - b_).abs().max().item() for a, b_ in zip(card[:2], host[:2]))
+        eg = max(rel_err(torch, a, b_) for a, b_ in zip(card[2:], host[2:]))
+        ms = call_ms(torch, lambda: fb(layer, *cuda))
+        dev = device_ms(torch, lambda: fb(layer, *cuda))
+        pairs = N_ANCHOR12 * N_ANCHOR12
+        print(f"anchor {2 if edge_dim else 1} (dim {DIM_ANCHOR12}, n={N_ANCHOR12}, edge_dim "
+              f"{edge_dim}): card vs CPU forward max err {ef:.3e} (atol {GPU_VS_CPU_ATOL}), "
+              f"gradients up to {eg:.3e} relative (tol {TRAIN_GRAD_TOL}); fwd+bwd {ms:.4f} ms a "
+              f"call ({pairs / (ms / 1e3):.4e} pairs/s), {dev:.4f} ms replayed")
+        if ef > GPU_VS_CPU_ATOL or eg > TRAIN_GRAD_TOL:
+            raise AssertionError(f"anchor {2 if edge_dim else 1}: card and CPU disagree")
+    print(f"phase 33: {time.perf_counter() - t33:.1f} s")
+    print(f"phases 30-33 (the dense family's options): {time.perf_counter() - t_start:.1f} s")
 
 
 def sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, serving, steps):
@@ -1469,19 +1930,6 @@ def main() -> int:
           f"{all(same_bits(torch, a, b) for a, b in zip(*runs))} (information)")
 
     # ---- 9. one step on the card against the CPU ----
-    def with_k2_sums(fn, *args):
-        """``fn`` on the CPU with its segment sums in K2's arithmetic (the
-        model, bitwise K2's): the card and the CPU then sum the same terms to
-        the same bits, and what is left between them is the matmuls'
-        rounding. The plain version adds in edge order, and that order alone
-        moves a step's gradients far more (printed below, on the CPU)."""
-        plain = SK.segment_sum_plain
-        SK.segment_sum_plain = SK.segment_sum_fixed_point
-        try:
-            return fn(*args)
-        finally:
-            SK.segment_sum_plain = plain
-
     for b in (1, 8):
         net, step = make_trainer(SEED + 3)
         net_cpu, net_plain = copy.deepcopy(net).to("cpu"), copy.deepcopy(net).to("cpu")
@@ -3036,6 +3484,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     sparse_phases(torch)
+    dense_option_phases(torch)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

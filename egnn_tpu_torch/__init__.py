@@ -11,7 +11,11 @@ Ported so far: the dense family, ``EGNN`` and ``EGNNNetwork``, serving and
 training with kNN neighbourhoods at any n (the exact full-band selection up
 to 16384 nodes, the j-tiled exact selection, the packed-key candidates and
 the spatial grid beyond), also through the fused pair pipeline
-(``fused_pairs``, ``fused_knn``); the sparse family, ``EGNNSparse`` and
+(``fused_pairs``, ``fused_knn``), and over all pairs, materialised or
+streamed in j-chunks (``egnn_tpu_torch.ops.pairwise_stream``), with dropout
+in training mode, ``compute_dtype`` mixed precision and global linear
+attention (``Attention``, ``GlobalLinearAttention``); only ``ring_axis`` is
+left; the sparse family, ``EGNNSparse`` and
 ``EGNNSparseNetwork`` (with ``AttentionSparse`` and
 ``GlobalLinearAttentionSparse``; aliases ``EGNN_Sparse`` and
 ``EGNN_Sparse_Network``) over COO edges from the graph builders of
@@ -23,6 +27,7 @@ and the segment reductions, also through the fused pair pipeline
 ``egnn_tpu.training``). See ROADMAP.md for what is still to be ported.
 """
 
+from .models.attention import Attention, GlobalLinearAttention
 from .models.egnn import EGNN, EGNN_Network, EGNNNetwork
 from .models.egnn_sparse import (
     EGNN_Sparse,
@@ -36,6 +41,8 @@ from .models.egnn_sparse import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "Attention",
+    "GlobalLinearAttention",
     "EGNN",
     "EGNNNetwork",
     "EGNN_Network",

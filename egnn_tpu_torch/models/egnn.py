@@ -26,19 +26,36 @@ names and (in, out) weight layout:
   (K3) and lets K11f and K11b gather ``coors[idx]`` and ``proj_j[idx]``
   themselves (``fused_knn_messages``).
   Both engage only with kNN, without dense ``edges``, with ``update_feats``
-  and ``update_coors``, and inside the kernel's gate
-  (``supports_fused_pair_messages`` / ``supports_fused_knn_layer``: k <= 64,
-  c <= 8, widths that fit a block's shared memory); otherwise the layer
-  takes the unfused pipeline silently, as the reference does. They ignore
-  ``compute_dtype``: operands go to the kernel in float32.
+  and ``update_coors``, without dropout in training mode, and inside the
+  kernel's gate (``supports_fused_pair_messages`` /
+  ``supports_fused_knn_layer``: k <= 64, c <= 8, widths that fit a block's
+  shared memory); otherwise the layer takes the unfused pipeline silently,
+  as the reference does. They ignore ``compute_dtype``: operands go to the
+  kernel in float32.
+- Without kNN and without dense ``edges``, from n = 1024 on (or with
+  ``stream_pairwise=True``) the all-pairs layer streams: j-chunks of
+  ``ops/pairwise_stream.py``, recomputed in the backward, so that nothing
+  of (b, n, n, ·) size exists (plain torch operators; the JAX package
+  computes this path outside any Pallas kernel too).
+- ``compute_dtype`` (e.g. ``torch.bfloat16``) casts the message path (edge,
+  gate, coordinate-weight and node MLPs) on the unfused and the streamed
+  paths; the geometry and the coordinate weighting stay float32.
+- Dropout acts in training mode (``module.training``, the JAX package's
+  ``deterministic=False``), at the reference's three sites (after the first
+  layer of the edge, coordinate and node MLPs), its masks drawn from the
+  ``generator`` passed to ``forward``. A module built with ``dropout > 0``
+  and called without ``.eval()`` drops; ``make_denoise_train_step`` runs
+  the forward in eval mode, as the JAX step applies no dropout.
+- ``EGNNNetwork(global_linear_attn_every=...)`` interleaves
+  ``models/attention.py:GlobalLinearAttention`` blocks (plain torch).
 
 Reference quirks kept on purpose: ``valid_radius`` acts only with a
 ``mask``; with ``only_sparse_neighbors`` k is the max row degree including
-the self slot; without a mask the mean divisor is k.
+the self slot; without a mask the mean divisor is k (n on the all-pairs
+paths).
 
-Not ported yet (they raise ``NotImplementedError``): the streamed all-pairs
-path (``stream_pairwise``, or n >= 1024 without kNN), ``ring_axis``, global
-linear attention and dropout in training mode.
+Not ported yet (it raises ``NotImplementedError``): ``ring_axis``, the
+node-sharded all-pairs layer of ``parallel/``.
 """
 from __future__ import annotations
 
@@ -53,33 +70,17 @@ from ..ops import neighbors as nb
 from ..ops.core import (
     batched_index_select,
     coors_norm,
+    dropout,
     fourier_encode_dist,
     gather_bool,
     layer_norm,
     safe_div,
 )
 from ..ops.cuda import pair_messages as pm
-from ..utils.device import resolve_device
+from ..ops.pairwise_stream import PairwiseParams, streamed_pairwise
 from . import init as inits
-
-
-class _ParamFactory:
-    """Creates a module's parameters by name from an initialiser, drawing
-    from one generator and placing them on one device in one dtype."""
-
-    def __init__(self, module, device, dtype, generator):
-        self.module = module
-        self.device = resolve_device(device)
-        self.dtype = dtype
-        self.gen = generator if generator is not None else torch.Generator().manual_seed(0)
-
-    def __call__(self, name, init, shape):
-        value = init(shape, self.gen).to(device=self.device, dtype=self.dtype)
-        self.module.register_parameter(name, nn.Parameter(value))
-
-    def linear(self, name, d_in, d_out, init_eps):
-        self(f"{name}_w", inits.normal_init(init_eps), (d_in, d_out))
-        self(f"{name}_b", inits.torch_linear_bias_init(d_in), (d_out,))
+from .attention import GlobalLinearAttention
+from .init import ParamFactory
 
 
 class EGNN(nn.Module):
@@ -122,7 +123,7 @@ class EGNN(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        param = _ParamFactory(self, device, dtype, generator)
+        param = ParamFactory(self, device, dtype, generator)
         if m_pool_method not in ("sum", "mean"):
             raise ValueError("pool method must be either sum or mean")
         if not (update_feats or update_coors):
@@ -145,7 +146,6 @@ class EGNN(nn.Module):
         self.soft_edges = soft_edges
         self.coor_weights_clamp_value = coor_weights_clamp_value
         self.stream_pairwise = stream_pairwise
-        # the streamed all-pairs path's j-chunk; that path is not ported yet
         self.pairwise_chunk = pairwise_chunk
         self.fused_knn = fused_knn
         self.fused_pairs = fused_pairs
@@ -189,15 +189,17 @@ class EGNN(nn.Module):
         """Mixed-precision cast of the message path (identity by default)."""
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
 
-    def _node_update(self, feats, m_i, mp=None):
+    def _node_update(self, feats, m_i, mp=None, drop=None):
         """LayerNorm? -> concat with the pooled message -> node MLP ->
         residual (egnn_pytorch.py:335-337). ``mp`` is the mixed-precision
-        cast: the layer's by default, the identity on the fused paths."""
+        cast: the layer's by default, the identity on the fused paths;
+        ``drop`` the dropout after the first layer (none by default)."""
         mp = self._mp if mp is None else mp
         normed = layer_norm(feats, self.node_norm_gamma, self.node_norm_beta) \
             if self.norm_feats else feats
         h = torch.cat([mp(normed), m_i.to(mp(normed).dtype)], dim=-1)
-        h = F.silu(h @ mp(self.node_mlp_0_w) + mp(self.node_mlp_0_b))
+        h = h @ mp(self.node_mlp_0_w) + mp(self.node_mlp_0_b)
+        h = F.silu(h if drop is None else drop(h))
         return (h @ mp(self.node_mlp_1_w) + mp(self.node_mlp_1_b)).to(feats.dtype) + feats
 
     def _pair_weights(self, w_d, coors):
@@ -242,6 +244,38 @@ class EGNN(nn.Module):
         m_i = self._pool_kernel_messages(m_sum, pv, mask, num_nearest)
         return self._node_update(feats, m_i, mp=lambda v: v), coors + coors_delta
 
+    def _forward_streamed(self, feats, coors, mask, w_i, w_j, w_d, generator, drop):
+        """The all-pairs layer as j-chunks recomputed in the backward
+        (``ops/pairwise_stream.py``), with the reference's mean divisor n
+        without a mask (egnn_tpu/models/egnn.py:279-284). ``generator`` is
+        None unless dropout acts."""
+        mp = self._mp
+        pp = PairwiseParams(
+            w_d=w_d, edge_w2=self.edge_mlp_1_w, edge_b2=self.edge_mlp_1_b,
+            gate_w=self.edge_gate_w if self.soft_edges else None,
+            gate_b=self.edge_gate_b if self.soft_edges else None,
+            coors_w1=self.coors_mlp_0_w if self.update_coors else None,
+            coors_b1=self.coors_mlp_0_b if self.update_coors else None,
+            coors_w2=self.coors_mlp_1_w if self.update_coors else None,
+            coors_b2=self.coors_mlp_1_b if self.update_coors else None,
+            cn_scale=self.coors_norm_scale if self.norm_coors else None)
+        res = streamed_pairwise(
+            coors, mp(feats) @ mp(w_i) + mp(self.edge_mlp_0_b), mp(feats) @ mp(w_j), pp,
+            mask=mask, fourier_features=self.fourier_features,
+            update_coors=self.update_coors, update_feats=self.update_feats,
+            soft_edges=self.soft_edges, norm_coors=self.norm_coors,
+            coor_weights_clamp_value=self.coor_weights_clamp_value,
+            chunk=self.pairwise_chunk, compute_dtype=self.compute_dtype,
+            dropout_rate=self.dropout, generator=generator)
+        coors_out = coors + res.coors_delta if self.update_coors else coors
+        if not self.update_feats:
+            return feats, coors_out
+        m_i = res.m_i
+        if self.m_pool_method == "mean":
+            m_i = safe_div(m_i, res.pair_count[..., None]) if mask is not None \
+                else m_i / feats.shape[1]
+        return self._node_update(feats, m_i, drop=drop), coors_out
+
     def forward(
         self,
         feats: torch.Tensor,                    # (b, n, dim)
@@ -249,10 +283,13 @@ class EGNN(nn.Module):
         edges: Optional[torch.Tensor] = None,   # (b, n, n, edge_dim)
         mask: Optional[torch.Tensor] = None,    # (b, n) bool
         adj_mat: Optional[torch.Tensor] = None,  # (n, n) or (b, n, n) bool
+        generator: Optional[torch.Generator] = None,
     ):
-        if self.dropout > 0.0 and self.training:
-            raise NotImplementedError(
-                "dropout in training mode is not ported yet; call .eval()")
+        """In training mode with ``dropout > 0`` the dropout masks are drawn
+        from ``generator`` (on the inputs' device), which is then required;
+        a fixed generator state gives bit-identical outputs. In eval mode, or
+        at ``dropout=0``, no mask is drawn (the JAX package's
+        ``deterministic=True``)."""
         b, n, d = feats.shape
         if d != self.dim:
             raise ValueError(f"feats dim {d} != configured dim {self.dim}")
@@ -260,18 +297,25 @@ class EGNN(nn.Module):
         num_nearest = self.num_nearest_neighbors
         valid_radius = self.valid_radius
         use_nearest = num_nearest > 0 or self.only_sparse_neighbors
-        do_stream = self.stream_pairwise if self.stream_pairwise is not None else n >= 1024
-        if not use_nearest and edges is None and do_stream:
-            raise NotImplementedError(
-                "the streamed all-pairs path (stream_pairwise, or n >= 1024 "
-                "without kNN) is not ported yet; stream_pairwise=False "
-                "materialises the pairs")
+        dropping = self.dropout > 0.0 and self.training
+        if dropping and generator is None:
+            raise ValueError("dropout in training mode draws its masks from generator=, a "
+                             "torch.Generator on the inputs' device; call .eval() to serve")
+
+        def drop(x):
+            return dropout(x, self.dropout, generator) if dropping else x
 
         w1 = self.edge_mlp_0_w
         w_i = w1[:d]
         w_j = w1[d:2 * d]
         w_d = w1[2 * d:2 * d + self.dist_dim]
         w_e = w1[2 * d + self.dist_dim:]
+
+        # ---- the streamed all-pairs path: no (n, n) intermediates ----
+        do_stream = self.stream_pairwise if self.stream_pairwise is not None else n >= 1024
+        if not use_nearest and edges is None and do_stream:
+            return self._forward_streamed(feats, coors, mask, w_i, w_j, w_d,
+                                          generator if dropping else None, drop)
 
         # ---- pairwise geometry ----
         if use_nearest:
@@ -285,8 +329,8 @@ class EGNN(nn.Module):
             if adj_mat is not None:
                 adj_b = adj_mat if adj_mat.dim() == 3 else adj_mat.expand(b, n, n)
             # the fused paths take the whole layer: kNN, no dense edges, both
-            # updates (dropout in training mode was refused above)
-            fusable = edges is None and self.update_coors and self.update_feats
+            # updates, no dropout in training mode
+            fusable = edges is None and self.update_coors and self.update_feats and not dropping
             if (self.fused_knn and fusable and pm.supports_fused_knn_layer(
                     num_nearest, self.hidden, self.m_dim, coors.shape[-1],
                     self.fourier_features, self.soft_edges)):
@@ -351,7 +395,7 @@ class EGNN(nn.Module):
         if edges is not None:
             h1 = h1 + mp(edges) @ mp(w_e)
 
-        m_ij = F.silu(h1)
+        m_ij = F.silu(drop(h1))
         m_ij = F.silu(m_ij @ mp(self.edge_mlp_1_w) + mp(self.edge_mlp_1_b))
         if self.soft_edges:
             m_ij = m_ij * torch.sigmoid(m_ij @ mp(self.edge_gate_w) + mp(self.edge_gate_b))
@@ -371,7 +415,7 @@ class EGNN(nn.Module):
 
         # ---- coordinate update (equivariant) ----
         if self.update_coors:
-            cw = F.silu(m_ij @ mp(self.coors_mlp_0_w) + mp(self.coors_mlp_0_b))
+            cw = F.silu(drop(m_ij @ mp(self.coors_mlp_0_w) + mp(self.coors_mlp_0_b)))
             coor_weights = (cw @ mp(self.coors_mlp_1_w) + mp(self.coors_mlp_1_b)).to(coors.dtype)
             rel_coors_n = coors_norm(rel_coors, self.coors_norm_scale) \
                 if self.norm_coors else rel_coors
@@ -396,7 +440,7 @@ class EGNN(nn.Module):
                     m_i = m_ij.mean(dim=-2)
             else:
                 m_i = m_ij.sum(dim=-2)
-            node_out = self._node_update(feats, m_i)
+            node_out = self._node_update(feats, m_i, drop=drop)
         else:
             node_out = feats
         return node_out, coors_out
@@ -404,16 +448,21 @@ class EGNN(nn.Module):
 
 class EGNNNetwork(nn.Module):
     """Depth-N EGNN stack with token, position, edge and adjacency-degree
-    embeddings (egnn_pytorch.py:343-454). ``layer_kwargs`` go to every
-    ``EGNN``; ``norm_feats=True`` is forced, as in the reference. Layers are
-    the submodules ``egnn_0`` ... ``egnn_{depth-1}``."""
+    embeddings and interleaved global linear attention (egnn_pytorch.py:
+    343-454). ``layer_kwargs`` go to every ``EGNN``; ``norm_feats=True`` is
+    forced, as in the reference. Layers are the submodules ``egnn_0`` ...
+    ``egnn_{depth-1}``; with ``global_linear_attn_every`` > 0 a
+    ``GlobalLinearAttention`` ``global_attn_{i}`` runs before every layer i
+    with i % global_linear_attn_every == 0, over the tokens
+    ``global_tokens``."""
 
     # Parameters that the reference creates on first use, only when their
-    # branch runs (``edge_emb`` when edges reach the call), so that its tree
-    # may lack them. The port makes them at construction, so that an
-    # optimiser built before the first call holds them; ``load_flax_params``
-    # leaves them as they are where the reference's tree has none.
-    lazy_parameters = ("edge_emb",)
+    # branch runs (``edge_emb`` when edges reach the call, ``global_tokens``
+    # when the network is called), so that its tree may lack them. The port
+    # makes them at construction, so that an optimiser built before the
+    # first call holds them; ``load_flax_params`` leaves them as they are
+    # where the reference's tree has none.
+    lazy_parameters = ("edge_emb", "global_tokens")
 
     def __init__(
         self,
@@ -436,17 +485,16 @@ class EGNNNetwork(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        param = _ParamFactory(self, device, dtype, generator)
+        param = ParamFactory(self, device, dtype, generator)
         if num_adj_degrees is not None and num_adj_degrees < 1:
             raise ValueError("make sure adjacent degrees is greater than 1")
-        if global_linear_attn_every > 0:
-            raise NotImplementedError("global linear attention is not ported yet")
         self.depth = depth
         self.dim = dim
         self.num_tokens = num_tokens
         self.num_edge_tokens = num_edge_tokens
         self.num_positions = num_positions
         self.num_adj_degrees = num_adj_degrees
+        self.global_linear_attn_every = global_linear_attn_every
 
         if num_tokens is not None:
             param("token_emb", inits.unit_normal_init, (num_tokens, dim))
@@ -458,12 +506,22 @@ class EGNNNetwork(nn.Module):
         if adj_dim > 0:
             param("adj_emb", inits.unit_normal_init, (num_adj_degrees + 1, adj_dim))
         self.adj_dim = adj_dim
+        if global_linear_attn_every > 0:
+            param("global_tokens", inits.unit_normal_init, (num_global_tokens, dim))
         layer_edge_dim = (edge_dim if edge_dim > 0 else 0) + adj_dim
         for ind in range(depth):
+            if self._is_global_layer(ind):
+                self.add_module(f"global_attn_{ind}", GlobalLinearAttention(
+                    dim, global_linear_attn_heads, global_linear_attn_dim_head,
+                    device=param.device, dtype=dtype, generator=param.gen))
             self.add_module(f"egnn_{ind}", EGNN(
                 dim=dim, edge_dim=layer_edge_dim, norm_feats=True,
                 **(layer_kwargs or {}), device=param.device, dtype=dtype,
                 generator=param.gen))
+
+    def _is_global_layer(self, ind: int) -> bool:
+        every = self.global_linear_attn_every
+        return every > 0 and ind % every == 0
 
     def forward(
         self,
@@ -473,7 +531,10 @@ class EGNNNetwork(nn.Module):
         edges: Optional[torch.Tensor] = None,
         mask: Optional[torch.Tensor] = None,
         return_coor_changes: bool = False,
+        generator: Optional[torch.Generator] = None,
     ):
+        """``generator``: the dropout masks' source in training mode (see
+        ``EGNN.forward``)."""
         b = feats.shape[0]
         if self.num_tokens is not None:
             feats = self.token_emb[feats]
@@ -501,10 +562,15 @@ class EGNNNetwork(nn.Module):
                 edges = torch.cat([edges, adj_feats], dim=-1) if edges is not None \
                     else adj_feats
 
+        if self.global_linear_attn_every > 0:
+            global_tokens = self.global_tokens.expand(b, *self.global_tokens.shape)
         coor_changes = [coors]
         for ind in range(self.depth):
+            if self._is_global_layer(ind):
+                feats, global_tokens = getattr(self, f"global_attn_{ind}")(
+                    feats, global_tokens, mask=mask)
             feats, coors = getattr(self, f"egnn_{ind}")(
-                feats, coors, edges=edges, mask=mask, adj_mat=adj_mat)
+                feats, coors, edges=edges, mask=mask, adj_mat=adj_mat, generator=generator)
             coor_changes.append(coors)
         if return_coor_changes:
             return feats, coors, coor_changes

@@ -39,8 +39,10 @@ On the card:
   package does. The kernel computes in float32 and ignores
   ``compute_dtype``. ``None`` and ``False`` take the per-edge path.
 
-Not ported yet (they raise ``NotImplementedError``): ``shard_axis`` (the
-edge-partitioned multi-device layout) and dropout in training mode.
+Dropout acts in training mode (``module.training``, the JAX package's
+``deterministic=False``), its masks drawn from the ``generator`` passed to
+``forward``. Not ported yet (it raises ``NotImplementedError``):
+``shard_axis``, the edge-partitioned multi-device layout.
 """
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ from torch import nn
 
 from ..ops.core import (
     coors_norm,
+    dropout,
     embed_tokens,
     fourier_encode_dist,
     gather_rows,
@@ -66,7 +69,8 @@ from ..ops.segment import (
     uniform_aggregate,
 )
 from . import init as inits
-from .egnn import _ParamFactory
+from .attention import Attention, GlobalLinearAttention
+from .init import ParamFactory
 
 
 def _no_shard(shard_axis) -> None:
@@ -140,7 +144,7 @@ class EGNNSparse(nn.Module):
             raise ValueError("pool method must be a valid option")
         if not (update_feats or update_coors):
             raise ValueError("you must update either features, coordinates, or both")
-        param = _ParamFactory(self, device, dtype, generator)
+        param = ParamFactory(self, device, dtype, generator)
         self.feats_dim = feats_dim
         self.pos_dim = pos_dim
         self.edge_attr_dim = edge_attr_dim
@@ -206,11 +210,21 @@ class EGNNSparse(nn.Module):
         num_graphs: int = 1,
         node_mask: Optional[torch.Tensor] = None,     # (N,) bool, False on padding
         check_layout: bool = True,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """``check_layout=False`` skips the ``uniform_graph_size`` layout check
-        for an edge set that the caller has checked already."""
-        if self.dropout > 0.0 and self.training:
-            raise NotImplementedError("dropout in training mode is not ported yet; call .eval()")
+        for an edge set that the caller has checked already. In training mode
+        with ``dropout > 0`` the masks are drawn from ``generator`` (on the
+        inputs' device), which is then required; ``fused_uniform`` gives way
+        to the per-edge path meanwhile."""
+        dropping = self.dropout > 0.0 and self.training
+        if dropping and generator is None:
+            raise ValueError("dropout in training mode draws its masks from generator=, a "
+                             "torch.Generator on the inputs' device; call .eval() to serve")
+
+        def drop(v):
+            return dropout(v, self.dropout, generator) if dropping else v
+
         n, d, pos = x.shape[0], self.feats_dim, self.pos_dim
         uk, ugs = self.uniform_degree, self.uniform_graph_size
         if uk is not None and edge_index.shape[1] != n * uk:
@@ -229,7 +243,7 @@ class EGNNSparse(nn.Module):
         w_e = w1[2 * d:2 * d + self.edge_attr_dim]
         w_d = w1[2 * d + self.edge_attr_dim:]
 
-        if self._uses_fused():
+        if self._uses_fused() and not dropping:
             return self._forward_fused(x, coors, feats, j_idx, batch, edge_mask, num_graphs,
                                        node_mask, w_i, w_j, w_d)
 
@@ -256,7 +270,7 @@ class EGNNSparse(nn.Module):
                 raise ValueError(f"layer built with edge_attr_dim={self.edge_attr_dim} but no "
                                  f"edge_attr given")
             h1 = h1 + mp(edge_attr) @ mp(w_e)
-        m_ij = F.silu(h1)
+        m_ij = F.silu(drop(h1))
         m_ij = F.silu(m_ij @ mp(self.edge_mlp_1_w) + mp(self.edge_mlp_1_b))   # (E, m_dim)
 
         def aggregate(data):
@@ -265,7 +279,7 @@ class EGNNSparse(nn.Module):
             return segment_aggregate(self.aggr, data, i_idx, n, mask=edge_mask)
 
         if self.update_coors:
-            cw = F.silu(m_ij @ mp(self.coors_mlp_0_w) + mp(self.coors_mlp_0_b))
+            cw = F.silu(drop(m_ij @ mp(self.coors_mlp_0_w) + mp(self.coors_mlp_0_b)))
             # back to full precision before weighting the geometry
             coor_wij = (cw @ mp(self.coors_mlp_1_w) + mp(self.coors_mlp_1_b)).to(coors.dtype)
             if self.coor_weights_clamp_value is not None:
@@ -281,7 +295,7 @@ class EGNNSparse(nn.Module):
             if self.soft_edge:
                 m_ij = m_ij * torch.sigmoid(m_ij @ mp(self.edge_weight_w) + mp(self.edge_weight_b))
             m_i = aggregate(m_ij.to(feats.dtype))
-            hidden_out = self._feature_update(feats, m_i, batch, num_graphs, node_mask)
+            hidden_out = self._feature_update(feats, m_i, batch, num_graphs, node_mask, drop)
         else:
             hidden_out = feats
         return torch.cat([coors_out, hidden_out], dim=-1)
@@ -321,32 +335,23 @@ class EGNNSparse(nn.Module):
         return torch.cat([coors_out, self._feature_update(
             feats, m_i.to(feats.dtype), batch, num_graphs, node_mask)], dim=-1)
 
-    def _feature_update(self, feats, m_i, batch, num_graphs, node_mask):
+    def _feature_update(self, feats, m_i, batch, num_graphs, node_mask, drop=lambda v: v):
         """Graph LayerNorm (padding left out of its statistics), then the node
-        MLP residual (egnn_pytorch_geometric.py:259-266)."""
+        MLP residual (egnn_pytorch_geometric.py:259-266), ``drop`` after its
+        first layer."""
         hidden = graph_layer_norm(feats, batch, num_graphs, self.node_norm_gamma,
                                   self.node_norm_beta, node_mask=node_mask,
                                   uniform_size=self.uniform_graph_size) \
             if self.norm_feats else feats
-        h = F.silu(torch.cat([hidden, m_i], dim=-1) @ self.node_mlp_0_w + self.node_mlp_0_b)
+        h = F.silu(drop(torch.cat([hidden, m_i], dim=-1) @ self.node_mlp_0_w + self.node_mlp_0_b))
         return feats + (h @ self.node_mlp_1_w + self.node_mlp_1_b)
 
 
-class AttentionSparse(nn.Module):
+class AttentionSparse(Attention):
     """Multi-head cross attention between per-graph global tokens and packed
     node sets (egnn_pytorch_geometric.py:32-57), by segment softmax instead
-    of the reference's per-graph loop. torch.nn.Linear's default init."""
-
-    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, *, device=None,
-                 dtype: torch.dtype = torch.float32, generator: Optional[torch.Generator] = None):
-        super().__init__()
-        param = _ParamFactory(self, device, dtype, generator)
-        self.heads, self.dim_head = heads, dim_head
-        inner = heads * dim_head
-        param("to_q_w", inits.torch_linear_weight_init, (dim, inner))
-        param("to_kv_w", inits.torch_linear_weight_init, (dim, inner * 2))
-        param("to_out_w", inits.torch_linear_weight_init, (inner, dim))
-        param("to_out_b", inits.torch_linear_bias_init(inner), (dim,))
+    of the reference's per-graph loop; the dense ``Attention``'s
+    parameters."""
 
     def queries_to_nodes(self, queries, x, batch, num_graphs, node_mask=None):
         """Tokens (G, g, dim) attend over their graph's nodes (N, dim) ->
@@ -380,33 +385,21 @@ class AttentionSparse(nn.Module):
         return out @ self.to_out_w + self.to_out_b
 
 
-class GlobalLinearAttentionSparse(nn.Module):
+class GlobalLinearAttentionSparse(GlobalLinearAttention):
     """Per-graph induced-token attention block for packed node sets
-    (egnn_pytorch_geometric.py:60-94): graph LayerNorms on the node stream,
-    the sparse variant's feed-forward residual ``ff(x_norm) + x_norm``."""
+    (egnn_pytorch_geometric.py:60-94): the dense block's parameters, graph
+    LayerNorms on the node stream, the sparse variant's feed-forward residual
+    ``ff(x_norm) + x_norm``."""
+
+    attention = AttentionSparse
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
                  axis_name: Optional[str] = None, uniform_graph_size: Optional[int] = None, *,
                  device=None, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
-        super().__init__()
         _no_shard(axis_name)
-        param = _ParamFactory(self, device, dtype, generator)
+        super().__init__(dim, heads, dim_head, device=device, dtype=dtype, generator=generator)
         self.uniform_graph_size = uniform_graph_size
-        d = dim
-        param("norm_seq_gamma", inits.ones_init, (d,))
-        param("norm_seq_beta", inits.zeros_init, (d,))
-        param("norm_queries_gamma", inits.ones_init, (d,))
-        param("norm_queries_beta", inits.zeros_init, (d,))
-        for name in ("attn1", "attn2"):
-            self.add_module(name, AttentionSparse(d, heads, dim_head, device=param.device,
-                                                  dtype=dtype, generator=param.gen))
-        param("ff_norm_gamma", inits.ones_init, (d,))
-        param("ff_norm_beta", inits.zeros_init, (d,))
-        param("ff_w1", inits.torch_linear_weight_init, (d, d * 4))
-        param("ff_b1", inits.torch_linear_bias_init(d), (d * 4,))
-        param("ff_w2", inits.torch_linear_weight_init, (d * 4, d))
-        param("ff_b2", inits.torch_linear_bias_init(d * 4), (d,))
 
     def forward(self, x, queries, batch, num_graphs, node_mask=None):
         ugs = self.uniform_graph_size
@@ -474,7 +467,7 @@ class EGNNSparseNetwork(nn.Module):
     ):
         super().__init__()
         _no_shard(shard_axis)
-        param = _ParamFactory(self, device, dtype, generator)
+        param = ParamFactory(self, device, dtype, generator)
         self.n_layers = n_layers
         self.pos_dim = pos_dim
         self.embedding_dims = list(embedding_dims)
@@ -516,7 +509,10 @@ class EGNNSparseNetwork(nn.Module):
         node_mask: Optional[torch.Tensor] = None,
         recalc_edge: Optional[Callable] = None,
         bsize: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
+        """``generator``: the dropout masks' source in training mode (see
+        ``EGNNSparse.forward``)."""
         # the reference's vestigial ``size`` hint (egnn_pytorch_geometric.py:395,423)
         if bsize is not None and bsize != x.shape[0]:
             raise ValueError(f"bsize={bsize} disagrees with the static node count "
@@ -541,7 +537,8 @@ class EGNNSparseNetwork(nn.Module):
                 x = torch.cat([x[:, :pos], feats], dim=-1)
             x = getattr(self, f"mpnn_{i}")(
                 x, edge_index, edge_attr=edge_attr, batch=batch, edge_mask=edge_mask,
-                num_graphs=num_graphs, node_mask=node_mask, check_layout=check_layout)
+                num_graphs=num_graphs, node_mask=node_mask, check_layout=check_layout,
+                generator=generator)
             check_layout = False      # each edge set is checked once, by its first layer
             if (self.recalc and recalc_edge is not None and i % self.recalc == 0
                     and i != self.n_layers - 1):

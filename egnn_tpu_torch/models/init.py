@@ -8,8 +8,8 @@
   default U(-1/sqrt(fan_in), 1/sqrt(fan_in)).
 
 Every draw comes from an explicit ``torch.Generator`` on the CPU and is then
-moved to the target device, so one seed gives the same weights on every
-device. The bits differ from JAX's: parity tests carry weights across with
+moved to the target device (``ParamFactory``), so one seed gives the same
+weights on every device. The bits differ from JAX's: parity tests carry weights across with
 ``utils/port_weights.py:load_flax_params`` instead. Weights are stored
 (in, out), as in the JAX package.
 """
@@ -18,6 +18,9 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+from torch import nn
+
+from ..utils.device import resolve_device
 
 Init = Callable[[Sequence[int], torch.Generator], torch.Tensor]
 
@@ -83,3 +86,22 @@ def zero_pad_axis(base_init: Init, axis: int, valid: int) -> Init:
         return out
 
     return init
+
+
+class ParamFactory:
+    """Creates a module's parameters by name from an initialiser, drawing
+    from one generator and placing them on one device in one dtype."""
+
+    def __init__(self, module, device, dtype, generator):
+        self.module = module
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.gen = generator if generator is not None else torch.Generator().manual_seed(0)
+
+    def __call__(self, name, init, shape):
+        value = init(shape, self.gen).to(device=self.device, dtype=self.dtype)
+        self.module.register_parameter(name, nn.Parameter(value))
+
+    def linear(self, name, d_in, d_out, init_eps):
+        self(f"{name}_w", normal_init(init_eps), (d_in, d_out))
+        self(f"{name}_b", torch_linear_bias_init(d_in), (d_out,))

@@ -39,6 +39,7 @@ from .segment import (
     segment_sum,
     uniform_aggregate,
 )
+from .pairwise_stream import PairwiseParams, pairwise_block, streamed_pairwise
 from .spatial import grid_knn_select
 
 __all__ = [
@@ -60,6 +61,9 @@ __all__ = [
     "select_neighborhood",
     "knn_select",
     "grid_knn_select",
+    "PairwiseParams",
+    "pairwise_block",
+    "streamed_pairwise",
     "segment_sum",
     "segment_mean",
     "segment_max",

@@ -26,6 +26,16 @@ def safe_div(num: torch.Tensor, den: torch.Tensor, eps: float = 1e-8) -> torch.T
     return torch.where(den == 0, torch.zeros((), dtype=res.dtype, device=res.device), res)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout, Flax's ``nn.Dropout``: each entry kept with
+    probability 1 - rate and then divided by it, else 0. The mask is drawn
+    from ``generator``, never from the global one."""
+    keep_p = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=torch.float32) < keep_p
+    return torch.where(keep, x / keep_p, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def fourier_encode_dist(
     x: torch.Tensor, num_encodings: int = 4, include_self: bool = True
 ) -> torch.Tensor:

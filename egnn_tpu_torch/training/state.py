@@ -177,14 +177,24 @@ def make_denoise_train_step(
     which runs zero-grad, forward, loss, backward and ``optimizer.step()``
     and returns the loss as a 0-d tensor without waiting for the device.
     The step's ``TrainState`` is ``step.state``.
+
+    The forward and backward run in eval mode, and the module's mode is
+    restored after: the JAX step calls the network without
+    ``deterministic=False``, so a network built with ``dropout > 0`` trains
+    there without dropout, and here too.
     """
     state = TrainState(net, optimizer)
 
     def step(tokens, noised_coors, target_coors, adj_mat, mask):
         optimizer.zero_grad(set_to_none=True)
-        _, denoised = net(tokens, noised_coors, adj_mat=adj_mat, mask=mask)
-        loss = loss_fn(denoised, target_coors, mask)
-        loss.backward()
+        mode = net.training
+        net.eval()
+        try:
+            _, denoised = net(tokens, noised_coors, adj_mat=adj_mat, mask=mask)
+            loss = loss_fn(denoised, target_coors, mask)
+            loss.backward()
+        finally:
+            net.train(mode)
         state.apply_gradients()
         return loss.detach()
 

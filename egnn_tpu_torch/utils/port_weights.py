@@ -3,14 +3,16 @@
 The counterpart, in the other direction, of ``egnn_tpu/utils/port_weights.py``:
 ``load_flax_params(module, params)`` copies the ``params`` tree of an
 ``egnn_tpu`` module (``EGNN``, ``EGNNNetwork``, ``EGNNSparse``,
-``EGNNSparseNetwork``, ``GlobalLinearAttentionSparse``: nested dicts of
-numpy arrays, e.g. ``jax.tree_util.tree_map(np.asarray, variables["params"])``)
-into the port's module of the same configuration. Both sides use the same
-names and the (in, out) layout, so nothing is transposed: Flax's ``egnn_0``
-/ ``edge_mlp_0_w`` is the torch parameter ``egnn_0.edge_mlp_0_w``, and a
-sparse network's ``mpnn_0`` / ``edge_mlp_0_w``, ``global_attn_0`` /
-``attn1`` / ``to_q_w`` and ``emb_0`` are ``mpnn_0.edge_mlp_0_w``,
-``global_attn_0.attn1.to_q_w`` and ``emb_0``.
+``EGNNSparseNetwork``, ``Attention``, ``GlobalLinearAttention``,
+``GlobalLinearAttentionSparse``: nested dicts of numpy arrays, e.g.
+``jax.tree_util.tree_map(np.asarray, variables["params"])``) into the
+port's module of the same configuration. Both sides use the same names and
+the (in, out) layout, so nothing is transposed: Flax's ``egnn_0`` /
+``edge_mlp_0_w`` is the torch parameter ``egnn_0.edge_mlp_0_w``, a dense or
+sparse network's ``global_attn_0`` / ``attn1`` / ``to_q_w`` and
+``global_tokens`` are ``global_attn_0.attn1.to_q_w`` and ``global_tokens``,
+and a sparse network's ``mpnn_0`` / ``edge_mlp_0_w`` and ``emb_0`` are
+``mpnn_0.edge_mlp_0_w`` and ``emb_0``.
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ def load_flax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
     """Copy ``params`` into ``module``'s parameters, in place.
 
     A parameter that the reference creates on first use (a submodule's
-    ``lazy_parameters``: ``EGNNNetwork``'s ``edge_emb``,
-    ``EGNNSparseNetwork``'s ``global_tokens``) and that
+    ``lazy_parameters``: ``EGNNNetwork``'s ``edge_emb`` and
+    ``global_tokens``, ``EGNNSparseNetwork``'s ``global_tokens``) and that
     ``params`` lacks is left as it is. Raises ``KeyError`` for any other
     parameter missing from ``params`` or a key of ``params`` the module
     lacks, and ``ValueError`` for a shape mismatch; nothing is copied then.

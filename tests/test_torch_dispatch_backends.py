@@ -141,7 +141,7 @@ def test_ops_namespace_reexports_the_reference_names():
     """``egnn_tpu_torch.ops`` exports, under the reference's names, the ops
     the port has; each is the port's own function."""
     from egnn_tpu_torch.ops import gather_nodes, knn_select, segment_sum
-    from egnn_tpu_torch.ops import core, graph, neighbors, segment, spatial
+    from egnn_tpu_torch.ops import core, graph, neighbors, pairwise_stream, segment, spatial
 
     assert set(tops.__all__) <= set(jops.__all__)
     assert gather_nodes is core.gather_nodes and segment_sum is segment.segment_sum
@@ -150,7 +150,8 @@ def test_ops_namespace_reexports_the_reference_names():
         obj = getattr(tops, name)
         assert obj.__module__.startswith("egnn_tpu_torch.ops."), name
         assert obj is getattr({"core": core, "graph": graph, "neighbors": neighbors,
-                               "segment": segment, "spatial": spatial}[
+                               "pairwise_stream": pairwise_stream, "segment": segment,
+                               "spatial": spatial}[
             obj.__module__.rsplit(".", 1)[1]], name)
     out = segment_sum(torch.ones(3, 2, dtype=torch.float32), torch.tensor([0, 2, 2]), 3)
     assert out[:, 0].tolist() == [1.0, 0.0, 2.0]

@@ -265,21 +265,27 @@ def test_load_flax_params_still_refuses_other_missing_names():
 
 
 def test_options_not_yet_ported_raise():
+    """Only ``ring_axis`` is left to port; the options that raised before
+    their slice now run (each has its own tests)."""
     with pytest.raises(NotImplementedError):
         EGNN(dim=4, num_nearest_neighbors=2, device="cpu", ring_axis="x")
     for kw in (dict(fused_knn=True), dict(fused_pairs=True)):   # ported: they construct
         EGNN(dim=4, num_nearest_neighbors=2, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        EGNNNetwork(depth=1, dim=4, global_linear_attn_every=1, device="cpu")
-    layer = EGNN(dim=4, device="cpu")
-    with pytest.raises(NotImplementedError):  # streamed all-pairs at n >= 1024
-        layer(torch.zeros(1, 1024, 4, dtype=torch.float32),
-              torch.zeros(1, 1024, 3, dtype=torch.float32))
+    net = EGNNNetwork(depth=1, dim=4, global_linear_attn_every=1, global_linear_attn_heads=2,
+                      global_linear_attn_dim_head=4, device="cpu")
+    f, c = net(torch.randn(1, 6, 4, dtype=torch.float32),
+               torch.randn(1, 6, 3, dtype=torch.float32))
+    assert f.shape == (1, 6, 4) and hasattr(net, "global_attn_0")
+    layer = EGNN(dim=4, device="cpu")   # the streamed all-pairs path at n >= 1024
+    f, c = layer(torch.zeros(1, 1024, 4, dtype=torch.float32),
+                 torch.randn(1, 1024, 3, dtype=torch.float32))
+    assert torch.isfinite(f).all() and torch.isfinite(c).all()
     dropping = EGNN(dim=4, num_nearest_neighbors=2, dropout=0.1, device="cpu")
     feats = torch.randn(1, 6, 4, dtype=torch.float32)
     coors = torch.randn(1, 6, 3, dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generator"):   # training mode draws from one
         dropping(feats, coors)
+    dropping(feats, coors, generator=torch.Generator().manual_seed(0))
     dropping.eval()(feats, coors)
 
 

@@ -286,12 +286,16 @@ def test_fused_paths_ignore_compute_dtype():
             assert torch.equal(x, y)
 
 
-def test_fused_options_that_stay_refused():
+def test_fused_options_that_stay_refused(count_fused):
+    """``ring_axis`` stays refused; dropout in training mode runs, and the
+    fused flag gives way to the unfused layer meanwhile."""
     with pytest.raises(NotImplementedError, match="ring_axis"):
         EGNN(dim=4, num_nearest_neighbors=2, ring_axis="x", device="cpu")
     dropping = EGNN(dim=4, num_nearest_neighbors=2, dropout=0.1, fused_pairs=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        dropping(torch.randn(1, 6, 4), torch.randn(1, 6, 3))
+    f, c = dropping(torch.randn(1, 6, 4, dtype=torch.float32),
+                    torch.randn(1, 6, 3, dtype=torch.float32),
+                    generator=torch.Generator().manual_seed(0))
+    assert f.shape == (1, 6, 4) and count_fused == {"fused_pairs": 0, "fused_knn": 0}
 
 
 def _flat(tree, prefix=""):

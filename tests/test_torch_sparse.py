@@ -394,10 +394,13 @@ def test_unported_options_raise():
         egnn_tpu_torch.EGNNSparseNetwork(n_layers=1, feats_dim=4, shard_axis="edges", **F64)
     with pytest.raises(NotImplementedError, match="shard_axis"):
         egnn_tpu_torch.GlobalLinearAttentionSparse(8, axis_name="nodes", **F64)
+    # dropout in training mode runs, its masks from the caller's generator
     layer = egnn_tpu_torch.EGNNSparse(feats_dim=4, dropout=0.1, **F64)
     mol = _molecules(12, 4)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="generator"):
         layer(_t(mol["x"]), _t(mol["edge_index"]))
+    out = layer(_t(mol["x"]), _t(mol["edge_index"]), generator=torch.Generator().manual_seed(0))
+    assert out.shape == mol["x"].shape
     layer.eval()
     assert layer(_t(mol["x"]), _t(mol["edge_index"])).shape == mol["x"].shape
 
