@@ -8,8 +8,12 @@ at 32 768), then serves and trains both through the fused pair pipeline
 at anchor 5 (``EGNNSparseNetwork`` over kNN-built molecule graphs, four
 arms), then the dense family's last options (global attention, bf16,
 dropout in training mode, the streamed all-pairs layer at 8192 nodes,
-anchors 1 and 2), checks the outputs, and times the kernels, the forwards
-and the train steps.
+anchors 1 and 2), then the host runtime and the trainers (the native graph
+builder, the molecule trainer through ``PrefetchLoader``, k-hop lists, the
+denoise trainer killed and resumed from its checkpoint), checks the outputs,
+and times the kernels, the forwards and the train steps (with
+``egnn_tpu_torch/utils/profiling.py``'s timers and the H100 peaks of its
+``Roofline``).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -163,17 +167,42 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    dropout 0.1 at n = 2048: a generator state's bits twice, and the
    materialised layer under the recorded masks within 1e-5;
 33. anchors 1 and 2 (one ``EGNN(dim=512)`` layer, n = 16, edge_dim 0 and
-   4): card against CPU, forward and every gradient, fwd+bwd timed.
+   4): card against CPU, forward and every gradient, fwd+bwd timed;
+34. the native host graph builder (built with g++; no numpy fallback
+   here): its batched kNN at anchor 5's G = 512 on lattice coordinates
+   (ties) against ``knn_graph`` on the card (K3), bitwise; the molecule
+   trainer (``egnn_tpu_torch.examples.molecule_regression``, the example's
+   G, NA, k, width and lr) in its host-loader mode, 20 steps through
+   ``PrefetchLoader(depth=2)`` against the same 20 batches fed directly,
+   losses and parameters bitwise, the loss falling, the first loss against
+   the CPU's; the host build a batch, the step as a call, its busy share,
+   and the step with the loader against the step with the batches on the
+   card;
+35. ``khop_neighbor_lists`` on the card against the CPU, bitwise: on
+   net65k's uniform cloud (n = 65 536, k = 16 lists from one K7 launch),
+   D = 2, and on anchor 3's lists (n = 1024, k = 8, mask and adjacency),
+   D = 3; times and peak memory;
+36. the denoise trainer (``egnn_tpu_torch.examples.denoise``: depth 5, dim
+   32, kNN 16, grad_accum 16) on a synthetic backbone file of 64 proteins x
+   128 residues (n = 384), 64 micro-steps: one run uninterrupted in this
+   process, one in a subprocess (the CPU fault test's runner) that SIGKILLs
+   itself right after the checkpoint of micro-step 24 (inside an
+   accumulation window), and one in this process that resumes it; the
+   final parameters and optimizer state bitwise equal, the held-out loss
+   falling; micro-steps/s and edges/s as calls.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import math
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -229,9 +258,6 @@ LAYER_KWARGS_A = dict(num_nearest_neighbors=KNN_A, norm_coors=True,
 N_CPU = 16896       # 33 * 512: the smallest n beyond 16 384 that K5's gate takes
 STEPS_A, STEPS_B = 5, 4
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 non-tensor FLOP/s
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
 
 
 def nvidia_smi_line() -> str:
@@ -239,6 +265,16 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip()
+
+
+def bound_parts_ms(nbytes, ops):
+    """(bytes_ms, operations_ms): ``nbytes`` over the card's HBM rate and
+    ``ops`` f32 operations over its f32 peak outside the tensor cores, the
+    H100 SXM data sheet's peaks that ``utils/profiling.py:Roofline`` holds."""
+    from egnn_tpu_torch.utils.profiling import Roofline
+
+    r = Roofline("bound", 0.0, flops=ops, bytes_accessed=nbytes)
+    return r.bytes_seconds * 1e3, r.flops_seconds * 1e3
 
 
 def ptxas_kernels(build, source, keep):
@@ -323,47 +359,21 @@ def same_bits(torch, a, b) -> bool:
 
 def device_ms(torch, fn, reps=20, trials=7) -> float:
     """Median device time of one ``fn()``: ``reps`` calls captured in a CUDA
-    graph, replayed between two CUDA events (no host launch gaps)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(trials):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+    graph (after two calls on a side stream), replayed between two CUDA
+    events ``trials`` times (no host launch gaps):
+    ``utils/profiling.py:time_fn`` with ``graph_reps``."""
+    from egnn_tpu_torch.utils.profiling import time_fn
+
+    return time_fn(fn, reps=trials, warmup=2, stat="median", graph_reps=reps) * 1e3
 
 
 def call_ms(torch, fn, iters=30, warmup=5) -> float:
     """Median time of one ``fn()`` call as a caller sees it: CUDA events
-    recorded on either side of the call, host launch time included."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    recorded on either side of the call, host launch time included, after
+    ``warmup`` calls (``utils/profiling.py:time_fn``)."""
+    from egnn_tpu_torch.utils.profiling import time_fn
+
+    return time_fn(fn, reps=iters, warmup=warmup, stat="median") * 1e3
 
 
 def profile_forward(torch, fn, iters=10, label="b=1 forwards", unit="forward"):
@@ -407,8 +417,7 @@ def knn_bound_parts(b, n, c, k, tw, with_mask, adj_bytes):
               + 4 * b * n * tw                      # table
               + b * n * k * (4 + 8)                 # vals f32 | keys i32, idx i64
               + 4 * b * n * k * tw)                 # rows
-    ops = b * n * n * (3 * c + 3)
-    return nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
+    return bound_parts_ms(nbytes, b * n * n * (3 * c + 3))
 
 
 def knn_bound(b, n, c, k, tw, with_mask, adj_bytes):
@@ -460,8 +469,7 @@ def pairs_bound(nbytes, pairs, c=3):
     ``pairs`` (row, candidate) pairs: ``nbytes`` moved once over the HBM
     rate against 3c + 3 f32 operations a pair (the distance, one fill
     select, two compares with the running k-th) over the f32 peak."""
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = pairs * (3 * c + 3) / PEAK_F32_OPS_PER_S * 1e3
+    t_bytes, t_ops = bound_parts_ms(nbytes, pairs * (3 * c + 3))
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes, t_ops
 
 
@@ -507,8 +515,8 @@ def segment_bound(b, e, s, d):
     """(bound_ms, bound_by) of K2: data, int64 ids and output over the HBM
     rate, against one f32 add per data element over the f32 peak."""
     nbytes = b * (4 * e * d + 8 * e + 4 * s * d)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, b * e * d / PEAK_F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    t_bytes, t_ops = bound_parts_ms(nbytes, b * e * d)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def segment_reference(torch, plain, data, ids, s):
@@ -702,7 +710,7 @@ def pair_bound(b, n, k, c, d, h, m, fourier, soft, gather, backward):
             nodes * h * 4 if gather else pairs * (c + d) * 4)
     macs = wj + dd * h + h * m + (m if soft else 0) + m * 4 * m + 4 * m
     ops = 2 * macs * pairs * (3 if backward else 1)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
+    t_bytes, t_ops = bound_parts_ms(nbytes, ops)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), t_bytes, t_ops
 
 
@@ -1490,6 +1498,278 @@ def dense_option_phases(torch):
             raise AssertionError(f"anchor {2 if edge_dim else 1}: card and CPU disagree")
     print(f"phase 33: {time.perf_counter() - t33:.1f} s")
     print(f"phases 30-33 (the dense family's options): {time.perf_counter() - t_start:.1f} s")
+
+
+# phases 34-36: the host runtime and the trainers
+HOST_STEPS = 20          # phase 34's molecule trainer steps, loader-fed and direct
+LOADER_DEPTH = 2
+DENOISE_STEPS, DENOISE_KILL_AT, DENOISE_CKPT_EVERY = 64, 24, 8
+DENOISE_PROTEINS, DENOISE_RESIDUES = 64, 128     # n = 3 * 128 = 384 atoms
+KHOP_DEGREES_NET65K, KHOP_DEGREES_ANCHOR3 = 2, 3
+# the killed run: tests/test_torch_fault_recovery.py, the runner the CPU
+# fault test starts too, SIGKILLs the trainer right after the checkpoint of
+# micro-step DENOISE_KILL_AT has landed
+FAULT_RUNNER = Path("tests") / "test_torch_fault_recovery.py"
+
+
+def host_runtime_phases(torch, smi):
+    """Phases 34-36: the native host graph builder and the molecule trainer
+    fed through ``PrefetchLoader``, k-hop lists on the card, and the denoise
+    trainer killed and resumed from its checkpoint. Raises on a failure."""
+    import shutil
+
+    import numpy as np
+
+    from egnn_tpu_torch import native
+    from egnn_tpu_torch.examples import molecule_regression as mr
+    from egnn_tpu_torch.ops import graph as GR
+    from egnn_tpu_torch.ops import khop_neighbor_lists
+    from egnn_tpu_torch.ops import neighbors as nb
+    from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from egnn_tpu_torch.training import PrefetchLoader, make_adam, synthetic_chain_batch, to_tensors
+    from egnn_tpu_torch.utils.profiling import time_fn
+
+    # ---- 34. the native host graph builder and the molecule trainer ----
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    available = native.is_available()
+    print(f"native graph builder: is_available {available}, {native.num_threads()} threads, "
+          f"g++ build and load {time.perf_counter() - t0:.3f} s")
+    if not available:
+        raise AssertionError(f"the native graph builder did not build:\n{native.build_error()}")
+    mb, lattice = molecule_batch(torch, GR.knn_graph, SP_G_LARGE, SEED + 340, lattice=True)
+    node_mask = mb.node_mask
+    t0 = time.perf_counter()
+    s_n, r_n, m_n = native.batched_knn_graph_np(
+        lattice.reshape(SP_G_LARGE, SP_NA, 3).cpu().numpy(), SP_K,
+        node_mask=node_mask.reshape(SP_G_LARGE, SP_NA).cpu().numpy())
+    native_ms = (time.perf_counter() - t0) * 1e3
+    reset_launch_counts()
+    es = GR.knn_graph(lattice, SP_K, node_mask=node_mask, graph_size=SP_NA)
+    torch.cuda.synchronize()
+    k3 = LAUNCH_COUNTS["knn_select"]
+    mask_ok = np.array_equal(m_n, es.mask.cpu().numpy())
+    # padding rows: the native builder points them at the graph's first
+    # node, knn_graph at node 0; both are masked out
+    ids_ok = (np.array_equal(np.where(m_n, s_n, 0), es.senders.cpu().numpy())
+              and np.array_equal(np.where(m_n, r_n, 0), es.receivers.cpu().numpy()))
+    print(f"native batched kNN against knn_graph on the card (K3 {k3} launch) at G={SP_G_LARGE} "
+          f"molecules of {SP_NA} slots, k={SP_K}, lattice coordinates (ties), "
+          f"{int(m_n.sum())} valid of {m_n.size} edges: mask bitwise={mask_ok}, senders and "
+          f"receivers bitwise={ids_ok}; the host build {native_ms:.3f} ms")
+    if not (mask_ok and ids_ok and k3 == 1):
+        raise AssertionError("the native graph differs from knn_graph's on the card, or K3 did "
+                             "not run once")
+
+    args = mr.parse_args(["--device", "cuda"])
+    G, NA, K = args.graphs, args.na, args.knn
+
+    def fresh():
+        model = mr.Regressor(args.layers, args.dim, len(mr.CHARGES), G, NA, K, device="cuda",
+                             generator=torch.Generator().manual_seed(mr.SEED))
+        return model, mr.make_train_step(model, make_adam(model.parameters(), args.lr))
+
+    t0 = time.perf_counter()
+    host = [mr.host_batch(i, G, NA, K) for i in range(HOST_STEPS)]
+    build_ms = (time.perf_counter() - t0) * 1e3 / HOST_STEPS
+    direct = [to_tensors(b, "cuda") for b in host]
+    model_d, step_d = fresh()
+    model_cpu = copy.deepcopy(model_d).to("cpu")
+    reset_launch_counts()
+    losses_d = torch.stack([step_d(b)[0] for b in direct])
+    torch.cuda.synchronize()
+    counts = {kn: v for kn, v in LAUNCH_COUNTS.items() if v}
+    with torch.no_grad():
+        b0 = to_tensors(host[0], "cpu")
+        pred = model_cpu(b0.x, b0.edge_index, b0.edge_mask, b0.batch_ids, b0.node_mask)
+        loss_cpu = ((pred - b0.target) ** 2).mean().item()
+
+    model_l, step_l = fresh()
+    upcoming = iter(range(HOST_STEPS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loader = PrefetchLoader(lambda: mr.host_batch(next(upcoming), G, NA, K),
+                            depth=LOADER_DEPTH, num_batches=HOST_STEPS, device="cuda")
+    try:
+        losses_l = torch.stack([step_l(b)[0] for b in loader])
+        torch.cuda.synchronize()
+    finally:
+        loader.close()
+    loader_ms = (time.perf_counter() - t0) * 1e3 / HOST_STEPS
+    model_t, step_t = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in direct:
+        step_t(b)
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t0) * 1e3 / HOST_STEPS
+    step_ms = time_fn(lambda: step_t(direct[0]), reps=20, warmup=3, stat="median") * 1e3
+    kernel_ms, step_launches = profile_forward(torch, lambda: step_t(direct[0]), iters=10,
+                                               label="molecule trainer steps", unit="step")
+    same = same_bits(torch, losses_d, losses_l) and all(
+        same_bits(torch, a, b) for a, b in zip(model_d.parameters(), model_l.parameters()))
+    first, last = losses_d[:5].mean().item(), losses_d[-5:].mean().item()
+    card_first = losses_d[0].item()
+    cpu_ok = abs(card_first - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu)
+    edges = G * NA * K * args.layers
+    print(f"molecule trainer, host-loader mode (G={G} molecules of {NA} slots, k={K}, "
+          f"{args.layers} layers, dim {args.dim}, lr {args.lr}), {HOST_STEPS} steps: launches "
+          f"{counts}; losses through PrefetchLoader(depth={LOADER_DEPTH}) and fed directly "
+          f"bitwise={same} (parameters too); mean loss of the first five steps {first:.6f}, of "
+          f"the last five {last:.6f}; first loss card {card_first:.8f} against CPU "
+          f"{loss_cpu:.8f} (rtol {TRAIN_LOSS_RTOL})")
+    print(f"timing of the molecule trainer on {smi}: host build {build_ms:.3f} ms a batch "
+          f"(native kNN and numpy, one thread of the caller); step {step_ms:.4f} ms as a call "
+          f"({edges / (step_ms / 1e3):.4e} edges/s), kernel time {kernel_ms:.4f} ms, busy "
+          f"{kernel_ms / step_ms:.3f}, {step_launches:.1f} launches a step; a step with the "
+          f"loader {loader_ms:.4f} ms, with the batches already on the card {direct_ms:.4f} ms: "
+          f"the loader {'hides' if loader_ms <= 1.1 * direct_ms else 'does not hide'} the build "
+          f"({loader_ms / direct_ms:.3f}x)")
+    if not (same and last < first and cpu_ok and counts.get("segment_sum", 0) > 0):
+        raise AssertionError("molecule trainer: the loader-fed losses differ from the direct "
+                             "ones, the loss did not fall, the card's first loss is off the "
+                             "CPU's, or K2 did not run")
+    del model_d, model_l, model_t, model_cpu, direct, host
+    torch.cuda.empty_cache()
+    print(f"phase 34: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 35. k-hop lists on the card ----
+    t_phase = time.perf_counter()
+    coors = cloud(torch, N_A, 3, "uniform", SEED + 350)
+    reset_launch_counts()
+    with torch.no_grad():
+        nbr = nb.knn_select(coors, KNN_A, math.inf).indices[0]
+    torch.cuda.synchronize()
+    grid_launches = {kn: v for kn, v in LAUNCH_COUNTS.items() if v}
+    rq = synthetic_chain_batch(np.random.default_rng(SEED + 351), 1, N, device="cuda")
+    with torch.no_grad():
+        nbr3 = nb.knn_select(rq.noised_coors, KNN, math.inf, mask=rq.mask,
+                             adj_mat=rq.adj_mat.expand(1, N, N)).indices[0]
+    mask3 = rq.mask[0][:, None] & rq.mask[0][nbr3]
+    for what, lists, lmask, degrees in (
+            (f"net65k's uniform cloud (n={N_A}, k={KNN_A}, grid route {grid_launches})", nbr,
+             None, KHOP_DEGREES_NET65K),
+            (f"anchor 3's lists (n={N}, k={KNN}, mask and chain adjacency)", nbr3, mask3,
+             KHOP_DEGREES_ANCHOR3)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = khop_neighbor_lists(lists, lmask, degrees)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        ref = khop_neighbor_lists(lists.cpu(), None if lmask is None else lmask.cpu(), degrees)
+        ok = all(torch.equal(a.cpu(), b) for a, b in zip(got, ref))
+        ms = time_fn(lambda: khop_neighbor_lists(lists, lmask, degrees), reps=5, warmup=1,
+                     stat="median") * 1e3
+        print(f"khop_neighbor_lists on {what}, D={degrees}: cap_out {got[0].shape[1]}, "
+              f"{int(got[2].sum())} ids; card against CPU bitwise={ok}; {ms:.4f} ms a call on "
+              f"{smi}, peak memory {peak:.1f} MiB above the inputs")
+        if not ok:
+            raise AssertionError(f"khop_neighbor_lists: the card differs from the CPU on {what}")
+    if grid_launches.get("grid_knn_cells", 0) != 1:
+        raise AssertionError(f"net65k's lists did not come from one K7 launch: {grid_launches}")
+    del coors, nbr, nbr3, got, ref
+    torch.cuda.empty_cache()
+    print(f"phase 35: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 36. the denoise trainer, killed and resumed on the card ----
+    t_phase = time.perf_counter()
+    from egnn_tpu_torch.training.datasets import make_synthetic_backbone_dataset
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke_denoise"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data = make_synthetic_backbone_dataset(str(work / "backbone.npz"),
+                                           num_proteins=DENOISE_PROTEINS,
+                                           seq_len=DENOISE_RESIDUES, seed=SEED)
+    # the example's configuration, spelled out: the runner's own defaults
+    # are the CPU test's small size
+    common = ["--device", "cuda", "--steps", str(DENOISE_STEPS), "--data", data,
+              "--depth", "5", "--dim", "32", "--knn", "16", "--grad-accum", "16",
+              "--lr", "1e-3", "--ckpt-every", str(DENOISE_CKPT_EVERY)]
+    from egnn_tpu_torch.examples import denoise
+
+    def show(what, seconds, out):
+        print(f"denoise trainer {what} ({seconds:.1f} s): " + " | ".join(
+            line for line in out.splitlines() if not line.startswith("SUMMARY"))[-1500:])
+
+    def trainer(ckpt, *extra):
+        """The trainer in this process; its summary and its printed lines."""
+        t0, out = time.perf_counter(), io.StringIO()
+        with contextlib.redirect_stdout(out):
+            summary = denoise.main(common + ["--ckpt-dir", str(work / ckpt), *extra])
+        show(ckpt, time.perf_counter() - t0, out.getvalue())
+        return out.getvalue(), summary
+
+    whole, s_whole = trainer("whole")
+    t0 = time.perf_counter()
+    killed = subprocess.run([sys.executable, str(root / FAULT_RUNNER),
+                             "--kill-at", str(DENOISE_KILL_AT), *common,
+                             "--ckpt-dir", str(work / "resumed")],
+                            cwd=root, capture_output=True, text=True, timeout=600)
+    show(f"killed (exit {killed.returncode})", time.perf_counter() - t0, killed.stdout)
+    if killed.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the killed denoise trainer exited {killed.returncode}:\n"
+                             f"{killed.stdout[-3000:]}\n{killed.stderr[-3000:]}")
+    resumed, s_res = trainer("resumed", "--resume")
+    if (f"KILLING at step {DENOISE_KILL_AT}" not in killed.stdout
+            or f"RESUMED from step {DENOISE_KILL_AT}" not in resumed):
+        raise AssertionError("the killed run did not stop at its checkpoint, or the resumed run "
+                             "did not start there")
+    final = f"ckpt_{DENOISE_STEPS:09d}.pt"
+    a = torch.load(work / "whole" / final, weights_only=True)
+    b = torch.load(work / "resumed" / final, weights_only=True)
+    diffs, worst = [], 0.0
+    pairs = ([(f"model.{k}", a["model"][k], b["model"][k]) for k in a["model"]]
+             + [(f"optimizer.{k}.{n}", t, b["optimizer"]["state"][k][n])
+                for k, st in a["optimizer"]["state"].items() for n, t in st.items()])
+    for name, x, y in pairs:
+        if not same_bits(torch, x, y):
+            diffs.append(name)
+            if x.is_floating_point():
+                worst = max(worst, rel_err(torch, y, x))
+    mini = (a["optimizer"]["mini_step"], b["optimizer"]["mini_step"])
+    n_atoms = 3 * DENOISE_RESIDUES
+    print(f"denoise trainer (depth 5, dim 32, kNN 16, n={n_atoms}, b=1, grad_accum 16, "
+          f"{DENOISE_STEPS} micro-steps, checkpoints every {DENOISE_CKPT_EVERY}, killed after "
+          f"{DENOISE_KILL_AT}): {len(pairs)} tensors of the resumed run's final state against "
+          f"the uninterrupted run's, {len(pairs) - len(diffs)} bitwise equal"
+          + (f", differing: {diffs[:8]} (largest relative difference {worst:.3e})" if diffs
+             else "") + f"; mini_step {mini}; held-out MSE {s_whole['eval_mse_start']:.6f} at "
+          f"step 0, {s_whole['eval_mse']:.6f} at step {DENOISE_STEPS} (noised baseline "
+          f"{s_whole['baseline_mse']:.6f})")
+    print(f"timing of the denoise trainer on {smi}: uninterrupted {s_whole['steps_per_s']:.3f} "
+          f"micro-steps/s, {s_whole['edges_per_s']:.4e} edges/s (b*n*k*depth = "
+          f"{n_atoms * 16 * 5} a step over the step's latency as calls, the loader and the "
+          f"finite-step guard included); resumed {s_res['steps_per_s']:.3f} micro-steps/s")
+    # where a micro-step's time goes, in this process, on one batch already
+    # on the card: the guarded step, the step without the guard, kernels
+    from egnn_tpu_torch.training.datasets import BackboneDataset
+
+    dargs = denoise.parse_args(common)
+    dargs.nodes = n_atoms
+    net, _, guarded = denoise.build(dargs, torch.device("cuda"))
+    db = to_tensors(BackboneDataset.load(data).denoise_batch(
+        np.random.RandomState([denoise.SEED, 0]), 1), "cuda")
+    step_args = (db.tokens, db.noised_coors, db.clean_coors, db.adj_mat, db.mask)
+    guarded_ms = time_fn(lambda: guarded(*step_args), reps=32, warmup=3, stat="median") * 1e3
+    inner_ms = time_fn(lambda: guarded.__wrapped__(*step_args), reps=32, warmup=3,
+                       stat="median") * 1e3
+    kernel_ms, launches = profile_forward(torch, lambda: guarded(*step_args), iters=16,
+                                          label="denoise micro-steps", unit="micro-step")
+    print(f"a denoise micro-step on {smi}, one batch on the card: {guarded_ms:.4f} ms as a call "
+          f"with the finite-step guard, {inner_ms:.4f} ms without it; kernel time "
+          f"{kernel_ms:.4f} ms, busy {kernel_ms / guarded_ms:.3f}, {launches:.1f} launches; the "
+          f"trainer's loop took {1e3 / s_whole['steps_per_s']:.4f} ms a micro-step")
+    del net, guarded
+    if diffs or mini[0] != mini[1]:
+        raise AssertionError("the resumed run's final state is not bitwise the uninterrupted "
+                             "run's")
+    if not s_whole["eval_mse"] < s_whole["eval_mse_start"]:
+        raise AssertionError("denoise trainer: the held-out loss did not fall")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 36: {time.perf_counter() - t_phase:.1f} s")
 
 
 def sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, serving, steps):
@@ -3485,6 +3765,7 @@ def main() -> int:
 
     sparse_phases(torch)
     dense_option_phases(torch)
+    host_runtime_phases(torch, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

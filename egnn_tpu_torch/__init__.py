@@ -24,7 +24,17 @@ and the segment reductions, also through the fused pair pipeline
 (``fused_uniform``); and the denoising train step
 (``egnn_tpu_torch.training``: ``masked_mse``, ``make_fused_adam``,
 ``make_adam``, ``TrainState``, ``make_denoise_train_step``, as in
-``egnn_tpu.training``). See ROADMAP.md for what is still to be ported.
+``egnn_tpu.training``); the host runtime and the trainers: the native C++
+graph builder (``egnn_tpu_torch.native``, compiled at first use with the
+host's ``g++``), protein featurization (``ops.featurize``), k-hop lists
+(``ops.khop_neighbor_lists``), dataset files, ``PrefetchLoader`` and
+checkpoints (``training.datasets``, ``training.data``,
+``training.checkpoint``), rotations, sanitizers, timers and the H100
+roofline (``utils``), weights carried from egnn-pytorch
+(``utils.*_params_from_torch``), and two trainers, run as modules:
+``python -m egnn_tpu_torch.examples.denoise`` and ``python -m
+egnn_tpu_torch.examples.molecule_regression`` (``--device cpu`` for the
+plain PyTorch path). See ROADMAP.md for what is still to be ported.
 """
 
 from .models.attention import Attention, GlobalLinearAttention

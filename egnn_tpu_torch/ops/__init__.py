@@ -16,6 +16,7 @@ from .core import (
 from .neighbors import (
     Neighborhood,
     expand_adjacency_degrees,
+    khop_neighbor_lists,
     knn_ranking,
     knn_select,
     max_degree,
@@ -55,6 +56,7 @@ __all__ = [
     "safe_div",
     "Neighborhood",
     "expand_adjacency_degrees",
+    "khop_neighbor_lists",
     "knn_ranking",
     "max_degree",
     "pairwise_geometry",

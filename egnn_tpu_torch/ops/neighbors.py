@@ -438,6 +438,9 @@ def knn_select_gather(
     and ``winner=None``. When the certificate fails, the exact kernel's k
     columns take the first slots (``winner`` = the first k) and the rest
     point at node n - 1 with an infinite ranking.
+
+    Raises ``ValueError`` when ``num_nearest`` exceeds n, on every route and
+    device, as ``jax.lax.top_k`` and the reference's ``topk`` do.
     """
     from .cuda import grid_knn as grid_kernels
     from .cuda import knn as knn_kernels
@@ -448,6 +451,8 @@ def knn_select_gather(
     coors_sg = coors.detach().contiguous()
     n, c = coors.shape[1], coors.shape[2]
     k = num_nearest
+    if k > n:
+        raise ValueError(f"num_nearest {k} is larger than the {n} nodes to select from")
     kc = k + CANDIDATE_SLACK
     full_band = knn_kernels.supports_knn_shapes(n)
     lane = knn_kernels.LANE
@@ -512,3 +517,83 @@ def expand_adjacency_degrees(
         adj_indices = torch.where(new_mask, degree, adj_indices)
         adj = nxt
     return adj, adj_indices
+
+
+def khop_neighbor_lists(
+    nbr: torch.Tensor,
+    nbr_mask: Optional[torch.Tensor],
+    num_degrees: int,
+    cap_out: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sparse k-hop expansion of padded neighbour lists, the counterpart of
+    ``egnn_tpu/ops/neighbors.py:khop_neighbor_lists``: no (n, n) buffer,
+    O(n * cap) memory, so it reaches clouds where the dense
+    ``expand_adjacency_degrees`` would need gigabytes.
+
+    Args:
+      nbr: (n, c0) integer ids of each node's one-hop neighbours (a kNN
+        builder's rows).
+      nbr_mask: (n, c0) bool, False on padding slots; None: all valid.
+      num_degrees: D, the hops to expand to.
+      cap_out: each row's output width (default min(n - 1, c0 + c0**2 + ...
+        + c0**D), the largest ball). A row that reaches more keeps its lowest
+        ids.
+
+    Returns ``(ids, degrees, mask)``, each (n, cap_out) (int32, int32,
+    bool): per node the nodes reachable in 1..D hops along the directed
+    lists, ids ascending, labelled with their least hop count, self left
+    out; padding slots hold id n and degree 0. These are clean BFS labels,
+    not the reference's XOR relabelling, which ``expand_adjacency_degrees``
+    keeps.
+
+    Each hop gathers the frontier's lists, packs (id, degree) into one int32
+    key, sorts each row (the first of each id then carries its least
+    degree) and compacts the survivors to the front by a stable argsort of
+    (dropped, position): the same ids, degrees and order as the JAX code,
+    bit for bit.
+    """
+    n, c0 = nbr.shape
+    if num_degrees < 1:
+        raise ValueError("num_degrees must be >= 1")
+    if cap_out is None:
+        cap_out = min(n - 1, sum(c0 ** d for d in range(1, num_degrees + 1)))
+    D = num_degrees
+    big = D + 1                        # degree sentinel of invalid slots
+    stride = big + 1                   # key = id * stride + degree
+    if (n + 1) * stride >= 2 ** 31:
+        raise ValueError("khop_neighbor_lists: the (id, degree) key must fit int32")
+    dev = nbr.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    sentinel = n                       # invalid id: sorts last
+    rows = torch.arange(n, **i32)[:, None]
+    nbr_v = nbr.to(torch.int32)
+    if nbr_mask is not None:
+        nbr_v = torch.where(nbr_mask, nbr_v, sentinel)
+    # row n of the gather table is all sentinel: an invalid slot expands to
+    # invalid candidates only
+    table = torch.cat([nbr_v, torch.full((1, c0), sentinel, **i32)], dim=0)
+
+    def dedup_compact(ids, deg, cap):
+        skey = torch.sort(ids * stride + deg, dim=1, stable=True).values
+        sids, sdeg = skey // stride, skey % stride
+        first = torch.cat([torch.ones((n, 1), dtype=torch.bool, device=dev),
+                           sids[:, 1:] != sids[:, :-1]], dim=1)
+        keep = first & (sids < n) & (sids != rows) & (sdeg <= D)
+        w = sids.shape[1]
+        pos = torch.arange(w, **i32)[None, :]
+        order = torch.argsort(torch.where(keep, pos, w + pos), dim=1, stable=True)[:, :cap]
+        sids, sdeg = torch.gather(sids, 1, order), torch.gather(sdeg, 1, order)
+        kept = torch.gather(keep, 1, order)
+        return torch.where(kept, sids, sentinel), torch.where(kept, sdeg, big), kept
+
+    ids = nbr_v
+    deg = torch.where(nbr_v < n, 1, big).to(torch.int32)
+    ids, deg, mask_out = dedup_compact(ids, deg, min(cap_out, c0))
+    for d in range(2, D + 1):
+        # the frontier: the ids first reached at the hop before
+        src = torch.where(deg == d - 1, ids, sentinel)
+        cand_ids = table[src.long()].reshape(n, -1)           # (n, W * c0)
+        cand_deg = torch.where(cand_ids < n, d, big).to(torch.int32)
+        ids, deg, mask_out = dedup_compact(torch.cat([ids, cand_ids], dim=1),
+                                           torch.cat([deg, cand_deg], dim=1), cap_out)
+    return ids, torch.where(mask_out, deg, 0), mask_out

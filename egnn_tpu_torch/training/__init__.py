@@ -1,5 +1,9 @@
 """Training: loss, optimizers, train state and step builders
-(``state.py``), and synthetic chain batches (``data.py``)."""
+(``state.py``), the input pipeline (``data.py``: synthetic chain and
+molecule batches, ``PrefetchLoader``), dataset files (``datasets.py``) and
+checkpoints (``checkpoint.py``)."""
+from .checkpoint import CheckpointManager
+from .data import PrefetchLoader, synthetic_chain_batch, synthetic_molecule_batch_np, to_tensors
 from .state import (
     Adam,
     FusedAdam,
@@ -12,10 +16,15 @@ from .state import (
 
 __all__ = [
     "Adam",
+    "CheckpointManager",
     "FusedAdam",
+    "PrefetchLoader",
     "TrainState",
     "make_adam",
     "make_denoise_train_step",
     "make_fused_adam",
     "masked_mse",
+    "synthetic_chain_batch",
+    "synthetic_molecule_batch_np",
+    "to_tensors",
 ]

@@ -33,6 +33,24 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor,
     return (err * m).sum() / den.clamp(min=1.0)
 
 
+def _load_state_exactly(opt: torch.optim.Optimizer, state_dict: dict) -> None:
+    """``Optimizer.load_state_dict`` that restores each state tensor as it
+    was saved: torch's casts a parameter's floating state to the
+    parameter's dtype (which would turn the int32 step counts into floats)
+    and leaves a key that is not a parameter (``FusedAdam``'s ``"flat"``)
+    on the device it was loaded to. Here every tensor is copied to its
+    parameter's device (the first parameter's for ``"flat"``) in its saved
+    dtype."""
+    torch.optim.Optimizer.load_state_dict(opt, state_dict)
+    params = [p for group in opt.param_groups for p in group["params"]]
+    for key, st in state_dict["state"].items():
+        target = params[key] if isinstance(key, int) else key
+        device = (target if isinstance(target, torch.Tensor) else params[0]).device
+        opt.state[target] = {name: v.to(device=device, copy=True)
+                             if isinstance(v, torch.Tensor) else v
+                             for name, v in st.items()}
+
+
 def _grads(params: list[torch.Tensor]) -> list[torch.Tensor]:
     """Each parameter's gradient, zeros where it has none (as JAX's
     gradient of an unused parameter)."""
@@ -78,6 +96,9 @@ class FusedAdam(torch.optim.Optimizer):
                                      zip(upd.split([p.numel() for p in params]), params)])
         return loss
 
+    def load_state_dict(self, state_dict: dict) -> None:
+        _load_state_exactly(self, state_dict)
+
 
 def make_fused_adam(params: Iterable[torch.Tensor], learning_rate: float = 1e-3,
                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> FusedAdam:
@@ -89,7 +110,10 @@ class Adam(torch.optim.Optimizer):
     """``optax.adam`` with optional ``optax.clip_by_global_norm`` before it
     and ``optax.MultiSteps`` around it (``make_adam``): the gradients of
     ``grad_accum`` calls are averaged (Welford: ``acc += (g - acc) / (i + 1)``)
-    and the parameters move on every ``grad_accum``-th call only."""
+    and the parameters move on every ``grad_accum``-th call only. The
+    accumulation counter (``mini_step``, a host int, so that a step reads
+    nothing back from the card) travels in ``state_dict()``, so a run
+    resumed inside an accumulation window goes on as if never stopped."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-3,
                  grad_accum: int = 1, clip_norm: Optional[float] = None,
@@ -141,6 +165,13 @@ class Adam(torch.optim.Optimizer):
             p.add_((-group["lr"]) * upd)
         return loss
 
+    def state_dict(self) -> dict:
+        return {**super().state_dict(), "mini_step": self.mini_step}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        _load_state_exactly(self, state_dict)
+        self.mini_step = int(state_dict["mini_step"])
+
 
 def make_adam(params: Iterable[torch.Tensor], learning_rate: float = 1e-3,
               grad_accum: int = 1, clip_norm: Optional[float] = None) -> Adam:
@@ -152,16 +183,23 @@ def make_adam(params: Iterable[torch.Tensor], learning_rate: float = 1e-3,
 
 @dataclasses.dataclass
 class TrainState:
-    """A module, its optimizer and the count of optimizer steps taken."""
+    """A module, its optimizer and the count of optimizer steps taken.
+    ``gate``, where set, decides from the loss whether the optimizer steps
+    (``utils.finite_or_skip_step`` sets it for the length of a call)."""
 
     module: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    gate: Optional[Callable[[torch.Tensor], bool]] = None
 
-    def apply_gradients(self) -> None:
-        """One optimizer step on the gradients the module holds."""
+    def apply_gradients(self, loss: Optional[torch.Tensor] = None) -> bool:
+        """One optimizer step on the gradients the module holds, unless
+        ``gate(loss)`` says no; returns whether the optimizer stepped."""
+        if self.gate is not None and not self.gate(loss):
+            return False
         self.optimizer.step()
         self.step += 1
+        return True
 
 
 def make_denoise_train_step(
@@ -176,7 +214,8 @@ def make_denoise_train_step(
     Returns ``step(tokens, noised_coors, target_coors, adj_mat, mask)``,
     which runs zero-grad, forward, loss, backward and ``optimizer.step()``
     and returns the loss as a 0-d tensor without waiting for the device.
-    The step's ``TrainState`` is ``step.state``.
+    The step's ``TrainState`` is ``step.state``; where its gate skips the
+    optimizer, the step returns a NaN loss.
 
     The forward and backward run in eval mode, and the module's mode is
     restored after: the JAX step calls the network without
@@ -195,8 +234,8 @@ def make_denoise_train_step(
             loss.backward()
         finally:
             net.train(mode)
-        state.apply_gradients()
-        return loss.detach()
+        loss = loss.detach()
+        return loss if state.apply_gradients(loss) else torch.full_like(loss, float("nan"))
 
     step.state = state
     return step

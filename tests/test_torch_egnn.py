@@ -304,3 +304,35 @@ def test_chain_data_matches_jax_semantics():
     assert torch.all(batch.mask[:, :30])  # a valid prefix
     again = synthetic_chain_batch(np.random.default_rng(0), 3, 50, device="cpu")
     assert torch.equal(again.noised_coors, batch.noised_coors)
+
+
+@pytest.mark.parametrize("mode", ["unfused", "fused_pairs", "fused_knn"])
+def test_more_neighbours_than_nodes_raise(mode):
+    """k > n raises ValueError in the port on every route, as in
+    ``egnn_tpu``, whose ``lax.top_k`` refuses it: a mean over the n slots
+    there are (unfused) and over k (fused) would disagree."""
+    kw = dict(dim=8, num_nearest_neighbors=5, m_pool_method="mean")
+    flags = {} if mode == "unfused" else {mode: True}
+    feats, coors, _, _, _ = _inputs(60, 1, 3, 8, with_mask=False, with_adj=False)
+    jax_layer = egnn_tpu.EGNN(**kw, **flags)
+    with pytest.raises(ValueError):
+        jax_layer.init(jax.random.PRNGKey(0), _j(feats), _j(coors))
+    layer = EGNN(**kw, **flags, device="cpu", dtype=torch.float64)
+    with pytest.raises(ValueError, match="num_nearest 5"):
+        layer(_t(feats), _t(coors))
+
+
+def test_knn_graph_clamps_k_to_the_graph():
+    """``knn_graph`` clamps k to the graph's size before it selects, as
+    ``egnn_tpu.ops.graph.knn_graph`` does, so F6's check never reaches it."""
+    from egnn_tpu.ops.graph import knn_graph as jax_knn_graph
+    from egnn_tpu_torch.ops.graph import knn_graph
+
+    coors = np.random.RandomState(61).randn(3, 3)
+    for loop in (False, True):
+        es_t = knn_graph(torch.from_numpy(coors), 5, loop=loop)
+        es_j = jax_knn_graph(jnp.asarray(coors), 5, loop=loop)
+        for a, b in ((es_t.senders, es_j.senders), (es_t.receivers, es_j.receivers),
+                     (es_t.mask, es_j.mask)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert int(es_t.mask.sum()) == 3 * (3 if loop else 2)
