@@ -10,7 +10,10 @@ arms), then the dense family's last options (global attention, bf16,
 dropout in training mode, the streamed all-pairs layer at 8192 nodes,
 anchors 1 and 2), then the host runtime and the trainers (the native graph
 builder, the molecule trainer through ``PrefetchLoader``, k-hop lists, the
-denoise trainer killed and resumed from its checkpoint), checks the outputs,
+denoise trainer killed and resumed from its checkpoint), then multi-process
+training (the data-parallel dense step and the edge-partitioned sparse step
+on a one-rank NCCL group and on two ranks sharing the card) and the last two
+examples (``export_serving``, ``denoise --metrics``), checks the outputs,
 and times the kernels, the forwards and the train steps (with
 ``egnn_tpu_torch/utils/profiling.py``'s timers and the H100 peaks of its
 ``Roofline``).
@@ -189,7 +192,28 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    itself right after the checkpoint of micro-step 24 (inside an
    accumulation window), and one in this process that resumes it; the
    final parameters and optimizer state bitwise equal, the held-out loss
-   falling; micro-steps/s and edges/s as calls.
+   falling; micro-steps/s and edges/s as calls;
+37. a one-rank NCCL group in this process (``parallel.initialize`` over a
+   ``file://`` store): the data-parallel anchor-3 step
+   (``make_sharded_denoise_train_step``, b = 8) bitwise against
+   ``make_denoise_train_step`` over 3 steps (losses, the first step's
+   gradients, the parameters), K1 and K2 depth times a step; the
+   partitioned anchor-5 step (``make_partitioned_sparse_train_step`` at
+   S = 1, G = 32) in arms (b) less ``uniform_graph_size``
+   (``partition_uniform_edges``), (c) fused (K10) and (d) attention
+   (``partition_edges``) against the unsharded step, K3, K2 (and K10f, K10b)
+   launched; both steps timed as calls beside their references;
+38. two spawned ranks on the one card under gloo (NCCL refuses two ranks on
+   one device; the collectives copy through host memory): the dense step
+   (4 rows a rank) and the partitioned step at S = 2 in arms (b), (c), (d)
+   against one process on the card (loss rtol 1e-4, gradients 1e-5 of their
+   largest value, 5e-3 for anchor 3's self pairs), both ranks' parameters
+   bitwise equal after 3 steps, every path's kernels launched on each rank;
+   a hung rank fails the phase after 420 s;
+39. ``examples/export_serving.py`` on the card (the anchor-3 forward at
+   n = 256 through ``torch.export``, saved, reloaded: bitwise equal to the
+   in-process forward, K1 once a layer), and the denoise trainer with
+   ``--metrics`` for 16 micro-steps: one finite JSONL line a micro-step.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -1770,6 +1794,438 @@ def host_runtime_phases(torch, smi):
         raise AssertionError("denoise trainer: the held-out loss did not fall")
     shutil.rmtree(work, ignore_errors=True)
     print(f"phase 36: {time.perf_counter() - t_phase:.1f} s")
+
+
+# phases 37-39: multi-process training and the last two examples
+# the sparse arms under shard_axis, at anchor 5's width: arm (b)'s layout less
+# uniform_graph_size (ignored under a group, as in the JAX package), arm (c)
+# (K10 on each rank's own nodes) and arm (d), the general layout with global
+# attention; the unsharded references are built the same way
+PAR_ARMS = {
+    "b": dict(uniform_degree=SP_K),
+    "c": dict(uniform_degree=SP_K, fused_uniform=True),
+    "d": dict(global_linear_attn_every=2),
+}
+PAR_STEPS, DP_BATCH = 3, 8
+# two ranks against one process on the card (phase 38): the loss at this rtol;
+# each gradient by its largest error over its largest value, 1e-5, or 5e-3
+# where norm_coors's self pairs' +-scale/eps terms cancel only to f32 rounding
+# in another order (the dense kNN rows hold their own node; the sparse kNN
+# edges hold none): the gates of phase 9 and of fused against unfused
+PAR_LOSS_RTOL, PAR_GRAD_TOL, PAR_GRAD_TOL_SELF_PAIRS = 1e-4, 1e-5, 5e-3
+# one rank against one process (phase 37): the sparse gradients, where the
+# collectives' backward nodes change the order in which autograd adds the
+# gradients that meet at a tensor. Parameters after PAR_STEPS Adam steps are
+# printed, not gated: Adam's first steps move a weight by about lr * sign(g),
+# and a gradient entry below the rounding of its tensor may take either sign
+PAR_ONE_RANK_TOL = 1e-5
+TWO_RANK_TIMEOUT = 420     # seconds for both ranks of phase 38 to report
+
+
+def host_ops(torch, fn, iters, label):
+    """The host's time by operator over ``iters`` calls (torch.profiler, CPU
+    activity): the total of the top-level operators' self times a call and
+    the eight largest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    total = sum(e.self_cpu_time_total for e in events) / iters / 1e3
+    print(f"host profile of {iters} {label}: {total:.4f} ms of operators' self time a call; "
+          + "; ".join(f"{e.key[:48]} {e.self_cpu_time_total / iters / 1e3:.4f} ms "
+                      f"({e.count / iters:.1f} calls)" for e in events[:8]))
+
+
+def grad_err(torch, a, b) -> float:
+    """max |a - b| over max |b| (0 for two zero tensors)."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-300)
+
+
+def dense_dp_run(torch, net_seed, batch, mesh=None):
+    """PAR_STEPS anchor-3 steps on ``batch`` (this rank's block where
+    ``mesh`` is given: ``make_sharded_denoise_train_step``; else
+    ``make_denoise_train_step``), flat-buffer Adam: the losses, the first
+    step's gradients (zeros where a parameter has none, as the sharded
+    step's reduction leaves them), the final parameters, the step and the
+    K1 / K2 launches a step."""
+    from egnn_tpu_torch import EGNNNetwork
+    from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from egnn_tpu_torch.training import (make_denoise_train_step, make_fused_adam,
+                                         make_sharded_denoise_train_step)
+
+    net = EGNNNetwork(depth=DEPTH, dim=DIM, num_tokens=NUM_TOKENS, num_positions=N,
+                      layer_kwargs=LAYER_KWARGS, device="cuda",
+                      generator=torch.Generator().manual_seed(net_seed))
+    opt = make_fused_adam(net.parameters(), LR)
+    step = (make_denoise_train_step(net, opt) if mesh is None
+            else make_sharded_denoise_train_step(net, opt, mesh))
+    losses, grads = [], None
+    reset_launch_counts()
+    for i in range(PAR_STEPS):
+        losses.append(step(*batch))
+        if i == 0:
+            grads = {name: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                     for name, p in net.named_parameters()}
+    torch.cuda.synchronize()
+    launches = {k: v / PAR_STEPS for k, v in LAUNCH_COUNTS.items() if v}
+    return dict(losses=torch.stack(losses), grads=grads, launches=launches, step=step,
+                params={name: p.detach().clone() for name, p in net.named_parameters()})
+
+
+def sparse_par_run(torch, arm, mb, clean, mesh=None):
+    """PAR_STEPS anchor-5 denoising steps (``make_adam``) on ``mb``'s global
+    batch: the kNN graph (K3) built on the card, then with ``mesh`` the
+    partition (``partition_uniform_edges`` for the uniform arms,
+    ``partition_edges`` for (d)), this rank's blocks and
+    ``make_partitioned_sparse_train_step``; without it the unsharded network
+    under the same objective. The losses, the first step's gradients, the
+    final parameters, the step and the launches a step."""
+    from egnn_tpu_torch import EGNNSparseNetwork, parallel
+    from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from egnn_tpu_torch.ops.graph import knn_graph
+    from egnn_tpu_torch.training import make_adam, make_partitioned_sparse_train_step
+
+    G = mb.target.shape[0]
+    n = mb.x.shape[0]
+    group = None if mesh is None else mesh.get_group("graph")
+    net = EGNNSparseNetwork(**SP_NET, **PAR_ARMS[arm], shard_axis=group, device="cuda",
+                            generator=torch.Generator().manual_seed(SEED + 37))
+    opt = make_adam(net.parameters(), LR)
+    reset_launch_counts()
+    es = knn_graph(mb.x[:, :3], SP_K, node_mask=mb.node_mask, graph_size=SP_NA)
+    if mesh is None:
+        def step(x, ei, emask, batch, clean_, nmask):
+            opt.zero_grad(set_to_none=True)
+            out = net(x, ei, batch=batch, edge_mask=emask, num_graphs=G, node_mask=nmask)
+            err = (out[:, :3] - clean_) ** 2 * nmask[:, None].to(out.dtype)
+            loss = err.sum() / (nmask.sum().to(err.dtype) * 3).clamp(min=1.0)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        args = (mb.x, es.edge_index, es.mask, mb.batch_ids, clean, mb.node_mask)
+    else:
+        shards = mesh.size()
+        pe = (parallel.partition_uniform_edges(es.senders, n, shards, SP_K, edge_mask=es.mask)
+              if "uniform_degree" in PAR_ARMS[arm] else
+              parallel.partition_edges(es.senders, es.receivers, n, shards, edge_mask=es.mask))
+
+        def blk(t):
+            return parallel.sparse_node_block(mesh, t)
+
+        step = make_partitioned_sparse_train_step(net, opt, mesh, num_graphs=G)
+        args = (blk(mb.x), blk(pe.senders), blk(pe.receivers), blk(pe.mask), None,
+                blk(mb.batch_ids), blk(clean), blk(mb.node_mask))
+    losses, grads = [], None
+    for i in range(PAR_STEPS):
+        losses.append(step(*args))
+        if i == 0:
+            grads = {name: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                     for name, p in net.named_parameters()}
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in LAUNCH_COUNTS.items() if v}
+    return dict(losses=torch.stack(losses), grads=grads, launches=launches,
+                call=lambda: step(*args),
+                params={name: p.detach().clone() for name, p in net.named_parameters()})
+
+
+def two_rank_main(rank, world, init_method, payload, queue):
+    """Phase 38's rank: gloo (NCCL refuses two ranks on one card) on cuda:0,
+    the dense data-parallel step on this rank's rows of the batch and the
+    partitioned sparse step on its node block, every arm; results to the
+    parent as CPU tensors."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from egnn_tpu_torch import parallel
+        from egnn_tpu_torch.ops.cuda import build
+        from egnn_tpu_torch.utils.profiling import time_fn
+
+        build.build_all()      # built by the parent: loads the libraries
+        parallel.initialize(backend="gloo", init_method=init_method, world_size=world,
+                            rank=rank, device="cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        out = {}
+        mesh = parallel.make_mesh(world, 1)
+        batch = [t.cuda() for t in payload["dense"]]
+        b = [parallel.dense_batch_block(mesh, t) for t in batch[:3]] + [
+            batch[3], parallel.dense_batch_block(mesh, batch[4])]
+        res = dense_dp_run(torch, SEED + 38, b, mesh)
+        res["ms"] = time_fn(lambda: res["step"](*b), reps=10, warmup=2, stat="median") * 1e3
+        out["dense"] = res
+        mb = type(payload["mb"])(*(t.cuda() for t in payload["mb"]))
+        clean = payload["clean"].cuda()
+        smesh = parallel.make_mesh(1, world)
+        for arm in PAR_ARMS:
+            res = sparse_par_run(torch, arm, mb, clean, smesh)
+            res["ms"] = time_fn(res["call"], reps=5, warmup=1, stat="median") * 1e3
+            out[arm] = res
+        # numpy: a tensor sent through a queue is shared through a file
+        # descriptor that dies with this process
+        for res in out.values():
+            res.pop("step", None)
+            res.pop("call", None)
+            res["losses"] = res["losses"].cpu().numpy()
+            for key in ("grads", "params"):
+                res[key] = {k: v.cpu().numpy() for k, v in res[key].items()}
+        queue.put((rank, True, out))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_two_ranks(torch, payload, workdir):
+    """Phase 38's two processes, both on cuda:0; fails if either raises or
+    does not report within TWO_RANK_TIMEOUT seconds, and leaves none
+    running. The results come back as tensors on the CPU."""
+    import multiprocessing as mp
+    import queue as queues
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    init = f"file://{workdir / 'two_rank_store'}"
+    procs = [ctx.Process(target=two_rank_main, args=(r, 2, init, payload, queue))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        deadline = time.monotonic() + TWO_RANK_TIMEOUT
+        while len(results) < 2:
+            try:
+                rank, ok, value = queue.get(timeout=max(0.1, deadline - time.monotonic()))
+            except queues.Empty as e:
+                raise AssertionError(f"phase 38: ranks {sorted({0, 1} - set(results))} did not "
+                                     f"report within {TWO_RANK_TIMEOUT} s") from e
+            if not ok:
+                raise AssertionError(f"phase 38: rank {rank} failed:\n{value}")
+            results[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+    for out in results.values():
+        for res in out.values():
+            res["losses"] = torch.from_numpy(res["losses"])
+            for key in ("grads", "params"):
+                res[key] = {k: torch.from_numpy(v) for k, v in res[key].items()}
+    return [results[0], results[1]]
+
+
+def compare_runs(torch, what, got, ref, grad_tol, loss_rtol=PAR_LOSS_RTOL, bitwise=False):
+    """Print and gate a run against its reference: the losses (bitwise or at
+    ``loss_rtol``), the first step's gradients at ``grad_tol`` (``grad_err``)
+    and the final parameters (their largest ``grad_err``)."""
+    loss_err = grad_err(torch, got["losses"], ref["losses"])
+    same_loss = same_bits(torch, got["losses"].cpu(), ref["losses"].cpu())
+    if set(got["grads"]) != set(ref["grads"]):
+        raise AssertionError(f"{what}: gradients of other parameters")
+    g_errs = {k: grad_err(torch, got["grads"][k], ref["grads"][k]) for k in ref["grads"]}
+    p_errs = {k: grad_err(torch, got["params"][k], ref["params"][k]) for k in ref["params"]}
+    g_worst = max(g_errs.items(), key=lambda kv: kv[1])
+    p_worst = max(p_errs.items(), key=lambda kv: kv[1])
+    g_same = all(same_bits(torch, got["grads"][k].cpu(), ref["grads"][k].cpu()) for k in g_errs)
+    p_same = all(same_bits(torch, got["params"][k].cpu(), ref["params"][k].cpu())
+                 for k in p_errs)
+    print(f"{what}: losses {[round(v, 6) for v in ref['losses'].tolist()]}, bitwise={same_loss} "
+          f"(largest error {loss_err:.3e}, rtol {loss_rtol}); the first step's gradients "
+          f"bitwise={g_same}, largest error {g_worst[1]:.3e} of the largest value "
+          f"({g_worst[0]}; tol {grad_tol}); parameters after {PAR_STEPS} steps bitwise={p_same}, "
+          f"largest error {p_worst[1]:.3e} ({p_worst[0]})")
+    if bitwise and not (same_loss and g_same and p_same):
+        raise AssertionError(f"{what}: not bitwise equal")
+    if not (loss_err <= loss_rtol and g_worst[1] <= grad_tol):
+        raise AssertionError(f"{what}: the loss or a gradient is out of tolerance")
+    return g_worst[1]
+
+
+def parallel_phases(torch, smi):
+    """Phases 37-39: the process runtime on the card (a one-rank NCCL group;
+    two ranks sharing the card under gloo) through the data-parallel dense
+    step and the edge-partitioned sparse step, then the examples
+    ``export_serving`` and ``denoise --metrics``. Raises on a failure."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from egnn_tpu_torch import parallel
+    from egnn_tpu_torch.ops import graph as GR
+    from egnn_tpu_torch.training import synthetic_chain_batch
+    from egnn_tpu_torch.utils.profiling import time_fn
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=root / "build"))
+    rq = synthetic_chain_batch(np.random.default_rng(SEED + 370), DP_BATCH, N, device="cuda")
+    dense_batch = (rq.tokens, rq.noised_coors, rq.clean_coors, rq.adj_mat, rq.mask)
+    mb, clean = molecule_batch(torch, GR.knn_graph, SP_G, SEED + 371)
+
+    # ---- 37. a one-rank NCCL group in this process ----
+    t_phase = time.perf_counter()
+    dev = parallel.initialize(backend="nccl", init_method=f"file://{work / 'nccl_store'}",
+                              world_size=1, rank=0)
+    mesh = parallel.make_mesh(1, 1)
+    print(f"one-rank group: backend {dist.get_backend()}, device {dev}, mesh "
+          f"{mesh.mesh.tolist()} {mesh.mesh_dim_names}")
+    plain = dense_dp_run(torch, SEED + 38, dense_batch)
+    dp = dense_dp_run(torch, SEED + 38, dense_batch, mesh)
+    compare_runs(torch, f"phase 37, the data-parallel anchor-3 step at one NCCL rank (b = "
+                 f"{DP_BATCH}) against make_denoise_train_step", dp, plain, 0.0, 0.0, bitwise=True)
+    print(f"phase 37 launches a step: data-parallel {dp['launches']}, plain {plain['launches']}")
+    if not (dp["launches"].get("knn_select_gather") == DEPTH
+            and dp["launches"].get("segment_sum") == DEPTH):
+        raise AssertionError("phase 37: the data-parallel step did not launch K1 and K2 depth "
+                             "times a step")
+    timed = {}
+    for key, fn in (("plain", lambda: plain["step"](*dense_batch)),
+                    ("dp", lambda: dp["step"](*dense_batch))):
+        timed[key] = [call_ms(torch, fn)]
+    for key, fn in (("dp", lambda: dp["step"](*dense_batch)),
+                    ("plain", lambda: plain["step"](*dense_batch))):
+        timed[key].append(call_ms(torch, fn))
+    print(f"timing on {smi}: anchor-3 step at b = {DP_BATCH} as a call (median of 30 after 5, "
+          f"CUDA events), make_denoise_train_step {timed['plain'][0]:.4f}/{timed['plain'][1]:.4f} "
+          f"ms, the data-parallel step at one NCCL rank {timed['dp'][0]:.4f}/"
+          f"{timed['dp'][1]:.4f} ms: the reductions' and the flat gradient buffer's cost "
+          f"{min(timed['dp']) - min(timed['plain']):.4f} ms")
+    for key, label in (("plain", "make_denoise_train_step steps"),
+                       ("dp", "data-parallel steps at one NCCL rank")):
+        step = plain["step"] if key == "plain" else dp["step"]
+        profile_forward(torch, lambda: step(*dense_batch), iters=10, label=label, unit="step")
+    # one collective alone: the host's time a call over 100 calls without a
+    # wait, and the card's (CUDA events around the 100 and a synchronize);
+    # then one call behind some 20 ms of queued matrix products, whose host
+    # time shows whether the call waits for the work queued before it
+    from egnn_tpu_torch.parallel.collectives import all_reduce_
+
+    group = mesh.get_group("data")
+    flat = torch.zeros(sum(v.numel() for v in dp["params"].values()), device="cuda")
+    big = torch.randn(4096, 4096, device="cuda") / 64
+    for what, t in (("a 0-d tensor", torch.zeros((), device="cuda")),
+                    (f"the flat gradient buffer ({flat.numel()} floats)", flat)):
+        for _ in range(5):
+            all_reduce_(t, group)
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            all_reduce_(t, group)
+        host_ms = (time.perf_counter() - t0) * 10
+        ev[1].record()
+        torch.cuda.synchronize()
+        queued = big
+        for _ in range(8):
+            queued = queued @ big
+        t0 = time.perf_counter()
+        all_reduce_(t, group)
+        behind_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t_all = (time.perf_counter() - t0) * 1e3
+        print(f"one NCCL all_reduce of {what} on the one-rank group: {host_ms:.4f} ms of host "
+              f"time a call, {ev[0].elapsed_time(ev[1]) / 100:.4f} ms a call between CUDA events "
+              f"over 100 calls; behind eight queued 4096^2 products (their end "
+              f"{t_all:.4f} ms after the call began) the call took {behind_ms:.4f} ms of host "
+              f"time, on {smi}")
+    del plain, dp
+    sparse_ref = {}
+    for arm in PAR_ARMS:
+        ref = sparse_ref[arm] = sparse_par_run(torch, arm, mb, clean)
+        got = sparse_par_run(torch, arm, mb, clean, mesh)
+        compare_runs(torch, f"phase 37, the partitioned anchor-5 step at S = 1, arm ({arm}) "
+                     f"{PAR_ARMS[arm]}, against the unsharded step", got, ref, PAR_ONE_RANK_TOL)
+        print(f"phase 37 arm ({arm}) launches over {PAR_STEPS} steps: partitioned "
+              f"{got['launches']}, unsharded {ref['launches']}")
+        need = ["knn_select", "segment_sum"] + (["fused_pair_fwd", "fused_pair_bwd"]
+                                                if arm == "c" else [])
+        if any(not got["launches"].get(k) for k in need):
+            raise AssertionError(f"phase 37 arm ({arm}): a kernel of the path did not launch "
+                                 f"({need})")
+        if arm == "b":
+            ms = {"unsharded": [call_ms(torch, ref["call"])],
+                  "partitioned": [call_ms(torch, got["call"])]}
+            ms["partitioned"].append(call_ms(torch, got["call"]))
+            ms["unsharded"].append(call_ms(torch, ref["call"]))
+            print(f"timing on {smi}: anchor-5 arm (b) step at G = {SP_G} as a call (median of 30 "
+                  f"after 5), unsharded {ms['unsharded'][0]:.4f}/{ms['unsharded'][1]:.4f} ms, "
+                  f"partitioned at S = 1 {ms['partitioned'][0]:.4f}/{ms['partitioned'][1]:.4f} "
+                  f"ms: the collectives' cost {min(ms['partitioned']) - min(ms['unsharded']):.4f} "
+                  f"ms")
+            host_ops(torch, ref["call"], 5, "unsharded arm (b) steps")
+            host_ops(torch, got["call"], 5, "partitioned arm (b) steps at S = 1")
+        del got
+    dist.destroy_process_group()
+    print(f"phase 37: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 38. two ranks sharing the one card, gloo ----
+    t_phase = time.perf_counter()
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    ranks = run_two_ranks(torch, dict(dense=tuple(cpu(t) for t in dense_batch),
+                                      mb=type(mb)(*(cpu(t) for t in mb)), clean=cpu(clean)),
+                          work)
+    plain = dense_dp_run(torch, SEED + 38, dense_batch)
+    for key in ["dense", *PAR_ARMS]:
+        ref = plain if key == "dense" else sparse_ref[key]
+        tol = PAR_GRAD_TOL_SELF_PAIRS if key == "dense" else PAR_GRAD_TOL
+        what = ("the data-parallel anchor-3 step, b = 8 as 4 rows a rank" if key == "dense" else
+                f"the partitioned anchor-5 step at S = 2, arm ({key}) {PAR_ARMS[key]}")
+        for r, res in enumerate(ranks):
+            compare_runs(torch, f"phase 38 rank {r}, {what}, against one process on the card",
+                         res[key], ref, tol)
+        a, b = ranks[0][key], ranks[1][key]
+        same = all(same_bits(torch, a["params"][k], b["params"][k]) for k in a["params"])
+        print(f"phase 38 {what}: the two ranks' parameters after {PAR_STEPS} steps bitwise "
+              f"equal={same}; launches on rank 0 {a['launches']}, rank 1 {b['launches']}; a step "
+              f"{a['ms']:.4f} / {b['ms']:.4f} ms as a call on each rank (two ranks sharing one "
+              f"card, gloo through host memory: not a scaling number) on {smi}")
+        need = (["knn_select_gather", "segment_sum"] if key == "dense" else
+                ["knn_select", "segment_sum"] + (["fused_pair_fwd", "fused_pair_bwd"]
+                                                 if key == "c" else []))
+        if not same or any(not res[key]["launches"].get(k) for res in ranks for k in need):
+            raise AssertionError(f"phase 38 {what}: the ranks' parameters differ or a kernel of "
+                                 f"the path ({need}) did not launch")
+    del plain, sparse_ref, ranks
+    torch.cuda.empty_cache()
+    print(f"phase 38: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 39. the examples on the card ----
+    t_phase = time.perf_counter()
+    from egnn_tpu_torch.examples import denoise, export_serving
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        summary = export_serving.main(["--device", "cuda", "--out", str(work / "fwd.pt2")])
+    print(out.getvalue().strip().splitlines()[0])
+    if not (summary["bitwise"] and summary["k1_launches"] == 3 and summary["op_calls"] == 3):
+        raise AssertionError(f"export_serving: {summary}")
+    metrics = work / "metrics.jsonl"
+    with contextlib.redirect_stdout(io.StringIO()):
+        s_den = denoise.main(["--device", "cuda", "--steps", "16", "--metrics", str(metrics)])
+    recs = [json.loads(line) for line in metrics.read_text().splitlines()]
+    ok = ([r["step"] for r in recs] == list(range(16))
+          and all(math.isfinite(r["loss"]) for r in recs)
+          and [r["loss"] for r in recs] == s_den["losses"])
+    print(f"denoise trainer with --metrics, 16 micro-steps on the card: {len(recs)} JSONL lines, "
+          f"losses finite and the summary's: {ok}; first {recs[0]}, last {recs[-1]}")
+    if not ok:
+        raise AssertionError("denoise --metrics: the metrics file is not one finite line a step")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 39: {time.perf_counter() - t_phase:.1f} s")
 
 
 def sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, serving, steps):
@@ -3766,6 +4222,7 @@ def main() -> int:
     sparse_phases(torch)
     dense_option_phases(torch)
     host_runtime_phases(torch, smi)
+    parallel_phases(torch, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

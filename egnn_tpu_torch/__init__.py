@@ -31,10 +31,13 @@ host's ``g++``), protein featurization (``ops.featurize``), k-hop lists
 checkpoints (``training.datasets``, ``training.data``,
 ``training.checkpoint``), rotations, sanitizers, timers and the H100
 roofline (``utils``), weights carried from egnn-pytorch
-(``utils.*_params_from_torch``), and two trainers, run as modules:
-``python -m egnn_tpu_torch.examples.denoise`` and ``python -m
-egnn_tpu_torch.examples.molecule_regression`` (``--device cpu`` for the
-plain PyTorch path). See ROADMAP.md for what is still to be ported.
+(``utils.*_params_from_torch``), and the examples, run as modules:
+``python -m egnn_tpu_torch.examples.denoise``, ``molecule_regression``,
+``export_serving`` and ``migrate_from_torch`` (``--device cpu`` for the
+plain PyTorch path); multi-process training (``egnn_tpu_torch.parallel``:
+the process runtime, the (data, graph) mesh, the edge-partitioned sparse
+layout, and in ``training`` the data-parallel dense and edge-partitioned
+sparse steps). See ROADMAP.md for what is still to be ported.
 """
 
 from .models.attention import Attention, GlobalLinearAttention

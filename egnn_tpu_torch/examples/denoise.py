@@ -15,15 +15,16 @@ Data: a backbone dataset file (``--data``, or ``--make-data`` to write a
 synthetic one first) read through ``BackboneDataset`` and ``PrefetchLoader``;
 without one, ``synthetic_chain_batch`` chains. Checkpoints: ``--ckpt-dir``
 every ``--ckpt-every`` micro-steps and at the end (``CheckpointManager``),
-``--resume`` from the latest.
+``--resume`` from the latest. Metrics: ``--metrics F`` appends one JSON line
+a micro-step (its loss and the edges/s so far) through
+``parallel.MetricLogger``, which reads the losses from the card in batches.
 
 Run: python -m egnn_tpu_torch.examples.denoise --steps 64 [--device cpu]
-     [--make-data bb.npz] [--ckpt-dir DIR [--resume]]
+     [--make-data bb.npz] [--ckpt-dir DIR [--resume]] [--metrics m.jsonl]
 
 Left out of the JAX example: ``--block`` (steps fused into one jitted
-``lax.scan``, a knob against a TPU's dispatch cost), ``--metrics`` (needs
-``parallel.MetricLogger``, not ported yet) and ``--from-sidechainnet`` (a
-download).
+``lax.scan``, a knob against a TPU's dispatch cost) and
+``--from-sidechainnet`` (a download).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import numpy as np
 import torch
 
 from egnn_tpu_torch import EGNNNetwork
+from egnn_tpu_torch.parallel import MetricLogger
 from egnn_tpu_torch.training import (
     CheckpointManager,
     PrefetchLoader,
@@ -73,6 +75,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="write a synthetic backbone dataset here first, and train on it")
     ap.add_argument("--data-proteins", type=int, default=64)
     ap.add_argument("--noise", type=float, default=1.0)
+    ap.add_argument("--metrics", default=None, help="JSONL metrics path (MetricLogger)")
     return ap.parse_args(argv)
 
 
@@ -154,12 +157,15 @@ def main(argv=None, on_checkpoint: Optional[Callable[[int], None]] = None) -> di
     else:
         batches = (batch_at(i) for i in steps)
 
+    edges = args.batch * args.nodes * args.knn * args.depth
+    metrics = MetricLogger(args.metrics)
     losses = []
     t0 = time.perf_counter()
     try:
         for i, b in zip(steps, batches):
             loss = step_fn(b.tokens, b.noised_coors, b.clean_coors, b.adj_mat, b.mask)
             losses.append(loss)
+            metrics.log(i, loss=loss, edges_per_s=len(losses) * edges / (time.perf_counter() - t0))
             done = i + 1
             if done % LOG_EVERY == 0 or done == args.steps:
                 print(f"step {i:5d}  loss {loss.item():.6f}")
@@ -171,11 +177,11 @@ def main(argv=None, on_checkpoint: Optional[Callable[[int], None]] = None) -> di
     finally:
         if loader is not None:
             loader.close()
+        metrics.close()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     run = len(steps)
-    edges = args.batch * args.nodes * args.knn * args.depth
     print(f"{run} steps in {seconds:.3f} s ({run / seconds:.3f} steps/s, "
           f"{run * edges / seconds:.4e} edges/s as calls)")
 

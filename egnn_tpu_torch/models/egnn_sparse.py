@@ -41,8 +41,19 @@ On the card:
 
 Dropout acts in training mode (``module.training``, the JAX package's
 ``deterministic=False``), its masks drawn from the ``generator`` passed to
-``forward``. Not ported yet (it raises ``NotImplementedError``):
-``shard_axis``, the edge-partitioned multi-device layout.
+``forward``.
+
+``shard_axis`` (the network's and the layer's; ``axis_name`` of the
+attention block) is the edge-partitioned multi-process layout of
+``parallel/sparse_partition.py``: a process group, where the JAX package
+takes a mesh axis name. Each rank holds a block of the nodes and the edges
+whose receivers it owns, receivers local and senders global. A layer
+gathers the node rows of every rank once (``all_gather_rows``) and reads
+the senders there, through ``gather_rows`` (its backward K2 on the gathered
+rows); the graph LayerNorm's and the attention's statistics are summed over
+the group. ``uniform_graph_size`` is ignored under it, as in the JAX
+package; ``uniform_degree`` and ``fused_uniform`` work on the rank's own
+nodes (K10 at the local n).
 """
 from __future__ import annotations
 
@@ -68,14 +79,10 @@ from ..ops.segment import (
     segment_sum,
     uniform_aggregate,
 )
+from ..parallel.collectives import all_gather_rows, all_reduce_sum, check_group
 from . import init as inits
 from .attention import Attention, GlobalLinearAttention
 from .init import ParamFactory
-
-
-def _no_shard(shard_axis) -> None:
-    if shard_axis is not None:
-        raise NotImplementedError("the edge-partitioned layout (shard_axis) is not ported yet")
 
 
 def _check_uniform_layout(edge_index, edge_mask, batch, n, k, s) -> None:
@@ -132,14 +139,14 @@ class EGNNSparse(nn.Module):
         uniform_degree: Optional[int] = None,
         fused_uniform: Optional[bool] = None,
         uniform_graph_size: Optional[int] = None,
-        shard_axis: Optional[str] = None,
+        shard_axis=None,
         *,
         device=None,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        _no_shard(shard_axis)
+        check_group(shard_axis, "shard_axis")
         if aggr not in ("add", "sum", "max", "mean"):
             raise ValueError("pool method must be a valid option")
         if not (update_feats or update_coors):
@@ -162,6 +169,7 @@ class EGNNSparse(nn.Module):
         self.uniform_degree = uniform_degree
         self.fused_uniform = fused_uniform
         self.uniform_graph_size = uniform_graph_size
+        self.shard_axis = shard_axis
 
         d = feats_dim
         self.dist_dim = 2 * fourier_features + 1
@@ -226,7 +234,10 @@ class EGNNSparse(nn.Module):
             return dropout(v, self.dropout, generator) if dropping else v
 
         n, d, pos = x.shape[0], self.feats_dim, self.pos_dim
-        uk, ugs = self.uniform_degree, self.uniform_graph_size
+        # under shard_axis: n is this rank's node count, senders index x_full
+        x_full = x if self.shard_axis is None else all_gather_rows(x, self.shard_axis)
+        uk = self.uniform_degree
+        ugs = self.uniform_graph_size if self.shard_axis is None else None
         if uk is not None and edge_index.shape[1] != n * uk:
             raise ValueError(f"uniform_degree={uk} needs exactly n*k={n * uk} edge rows, got "
                              f"{edge_index.shape[1]}")
@@ -244,8 +255,8 @@ class EGNNSparse(nn.Module):
         w_d = w1[2 * d + self.edge_attr_dim:]
 
         if self._uses_fused() and not dropping:
-            return self._forward_fused(x, coors, feats, j_idx, batch, edge_mask, num_graphs,
-                                       node_mask, w_i, w_j, w_d)
+            return self._forward_fused(x, x_full, coors, feats, j_idx, batch, edge_mask,
+                                       num_graphs, node_mask, w_i, w_j, w_d)
 
         # one row gather an edge end carrying [coors | feats]; a uniform
         # layout broadcasts the receiver's rows instead
@@ -255,7 +266,7 @@ class EGNNSparse(nn.Module):
         else:
             xg_i = gather_rows(x, i_idx)
             coors_i_e, feats_i_e = xg_i[:, :pos], xg_i[:, pos:]
-        xg_j = gather_rows(x, j_idx)
+        xg_j = gather_rows(x_full, j_idx)
         coors_j_e, feats_j_e = xg_j[:, :pos], xg_j[:, pos:]
         rel_coors = coors_j_e - coors_i_e
         rel_dist = (rel_coors ** 2).sum(dim=-1, keepdim=True)
@@ -300,14 +311,14 @@ class EGNNSparse(nn.Module):
             hidden_out = feats
         return torch.cat([coors_out, hidden_out], dim=-1)
 
-    def _forward_fused(self, x, coors, feats, j_idx, batch, edge_mask, num_graphs, node_mask,
-                       w_i, w_j, w_d):
+    def _forward_fused(self, x, x_full, coors, feats, j_idx, batch, edge_mask, num_graphs,
+                       node_mask, w_i, w_j, w_d):
         """The uniform layout is the dense path's i-major pair layout (row e
         belongs to receiver e // k): the gathered sender rows go to K10 with
         the sparse gate semantics; the row gather and its backward (K2) stay
         outside the kernel."""
         n, uk, pos = x.shape[0], self.uniform_degree, self.pos_dim
-        xg_j = gather_rows(x, j_idx)
+        xg_j = gather_rows(x_full, j_idx)
         proj_i = (feats @ w_i + self.edge_mlp_0_b)[None]             # (1, N, hidden)
         pv = edge_mask.to(coors.dtype)[None, :, None] if edge_mask is not None \
             else torch.ones((1, n * uk, 1), dtype=coors.dtype, device=coors.device)
@@ -341,6 +352,7 @@ class EGNNSparse(nn.Module):
         first layer."""
         hidden = graph_layer_norm(feats, batch, num_graphs, self.node_norm_gamma,
                                   self.node_norm_beta, node_mask=node_mask,
+                                  axis_name=self.shard_axis,
                                   uniform_size=self.uniform_graph_size) \
             if self.norm_feats else feats
         h = F.silu(drop(torch.cat([hidden, m_i], dim=-1) @ self.node_mlp_0_w + self.node_mlp_0_b))
@@ -353,9 +365,11 @@ class AttentionSparse(Attention):
     of the reference's per-graph loop; the dense ``Attention``'s
     parameters."""
 
-    def queries_to_nodes(self, queries, x, batch, num_graphs, node_mask=None):
+    def queries_to_nodes(self, queries, x, batch, num_graphs, node_mask=None, axis_name=None):
         """Tokens (G, g, dim) attend over their graph's nodes (N, dim) ->
-        (G, g, dim)."""
+        (G, g, dim). ``axis_name``: a process group over whose ranks the
+        node rows are block-sharded; the softmax's statistics and the induced
+        tokens are then summed over it (the queries are replicated)."""
         h, dh = self.heads, self.dim_head
         G, g, _ = queries.shape
         n = x.shape[0]
@@ -365,10 +379,12 @@ class AttentionSparse(Attention):
         logits = torch.einsum("nghd,nhd->ngh", gather_rows(q, batch), k) * dh ** -0.5
         flat = logits.reshape(n, g * h)
         m = None if node_mask is None else node_mask[:, None].expand(n, g * h)
-        attn = segment_softmax(flat, batch, num_graphs, mask=m).reshape(n, g, h)
-        ctx = torch.einsum("ngh,nhd->nghd", attn, v).reshape(n, g * h * dh)
-        induced = segment_sum(ctx, batch, num_graphs).reshape(G, g, h * dh)
-        return induced @ self.to_out_w + self.to_out_b
+        attn = segment_softmax(flat, batch, num_graphs, mask=m, axis_name=axis_name)
+        ctx = torch.einsum("ngh,nhd->nghd", attn.reshape(n, g, h), v).reshape(n, g * h * dh)
+        induced = segment_sum(ctx, batch, num_graphs)
+        if axis_name is not None:
+            induced = all_reduce_sum(induced, axis_name)
+        return induced.reshape(G, g, h * dh) @ self.to_out_w + self.to_out_b
 
     def nodes_to_queries(self, x, context, batch):
         """Nodes (N, dim) attend over their graph's tokens (G, g, dim) ->
@@ -394,23 +410,25 @@ class GlobalLinearAttentionSparse(GlobalLinearAttention):
     attention = AttentionSparse
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
-                 axis_name: Optional[str] = None, uniform_graph_size: Optional[int] = None, *,
+                 axis_name=None, uniform_graph_size: Optional[int] = None, *,
                  device=None, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
-        _no_shard(axis_name)
+        check_group(axis_name, "axis_name")
         super().__init__(dim, heads, dim_head, device=device, dtype=dtype, generator=generator)
+        self.axis_name = axis_name
         self.uniform_graph_size = uniform_graph_size
 
     def forward(self, x, queries, batch, num_graphs, node_mask=None):
-        ugs = self.uniform_graph_size
+        axis, ugs = self.axis_name, self.uniform_graph_size
         xn = graph_layer_norm(x, batch, num_graphs, self.norm_seq_gamma, self.norm_seq_beta,
-                              node_mask=node_mask, uniform_size=ugs)
+                              node_mask=node_mask, axis_name=axis, uniform_size=ugs)
         qn = layer_norm(queries, self.norm_queries_gamma, self.norm_queries_beta)
-        induced = self.attn1.queries_to_nodes(qn, xn, batch, num_graphs, node_mask=node_mask)
+        induced = self.attn1.queries_to_nodes(qn, xn, batch, num_graphs, node_mask=node_mask,
+                                              axis_name=axis)
         x = self.attn2.nodes_to_queries(xn, induced, batch) + x
         queries = induced + queries
         x_norm = graph_layer_norm(x, batch, num_graphs, self.ff_norm_gamma, self.ff_norm_beta,
-                                  node_mask=node_mask, uniform_size=ugs)
+                                  node_mask=node_mask, axis_name=axis, uniform_size=ugs)
         x = F.gelu(x_norm @ self.ff_w1 + self.ff_b1) @ self.ff_w2 + self.ff_b2 + x_norm
         return x, queries
 
@@ -455,7 +473,7 @@ class EGNNSparseNetwork(nn.Module):
         global_linear_attn_dim_head: int = 64,
         num_global_tokens: int = 4,
         recalc: int = 0,
-        shard_axis: Optional[str] = None,
+        shard_axis=None,
         uniform_degree: Optional[int] = None,
         compute_dtype: Optional[torch.dtype] = None,
         fused_uniform: Optional[bool] = None,
@@ -466,7 +484,7 @@ class EGNNSparseNetwork(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        _no_shard(shard_axis)
+        check_group(shard_axis, "shard_axis")
         param = ParamFactory(self, device, dtype, generator)
         self.n_layers = n_layers
         self.pos_dim = pos_dim
@@ -488,7 +506,7 @@ class EGNNSparseNetwork(nn.Module):
             if global_linear_attn_every > 0 and i % global_linear_attn_every == 0:
                 self.add_module(f"global_attn_{i}", GlobalLinearAttentionSparse(
                     feats_dim, global_linear_attn_heads, global_linear_attn_dim_head,
-                    uniform_graph_size=uniform_graph_size, **sub))
+                    axis_name=shard_axis, uniform_graph_size=uniform_graph_size, **sub))
             self.add_module(f"mpnn_{i}", EGNNSparse(
                 feats_dim=feats_dim, pos_dim=pos_dim, edge_attr_dim=edge_attr_dim, m_dim=m_dim,
                 fourier_features=fourier_features, soft_edge=soft_edge, norm_feats=norm_feats,
@@ -496,7 +514,8 @@ class EGNNSparseNetwork(nn.Module):
                 update_feats=update_feats, update_coors=update_coors, dropout=dropout,
                 coor_weights_clamp_value=coor_weights_clamp_value, aggr=aggr,
                 compute_dtype=compute_dtype, uniform_degree=uniform_degree,
-                fused_uniform=fused_uniform, uniform_graph_size=uniform_graph_size, **sub))
+                fused_uniform=fused_uniform, uniform_graph_size=uniform_graph_size,
+                shard_axis=shard_axis, **sub))
 
     def forward(
         self,

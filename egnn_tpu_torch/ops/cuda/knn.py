@@ -644,6 +644,23 @@ def _on_card(coors: torch.Tensor) -> bool:
     return coors.is_cuda
 
 
+@torch.library.custom_op("egnn_tpu_torch::knn_select_gather", mutates_args=())
+def _knn_select_gather_op(coors: torch.Tensor, k: int, table: torch.Tensor,
+                          mask: Optional[torch.Tensor],
+                          adj_mat: Optional[torch.Tensor]
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    if _on_card(coors):
+        return _launch_knn_select_gather(coors, k, table, mask, adj_mat)
+    return knn_select_gather_plain(coors, k, table, mask, adj_mat)
+
+
+@_knn_select_gather_op.register_fake
+def _knn_select_gather_shapes(coors, k, table, mask, adj_mat):
+    b, n, _ = coors.shape
+    return (coors.new_empty((b, n, k)), coors.new_empty((b, n, k), dtype=torch.int64),
+            table.new_empty((b, n, k, table.shape[-1])))
+
+
 def knn_select_gather(
     coors: torch.Tensor,
     k: int,
@@ -656,10 +673,14 @@ def knn_select_gather(
     coors (b, n, c) and table (b, n, tw) float32, mask (b, n) bool, adj_mat
     (b, n, n) bool (an expanded (n, n) is read without a copy). A CUDA tensor
     launches the kernel; a CPU tensor runs ``knn_select_gather_plain``.
+
+    The call goes through the operator ``torch.ops.egnn_tpu_torch.
+    knn_select_gather``, whose fake implementation gives the output shapes,
+    so that ``torch.export`` can trace a forward that selects through K1
+    (``examples/export_serving.py``) and the exported program launches the
+    kernel on the card.
     """
-    if _on_card(coors):
-        return _launch_knn_select_gather(coors, k, table, mask, adj_mat)
-    return knn_select_gather_plain(coors, k, table, mask, adj_mat)
+    return _knn_select_gather_op(coors, k, table, mask, adj_mat)
 
 
 def knn_select(

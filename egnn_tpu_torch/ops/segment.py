@@ -20,8 +20,11 @@ the card), the per-node reads of per-graph statistics through
 ``ops/core.py:gather_rows`` (whose backward is K2 too). The max reductions
 are ``scatter_reduce`` / ``amax``, as the JAX package leaves them to XLA;
 their gradient splits evenly among tied maxima, JAX's rule for
-``segment_max`` and ``max``. The mesh-sharded statistics of the JAX module
-(``axis_name``) are not ported: they raise ``NotImplementedError``.
+``segment_max`` and ``max``. ``segment_softmax`` and ``graph_layer_norm``
+take a process group as ``axis_name`` (the JAX package takes a mesh axis
+name): the node rows are then block-sharded over its ranks, and their
+statistics are summed (and the softmax's shift maxed) over the group through
+``parallel/collectives.py``.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel.collectives import all_reduce_max, all_reduce_sum, check_group
 from .cuda import segment as seg_kernels
 
 
@@ -81,11 +85,6 @@ def segment_sum(
     out = batched_segment_sum(data.reshape(1, e, math.prod(rest)),
                               segment_ids.reshape(1, e), num_segments)
     return out.reshape((num_segments,) + rest)
-
-
-def _no_axis(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError("mesh-sharded segment statistics (axis_name) are not ported yet")
 
 
 def segment_count(
@@ -181,23 +180,31 @@ def segment_softmax(
     segment_ids: torch.Tensor,
     num_segments: int,
     mask: Optional[torch.Tensor] = None,
-    axis_name: Optional[str] = None,
+    axis_name=None,
 ) -> torch.Tensor:
     """Softmax within each segment, shifted by the segment's max (which
     carries no gradient: the softmax does not depend on it); masked entries
-    get 0."""
-    _no_axis(axis_name)
+    get 0.
+
+    ``axis_name``: a process group over whose ranks the rows are
+    block-sharded; the max and the normaliser are then the group's, so that
+    every rank's rows are normalised by the global per-segment statistics."""
+    check_group(axis_name, "axis_name")
     if mask is not None:
         logits = torch.where(mask, logits, torch.full((), -math.inf, dtype=logits.dtype,
                                                       device=logits.device))
     with torch.no_grad():
         seg_max = _SegmentMax.apply(logits.detach(), segment_ids, num_segments)
+        if axis_name is not None:
+            seg_max = all_reduce_max(seg_max, axis_name)
         seg_max = torch.where(torch.isneginf(seg_max), 0.0, seg_max)
     shifted = logits - _rows_of(seg_max, segment_ids)
     ex = torch.exp(shifted)
     if mask is not None:
         ex = torch.where(mask, ex, torch.zeros((), dtype=ex.dtype, device=ex.device))
     denom = segment_sum(ex, segment_ids, num_segments)
+    if axis_name is not None:
+        denom = all_reduce_sum(denom, axis_name)
     return ex / _rows_of(denom, segment_ids).clamp(min=torch.finfo(ex.dtype).tiny)
 
 
@@ -209,7 +216,7 @@ def graph_layer_norm(
     beta: Optional[torch.Tensor],
     eps: float = 1e-5,
     node_mask: Optional[torch.Tensor] = None,
-    axis_name: Optional[str] = None,
+    axis_name=None,
     uniform_size: Optional[int] = None,
 ) -> torch.Tensor:
     """PyG's graph-mode LayerNorm (egnn_pytorch_geometric.py:156): statistics
@@ -219,14 +226,20 @@ def graph_layer_norm(
     ``uniform_size``: rows [g*s, (g+1)*s) all belong to graph g (a
     contiguous ``batch`` of equal-size graphs); the statistics then reduce
     by reshape, with no segment sum. The same math; the sums run in another
-    order."""
-    _no_axis(axis_name)
+    order.
+
+    ``axis_name``: a process group over whose ranks the rows are
+    block-sharded; each graph's count and sums are then the group's, so that
+    every rank normalises with the global statistics. ``uniform_size`` is
+    ignored then, as in the JAX package."""
+    check_group(axis_name, "axis_name")
+    psum = (lambda v: all_reduce_sum(v, axis_name)) if axis_name is not None else (lambda v: v)
     n, d = x.shape
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     if batch is None:
         batch = torch.zeros((n,), dtype=torch.int64, device=x.device)
         num_graphs = 1
-    if uniform_size is not None:
+    if uniform_size is not None and axis_name is None:
         s = uniform_size
         if n != num_graphs * s:
             raise ValueError(f"uniform_size={s} needs n = num_graphs*s = {num_graphs * s}, "
@@ -246,13 +259,14 @@ def graph_layer_norm(
         var = (centered ** 2).sum(dim=1, keepdim=True) / cnt
         out = ((xr - mean) * torch.rsqrt(var + eps)).reshape(n, d)
     else:
-        count = (segment_count(batch, num_graphs, node_mask, dtype=x.dtype) * d).clamp(min=1.0)
-        total = segment_sum(x, batch, num_graphs, node_mask).sum(dim=-1)
+        count = (psum(segment_count(batch, num_graphs, node_mask, dtype=x.dtype)) * d).clamp(
+            min=1.0)
+        total = psum(segment_sum(x, batch, num_graphs, node_mask).sum(dim=-1))
         mean = _rows_of(total / count, batch)[:, None]
         centered = x - mean
         if node_mask is not None:
             centered = torch.where(node_mask[:, None], centered, zero)
-        sq = segment_sum(centered ** 2, batch, num_graphs, node_mask).sum(dim=-1)
+        sq = psum(segment_sum(centered ** 2, batch, num_graphs, node_mask).sum(dim=-1))
         var = _rows_of(sq / count, batch)[:, None]
         out = (x - mean) * torch.rsqrt(var + eps)
     if gamma is not None:

@@ -1,7 +1,8 @@
-"""Training: loss, optimizers, train state and step builders
-(``state.py``), the input pipeline (``data.py``: synthetic chain and
-molecule batches, ``PrefetchLoader``), dataset files (``datasets.py``) and
-checkpoints (``checkpoint.py``)."""
+"""Training: loss, optimizers, train state and step builders, the
+data-parallel and edge-partitioned steps among them (``state.py``), the
+input pipeline (``data.py``: synthetic chain and molecule batches,
+``PrefetchLoader``), dataset files (``datasets.py``) and checkpoints
+(``checkpoint.py``)."""
 from .checkpoint import CheckpointManager
 from .data import PrefetchLoader, synthetic_chain_batch, synthetic_molecule_batch_np, to_tensors
 from .state import (
@@ -11,6 +12,8 @@ from .state import (
     make_adam,
     make_denoise_train_step,
     make_fused_adam,
+    make_partitioned_sparse_train_step,
+    make_sharded_denoise_train_step,
     masked_mse,
 )
 
@@ -23,6 +26,8 @@ __all__ = [
     "make_adam",
     "make_denoise_train_step",
     "make_fused_adam",
+    "make_partitioned_sparse_train_step",
+    "make_sharded_denoise_train_step",
     "masked_mse",
     "synthetic_chain_batch",
     "synthetic_molecule_batch_np",

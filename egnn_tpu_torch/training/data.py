@@ -16,7 +16,8 @@ Counterparts of ``egnn_tpu/training/data.py``:
   package's from the same ``RandomState``;
 - ``to_tensors``: a batch of numpy arrays as tensors on a device;
 - ``PrefetchLoader``: the worker thread that overlaps the host's batch
-  building and copies with the card's steps.
+  building and copies with the card's steps; with ``shard=`` (a mesh or a
+  process group) it hands each rank its block of every batch.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.graph import chain_adjacency
+from ..parallel.mesh import rank_block_index
 from ..utils.device import resolve_device
 
 
@@ -163,6 +165,30 @@ def _map_arrays(batch, fn):
     return batch
 
 
+# the fields of a batch that every rank takes whole: the dense batch's
+# (n, n) adjacency, which no rank's block of the batch cuts
+_WHOLE_FIELDS = ("adj_mat",)
+
+
+def _rank_block(batch, index: int, count: int):
+    """Block ``index`` of ``count`` of every array's leading dimension, the
+    fields (of a named tuple or dict) named in ``_WHOLE_FIELDS`` left
+    whole."""
+    def cut(a):
+        if a.shape[0] % count:
+            raise ValueError(f"a leading dimension of {a.shape[0]} does not split into "
+                             f"{count} blocks")
+        rows = a.shape[0] // count
+        return a[index * rows:(index + 1) * rows]
+
+    if isinstance(batch, tuple) and hasattr(batch, "_fields"):
+        return type(batch)(*(v if f in _WHOLE_FIELDS else _map_arrays(v, cut)
+                             for f, v in zip(batch._fields, batch)))
+    if isinstance(batch, dict):
+        return {k: v if k in _WHOLE_FIELDS else _map_arrays(v, cut) for k, v in batch.items()}
+    return _map_arrays(batch, cut)
+
+
 def to_tensors(batch, device=None):
     """A batch (an array, or a named tuple, tuple, list or dict of them) as
     tensors on ``device`` (the card unless the caller passes
@@ -193,6 +219,14 @@ class PrefetchLoader:
     chained to it; it is never swallowed. Iteration stops after
     ``num_batches``. ``close()`` stops the worker, drains the queue and
     joins the thread.
+
+    ``shard`` (a ``DeviceMesh`` or a process group; the counterpart of the
+    JAX loader's ``sharding=``): every rank runs its own loader over the
+    same stream of batches, and the worker cuts this rank's block of each
+    array's leading dimension (over the mesh's flattened axes, as
+    ``parallel.sparse_node_block`` does) before the pinned copy, so that a
+    rank copies its own rows only. A field named ``adj_mat`` (of a named
+    tuple or a dict: the dense batch's adjacency) goes to every rank whole.
     """
 
     def __init__(
@@ -201,8 +235,10 @@ class PrefetchLoader:
         depth: int = 2,
         num_batches: Optional[int] = None,
         device=None,
+        shard=None,
     ):
         self._make = make_batch
+        self._block = None if shard is None else rank_block_index(shard)
         self._n = num_batches
         self._device = resolve_device(device)
         self._stream = (torch.cuda.Stream(self._device) if self._device.type == "cuda"
@@ -238,7 +274,10 @@ class PrefetchLoader:
                 if self._n is not None and produced >= self._n:
                     self._put(self._done)
                     return
-                self._put(self._to_device(self._make()))
+                batch = self._make()
+                if self._block is not None:
+                    batch = _rank_block(batch, *self._block)
+                self._put(self._to_device(batch))
                 produced += 1
         except BaseException as e:  # raised again in __next__, never swallowed
             self._error = e

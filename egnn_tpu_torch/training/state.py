@@ -8,8 +8,16 @@ zero-grad, forward, loss, backward and the optimizer step. The optimizers
 are ``torch.optim.Optimizer`` subclasses whose update is the JAX code's
 arithmetic, step for step. They keep their Adam step counts on the
 parameters' device, so a step syncs nothing to the host, and a step with
-``FusedAdam`` can be captured in a CUDA graph. The sharded, ring and
-partitioned steps are not ported yet.
+``FusedAdam`` can be captured in a CUDA graph.
+
+Two multi-process steps (``egnn_tpu/training/state.py:135-164, 229-304``)
+run one process a rank over ``torch.distributed``: the data-parallel dense
+step, ``make_sharded_denoise_train_step`` (the batch split over the mesh's
+``data`` axis, parameters replicated), and the edge-partitioned sparse step,
+``make_partitioned_sparse_train_step``. Each rank differentiates its share
+of the global loss, the gradients are summed over the group in one
+``all_reduce``, and every rank's optimizer takes the same step. The ring
+step (the node-sharded dense path) is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,18 +26,30 @@ from typing import Callable, Iterable, Optional
 
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+
+from ..parallel.collectives import all_reduce_, all_reduce_sum, broadcast_
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor,
-               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               mask: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """MSE over valid entries (reference: F.mse_loss(denoised[masks],
     coords[masks]), denoise_sparse.py:72): the denominator is the mask count
-    times the coordinate width, clamped at 1."""
+    times the coordinate width, clamped at 1.
+
+    ``group``: a process group whose ranks each hold a block of the batch.
+    The denominator is then the group's (summed over it), and the result is
+    this rank's share of the global loss: the shares sum to it."""
     err = (pred - target) ** 2
     if mask is None:
-        return err.mean()
+        if group is None:
+            return err.mean()
+        count = torch.full((), err.numel(), dtype=err.dtype, device=err.device)
+        return err.sum() / all_reduce_sum(count, group)
     m = mask[..., None].to(err.dtype)
     den = mask.sum().to(err.dtype) * pred.shape[-1]
+    if group is not None:
+        den = all_reduce_sum(den, group)
     return (err * m).sum() / den.clamp(min=1.0)
 
 
@@ -222,20 +242,135 @@ def make_denoise_train_step(
     ``deterministic=False``, so a network built with ``dropout > 0`` trains
     there without dropout, and here too.
     """
-    state = TrainState(net, optimizer)
+    def loss(tokens, noised_coors, target_coors, adj_mat, mask):
+        _, denoised = net(tokens, noised_coors, adj_mat=adj_mat, mask=mask)
+        return loss_fn(denoised, target_coors, mask)
 
-    def step(tokens, noised_coors, target_coors, adj_mat, mask):
+    return _make_step(net, optimizer, loss)
+
+
+def _replicate(params: list[torch.Tensor], group) -> None:
+    """Every rank's parameters set to the group's first rank's, in one
+    broadcast of one flat buffer."""
+    with torch.no_grad():
+        flat = broadcast_(torch.cat([p.reshape(-1) for p in params]), group)
+        for p, v in zip(params, flat.split([p.numel() for p in params])):
+            p.copy_(v.view_as(p))
+
+
+def _sum_grads(params: list[torch.Tensor], group) -> None:
+    """Each parameter's gradient summed over ``group`` (zeros where a rank
+    has none), in one ``all_reduce`` of one flat buffer."""
+    flat = all_reduce_(torch.cat([g.reshape(-1) for g in _grads(params)]), group)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad = g.view_as(p)
+
+
+def _make_step(net: nn.Module, optimizer: torch.optim.Optimizer, local_loss: Callable,
+               group=None) -> Callable:
+    """``step(*batch)``: zero-grad, ``local_loss(*batch)`` in eval mode,
+    backward, then the optimizer step through ``TrainState`` and its gate;
+    the loss comes back detached. Under a process group ``local_loss`` is
+    this rank's share of the global loss, and the loss and the gradients are
+    summed over the group before the gate reads them (so that every rank
+    decides alike); the parameters are made equal to the group's first
+    rank's when the step is built."""
+    state = TrainState(net, optimizer)
+    params = list(net.parameters())
+    if group is not None:
+        _replicate(params, group)
+
+    def step(*batch):
         optimizer.zero_grad(set_to_none=True)
         mode = net.training
         net.eval()
         try:
-            _, denoised = net(tokens, noised_coors, adj_mat=adj_mat, mask=mask)
-            loss = loss_fn(denoised, target_coors, mask)
+            loss = local_loss(*batch)
             loss.backward()
         finally:
             net.train(mode)
         loss = loss.detach()
+        if group is not None:
+            loss = all_reduce_(loss.clone(), group)
+            _sum_grads(params, group)
         return loss if state.apply_gradients(loss) else torch.full_like(loss, float("nan"))
 
     step.state = state
     return step
+
+
+def make_sharded_denoise_train_step(
+    net: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    mesh,
+    loss_fn: Callable = masked_mse,
+) -> Callable:
+    """The data-parallel denoising step (``egnn_tpu/training/state.py:
+    make_sharded_denoise_train_step``): the batch split over the mesh's
+    ``data`` axis, the parameters replicated.
+
+    Returns ``step(tokens, noised_coors, target_coors, adj_mat, mask)``,
+    called on every rank with its block of the batch
+    (``parallel.dense_batch_block``) and the whole adjacency. Each rank's
+    loss is ``loss_fn(denoised, target, mask, group=...)``, its share of the
+    global loss (``masked_mse`` divides by the mask count summed over the
+    group); the gradients are summed over the group, so that the step is the
+    one-process step on the whole batch, and the returned loss is the global
+    masked MSE. The same ``TrainState`` and gate as
+    ``make_denoise_train_step`` (``step.state``); on a mesh of one rank the
+    two steps give the same bits.
+
+    A mesh whose ``graph`` axis is longer than 1 (the node-sharded dense
+    path, the ring's) raises ``NotImplementedError``: not ported yet.
+    """
+    if mesh.size(1) > 1:
+        raise NotImplementedError(
+            "a dense mesh with graph > 1 (node sharding through the ring and a row-sharded "
+            "kNN selection) is not ported yet")
+    group = mesh.get_group("data")
+
+    def local_loss(tokens, noised_coors, target_coors, adj_mat, mask):
+        _, denoised = net(tokens, noised_coors, adj_mat=adj_mat, mask=mask)
+        return loss_fn(denoised, target_coors, mask, group=group)
+
+    return _make_step(net, optimizer, local_loss, group)
+
+
+def make_partitioned_sparse_train_step(
+    net: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    mesh_or_group,
+    num_graphs: int = 1,
+) -> Callable:
+    """The edge-partitioned sparse step (``egnn_tpu/training/state.py:
+    make_partitioned_sparse_train_step``): nodes block-sharded over the
+    group, each rank holding the edges whose receivers it owns in the
+    layout of ``parallel.partition_edges`` / ``partition_uniform_edges``.
+    ``net`` is an ``EGNNSparseNetwork`` built with ``shard_axis`` set to the
+    same group: a process group, or a mesh whose ``graph`` axis's group is
+    taken (its ``data`` axis must be 1).
+
+    Returns ``step(x, senders, receivers, edge_mask, edge_attr, batch_ids,
+    clean_coors, node_mask)``, each this rank's block (``edge_attr`` may be
+    ``None``). The loss is the denoising objective, the masked MSE of the
+    output's coordinate block against ``clean_coors`` over the group's
+    valid nodes; the returned loss is the global one, and the gradients are
+    summed over the group.
+    """
+    if isinstance(mesh_or_group, DeviceMesh):
+        if mesh_or_group.size(0) > 1:
+            raise NotImplementedError("the partitioned sparse step shards one axis, graph; "
+                                      "a data axis longer than 1 is not supported")
+        group = mesh_or_group.get_group("graph")
+    else:
+        group = mesh_or_group
+
+    def local_loss(x, senders, receivers, edge_mask, edge_attr, batch_ids, clean, node_mask):
+        out = net(x, torch.stack([senders, receivers]), batch=batch_ids, edge_attr=edge_attr,
+                  edge_mask=edge_mask, num_graphs=num_graphs, node_mask=node_mask)
+        pos = clean.shape[-1]
+        err = (out[:, :pos] - clean) ** 2 * node_mask[:, None].to(out.dtype)
+        den = all_reduce_sum(node_mask.sum().to(err.dtype) * pos, group)
+        return err.sum() / den.clamp(min=1.0)
+
+    return _make_step(net, optimizer, local_loss, group)

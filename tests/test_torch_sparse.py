@@ -388,11 +388,13 @@ def test_aliases_and_exports():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="shard_axis"):
+    # shard_axis and axis_name take a process group (tests/test_torch_
+    # sparse_partition.py runs them); the JAX package's axis names raise
+    with pytest.raises(TypeError, match="shard_axis takes a torch.distributed process group"):
         egnn_tpu_torch.EGNNSparse(feats_dim=4, shard_axis="edges", **F64)
-    with pytest.raises(NotImplementedError, match="shard_axis"):
+    with pytest.raises(TypeError, match="shard_axis takes a torch.distributed process group"):
         egnn_tpu_torch.EGNNSparseNetwork(n_layers=1, feats_dim=4, shard_axis="edges", **F64)
-    with pytest.raises(NotImplementedError, match="shard_axis"):
+    with pytest.raises(TypeError, match="axis_name takes a torch.distributed process group"):
         egnn_tpu_torch.GlobalLinearAttentionSparse(8, axis_name="nodes", **F64)
     # dropout in training mode runs, its masks from the caller's generator
     layer = egnn_tpu_torch.EGNNSparse(feats_dim=4, dropout=0.1, **F64)
