@@ -13,7 +13,9 @@ builder, the molecule trainer through ``PrefetchLoader``, k-hop lists, the
 denoise trainer killed and resumed from its checkpoint), then multi-process
 training (the data-parallel dense step and the edge-partitioned sparse step
 on a one-rank NCCL group and on two ranks sharing the card) and the last two
-examples (``export_serving``, ``denoise --metrics``), checks the outputs,
+examples (``export_serving``, ``denoise --metrics``), then model parallelism
+(the ring, tensor parallelism and the pipeline, on the same two set-ups),
+checks the outputs,
 and times the kernels, the forwards and the train steps (with
 ``egnn_tpu_torch/utils/profiling.py``'s timers and the H100 peaks of its
 ``Roofline``).
@@ -213,7 +215,30 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
 39. ``examples/export_serving.py`` on the card (the anchor-3 forward at
    n = 256 through ``torch.export``, saved, reloaded: bitwise equal to the
    in-process forward, K1 once a layer), and the denoise trainer with
-   ``--metrics`` for 16 micro-steps: one finite JSONL line a micro-step.
+   ``--metrics`` for 16 micro-steps: one finite JSONL line a micro-step;
+40. the ring (``EGNN(ring_axis=group)``, ``make_ring_denoise_train_step``):
+   the all-pairs denoiser (depth 2, dim 64, no kNN, b = 1, n = 1024, with
+   and without ``norm_coors``), 3 steps at one NCCL rank (g = 1) and on two
+   gloo ranks sharing the card (g = 2, 512 nodes a rank) against the
+   one-process streamed step (loss rtol 1e-4; gradients 1e-5 of their
+   largest value, 5e-2 under ``norm_coors`` as phase 32's all-pairs layer);
+   both ranks' parameters bitwise; the ring layer served against the
+   streamed layer; timed beside it (the all-pairs path launches no kernel);
+41. tensor parallelism at model = 2 on the two ranks (``tp_shard_module``):
+   anchor 1's layer (``EGNN(dim=512)``, n = 16), forward and every
+   gradient against the replicated layer in one process; anchor 3's step
+   (b = 8) through ``make_sharded_denoise_train_step`` on a (1, 2) mesh
+   against the replicated step (5e-3 for the self pairs), K1 and K2 depth
+   times a step on each rank; both timed beside their references;
+42. the pipeline (anchor 3's layer settings, depth 4, n = 1024, b = 8 in
+   M = 4 microbatches): at S = 1 (one NCCL rank) ``pipeline_loss``, its
+   gradients and ``pipeline_apply`` bitwise equal to the sequential stack
+   over the same microbatches, K1 16 and K2 12 a loss call; at S = 2 (the
+   two ranks) against the sequential stack in one process, each stage K1 8
+   a call and K2 4 (stage 0, whose first layer's inputs need no gradient)
+   or 8 (stage 1); timed beside the sequential stack. NCCL refuses two
+   ranks on one card, so its point-to-point branch (g, S > 1) needs two
+   cards and is not run here.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -1853,8 +1878,10 @@ def dense_dp_run(torch, net_seed, batch, mesh=None):
     ``make_denoise_train_step``), flat-buffer Adam: the losses, the first
     step's gradients (zeros where a parameter has none, as the sharded
     step's reduction leaves them), the final parameters, the step and the
-    K1 / K2 launches a step."""
-    from egnn_tpu_torch import EGNNNetwork
+    K1 / K2 launches a step. On a (data, model) mesh the network is sharded
+    first (``tp_shard_module``), and its gradients and parameters come back
+    whole."""
+    from egnn_tpu_torch import EGNNNetwork, parallel
     from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
     from egnn_tpu_torch.training import (make_denoise_train_step, make_fused_adam,
                                          make_sharded_denoise_train_step)
@@ -1862,6 +1889,10 @@ def dense_dp_run(torch, net_seed, batch, mesh=None):
     net = EGNNNetwork(depth=DEPTH, dim=DIM, num_tokens=NUM_TOKENS, num_positions=N,
                       layer_kwargs=LAYER_KWARGS, device="cuda",
                       generator=torch.Generator().manual_seed(net_seed))
+    tp = mesh is not None and "model" in mesh.mesh_dim_names
+    if tp:
+        placements = parallel.tp_param_sharding(net, mesh)
+        parallel.tp_shard_module(net, mesh)
     opt = make_fused_adam(net.parameters(), LR)
     step = (make_denoise_train_step(net, opt) if mesh is None
             else make_sharded_denoise_train_step(net, opt, mesh))
@@ -1874,8 +1905,12 @@ def dense_dp_run(torch, net_seed, batch, mesh=None):
                      for name, p in net.named_parameters()}
     torch.cuda.synchronize()
     launches = {k: v / PAR_STEPS for k, v in LAUNCH_COUNTS.items() if v}
+    params = {name: p.detach().clone() for name, p in net.named_parameters()}
+    if tp:
+        grads = whole_tensors(torch, grads, placements, mesh.get_group("model"))
+        params = whole_tensors(torch, params, placements, mesh.get_group("model"))
     return dict(losses=torch.stack(losses), grads=grads, launches=launches, step=step,
-                params={name: p.detach().clone() for name, p in net.named_parameters()})
+                params=params)
 
 
 def sparse_par_run(torch, arm, mb, clean, mesh=None):
@@ -1969,15 +2004,12 @@ def two_rank_main(rank, world, init_method, payload, queue):
             res = sparse_par_run(torch, arm, mb, clean, smesh)
             res["ms"] = time_fn(res["call"], reps=5, warmup=1, stat="median") * 1e3
             out[arm] = res
-        # numpy: a tensor sent through a queue is shared through a file
-        # descriptor that dies with this process
         for res in out.values():
             res.pop("step", None)
             res.pop("call", None)
-            res["losses"] = res["losses"].cpu().numpy()
-            for key in ("grads", "params"):
-                res[key] = {k: v.cpu().numpy() for k, v in res[key].items()}
-        queue.put((rank, True, out))
+        # numpy: a tensor sent through a queue is shared through a file
+        # descriptor that dies with this process
+        queue.put((rank, True, to_numpy(torch, out)))
     except BaseException:
         queue.put((rank, False, traceback.format_exc()))
     finally:
@@ -1985,31 +2017,33 @@ def two_rank_main(rank, world, init_method, payload, queue):
             dist.destroy_process_group()
 
 
-def run_two_ranks(torch, payload, workdir):
-    """Phase 38's two processes, both on cuda:0; fails if either raises or
-    does not report within TWO_RANK_TIMEOUT seconds, and leaves none
-    running. The results come back as tensors on the CPU."""
+def run_two_ranks(torch, payload, workdir, target=None, what="phase 38",
+                  timeout=TWO_RANK_TIMEOUT):
+    """Two processes running ``target`` (phase 38's ``two_rank_main`` by
+    default), both on cuda:0; fails if either raises or does not report
+    within ``timeout`` seconds, and leaves none running. The results come
+    back with their numpy arrays as tensors on the CPU."""
     import multiprocessing as mp
     import queue as queues
 
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    init = f"file://{workdir / 'two_rank_store'}"
-    procs = [ctx.Process(target=two_rank_main, args=(r, 2, init, payload, queue))
+    init = f"file://{workdir / f'two_rank_store_{time.monotonic_ns()}'}"
+    procs = [ctx.Process(target=target or two_rank_main, args=(r, 2, init, payload, queue))
              for r in range(2)]
     for p in procs:
         p.start()
     results = {}
     try:
-        deadline = time.monotonic() + TWO_RANK_TIMEOUT
+        deadline = time.monotonic() + timeout
         while len(results) < 2:
             try:
                 rank, ok, value = queue.get(timeout=max(0.1, deadline - time.monotonic()))
             except queues.Empty as e:
-                raise AssertionError(f"phase 38: ranks {sorted({0, 1} - set(results))} did not "
-                                     f"report within {TWO_RANK_TIMEOUT} s") from e
+                raise AssertionError(f"{what}: ranks {sorted({0, 1} - set(results))} did not "
+                                     f"report within {timeout} s") from e
             if not ok:
-                raise AssertionError(f"phase 38: rank {rank} failed:\n{value}")
+                raise AssertionError(f"{what}: rank {rank} failed:\n{value}")
             results[rank] = value
     finally:
         for p in procs:
@@ -2017,12 +2051,7 @@ def run_two_ranks(torch, payload, workdir):
             if p.is_alive():
                 p.kill()
                 p.join(timeout=30)
-    for out in results.values():
-        for res in out.values():
-            res["losses"] = torch.from_numpy(res["losses"])
-            for key in ("grads", "params"):
-                res[key] = {k: torch.from_numpy(v) for k, v in res[key].items()}
-    return [results[0], results[1]]
+    return [from_numpy(torch, results[0]), from_numpy(torch, results[1])]
 
 
 def compare_runs(torch, what, got, ref, grad_tol, loss_rtol=PAR_LOSS_RTOL, bitwise=False):
@@ -2226,6 +2255,510 @@ def parallel_phases(torch, smi):
         raise AssertionError("denoise --metrics: the metrics file is not one finite line a step")
     shutil.rmtree(work, ignore_errors=True)
     print(f"phase 39: {time.perf_counter() - t_phase:.1f} s")
+
+
+# phases 40-42: model parallelism. The ring: the all-pairs denoiser at the
+# streamed layer's width (phase 32: dim 64, norm_coors and not), depth cut
+# to 2, n = 1024; tensor parallelism: anchor 1's layer and anchor 3's step
+# at model = 2; the pipeline: anchor 3's layer settings at n = 1024, b = 8,
+# in 4 microbatches over a stack of depth 4
+RING_DEPTH, RING_DIM = 2, 64
+PIPE_DEPTH, PIPE_M = 4, 4
+MP_TIMEOUT = 300     # seconds for both ranks of phases 40-42 to report
+
+
+def pipe_mb_loss(feats, coors, target, mask):
+    """The pipeline's microbatch loss: anchor 3's masked MSE."""
+    from egnn_tpu_torch.training import masked_mse
+
+    return masked_mse(coors, target, mask)
+
+
+def launches_now(torch):
+    from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS
+
+    torch.cuda.synchronize()
+    return {k: v for k, v in LAUNCH_COUNTS.items() if v}
+
+
+def ring_run(torch, norm, batch, mesh=None):
+    """PAR_STEPS steps (flat-buffer Adam) of the all-pairs denoiser
+    (``EGNNNetwork`` depth 2, dim 64, no kNN) on ``batch`` = (tokens, noised,
+    clean, mask): with ``mesh`` this rank's node block through
+    ``make_ring_denoise_train_step`` (the layers' ring on the mesh's graph
+    group), else the whole batch through ``make_denoise_train_step`` (the
+    one-process streamed layer). The losses, the first step's gradients,
+    the final parameters, the launches and the step."""
+    from egnn_tpu_torch import EGNNNetwork
+    from egnn_tpu_torch.ops.cuda import reset_launch_counts
+    from egnn_tpu_torch.training import (make_denoise_train_step, make_fused_adam,
+                                         make_ring_denoise_train_step)
+
+    kw = dict(norm_coors=norm)
+    if mesh is not None:
+        kw["ring_axis"] = mesh.get_group("graph")
+    net = EGNNNetwork(depth=RING_DEPTH, dim=RING_DIM, num_tokens=NUM_TOKENS, layer_kwargs=kw,
+                      device="cuda", generator=torch.Generator().manual_seed(SEED + 40))
+    opt = make_fused_adam(net.parameters(), LR)
+    if mesh is None:
+        plain = make_denoise_train_step(net, opt)
+
+        def step(tokens, noised, clean, mask):
+            return plain(tokens, noised, clean, None, mask)
+    else:
+        step = make_ring_denoise_train_step(net, opt, mesh)
+    reset_launch_counts()
+    losses, grads = [], None
+    for i in range(PAR_STEPS):
+        losses.append(step(*batch))
+        if i == 0:
+            grads = {name: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                     for name, p in net.named_parameters()}
+    return dict(losses=torch.stack(losses), grads=grads, launches=launches_now(torch),
+                params={name: p.detach().clone() for name, p in net.named_parameters()},
+                call=lambda: step(*batch))
+
+
+def ring_layer_forward(torch, feats, coors, mask, group=None):
+    """One all-pairs layer (dim 64, norm_coors) served: the ring over
+    ``group`` on this rank's node block, else the streamed layer."""
+    from egnn_tpu_torch import EGNN
+
+    layer = EGNN(dim=RING_DIM, norm_coors=True, ring_axis=group, device="cuda",
+                 generator=torch.Generator().manual_seed(SEED + 401)).eval()
+
+    def call():
+        with torch.no_grad():
+            return layer(feats, coors, mask=mask)
+
+    return call
+
+
+def whole_tensors(torch, tensors, placements, group):
+    """Tensors by parameter name, each sharded one gathered whole over the
+    model group (``placements``: ``tp_param_sharding``'s)."""
+    from torch.distributed.tensor import Shard
+
+    from egnn_tpu_torch.parallel.collectives import gather_from_group
+
+    with torch.no_grad():
+        return {k: gather_from_group(v, group, placements[k].dim)
+                if isinstance(placements[k], Shard) else v.clone()
+                for k, v in tensors.items()}
+
+
+def tp_layer_run(torch, feats, coors, mesh=None):
+    """Anchor 1's layer (``EGNN(dim=512)``, n = 16), sharded over the
+    mesh's model group where ``mesh`` is given: the output and the
+    gradients of (fo**2).mean() + (co**2).mean() with respect to the
+    features and every parameter (whole), and the call."""
+    from egnn_tpu_torch import EGNN, parallel
+
+    layer = EGNN(dim=DIM_ANCHOR12, device="cuda",
+                 generator=torch.Generator().manual_seed(SEED + 41))
+    placements = group = None
+    if mesh is not None:
+        placements = parallel.tp_param_sharding(layer, mesh)
+        group = mesh.get_group("model")
+        parallel.tp_shard_module(layer, mesh)
+    names = [k for k, _ in layer.named_parameters()]
+
+    def fb():
+        f = feats.detach().requires_grad_()
+        fo, co = layer(f, coors)
+        grads = torch.autograd.grad((fo ** 2).mean() + (co ** 2).mean(),
+                                    [f] + list(layer.parameters()))
+        return fo.detach(), co.detach(), grads
+
+    fo, co, grads = fb()
+    named = dict(zip(names, grads[1:]))
+    if mesh is not None:
+        named = whole_tensors(torch, named, placements, group)
+    return dict(out=(fo, co), feats_grad=grads[0], grads=named, call=fb,
+                sharded=sorted(layer.tp_sharded))
+
+
+def pipe_batch(torch, seed):
+    """Anchor 3's inputs at b = 8 for the pipeline: random features of the
+    layer's width, the noised chain, its clean coordinates, mask and chain
+    adjacency."""
+    import numpy as np
+
+    from egnn_tpu_torch.training import synthetic_chain_batch
+
+    rq = synthetic_chain_batch(np.random.default_rng(seed), DP_BATCH, N, device="cuda")
+    feats = torch.randn(DP_BATCH, N, DIM, generator=torch.Generator().manual_seed(seed))
+    return feats.cuda(), rq.noised_coors, rq.clean_coors, rq.mask, rq.adj_mat
+
+
+def pipe_stack(torch):
+    """The stack's layers (anchor 3's settings, depth 4, seeds fixed) and
+    their stacked parameters."""
+    from egnn_tpu_torch import EGNN, parallel
+
+    layers = [EGNN(dim=DIM, **LAYER_KWARGS, device="cuda",
+                   generator=torch.Generator().manual_seed(SEED + 420 + i))
+              for i in range(PIPE_DEPTH)]
+    return layers[0], parallel.stack_layer_params(layers)
+
+
+def pipe_run(torch, batch, group):
+    """``make_pipelined_loss`` and ``make_pipelined_apply`` over ``group``:
+    the loss, this stage's rows of the stacked parameters' gradients, the
+    outputs, the launches of one loss call (forward and backward) and of one
+    apply, and the two calls."""
+    from egnn_tpu_torch import parallel
+    from egnn_tpu_torch.ops.cuda import reset_launch_counts
+
+    feats, noised, clean, mask, adj = batch
+    layer, stacked = pipe_stack(torch)
+    S, r = torch.distributed.get_world_size(group), torch.distributed.get_rank(group)
+    block = parallel.stage_block(parallel.to_stages(stacked, S), group)
+    loss_fn = parallel.make_pipelined_loss(layer, group, PIPE_M, pipe_mb_loss)
+    apply = parallel.make_pipelined_apply(layer, group, PIPE_M)
+
+    def loss_call():
+        for v in stacked.values():
+            v.grad = None
+        loss = loss_fn(block, feats, noised, clean, mask=mask, adj_mat=adj)
+        loss.backward()
+        return loss.detach()
+
+    def apply_call():
+        with torch.no_grad():
+            return apply(block, feats, noised, mask=mask, adj_mat=adj)
+
+    reset_launch_counts()
+    loss = loss_call()
+    loss_launches = launches_now(torch)
+    L = PIPE_DEPTH // S
+    grads = {k: v.grad[r * L:(r + 1) * L].detach().clone() for k, v in stacked.items()}
+    reset_launch_counts()
+    out = apply_call()
+    return dict(loss=loss, grads=grads, out=out, loss_launches=loss_launches,
+                apply_launches=launches_now(torch), loss_call=loss_call, apply_call=apply_call)
+
+
+def pipe_sequential(torch, batch):
+    """The sequential stack over the same microbatches in one process: the
+    microbatch-mean loss, the stacked parameters' gradients, the outputs,
+    and the two calls."""
+    from torch.func import functional_call
+
+    feats, noised, clean, mask, adj = batch
+    layer, stacked = pipe_stack(torch)
+    mb = DP_BATCH // PIPE_M
+
+    def run(grad):
+        losses, outs = [], []
+        with torch.set_grad_enabled(grad):
+            for i in range(PIPE_M):
+                sl = slice(i * mb, (i + 1) * mb)
+                f, c = feats[sl], noised[sl]
+                for li in range(PIPE_DEPTH):
+                    f, c = functional_call(layer, {k: v[li] for k, v in stacked.items()},
+                                           (f, c), dict(mask=mask[sl], adj_mat=adj))
+                outs.append((f, c))
+                losses.append(pipe_mb_loss(f, c, clean[sl], mask[sl]))
+        return torch.stack(losses).sum() / PIPE_M, outs
+
+    def loss_call():
+        for v in stacked.values():
+            v.grad = None
+        loss, _ = run(True)
+        loss.backward()
+        return loss.detach()
+
+    def apply_call():
+        _, outs = run(False)
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    loss = loss_call()
+    return dict(loss=loss, grads={k: v.grad.detach().clone() for k, v in stacked.items()},
+                out=apply_call(), loss_call=loss_call, apply_call=apply_call)
+
+
+def model_parallel_rank_main(rank, world, init_method, payload, queue):
+    """Phases 40-42's rank: gloo on cuda:0 (two ranks share the card), the
+    ring (its node block of the batch, the layer's forward), tensor
+    parallelism at model = 2 (anchor 1's layer, anchor 3's step) and the
+    pipeline at S = 2; each path timed as a call. Results to the parent as
+    numpy arrays."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from egnn_tpu_torch import parallel
+        from egnn_tpu_torch.ops.cuda import build
+        from egnn_tpu_torch.utils.profiling import time_fn
+
+        build.build_all()      # built by the parent: loads the libraries
+        parallel.initialize(backend="gloo", init_method=init_method, world_size=world,
+                            rank=rank, device="cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cuda = lambda ts: tuple(t.cuda() for t in ts)  # noqa: E731
+        out = {}
+        mesh = parallel.make_mesh(1, world)
+        ring_batch = tuple(parallel.dense_batch_block(mesh, t) for t in cuda(payload["ring"]))
+        for norm in (True, False):
+            res = ring_run(torch, norm, ring_batch, mesh)
+            res["ms"] = time_fn(res.pop("call"), reps=5, warmup=1, stat="median") * 1e3
+            out[f"ring_{norm}"] = res
+        feats, coors, mask = (parallel.dense_batch_block(mesh, t)
+                              for t in cuda(payload["ring_layer"]))
+        call = ring_layer_forward(torch, feats, coors, mask, mesh.get_group("graph"))
+        out["ring_layer"] = dict(out=call(), ms=time_fn(call, reps=5, warmup=1,
+                                                       stat="median") * 1e3)
+        tp_mesh = parallel.make_tp_mesh(1, world)
+        res = tp_layer_run(torch, *cuda(payload["anchor1"]), tp_mesh)
+        res["ms"] = time_fn(res.pop("call"), reps=30, warmup=5, stat="median") * 1e3
+        out["tp_layer"] = res
+        batch = cuda(payload["dense"])
+        res = dense_dp_run(torch, SEED + 41, batch, tp_mesh)
+        step = res.pop("step")
+        res["ms"] = time_fn(lambda: step(*batch), reps=10, warmup=2, stat="median") * 1e3
+        out["tp_step"] = res
+        res = pipe_run(torch, cuda(payload["pipe"]), dist.group.WORLD)
+        res["loss_ms"] = time_fn(res.pop("loss_call"), reps=5, warmup=1, stat="median") * 1e3
+        res["apply_ms"] = time_fn(res.pop("apply_call"), reps=5, warmup=1, stat="median") * 1e3
+        out["pipe"] = res
+        # numpy: a tensor sent through a queue is shared through a file
+        # descriptor that dies with this process
+        queue.put((rank, True, to_numpy(torch, out)))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def to_numpy(torch, obj):
+    """Every tensor in nested dicts, lists and tuples as a numpy array on
+    the host."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: to_numpy(torch, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_numpy(torch, v) for v in obj)
+    return obj
+
+
+def from_numpy(torch, obj):
+    """``to_numpy``'s inverse, on the host."""
+    import numpy as np
+
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj)
+    if isinstance(obj, dict):
+        return {k: from_numpy(torch, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(from_numpy(torch, v) for v in obj)
+    return obj
+
+
+def model_parallel_phases(torch, smi):
+    """Phases 40-42: the ring, tensor parallelism and the pipeline on the
+    card: a one-rank NCCL group in this process (g = 1, S = 1: nothing is
+    permuted; NCCL refuses two ranks on one card), then two spawned ranks
+    sharing the card under gloo, each path against its one-process
+    reference and timed beside it. Raises on a failure."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from egnn_tpu_torch import parallel
+    from egnn_tpu_torch.training import synthetic_chain_batch
+    from egnn_tpu_torch.utils.profiling import time_fn
+
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=root / "build"))
+    t_start = time.perf_counter()
+    rq = synthetic_chain_batch(np.random.default_rng(SEED + 400), 1, N, device="cuda")
+    ring_batch = (rq.tokens, rq.noised_coors, rq.clean_coors, rq.mask)
+    g40 = torch.Generator().manual_seed(SEED + 402)
+    ring_layer_in = (torch.randn(1, N, RING_DIM, generator=g40).cuda(), rq.noised_coors,
+                     rq.mask)
+    g41 = torch.Generator().manual_seed(SEED + 410)
+    anchor1 = (torch.randn(1, N_ANCHOR12, DIM_ANCHOR12, generator=g41).cuda(),
+               torch.randn(1, N_ANCHOR12, 3, generator=g41).cuda())
+    rq8 = synthetic_chain_batch(np.random.default_rng(SEED + 411), DP_BATCH, N, device="cuda")
+    dense = (rq8.tokens, rq8.noised_coors, rq8.clean_coors, rq8.adj_mat, rq8.mask)
+    pipe_in = pipe_batch(torch, SEED + 420)
+
+    def timed_pair(a, b):
+        """Two calls timed in turns (a, b, b, a), medians of 3 after 1 as
+        calls."""
+        ta = [time_fn(a, reps=3, warmup=1, stat="median") * 1e3]
+        tb = [time_fn(b, reps=3, warmup=1, stat="median") * 1e3]
+        tb.append(time_fn(b, reps=3, warmup=1, stat="median") * 1e3)
+        ta.append(time_fn(a, reps=3, warmup=1, stat="median") * 1e3)
+        return ta, tb
+
+    # ---- 40 and 42 at one NCCL rank: g = 1 and S = 1 ----
+    t_phase = time.perf_counter()
+    parallel.initialize(backend="nccl", init_method=f"file://{work / 'nccl_store'}",
+                        world_size=1, rank=0)
+    mesh = parallel.make_mesh(1, 1)
+    ring_ref = {}
+    for norm in (True, False):
+        ref = ring_ref[norm] = ring_run(torch, norm, ring_batch)
+        got = ring_run(torch, norm, ring_batch, mesh)
+        tol = STREAM_NORM_COORS_GRAD_TOL if norm else PAR_GRAD_TOL
+        compare_runs(torch, f"phase 40, the ring step at one NCCL rank (g = 1: one block of "
+                     f"{N} x {N} pairs a layer), norm_coors={norm}, against the streamed step",
+                     got, ref, tol)
+        print(f"phase 40 launches over {PAR_STEPS} steps: ring {got['launches']}, streamed "
+              f"{ref['launches']} (the all-pairs path runs no kernel of the port: plain torch, "
+              f"as the JAX package's runs outside any Pallas kernel)")
+        t_ref, t_got = timed_pair(ref["call"], got["call"])
+        print(f"timing on {smi}: the depth-2 dim-64 all-pairs step at n = {N} as a call "
+              f"(median of 3 after 1), streamed {t_ref[0]:.4f}/{t_ref[1]:.4f} ms, the ring at "
+              f"one NCCL rank {t_got[0]:.4f}/{t_got[1]:.4f} ms")
+        del got
+    stream_call = ring_layer_forward(torch, *ring_layer_in)
+    ring_call = ring_layer_forward(torch, *ring_layer_in, group=mesh.get_group("graph"))
+    ref_out, got_out = stream_call(), ring_call()
+    err = max((a - b_).abs().max().item() for a, b_ in zip(got_out, ref_out))
+    t_ref, t_got = timed_pair(stream_call, ring_call)
+    print(f"phase 40, the ring layer served at one NCCL rank against the streamed layer: "
+          f"max err {err:.3e} (atol {GPU_VS_CPU_ATOL}); as a call {t_got[0]:.4f}/{t_got[1]:.4f} "
+          f"ms against {t_ref[0]:.4f}/{t_ref[1]:.4f} ms on {smi}")
+    if err > GPU_VS_CPU_ATOL:
+        raise AssertionError("phase 40: the ring layer disagrees with the streamed layer")
+    del stream_call, ring_call
+    torch.cuda.empty_cache()
+
+    seq = pipe_sequential(torch, pipe_in)
+    one = pipe_run(torch, pipe_in, mesh.get_group("graph"))
+    same = (same_bits(torch, one["loss"], seq["loss"])
+            and all(same_bits(torch, one["grads"][k], seq["grads"][k]) for k in seq["grads"])
+            and all(same_bits(torch, a, b_) for a, b_ in zip(one["out"], seq["out"])))
+    print(f"phase 42, the pipeline at S = 1 (one NCCL rank) against the sequential stack over "
+          f"the same {PIPE_M} microbatches: loss, every gradient and the outputs bitwise={same}; "
+          f"launches a loss call (forward and backward) {one['loss_launches']}, an apply "
+          f"{one['apply_launches']}")
+    if not same:
+        raise AssertionError("phase 42: the pipeline at S = 1 is not bitwise the sequential "
+                             "stack")
+    need = {"knn_select_gather": PIPE_M * PIPE_DEPTH, "segment_sum": PIPE_M * (PIPE_DEPTH - 1)}
+    if not (all(one["loss_launches"].get(k) == v for k, v in need.items())
+            and one["apply_launches"].get("knn_select_gather") == PIPE_M * PIPE_DEPTH):
+        raise AssertionError(f"phase 42: S = 1 launched other than {need}")
+    for key in ("loss_call", "apply_call"):
+        t_seq, t_one = timed_pair(seq[key], one[key])
+        print(f"timing on {smi}: {key[:-5]} over depth {PIPE_DEPTH}, b = {DP_BATCH} in {PIPE_M} "
+              f"microbatches as a call (median of 3 after 1): sequential "
+              f"{t_seq[0]:.4f}/{t_seq[1]:.4f} ms, the pipeline at S = 1 "
+              f"{t_one[0]:.4f}/{t_one[1]:.4f} ms")
+    del one
+    dist.destroy_process_group()
+    print(f"phases 40 and 42 at one NCCL rank: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 40-42 on two ranks sharing the card (gloo) ----
+    t_phase = time.perf_counter()
+    cpu = lambda ts: tuple(t.detach().cpu() for t in ts)  # noqa: E731
+    ranks = run_two_ranks(torch, dict(ring=cpu(ring_batch), ring_layer=cpu(ring_layer_in),
+                                      anchor1=cpu(anchor1), dense=cpu(dense),
+                                      pipe=cpu(pipe_in)),
+                          work, target=model_parallel_rank_main, what="phases 40-42",
+                          timeout=MP_TIMEOUT)
+    print(f"phases 40-42's two ranks: {time.perf_counter() - t_phase:.1f} s")
+
+    # 40: the ring at g = 2
+    for norm in (True, False):
+        tol = STREAM_NORM_COORS_GRAD_TOL if norm else PAR_GRAD_TOL
+        key = f"ring_{norm}"
+        for r, res in enumerate(ranks):
+            compare_runs(torch, f"phase 40 rank {r}, the ring step at g = 2 ({N // 2} nodes a "
+                         f"rank), norm_coors={norm}, against the streamed step in one process",
+                         res[key], ring_ref[norm], tol)
+        a, b_ = ranks[0][key], ranks[1][key]
+        same = all(same_bits(torch, a["params"][k], b_["params"][k]) for k in a["params"])
+        print(f"phase 40 ring step, norm_coors={norm}: the two ranks' parameters after "
+              f"{PAR_STEPS} steps bitwise equal={same}; launches rank 0 {a['launches']}, rank 1 "
+              f"{b_['launches']}; a step {a['ms']:.4f} / {b_['ms']:.4f} ms as a call on each rank "
+              f"(two ranks sharing one card, gloo through host memory: not a scaling number) "
+              f"on {smi}")
+        if not same:
+            raise AssertionError(f"phase 40: the ranks' parameters differ (norm_coors={norm})")
+    got = [torch.cat([r["ring_layer"]["out"][i] for r in ranks], dim=1) for i in range(2)]
+    ref_out = [t.cpu() for t in ref_out]
+    err = max((a - b_).abs().max().item() for a, b_ in zip(got, ref_out))
+    print(f"phase 40, the ring layer served at g = 2 against the streamed layer: max err "
+          f"{err:.3e} (atol {GPU_VS_CPU_ATOL}); a call {ranks[0]['ring_layer']['ms']:.4f} / "
+          f"{ranks[1]['ring_layer']['ms']:.4f} ms on each rank")
+    if err > GPU_VS_CPU_ATOL:
+        raise AssertionError("phase 40: the ring layer at g = 2 disagrees")
+    del ring_ref
+
+    # 41: tensor parallelism at model = 2
+    ref = tp_layer_run(torch, *anchor1)
+    for r, res in enumerate(ranks):
+        res = res["tp_layer"]
+        ef = max((a - b_.cpu()).abs().max().item() for a, b_ in zip(res["out"], ref["out"]))
+        eg = max([grad_err(torch, res["feats_grad"], ref["feats_grad"])]
+                 + [grad_err(torch, res["grads"][k], ref["grads"][k]) for k in ref["grads"]])
+        print(f"phase 41 rank {r}, anchor 1's layer (dim {DIM_ANCHOR12}, n = {N_ANCHOR12}) at "
+              f"model = 2 ({res['sharded']} sharded) against the replicated layer: forward max "
+              f"err {ef:.3e} (atol {GPU_VS_CPU_ATOL}), gradients (the features' and every "
+              f"parameter's, whole) up to {eg:.3e} of their largest value (tol {PAR_GRAD_TOL})")
+        if not (ef <= GPU_VS_CPU_ATOL and eg <= PAR_GRAD_TOL
+                and res["sharded"] == ["coors_mlp", "edge_mlp", "node_mlp"]):
+            raise AssertionError("phase 41: anchor 1's layer under tensor parallelism disagrees")
+    t_rep = call_ms(torch, ref["call"])
+    print(f"timing on {smi}: anchor 1's fwd+bwd as a call (median of 30 after 5), replicated in "
+          f"one process {t_rep:.4f} ms, at model = 2 {ranks[0]['tp_layer']['ms']:.4f} / "
+          f"{ranks[1]['tp_layer']['ms']:.4f} ms on each rank (two ranks on one card, gloo)")
+    ref = dense_dp_run(torch, SEED + 41, dense)
+    for r, res in enumerate(ranks):
+        compare_runs(torch, f"phase 41 rank {r}, anchor 3's step (b = {DP_BATCH}) at model = 2 "
+                     f"against the replicated step", res["tp_step"], ref, PAR_GRAD_TOL_SELF_PAIRS)
+    a, b_ = ranks[0]["tp_step"], ranks[1]["tp_step"]
+    same = all(same_bits(torch, a["params"][k], b_["params"][k]) for k in a["params"])
+    t_rep = call_ms(torch, lambda: ref["step"](*dense), iters=10, warmup=2)
+    print(f"phase 41 anchor 3's step: the two ranks' parameters (whole) after {PAR_STEPS} steps "
+          f"bitwise equal={same}; launches a step rank 0 {a['launches']}, rank 1 "
+          f"{b_['launches']}; a step {a['ms']:.4f} / {b_['ms']:.4f} ms as a call on each rank, "
+          f"the replicated step {t_rep:.4f} ms in one process, on {smi}")
+    if not (same and all(res["tp_step"]["launches"].get(k) == DEPTH for res in ranks
+                         for k in ("knn_select_gather", "segment_sum"))):
+        raise AssertionError("phase 41: the ranks' parameters differ or K1 and K2 did not run "
+                             "depth times a step")
+    del ref
+
+    # 42: the pipeline at S = 2
+    L = PIPE_DEPTH // 2
+    for r, res in enumerate(ranks):
+        res = res["pipe"]
+        loss_err = grad_err(torch, res["loss"], seq["loss"])
+        g_err = max(grad_err(torch, res["grads"][k], seq["grads"][k][r * L:(r + 1) * L])
+                    for k in seq["grads"])
+        ef = max((a - b_.cpu()).abs().max().item() for a, b_ in zip(res["out"], seq["out"]))
+        print(f"phase 42 stage {r} of 2: pipeline_loss {res['loss'].item():.6f} against "
+              f"{seq['loss'].item():.6f} (error {loss_err:.3e}, rtol {PAR_LOSS_RTOL}), its "
+              f"layers' gradients up to {g_err:.3e} of their largest value (tol "
+              f"{PAR_GRAD_TOL_SELF_PAIRS}), pipeline_apply's outputs max err {ef:.3e} (atol "
+              f"{GPU_VS_CPU_ATOL}); launches a loss call {res['loss_launches']}, an apply "
+              f"{res['apply_launches']}; a loss call {res['loss_ms']:.4f} ms, an apply "
+              f"{res['apply_ms']:.4f} ms (two ranks on one card, gloo)")
+        k2 = PIPE_M * (L - 1 if r == 0 else L)
+        if not (loss_err <= PAR_LOSS_RTOL and g_err <= PAR_GRAD_TOL_SELF_PAIRS
+                and ef <= GPU_VS_CPU_ATOL
+                and res["loss_launches"].get("knn_select_gather") == PIPE_M * L
+                and res["loss_launches"].get("segment_sum") == k2
+                and res["apply_launches"].get("knn_select_gather") == PIPE_M * L):
+            raise AssertionError(f"phase 42 stage {r}: out of tolerance or launched other than "
+                                 f"K1 {PIPE_M * L}, K2 {k2}")
+    del seq, ranks
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phases 40-42: {time.perf_counter() - t_start:.1f} s")
 
 
 def sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, serving, steps):
@@ -4223,6 +4756,7 @@ def main() -> int:
     dense_option_phases(torch)
     host_runtime_phases(torch, smi)
     parallel_phases(torch, smi)
+    model_parallel_phases(torch, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

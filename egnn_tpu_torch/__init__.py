@@ -14,8 +14,8 @@ the spatial grid beyond), also through the fused pair pipeline
 (``fused_pairs``, ``fused_knn``), and over all pairs, materialised or
 streamed in j-chunks (``egnn_tpu_torch.ops.pairwise_stream``), with dropout
 in training mode, ``compute_dtype`` mixed precision and global linear
-attention (``Attention``, ``GlobalLinearAttention``); only ``ring_axis`` is
-left; the sparse family, ``EGNNSparse`` and
+attention (``Attention``, ``GlobalLinearAttention``); the sparse family,
+``EGNNSparse`` and
 ``EGNNSparseNetwork`` (with ``AttentionSparse`` and
 ``GlobalLinearAttentionSparse``; aliases ``EGNN_Sparse`` and
 ``EGNN_Sparse_Network``) over COO edges from the graph builders of
@@ -37,7 +37,12 @@ roofline (``utils``), weights carried from egnn-pytorch
 plain PyTorch path); multi-process training (``egnn_tpu_torch.parallel``:
 the process runtime, the (data, graph) mesh, the edge-partitioned sparse
 layout, and in ``training`` the data-parallel dense and edge-partitioned
-sparse steps). See ROADMAP.md for what is still to be ported.
+sparse steps) and model parallelism (the ring of node blocks,
+``EGNN(ring_axis=group)`` and ``training.make_ring_denoise_train_step``;
+tensor parallelism of the dense MLPs, ``parallel.tp_shard_module``; the
+pipeline, ``parallel.make_pipelined_apply`` / ``make_pipelined_loss``), run
+by gloo ranks on the CPU and on the card. See ROADMAP.md for what is still
+to be ported.
 """
 
 from .models.attention import Attention, GlobalLinearAttention

@@ -54,8 +54,22 @@ Reference quirks kept on purpose: ``valid_radius`` acts only with a
 the self slot; without a mask the mean divisor is k (n on the all-pairs
 paths).
 
-Not ported yet (it raises ``NotImplementedError``): ``ring_axis``, the
-node-sharded all-pairs layer of ``parallel/``.
+Model parallelism (``egnn_tpu_torch.parallel``):
+- ``ring_axis=group`` (a ``torch.distributed`` process group, where the JAX
+  package takes a mesh axis name) shards the nodes over the group: the
+  layer takes the streamed all-pairs branch, with its j-blocks visiting
+  around the ring (``parallel/ring.py:ring_pairwise``); without a mask the
+  mean divisor is n_local times the group's size. kNN,
+  ``only_sparse_neighbors``, dense ``edges`` and dropout in training mode
+  are refused with ``ValueError``: each would compute shard-local
+  neighbourhoods only.
+- ``parallel/tp.py:tp_shard_module`` leaves each rank of a ``model`` group
+  its shards of the MLPs' weights (``tp_group``, ``tp_sharded``); the
+  layer then computes the Megatron split of each sharded MLP pair (the
+  first product on the local columns, the nonlinearity, the second on the
+  local rows, one sum over the group, the replicated bias) on every path.
+  The fused kernels take whole weights: under a fused flag the sharded
+  weights are gathered whole first (``gather_from_group``).
 """
 from __future__ import annotations
 
@@ -63,6 +77,7 @@ import inspect
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -78,6 +93,9 @@ from ..ops.core import (
 )
 from ..ops.cuda import pair_messages as pm
 from ..ops.pairwise_stream import PairwiseParams, streamed_pairwise
+from ..parallel.collectives import (check_group, copy_to_group, gather_from_group,
+                                    reduce_from_group)
+from ..parallel.ring import ring_pairwise
 from . import init as inits
 from .attention import GlobalLinearAttention
 from .init import ParamFactory
@@ -90,6 +108,12 @@ class EGNN(nn.Module):
     (default ``"cuda"``), ``dtype`` and ``generator`` say where and how the
     parameters are made.
     """
+
+    # tensor parallelism (parallel/tp.py:tp_shard_module sets both): the
+    # model group, and the MLPs ("edge_mlp", "coors_mlp", "node_mlp") whose
+    # weights this rank holds a shard of
+    tp_group = None
+    tp_sharded: frozenset = frozenset()
 
     def __init__(
         self,
@@ -112,7 +136,7 @@ class EGNN(nn.Module):
         coor_weights_clamp_value: Optional[float] = None,
         stream_pairwise: Optional[bool] = None,
         pairwise_chunk: Optional[int] = None,
-        ring_axis: Optional[str] = None,
+        ring_axis=None,
         fused_knn: bool = False,
         fused_pairs: bool = False,
         compute_dtype: Optional[torch.dtype] = None,
@@ -128,8 +152,11 @@ class EGNN(nn.Module):
             raise ValueError("pool method must be either sum or mean")
         if not (update_feats or update_coors):
             raise ValueError("you must update either features, coordinates, or both")
-        if ring_axis:
-            raise NotImplementedError("EGNN(ring_axis=...) is not ported yet")
+        check_group(ring_axis, "ring_axis")
+        if ring_axis is not None and (num_nearest_neighbors > 0 or only_sparse_neighbors):
+            raise ValueError("ring_axis takes the all-pairs layer: no kNN or "
+                             "only_sparse_neighbors, which would select shard-local "
+                             "neighbourhoods only")
         self.dim = dim
         self.edge_dim = edge_dim
         self.m_dim = m_dim
@@ -147,6 +174,7 @@ class EGNN(nn.Module):
         self.coor_weights_clamp_value = coor_weights_clamp_value
         self.stream_pairwise = stream_pairwise
         self.pairwise_chunk = pairwise_chunk
+        self.ring_axis = ring_axis
         self.fused_knn = fused_knn
         self.fused_pairs = fused_pairs
         self.compute_dtype = compute_dtype
@@ -189,6 +217,35 @@ class EGNN(nn.Module):
         """Mixed-precision cast of the message path (identity by default)."""
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
 
+    def _col(self, mlp: str, x):
+        """The input of ``mlp``'s first (column-parallel) product: under
+        tensor parallelism its gradient is summed over the model group."""
+        return copy_to_group(x, self.tp_group) if mlp in self.tp_sharded else x
+
+    def _row(self, mlp: str, y):
+        """``mlp``'s second (row-parallel) product before its bias: under
+        tensor parallelism the ranks' partial products are summed."""
+        return reduce_from_group(y, self.tp_group) if mlp in self.tp_sharded else y
+
+    def _whole(self, name: str):
+        """A parameter whole: a shard (``<mlp>_0_w`` of columns, ``<mlp>_0_b``,
+        ``<mlp>_1_w`` of rows) gathered over the model group, for the fused
+        kernels."""
+        p = getattr(self, name)
+        mlp, part = name.rsplit("_", 2)[0], name[-3:]
+        if mlp not in self.tp_sharded or part not in ("0_w", "0_b", "1_w"):
+            return p
+        return gather_from_group(p, self.tp_group, 1 if part == "0_w" else 0)
+
+    def _edge_weights(self, whole: bool = False):
+        """The blocks of the edge MLP's first weight, [Wi; Wj; Wd; We], and
+        its bias (this rank's columns under tensor parallelism, or whole)."""
+        d = self.dim
+        w1 = self._whole("edge_mlp_0_w") if whole else self.edge_mlp_0_w
+        b1 = self._whole("edge_mlp_0_b") if whole else self.edge_mlp_0_b
+        return (w1[:d], w1[d:2 * d], w1[2 * d:2 * d + self.dist_dim],
+                w1[2 * d + self.dist_dim:], b1)
+
     def _node_update(self, feats, m_i, mp=None, drop=None):
         """LayerNorm? -> concat with the pooled message -> node MLP ->
         residual (egnn_pytorch.py:335-337). ``mp`` is the mixed-precision
@@ -197,10 +254,11 @@ class EGNN(nn.Module):
         mp = self._mp if mp is None else mp
         normed = layer_norm(feats, self.node_norm_gamma, self.node_norm_beta) \
             if self.norm_feats else feats
-        h = torch.cat([mp(normed), m_i.to(mp(normed).dtype)], dim=-1)
+        h = self._col("node_mlp", torch.cat([mp(normed), m_i.to(mp(normed).dtype)], dim=-1))
         h = h @ mp(self.node_mlp_0_w) + mp(self.node_mlp_0_b)
         h = F.silu(h if drop is None else drop(h))
-        return (h @ mp(self.node_mlp_1_w) + mp(self.node_mlp_1_b)).to(feats.dtype) + feats
+        return (self._row("node_mlp", h @ mp(self.node_mlp_1_w))
+                + mp(self.node_mlp_1_b)).to(feats.dtype) + feats
 
     def _pair_weights(self, w_d, coors):
         """The fused kernels' weights after Wj; dummies stand for the gate
@@ -212,9 +270,9 @@ class EGNN(nn.Module):
             gate_b = gate_w[:1, 0]
         scale = self.coors_norm_scale if self.norm_coors else torch.ones(
             1, dtype=coors.dtype, device=coors.device)
-        return (w_d, self.edge_mlp_1_w, self.edge_mlp_1_b, gate_w, gate_b,
-                self.coors_mlp_0_w, self.coors_mlp_0_b, self.coors_mlp_1_w, self.coors_mlp_1_b,
-                scale)
+        return (w_d, self._whole("edge_mlp_1_w"), self.edge_mlp_1_b, gate_w, gate_b,
+                self._whole("coors_mlp_0_w"), self._whole("coors_mlp_0_b"),
+                self._whole("coors_mlp_1_w"), self.coors_mlp_1_b, scale)
 
     def _pool_kernel_messages(self, m_sum, pv, mask, num_nearest):
         """Mean or sum pooling of the kernels' summed messages. Without a
@@ -227,10 +285,10 @@ class EGNN(nn.Module):
             return safe_div(m_sum, pv.sum(dim=-1).to(m_sum.dtype)[..., None])
         return m_sum / num_nearest
 
-    def _forward_fused_knn(self, feats, coors, mask, adj_b, num_nearest, valid_radius,
-                           w_i, w_j, w_d):
+    def _forward_fused_knn(self, feats, coors, mask, adj_b, num_nearest, valid_radius):
         """The layer through K11: selection only, then one kernel that
         gathers its neighbours' rows itself."""
+        w_i, w_j, w_d, _, b1 = self._edge_weights(whole=True)
         nbhd = nb.knn_select(coors, num_nearest, valid_radius, mask=mask, adj_mat=adj_b)
         if mask is not None:
             pv = (mask[:, :, None] & gather_bool(mask, nbhd.indices)) & nbhd.valid
@@ -238,18 +296,21 @@ class EGNN(nn.Module):
             # the reference's quirk: validity counts only under a mask
             pv = torch.ones_like(nbhd.indices, dtype=torch.bool)
         m_sum, coors_delta = pm.fused_knn_messages(
-            coors, feats @ w_i + self.edge_mlp_0_b, feats @ w_j, nbhd.indices, pv,
+            coors, feats @ w_i + b1, feats @ w_j, nbhd.indices, pv,
             self.fourier_features, self.soft_edges, self.norm_coors,
             self.coor_weights_clamp_value, 1e-8, *self._pair_weights(w_d, coors))
         m_i = self._pool_kernel_messages(m_sum, pv, mask, num_nearest)
         return self._node_update(feats, m_i, mp=lambda v: v), coors + coors_delta
 
-    def _forward_streamed(self, feats, coors, mask, w_i, w_j, w_d, generator, drop):
+    def _forward_streamed(self, feats, coors, mask, generator, drop):
         """The all-pairs layer as j-chunks recomputed in the backward
-        (``ops/pairwise_stream.py``), with the reference's mean divisor n
-        without a mask (egnn_tpu/models/egnn.py:279-284). ``generator`` is
-        None unless dropout acts."""
+        (``ops/pairwise_stream.py``), or as the ring's j-blocks under
+        ``ring_axis`` (``parallel/ring.py``), with the reference's mean
+        divisor n without a mask (egnn_tpu/models/egnn.py:262-284): under
+        the ring n is the whole node count, n_local times the group's size.
+        ``generator`` is None unless dropout acts."""
         mp = self._mp
+        w_i, w_j, w_d, _, b1 = self._edge_weights()
         pp = PairwiseParams(
             w_d=w_d, edge_w2=self.edge_mlp_1_w, edge_b2=self.edge_mlp_1_b,
             gate_w=self.edge_gate_w if self.soft_edges else None,
@@ -259,21 +320,31 @@ class EGNN(nn.Module):
             coors_w2=self.coors_mlp_1_w if self.update_coors else None,
             coors_b2=self.coors_mlp_1_b if self.update_coors else None,
             cn_scale=self.coors_norm_scale if self.norm_coors else None)
-        res = streamed_pairwise(
-            coors, mp(feats) @ mp(w_i) + mp(self.edge_mlp_0_b), mp(feats) @ mp(w_j), pp,
-            mask=mask, fourier_features=self.fourier_features,
-            update_coors=self.update_coors, update_feats=self.update_feats,
-            soft_edges=self.soft_edges, norm_coors=self.norm_coors,
-            coor_weights_clamp_value=self.coor_weights_clamp_value,
-            chunk=self.pairwise_chunk, compute_dtype=self.compute_dtype,
-            dropout_rate=self.dropout, generator=generator)
+        xf = mp(self._col("edge_mlp", feats))
+        proj_i, proj_j = xf @ mp(w_i) + mp(b1), xf @ mp(w_j)
+        opts = dict(fourier_features=self.fourier_features, update_coors=self.update_coors,
+                    update_feats=self.update_feats, soft_edges=self.soft_edges,
+                    norm_coors=self.norm_coors,
+                    coor_weights_clamp_value=self.coor_weights_clamp_value,
+                    compute_dtype=self.compute_dtype)
+        n_total = feats.shape[1]
+        if self.ring_axis is not None:
+            res = ring_pairwise(coors, proj_i, proj_j, pp, mask=mask, group=self.ring_axis,
+                                **opts)
+            n_total *= dist.get_world_size(self.ring_axis)
+        else:
+            res = streamed_pairwise(
+                coors, proj_i, proj_j, pp, mask=mask, chunk=self.pairwise_chunk,
+                dropout_rate=self.dropout, generator=generator,
+                edge_group=self.tp_group if "edge_mlp" in self.tp_sharded else None,
+                coors_group=self.tp_group if "coors_mlp" in self.tp_sharded else None, **opts)
         coors_out = coors + res.coors_delta if self.update_coors else coors
         if not self.update_feats:
             return feats, coors_out
         m_i = res.m_i
         if self.m_pool_method == "mean":
             m_i = safe_div(m_i, res.pair_count[..., None]) if mask is not None \
-                else m_i / feats.shape[1]
+                else m_i / n_total
         return self._node_update(feats, m_i, drop=drop), coors_out
 
     def forward(
@@ -301,21 +372,23 @@ class EGNN(nn.Module):
         if dropping and generator is None:
             raise ValueError("dropout in training mode draws its masks from generator=, a "
                              "torch.Generator on the inputs' device; call .eval() to serve")
+        if dropping and self.tp_sharded:
+            raise ValueError("dropout in training mode under tensor parallelism is not "
+                             "ported: its masks would be drawn on the shards")
+        if self.ring_axis is not None and (edges is not None or dropping):
+            raise ValueError("ring_axis takes the all-pairs streamed layer: no dense edges "
+                             "and no dropout in training mode")
 
         def drop(x):
             return dropout(x, self.dropout, generator) if dropping else x
 
-        w1 = self.edge_mlp_0_w
-        w_i = w1[:d]
-        w_j = w1[d:2 * d]
-        w_d = w1[2 * d:2 * d + self.dist_dim]
-        w_e = w1[2 * d + self.dist_dim:]
-
         # ---- the streamed all-pairs path: no (n, n) intermediates ----
-        do_stream = self.stream_pairwise if self.stream_pairwise is not None else n >= 1024
+        do_stream = self.ring_axis is not None or (
+            self.stream_pairwise if self.stream_pairwise is not None else n >= 1024)
         if not use_nearest and edges is None and do_stream:
-            return self._forward_streamed(feats, coors, mask, w_i, w_j, w_d,
+            return self._forward_streamed(feats, coors, mask,
                                           generator if dropping else None, drop)
+        w_i, w_j, w_d, w_e, b1 = self._edge_weights()
 
         # ---- pairwise geometry ----
         if use_nearest:
@@ -335,7 +408,7 @@ class EGNN(nn.Module):
                     num_nearest, self.hidden, self.m_dim, coors.shape[-1],
                     self.fourier_features, self.soft_edges)):
                 return self._forward_fused_knn(feats, coors, mask, adj_b, num_nearest,
-                                               valid_radius, w_i, w_j, w_d)
+                                               valid_radius)
             nbhd, g = nb.knn_select_gather(
                 coors, num_nearest, valid_radius, mask=mask, adj_mat=adj_b,
                 payload=feats, wide=True)
@@ -358,13 +431,14 @@ class EGNN(nn.Module):
                 else:
                     pvm = torch.ones(g.shape[:3], dtype=torch.bool, device=g.device)
                 kk = g.shape[2]
+                fw_i, fw_j, fw_d, _, fb1 = self._edge_weights(whole=True)
                 m_sum, coors_delta = pm.fused_pair_messages(
                     coors, coors_j.reshape(b, n * kk, c_sp), feats_j.reshape(b, n * kk, d),
-                    feats @ w_i + self.edge_mlp_0_b,
+                    feats @ fw_i + fb1,
                     pvm.reshape(b, n * kk, 1).to(coors.dtype),
                     self.fourier_features, self.soft_edges, self.norm_coors,
                     self.coor_weights_clamp_value, 1e-8, False, False,
-                    w_j, *self._pair_weights(w_d, coors))
+                    fw_j, *self._pair_weights(fw_d, coors))
                 m_i = self._pool_kernel_messages(m_sum, pvm, mask, num_nearest)
                 return (self._node_update(feats, m_i.to(feats.dtype), mp=lambda v: v),
                         coors + coors_delta.to(coors.dtype))
@@ -382,21 +456,23 @@ class EGNN(nn.Module):
             dist_feats = rel_dist[..., None]
 
         # ---- factorised edge MLP layer 1 ----
+        xf = mp(self._col("edge_mlp", feats))
+        dist_term = mp(self._col("edge_mlp", dist_feats)) @ mp(w_d)
         if use_nearest:
             kk = feats_j.shape[2]
-            proj_j = mp(feats_j) @ mp(w_j)
-            proj_i = mp(feats)[:, :, None, :].expand(b, n, kk, d) @ mp(w_i)
-            h1 = proj_i + proj_j + mp(dist_feats) @ mp(w_d) + mp(self.edge_mlp_0_b)
+            proj_j = mp(self._col("edge_mlp", feats_j)) @ mp(w_j)
+            proj_i = xf[:, :, None, :].expand(b, n, kk, d) @ mp(w_i)
+            h1 = proj_i + proj_j + dist_term + mp(b1)
         else:
-            proj_i = mp(feats) @ mp(w_i)                        # (b, n, hidden)
-            proj_j = (mp(feats) @ mp(w_j))[:, None, :, :]       # (b, 1, n, hidden)
-            h1 = proj_i[:, :, None, :] + proj_j \
-                + mp(dist_feats) @ mp(w_d) + mp(self.edge_mlp_0_b)
+            proj_i = xf @ mp(w_i)                               # (b, n, hidden)
+            proj_j = (xf @ mp(w_j))[:, None, :, :]              # (b, 1, n, hidden)
+            h1 = proj_i[:, :, None, :] + proj_j + dist_term + mp(b1)
         if edges is not None:
-            h1 = h1 + mp(edges) @ mp(w_e)
+            h1 = h1 + mp(self._col("edge_mlp", edges)) @ mp(w_e)
 
         m_ij = F.silu(drop(h1))
-        m_ij = F.silu(m_ij @ mp(self.edge_mlp_1_w) + mp(self.edge_mlp_1_b))
+        m_ij = F.silu(self._row("edge_mlp", m_ij @ mp(self.edge_mlp_1_w))
+                      + mp(self.edge_mlp_1_b))
         if self.soft_edges:
             m_ij = m_ij * torch.sigmoid(m_ij @ mp(self.edge_gate_w) + mp(self.edge_gate_b))
 
@@ -415,8 +491,10 @@ class EGNN(nn.Module):
 
         # ---- coordinate update (equivariant) ----
         if self.update_coors:
-            cw = F.silu(drop(m_ij @ mp(self.coors_mlp_0_w) + mp(self.coors_mlp_0_b)))
-            coor_weights = (cw @ mp(self.coors_mlp_1_w) + mp(self.coors_mlp_1_b)).to(coors.dtype)
+            cw = F.silu(drop(self._col("coors_mlp", m_ij) @ mp(self.coors_mlp_0_w)
+                             + mp(self.coors_mlp_0_b)))
+            coor_weights = (self._row("coors_mlp", cw @ mp(self.coors_mlp_1_w))
+                            + mp(self.coors_mlp_1_b)).to(coors.dtype)
             rel_coors_n = coors_norm(rel_coors, self.coors_norm_scale) \
                 if self.norm_coors else rel_coors
             if pair_mask is not None:

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.collectives import copy_to_group, reduce_from_group
 from .core import dropout, fourier_encode_dist
 
 
@@ -79,6 +80,8 @@ def pairwise_block(
     compute_dtype: Optional[torch.dtype] = None,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    edge_group=None,
+    coors_group=None,
 ):
     """One (i-block x j-block) of the dense pairwise pipeline: distance
     features -> edge MLP -> [gate] -> coordinate weights and message sums.
@@ -88,7 +91,14 @@ def pairwise_block(
     reference's order of masking (egnn_pytorch.py:282-333). With
     ``dropout_rate > 0`` and a ``generator``, inverted dropout acts after
     the edge MLP's and the coordinate MLP's first layers (egnn_pytorch.py:
-    178-208), the first mask drawn first."""
+    178-208), the first mask drawn first.
+
+    ``edge_group`` / ``coors_group``: the model group under tensor
+    parallelism where this rank holds a shard of the edge / coordinate MLP
+    (``params``' widths are then the shards', ``proj_i`` and ``proj_j`` this
+    rank's columns): the second product's partial sums are summed over the
+    group (``reduce_from_group``) and the first product's input gradient
+    too (``copy_to_group``)."""
     # the caller sums these partials over many blocks: keep them >= f32 even
     # when compute_dtype (and so proj_i) is bf16, whose integers stop at 256
     acc_dtype = torch.promote_types(proj_i.dtype, torch.float32)
@@ -106,17 +116,26 @@ def pairwise_block(
     dist_feats = fourier_encode_dist(dist, num_encodings=fourier_features) \
         if fourier_features > 0 else dist[..., None]
 
+    if edge_group is not None:
+        dist_feats = copy_to_group(dist_feats, edge_group)
     h1 = (mp(proj_i)[:, :, None, :] + mp(proj_j)[:, None, :, :]
           + mp(dist_feats) @ mp(params.w_d))
     m_ij = F.silu(drop(h1))
-    m_ij = F.silu(m_ij @ mp(params.edge_w2) + mp(params.edge_b2))   # (b, ni, nj, m)
+    m_ij = m_ij @ mp(params.edge_w2)
+    if edge_group is not None:
+        m_ij = reduce_from_group(m_ij, edge_group)
+    m_ij = F.silu(m_ij + mp(params.edge_b2))                          # (b, ni, nj, m)
     if soft_edges:
         m_ij = m_ij * torch.sigmoid(m_ij @ mp(params.gate_w) + mp(params.gate_b))
 
     if update_coors:
-        cw = F.silu(drop(m_ij @ mp(params.coors_w1) + mp(params.coors_b1)))
+        m_c = m_ij if coors_group is None else copy_to_group(m_ij, coors_group)
+        cw = F.silu(drop(m_c @ mp(params.coors_w1) + mp(params.coors_b1)))
+        w_ij = cw @ mp(params.coors_w2)
+        if coors_group is not None:
+            w_ij = reduce_from_group(w_ij, coors_group)
         # back to full precision before weighting the geometry
-        w_ij = (cw @ mp(params.coors_w2) + mp(params.coors_b2))[..., 0].to(coors_i.dtype)
+        w_ij = (w_ij + mp(params.coors_b2))[..., 0].to(coors_i.dtype)
         if norm_coors:
             norm = torch.sqrt(dist.clamp(min=coors_norm_eps * coors_norm_eps))[..., None]
             rel_n = rel / norm * params.cn_scale.to(rel.dtype)
@@ -164,6 +183,8 @@ def streamed_pairwise(
     compute_dtype: Optional[torch.dtype] = None,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    edge_group=None,
+    coors_group=None,
 ) -> PairwiseResult:
     """All-pairs messages and their sums without (n, n) intermediates.
 
@@ -177,7 +198,8 @@ def streamed_pairwise(
     ``fold_in(rng, chunk)``), read once in the forward; each chunk draws its
     masks from a generator of its own made from that seed, and so does its
     recompute in the backward. A fixed ``generator`` state gives the same
-    masks, outputs and gradients.
+    masks, outputs and gradients. ``edge_group`` / ``coors_group``: tensor
+    parallelism, as in ``pairwise_block``.
     """
     b, n, c = coors.shape
     hidden = proj_i.shape[-1]
@@ -201,7 +223,8 @@ def streamed_pairwise(
                 update_feats=update_feats, soft_edges=soft_edges, norm_coors=norm_coors,
                 coor_weights_clamp_value=coor_weights_clamp_value,
                 coors_norm_eps=coors_norm_eps, compute_dtype=compute_dtype,
-                dropout_rate=dropout_rate if dropping else 0.0)
+                dropout_rate=dropout_rate if dropping else 0.0,
+                edge_group=edge_group, coors_group=coors_group)
 
     def body(coors_j, pj, pv, seed):
         gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)

@@ -46,10 +46,11 @@ def _block(t: torch.Tensor, dim: int, index: int, count: int) -> torch.Tensor:
 def dense_batch_block(mesh: DeviceMesh, t: torch.Tensor) -> torch.Tensor:
     """This rank's block of a dense input (tokens or mask (b, n), coordinates
     or features (b, n, ...)): the batch split over ``data``, the nodes over
-    ``graph``."""
+    ``graph`` (a ``model`` axis, tensor parallelism's, splits nothing)."""
     d, g = mesh.get_coordinate()
     t = _block(t, 0, d, mesh.size(0))
-    return _block(t, 1, g, mesh.size(1)) if mesh.size(1) > 1 else t
+    nodes = mesh.mesh_dim_names[1] == "graph" and mesh.size(1) > 1
+    return _block(t, 1, g, mesh.size(1)) if nodes else t
 
 
 def rank_block_index(mesh_or_group) -> tuple[int, int]:

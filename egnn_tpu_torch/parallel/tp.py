@@ -1,0 +1,118 @@
+"""Tensor parallelism for the dense EGNN MLPs, the counterpart of
+``egnn_tpu/parallel/tp.py``.
+
+Every MLP of the dense layer is two products with a nonlinearity between
+(edge MLP: ein -> 2*ein -> m_dim; coordinate MLP: m_dim -> 4*m_dim -> 1;
+node MLP: dim + m_dim -> 2*dim -> dim). That is Megatron's column-then-row
+split: the first weight's output dimension and the second weight's input
+dimension are sharded over a ``model`` axis, the activations stay
+replicated, and one sum over the axis follows the second product.
+
+The JAX package states the rule as parameter shardings and lets GSPMD
+partition the products. torch has no GSPMD, so here the rule is applied by
+hand: ``tp_param_sharding`` gives each parameter its placement
+(``Shard(1)``, ``Shard(0)`` or ``Replicate()``), ``tp_shard_module`` keeps
+each rank's shards in the module (the counterpart of
+``jax.device_put(params, tp_param_sharding(params, mesh))``), and the layer
+(``models/egnn.py:EGNN``) computes the split on every path, its collectives
+Megatron's pair (``parallel/collectives.py``: ``copy_to_group`` before the
+first product, ``reduce_from_group`` after the second), which keep the
+gradients unscaled where every rank holds the whole loss. Every rank of the
+model group runs the whole forward and backward on the same inputs; a
+parameter's gradient is this rank's shard of the replicated module's.
+
+Divisibility: the edge MLP's hidden width is ``2*(2*dim + 2F + 1 + e)``,
+2 mod 4 for even dim with F = e = 0, so it shards at most 2 ways; a
+parameter whose sharded dimension the axis does not divide stays
+replicated (``tp_hidden_multiple`` pads the width to shard). Worth it only
+at wide layers (dim 512 and up): at dim 32 the sums cost more than the
+products save. Only the dense family is sharded: ``tp_shard_module``
+raises for a module whose sharded parameters belong to another kind of
+layer (the sparse family's MLPs, whose names the rule also matches).
+"""
+from __future__ import annotations
+
+import torch.distributed as dist
+from torch import nn
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.tensor import Replicate, Shard
+
+from ..utils.device import resolve_device
+from .collectives import shard_along
+
+
+def make_tp_mesh(data: int = 1, model: int = 1, device=None) -> DeviceMesh:
+    """A (data, model) mesh over the processes of the default group, which
+    must number ``data * model`` (``parallel.initialize()`` first);
+    ``data`` outermost. ``device``: where the ranks compute (the card
+    unless ``"cpu"``)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_tp_mesh needs a process group: call parallel.initialize() first")
+    size = dist.get_world_size()
+    if data * model != size:
+        raise ValueError(f"mesh size data*model={data * model} != process count {size}")
+    return init_device_mesh(resolve_device(device).type, (data, model),
+                            mesh_dim_names=("data", "model"))
+
+
+def tp_param_spec(name: str):
+    """The placement of one parameter over the ``model`` axis, by its name
+    (the last part of a dotted name): ``<mlp>_0_w`` is column-parallel
+    (``Shard(1)``, its output dimension), ``<mlp>_0_b`` sharded
+    (``Shard(0)``), ``<mlp>_1_w`` row-parallel (``Shard(0)``, its input
+    dimension); everything else (the second bias, norms, gates, embeddings,
+    the CoorsNorm scale) is ``Replicate()``."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf.endswith("_0_w"):
+        return Shard(1)
+    if leaf.endswith(("_0_b", "_1_w")):
+        return Shard(0)
+    return Replicate()
+
+
+def tp_param_sharding(module: nn.Module, mesh: DeviceMesh) -> dict:
+    """Each parameter's placement (``tp_param_spec``) by its dotted name, a
+    sharded one replaced by ``Replicate()`` where the ``model`` axis does
+    not divide its dimension (e.g. dim 64: edge hidden 258 does not split 4
+    ways)."""
+    axis = mesh.size(mesh.mesh_dim_names.index("model"))
+    out = {}
+    for name, p in module.named_parameters():
+        spec = tp_param_spec(name)
+        if isinstance(spec, Shard) and p.shape[spec.dim] % axis:
+            spec = Replicate()
+        out[name] = spec
+    return out
+
+
+def tp_shard_module(module: nn.Module, mesh: DeviceMesh) -> nn.Module:
+    """Keep this rank's shards of ``module``'s parameters (in place) and set
+    up its dense layers to compute the Megatron split over the mesh's
+    ``model`` group; returns ``module``.
+
+    Call it on every rank of the model group, on a module whose parameters
+    are the same on every rank (e.g. loaded with ``load_flax_params``). A
+    layer's MLP is sharded where its three sharded parameters are (an
+    indivisible width leaves the MLP replicated, with no collective).
+    Raises ``NotImplementedError`` where a sharded parameter belongs to a
+    module other than the dense ``EGNN`` layer."""
+    group = mesh.get_group("model")
+    placements = tp_param_sharding(module, mesh)
+    for prefix, sub in module.named_modules():
+        own = {name: p for name, p in sub.named_parameters(recurse=False)}
+        sharded = {name for name in own
+                   if isinstance(placements[f"{prefix}.{name}" if prefix else name], Shard)}
+        if not sharded:
+            continue
+        if not hasattr(sub, "tp_sharded"):
+            raise NotImplementedError(
+                f"tensor parallelism covers the dense EGNN layer; {type(sub).__name__} "
+                f"({prefix or 'the module'}) holds {sorted(sharded)}")
+        for name in sharded:
+            spec = tp_param_spec(name)
+            p = own[name]
+            shard = shard_along(p.detach(), group, spec.dim).clone()
+            sub._parameters[name] = nn.Parameter(shard, requires_grad=p.requires_grad)
+        sub.tp_group = group
+        sub.tp_sharded = frozenset(name[:-4] for name in sharded)
+    return module

@@ -1,5 +1,5 @@
 """Training: loss, optimizers, train state and step builders, the
-data-parallel and edge-partitioned steps among them (``state.py``), the
+data-parallel, ring and edge-partitioned steps among them (``state.py``), the
 input pipeline (``data.py``: synthetic chain and molecule batches,
 ``PrefetchLoader``), dataset files (``datasets.py``) and checkpoints
 (``checkpoint.py``)."""
@@ -13,6 +13,7 @@ from .state import (
     make_denoise_train_step,
     make_fused_adam,
     make_partitioned_sparse_train_step,
+    make_ring_denoise_train_step,
     make_sharded_denoise_train_step,
     masked_mse,
 )
@@ -27,6 +28,7 @@ __all__ = [
     "make_denoise_train_step",
     "make_fused_adam",
     "make_partitioned_sparse_train_step",
+    "make_ring_denoise_train_step",
     "make_sharded_denoise_train_step",
     "masked_mse",
     "synthetic_chain_batch",

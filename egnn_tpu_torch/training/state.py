@@ -17,7 +17,9 @@ step, ``make_sharded_denoise_train_step`` (the batch split over the mesh's
 ``make_partitioned_sparse_train_step``. Each rank differentiates its share
 of the global loss, the gradients are summed over the group in one
 ``all_reduce``, and every rank's optimizer takes the same step. The ring
-step (the node-sharded dense path) is not ported yet.
+step, ``make_ring_denoise_train_step`` (``egnn_tpu/training/state.py:
+167-229``), adds the node-sharded dense path: the batch on ``data``, the
+nodes on ``graph``, the layers' all-pairs messages around the ring.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import dataclasses
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
@@ -307,7 +310,11 @@ def make_sharded_denoise_train_step(
 ) -> Callable:
     """The data-parallel denoising step (``egnn_tpu/training/state.py:
     make_sharded_denoise_train_step``): the batch split over the mesh's
-    ``data`` axis, the parameters replicated.
+    ``data`` axis, the parameters replicated. A (data, model) mesh of
+    ``parallel.make_tp_mesh``, with ``net`` sharded by ``tp_shard_module``,
+    adds tensor parallelism: the parameters are then replicated over
+    ``data`` and sharded over ``model``, and the gradients summed over
+    ``data`` alone.
 
     Returns ``step(tokens, noised_coors, target_coors, adj_mat, mask)``,
     called on every rank with its block of the batch
@@ -320,13 +327,16 @@ def make_sharded_denoise_train_step(
     ``make_denoise_train_step`` (``step.state``); on a mesh of one rank the
     two steps give the same bits.
 
-    A mesh whose ``graph`` axis is longer than 1 (the node-sharded dense
-    path, the ring's) raises ``NotImplementedError``: not ported yet.
+    A mesh whose ``graph`` axis is longer than 1 raises
+    ``NotImplementedError``: the node-sharded all-pairs network trains with
+    ``make_ring_denoise_train_step``; the node-sharded kNN route (a
+    row-sharded selection) is not ported.
     """
-    if mesh.size(1) > 1:
+    if mesh.mesh_dim_names[1] == "graph" and mesh.size(1) > 1:
         raise NotImplementedError(
-            "a dense mesh with graph > 1 (node sharding through the ring and a row-sharded "
-            "kNN selection) is not ported yet")
+            "a dense mesh with graph > 1: an all-pairs network (layers built with ring_axis) "
+            "trains with make_ring_denoise_train_step; the node-sharded kNN route (a "
+            "row-sharded selection) is not ported")
     group = mesh.get_group("data")
 
     def local_loss(tokens, noised_coors, target_coors, adj_mat, mask):
@@ -334,6 +344,59 @@ def make_sharded_denoise_train_step(
         return loss_fn(denoised, target_coors, mask, group=group)
 
     return _make_step(net, optimizer, local_loss, group)
+
+
+def make_ring_denoise_train_step(
+    net: nn.Module,
+    optimizer: torch.optim.Optimizer,
+    mesh: DeviceMesh,
+    data_axis: str = "data",
+    graph_axis: str = "graph",
+) -> Callable:
+    """The ring-parallel denoising step (``egnn_tpu/training/state.py:
+    make_ring_denoise_train_step``): the batch split over ``data_axis``, the
+    nodes over ``graph_axis``; ``net``'s layers are built with
+    ``ring_axis=mesh.get_group(graph_axis)``, so that each layer's all-pairs
+    messages visit every node block around the ring.
+
+    Returns ``step(tokens, noised_coors, target_coors, mask)``, called on
+    every rank with its block (``parallel.dense_batch_block``). Each rank
+    differentiates its share of the global masked MSE, whose denominator is
+    the mask count summed over both axes; loss and gradients are then
+    summed over both axes (one ``all_reduce`` of a flat buffer), the
+    psum-after-grad rule of the other steps, and every rank's optimizer
+    takes the same step. The same ``TrainState`` and gate as
+    ``make_denoise_train_step`` (``step.state``).
+
+    The network may hold no kNN (the layers refuse it with ``ring_axis``),
+    no positional embedding (position ids would be block-local) and no
+    global attention (its sums would be block-local): those raise
+    ``ValueError``, as does a layer without the mesh's ring. The mesh must
+    span every process (``parallel.make_mesh``).
+    """
+    if set(mesh.mesh_dim_names) != {data_axis, graph_axis}:
+        raise ValueError(f"the ring step takes a ({data_axis}, {graph_axis}) mesh, not "
+                         f"{mesh.mesh_dim_names}")
+    if mesh.size() != dist.get_world_size():
+        raise ValueError("the ring step sums over the whole mesh: it must span every process")
+    ring = mesh.get_group(graph_axis)
+    if getattr(net, "num_positions", None) is not None:
+        raise ValueError("a positional embedding would index the block-local node ids")
+    if getattr(net, "global_linear_attn_every", 0):
+        raise ValueError("global attention would sum over the local node block only")
+    layers = [m for m in net.modules() if hasattr(m, "ring_axis")]
+    if not layers or any(m.ring_axis is not ring for m in layers):
+        raise ValueError(f"every layer must be built with ring_axis=mesh.get_group("
+                         f"{graph_axis!r})")
+    both = dist.group.WORLD
+
+    def local_loss(tokens, noised_coors, target_coors, mask):
+        _, denoised = net(tokens, noised_coors, mask=mask)
+        err = (denoised - target_coors) ** 2 * mask[..., None].to(denoised.dtype)
+        den = all_reduce_sum(mask.sum().to(err.dtype) * denoised.shape[-1], both)
+        return err.sum() / den.clamp(min=1.0)
+
+    return _make_step(net, optimizer, local_loss, both)
 
 
 def make_partitioned_sparse_train_step(

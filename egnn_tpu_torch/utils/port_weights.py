@@ -7,7 +7,8 @@ The counterpart, in the other direction, of ``egnn_tpu/utils/port_weights.py``:
 ``EGNNSparseNetwork``, ``Attention``, ``GlobalLinearAttention``,
 ``GlobalLinearAttentionSparse``: nested dicts of numpy arrays, e.g.
 ``jax.tree_util.tree_map(np.asarray, variables["params"])``) into the
-port's module of the same configuration. Both sides use the same names and
+port's module of the same configuration (``load_stacked_flax_params`` does
+the same for the pipeline's stacked layer tree). Both sides use the same names and
 the (in, out) layout, so nothing is transposed: Flax's ``egnn_0`` /
 ``edge_mlp_0_w`` is the torch parameter ``egnn_0.edge_mlp_0_w``, a dense or
 sparse network's ``global_attn_0`` / ``attn1`` / ``to_q_w`` and
@@ -77,6 +78,31 @@ def load_flax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
         for name, value in flat.items():
             p = own[name]
             p.copy_(torch.as_tensor(value, dtype=p.dtype, device=p.device))
+
+
+def load_stacked_flax_params(layer: nn.Module, stacked: Mapping[str, Any]) -> dict:
+    """The JAX package's stacked layer tree (``egnn_tpu.parallel.
+    stack_layer_params``' output: each parameter of one layer with a leading
+    (depth,) axis, numpy arrays) -> the port's stacked tensors, what
+    ``egnn_tpu_torch.parallel.stack_layer_params`` gives, with ``layer`` as
+    the template: the same names, the (in, out) layout, ``layer``'s dtype
+    and device; new leaves that require gradients. Raises ``KeyError`` where
+    the names differ and ``ValueError`` where a layer's shape does."""
+    flat = _flatten(stacked)
+    own = dict(layer.named_parameters())
+    if set(flat) != set(own):
+        raise KeyError(f"parameter names differ: missing {sorted(set(own) - set(flat))}, "
+                       f"unknown {sorted(set(flat) - set(own))}")
+    depths = {v.shape[0] for v in flat.values()}
+    if len(depths) != 1:
+        raise ValueError(f"the stacked parameters hold different depths {sorted(depths)}")
+    out = {}
+    for name, p in own.items():
+        if tuple(flat[name].shape[1:]) != tuple(p.shape):
+            raise ValueError(f"{name}: a layer's shape {tuple(flat[name].shape[1:])} != "
+                             f"{tuple(p.shape)}")
+        out[name] = torch.as_tensor(flat[name], dtype=p.dtype, device=p.device).requires_grad_()
+    return out
 
 
 def _t2n(t) -> np.ndarray:

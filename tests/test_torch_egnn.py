@@ -264,11 +264,24 @@ def test_load_flax_params_still_refuses_other_missing_names():
         load_flax_params(layer, {k: v for k, v in own.items() if k != "node_mlp_0_w"})
 
 
-def test_options_not_yet_ported_raise():
-    """Only ``ring_axis`` is left to port; the options that raised before
-    their slice now run (each has its own tests)."""
-    with pytest.raises(NotImplementedError):
-        EGNN(dim=4, num_nearest_neighbors=2, device="cpu", ring_axis="x")
+def test_options_not_yet_ported_raise(tmp_path):
+    """Every option is ported; what stays refused is ``ring_axis`` where the
+    ring cannot go: with kNN (``ValueError``: shard-local neighbourhoods)
+    and as an axis name in place of a process group (``TypeError``). The
+    options that raised before their slice now run (each has its own
+    tests; the ring's in ``tests/test_torch_ring.py``)."""
+    import torch.distributed as dist
+
+    with pytest.raises(TypeError, match="process group"):
+        EGNN(dim=4, device="cpu", ring_axis="x")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", world_size=1,
+                            rank=0)
+    try:
+        with pytest.raises(ValueError, match="kNN"):
+            EGNN(dim=4, num_nearest_neighbors=2, device="cpu", ring_axis=dist.group.WORLD)
+        assert EGNN(dim=4, device="cpu", ring_axis=dist.group.WORLD).ring_axis is not None
+    finally:
+        dist.destroy_process_group()
     for kw in (dict(fused_knn=True), dict(fused_pairs=True)):   # ported: they construct
         EGNN(dim=4, num_nearest_neighbors=2, device="cpu", **kw)
     net = EGNNNetwork(depth=1, dim=4, global_linear_attn_every=1, global_linear_attn_heads=2,

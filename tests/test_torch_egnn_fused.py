@@ -286,11 +286,24 @@ def test_fused_paths_ignore_compute_dtype():
             assert torch.equal(x, y)
 
 
-def test_fused_options_that_stay_refused(count_fused):
-    """``ring_axis`` stays refused; dropout in training mode runs, and the
-    fused flag gives way to the unfused layer meanwhile."""
-    with pytest.raises(NotImplementedError, match="ring_axis"):
+def test_fused_options_that_stay_refused(count_fused, tmp_path):
+    """``ring_axis`` stays refused beside kNN (``ValueError``, with or
+    without a fused flag) and as an axis name (``TypeError``); dropout in
+    training mode runs, and the fused flag gives way to the unfused layer
+    meanwhile."""
+    import torch.distributed as dist
+
+    with pytest.raises(TypeError, match="ring_axis"):
         EGNN(dim=4, num_nearest_neighbors=2, ring_axis="x", device="cpu")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", world_size=1,
+                            rank=0)
+    try:
+        for flag in ("fused_pairs", "fused_knn"):
+            with pytest.raises(ValueError, match="ring_axis"):
+                EGNN(dim=4, num_nearest_neighbors=2, ring_axis=dist.group.WORLD, device="cpu",
+                     **{flag: True})
+    finally:
+        dist.destroy_process_group()
     dropping = EGNN(dim=4, num_nearest_neighbors=2, dropout=0.1, fused_pairs=True, device="cpu")
     f, c = dropping(torch.randn(1, 6, 4, dtype=torch.float32),
                     torch.randn(1, 6, 3, dtype=torch.float32),

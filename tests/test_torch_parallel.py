@@ -24,6 +24,7 @@ the JAX ones; ``PrefetchLoader(shard=...)``; and the two examples,
 from __future__ import annotations
 
 import json
+import pickle
 import queue as queues
 import time
 import traceback
@@ -43,11 +44,13 @@ RANK_TIMEOUT = 150   # seconds for every rank of a spawn to report
 # running ranks
 # ---------------------------------------------------------------------------
 
-def _rank_entry(fn, rank, world, init_method, payload, queue):
+def _rank_entry(fn, rank, world, init_method, payload_path, queue):
     try:
         torch.set_num_threads(1)
         from egnn_tpu_torch import parallel
 
+        with open(payload_path, "rb") as f:
+            payload = pickle.load(f)
         parallel.initialize(init_method=init_method, world_size=world, rank=rank, device="cpu")
         queue.put((rank, True, fn(rank, world, payload)))
     except BaseException:
@@ -62,11 +65,16 @@ def run_ranks(fn, world, tmp_path, payload):
     one gloo group; returns the results by rank. A rank that raises fails
     the call with its traceback, and one that does not report within
     ``RANK_TIMEOUT`` seconds fails it too; every process is gone on
-    return."""
+    return. The payload goes through a file: passed as an argument, a large
+    one would hold ``start()`` until each child had booted and read it."""
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    init = f"file://{tmp_path / f'pg_{fn.__name__}_{time.monotonic_ns()}'}"
-    procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, init, payload, queue))
+    stem = tmp_path / f"pg_{fn.__name__}_{time.monotonic_ns()}"
+    init = f"file://{stem}"
+    payload_path = f"{stem}.payload"
+    with open(payload_path, "wb") as f:
+        pickle.dump(payload, f)
+    procs = [ctx.Process(target=_rank_entry, args=(fn, r, world, init, payload_path, queue))
              for r in range(world)]
     for p in procs:
         p.start()
