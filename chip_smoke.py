@@ -15,7 +15,8 @@ training (the data-parallel dense step and the edge-partitioned sparse step
 on a one-rank NCCL group and on two ranks sharing the card) and the last two
 examples (``export_serving``, ``denoise --metrics``), then model parallelism
 (the ring, tensor parallelism and the pipeline, on the same two set-ups),
-checks the outputs,
+then the fused pair kernel's tensor-core mode (``mxu_bf16``, under
+``torch.set_float32_matmul_precision("medium")``), checks the outputs,
 and times the kernels, the forwards and the train steps (with
 ``egnn_tpu_torch/utils/profiling.py``'s timers and the H100 peaks of its
 ``Roofline``).
@@ -238,7 +239,23 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    a call and K2 4 (stage 0, whose first layer's inputs need no gradient)
    or 8 (stage 1); timed beside the sequential stack. NCCL refuses two
    ranks on one card, so its point-to-point branch (g, S > 1) needs two
-   cards and is not run here.
+   cards and is not run here;
+43. K10 in its tensor-core mode (``mxu_bf16``: the forward's wide products
+   on bf16 ``mma.sync``, the backward's operands rounded as JAX's ``dG``
+   rounds them), reached by ``torch.set_float32_matmul_precision("medium")``
+   (restored in a ``finally``): K10f and K10b in the mode at anchor 3's,
+   anchor 5's (G = 32, 512) and path C's shapes against their plain
+   versions in the mode in float64 by phase 21's rule on each tensor's
+   norm (8x the f32 plain version's error plus 1e-5; the roundings part at
+   bf16 ties), every element within 1.25e-2 of its largest value; the f32
+   kernel outside that rule, forward and backward; launches bitwise
+   repeatable); the anchor-3 ``fused_pairs`` network and
+   anchor 5's arm (c) served under "highest" and "medium" (K10f's launches
+   by mode; outputs within 5e-2 of each other and not equal; equivariance
+   under "medium") and trained 5 steps under "medium" (the mode's K10f and
+   K10b once a layer a step, no f32 K10; the loss falls); the mode's
+   kernels timed beside the f32 ones, the plain versions and the unfused
+   pipeline under "medium".
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -529,10 +546,24 @@ def check_outputs(torch, outs, shapes, what):
                                  f"{shape}) or non-finite values")
 
 
-def check_equivariance(torch, forward, coors, what, select=None, swap_share=0.0):
+@contextlib.contextmanager
+def matmul_precision(torch, precision):
+    """``torch.set_float32_matmul_precision(precision)`` for the block,
+    the caller's setting restored in a ``finally``."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(precision)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
+def check_equivariance(torch, forward, coors, what, select=None, swap_share=0.0,
+                       atol=EQUIVARIANCE_ATOL, feats_atol=None):
     """forward(coors) -> (feats, coors_out); a rotation and a shift of the
-    input leave feats and move coors_out the same way, within
-    EQUIVARIANCE_ATOL at every node. Beyond the full-band reach
+    input leave feats and move coors_out the same way, within ``atol``
+    (EQUIVARIANCE_ATOL; ``feats_atol`` for feats where given) at every node;
+    returns the two largest errors. Beyond the full-band reach
     ``swap_share`` of the nodes may differ by more: the moved coordinates
     round the distances anew, so a row whose k-th and (k+1)-th neighbours
     lie within that rounding selects the other one (with tens of thousands
@@ -543,21 +574,25 @@ def check_equivariance(torch, forward, coors, what, select=None, swap_share=0.0)
     q, _ = torch.linalg.qr(torch.randn(3, 3, generator=g, dtype=torch.float64))
     rot = (q * torch.sign(torch.linalg.det(q))).float().cuda()
     shift = torch.randn(3, generator=g, dtype=torch.float64).float().cuda()
-    moved = coors @ rot + shift
+    with matmul_precision(torch, "highest"):   # the motion itself in exact f32
+        moved = coors @ rot + shift
     with torch.inference_mode():
         f0, c0 = forward(coors)
         f1, c1 = forward(moved)
         ef = (f1 - f0).abs().amax(dim=-1)
-        ec = (c1 - (c0 @ rot + shift)).abs().amax(dim=-1)
-        over = ((ef > EQUIVARIANCE_ATOL) | (ec > EQUIVARIANCE_ATOL)).float().mean().item()
+        with matmul_precision(torch, "highest"):
+            ec = (c1 - (c0 @ rot + shift)).abs().amax(dim=-1)
+        feats_atol = atol if feats_atol is None else feats_atol
+        over = ((ef > feats_atol) | (ec > atol)).float().mean().item()
         swapped = "" if select is None else (
             f"; rows whose first-layer neighbours differ after the motion: "
             f"{int((select(coors) != select(moved)).any(dim=-1).sum().item())}")
     print(f"equivariance {what}: feats invariance err {ef.max().item():.3e}, coors "
           f"equivariance err {ec.max().item():.3e}; share of nodes beyond atol "
-          f"{EQUIVARIANCE_ATOL}: {over:.6f} (allowed {swap_share}){swapped}")
+          f"{feats_atol}, {atol}: {over:.6f} (allowed {swap_share}){swapped}")
     if over > swap_share:
         raise AssertionError(f"{what}: the forward is not equivariant")
+    return ef.max().item(), ec.max().item()
 
 
 def segment_bound(b, e, s, d):
@@ -619,6 +654,19 @@ def check_segment_sum(torch, SK, name, data, ids, s, gen):
 # f32 terms, in other orders: the kernel row after row within a tile, tile
 # after tile, block after block; the plain version as cuBLAS blocks them)
 PAIR_ERR_FACTOR, PAIR_ERR_FLOOR = 8.0, 1e-5
+# K10's tensor-core mode (phase 43) rounds values that the kernel computed
+# itself (s1, m0, silu(cz1), d_z2, d_h1, ...). Two summation orders (the
+# kernel's, cuBLAS's in the f32 plain version, float64's) round such a value
+# one bf16 step apart where it lies within their difference of a bf16 tie, and
+# what depends on it moves by that step: under 1% of a tensor's elements, up
+# to 6.3e-3 of its largest value for the f32 plain version against float64
+# (H100, PERF.md). A largest error then measures ties, and 8x it would admit
+# the f32 kernel; in the mode the rule above holds each tensor's norm, where
+# ties weigh as the few elements they are, and every element stays within
+# PAIR_MODE_REACH of the tensor's largest value (measured: 6.3e-3 at most
+# against float64, the norms at 0.31 of their limits at most, the f32 kernel
+# at 18x or more; H100, PERF.md).
+PAIR_MODE_REACH = 1.25e-2
 PAIR_WEIGHT_NAMES = ("wj", "wd", "w2", "b2", "gw", "gb", "cw1", "cb1", "cw2", "cb2", "scale")
 
 
@@ -671,13 +719,16 @@ def pair_args(torch, PM, case, gather, dtype):
             cast(case["pv"].reshape(b, n * k, 1))), weights, opts
 
 
-def check_pair_kernels(torch, PM, name, case, gather, repeats=3):
-    """One of K10 (``gather`` False) or K11 on ``case``: forward and
-    backward on the card against the plain versions in float64, within the
+def check_pair_kernels(torch, PM, name, case, gather, repeats=3, mxu_bf16=False):
+    """One of K10 (``gather`` False) or K11 on ``case``, K10 in its
+    tensor-core mode where ``mxu_bf16``: forward and backward on the card
+    against the plain versions (in the same mode) in float64, within the
     stated multiple of the float32 plain version's own error; ``repeats``
-    backward launches bitwise equal. Returns the largest absolute errors
-    (forward, backward)."""
-    kname = "K11" if gather else "K10"
+    launches bitwise equal. The errors are each tensor's largest, in the mode
+    its norm and every element within PAIR_MODE_REACH; there the f32 kernel
+    must miss the limit in a forward and in a backward tensor. Returns the
+    largest absolute errors (forward, backward)."""
+    kname = "K11" if gather else ("K10 (mxu_bf16)" if mxu_bf16 else "K10")
     plain_f = PM.fused_knn_messages_plain if gather else PM.fused_pair_messages_plain
     plain_b = (PM.fused_knn_messages_backward_plain if gather
                else PM.fused_pair_messages_backward_plain)
@@ -691,22 +742,24 @@ def check_pair_kernels(torch, PM, name, case, gather, repeats=3):
     results = {}
     for dtype in (torch.float64, torch.float32):
         args, weights, opts = pair_args(torch, PM, case, gather, dtype)
+        opts = opts._replace(mxu_bf16=mxu_bf16)
         g = (case["g_mi"].to(dtype), case["g_cd"].to(dtype))
         results[dtype] = (plain_f(*args, weights, opts),
                           flat(plain_b(*args, weights, *g, opts)))
     args, weights, opts = pair_args(torch, PM, case, gather, torch.float32)
     o = case["opts"]
     static = (o["fourier"], o["soft_edges"], o["norm_coors"], o["clamp"], o["eps"])
-    if not gather:
-        static += (False, o["gate_feats_only"])
-    runs = []
-    for _ in range(repeats):
+
+    def launch(mode):
         leaves = [a.clone().requires_grad_() if i in diff else a for i, a in enumerate(args)]
         ws = [w.clone().requires_grad_() for w in weights]
-        out = fused(*leaves, *static, *ws)
+        out = fused(*leaves, *static, *(() if gather else (mode, o["gate_feats_only"])), *ws)
         grads = torch.autograd.grad(out, [leaves[i] for i in diff] + ws,
                                     (case["g_mi"], case["g_cd"]))
-        runs.append(([t.detach() for t in out], list(grads)))
+        return [t.detach() for t in out], list(grads)
+
+    runs = [launch(mxu_bf16) for _ in range(repeats)]
+    control = launch(False) if mxu_bf16 else None   # the f32 kernel
     torch.cuda.synchronize()
     repeatable = all(same_bits(torch, a, b) for run in runs[1:]
                      for a, b in zip(run[0] + run[1], runs[0][0] + runs[0][1]))
@@ -714,28 +767,50 @@ def check_pair_kernels(torch, PM, name, case, gather, repeats=3):
     names_b = (("d_coors", "d_proj_i", "d_proj_j") if gather
                else ("d_coors", "d_cj", "d_fj", "d_proj_i")) + tuple(
         "d_" + w for w in PAIR_WEIGHT_NAMES[1 if gather else 0:])
-    worst = []
-    errs = [0.0, 0.0]
+    size = ((lambda t: torch.linalg.vector_norm(t).item()) if mxu_bf16
+            else (lambda t: t.abs().max().item()))
+
+    def against(ker, p32, ref):
+        """(kernel's error, the f32 plain version's, the limit)"""
+        e_p = size(p32.double() - ref)
+        return size(ker.double() - ref), e_p, PAIR_ERR_FACTOR * e_p + PAIR_ERR_FLOOR * max(
+            size(ref), 1e-30)
+
+    worst, failed = [], []
+    errs, reach, miss = [0.0, 0.0], 0.0, [0.0, 0.0]
     for part, names in ((0, names_f), (1, names_b)):
-        for tname, ker, p32, ref in zip(names, runs[0][part], results[torch.float32][part],
-                                       results[torch.float64][part]):
-            e_k = (ker.double() - ref).abs().max().item()
-            e_p = (p32.double() - ref).abs().max().item()
-            limit = PAIR_ERR_FACTOR * e_p + PAIR_ERR_FLOOR * max(ref.abs().max().item(), 1e-30)
-            errs[part] = max(errs[part], e_k)
+        for i, (tname, ker, p32, ref) in enumerate(zip(
+                names, runs[0][part], results[torch.float32][part], results[torch.float64][part])):
+            e_k, e_p, limit = against(ker, p32, ref)
+            errs[part] = max(errs[part], (ker.double() - ref).abs().max().item())
             worst.append((e_k / limit, tname, e_k, e_p))
             if not (e_k <= limit) or not bool(torch.isfinite(ker).all()):
-                raise AssertionError(
-                    f"{kname} case {name}: {tname} differs from the float64 plain version by "
-                    f"{e_k:.3e}, the float32 plain version by {e_p:.3e} (limit {limit:.3e})")
+                failed.append(f"{tname} differs from the float64 plain version by {e_k:.3e}, the "
+                              f"float32 plain version by {e_p:.3e} (limit {limit:.3e})")
+            if mxu_bf16 and ref.abs().max().item() > 0.0:
+                r = ((ker.double() - ref).abs().max() / ref.abs().max()).item()
+                reach = max(reach, r)
+                if not r <= PAIR_MODE_REACH:
+                    failed.append(f"{tname} is {r:.3e} of its largest value from the float64 "
+                                  f"plain version at an element (limit {PAIR_MODE_REACH})")
+                e_c, _, limit_c = against(control[part][i], p32, ref)
+                miss[part] = max(miss[part], e_c / limit_c)
     ratio, tname, e_k, e_p = max(worst)
     b, n, k = case["idx"].shape
+    mode = ""
+    if mxu_bf16:
+        mode = (f"; as a norm; every element within {reach:.3e} of its largest value; the f32 "
+                f"kernel at {miss[0]:.2f} (forward) and {miss[1]:.2f} (backward) of the limit")
+        if not (miss[0] > 1.0 and miss[1] > 1.0):
+            failed.append("the f32 kernel passes the mode's check")
     print(f"{kname} case {name}: b={b} n={n} k={k} d={case['feats'].shape[-1]} {o}: forward max "
           f"err {errs[0]:.3e}, backward max err {errs[1]:.3e} against float64; nearest its limit "
-          f"{tname} ({e_k:.3e}, plain f32 {e_p:.3e}, {ratio:.3f} of the limit); {repeats} "
+          f"{tname} ({e_k:.3e}, plain f32 {e_p:.3e}, {ratio:.3f} of the limit){mode}; {repeats} "
           f"forward and backward launches bitwise={repeatable}")
     if not repeatable:
-        raise AssertionError(f"{kname} case {name}: launches are not bitwise repeatable")
+        failed.append("launches are not bitwise repeatable")
+    if failed:
+        raise AssertionError(f"{kname} case {name}: {'; '.join(failed)}")
     return errs
 
 
@@ -2850,6 +2925,279 @@ def sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, serving, st
               f"blocks an SM")
 
 
+# phase 43 (K10's tensor-core mode). Served outputs under "medium" against
+# "highest", each tensor's largest
+# |difference| over its largest value: the mode moves the layers' messages by
+# bf16 roundings, and "medium" lets cuBLAS round the rest of the network's
+# products too (measured: 2.0e-7 at anchor 3, whose messages the init's
+# small weights keep small, and 7.0e-3 in arm (c); H100, PERF.md)
+MODE_GAP = 5e-2
+# the served outputs under a rotation and a shift in the mode (the motion
+# itself in exact f32): the moved inputs round to other bf16 values, in K10
+# and in the "medium" cuBLAS products around it. The coordinates'
+# equivariance (measured: 1.1e-5 at anchor 3, 1.6e-4 in arm (c)) and the
+# features' invariance (0 and 2.3e-2; H100, PERF.md)
+MODE_EQUIVARIANCE_ATOL = 1e-3
+MODE_FEATS_INVARIANCE_ATOL = 1e-1
+MODE_STEPS = 5
+
+
+def mode_bound(b, n, k, c, d, h, m, fourier, soft, backward):
+    """(bound_ms, bound_by) of K10 in the tensor-core mode: the bytes of
+    ``pair_bound``; the operations of the MLP products the mode rounds
+    (contraction at least 8: fj @ Wj, distf @ Wd, s1 @ W2, cmsg @ cW1) over
+    the bf16 tensor-core peak, the rest (the one-column products, and
+    distf @ Wd below fourier 4) over the f32 peak; three times over
+    backward, as ``pair_bound`` counts."""
+    from egnn_tpu_torch.utils.profiling import H100_SXM_BF16_TENSOR_FLOPS, H100_SXM_F32_FLOPS
+
+    _, _, t_bytes, _ = pair_bound(b, n, k, c, d, h, m, fourier, soft, False, backward)
+    dd, pairs = 2 * fourier + 1, b * n * k
+    tensor = sum(w for w, contraction in ((d * h, d), (dd * h, dd), (h * m, h), (m * 4 * m, m))
+                 if contraction >= 8)
+    rest = d * h + dd * h + h * m + (m if soft else 0) + m * 4 * m + 4 * m - tensor
+    scale = 2 * pairs * (3 if backward else 1) * 1e3
+    t_ops = scale * (tensor / H100_SXM_BF16_TENSOR_FLOPS + rest / H100_SXM_F32_FLOPS)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mode_phase(torch, smi):
+    """Phase 43: K10 in its tensor-core mode (``mxu_bf16``, reached by
+    ``torch.set_float32_matmul_precision("medium")`` on the card): the
+    kernels at anchor 3's, anchor 5's (G = 32, 512) and path C's shapes
+    against their plain versions in the mode (``check_pair_kernels``), then
+    the anchor-3 ``fused_pairs`` network and anchor 5's arm (c) served and
+    trained under "medium" (the mode's launch counts; outputs against
+    "highest"; equivariance), then the mode's kernels timed beside the f32
+    ones.
+    Returns the kernels line's two rows."""
+    import numpy as np
+
+    from egnn_tpu_torch import EGNNNetwork, EGNNSparseNetwork
+    from egnn_tpu_torch.ops import core
+    from egnn_tpu_torch.ops import graph as GR
+    from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from egnn_tpu_torch.ops.cuda import pair_messages as PM
+    from egnn_tpu_torch.training import (make_adam, make_denoise_train_step, make_fused_adam,
+                                         masked_mse)
+    from egnn_tpu_torch.training.data import synthetic_chain_batch
+
+    t_start = time.perf_counter()
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("phase 43 starts from the default precision, \"highest\"")
+    # ---- 43a. the kernels in the mode at the paths' shapes ----
+    shapes = {  # name: (what, pair_case arguments, (reps, trials))
+        "anchor3": (f"anchor 3's shape (b=1 n={N} k={KNN}, mask, self pairs)",
+                    dict(b=1, n=N, k=KNN, self_pairs=True), (20, 7)),
+        "anchor5_G32": (f"anchor 5's shape at G = {SP_G} (d={SP_DIM}, fourier 4, h={SP_HIDDEN}, "
+                        f"gate_feats_only)", dict(b=1, n=SP_G * SP_NA, k=SP_K, d=SP_DIM,
+                                                  fourier=4, clamp=None, gfo=True), (20, 7)),
+        "anchor5_G512": (f"anchor 5's shape at G = {SP_G_LARGE}",
+                         dict(b=1, n=SP_G_LARGE * SP_NA, k=SP_K, d=SP_DIM, fourier=4, clamp=None,
+                              gfo=True), (5, 5)),
+        "pathC": (f"path C's shape (n={N_A} k={KNN_A}, no mask, self pairs)",
+                  dict(b=1, n=N_A, k=KNN_A, masked=False, self_pairs=True), (3, 5)),
+    }
+    cases, mode_err = {}, {}
+    for i, (name, (what, kw, _)) in enumerate(shapes.items()):
+        cases[name] = pair_case(torch, SEED + 1900 + i, **kw)
+        mode_err[name] = check_pair_kernels(torch, PM, what, cases[name], False, mxu_bf16=True)
+        torch.cuda.empty_cache()
+    print(f"(phase 43 so far: {time.perf_counter() - t_start:.1f} s)")
+
+    # ---- 43b. the fused layers under "medium": served and trained ----
+    rng = np.random.default_rng(SEED + 43)
+    requests = ([synthetic_chain_batch(rng, 1, N, device="cuda") for _ in range(3)]
+                + [synthetic_chain_batch(rng, 8, N, device="cuda")])
+    layer = {**LAYER_KWARGS, "fused_pairs": True}
+
+    def anchor3(seed=SEED):
+        return EGNNNetwork(depth=DEPTH, dim=DIM, num_tokens=NUM_TOKENS, num_positions=N,
+                           layer_kwargs=layer, device="cuda",
+                           generator=torch.Generator().manual_seed(seed))
+
+    def serve3(net, rq, coors=None):
+        return net(rq.tokens, rq.noised_coors if coors is None else coors, adj_mat=rq.adj_mat,
+                   mask=rq.mask)
+
+    def sparse_net(seed=SEED):
+        return EGNNSparseNetwork(**SP_NET, **SP_ARMS["c"], device="cuda",
+                                 generator=torch.Generator().manual_seed(seed))
+
+    def serve5(net, mb, x=None):
+        es = GR.knn_graph(mb.x[:, :3] if x is None else x[:, :3], SP_K, node_mask=mb.node_mask,
+                          graph_size=SP_NA)
+        return net(mb.x if x is None else x, es.edge_index, batch=mb.batch_ids,
+                   edge_mask=es.mask, num_graphs=mb.target.shape[0], node_mask=mb.node_mask)
+
+    molecules = [molecule_batch(torch, GR.knn_graph, SP_G, SEED + 4300 + i) for i in range(3)]
+    nets = {"anchor 3": anchor3().eval(), "arm (c)": sparse_net().eval()}
+    runs = {"anchor 3": (lambda net: [tuple(serve3(net, rq)) for rq in requests], DEPTH,
+                         len(requests)),
+            "arm (c)": (lambda net: [(serve5(net, mb),) for mb, _ in molecules], SP_LAYERS,
+                        len(molecules))}
+    served, launches = {}, {}
+    for precision in ("highest", "medium"):
+        with matmul_precision(torch, precision):
+            for path, net in nets.items():
+                serve_all, depth, calls = runs[path]
+                reset_launch_counts()
+                with torch.inference_mode():
+                    served[path, precision] = serve_all(net)
+                torch.cuda.synchronize()
+                counts = dict(LAUNCH_COUNTS)
+                launches[path, precision] = counts
+                mode_on = precision == "medium"
+                want = {"fused_pair_fwd_bf16" if mode_on else "fused_pair_fwd": depth * calls,
+                        "fused_pair_fwd" if mode_on else "fused_pair_fwd_bf16": 0}
+                print(f"phase 43 {path} served under \"{precision}\": {calls} calls, launches "
+                      f"{ {k: v for k, v in counts.items() if v} }")
+                if any(counts[k] != v for k, v in want.items()):
+                    raise AssertionError(f"phase 43 {path} under {precision}: K10f's launches "
+                                         f"are not {want}")
+    gaps = {}
+    for path in nets:
+        gap = 0.0
+        for outs_m, outs_h in zip(served[path, "medium"], served[path, "highest"]):
+            check_outputs(torch, outs_m, tuple(t.shape for t in outs_h), f"phase 43 {path}")
+            gap = max(gap, *(((a - b_).abs().max() / b_.abs().max()).item()
+                             for a, b_ in zip(outs_m, outs_h)))
+        gaps[path] = gap
+        print(f"phase 43 {path}: served outputs under \"medium\" against \"highest\": largest "
+              f"|difference| {gap:.3e} of the largest value (> 0, tol {MODE_GAP})")
+        if not 0.0 < gap <= MODE_GAP:
+            raise AssertionError(f"phase 43 {path}: the mode's outputs are not within the bf16 "
+                                 f"gap of the f32 ones, or equal to them")
+    equivariance = {}
+    with matmul_precision(torch, "medium"):
+        rq = requests[0]
+        equivariance["anchor 3"] = check_equivariance(
+            torch, lambda c: serve3(nets["anchor 3"], rq, c), rq.noised_coors,
+            "phase 43 anchor 3 under \"medium\"", atol=MODE_EQUIVARIANCE_ATOL,
+            feats_atol=MODE_FEATS_INVARIANCE_ATOL)
+        mb0 = molecules[0][0]
+
+        def moved(c):
+            o = serve5(nets["arm (c)"], mb0, torch.cat([c, mb0.x[:, 3:]], dim=-1))
+            return o[:, 3:], o[:, :3]
+
+        equivariance["arm (c)"] = check_equivariance(
+            torch, moved, mb0.x[:, :3].contiguous(), "phase 43 arm (c) under \"medium\"",
+            atol=MODE_EQUIVARIANCE_ATOL, feats_atol=MODE_FEATS_INVARIANCE_ATOL)
+        # five train steps each, on one batch
+        net3 = anchor3(SEED + 5)
+        step3 = make_denoise_train_step(net3, make_fused_adam(net3.parameters(), LR))
+        rq8 = requests[-1]
+        net5 = sparse_net(SEED + 5)
+        opt5 = make_adam(net5.parameters(), LR)
+        mb, clean = molecules[0]
+
+        def step5():
+            opt5.zero_grad(set_to_none=True)
+            es = GR.knn_graph(mb.x[:, :3], SP_K, node_mask=mb.node_mask, graph_size=SP_NA)
+            out = net5(mb.x, es.edge_index, batch=mb.batch_ids, edge_mask=es.mask,
+                       num_graphs=mb.target.shape[0], node_mask=mb.node_mask)
+            loss = masked_mse(out[:, :3], clean, mb.node_mask)
+            loss.backward()
+            opt5.step()
+            return loss.detach()
+
+        for path, step, depth in (
+                ("anchor 3", lambda: step3(rq8.tokens, rq8.noised_coors, rq8.clean_coors,
+                                           rq8.adj_mat, rq8.mask), DEPTH),
+                ("arm (c)", step5, SP_LAYERS)):
+            reset_launch_counts()
+            losses = torch.stack([step() for _ in range(MODE_STEPS)]).cpu()
+            torch.cuda.synchronize()
+            counts = dict(LAUNCH_COUNTS)
+            launches[path, "steps"] = counts
+            print(f"phase 43 {path} under \"medium\": {MODE_STEPS} train steps, losses "
+                  f"{losses.tolist()}; launches { {k: v for k, v in counts.items() if v} }")
+            want = {"fused_pair_fwd_bf16": depth * MODE_STEPS,
+                    "fused_pair_bwd_bf16": depth * MODE_STEPS,
+                    "fused_pair_fwd": 0, "fused_pair_bwd": 0}
+            if any(counts[k] != v for k, v in want.items()):
+                raise AssertionError(f"phase 43 {path}: the train steps' K10 launches are not "
+                                     f"{want}")
+            if not (bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]):
+                raise AssertionError(f"phase 43 {path}: the loss is not finite or did not fall")
+    del nets, net3, step3, net5, opt5
+    torch.cuda.empty_cache()
+    print(f"(phase 43 so far: {time.perf_counter() - t_start:.1f} s)")
+
+    # ---- 43c. the mode's kernels timed beside the f32 ones ----
+    rows = []
+    for name, (what, kw, (reps, trials)) in shapes.items():
+        case = cases[name]
+        args, weights, opts = pair_args(torch, PM, case, False, torch.float32)
+        mode = opts._replace(mxu_bf16=True)
+        g = (case["g_mi"], case["g_cd"])
+        b, n, k = case["idx"].shape
+        d, h = case["feats"].shape[-1], case["proj_i"].shape[-1]
+        fourier, soft = case["opts"]["fourier"], case["opts"]["soft_edges"]
+        t = {}
+        with torch.no_grad():
+            for key, kernel, plain in (
+                    ("fwd", lambda o: PM.fused_pair_messages_forward(*args, weights, o),
+                     lambda o: PM.fused_pair_messages_plain(*args, weights, o)),
+                    ("bwd", lambda o: PM.fused_pair_messages_backward(*args, weights, *g, o),
+                     lambda o: PM.fused_pair_messages_backward_plain(*args, weights, *g, o))):
+                f32_a = device_ms(torch, lambda: kernel(opts), reps=reps, trials=trials)
+                mode_a = device_ms(torch, lambda: kernel(mode), reps=reps, trials=trials)
+                mode_b = device_ms(torch, lambda: kernel(mode), reps=reps, trials=trials)
+                f32_b = device_ms(torch, lambda: kernel(opts), reps=reps, trials=trials)
+                plain_ms = device_ms(torch, lambda: plain(mode), reps=reps, trials=trials)
+                t[key] = (min(mode_a, mode_b), (mode_a, mode_b), (f32_a, f32_b), plain_ms)
+        with matmul_precision(torch, "medium"):
+            with torch.no_grad():
+                u_fwd = device_ms(torch, lambda: unfused_pipeline(torch, core, *args, weights,
+                                                                  opts), reps=reps, trials=trials)
+
+            def unfused_fwd_bwd():
+                leaves = [a.detach().requires_grad_() if i in (0, 1, 2, 3) else a
+                          for i, a in enumerate(args)]
+                ws = [w.detach().requires_grad_() for w in weights]
+                out = unfused_pipeline(torch, core, *leaves, ws, opts)
+                return torch.autograd.grad(out, [x for x in leaves if x.requires_grad] + ws, g,
+                                           allow_unused=True)
+
+            u_both = device_ms(torch, unfused_fwd_bwd, reps=reps, trials=trials)
+        unfused = {"fwd": u_fwd, "bwd": u_both - u_fwd}
+        for key, backward in (("fwd", False), ("bwd", True)):
+            ms, (m_a, m_b), (f_a, f_b), plain_ms = t[key]
+            bound_ms, bound_by = mode_bound(b, n, k, 3, d, h, 16, fourier, soft, backward)
+            tiles = (PM._bwd_tile_rows(k, 3, d, h, 16, 64, fourier, soft) if backward else
+                     PM._fwd_tile_rows(b, n, k, 3, d, h, 16, 64, fourier, soft,
+                                       torch.cuda.get_device_properties(0).multi_processor_count))
+            per_sm = PM.kernel_blocks_per_sm(tiles, k, 3, d, h, 16, 64, fourier, soft, False,
+                                             backward, mxu_bf16=True)
+            print(f"phase 43 timing fused_pair_{key}_bf16 at {what}: mode {m_a:.5f}/{m_b:.5f} ms "
+                  f"beside f32 {f_a:.5f}/{f_b:.5f} ms (CUDA graph replays, one card: {smi}); "
+                  f"plain in the mode {plain_ms:.5f} ms; the unfused pipeline under \"medium\" "
+                  f"{unfused[key]:.5f} ms{' (its fwd+bwd less its forward)' if backward else ''}; "
+                  f"bound {bound_ms:.6f} ms ({bound_by}); a tile of {tiles} rows, {per_sm} blocks "
+                  f"an SM")
+            if name == "anchor3":   # the JSON line's rows: anchor 3's shape, as K10's
+                main = launches["anchor 3", "medium" if key == "fwd" else "steps"]
+                rows.append({
+                    "name": f"fused_pair_{key}_bf16", "route": "cuda",
+                    "source": "egnn_tpu_torch/csrc/pair_messages.cu",
+                    "replaces": ("egnn_tpu/ops/pallas/pair_messages.py:379" if key == "fwd"
+                                 else "egnn_tpu/ops/pallas/pair_messages.py:425"),
+                    "launches": main[f"fused_pair_{key}_bf16"],
+                    "max_abs_err": mode_err[name][backward],   # against float64
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    # no single PyTorch call computes the pipeline: the unfused
+                    # layer's torch operators under "medium"
+                    "library_ms": unfused[key],
+                })
+        del case, args, weights
+        torch.cuda.empty_cache()
+    print(f"phase 43 (the tensor-core mode): {time.perf_counter() - t_start:.1f} s; equivariance "
+          f"{equivariance}; outputs' gap {gaps}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4757,6 +5105,7 @@ def main() -> int:
     host_runtime_phases(torch, smi)
     parallel_phases(torch, smi)
     model_parallel_phases(torch, smi)
+    kernels.extend(mode_phase(torch, smi))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

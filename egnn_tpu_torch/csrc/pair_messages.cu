@@ -88,9 +88,34 @@
 // and the backward about six (the times are in PERF.md): the exact expf and
 // IEEE division of the activations (210 sigmoids a pair forward, about 400
 // backward), the barriers between stages, and FMAs outside the tensor cores.
-// Tensor cores (wgmma on bf16 or tf32 operands: the TPU kernels' mxu_bf16)
-// and, in the backward, loading a tile's inputs under the tile before it are
-// later work.
+// In the backward, loading a tile's inputs under the tile before it is later
+// work.
+//
+// The tensor-core mode (K10 only: the TPU kernel's mxu_bf16, its _mm_maker
+// and dG). The MLP products round their operands to bf16 (to nearest, ties
+// to even) and add the exact products in f32; the geometry, the elementwise
+// chain, the biases and the k-sums stay f32. A forward product rounds where
+// its contraction has at least 8 elements, a backward product where the
+// contraction and every width of its operands have (the pair rows of a TPU
+// tile, ti * k, are at least 8, so the rules read the widths alone). K10f in
+// the mode (pair_fwd_kernel<false, true>) takes the four products with a
+// real output width, fj @ Wj, distf @ Wd (dd >= 8), s1 @ W2 and cmsg @ cW1,
+// onto the tensor cores with mma.sync m16n8k16 (bf16 fragments, f32
+// accumulators): the weights are rounded once as they are staged, into a
+// transposed bf16 copy that lies in the place of their f32 copy (bf16_ld),
+// the activations as their A fragments are loaded from the f32 tile lines,
+// and the widths are padded with zeros (h = 130 to 144 in K and 136 in N).
+// The one-column products (m0 @ gw, silu(cz1) @ cW2) stay on the CUDA cores
+// with rounded operands, as does the whole of K10b in the mode
+// (pair_bwd_kernel<false, *, true>): its products, the recomputation's by
+// the forward's rule and the weight gradients' outer products, round their
+// activations as they read them (MmArgs::rlo, WgMat::rlo) on the f32
+// structure, and the weights that every product reading them rounds are
+// staged rounded (Prerounded), so its launches repeat bit for bit as the f32
+// mode's do. The layouts are
+// the f32 mode's, and so are the gates and the tiles. Tensor cores in the
+// backward, wgmma and TMA are later work.
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,6 +134,7 @@ constexpr unsigned kFull = 0xffffffffu;
 struct Shape {
   int b, n, k, c, d, h, m, m4, fourier, ti, rows;  // d = 0 in the gathering form
   int soft_edges, norm_coors, has_clamp, gate_feats_only;
+  int mxu_bf16;  // the tensor-core mode (K10 only)
   float clamp, eps;
 };
 
@@ -243,6 +269,33 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// ---- the tensor-core mode's rounding ----
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x rounded to bf16 where the mode rounds the product it feeds (`on`); x
+// itself in the f32 instantiations, where the test compiles to nothing
+template <bool kBf16>
+__device__ __forceinline__ float rnd(float x, bool on) {
+  return kBf16 && on ? bf16_round(x) : x;
+}
+
+template <bool kBf16>
+__device__ __forceinline__ float4 rnd4(float4 v, bool on) {
+  return make_float4(rnd<kBf16>(v.x, on), rnd<kBf16>(v.y, on), rnd<kBf16>(v.z, on),
+                     rnd<kBf16>(v.w, on));
+}
+
+// The lines [*lo, *hi) of two operands laid end to end (n1 lines, then n2)
+// whose products round: the first where `first`, the second where `second`.
+__host__ __device__ inline void round_range(bool first, int n1, bool second, int n2, int* lo,
+                                            int* hi) {
+  *lo = first ? 0 : n1;
+  *hi = second ? n1 + n2 : n1;
+}
+
 // kRows (a multiple of 4) consecutive floats, 16-byte aligned
 template <int kRows>
 __device__ __forceinline__ void load_rows(const float* p, float (&v)[kRows]) {
@@ -289,6 +342,8 @@ struct MmArgs {
   const float* row_bias;
   const int* row_idx;
   int k;
+  int rlo, rhi;  // the tensor-core mode: the terms i in [rlo, rhi) round A,
+  bool rw;       // and W too, unless W was staged rounded (rw false)
 };
 
 __device__ __forceinline__ MmArgs mm_args(float* out, const float* A, const float* W, int wsi,
@@ -299,6 +354,8 @@ __device__ __forceinline__ MmArgs mm_args(float* out, const float* A, const floa
   a.silu_out = nullptr; a.sig_out = nullptr; a.sig_of = nullptr; a.silu_of = nullptr;
   a.add_of = nullptr; a.node_bias = nullptr; a.row_bias = nullptr;
   a.row_idx = nullptr; a.k = 1;
+  a.rlo = a.rhi = 0;
+  a.rw = true;
   return a;
 }
 
@@ -379,11 +436,30 @@ __device__ __forceinline__ void mm_epilogue(const MmArgs& m, int j, int r0, floa
 // Columns past J read the last column and are not stored. Each output adds
 // its terms in the order of i. Inlined, so that the weight-gradient sums
 // the backward keeps in registers are not saved and restored around a call.
-template <int kCols>
+// In the tensor-core mode (kBf16) the terms i in [m.rlo, m.rhi) round the
+// activations to bf16 and, where m.rw, the weights (mm_steps<kCols, true, *>).
+template <int kCols, bool kRoundA, bool kRoundW>
+__device__ __forceinline__ void mm_steps(const MmArgs& m, const float* a, const int (&wo)[kCols],
+                                         int i0, int i1, float (&v)[kCols][4]) {
+#pragma unroll 4  // four steps' loads in flight: K10b 4.48 -> 4.35 ms at path C on the H100
+  for (int i = i0; i < i1; ++i) {
+    const float4 x = rnd4<kRoundA>(*reinterpret_cast<const float4*>(a + i * m.ldr), true);
+    const float* w = m.W + i * m.wsi;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const float wv = rnd<kRoundW>(w[wo[c]], true);
+      v[c][0] = fmaf(x.x, wv, v[c][0]);
+      v[c][1] = fmaf(x.y, wv, v[c][1]);
+      v[c][2] = fmaf(x.z, wv, v[c][2]);
+      v[c][3] = fmaf(x.w, wv, v[c][3]);
+    }
+  }
+}
+
+template <int kCols, bool kBf16 = false>
 __device__ __forceinline__ void mm_blocked(const MmArgs& m) {
   const int groups = (m.rows + 3) >> 2;
   const int nq = (m.J + kCols - 1) / kCols;
-  const int ldr = m.ldr;
   for (int o = threadIdx.x; o < groups * nq; o += blockDim.x) {
     const int g = o / nq, jq = o - g * nq, r0 = g * 4;
     const float* a = m.A + r0;
@@ -395,18 +471,13 @@ __device__ __forceinline__ void mm_blocked(const MmArgs& m) {
     for (int c = 0; c < kCols; ++c)
 #pragma unroll
       for (int q = 0; q < 4; ++q) v[c][q] = 0.f;
-#pragma unroll 4  // four steps' loads in flight: K10b 4.48 -> 4.35 ms at path C on the H100
-    for (int i = 0; i < m.I; ++i) {
-      const float4 x = *reinterpret_cast<const float4*>(a + i * ldr);
-      const float* w = m.W + i * m.wsi;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const float wv = w[wo[c]];
-        v[c][0] = fmaf(x.x, wv, v[c][0]);
-        v[c][1] = fmaf(x.y, wv, v[c][1]);
-        v[c][2] = fmaf(x.z, wv, v[c][2]);
-        v[c][3] = fmaf(x.w, wv, v[c][3]);
-      }
+    if (kBf16) {
+      mm_steps<kCols, false, false>(m, a, wo, 0, m.rlo, v);
+      if (m.rw) mm_steps<kCols, true, true>(m, a, wo, m.rlo, m.rhi, v);
+      else mm_steps<kCols, true, false>(m, a, wo, m.rlo, m.rhi, v);
+      mm_steps<kCols, false, false>(m, a, wo, m.rhi, m.I, v);
+    } else {
+      mm_steps<kCols, false, false>(m, a, wo, 0, m.I, v);
     }
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
@@ -462,6 +533,7 @@ struct WgMat {
   int a, ia;    // A lines: ia lines from shared-memory offset a, then the ones line
   int y;        // dY lines' offset
   int I, J, P, Q, dest, first;  // first: index of its first block in the list
+  int rlo, rhi;  // the tensor-core mode: A lines [rlo, rhi) and dY round there
 };
 
 struct WgPlan {
@@ -469,25 +541,38 @@ struct WgPlan {
   int count, blocks;
 };
 
-inline void add_mat(WgPlan& p, int a, int ia, int y, int I, int J, int dest) {
+inline void add_mat(WgPlan& p, int a, int ia, int y, int I, int J, int dest, int rlo = 0,
+                    int rhi = 0) {
   WgMat& M = p.mat[p.count++];
   M.a = a; M.ia = ia; M.y = y; M.I = I; M.J = J;
+  M.rlo = rlo; M.rhi = rhi;
   M.P = (I + 3) >> 2; M.Q = (J + 3) >> 2;
   M.dest = dest; M.first = p.blocks;
   p.blocks += M.P * M.Q;
 }
 
+// In the tensor-core mode each outer product rounds where dG rounds it: the
+// widths of both of its factors at least 8 (the one-column ones never; the
+// biases' line of ones never).
 WgPlan wgrad_plan(const Shape& s, bool gather, const Layout& L, const GradLayout& G) {
   const int dd = 2 * s.fourier + 1;
   const int ldr = L.ldr;
+  const bool mode = s.mxu_bf16 != 0;
   WgPlan p;
   p.count = 0; p.blocks = 0;
   // [X | DISTF] are adjacent lines, as are the gradients of Wj and Wd
-  if (gather) add_mat(p, L.DISTF, dd, L.H, dd, s.h, G.wd);
-  else add_mat(p, L.X, s.d + dd, L.H, s.d + dd, s.h, G.wj);
-  add_mat(p, L.S, s.h, L.DM, s.h + 1, s.m, G.w2);            // b2 follows w2
+  if (gather) {
+    add_mat(p, L.DISTF, dd, L.H, dd, s.h, G.wd);
+  } else {
+    int lo, hi;
+    round_range(mode && s.d >= 8 && s.h >= 8, s.d, mode && dd >= 8 && s.h >= 8, dd, &lo, &hi);
+    add_mat(p, L.X, s.d + dd, L.H, s.d + dd, s.h, G.wj, lo, hi);
+  }
+  const bool w2 = mode && s.h >= 8 && s.m >= 8, cw1 = mode && s.m >= 8 && s.m4 >= 8;
+  add_mat(p, L.S, s.h, L.DM, s.h + 1, s.m, G.w2, 0, w2 ? s.h : 0);   // b2 follows w2
   if (s.soft_edges) add_mat(p, L.M0, s.m, L.ROW + DZG * ldr, s.m + 1, 1, G.gw);
-  add_mat(p, s.gate_feats_only ? L.M0 : L.MSG, s.m, L.DCZ1, s.m + 1, s.m4, G.cw1);
+  add_mat(p, s.gate_feats_only ? L.M0 : L.MSG, s.m, L.DCZ1, s.m + 1, s.m4, G.cw1, 0,
+          cw1 ? s.m : 0);
   add_mat(p, L.CZ1, s.m4, L.ROW + DWZ * ldr, s.m4 + 1, 1, G.cw2);  // cb2 follows cw2
   if (s.norm_coors) add_mat(p, 0, 0, L.ROW + DSC * ldr, 1, 1, G.scale);
   return p;
@@ -503,15 +588,19 @@ __device__ __forceinline__ WgMat find_mat(const WgPlan& p, int b) {
 
 // v(a, c) = sum over r < rows, in row order, of A(r, i_a) * dY(r, j_c) for
 // block b of matrix M; entries past the matrix's edge read a valid line and
-// are never stored.
+// are never stored. In the tensor-core mode (kBf16) the A lines in
+// [M.rlo, M.rhi) and the dY they meet round to bf16.
+template <bool kBf16 = false>
 __device__ __forceinline__ void wgrad_block(const float* sm, const WgMat& M, int b, int rows,
                                             int ldr, int ones, float (&v)[4][4]) {
   const int bb = b - M.first, iq = bb / M.Q, jq = bb - iq * M.Q;
   int al[4], yl[4];
+  bool ra[4];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
     const int i = iq + M.P * a;
     al[a] = i < M.ia ? M.a + i * ldr : ones;
+    ra[a] = kBf16 && i >= M.rlo && i < M.rhi;
   }
 #pragma unroll
   for (int c = 0; c < 4; ++c) yl[c] = M.y + min(jq + M.Q * c, M.J - 1) * ldr;
@@ -527,14 +616,15 @@ __device__ __forceinline__ void wgrad_block(const float* sm, const WgMat& M, int
     for (int c = 0; c < 4; ++c) y[c] = *reinterpret_cast<const float4*>(sm + yl[c] + r);
 #pragma unroll
     for (int a = 0; a < 4; ++a) {
-      const float4 x = *reinterpret_cast<const float4*>(sm + al[a] + r);
+      const float4 x = rnd4<kBf16>(*reinterpret_cast<const float4*>(sm + al[a] + r), ra[a]);
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         if (c > 0 && c >= ncols) break;  // a matrix one column wide (the J = 1 ones)
-        v[a][c] = fmaf(x.x, y[c].x, v[a][c]);
-        v[a][c] = fmaf(x.y, y[c].y, v[a][c]);
-        v[a][c] = fmaf(x.z, y[c].z, v[a][c]);
-        v[a][c] = fmaf(x.w, y[c].w, v[a][c]);
+        const float4 yc = rnd4<kBf16>(y[c], ra[a]);
+        v[a][c] = fmaf(x.x, yc.x, v[a][c]);
+        v[a][c] = fmaf(x.y, yc.y, v[a][c]);
+        v[a][c] = fmaf(x.z, yc.z, v[a][c]);
+        v[a][c] = fmaf(x.w, yc.w, v[a][c]);
       }
     }
   }
@@ -542,7 +632,9 @@ __device__ __forceinline__ void wgrad_block(const float* sm, const WgMat& M, int
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) v[a][c] = fmaf(sm[al[a] + r], sm[yl[c] + r], v[a][c]);
+      for (int c = 0; c < 4; ++c)
+        v[a][c] = fmaf(rnd<kBf16>(sm[al[a] + r], ra[a]), rnd<kBf16>(sm[yl[c] + r], ra[a]),
+                       v[a][c]);
   }
 }
 
@@ -561,25 +653,94 @@ __device__ __forceinline__ void for_block_entries(const WgMat& M, int b, F f) {
 }
 
 // kAsync: by cp.async (the caller commits and waits), so that every thread's
-// loads are in flight at once
+// loads are in flight at once; else `round` rounds each value to bf16 as it
+// is stored
 template <bool kAsync>
-__device__ void stage_matrix(float* dst, int ld, const float* src, int rows, int cols) {
+__device__ void stage_matrix(float* dst, int ld, const float* src, int rows, int cols,
+                             bool round = false) {
   for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
     const int r = e / cols, j = e - r * cols;
     if (kAsync) __pipeline_memcpy_async(dst + r * ld + j, src + e, sizeof(float));
-    else dst[r * ld + j] = src[e];
+    else dst[r * ld + j] = round ? bf16_round(src[e]) : src[e];
   }
 }
 
-template <bool kAsync = false>
-__device__ void stage_weights(const Shape& s, const Tensors& t, const Layout& L, float* sm) {
+// K10b in the tensor-core mode stages a weight already rounded where every
+// product that reads it rounds it: the recomputation's by the forward's rule
+// and the backward's by dG's. So it does for Wj, Wd, W2 and cW1 at every
+// shape the layers give (their rules part only at h, m or m4 below 8), and a
+// product then rounds only its activations as it reads them (MmArgs::rw).
+// gw and cW2 meet f32 products in the backward (d_zg, d_wz) and round as the
+// recomputation reads them.
+struct Prerounded {
+  bool wj, wd, w2, cw1;
+};
+
+__host__ __device__ inline Prerounded prerounded(const Shape& s) {
   const int dd = 2 * s.fourier + 1;
-  stage_matrix<kAsync>(sm + L.wj, L.ld_h, t.wj, s.d, s.h);
-  stage_matrix<kAsync>(sm + L.wd, L.ld_h, t.wd, dd, s.h);
-  stage_matrix<kAsync>(sm + L.w2, L.ld_m, t.w2, s.h, s.m);
+  const bool on = s.mxu_bf16 != 0;
+  return {on && s.d >= 8 && s.h >= 8, on && dd >= 8 && s.h >= 8, on && s.h >= 8 && s.m >= 8,
+          on && s.m >= 8 && s.m4 >= 8};
+}
+
+// The stride, in bf16 values, of the tensor-core mode's copy of a K x N
+// weight (K >= 8): transposed, row j holding column j's K values and zeros up
+// to the next multiple of 16, kp. It lies in the place of the f32 copy, K
+// rows of ld32 >= N floats: kp + 8 where that fits there (a B fragment's
+// loads then fall on 32 distinct banks, (kp + 8) / 2 words being 4 modulo
+// 8), else kp, which fits always (kp <= 2K).
+__host__ __device__ inline int bf16_ld(int K, int N, int ld32) {
+  const int kp = (K + 15) & ~15;
+  return (kp + 8) * N <= 2 * K * ld32 ? kp + 8 : kp;
+}
+
+__device__ __forceinline__ __nv_bfloat16* bf16_at(float* p) {
+  return reinterpret_cast<__nv_bfloat16*>(p);
+}
+
+// W (K x N, row-major in device memory) into its bf16 copy (bf16_ld),
+// rounded once; reads coalesced along the columns, eight of a thread's in
+// flight at once.
+__device__ void stage_bf16(__nv_bfloat16* dst, int ld, const float* src, int K, int N) {
+  constexpr int kInFlight = 8;
+  const int kp = (K + 15) & ~15, total = kp * N, nt = blockDim.x;
+  for (int e0 = threadIdx.x; e0 < total; e0 += kInFlight * nt) {
+    float v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int e = e0 + u * nt;
+      v[u] = e < K * N ? __ldg(src + e) : 0.f;   // the rows from K to kp are zeros
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int e = e0 + u * nt;
+      if (e < total) {
+        const int k = e / N, j = e - k * N;
+        dst[j * ld + k] = __float2bfloat16_rn(v[u]);
+      }
+    }
+  }
+}
+
+// In the forward's tensor-core mode (kBf16) the weights of the products that
+// go onto the tensor cores (contraction >= 8: fj @ Wj, distf @ Wd, s1 @ W2,
+// cmsg @ cW1) take their bf16 copies in place of the f32 ones. K10b in the
+// mode passes `pre` (synchronous copies), its f32 copies rounded there.
+template <bool kAsync = false, bool kBf16 = false>
+__device__ void stage_weights(const Shape& s, const Tensors& t, const Layout& L, float* sm,
+                              const Prerounded& pre = Prerounded{}) {
+  const int dd = 2 * s.fourier + 1;
+  if (kBf16 && s.d >= 8) stage_bf16(bf16_at(sm + L.wj), bf16_ld(s.d, s.h, L.ld_h), t.wj, s.d, s.h);
+  else stage_matrix<kAsync>(sm + L.wj, L.ld_h, t.wj, s.d, s.h, pre.wj);
+  if (kBf16 && dd >= 8) stage_bf16(bf16_at(sm + L.wd), bf16_ld(dd, s.h, L.ld_h), t.wd, dd, s.h);
+  else stage_matrix<kAsync>(sm + L.wd, L.ld_h, t.wd, dd, s.h, pre.wd);
+  if (kBf16 && s.h >= 8) stage_bf16(bf16_at(sm + L.w2), bf16_ld(s.h, s.m, L.ld_m), t.w2, s.h, s.m);
+  else stage_matrix<kAsync>(sm + L.w2, L.ld_m, t.w2, s.h, s.m, pre.w2);
   stage_matrix<kAsync>(sm + L.b2, s.m, t.b2, 1, s.m);
   if (s.soft_edges) stage_matrix<kAsync>(sm + L.gw, s.m, t.gw, 1, s.m);
-  stage_matrix<kAsync>(sm + L.cw1, L.ld_m4, t.cw1, s.m, s.m4);
+  if (kBf16 && s.m >= 8)
+    stage_bf16(bf16_at(sm + L.cw1), bf16_ld(s.m, s.m4, L.ld_m4), t.cw1, s.m, s.m4);
+  else stage_matrix<kAsync>(sm + L.cw1, L.ld_m4, t.cw1, s.m, s.m4, pre.cw1);
   stage_matrix<kAsync>(sm + L.cb1, s.m4, t.cb1, 1, s.m4);
   stage_matrix<kAsync>(sm + L.cw2, s.m4, t.cw2, 1, s.m4);
   if (threadIdx.x == 0) {
@@ -590,13 +751,16 @@ __device__ void stage_weights(const Shape& s, const Tensors& t, const Layout& L,
 }
 
 // The soft gate, one thread a row, the sum over m in order: GATE, and
-// MSG = m0 * gate.
+// MSG = m0 * gate. The mode rounds m0 and gw at m >= 8.
+template <bool kBf16 = false>
 __device__ __forceinline__ void soft_gate(const Shape& s, const Layout& L, float* sm, int rows) {
   const int ldr = L.ldr;
+  const bool rg = s.m >= 8;
   float* row = sm + L.ROW;
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     float zg = sm[L.misc + 0];
-    for (int j = 0; j < s.m; ++j) zg = fmaf(sm[L.M0 + j * ldr + r], sm[L.gw + j], zg);
+    for (int j = 0; j < s.m; ++j)
+      zg = fmaf(rnd<kBf16>(sm[L.M0 + j * ldr + r], rg), rnd<kBf16>(sm[L.gw + j], rg), zg);
     const float gate = sigmoid_f(zg);
     row[GATE * ldr + r] = gate;
     for (int j = 0; j < s.m; ++j) sm[L.MSG + j * ldr + r] = sm[L.M0 + j * ldr + r] * gate;
@@ -712,19 +876,163 @@ __device__ __forceinline__ void unpack_inputs(const Shape& s, const Tensors& t, 
   }
 }
 
+// ---- the forward's tensor-core products (the mode) ----
+
+// d += a * b for one m16n8k16 tile: A 16 x 16 and B 16 x 8 in bf16, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One operand pair of a tensor-core product: K tile lines of A (A(r, k) at
+// A[k * ldr + r], f32) against a weight's bf16 copy W at stride ld.
+struct TcSeg {
+  const float* A;
+  const __nv_bfloat16* W;
+  int K, ld;
+};
+
+// out(r, j) = silu(sum over the segments of A @ W (+ fA @ fW, f32, K < 8)
+//                  + bias[j] + add_of(r, j))             r < rows, j < N
+struct TcArgs {
+  TcSeg seg[2];
+  int nseg;
+  int rows, N, ldr;
+  const float* fA;  // an f32 term of fK < 8 lines against f32 weights fW (row stride fws)
+  const float* fW;
+  int fK, fws;
+  const float* bias;
+  const float* add_of;
+  float* out;
+};
+
+__device__ __forceinline__ TcArgs tc_args(int rows, int N, int ldr, float* out) {
+  TcArgs m;
+  m.nseg = 0; m.rows = rows; m.N = N; m.ldr = ldr;
+  m.fA = nullptr; m.fW = nullptr; m.fK = 0; m.fws = 0;
+  m.bias = nullptr; m.add_of = nullptr; m.out = out;
+  return m;
+}
+
+// A term of a product (K lines of A against a K x N weight staged at wsm):
+// onto the tensor cores where the mode rounds it (K >= 8), else the f32 term
+// (h1's fj @ Wj at d < 8 or distf @ Wd below fourier 4).
+__device__ __forceinline__ void tc_term(TcArgs& m, const float* A, float* wsm, int K, int ld32) {
+  if (K >= 8) {
+    const TcSeg seg{A, bf16_at(wsm), K, bf16_ld(K, m.N, ld32)};
+    if (m.nseg == 0) m.seg[0] = seg;   // fixed indices: the segments stay in registers
+    else m.seg[1] = seg;
+    ++m.nseg;
+  } else if (K > 0) {
+    m.fA = A; m.fW = wsm; m.fK = K; m.fws = ld32;
+  }
+}
+
+// The A fragment of rows r0.. and contraction k0.. (zero from K on), rounded
+// to bf16 as it is loaded. Rows past the tile's read the lines' padding or the
+// next line: their results are never stored.
+__device__ __forceinline__ void load_a_frag(const float* A, int K, int ldr, int r0, int k0,
+                                            uint32_t (&a)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = (lane & 3) * 2;
+  auto at = [&](int k, int r) { return k < K ? A[k * ldr + r] : 0.f; };
+  a[0] = pack_bf16(at(k0 + q, r0 + g), at(k0 + q + 1, r0 + g));
+  a[1] = pack_bf16(at(k0 + q, r0 + g + 8), at(k0 + q + 1, r0 + g + 8));
+  a[2] = pack_bf16(at(k0 + q + 8, r0 + g), at(k0 + q + 9, r0 + g));
+  a[3] = pack_bf16(at(k0 + q + 8, r0 + g + 8), at(k0 + q + 9, r0 + g + 8));
+}
+
+// The product by the block's warps: a warp item is one tile of 16 rows by a
+// chunk of up to kTiles column tiles of 8; each step of 16 in the
+// contraction loads the A fragment once for the chunk. The chunk is the one
+// that gives the busiest warp the fewest column tiles (the epilogue's
+// activations are most of the work), the larger on a tie. Column tiles past
+// N read the last column and are not stored. The A fragments' loads fall on
+// 32 distinct banks (ldr is four times an odd number), as do the epilogue's.
+template <int kTiles>
+__device__ __forceinline__ void tc_product(const TcArgs& m) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, q = (lane & 3) * 2;
+  const int mt = (m.rows + 15) >> 4, nt = (m.N + 7) >> 3;
+  int cnt = 1, busiest = 1 << 30;
+  for (int c = 1; c <= kTiles; ++c) {
+    const int tiles = (mt * ((nt + c - 1) / c) + nwarps - 1) / nwarps * c;
+    if (tiles <= busiest) { busiest = tiles; cnt = c; }
+  }
+  const int chunks = (nt + cnt - 1) / cnt;
+  for (int item = warp; item < mt * chunks; item += nwarps) {
+    const int r0 = (item % mt) * 16, n0 = (item / mt) * cnt * 8;
+    float acc[kTiles][4];
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
+#pragma unroll
+    for (int sg = 0; sg < 2; ++sg) {
+      if (sg >= m.nseg) break;
+      const TcSeg seg = m.seg[sg];
+      for (int k0 = 0; k0 < seg.K; k0 += 16) {
+        uint32_t a[4];
+        load_a_frag(seg.A, seg.K, m.ldr, r0, k0, a);
+#pragma unroll
+        for (int t = 0; t < kTiles; ++t) {
+          if (t < cnt && n0 + t * 8 < m.N) {   // the same for the whole warp
+            const int j = min(n0 + t * 8 + g, m.N - 1);
+            const uint32_t* w = reinterpret_cast<const uint32_t*>(seg.W + j * seg.ld + k0);
+            mma_bf16(acc[t], a, w[q >> 1], w[(q >> 1) + 4]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t) {
+      if (t >= cnt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + (e >> 1) * 8, j = n0 + t * 8 + q + (e & 1);
+        if (r < m.rows && j < m.N) {
+          float v = acc[t][e];
+          for (int f = 0; f < m.fK; ++f) v = fmaf(m.fA[f * m.ldr + r], m.fW[f * m.fws + j], v);
+          if (m.bias != nullptr) v += m.bias[j];
+          if (m.add_of != nullptr) v += m.add_of[j * m.ldr + r];
+          m.out[j * m.ldr + r] = silu_f(v);
+        }
+      }
+    }
+  }
+}
+
 // The tile's pipeline after the unpacking: H <- silu(h1), M0, MSG (GATE),
 // CZ1 <- silu(cz1), and REL <- w * rel_n with w = clip(wz * pv). Ends on a
 // barrier.
-template <bool kGather>
+// In the tensor-core mode (kBf16) the products whose contraction has at
+// least 8 elements run on the tensor cores (tc_product), and the rest as in
+// the f32 mode.
+template <bool kGather, bool kBf16>
 __device__ __forceinline__ void forward_products(const Shape& s, const Layout& L, float* sm,
                                                  int rows) {
   const int dd = 2 * s.fourier + 1;
   const int ldr = L.ldr;
   const int nt = blockDim.x;
   float* row = sm + L.ROW;
+  float* cmsg = sm + (s.gate_feats_only ? L.M0 : L.MSG);
 
   // h1 = H + [fj | distf] @ [Wj; Wd] (K11: distf @ Wd); H <- silu(h1)
-  {
+  if (kBf16 && (s.d >= 8 || dd >= 8)) {
+    TcArgs m = tc_args(rows, s.h, ldr, sm + L.H);
+    tc_term(m, sm + L.X, sm + L.wj, s.d, L.ld_h);
+    tc_term(m, sm + L.DISTF, sm + L.wd, dd, L.ld_h);
+    m.add_of = sm + L.H;     // each element read and rewritten by its owner
+    tc_product<4>(m);
+  } else {
     MmArgs m = kGather ? mm_args(nullptr, sm + L.DISTF, sm + L.wd, L.ld_h, 1, rows, dd, s.h, ldr)
                        : mm_args(nullptr, sm + L.X, sm + L.wj, L.ld_h, 1, rows, s.d + dd, s.h,
                                  ldr);
@@ -735,7 +1043,12 @@ __device__ __forceinline__ void forward_products(const Shape& s, const Layout& L
   __syncthreads();
 
   // m0 = silu(s1 @ W2 + b2)
-  {
+  if (kBf16 && s.h >= 8) {
+    TcArgs m = tc_args(rows, s.m, ldr, sm + L.M0);
+    tc_term(m, sm + L.H, sm + L.w2, s.h, L.ld_m);
+    m.bias = sm + L.b2;
+    tc_product<4>(m);
+  } else {
     MmArgs m = mm_args(nullptr, sm + L.H, sm + L.w2, L.ld_m, 1, rows, s.h, s.m, ldr);
     m.bias = sm + L.b2;
     m.silu_out = sm + L.M0;
@@ -744,14 +1057,18 @@ __device__ __forceinline__ void forward_products(const Shape& s, const Layout& L
   __syncthreads();
 
   if (s.soft_edges) {
-    soft_gate(s, L, sm, rows);
+    soft_gate<kBf16>(s, L, sm, rows);
     __syncthreads();
   }
 
   // CZ1 <- silu(cmsg @ cW1 + cb1)
-  {
-    MmArgs m = mm_args(nullptr, sm + (s.gate_feats_only ? L.M0 : L.MSG), sm + L.cw1, L.ld_m4, 1,
-                       rows, s.m, s.m4, ldr);
+  if (kBf16 && s.m >= 8) {
+    TcArgs m = tc_args(rows, s.m4, ldr, sm + L.CZ1);
+    tc_term(m, cmsg, sm + L.cw1, s.m, L.ld_m4);
+    m.bias = sm + L.cb1;
+    tc_product<4>(m);
+  } else {
+    MmArgs m = mm_args(nullptr, cmsg, sm + L.cw1, L.ld_m4, 1, rows, s.m, s.m4, ldr);
     m.bias = sm + L.cb1;
     m.silu_out = sm + L.CZ1;
     mm_blocked<2>(m);
@@ -764,13 +1081,14 @@ __device__ __forceinline__ void forward_products(const Shape& s, const Layout& L
   {
     const int sub = threadIdx.x & 7, group = threadIdx.x >> 3, groups = nt >> 3;
     const float scale = sm[L.misc + 2];
+    const bool rc = s.m4 >= 8;
     for (int base = 0; base < rows; base += groups) {   // the same trips for every lane
       const int r = base + group;
       const bool live = r < rows;
       const int rr = live ? r : 0;
       float acc = 0.f;
       for (int q = sub; q < s.m4; q += 8)
-        acc = fmaf(sm[L.CZ1 + q * ldr + rr], sm[L.cw2 + q], acc);
+        acc = fmaf(rnd<kBf16>(sm[L.CZ1 + q * ldr + rr], rc), rnd<kBf16>(sm[L.cw2 + q], rc), acc);
 #pragma unroll
       for (int o = 4; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
       if (live && sub < s.c) {
@@ -812,8 +1130,9 @@ __device__ __forceinline__ void forward_sums(const Shape& s, const Tensors& t, c
 
 // A block walks its tiles (tile = blockIdx.x, += gridDim.x, across batch
 // elements): it waits for the tile's staged inputs, unpacks them, queues the
-// next tile's copies (none after its last) and computes.
-template <bool kGather>
+// next tile's copies (none after its last) and computes. kBf16: the
+// tensor-core mode (K10 only).
+template <bool kGather, bool kBf16>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 pair_fwd_kernel(const Shape s, const Tensors t) {
   extern __shared__ float4 sm4[];
@@ -821,7 +1140,7 @@ pair_fwd_kernel(const Shape s, const Tensors t) {
   const Layout L = make_layout(s, false);
   const int tiles_per_b = (s.n + s.ti - 1) / s.ti, tiles = s.b * tiles_per_b;
   if ((int)blockIdx.x < tiles) stage_inputs<kGather>(s, t, L, sm, blockIdx.x);
-  stage_weights<true>(s, t, L, sm);
+  stage_weights<true, kBf16>(s, t, L, sm);
   __pipeline_commit();
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int ib = tile / tiles_per_b, i0 = (tile - ib * tiles_per_b) * s.ti;
@@ -831,7 +1150,7 @@ pair_fwd_kernel(const Shape s, const Tensors t) {
     unpack_inputs<kGather>(s, t, L, sm, ib, rows);
     __syncthreads();   // the staging region is free
     if (tile + (int)gridDim.x < tiles) stage_inputs<kGather>(s, t, L, sm, tile + gridDim.x);
-    forward_products<kGather>(s, L, sm, rows);
+    forward_products<kGather, kBf16>(s, L, sm, rows);
     forward_sums(s, t, L, sm, (size_t)ib * s.n + i0, tn);
   }
 }
@@ -842,13 +1161,15 @@ pair_fwd_kernel(const Shape s, const Tensors t) {
 // silu(h1) (S), m0, msg, rel, [fj | distf], the row scalars DIST, PV, NRM,
 // GATE, WZ, WCL (the clipped weight), the sigmoids of h1, z2, cz1 in H, Z2,
 // CZ1 (for silu' without a second exponential) and silu(cz1) in DCZ1. Ends
-// on a barrier.
-template <bool kGather, int kWideCols>
+// on a barrier. The tensor-core mode (kBf16) rounds the products' operands
+// by the forward's rule, as K10f does.
+template <bool kGather, int kWideCols, bool kBf16>
 __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, const Layout& L,
                                              float* sm, int ib, int i0, int rows) {
   const int dd = 2 * s.fourier + 1;
   const int ldr = L.ldr;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const Prerounded pre = prerounded(s);
   const size_t node0 = (size_t)ib * s.n + i0;
   const size_t p0 = node0 * s.k;
   float* row = sm + L.ROW;
@@ -903,7 +1224,9 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
       m.row_bias = t.proj_j + (size_t)ib * s.n * s.h;
       m.row_idx = jdx;
     }
-    mm_blocked<kWideCols>(m);
+    round_range(s.d >= 8, s.d, dd >= 8, dd, &m.rlo, &m.rhi);   // kGather has no mode
+    m.rw = !(pre.wj || pre.wd);   // the two agree wherever either rounds
+    mm_blocked<kWideCols, kBf16>(m);
   }
   __syncthreads();
 
@@ -913,12 +1236,14 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
     m.bias = sm + L.b2;
     m.silu_out = sm + L.M0;
     m.sig_out = sm + L.Z2;
-    mm_blocked<1>(m);
+    m.rhi = s.h >= 8 ? s.h : 0;
+    m.rw = !pre.w2;
+    mm_blocked<1, kBf16>(m);
   }
   __syncthreads();
 
   if (s.soft_edges) {
-    soft_gate(s, L, sm, rows);
+    soft_gate<kBf16>(s, L, sm, rows);
     __syncthreads();
   }
 
@@ -929,14 +1254,18 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
     m.bias = sm + L.cb1;
     m.sig_out = sm + L.CZ1;
     m.silu_out = sm + L.DCZ1;
-    mm_blocked<1>(m);
+    m.rhi = s.m >= 8 ? s.m : 0;
+    m.rw = !pre.cw1;
+    mm_blocked<1, kBf16>(m);
   }
   __syncthreads();
 
   // wz = silu(cz1) @ cW2 + cb2; w = clip(wz * pv); one warp a row
+  const bool rc = s.m4 >= 8;
   for (int r = warp; r < rows; r += nwarps) {
     float acc = 0.f;
-    for (int q = lane; q < s.m4; q += 32) acc = fmaf(sm[L.DCZ1 + q * ldr + r], sm[L.cw2 + q], acc);
+    for (int q = lane; q < s.m4; q += 32)
+      acc = fmaf(rnd<kBf16>(sm[L.DCZ1 + q * ldr + r], rc), rnd<kBf16>(sm[L.cw2 + q], rc), acc);
     const float wz = warp_sum(acc) + sm[L.misc + 1];
     if (lane == 0) {
       const float wm = wz * row[PV * ldr + r];
@@ -955,7 +1284,9 @@ struct BwdPlan {
   WgPlan wg;
 };
 
-template <bool kGather, int kWideCols>
+// kBf16: the tensor-core mode (K10 only), its operands rounded where dG
+// rounds them.
+template <bool kGather, int kWideCols, bool kBf16>
 __global__ void __launch_bounds__(kBwdThreads, 2)
 pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan p) {
   extern __shared__ float4 sm4[];
@@ -969,7 +1300,8 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = nt >> 5;
   float* row = sm + L.ROW;
   float* mine = t.partial + (size_t)blockIdx.x * G.total;
-  stage_weights(s, t, L, sm);
+  const Prerounded pre = prerounded(s);
+  stage_weights(s, t, L, sm, pre);
   for (int r = threadIdx.x; r < ldr; r += nt) sm[L.ONES + r] = 1.f;
   float acc[kWgSlots][4][4];
 #pragma unroll
@@ -990,7 +1322,7 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
     const int tn = min(s.ti, s.n - i0), rows = tn * s.k;
     const size_t node0 = (size_t)ib * s.n + i0;
     const size_t p0 = node0 * s.k;
-    tile_forward<kGather, kWideCols>(s, t, L, sm, ib, i0, rows);
+    tile_forward<kGather, kWideCols, kBf16>(s, t, L, sm, ib, i0, rows);
 
     // ---- aggregation, clamp and CoorsNorm backward: eight lanes a row, a
     // lane a coordinate (c <= 8) ----
@@ -1041,8 +1373,12 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
       sm[L.CZ1 + q * ldr + r] = cs;
     }
     __syncthreads();
-    mm_blocked<1>(mm_args(sm + L.DM, sm + L.DCZ1, sm + L.cw1, 1, L.ld_m4, rows, s.m4, s.m,
-                             ldr));  // d_cmsg = d_cz1 @ cW1^T
+    {
+      MmArgs m = mm_args(sm + L.DM, sm + L.DCZ1, sm + L.cw1, 1, L.ld_m4, rows, s.m4, s.m, ldr);
+      m.rhi = s.m >= 8 && s.m4 >= 8 ? s.m4 : 0;
+      m.rw = !pre.cw1;
+      mm_blocked<1, kBf16>(m);  // d_cmsg = d_cz1 @ cW1^T
+    }
     __syncthreads();
 
     // ---- messages, soft gate and silu backward: DM <- d_z2 ----
@@ -1081,12 +1417,15 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
       MmArgs m = mm_args(sm + L.H, sm + L.DM, sm + L.w2, 1, L.ld_m, rows, s.m, s.h, ldr);
       m.sig_of = sm + L.H;
       m.silu_of = sm + L.S;
-      mm_blocked<kWideCols>(m);
+      m.rhi = s.m >= 8 && s.h >= 8 ? s.m : 0;
+      m.rw = !pre.w2;
+      mm_blocked<kWideCols, kBf16>(m);
     }
     __syncthreads();
 
     // ---- d_distf = d_h1 @ Wd^T, d_fj = d_h1 @ Wj^T (or the j-side rows),
     // d_proj_i, and every weight gradient of the tile ----
+    const bool rd = dd >= 8 && s.h >= 8;   // Wd was staged rounded where rd (pre.wd)
     for (int e = threadIdx.x; e < dd * rows; e += nt) {  // four chains of j mod 4
       const int f = e / rows, r = e - f * rows;
       const float* w = sm + L.wd + f * L.ld_h;
@@ -1094,14 +1433,17 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
       int j = 0;
       for (; j + 4 <= s.h; j += 4)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) v[q] = fmaf(sm[L.H + (j + q) * ldr + r], w[j + q], v[q]);
-      for (; j < s.h; ++j) v[j & 3] = fmaf(sm[L.H + j * ldr + r], w[j], v[j & 3]);
+        for (int q = 0; q < 4; ++q)
+          v[q] = fmaf(rnd<kBf16>(sm[L.H + (j + q) * ldr + r], rd), w[j + q], v[q]);
+      for (; j < s.h; ++j) v[j & 3] = fmaf(rnd<kBf16>(sm[L.H + j * ldr + r], rd), w[j], v[j & 3]);
       sm[L.DDF + f * ldr + r] = (v[0] + v[1]) + (v[2] + v[3]);
     }
     if (!kGather) {
       MmArgs m = mm_args(t.d_fj + p0 * s.d, sm + L.H, sm + L.wj, 1, L.ld_h, rows, s.h, s.d, ldr);
       m.row_major_ld = s.d;  // row-major into device memory
-      mm_blocked<1>(m);
+      m.rhi = s.d >= 8 && s.h >= 8 ? s.h : 0;
+      m.rw = !pre.wj;
+      mm_blocked<1, kBf16>(m);
     } else {
       const int pw = s.c + s.h;
       for (int e = threadIdx.x; e < rows * s.h; e += nt) {
@@ -1120,7 +1462,7 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
       const int b = sl * nt + threadIdx.x;
       if (b < plan.blocks) {
         float v[4][4];
-        wgrad_block(sm, find_mat(plan, b), b, rows, ldr, L.ONES, v);
+        wgrad_block<kBf16>(sm, find_mat(plan, b), b, rows, ldr, L.ONES, v);
 #pragma unroll
         for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -1130,7 +1472,7 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
     for (int b = kWgSlots * nt + threadIdx.x; b < plan.blocks; b += nt) {
       const WgMat M = find_mat(plan, b);
       float v[4][4];
-      wgrad_block(sm, M, b, rows, ldr, L.ONES, v);
+      wgrad_block<kBf16>(sm, M, b, rows, ldr, L.ONES, v);
       for_block_entries(M, b, [&](int a, int c, int o) { mine[o] += v[a][c]; });
     }
     __syncthreads();
@@ -1199,24 +1541,29 @@ bool shape_ok(const Shape& s, bool gather, bool backward) {
       s.m4 < 1 || s.fourier < 0 || s.fourier > kMaxFourier)
     return false;
   if (gather ? s.d != 0 : s.d < 1) return false;
+  if (gather && s.mxu_bf16) return false;   // K11 has no tensor-core mode
   if (s.rows < 8 || s.rows > kMaxRows || s.rows % 8 || s.ti < 1 || s.ti * s.k > s.rows)
     return false;
   return (size_t)make_layout(s, backward).total * sizeof(float) <= (size_t)kMaxSmemBytes;
 }
 
-using FwdKernel = decltype(&pair_fwd_kernel<false>);
-using BwdKernel = decltype(&pair_bwd_kernel<false, 1>);
+using FwdKernel = decltype(&pair_fwd_kernel<false, false>);
+using BwdKernel = decltype(&pair_bwd_kernel<false, 1, false>);
 
-FwdKernel fwd_kernel(bool gather) {
-  return gather ? &pair_fwd_kernel<true> : &pair_fwd_kernel<false>;
+// K10's instances in the tensor-core mode are instantiated without the
+// gather alone (shape_ok refuses K11 in the mode).
+FwdKernel fwd_kernel(const Shape& s, bool gather) {
+  if (s.mxu_bf16) return &pair_fwd_kernel<false, true>;
+  return gather ? &pair_fwd_kernel<true, false> : &pair_fwd_kernel<false, false>;
 }
 
 // The backward's instance: five columns a thread in the h-wide products
 // where that gives the threads no longer a path (wide_cost), else one.
 BwdKernel bwd_kernel(const Shape& s, bool gather) {
-  if (wide_cost(s, 5) <= wide_cost(s, 1))
-    return gather ? &pair_bwd_kernel<true, 5> : &pair_bwd_kernel<false, 5>;
-  return gather ? &pair_bwd_kernel<true, 1> : &pair_bwd_kernel<false, 1>;
+  const bool wide = wide_cost(s, 5) <= wide_cost(s, 1);
+  if (s.mxu_bf16) return wide ? &pair_bwd_kernel<false, 5, true> : &pair_bwd_kernel<false, 1, true>;
+  if (wide) return gather ? &pair_bwd_kernel<true, 5, false> : &pair_bwd_kernel<false, 5, false>;
+  return gather ? &pair_bwd_kernel<true, 1, false> : &pair_bwd_kernel<false, 1, false>;
 }
 
 // Lets `kernel` take the shape's shared memory, `*bytes` of it.
@@ -1262,7 +1609,7 @@ int pair_messages_launch(const Shape* s, const Tensors* t, int gather, int backw
   const int tiles = s->b * ((s->n + s->ti - 1) / s->ti);
   if (!shape_ok(*s, gather != 0, backward != 0) || grid < 1 || grid > tiles)
     return (int)cudaErrorInvalidValue;
-  if (!backward) return launch_kernel(fwd_kernel(gather != 0), *s, *t, false, grid, stream);
+  if (!backward) return launch_kernel(fwd_kernel(*s, gather != 0), *s, *t, false, grid, stream);
   BwdPlan plan;
   plan.L = make_layout(*s, true);
   plan.G = grad_layout(*s);
@@ -1284,7 +1631,7 @@ int pair_messages_smem_floats(const Shape* s, int backward) {
 // Blocks of the kernel an SM holds at once for this shape (-1 on an error).
 int pair_messages_blocks_per_sm(const Shape* s, int gather, int backward) {
   return backward ? occupancy(bwd_kernel(*s, gather != 0), *s, true)
-                  : occupancy(fwd_kernel(gather != 0), *s, false);
+                  : occupancy(fwd_kernel(*s, gather != 0), *s, false);
 }
 
 }  // extern "C"

@@ -31,7 +31,11 @@ names and (in, out) weight layout:
   ``supports_fused_knn_layer``: k <= 64, c <= 8, widths that fit a block's
   shared memory); otherwise the layer takes the unfused pipeline silently,
   as the reference does. They ignore ``compute_dtype``: operands go to the
-  kernel in float32.
+  kernel in float32. On the card under
+  ``torch.set_float32_matmul_precision("medium")`` K10 runs its tensor-core
+  mode (``pair_messages.mxu_bf16_for``), as the JAX layer runs it on the TPU;
+  on an H100 that mode is slower than float32 today (K10f 1.1-1.4x, K10b
+  1.6-1.9x; ``PERF.md``).
 - Without kNN and without dense ``edges``, from n = 1024 on (or with
   ``stream_pairwise=True``) the all-pairs layer streams: j-chunks of
   ``ops/pairwise_stream.py``, recomputed in the backward, so that nothing
@@ -437,7 +441,7 @@ class EGNN(nn.Module):
                     feats @ fw_i + fb1,
                     pvm.reshape(b, n * kk, 1).to(coors.dtype),
                     self.fourier_features, self.soft_edges, self.norm_coors,
-                    self.coor_weights_clamp_value, 1e-8, False, False,
+                    self.coor_weights_clamp_value, 1e-8, pm.mxu_bf16_for(coors.device), False,
                     fw_j, *self._pair_weights(fw_d, coors))
                 m_i = self._pool_kernel_messages(m_sum, pvm, mask, num_nearest)
                 return (self._node_update(feats, m_i.to(feats.dtype), mp=lambda v: v),

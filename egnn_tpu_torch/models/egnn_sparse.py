@@ -37,7 +37,12 @@ On the card:
   widths, without ``edge_attr``, with both updates and aggr add, sum or
   mean; otherwise the layer takes the per-edge path silently, as the JAX
   package does. The kernel computes in float32 and ignores
-  ``compute_dtype``. ``None`` and ``False`` take the per-edge path.
+  ``compute_dtype``; on the card under
+  ``torch.set_float32_matmul_precision("medium")`` it runs its tensor-core
+  mode (``pair_messages.mxu_bf16_for``), as the JAX layer does on the TPU,
+  slower than float32 on an H100 today (K10f 1.1-1.4x, K10b 1.6-1.9x;
+  ``PERF.md``).
+  ``None`` and ``False`` take the per-edge path.
 
 Dropout acts in training mode (``module.training``, the JAX package's
 ``deterministic=False``), its masks drawn from the ``generator`` passed to
@@ -332,7 +337,7 @@ class EGNNSparse(nn.Module):
         m_sum, cd = pm.fused_pair_messages(
             coors[None], xg_j[None, :, :pos], xg_j[None, :, pos:], proj_i, pv,
             self.fourier_features, bool(self.soft_edge), self.norm_coors,
-            self.coor_weights_clamp_value, 1e-8, False, True,
+            self.coor_weights_clamp_value, 1e-8, pm.mxu_bf16_for(coors.device), True,
             w_j, w_d, self.edge_mlp_1_w, self.edge_mlp_1_b, gate_w, gate_b,
             self.coors_mlp_0_w, self.coors_mlp_0_b, self.coors_mlp_1_w, self.coors_mlp_1_b,
             scale)

@@ -13,6 +13,7 @@ LAUNCH_COUNTS = {
     "knn_candidates_packed_tiled": 0, "knn_candidates_packed": 0,
     "grid_knn_cells": 0, "knn_select_queries": 0, "knn_select_window": 0,
     "fused_pair_fwd": 0, "fused_pair_bwd": 0, "fused_knn_fwd": 0, "fused_knn_bwd": 0,
+    "fused_pair_fwd_bf16": 0, "fused_pair_bwd_bf16": 0,
 }
 
 

@@ -49,9 +49,21 @@ region) and a 32-row backward one (99 KiB); the sparse molecule layer
 (dim = 64, fourier 4, h = 274) forward tiles of up to 48 rows (176 KiB at
 32), one block an SM, and 8-row backward tiles (140 KiB). The backward keeps the weight
 gradients of the widths it is tuned for in registers and the rest in device
-memory (``csrc/pair_messages.cu``, ``kWgSlots``). The tensor-core mode of
-the TPU kernels (``mxu_bf16``) is not ported: the wrapper takes
-``mxu_bf16=False`` only.
+memory (``csrc/pair_messages.cu``, ``kWgSlots``).
+
+The tensor-core mode of K10 (``mxu_bf16``, the TPU kernel's ``_mm_maker``
+and ``dG``): the MLP products round their operands to bfloat16 (to nearest,
+ties to even) and sum the exact products in float32; the geometry, the
+elementwise chain and the k-sums stay float32. A forward product rounds
+where its contraction has at least 8 elements (``_mm``), a backward one
+where the contraction and every width of both operands have (``_dG``; the
+pair rows of a JAX tile are ti * k >= 8, so the rule reads the widths
+alone). K10f takes the four wide products onto the tensor cores (bf16
+``mma.sync``), K10b rounds the same operands on its f32 structure; they
+count under ``fused_pair_fwd_bf16`` and ``fused_pair_bwd_bf16``. The bf16
+copies of the weights lie in the place of their float32 copies, so the
+layouts, the gates and the tiles are those of the float32 mode. The layers
+ask ``mxu_bf16_for(device)``; K11 has no such mode, in either package.
 """
 from __future__ import annotations
 
@@ -81,7 +93,7 @@ class _Shape(ctypes.Structure):
     """``Shape`` of csrc/pair_messages.cu."""
     _fields_ = [(name, _I) for name in (
         "b", "n", "k", "c", "d", "h", "m", "m4", "fourier", "ti", "rows",
-        "soft_edges", "norm_coors", "has_clamp", "gate_feats_only")] + [
+        "soft_edges", "norm_coors", "has_clamp", "gate_feats_only", "mxu_bf16")] + [
         ("clamp", _F), ("eps", _F)]
 
 
@@ -108,6 +120,7 @@ class PairOptions(NamedTuple):
     clamp: Optional[float]
     eps: float
     gate_feats_only: bool = False
+    mxu_bf16: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -235,11 +248,11 @@ def kernel_smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward, ti=1
 
 
 def kernel_blocks_per_sm(rows, k, c, d, h, m, m4, fourier, soft_edges, gather,
-                         backward) -> int:
+                         backward, mxu_bf16=False) -> int:
     """Blocks of the kernel one SM of the current card holds at this shape
     (the CUDA occupancy calculator, for ``chip_smoke.py``'s timing lines)."""
     shape = _Shape(b=1, n=1, k=k, c=c, d=d, h=h, m=m, m4=m4, fourier=fourier, ti=rows // k,
-                   rows=rows, soft_edges=int(soft_edges))
+                   rows=rows, soft_edges=int(soft_edges), mxu_bf16=int(mxu_bf16))
     fn = build.function("pair_messages", "pair_messages_blocks_per_sm",
                         [ctypes.POINTER(_Shape), _I, _I])
     return fn(ctypes.byref(shape), int(gather), int(backward))
@@ -294,6 +307,44 @@ def _d_fourier(dist, g_distf, fourier: int):
     return g
 
 
+def _bf16(x):
+    """x rounded to bfloat16 (to nearest, ties to even), in its own dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _mm(a, b, opts: PairOptions):
+    """A product of the forward (``_mm_maker``): in the mode both operands
+    rounded where the contraction has at least 8 elements."""
+    if opts.mxu_bf16 and a.shape[-1] >= 8:
+        a, b = _bf16(a), _bf16(b)
+    return a @ b
+
+
+def _dG(a, b, opts: PairOptions, *widths):
+    """A product of the backward (``dG``): in the mode both operands rounded
+    where ``widths``, the contraction and every width of a and b other than
+    the pair rows, are all at least 8."""
+    if opts.mxu_bf16 and min(widths) >= 8:
+        a, b = _bf16(a), _bf16(b)
+    return a @ b
+
+
+def mxu_bf16_for(device) -> bool:
+    """Whether the layers run K10 in its tensor-core mode on ``device``: on
+    a CUDA device where float32 products may drop to bfloat16,
+    ``torch.get_float32_matmul_precision() == "medium"``. This is no knob
+    of its own: it is the port's counterpart of the JAX layers'
+    ``mxu_bf16=on_tpu``, whose mode is the TPU's default precision for float32
+    products. Under the default ``"highest"`` and on the CPU the layers keep
+    exact float32. On an H100 80GB HBM3 at 700 W the mode is slower than
+    float32 today (its K10f 1.1-1.4x, its K10b 1.6-1.9x the float32 kernels'
+    time; ``PERF.md``): "medium" buys the TPU's numbers, not speed, in the
+    fused layers. ``fused_pair_messages(..., mxu_bf16=...)`` takes either
+    mode directly."""
+    return (torch.device(device).type == "cuda"
+            and torch.get_float32_matmul_precision() == "medium")
+
+
 def _tile_forward(coors, cj, hj, proj_i, pv, weights, opts: PairOptions):
     """Every intermediate of the pipeline. coors (b, n, c), cj (b, n, k, c),
     hj (b, n, k, h) the j-side term of h1, proj_i (b, n, h), pv (b, n, k, 1);
@@ -303,19 +354,19 @@ def _tile_forward(coors, cj, hj, proj_i, pv, weights, opts: PairOptions):
     t["rel"] = rel = coors[:, :, None, :] - cj
     t["dist"] = dist = (rel * rel).sum(dim=-1, keepdim=True)
     t["distf"] = distf = _fourier(dist, opts.fourier)
-    t["h1"] = h1 = proj_i[:, :, None, :] + hj + distf @ wd
+    t["h1"] = h1 = proj_i[:, :, None, :] + hj + _mm(distf, wd, opts)
     t["s1"] = s1 = _silu(h1)
-    t["z2"] = z2 = s1 @ w2 + b2
+    t["z2"] = z2 = _mm(s1, w2, opts) + b2
     t["m0"] = m0 = _silu(z2)
     if opts.soft_edges:
-        t["gate"] = gate = torch.sigmoid(m0 @ gw.reshape(-1, 1) + gb.reshape(()))
+        t["gate"] = gate = torch.sigmoid(_mm(m0, gw.reshape(-1, 1), opts) + gb.reshape(()))
         t["msg"] = msg = m0 * gate
     else:
         t["msg"] = msg = m0
     t["cmsg"] = cmsg = m0 if opts.gate_feats_only else msg
-    t["cz1"] = cz1 = cmsg @ cw1 + cb1
+    t["cz1"] = cz1 = _mm(cmsg, cw1, opts) + cb1
     t["cs1"] = cs1 = _silu(cz1)
-    t["wz"] = wz = cs1 @ cw2.reshape(-1, 1) + cb2.reshape(())
+    t["wz"] = wz = _mm(cs1, cw2.reshape(-1, 1), opts) + cb2.reshape(())
     t["wm"] = wm = wz * pv
     t["w"] = wm.clamp(-opts.clamp, opts.clamp) if opts.clamp is not None else wm
     if opts.norm_coors:
@@ -363,8 +414,9 @@ def _tile_backward(t, pv, weights, g_mi, g_cd, opts: PairOptions):
     d_cw2 = (rows(t["cs1"]).T @ rows(d_wz)).reshape(cw2.shape)
     d_cb2 = d_wz.sum().reshape(cb2.shape)
     d_cz1 = d_cs1 * _dsilu(t["cz1"])
-    d_cmsg = d_cz1 @ cw1.T
-    d_cw1 = rows(t["cmsg"]).T @ rows(d_cz1)
+    m, m4 = cw1.shape
+    d_cmsg = _dG(d_cz1, cw1.T, opts, m4, m)
+    d_cw1 = _dG(rows(t["cmsg"]).T, rows(d_cz1), opts, m, m4)
     d_cb1 = rows(d_cz1).sum(dim=0).reshape(cb1.shape)
     gfo = opts.gate_feats_only
     if not gfo:
@@ -386,12 +438,14 @@ def _tile_backward(t, pv, weights, g_mi, g_cd, opts: PairOptions):
 
     # edge MLP
     d_z2 = d_m0 * _dsilu(t["z2"])
-    d_s1 = d_z2 @ w2.T
-    d_w2 = rows(t["s1"]).T @ rows(d_z2)
+    h = w2.shape[0]
+    d_s1 = _dG(d_z2, w2.T, opts, m, h)
+    d_w2 = _dG(rows(t["s1"]).T, rows(d_z2), opts, h, m)
     d_b2 = rows(d_z2).sum(dim=0).reshape(b2.shape)
     d_h1 = d_s1 * _dsilu(t["h1"])
-    d_distf = d_h1 @ wd.T
-    d_wd = rows(t["distf"]).T @ rows(d_h1)
+    dd = wd.shape[0]
+    d_distf = _dG(d_h1, wd.T, opts, h, dd)
+    d_wd = _dG(rows(t["distf"]).T, rows(d_h1), opts, dd, h)
     d_dist = d_dist + _d_fourier(t["dist"], d_distf, opts.fourier)
     d_rel = d_rel + 2.0 * t["rel"] * d_dist
     return d_rel, d_h1, (d_wd, d_w2, d_b2, d_gw, d_gb, d_cw1, d_cb1, d_cw2, d_cb2, d_scale)
@@ -406,7 +460,7 @@ def fused_pair_messages_plain(coors, cj, fj, proj_i, pv, weights, opts: PairOpti
     """K10f's plain version: (m_i (b, n, m), coors_delta (b, n, c))."""
     n = coors.shape[1]
     pv4 = _pairs(pv, n).to(coors.dtype)
-    t = _tile_forward(coors, _pairs(cj, n), _pairs(fj, n) @ weights[0], proj_i, pv4,
+    t = _tile_forward(coors, _pairs(cj, n), _mm(_pairs(fj, n), weights[0], opts), proj_i, pv4,
                       weights[1:], opts)
     return _aggregate(t, pv4)
 
@@ -418,10 +472,12 @@ def fused_pair_messages_backward_plain(coors, cj, fj, proj_i, pv, weights, g_mi,
     b, n, _ = coors.shape
     pv4 = _pairs(pv, n).to(coors.dtype)
     fj4 = _pairs(fj, n)
-    t = _tile_forward(coors, _pairs(cj, n), fj4 @ weights[0], proj_i, pv4, weights[1:], opts)
+    t = _tile_forward(coors, _pairs(cj, n), _mm(fj4, weights[0], opts), proj_i, pv4, weights[1:],
+                      opts)
     d_rel, d_h1, d_w = _tile_backward(t, pv4, weights[1:], g_mi, g_cd, opts)
-    d_fj = d_h1 @ weights[0].T
-    d_wj = fj4.reshape(-1, fj4.shape[-1]).T @ d_h1.reshape(-1, d_h1.shape[-1])
+    d, h = weights[0].shape
+    d_fj = _dG(d_h1, weights[0].T, opts, h, d)
+    d_wj = _dG(fj4.reshape(-1, d).T, d_h1.reshape(-1, h), opts, d, h)
     return (d_rel.sum(dim=2), (-d_rel).reshape(cj.shape), d_fj.reshape(fj.shape),
             d_h1.sum(dim=2), (d_wj,) + d_w)
 
@@ -513,7 +569,7 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
     shape = _Shape(b=b, n=n, k=k, c=c, d=d, h=h, m=m, m4=m4, fourier=opts.fourier, ti=ti,
                    rows=rows, soft_edges=int(opts.soft_edges), norm_coors=int(opts.norm_coors),
                    has_clamp=int(opts.clamp is not None),
-                   gate_feats_only=int(opts.gate_feats_only),
+                   gate_feats_only=int(opts.gate_feats_only), mxu_bf16=int(opts.mxu_bf16),
                    clamp=float(opts.clamp or 0.0), eps=float(opts.eps))
     # float32 contiguous copies live until the launch has been queued
     held = {"coors": _f32(coors), "proj_i": _f32(proj_i), "pv": _f32(pv)}
@@ -539,7 +595,8 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
         else:
             out.update(d_cj=new(b, n * k, c), d_fj=new(b, n * k, d))
     tensors = _Tensors(**{name: t.data_ptr() for name, t in {**held, **out}.items()})
-    name = ("fused_knn_" if gather else "fused_pair_") + ("bwd" if backward else "fwd")
+    name = (("fused_knn_" if gather else "fused_pair_") + ("bwd" if backward else "fwd")
+            + ("_bf16" if opts.mxu_bf16 else ""))
     with torch.cuda.device(dev):
         # read here, not cached: autograd runs backward on its own thread
         stream = torch.cuda.current_stream().cuda_stream
@@ -668,15 +725,15 @@ def fused_pair_messages(coors, cj, fj, proj_i, pv, fourier: int, soft_edges: boo
     scale): pass dummies for unused options (gw and gb without
     ``soft_edges``, scale without ``norm_coors``); their gradients are zero.
     ``gate_feats_only``: the coordinate-weight MLP reads the ungated
-    messages. Returns (m_i (b, n, m), the sum of the pv-masked messages, and
+    messages; ``mxu_bf16``: the tensor-core mode (the module's docstring).
+    Returns (m_i (b, n, m), the sum of the pv-masked messages, and
     coors_delta (b, n, c)); a mean pooling divides outside. Any k (or kc)
     goes: nothing is padded.
     """
-    if mxu_bf16:
-        raise NotImplementedError("the tensor-core mode (mxu_bf16) is not ported yet")
     if len(weights) != 11:
         raise ValueError(f"expected 11 weights, got {len(weights)}")
-    opts = PairOptions(fourier, soft_edges, norm_coors, clamp, eps, gate_feats_only)
+    opts = PairOptions(fourier, soft_edges, norm_coors, clamp, eps, gate_feats_only,
+                       bool(mxu_bf16))
     return _FusedPairMessages.apply(opts, coors, cj, fj, proj_i, pv, *weights)
 
 

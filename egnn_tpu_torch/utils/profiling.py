@@ -39,6 +39,7 @@ from .device import resolve_device
 H100_SXM = "NVIDIA H100 SXM, data sheet, 700 W"
 H100_SXM_HBM_BYTES_PER_S = 3.35e12
 H100_SXM_F32_FLOPS = 67e12
+H100_SXM_BF16_TENSOR_FLOPS = 989e12   # dense bf16 on the tensor cores
 
 
 def _reduce(times: list[float], stat: str) -> float:

@@ -503,8 +503,6 @@ def test_forward_takes_a_tile_wherever_the_gates_pass(k, widths, fourier):
 def test_wrappers_refuse_what_is_not_ported():
     x = _case(5, n=16, k=4)
     tensors, weights = _torch_args(x, False, torch.float32)
-    with pytest.raises(NotImplementedError, match="mxu_bf16"):
-        PM.fused_pair_messages(*tensors, 0, False, True, 2.0, 1e-8, True, False, *weights)
     with pytest.raises(ValueError, match="11 weights"):
         PM.fused_pair_messages(*tensors, 0, False, True, 2.0, 1e-8, False, False, *weights[1:])
     with pytest.raises(ValueError, match="no fused pair kernel"):
