@@ -241,15 +241,21 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    ranks on one card, so its point-to-point branch (g, S > 1) needs two
    cards and is not run here;
 43. K10 in its tensor-core mode (``mxu_bf16``: the forward's wide products
-   on bf16 ``mma.sync``, the backward's operands rounded as JAX's ``dG``
-   rounds them), reached by ``torch.set_float32_matmul_precision("medium")``
-   (restored in a ``finally``): K10f and K10b in the mode at anchor 3's,
-   anchor 5's (G = 32, 512) and path C's shapes against their plain
+   on bf16 ``mma.sync``; the backward's recomputation and data-gradient
+   products too, its weight gradients on the FMAs, its operands rounded as
+   JAX's ``dG`` rounds them), reached by
+   ``torch.set_float32_matmul_precision("medium")`` (restored in a
+   ``finally``): the mode's backward tile (anchor 5: 32 rows at one block
+   an SM, where f32 takes 8; its layout against the source's, its blocks an
+   SM against the occupancy calculator); K10f and K10b in the mode at
+   anchor 3's, anchor 5's (G = 32, 512) and path C's shapes against their plain
    versions in the mode in float64 by phase 21's rule on each tensor's
    norm (8x the f32 plain version's error plus 1e-5; the roundings part at
    bf16 ties), every element within 1.25e-2 of its largest value; the f32
    kernel outside that rule, forward and backward; launches bitwise
-   repeatable); the anchor-3 ``fused_pairs`` network and
+   repeatable); K10f in the mode and the f32 K10f and K10b on those cases
+   bitwise as before the mode's K10b moved onto the tensor cores (hashes,
+   ``MODE_KEPT_BITS``); the anchor-3 ``fused_pairs`` network and
    anchor 5's arm (c) served under "highest" and "medium" (K10f's launches
    by mode; outputs within 5e-2 of each other and not equal; equivariance
    under "medium") and trained 5 steps under "medium" (the mode's K10f and
@@ -264,6 +270,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import io
 import json
 import math
@@ -2940,6 +2947,44 @@ MODE_GAP = 5e-2
 MODE_EQUIVARIANCE_ATOL = 1e-3
 MODE_FEATS_INVARIANCE_ATOL = 1e-1
 MODE_STEPS = 5
+# The bits of K10f in the mode and of the f32 K10f and K10b at phase 43's
+# four cases, as the kernels gave them before the mode's K10b moved its
+# recomputation and data gradients onto the tensor cores (which leaves these
+# three as they were): the first 16 hex digits of the sha256 of the outputs'
+# bytes in the wrappers' order (K10f: m_i, coors_delta; K10b: d_coors, d_cj,
+# d_fj, d_proj_i, the eleven weight gradients). H100 80GB HBM3, torch
+# 2.11.0+cu128, CUDA 12.8; the cases come from the card's own generator.
+MODE_KEPT_BITS = {
+    "anchor3": {"fwd_bf16": "43f4334979169547", "fwd_f32": "6e7c7768f9fb6295",
+                "bwd_f32": "8ea5032019373dab"},
+    "anchor5_G32": {"fwd_bf16": "16375a8cd4c0f208", "fwd_f32": "90e2f619edb7ff1c",
+                    "bwd_f32": "af6ea8211c316656"},
+    "anchor5_G512": {"fwd_bf16": "8d417793184664fe", "fwd_f32": "1cd395ff669282e5",
+                     "bwd_f32": "d52152b246a97868"},
+    "pathC": {"fwd_bf16": "137b041edefde9ba", "fwd_f32": "c02471ed6067436a",
+              "bwd_f32": "aad98c4b1dba2952"},
+}
+
+
+def bits_digest(tensors) -> str:
+    """The first 16 hex digits of the sha256 of the tensors' bytes."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def kept_bits(torch, PM, case):
+    """(K10f in the mode, the f32 K10f, the f32 K10b) on ``case`` as
+    ``bits_digest``s, keyed as ``MODE_KEPT_BITS``."""
+    args, weights, opts = pair_args(torch, PM, case, False, torch.float32)
+    g = (case["g_mi"], case["g_cd"])
+    with torch.no_grad():
+        d_ci, d_cj, d_fj, d_pi, d_w = PM.fused_pair_messages_backward(*args, weights, *g, opts)
+        return {"fwd_bf16": bits_digest(PM.fused_pair_messages_forward(
+                    *args, weights, opts._replace(mxu_bf16=True))),
+                "fwd_f32": bits_digest(PM.fused_pair_messages_forward(*args, weights, opts)),
+                "bwd_f32": bits_digest([d_ci, d_cj, d_fj, d_pi, *d_w])}
 
 
 def mode_bound(b, n, k, c, d, h, m, fourier, soft, backward):
@@ -2965,7 +3010,9 @@ def mode_phase(torch, smi):
     """Phase 43: K10 in its tensor-core mode (``mxu_bf16``, reached by
     ``torch.set_float32_matmul_precision("medium")`` on the card): the
     kernels at anchor 3's, anchor 5's (G = 32, 512) and path C's shapes
-    against their plain versions in the mode (``check_pair_kernels``), then
+    against their plain versions in the mode (``check_pair_kernels``; the
+    mode's backward on its own tile) and K10f in the mode and the f32 K10
+    kernels against their kept bits (``MODE_KEPT_BITS``), then
     the anchor-3 ``fused_pairs`` network and anchor 5's arm (c) served and
     trained under "medium" (the mode's launch counts; outputs against
     "highest"; equivariance), then the mode's kernels timed beside the f32
@@ -3001,7 +3048,33 @@ def mode_phase(torch, smi):
     cases, mode_err = {}, {}
     for i, (name, (what, kw, _)) in enumerate(shapes.items()):
         cases[name] = pair_case(torch, SEED + 1900 + i, **kw)
-        mode_err[name] = check_pair_kernels(torch, PM, what, cases[name], False, mxu_bf16=True)
+        # the mode's K10b on its own tile: the f32 tile wherever two blocks an
+        # SM hold one of 16 rows or more, else the largest that one block holds
+        case = cases[name]
+        b, n, k = case["idx"].shape
+        d, h = case["feats"].shape[-1], case["proj_i"].shape[-1]
+        widths = (3, d, h, 16, 64, case["opts"]["fourier"], case["opts"]["soft_edges"])
+        rows_m, rows_f = PM._bwd_tile_rows(k, *widths, True), PM._bwd_tile_rows(k, *widths)
+        per_sm = PM._bwd_blocks_per_sm(rows_m, *widths, True)
+        _, grid = PM.launch_grid(b, n, k, rows_m, True, "cuda", per_sm)
+        layout = (rows_m, *widths)
+        if PM._smem_floats(*layout, True) != PM.kernel_smem_floats(*layout, True):
+            raise AssertionError(f"phase 43 {name}: the wrapper's layout {layout} differs from "
+                                 f"the source's")
+        occupancy = PM.kernel_blocks_per_sm(rows_m, k, *widths, False, True, mxu_bf16=True)
+        print(f"phase 43 {name}: the mode's K10b on {rows_m}-row tiles ({rows_f} in f32), "
+              f"{per_sm} blocks an SM by the layout ({occupancy} by the occupancy calculator), "
+              f"a grid of {grid}")
+        if per_sm != occupancy or (name.startswith("anchor5") and (rows_m, rows_f) != (32, 8)):
+            raise AssertionError(f"phase 43 {name}: the mode's backward tile is not the rule's")
+        mode_err[name] = check_pair_kernels(torch, PM, what, case, False, mxu_bf16=True)
+        bits = kept_bits(torch, PM, case)
+        print(f"phase 43 {name}: K10f in the mode and the f32 K10f, K10b give {bits} (kept: "
+              f"{MODE_KEPT_BITS[name]})")
+        if bits != MODE_KEPT_BITS[name]:
+            raise AssertionError(f"phase 43 {name}: K10f in the mode or an f32 kernel changed "
+                                 f"its bits")
+        del case
         torch.cuda.empty_cache()
     print(f"(phase 43 so far: {time.perf_counter() - t_start:.1f} s)")
 
@@ -3166,7 +3239,7 @@ def mode_phase(torch, smi):
         for key, backward in (("fwd", False), ("bwd", True)):
             ms, (m_a, m_b), (f_a, f_b), plain_ms = t[key]
             bound_ms, bound_by = mode_bound(b, n, k, 3, d, h, 16, fourier, soft, backward)
-            tiles = (PM._bwd_tile_rows(k, 3, d, h, 16, 64, fourier, soft) if backward else
+            tiles = (PM._bwd_tile_rows(k, 3, d, h, 16, 64, fourier, soft, True) if backward else
                      PM._fwd_tile_rows(b, n, k, 3, d, h, 16, 64, fourier, soft,
                                        torch.cuda.get_device_properties(0).multi_processor_count))
             per_sm = PM.kernel_blocks_per_sm(tiles, k, 3, d, h, 16, 64, fourier, soft, False,

@@ -97,24 +97,41 @@
 // chain, the biases and the k-sums stay f32. A forward product rounds where
 // its contraction has at least 8 elements, a backward product where the
 // contraction and every width of its operands have (the pair rows of a TPU
-// tile, ti * k, are at least 8, so the rules read the widths alone). K10f in
-// the mode (pair_fwd_kernel<false, true>) takes the four products with a
-// real output width, fj @ Wj, distf @ Wd (dd >= 8), s1 @ W2 and cmsg @ cW1,
-// onto the tensor cores with mma.sync m16n8k16 (bf16 fragments, f32
-// accumulators): the weights are rounded once as they are staged, into a
-// transposed bf16 copy that lies in the place of their f32 copy (bf16_ld),
-// the activations as their A fragments are loaded from the f32 tile lines,
-// and the widths are padded with zeros (h = 130 to 144 in K and 136 in N).
-// The one-column products (m0 @ gw, silu(cz1) @ cW2) stay on the CUDA cores
-// with rounded operands, as does the whole of K10b in the mode
-// (pair_bwd_kernel<false, *, true>): its products, the recomputation's by
-// the forward's rule and the weight gradients' outer products, round their
-// activations as they read them (MmArgs::rlo, WgMat::rlo) on the f32
-// structure, and the weights that every product reading them rounds are
-// staged rounded (Prerounded), so its launches repeat bit for bit as the f32
-// mode's do. The layouts are
-// the f32 mode's, and so are the gates and the tiles. Tensor cores in the
-// backward, wgmma and TMA are later work.
+// tile, ti * k, are at least 8, so the rules read the widths alone). The
+// products with a real output width run on the tensor cores with mma.sync
+// (bf16 fragments, f32 accumulators; tc_mma): the weights are rounded once
+// as they are staged, into a transposed bf16 copy that lies in the place of
+// their f32 copy (bf16_copy), the activations as their A fragments are
+// loaded from the f32 tile lines, and the widths are padded with zeros (h =
+// 130 to 144 in K and 136 in N). The one-column products (m0 @ gw, silu(cz1)
+// @ cW2) stay on the CUDA cores with rounded operands.
+// - K10f in the mode (pair_fwd_kernel<false, true>): fj @ Wj, distf @ Wd (dd
+//   >= 8), s1 @ W2 and cmsg @ cW1, m16n8k16 steps chained through the
+//   accumulators.
+// - K10b in the mode (pair_bwd_kernel<false, 1, true, *>): the recomputation's
+//   h1, z2 and cz1, and the data gradients d_cmsg = d_cz1 @ cW1^T, d_h1 =
+//   (d_z2 @ W2^T) * silu'(h1), d_distf = d_h1 @ Wd^T and d_fj = d_h1 @ Wj^T,
+//   each step in two m16n8k8 halves summed from zero and added in
+//   round-to-nearest (tc_mma's kSplit). The four weights take one bf16 copy
+//   each, read both ways round: a product by W takes its B fragments as two
+//   words a lane from the copy's rows, a product by W^T by ldmatrix.trans from
+//   the same rows (load_b_frag). ldmatrix reads rows of 16 bytes: the
+//   backward's copy starts at the first 16-byte boundary of its place and its
+//   stride is a multiple of 8 values. A second copy, in W^T's own orientation,
+//   would not fit in the f32 copy's place beside the first at anchor 3's Wj
+//   (32 x 130: at least 8 768 values against 8 384). A weight whose two widths
+//   are not both at least 8 keeps its f32 copy, and the products that read it
+//   stay on the FMAs, rounding where the rules round. The weight gradients'
+//   outer products stay on the FMAs too (wgrad_block, rounding their lines as
+//   they read them); they are most of what the mode's K10b costs beyond the
+//   f32 one (PERF.md). Launches repeat bit for bit. The layouts and the gates
+//   are the f32 mode's. The mode's backward takes a tile of its own where two
+//   blocks an SM hold no tile of 16 rows or more (the wrapper's
+//   _bwd_tile_rows: anchor 5's dim 64, h = 274, 32 rows at one block an SM,
+//   where the f32 mode takes 8 rows, half an m16 fragment), its grid sized by
+//   the one block, and an instance with the registers of one block an SM
+//   (bwd_kernel).
+// wgmma and TMA are later work.
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -127,6 +144,8 @@ constexpr int kRowScalars = 10;  // per-row scalars kept in shared memory
 constexpr int kFwdThreads = 256;
 constexpr int kBwdThreads = 256;
 constexpr int kMaxSmemBytes = 232448;
+constexpr int kSmSmemBytes = 233472;   // an SM's shared memory,
+constexpr int kSmBlockReserve = 1024;  // of which the card keeps 1 KB a block
 constexpr unsigned kFull = 0xffffffffu;
 
 // Shape and Tensors are the launch function's arguments, C structs that the
@@ -342,8 +361,7 @@ struct MmArgs {
   const float* row_bias;
   const int* row_idx;
   int k;
-  int rlo, rhi;  // the tensor-core mode: the terms i in [rlo, rhi) round A,
-  bool rw;       // and W too, unless W was staged rounded (rw false)
+  int rlo, rhi;  // the tensor-core mode: the terms i in [rlo, rhi) round A and W
 };
 
 __device__ __forceinline__ MmArgs mm_args(float* out, const float* A, const float* W, int wsi,
@@ -355,7 +373,6 @@ __device__ __forceinline__ MmArgs mm_args(float* out, const float* A, const floa
   a.add_of = nullptr; a.node_bias = nullptr; a.row_bias = nullptr;
   a.row_idx = nullptr; a.k = 1;
   a.rlo = a.rhi = 0;
-  a.rw = true;
   return a;
 }
 
@@ -437,17 +454,18 @@ __device__ __forceinline__ void mm_epilogue(const MmArgs& m, int j, int r0, floa
 // its terms in the order of i. Inlined, so that the weight-gradient sums
 // the backward keeps in registers are not saved and restored around a call.
 // In the tensor-core mode (kBf16) the terms i in [m.rlo, m.rhi) round the
-// activations to bf16 and, where m.rw, the weights (mm_steps<kCols, true, *>).
-template <int kCols, bool kRoundA, bool kRoundW>
+// activations and the weights to bf16 (mm_steps<kCols, true>): the products
+// that stay on the FMAs in the mode, at widths below 8.
+template <int kCols, bool kRound>
 __device__ __forceinline__ void mm_steps(const MmArgs& m, const float* a, const int (&wo)[kCols],
                                          int i0, int i1, float (&v)[kCols][4]) {
 #pragma unroll 4  // four steps' loads in flight: K10b 4.48 -> 4.35 ms at path C on the H100
   for (int i = i0; i < i1; ++i) {
-    const float4 x = rnd4<kRoundA>(*reinterpret_cast<const float4*>(a + i * m.ldr), true);
+    const float4 x = rnd4<kRound>(*reinterpret_cast<const float4*>(a + i * m.ldr), true);
     const float* w = m.W + i * m.wsi;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      const float wv = rnd<kRoundW>(w[wo[c]], true);
+      const float wv = rnd<kRound>(w[wo[c]], true);
       v[c][0] = fmaf(x.x, wv, v[c][0]);
       v[c][1] = fmaf(x.y, wv, v[c][1]);
       v[c][2] = fmaf(x.z, wv, v[c][2]);
@@ -472,12 +490,11 @@ __device__ __forceinline__ void mm_blocked(const MmArgs& m) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) v[c][q] = 0.f;
     if (kBf16) {
-      mm_steps<kCols, false, false>(m, a, wo, 0, m.rlo, v);
-      if (m.rw) mm_steps<kCols, true, true>(m, a, wo, m.rlo, m.rhi, v);
-      else mm_steps<kCols, true, false>(m, a, wo, m.rlo, m.rhi, v);
-      mm_steps<kCols, false, false>(m, a, wo, m.rhi, m.I, v);
+      mm_steps<kCols, false>(m, a, wo, 0, m.rlo, v);
+      mm_steps<kCols, true>(m, a, wo, m.rlo, m.rhi, v);
+      mm_steps<kCols, false>(m, a, wo, m.rhi, m.I, v);
     } else {
-      mm_steps<kCols, false, false>(m, a, wo, 0, m.I, v);
+      mm_steps<kCols, false>(m, a, wo, 0, m.I, v);
     }
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
@@ -528,6 +545,7 @@ inline int wide_cost(const Shape& s, int cols) {
 // the same order. No two threads share an entry: the result repeats.
 constexpr int kWgSlots = 3;
 constexpr int kMaxWgMats = 6;
+constexpr int kBwdTcTiles = 4;   // column tiles a warp item of the mode's h-wide products
 
 struct WgMat {
   int a, ia;    // A lines: ia lines from shared-memory offset a, then the ones line
@@ -653,52 +671,75 @@ __device__ __forceinline__ void for_block_entries(const WgMat& M, int b, F f) {
 }
 
 // kAsync: by cp.async (the caller commits and waits), so that every thread's
-// loads are in flight at once; else `round` rounds each value to bf16 as it
-// is stored
+// loads are in flight at once
 template <bool kAsync>
-__device__ void stage_matrix(float* dst, int ld, const float* src, int rows, int cols,
-                             bool round = false) {
+__device__ void stage_matrix(float* dst, int ld, const float* src, int rows, int cols) {
   for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
     const int r = e / cols, j = e - r * cols;
     if (kAsync) __pipeline_memcpy_async(dst + r * ld + j, src + e, sizeof(float));
-    else dst[r * ld + j] = round ? bf16_round(src[e]) : src[e];
+    else dst[r * ld + j] = src[e];
   }
 }
 
-// K10b in the tensor-core mode stages a weight already rounded where every
-// product that reads it rounds it: the recomputation's by the forward's rule
-// and the backward's by dG's. So it does for Wj, Wd, W2 and cW1 at every
-// shape the layers give (their rules part only at h, m or m4 below 8), and a
-// product then rounds only its activations as it reads them (MmArgs::rw).
-// gw and cW2 meet f32 products in the backward (d_zg, d_wz) and round as the
-// recomputation reads them.
-struct Prerounded {
-  bool wj, wd, w2, cw1;
+// The tensor-core mode's copy of a K x N weight (K >= 8): transposed, row j
+// holding column j's K values rounded to bf16 and zeros up to the next
+// multiple of 16, kp. It lies in the place of the f32 copy, K rows of ld32
+// >= N floats from float `off`: from `off` itself in the forward, from the
+// first 16-byte boundary after it in the backward (`aligned`: ldmatrix reads
+// rows of 16 bytes). Its row stride `ld`, in bf16 values (bf16_ld in the
+// forward), is kp + 8 where that fits there (a fragment's loads then fall on
+// 32 distinct banks, (kp + 8) / 2 words being 4 modulo 8), else kp, which
+// fits always unaligned (kp <= 2K) and aligned at every shape whose widths
+// are all at least 8 but K = 8 with N odd, which no layer gives (h and 4m are
+// even; shape_ok refuses it: ld 0). off < 0: no copy, the f32 one.
+struct Bf16Copy {
+  int off, ld;
 };
 
-__host__ __device__ inline Prerounded prerounded(const Shape& s) {
-  const int dd = 2 * s.fourier + 1;
-  const bool on = s.mxu_bf16 != 0;
-  return {on && s.d >= 8 && s.h >= 8, on && dd >= 8 && s.h >= 8, on && s.h >= 8 && s.m >= 8,
-          on && s.m >= 8 && s.m4 >= 8};
-}
-
-// The stride, in bf16 values, of the tensor-core mode's copy of a K x N
-// weight (K >= 8): transposed, row j holding column j's K values and zeros up
-// to the next multiple of 16, kp. It lies in the place of the f32 copy, K
-// rows of ld32 >= N floats: kp + 8 where that fits there (a B fragment's
-// loads then fall on 32 distinct banks, (kp + 8) / 2 words being 4 modulo
-// 8), else kp, which fits always (kp <= 2K).
 __host__ __device__ inline int bf16_ld(int K, int N, int ld32) {
   const int kp = (K + 15) & ~15;
   return (kp + 8) * N <= 2 * K * ld32 ? kp + 8 : kp;
+}
+
+__host__ __device__ inline Bf16Copy bf16_copy(bool on, int off, int K, int N, int ld32,
+                                              bool aligned) {
+  if (!on) return {-1, 0};
+  if (!aligned) return {off, bf16_ld(K, N, ld32)};
+  const int at = (off + 3) & ~3;
+  const int kp = (K + 15) & ~15, room = 2 * (K * ld32 - (at - off));
+  return {at, (kp + 8) * N <= room ? kp + 8 : kp * N <= room ? kp : 0};
+}
+
+// The bf16 copies of Wj, Wd, W2 and cW1. K10f in the mode takes one for
+// each product whose contraction has at least 8 elements (fj @ Wj, distf @
+// Wd, s1 @ W2, cmsg @ cW1), and K10b in the mode for each weight that every
+// product reading it rounds: the recomputation's by the forward's rule and
+// the backward's by dG's. That is where both widths of the weight are at
+// least 8, at every shape the layers give (the two rules part only at h, m or
+// m4 below 8); there both orientations of the weight go onto the tensor cores
+// (the transposed one by ldmatrix.trans) and no product needs its f32 copy.
+// Elsewhere the f32 copy stays, and the products that read it stay on the
+// FMAs, rounding their operands as they read them where the rules round.
+struct Bf16Copies {
+  Bf16Copy wj, wd, w2, cw1;
+};
+
+__host__ __device__ inline Bf16Copies bf16_copies(const Shape& s, const Layout& L, bool backward) {
+  const int dd = 2 * s.fourier + 1;
+  const bool on = s.mxu_bf16 != 0;
+  const bool wide_h = !backward || s.h >= 8, wide_m = !backward || s.m >= 8;
+  const bool wide_m4 = !backward || s.m4 >= 8;
+  return {bf16_copy(on && s.d >= 8 && wide_h, L.wj, s.d, s.h, L.ld_h, backward),
+          bf16_copy(on && dd >= 8 && wide_h, L.wd, dd, s.h, L.ld_h, backward),
+          bf16_copy(on && s.h >= 8 && wide_m, L.w2, s.h, s.m, L.ld_m, backward),
+          bf16_copy(on && s.m >= 8 && wide_m4, L.cw1, s.m, s.m4, L.ld_m4, backward)};
 }
 
 __device__ __forceinline__ __nv_bfloat16* bf16_at(float* p) {
   return reinterpret_cast<__nv_bfloat16*>(p);
 }
 
-// W (K x N, row-major in device memory) into its bf16 copy (bf16_ld),
+// W (K x N, row-major in device memory) into its bf16 copy (bf16_copy),
 // rounded once; reads coalesced along the columns, eight of a thread's in
 // flight at once.
 __device__ void stage_bf16(__nv_bfloat16* dst, int ld, const float* src, int K, int N) {
@@ -722,25 +763,23 @@ __device__ void stage_bf16(__nv_bfloat16* dst, int ld, const float* src, int K, 
   }
 }
 
-// In the forward's tensor-core mode (kBf16) the weights of the products that
-// go onto the tensor cores (contraction >= 8: fj @ Wj, distf @ Wd, s1 @ W2,
-// cmsg @ cW1) take their bf16 copies in place of the f32 ones. K10b in the
-// mode passes `pre` (synchronous copies), its f32 copies rounded there.
+// In the tensor-core mode (kBf16) the weights with a bf16 copy (`cp`) take it
+// in place of their f32 copy.
 template <bool kAsync = false, bool kBf16 = false>
 __device__ void stage_weights(const Shape& s, const Tensors& t, const Layout& L, float* sm,
-                              const Prerounded& pre = Prerounded{}) {
+                              const Bf16Copies& cp) {
   const int dd = 2 * s.fourier + 1;
-  if (kBf16 && s.d >= 8) stage_bf16(bf16_at(sm + L.wj), bf16_ld(s.d, s.h, L.ld_h), t.wj, s.d, s.h);
-  else stage_matrix<kAsync>(sm + L.wj, L.ld_h, t.wj, s.d, s.h, pre.wj);
-  if (kBf16 && dd >= 8) stage_bf16(bf16_at(sm + L.wd), bf16_ld(dd, s.h, L.ld_h), t.wd, dd, s.h);
-  else stage_matrix<kAsync>(sm + L.wd, L.ld_h, t.wd, dd, s.h, pre.wd);
-  if (kBf16 && s.h >= 8) stage_bf16(bf16_at(sm + L.w2), bf16_ld(s.h, s.m, L.ld_m), t.w2, s.h, s.m);
-  else stage_matrix<kAsync>(sm + L.w2, L.ld_m, t.w2, s.h, s.m, pre.w2);
+  if (kBf16 && cp.wj.off >= 0) stage_bf16(bf16_at(sm + cp.wj.off), cp.wj.ld, t.wj, s.d, s.h);
+  else stage_matrix<kAsync>(sm + L.wj, L.ld_h, t.wj, s.d, s.h);
+  if (kBf16 && cp.wd.off >= 0) stage_bf16(bf16_at(sm + cp.wd.off), cp.wd.ld, t.wd, dd, s.h);
+  else stage_matrix<kAsync>(sm + L.wd, L.ld_h, t.wd, dd, s.h);
+  if (kBf16 && cp.w2.off >= 0) stage_bf16(bf16_at(sm + cp.w2.off), cp.w2.ld, t.w2, s.h, s.m);
+  else stage_matrix<kAsync>(sm + L.w2, L.ld_m, t.w2, s.h, s.m);
   stage_matrix<kAsync>(sm + L.b2, s.m, t.b2, 1, s.m);
   if (s.soft_edges) stage_matrix<kAsync>(sm + L.gw, s.m, t.gw, 1, s.m);
-  if (kBf16 && s.m >= 8)
-    stage_bf16(bf16_at(sm + L.cw1), bf16_ld(s.m, s.m4, L.ld_m4), t.cw1, s.m, s.m4);
-  else stage_matrix<kAsync>(sm + L.cw1, L.ld_m4, t.cw1, s.m, s.m4, pre.cw1);
+  if (kBf16 && cp.cw1.off >= 0)
+    stage_bf16(bf16_at(sm + cp.cw1.off), cp.cw1.ld, t.cw1, s.m, s.m4);
+  else stage_matrix<kAsync>(sm + L.cw1, L.ld_m4, t.cw1, s.m, s.m4);
   stage_matrix<kAsync>(sm + L.cb1, s.m4, t.cb1, 1, s.m4);
   stage_matrix<kAsync>(sm + L.cw2, s.m4, t.cw2, 1, s.m4);
   if (threadIdx.x == 0) {
@@ -876,7 +915,7 @@ __device__ __forceinline__ void unpack_inputs(const Shape& s, const Tensors& t, 
   }
 }
 
-// ---- the forward's tensor-core products (the mode) ----
+// ---- the tensor-core products (the mode) ----
 
 // d += a * b for one m16n8k16 tile: A 16 x 16 and B 16 x 8 in bf16, f32 sums.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -888,13 +927,25 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a * b for one m16n8k8 tile: the first or the second half of an
+// m16n8k16 step's fragments (a0 = a[0] or a[2], a1 = a[1] or a[3], b = b0 or
+// b1).
+__device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // One operand pair of a tensor-core product: K tile lines of A (A(r, k) at
-// A[k * ldr + r], f32) against a weight's bf16 copy W at stride ld.
+// A[k * ldr + r], f32) against a weight's bf16 copy W at stride ld
+// (bf16_copy): B = the weight, or its transpose (tc_product_t).
 struct TcSeg {
   const float* A;
   const __nv_bfloat16* W;
@@ -903,6 +954,7 @@ struct TcSeg {
 
 // out(r, j) = silu(sum over the segments of A @ W (+ fA @ fW, f32, K < 8)
 //                  + bias[j] + add_of(r, j))             r < rows, j < N
+// and sig_out(r, j) = the sigmoid that silu took (where given).
 struct TcArgs {
   TcSeg seg[2];
   int nseg;
@@ -913,19 +965,23 @@ struct TcArgs {
   const float* bias;
   const float* add_of;
   float* out;
+  float* sig_out;
 };
 
 __device__ __forceinline__ TcArgs tc_args(int rows, int N, int ldr, float* out) {
   TcArgs m;
   m.nseg = 0; m.rows = rows; m.N = N; m.ldr = ldr;
   m.fA = nullptr; m.fW = nullptr; m.fK = 0; m.fws = 0;
-  m.bias = nullptr; m.add_of = nullptr; m.out = out;
+  m.bias = nullptr; m.add_of = nullptr; m.out = out; m.sig_out = nullptr;
   return m;
 }
 
 // A term of a product (K lines of A against a K x N weight staged at wsm):
 // onto the tensor cores where the mode rounds it (K >= 8), else the f32 term
-// (h1's fj @ Wj at d < 8 or distf @ Wd below fourier 4).
+// (h1's fj @ Wj at d < 8 or distf @ Wd below fourier 4). The forward's copy
+// lies at wsm with the stride bf16_ld gives (computed here: reading it from
+// bf16_copies instead gave K10f in the mode the same bits and 3-5% more time
+// on the H100).
 __device__ __forceinline__ void tc_term(TcArgs& m, const float* A, float* wsm, int K, int ld32) {
   if (K >= 8) {
     const TcSeg seg{A, bf16_at(wsm), K, bf16_ld(K, m.N, ld32)};
@@ -934,6 +990,20 @@ __device__ __forceinline__ void tc_term(TcArgs& m, const float* A, float* wsm, i
     ++m.nseg;
   } else if (K > 0) {
     m.fA = A; m.fW = wsm; m.fK = K; m.fws = ld32;
+  }
+}
+
+// The same in the backward, whose copies lie where bf16_copies places them
+// (`c`; off < 0: none, the f32 copy at float w32 of sm).
+__device__ __forceinline__ void tc_term(TcArgs& m, const float* A, float* sm, const Bf16Copy& c,
+                                        int w32, int K, int ld32) {
+  if (c.off >= 0) {
+    const TcSeg seg{A, bf16_at(sm + c.off), K, c.ld};
+    if (m.nseg == 0) m.seg[0] = seg;   // fixed indices: the segments stay in registers
+    else m.seg[1] = seg;
+    ++m.nseg;
+  } else if (K > 0) {
+    m.fA = A; m.fW = sm + w32; m.fK = K; m.fws = ld32;
   }
 }
 
@@ -950,18 +1020,55 @@ __device__ __forceinline__ void load_a_frag(const float* A, int K, int ldr, int 
   a[3] = pack_bf16(at(k0 + q + 8, r0 + g + 8), at(k0 + q + 9, r0 + g + 8));
 }
 
-// The product by the block's warps: a warp item is one tile of 16 rows by a
-// chunk of up to kTiles column tiles of 8; each step of 16 in the
-// contraction loads the A fragment once for the chunk. The chunk is the one
-// that gives the busiest warp the fewest column tiles (the epilogue's
-// activations are most of the work), the larger on a tie. Column tiles past
-// N read the last column and are not stored. The A fragments' loads fall on
-// 32 distinct banks (ldr is four times an odd number), as do the epilogue's.
-template <int kTiles>
-__device__ __forceinline__ void tc_product(const TcArgs& m) {
+// The B fragment of contraction k0.. and column tile n0.. of a segment.
+// kTrans false: W is the copy of a K x N weight (row j holds column j), read
+// as two words a lane; columns past N read the last column. kTrans true: W is
+// the copy of an N x K weight, whose transpose B is: its rows k0.. and k0 +
+// 8.. (each a contraction index) give the two 8 x 8 blocks of the fragment
+// by ldmatrix.trans, from rows of 16 bytes (the copy's start and stride are
+// multiples of 16 bytes: bf16_copy's `aligned`), on 32 distinct banks (the
+// stride is kp + 8 values at anchor 3's and 5's widths); rows past K read row
+// K - 1 against A's zeros there, and the columns past N its zeros up to kp.
+template <bool kTrans>
+__device__ __forceinline__ void load_b_frag(const TcSeg& seg, int N, int k0, int n0, uint32_t& b0,
+                                            uint32_t& b1) {
+  const int lane = threadIdx.x & 31;
+  if (kTrans) {
+    const int row = min(k0 + (lane & 15), seg.K - 1);
+    const uint32_t at = (uint32_t)__cvta_generic_to_shared(seg.W + row * seg.ld + n0);
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(b0), "=r"(b1) : "r"(at));
+  } else {
+    const int j = min(n0 + (lane >> 2), N - 1), q = lane & 3;
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(seg.W + j * seg.ld + k0);
+    b0 = w[q];
+    b1 = w[q + 4];
+  }
+}
+
+// The product by the block's warps, out(r, j) = sum over the segments of A @
+// B, handed to epi(r, j, v) for r < rows, j < N: a warp item is one tile of
+// 16 rows by a chunk of up to kTiles column tiles of 8; each step of 16 in
+// the contraction loads the A fragment once for the chunk. The chunk is the
+// one that gives the busiest warp the fewest column tiles (the epilogue's
+// activations are most of the work), the larger on a tie. The A fragments'
+// loads fall on 32 distinct banks (ldr is four times an odd number), as do
+// the epilogue's.
+// The tensor cores add a step's products to the sum they are given with
+// truncation, not rounding to nearest. The forward (K10f) chains its sums
+// through them; the backward (kSplit) sums each half of a step (m16n8k8,
+// eight products) from zero and adds it to its f32 sum in round-to-nearest,
+// which keeps its bf16 roundings of the recomputed activations nearer to the
+// plain version's. On the H100 at path C, 28 of 65 536 self pairs' d_cj
+// parted from the f32 plain version's by a bf16 step of their weight,
+// against 46 with whole m16n8k16 steps; chained, the tensor nearest
+// chip_smoke.py phase 43's limit at anchor 5 went from 0.31 to 0.51 of it.
+template <int kTiles, bool kTrans, bool kSplit, typename Epi>
+__device__ __forceinline__ void tc_mma(const TcSeg (&segs)[2], int nseg, int rows, int N, int ldr,
+                                       Epi epi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int g = lane >> 2, q = (lane & 3) * 2;
-  const int mt = (m.rows + 15) >> 4, nt = (m.N + 7) >> 3;
+  const int mt = (rows + 15) >> 4, nt = (N + 7) >> 3;
   int cnt = 1, busiest = 1 << 30;
   for (int c = 1; c <= kTiles; ++c) {
     const int tiles = (mt * ((nt + c - 1) / c) + nwarps - 1) / nwarps * c;
@@ -977,17 +1084,25 @@ __device__ __forceinline__ void tc_product(const TcArgs& m) {
       for (int e = 0; e < 4; ++e) acc[t][e] = 0.f;
 #pragma unroll
     for (int sg = 0; sg < 2; ++sg) {
-      if (sg >= m.nseg) break;
-      const TcSeg seg = m.seg[sg];
+      if (sg >= nseg) break;
+      const TcSeg seg = segs[sg];
       for (int k0 = 0; k0 < seg.K; k0 += 16) {
         uint32_t a[4];
-        load_a_frag(seg.A, seg.K, m.ldr, r0, k0, a);
+        load_a_frag(seg.A, seg.K, ldr, r0, k0, a);
 #pragma unroll
         for (int t = 0; t < kTiles; ++t) {
-          if (t < cnt && n0 + t * 8 < m.N) {   // the same for the whole warp
-            const int j = min(n0 + t * 8 + g, m.N - 1);
-            const uint32_t* w = reinterpret_cast<const uint32_t*>(seg.W + j * seg.ld + k0);
-            mma_bf16(acc[t], a, w[q >> 1], w[(q >> 1) + 4]);
+          if (t < cnt && n0 + t * 8 < N) {   // the same for the whole warp
+            uint32_t b0, b1;
+            load_b_frag<kTrans>(seg, N, k0, n0 + t * 8, b0, b1);
+            if (kSplit) {
+              float lo[4] = {0.f, 0.f, 0.f, 0.f}, hi[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16_k8(lo, a[0], a[1], b0);
+              mma_bf16_k8(hi, a[2], a[3], b1);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[t][e] = (acc[t][e] + lo[e]) + hi[e];
+            } else {
+              mma_bf16(acc[t], a, b0, b1);
+            }
           }
         }
       }
@@ -998,16 +1113,37 @@ __device__ __forceinline__ void tc_product(const TcArgs& m) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = r0 + g + (e >> 1) * 8, j = n0 + t * 8 + q + (e & 1);
-        if (r < m.rows && j < m.N) {
-          float v = acc[t][e];
-          for (int f = 0; f < m.fK; ++f) v = fmaf(m.fA[f * m.ldr + r], m.fW[f * m.fws + j], v);
-          if (m.bias != nullptr) v += m.bias[j];
-          if (m.add_of != nullptr) v += m.add_of[j * m.ldr + r];
-          m.out[j * m.ldr + r] = silu_f(v);
-        }
+        if (r < rows && j < N) epi(r, j, acc[t][e]);
       }
     }
   }
+}
+
+// A product of TcArgs (the forward's and the recomputation's: A @ W).
+template <int kTiles, bool kSplit = false>
+__device__ __forceinline__ void tc_product(const TcArgs& m) {
+  tc_mma<kTiles, false, kSplit>(m.seg, m.nseg, m.rows, m.N, m.ldr, [&](int r, int j, float v) {
+    for (int f = 0; f < m.fK; ++f) v = fmaf(m.fA[f * m.ldr + r], m.fW[f * m.fws + j], v);
+    if (m.bias != nullptr) v += m.bias[j];
+    if (m.add_of != nullptr) v += m.add_of[j * m.ldr + r];
+    if (m.sig_out != nullptr) {
+      const float sg = sigmoid_f(v);
+      m.sig_out[j * m.ldr + r] = sg;
+      m.out[j * m.ldr + r] = v * sg;   // silu_f(v), its sigmoid kept
+    } else {
+      m.out[j * m.ldr + r] = silu_f(v);
+    }
+  });
+}
+
+// A data-gradient product of the backward, out(r, j) = sum over i < K of
+// A(r, i) * W(j, i) for the N x K weight W whose bf16 copy is `c` (A @ W^T,
+// on the tensor cores), handed to epi(r, j, v).
+template <int kTiles, typename Epi>
+__device__ __forceinline__ void tc_product_t(const float* A, float* sm, const Bf16Copy& c, int K,
+                                             int rows, int N, int ldr, Epi epi) {
+  const TcSeg segs[2] = {{A, bf16_at(sm + c.off), K, c.ld}, {A, nullptr, 0, 0}};
+  tc_mma<kTiles, true, true>(segs, 1, rows, N, ldr, epi);
 }
 
 // The tile's pipeline after the unpacking: H <- silu(h1), M0, MSG (GATE),
@@ -1140,7 +1276,7 @@ pair_fwd_kernel(const Shape s, const Tensors t) {
   const Layout L = make_layout(s, false);
   const int tiles_per_b = (s.n + s.ti - 1) / s.ti, tiles = s.b * tiles_per_b;
   if ((int)blockIdx.x < tiles) stage_inputs<kGather>(s, t, L, sm, blockIdx.x);
-  stage_weights<true, kBf16>(s, t, L, sm);
+  stage_weights<true, kBf16>(s, t, L, sm, bf16_copies(s, L, false));
   __pipeline_commit();
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int ib = tile / tiles_per_b, i0 = (tile - ib * tiles_per_b) * s.ti;
@@ -1162,18 +1298,34 @@ pair_fwd_kernel(const Shape s, const Tensors t) {
 // GATE, WZ, WCL (the clipped weight), the sigmoids of h1, z2, cz1 in H, Z2,
 // CZ1 (for silu' without a second exponential) and silu(cz1) in DCZ1. Ends
 // on a barrier. The tensor-core mode (kBf16) rounds the products' operands
-// by the forward's rule, as K10f does.
+// by the forward's rule, as K10f does: on the tensor cores where the weight
+// has a bf16 copy (`cp`), the A fragments rounded as they load, else on the
+// FMAs, rounding as they read.
 template <bool kGather, int kWideCols, bool kBf16>
 __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, const Layout& L,
-                                             float* sm, int ib, int i0, int rows) {
+                                             const Bf16Copies& cp, float* sm, int ib, int i0,
+                                             int rows) {
   const int dd = 2 * s.fourier + 1;
   const int ldr = L.ldr;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const Prerounded pre = prerounded(s);
   const size_t node0 = (size_t)ib * s.n + i0;
   const size_t p0 = node0 * s.k;
   float* row = sm + L.ROW;
   int* jdx = reinterpret_cast<int*>(sm + L.JDX);
+
+  // the tensor-core h1 (the mode): H = proj_i[i] first, which the product's
+  // epilogue adds, as in K10f's unpack_inputs (a warp four rows by eight
+  // features a step, eight loads in flight)
+  const bool tc_h1 = kBf16 && (cp.wj.off >= 0 || cp.wd.off >= 0);
+  if (tc_h1) {
+    for (int r4 = warp * 4; r4 < rows; r4 += nwarps * 4) {
+      const int r = r4 + (lane & 3);
+      if (r >= rows) continue;
+      const float* pi = t.proj_i + (node0 + r / s.k) * s.h;
+#pragma unroll 8
+      for (int j = lane >> 2; j < s.h; j += 8) sm[L.H + j * ldr + r] = __ldg(pi + j);
+    }
+  }
 
   // geometry, one thread a row
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
@@ -1212,7 +1364,14 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
   __syncthreads();
 
   // h1 = proj_i[i] (+ proj_j[idx]) + [fj | distf] @ [Wj; Wd]; s1 = silu(h1)
-  {
+  if (tc_h1) {
+    TcArgs m = tc_args(rows, s.h, ldr, sm + L.S);
+    tc_term(m, sm + L.X, sm, cp.wj, L.wj, s.d, L.ld_h);
+    tc_term(m, sm + L.DISTF, sm, cp.wd, L.wd, dd, L.ld_h);
+    m.add_of = sm + L.H;
+    m.sig_out = sm + L.H;   // each element read and rewritten by its owner
+    tc_product<kBwdTcTiles, true>(m);
+  } else {
     MmArgs m = kGather ? mm_args(nullptr, sm + L.DISTF, sm + L.wd, L.ld_h, 1, rows, dd, s.h, ldr)
                        : mm_args(nullptr, sm + L.X, sm + L.wj, L.ld_h, 1, rows, s.d + dd, s.h,
                                  ldr);
@@ -1225,19 +1384,23 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
       m.row_idx = jdx;
     }
     round_range(s.d >= 8, s.d, dd >= 8, dd, &m.rlo, &m.rhi);   // kGather has no mode
-    m.rw = !(pre.wj || pre.wd);   // the two agree wherever either rounds
     mm_blocked<kWideCols, kBf16>(m);
   }
   __syncthreads();
 
   // z2 = s1 @ W2 + b2; m0 = silu(z2)
-  {
+  if (kBf16 && cp.w2.off >= 0) {
+    TcArgs m = tc_args(rows, s.m, ldr, sm + L.M0);
+    tc_term(m, sm + L.S, sm, cp.w2, L.w2, s.h, L.ld_m);
+    m.bias = sm + L.b2;
+    m.sig_out = sm + L.Z2;
+    tc_product<kBwdTcTiles, true>(m);
+  } else {
     MmArgs m = mm_args(nullptr, sm + L.S, sm + L.w2, L.ld_m, 1, rows, s.h, s.m, ldr);
     m.bias = sm + L.b2;
     m.silu_out = sm + L.M0;
     m.sig_out = sm + L.Z2;
     m.rhi = s.h >= 8 ? s.h : 0;
-    m.rw = !pre.w2;
     mm_blocked<1, kBf16>(m);
   }
   __syncthreads();
@@ -1248,14 +1411,19 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
   }
 
   // cz1 = cmsg @ cW1 + cb1
-  {
-    MmArgs m = mm_args(nullptr, sm + (s.gate_feats_only ? L.M0 : L.MSG), sm + L.cw1, L.ld_m4, 1,
-                       rows, s.m, s.m4, ldr);
+  const float* cmsg = sm + (s.gate_feats_only ? L.M0 : L.MSG);
+  if (kBf16 && cp.cw1.off >= 0) {
+    TcArgs m = tc_args(rows, s.m4, ldr, sm + L.DCZ1);
+    tc_term(m, cmsg, sm, cp.cw1, L.cw1, s.m, L.ld_m4);
+    m.bias = sm + L.cb1;
+    m.sig_out = sm + L.CZ1;
+    tc_product<kBwdTcTiles, true>(m);
+  } else {
+    MmArgs m = mm_args(nullptr, cmsg, sm + L.cw1, L.ld_m4, 1, rows, s.m, s.m4, ldr);
     m.bias = sm + L.cb1;
     m.sig_out = sm + L.CZ1;
     m.silu_out = sm + L.DCZ1;
     m.rhi = s.m >= 8 ? s.m : 0;
-    m.rw = !pre.cw1;
     mm_blocked<1, kBf16>(m);
   }
   __syncthreads();
@@ -1282,12 +1450,15 @@ struct BwdPlan {
   Layout L;
   GradLayout G;
   WgPlan wg;
+  Bf16Copies cp;
 };
 
 // kBf16: the tensor-core mode (K10 only), its operands rounded where dG
-// rounds them.
-template <bool kGather, int kWideCols, bool kBf16>
-__global__ void __launch_bounds__(kBwdThreads, 2)
+// rounds them: the products with a real output width on the tensor cores
+// wherever their weight has a bf16 copy (p.cp), the rest on the FMAs.
+// kMinBlocks: the blocks an SM holds (bwd_kernel), which bound the registers.
+template <bool kGather, int kWideCols, bool kBf16, int kMinBlocks = 2>
+__global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
 pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan p) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
@@ -1300,8 +1471,8 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = nt >> 5;
   float* row = sm + L.ROW;
   float* mine = t.partial + (size_t)blockIdx.x * G.total;
-  const Prerounded pre = prerounded(s);
-  stage_weights(s, t, L, sm, pre);
+  const Bf16Copies& cp = p.cp;
+  stage_weights<false, kBf16>(s, t, L, sm, cp);
   for (int r = threadIdx.x; r < ldr; r += nt) sm[L.ONES + r] = 1.f;
   float acc[kWgSlots][4][4];
 #pragma unroll
@@ -1322,7 +1493,7 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
     const int tn = min(s.ti, s.n - i0), rows = tn * s.k;
     const size_t node0 = (size_t)ib * s.n + i0;
     const size_t p0 = node0 * s.k;
-    tile_forward<kGather, kWideCols, kBf16>(s, t, L, sm, ib, i0, rows);
+    tile_forward<kGather, kWideCols, kBf16>(s, t, L, cp, sm, ib, i0, rows);
 
     // ---- aggregation, clamp and CoorsNorm backward: eight lanes a row, a
     // lane a coordinate (c <= 8) ----
@@ -1373,11 +1544,12 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
       sm[L.CZ1 + q * ldr + r] = cs;
     }
     __syncthreads();
-    {
-      MmArgs m = mm_args(sm + L.DM, sm + L.DCZ1, sm + L.cw1, 1, L.ld_m4, rows, s.m4, s.m, ldr);
-      m.rhi = s.m >= 8 && s.m4 >= 8 ? s.m4 : 0;
-      m.rw = !pre.cw1;
-      mm_blocked<1, kBf16>(m);  // d_cmsg = d_cz1 @ cW1^T
+    // d_cmsg = d_cz1 @ cW1^T
+    if (kBf16 && cp.cw1.off >= 0) {
+      tc_product_t<2>(sm + L.DCZ1, sm, cp.cw1, s.m4, rows, s.m, ldr,
+                      [&](int r, int j, float v) { sm[L.DM + j * ldr + r] = v; });
+    } else {
+      mm_blocked<1>(mm_args(sm + L.DM, sm + L.DCZ1, sm + L.cw1, 1, L.ld_m4, rows, s.m4, s.m, ldr));
     }
     __syncthreads();
 
@@ -1413,37 +1585,46 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
     __syncthreads();
 
     // ---- edge MLP backward: H <- d_h1 = (d_z2 @ W2^T) * silu'(h1), in place ----
-    {
+    if (kBf16 && cp.w2.off >= 0) {
+      tc_product_t<kBwdTcTiles>(sm + L.DM, sm, cp.w2, s.m, rows, s.h, ldr,
+                                [&](int r, int j, float v) {
+                                  float* h = sm + L.H + j * ldr + r;   // read, then rewritten
+                                  *h = v * dsilu_from(*h, sm[L.S + j * ldr + r]);
+                                });
+    } else {
       MmArgs m = mm_args(sm + L.H, sm + L.DM, sm + L.w2, 1, L.ld_m, rows, s.m, s.h, ldr);
       m.sig_of = sm + L.H;
       m.silu_of = sm + L.S;
-      m.rhi = s.m >= 8 && s.h >= 8 ? s.m : 0;
-      m.rw = !pre.w2;
-      mm_blocked<kWideCols, kBf16>(m);
+      mm_blocked<kWideCols>(m);
     }
     __syncthreads();
 
     // ---- d_distf = d_h1 @ Wd^T, d_fj = d_h1 @ Wj^T (or the j-side rows),
     // d_proj_i, and every weight gradient of the tile ----
-    const bool rd = dd >= 8 && s.h >= 8;   // Wd was staged rounded where rd (pre.wd)
-    for (int e = threadIdx.x; e < dd * rows; e += nt) {  // four chains of j mod 4
-      const int f = e / rows, r = e - f * rows;
-      const float* w = sm + L.wd + f * L.ld_h;
-      float v[4] = {0.f, 0.f, 0.f, 0.f};
-      int j = 0;
-      for (; j + 4 <= s.h; j += 4)
+    if (kBf16 && cp.wd.off >= 0) {
+      tc_product_t<2>(sm + L.H, sm, cp.wd, s.h, rows, dd, ldr,
+                      [&](int r, int j, float v) { sm[L.DDF + j * ldr + r] = v; });
+    } else {
+      for (int e = threadIdx.x; e < dd * rows; e += nt) {  // four chains of j mod 4
+        const int f = e / rows, r = e - f * rows;
+        const float* w = sm + L.wd + f * L.ld_h;
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        int j = 0;
+        for (; j + 4 <= s.h; j += 4)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
-          v[q] = fmaf(rnd<kBf16>(sm[L.H + (j + q) * ldr + r], rd), w[j + q], v[q]);
-      for (; j < s.h; ++j) v[j & 3] = fmaf(rnd<kBf16>(sm[L.H + j * ldr + r], rd), w[j], v[j & 3]);
-      sm[L.DDF + f * ldr + r] = (v[0] + v[1]) + (v[2] + v[3]);
+          for (int q = 0; q < 4; ++q) v[q] = fmaf(sm[L.H + (j + q) * ldr + r], w[j + q], v[q]);
+        for (; j < s.h; ++j) v[j & 3] = fmaf(sm[L.H + j * ldr + r], w[j], v[j & 3]);
+        sm[L.DDF + f * ldr + r] = (v[0] + v[1]) + (v[2] + v[3]);
+      }
     }
-    if (!kGather) {
+    if (!kGather && kBf16 && cp.wj.off >= 0) {
+      float* d_fj = t.d_fj + p0 * s.d;   // row-major into device memory
+      tc_product_t<2>(sm + L.H, sm, cp.wj, s.h, rows, s.d, ldr,
+                      [&](int r, int j, float v) { d_fj[(size_t)r * s.d + j] = v; });
+    } else if (!kGather) {
       MmArgs m = mm_args(t.d_fj + p0 * s.d, sm + L.H, sm + L.wj, 1, L.ld_h, rows, s.h, s.d, ldr);
       m.row_major_ld = s.d;  // row-major into device memory
-      m.rhi = s.d >= 8 && s.h >= 8 ? s.h : 0;
-      m.rw = !pre.wj;
-      mm_blocked<1, kBf16>(m);
+      mm_blocked<1>(m);
     } else {
       const int pw = s.c + s.h;
       for (int e = threadIdx.x; e < rows * s.h; e += nt) {
@@ -1544,7 +1725,12 @@ bool shape_ok(const Shape& s, bool gather, bool backward) {
   if (gather && s.mxu_bf16) return false;   // K11 has no tensor-core mode
   if (s.rows < 8 || s.rows > kMaxRows || s.rows % 8 || s.ti < 1 || s.ti * s.k > s.rows)
     return false;
-  return (size_t)make_layout(s, backward).total * sizeof(float) <= (size_t)kMaxSmemBytes;
+  const Layout L = make_layout(s, backward);
+  const Bf16Copies cp = bf16_copies(s, L, backward);
+  const Bf16Copy copies[4] = {cp.wj, cp.wd, cp.w2, cp.cw1};
+  for (const Bf16Copy& c : copies)
+    if (c.off >= 0 && c.ld == 0) return false;   // no room for a copy
+  return (size_t)L.total * sizeof(float) <= (size_t)kMaxSmemBytes;
 }
 
 using FwdKernel = decltype(&pair_fwd_kernel<false, false>);
@@ -1558,10 +1744,19 @@ FwdKernel fwd_kernel(const Shape& s, bool gather) {
 }
 
 // The backward's instance: five columns a thread in the h-wide products
-// where that gives the threads no longer a path (wide_cost), else one.
+// where that gives the threads no longer a path (wide_cost), else one. The
+// tensor-core mode takes one: its h-wide products run on the tensor cores
+// wherever h is at least 8. Where two of its blocks fit no SM's shared
+// memory (anchor 5's tile), it takes the instance bounded by one block an
+// SM: with 128 registers its fragments spilled some of the weight-gradient
+// sums (228 bytes), with 234 none, 8% off its time there (H100).
 BwdKernel bwd_kernel(const Shape& s, bool gather) {
   const bool wide = wide_cost(s, 5) <= wide_cost(s, 1);
-  if (s.mxu_bf16) return wide ? &pair_bwd_kernel<false, 5, true> : &pair_bwd_kernel<false, 1, true>;
+  if (s.mxu_bf16) {
+    const size_t block = (size_t)make_layout(s, true).total * sizeof(float) + kSmBlockReserve;
+    return 2 * block <= (size_t)kSmSmemBytes ? &pair_bwd_kernel<false, 1, true, 2>
+                                             : &pair_bwd_kernel<false, 1, true, 1>;
+  }
   if (wide) return gather ? &pair_bwd_kernel<true, 5, false> : &pair_bwd_kernel<false, 5, false>;
   return gather ? &pair_bwd_kernel<true, 1, false> : &pair_bwd_kernel<false, 1, false>;
 }
@@ -1614,6 +1809,7 @@ int pair_messages_launch(const Shape* s, const Tensors* t, int gather, int backw
   plan.L = make_layout(*s, true);
   plan.G = grad_layout(*s);
   plan.wg = wgrad_plan(*s, gather != 0, plan.L, plan.G);
+  plan.cp = bf16_copies(*s, plan.L, true);
   const int err = launch_kernel(bwd_kernel(*s, gather != 0), *s, *t, true, grid, stream, plan);
   if (err != 0) return err;
   const int total = grad_layout(*s).total;

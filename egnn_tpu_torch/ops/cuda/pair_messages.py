@@ -47,7 +47,8 @@ rows, the backward's on its least tile, one node. Anchor 3 (dim = 32,
 h = 130, m = 16) takes a 64-row forward tile (110 KiB with its staging
 region) and a 32-row backward one (99 KiB); the sparse molecule layer
 (dim = 64, fourier 4, h = 274) forward tiles of up to 48 rows (176 KiB at
-32), one block an SM, and 8-row backward tiles (140 KiB). The backward keeps the weight
+32), one block an SM, and 8-row backward tiles (140 KiB; 32-row ones, 217 KiB,
+in the tensor-core mode). The backward keeps the weight
 gradients of the widths it is tuned for in registers and the rest in device
 memory (``csrc/pair_messages.cu``, ``kWgSlots``).
 
@@ -59,10 +60,15 @@ where its contraction has at least 8 elements (``_mm``), a backward one
 where the contraction and every width of both operands have (``_dG``; the
 pair rows of a JAX tile are ti * k >= 8, so the rule reads the widths
 alone). K10f takes the four wide products onto the tensor cores (bf16
-``mma.sync``), K10b rounds the same operands on its f32 structure; they
-count under ``fused_pair_fwd_bf16`` and ``fused_pair_bwd_bf16``. The bf16
-copies of the weights lie in the place of their float32 copies, so the
-layouts, the gates and the tiles are those of the float32 mode. The layers
+``mma.sync``); K10b takes its recomputation's three and its four data
+gradients there and keeps its weight gradients on the FMAs, rounding as it
+reads; they count under ``fused_pair_fwd_bf16`` and ``fused_pair_bwd_bf16``.
+The bf16 copies of the weights lie in the place of their float32 copies, so
+the layouts and the gates are those of the float32 mode. The mode's backward
+fills the products' m16 fragments: where two blocks an SM hold no tile of 16
+rows or more, it takes the largest that one block holds (``_bwd_tile_rows``:
+32 rows at the sparse molecule layer's widths, where the float32 mode takes
+8) and sizes its grid by that one block (``_bwd_blocks_per_sm``). The layers
 ask ``mxu_bf16_for(device)``; K11 has no such mode, in either package.
 """
 from __future__ import annotations
@@ -193,22 +199,39 @@ def _fits_sm(floats: int, blocks: int) -> bool:
     return 4 * floats <= MAX_SMEM_BYTES and blocks * (4 * floats + 1024) <= SM_SMEM_BYTES
 
 
-def _bwd_tile_rows(k, c, d, h, m, m4, fourier, soft_edges) -> Optional[int]:
+def _bwd_tile_rows(k, c, d, h, m, m4, fourier, soft_edges, mxu_bf16=False) -> Optional[int]:
     """The backward's tile: whole nodes, as many as fit in ``_BWD_ROWS`` pair
     rows (at least one), rounded up to a multiple of 8, and fewer nodes
     until ``_BWD_BLOCKS_PER_SM`` blocks fit an SM's shared memory; one node
-    whose layout fits a block alone is the last resort. None where the
-    gates refuse the shape (or no tile fits)."""
+    whose layout fits a block alone is the last resort. In the tensor-core
+    mode (``mxu_bf16``) a tile below 16 rows half fills the products' m16
+    fragments: where two blocks an SM fit no tile of 16 rows or more, the
+    mode takes the largest tile of whole nodes up to ``_BWD_ROWS`` rows that
+    one block holds (anchor 5's widths: 32 rows, where the float32 mode
+    takes 8). None where the gates refuse the shape (or no tile fits)."""
     if _tile_rows(k, c, d, h, m, m4, fourier, soft_edges) is None:
         return None
     floats = lambda rows: _smem_floats(  # noqa: E731
         rows, c, d, h, m, m4, fourier, soft_edges, True)
-    for ti in range(max(1, _BWD_ROWS // k), 0, -1):
-        rows = -(-ti * k // 8) * 8
-        if _fits_sm(floats(rows), _BWD_BLOCKS_PER_SM):
-            return rows
-    rows = -(-k // 8) * 8
-    return rows if _fits_sm(floats(rows), 1) else None
+    tiles = [-(-ti * k // 8) * 8 for ti in range(max(1, _BWD_ROWS // k), 0, -1)]
+    two = [rows for rows in tiles if _fits_sm(floats(rows), _BWD_BLOCKS_PER_SM)]
+    if two and (two[0] >= 16 or not mxu_bf16):
+        return two[0]
+    one = [rows for rows in tiles if _fits_sm(floats(rows), 1)]
+    if mxu_bf16:
+        return one[0] if one else None
+    return tiles[-1] if tiles[-1] in one else None
+
+
+def _bwd_blocks_per_sm(rows, c, d, h, m, m4, fourier, soft_edges, mxu_bf16=False) -> int:
+    """The blocks an SM the backward's grid is sized by (``launch_grid``):
+    in the tensor-core mode the blocks one SM holds at this tile; in the
+    float32 mode two, also where one block fills an SM (anchor 5's 8-row
+    tile), as before, so that its weight-gradient sums keep their bits."""
+    if not mxu_bf16:
+        return _BWD_BLOCKS_PER_SM
+    floats = _smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, True)
+    return _BWD_BLOCKS_PER_SM if _fits_sm(floats, _BWD_BLOCKS_PER_SM) else 1
 
 
 def _fwd_tile_rows(b, n, k, c, d, h, m, m4, fourier, soft_edges, sms) -> Optional[int]:
@@ -336,11 +359,12 @@ def mxu_bf16_for(device) -> bool:
     of its own: it is the port's counterpart of the JAX layers'
     ``mxu_bf16=on_tpu``, whose mode is the TPU's default precision for float32
     products. Under the default ``"highest"`` and on the CPU the layers keep
-    exact float32. On an H100 80GB HBM3 at 700 W the mode is slower than
-    float32 today (its K10f 1.1-1.4x, its K10b 1.6-1.9x the float32 kernels'
-    time; ``PERF.md``): "medium" buys the TPU's numbers, not speed, in the
-    fused layers. ``fused_pair_messages(..., mxu_bf16=...)`` takes either
-    mode directly."""
+    exact float32. On an H100 80GB HBM3 at 700 W the mode's K10f takes
+    1.07-1.36x the float32 kernel's time, its K10b 1.5-1.6x at the dense
+    widths (anchor 3, path C) and 0.66-0.76x at the sparse molecule layer's
+    (``PERF.md``): "medium" buys the TPU's numbers, and speed only in the
+    sparse layer's backward. ``fused_pair_messages(..., mxu_bf16=...)``
+    takes either mode directly."""
     return (torch.device(device).type == "cuda"
             and torch.get_float32_matmul_precision() == "medium")
 
@@ -536,7 +560,7 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
     d = 0 if gather else fj.shape[-1]
     dd = 2 * opts.fourier + 1
     if backward:
-        rows = _bwd_tile_rows(k, c, d, h, m, m4, opts.fourier, opts.soft_edges)
+        rows = _bwd_tile_rows(k, c, d, h, m, m4, opts.fourier, opts.soft_edges, opts.mxu_bf16)
     else:
         rows = _fwd_tile_rows(b, n, k, c, d, h, m, m4, opts.fourier, opts.soft_edges,
                               _sm_count(dev))
@@ -565,7 +589,9 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
         if x.numel() != count or x.device != dev:
             raise ValueError(f"{name} must hold {count} elements on {dev}")
 
-    ti, grid = launch_grid(b, n, k, rows, backward, dev)
+    per_sm = (_bwd_blocks_per_sm(rows, c, d, h, m, m4, opts.fourier, opts.soft_edges,
+                                 opts.mxu_bf16) if backward else None)
+    ti, grid = launch_grid(b, n, k, rows, backward, dev, per_sm)
     shape = _Shape(b=b, n=n, k=k, c=c, d=d, h=h, m=m, m4=m4, fourier=opts.fourier, ti=ti,
                    rows=rows, soft_edges=int(opts.soft_edges), norm_coors=int(opts.norm_coors),
                    has_clamp=int(opts.clamp is not None),
@@ -617,12 +643,14 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def launch_grid(b, n, k, rows, backward, device):
+def launch_grid(b, n, k, rows, backward, device, per_sm=None):
     """(nodes a tile, blocks) of a launch on tiles of ``rows`` pair rows: one
-    block a tile up to the blocks the card's SMs hold at once (by the shape
-    and the SM count alone, so that the weight-gradient sums repeat)."""
+    block a tile up to ``per_sm`` blocks an SM of the card (by default the
+    kernel's two; by the shape and the SM count alone, so that the
+    weight-gradient sums repeat)."""
     ti = rows // k
-    per_sm = _BWD_BLOCKS_PER_SM if backward else _FWD_BLOCKS_PER_SM
+    if per_sm is None:
+        per_sm = _BWD_BLOCKS_PER_SM if backward else _FWD_BLOCKS_PER_SM
     return ti, min(b * -(-n // ti), _sm_count(device) * per_sm)
 
 

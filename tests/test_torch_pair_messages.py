@@ -353,7 +353,8 @@ LAYOUTS = [  # rows, c, d, h, m, m4, fourier, soft_edges: anchor 3 and the paths
     (32, 3, 32, 130, 16, 64, 0, False), (24, 3, 32, 130, 16, 64, 0, False),  # odd widths
     (64, 3, 32, 130, 16, 64, 0, False), (32, 3, 0, 130, 16, 64, 0, False),
     (8, 3, 64, 258, 16, 64, 0, False), (24, 5, 0, 74, 8, 32, 2, True),
-    (32, 3, 10, 54, 12, 48, 3, True), (64, 8, 16, 66, 16, 64, 16, True)]
+    (32, 3, 10, 54, 12, 48, 3, True), (64, 8, 16, 66, 16, 64, 16, True),
+    (32, 3, 64, 274, 16, 64, 4, False)]  # anchor 5's backward tile in the tensor-core mode
 
 
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda v: "_".join(map(str, v)))
@@ -440,6 +441,61 @@ def test_backward_tile_fits_two_blocks_an_sm(k, rows, nodes, gather, monkeypatch
     assert PM._BWD_BLOCKS_PER_SM * nbytes <= PM.MAX_SMEM_BYTES
     # the forward keeps its 64-row tile
     assert PM._tile_rows(k, 3, d, 130, 16, 64, 0, False) == 64
+
+
+ANCHOR5 = (3, 64, 274, 16, 64, 4, False)   # c, d, h, m, 4m, fourier, soft_edges
+DIM32 = (3, 32, 130, 16, 64, 0, False)
+
+
+@pytest.mark.parametrize("k,widths,rows_f32,rows_mode,blocks_mode", [
+    (8, ANCHOR5, 8, 32, 1), (8, DIM32, 32, 32, 2), (16, DIM32, 32, 32, 2),
+    (20, DIM32, 24, 24, 2)], ids=["anchor5", "anchor3", "pathC_k16", "pathA_kc20"])
+def test_backward_tile_in_the_tensor_core_mode(k, widths, rows_f32, rows_mode, blocks_mode,
+                                               monkeypatch):
+    """The mode's K10b fills the m16 fragments of its products: where two
+    blocks an SM hold no tile of 16 rows or more (anchor 5's widths), it
+    takes the largest tile of whole nodes up to 32 rows that one block holds,
+    and its grid is sized by the one block an SM; elsewhere the float32
+    tile. The float32 mode's tile and grid stay as they were."""
+    assert PM._bwd_tile_rows(k, *widths) == rows_f32
+    assert PM._bwd_tile_rows(k, *widths, False) == rows_f32
+    assert PM._bwd_tile_rows(k, *widths, True) == rows_mode
+    assert PM._bwd_blocks_per_sm(rows_mode, *widths, True) == blocks_mode
+    assert PM._bwd_blocks_per_sm(rows_f32, *widths) == PM._BWD_BLOCKS_PER_SM
+    floats = PM._smem_floats(rows_mode, *widths, True)
+    assert floats == _source_layout_total(rows_mode, *widths, True)
+    assert 4 * floats <= PM.MAX_SMEM_BYTES
+    assert PM._fits_sm(floats, blocks_mode) and not PM._fits_sm(floats, blocks_mode + 1)
+    if widths == ANCHOR5:
+        assert 4 * floats == 222400
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(multi_processor_count=132))
+    n = 16384   # anchor 5 at G = 512: 512 molecules of 32 nodes
+    tiles = -(-n // (rows_mode // k))
+    assert PM.launch_grid(1, n, k, rows_mode, True, "cuda", blocks_mode) == (
+        rows_mode // k, min(tiles, 132 * blocks_mode))
+    assert PM.launch_grid(1, n, k, rows_f32, True, "cuda") == (
+        rows_f32 // k, min(-(-n // (rows_f32 // k)), 264))
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda v: "_".join(map(str, v)))
+@pytest.mark.parametrize("k", [8, 16])
+def test_tensor_core_mode_keeps_the_float32_tile_where_two_blocks_hold_16_rows(layout, k):
+    widths = layout[1:]
+    f32 = PM._bwd_tile_rows(k, *widths)
+    mode = PM._bwd_tile_rows(k, *widths, True)
+    assert (f32 is None) == (mode is None)
+    if f32 is None:
+        return
+    floats = lambda rows: PM._smem_floats(rows, *widths, True)  # noqa: E731
+    if f32 >= 16 and PM._fits_sm(floats(f32), PM._BWD_BLOCKS_PER_SM):
+        assert mode == f32
+    else:   # the largest tile of whole nodes up to _BWD_ROWS rows that one block holds
+        tiles = [-(-ti * k // 8) * 8 for ti in range(max(1, PM._BWD_ROWS // k), 0, -1)]
+        assert mode == next(rows for rows in tiles if PM._fits_sm(floats(rows), 1))
+        assert mode >= f32
+    assert mode % 8 == 0 and k <= mode <= PM.MAX_ROWS
+    assert floats(mode) == _source_layout_total(mode, *widths, True)
 
 
 @pytest.mark.parametrize("shape,rows,nodes", [
