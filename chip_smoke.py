@@ -254,14 +254,20 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    bf16 ties), every element within 1.25e-2 of its largest value; the f32
    kernel outside that rule, forward and backward; launches bitwise
    repeatable); K10f in the mode and the f32 K10f and K10b on those cases
-   bitwise as before the mode's K10b moved onto the tensor cores (hashes,
-   ``MODE_KEPT_BITS``); the anchor-3 ``fused_pairs`` network and
+   bitwise their kept hashes (``MODE_KEPT_BITS``); the same rule over phase
+   21's cases and three narrow ones (d = 4, m = 4), each passing outright or
+   on its tie-free rerun (the pairs whose bf16 roundings or clamp may part
+   between two summation orders given pv = 0, at most ``TIE_SHARE_MAX`` of
+   them, while three controls with as many other pairs out still miss;
+   each case's tie counts printed, the f32 kernel outside the rule there
+   too); the anchor-3 ``fused_pairs`` network and
    anchor 5's arm (c) served under "highest" and "medium" (K10f's launches
    by mode; outputs within 5e-2 of each other and not equal; equivariance
    under "medium") and trained 5 steps under "medium" (the mode's K10f and
    K10b once a layer a step, no f32 K10; the loss falls); the mode's
    kernels timed beside the f32 ones, the plain versions and the unfused
-   pipeline under "medium".
+   pipeline under "medium" (and K10f beside a parent checkout's source with
+   ``--parent-source PATH``, the path of its ``pair_messages.cu``).
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -709,6 +715,47 @@ def pair_case(torch, seed, b, n, k, d=DIM, fourier=0, soft=False, norm=True, cla
                   gate_feats_only=gfo))
 
 
+def pair_cases():
+    """Phase 21's cases of K10 and K11 (name, arguments of ``pair_case``),
+    also held in the tensor-core mode by phase 43 with the same seeds."""
+    from egnn_tpu_torch.ops.neighbors import CANDIDATE_SLACK
+
+    return [  # name, arguments of pair_case
+        ("anchor", dict(b=1, n=N, k=KNN)),
+        ("anchor_self_pairs_b8", dict(b=8, n=N, k=KNN, self_pairs=True)),
+        ("net65k_k16", dict(b=1, n=8190, k=KNN_A, masked=False, spread=10.0)),
+        ("net65k_kc20_winners", dict(b=1, n=3001, k=KNN_A + CANDIDATE_SLACK)),
+        ("k12_soft_fourier2", dict(b=2, n=1000, k=12, d=16, fourier=2, soft=True, norm=False,
+                                   clamp=None)),
+        ("gate_feats_only_fourier4", dict(b=2, n=777, k=8, d=8, fourier=4, soft=True, clamp=1.0,
+                                          gfo=True)),
+        ("bare_k5_b3", dict(b=3, n=500, k=5, d=16, norm=False, clamp=None, masked=False)),
+        ("c5_m8_k7", dict(b=1, n=600, k=7, d=12, m=8, c=5)),
+        ("dim64_tile_of_8", dict(b=1, n=512, k=8, d=64)),    # wider weights: K10's tile is 8 rows
+        ("k64", dict(b=1, n=300, k=64, d=16)),               # one node a tile
+        # the backward's blocks at their edges at once: 30 rows of a 32-row
+        # tile (not a multiple of the 4-row group), the last tile of each
+        # graph 3 nodes of 6, odd dd; d + dd = 17 and 4m = 48 weight-gradient
+        # rows and columns (h = 54 takes one-column products)
+        ("k5_fourier3_soft_b2_partial", dict(b=2, n=333, k=5, d=10, fourier=3, soft=True, m=12)),
+        # the same edges under the five-column products: h = 134, not a
+        # multiple of five, d + dd = 35
+        ("k5_h134_fourier1_soft_b2_partial", dict(b=2, n=333, k=5, d=32, fourier=1, soft=True)),
+        # more encodings than the distance backward's eight lanes a row, and
+        # a lane a coordinate on all eight
+        ("fourier12_c8_k6", dict(b=2, n=301, k=6, d=8, fourier=12, c=8, soft=True)),
+        # the forward's tile loop: 64-row tiles, 519 of them on 264 blocks
+        # (unequal counts; a block's last tile stages nothing after it), the
+        # loop crossing batch elements, a last tile of 2 nodes of 4
+        ("k16_b3_cross_batch_partial", dict(b=3, n=690, k=16)),
+        # K11 gathering repeated ids (every row's 16 neighbours among 4 nodes)
+        # on 64-row tiles at h = 134, the h1 product's last column block cut
+        # short in its second round of items
+        ("k16_h134_repeated_ids_b2", dict(b=2, n=513, k=16, d=32, fourier=1, soft=True,
+                                          id_pool=4)),
+    ]
+
+
 def pair_args(torch, PM, case, gather, dtype):
     """The case as the wrappers' positional tensors (K10: coors, cj, fj,
     proj_i, pv; K11: coors, proj_i, proj_j, idx, pv) and weights, in
@@ -726,7 +773,7 @@ def pair_args(torch, PM, case, gather, dtype):
             cast(case["pv"].reshape(b, n * k, 1))), weights, opts
 
 
-def check_pair_kernels(torch, PM, name, case, gather, repeats=3, mxu_bf16=False):
+def check_pair_kernels(torch, PM, name, case, gather, repeats=3, mxu_bf16=False, report=None):
     """One of K10 (``gather`` False) or K11 on ``case``, K10 in its
     tensor-core mode where ``mxu_bf16``: forward and backward on the card
     against the plain versions (in the same mode) in float64, within the
@@ -734,7 +781,10 @@ def check_pair_kernels(torch, PM, name, case, gather, repeats=3, mxu_bf16=False)
     launches bitwise equal. The errors are each tensor's largest, in the mode
     its norm and every element within PAIR_MODE_REACH; there the f32 kernel
     must miss the limit in a forward and in a backward tensor. Returns the
-    largest absolute errors (forward, backward)."""
+    largest absolute errors (forward, backward). With a ``report`` dict it
+    raises nothing: the dict receives what failed (``failed``, empty on a
+    pass), the tensor nearest its limit and its ratio, the f32 kernel's
+    ratios, and the kernel's outputs beside the float64 plain version's."""
     kname = "K11" if gather else ("K10 (mxu_bf16)" if mxu_bf16 else "K10")
     plain_f = PM.fused_knn_messages_plain if gather else PM.fused_pair_messages_plain
     plain_b = (PM.fused_knn_messages_backward_plain if gather
@@ -816,7 +866,11 @@ def check_pair_kernels(torch, PM, name, case, gather, repeats=3, mxu_bf16=False)
           f"forward and backward launches bitwise={repeatable}")
     if not repeatable:
         failed.append("launches are not bitwise repeatable")
-    if failed:
+    if report is not None:
+        report.update(failed=failed, ratio=ratio, tensor=tname, miss=tuple(miss), reach=reach,
+                      names=names_f + names_b, kernel=runs[0][0] + runs[0][1],
+                      ref=list(results[torch.float64][0]) + results[torch.float64][1])
+    elif failed:
         raise AssertionError(f"{kname} case {name}: {'; '.join(failed)}")
     return errs
 
@@ -2948,22 +3002,117 @@ MODE_EQUIVARIANCE_ATOL = 1e-3
 MODE_FEATS_INVARIANCE_ATOL = 1e-1
 MODE_STEPS = 5
 # The bits of K10f in the mode and of the f32 K10f and K10b at phase 43's
-# four cases, as the kernels gave them before the mode's K10b moved its
-# recomputation and data gradients onto the tensor cores (which leaves these
-# three as they were): the first 16 hex digits of the sha256 of the outputs'
-# bytes in the wrappers' order (K10f: m_i, coors_delta; K10b: d_coors, d_cj,
-# d_fj, d_proj_i, the eleven weight gradients). H100 80GB HBM3, torch
-# 2.11.0+cu128, CUDA 12.8; the cases come from the card's own generator.
+# four cases: the f32 kernels' as they have been since before the mode's K10b
+# moved onto the tensor cores, K10f in the mode's as its redesign (which sums
+# as K10b's recomputation) gives them: the first 16 hex digits of the sha256
+# of the outputs' bytes in the wrappers' order (K10f: m_i, coors_delta; K10b:
+# d_coors, d_cj, d_fj, d_proj_i, the eleven weight gradients). H100 80GB
+# HBM3, torch 2.11.0+cu128, CUDA 12.8; the cases come from the card's own
+# generator.
 MODE_KEPT_BITS = {
-    "anchor3": {"fwd_bf16": "43f4334979169547", "fwd_f32": "6e7c7768f9fb6295",
+    "anchor3": {"fwd_bf16": "a71b8b40ddd818f8", "fwd_f32": "6e7c7768f9fb6295",
                 "bwd_f32": "8ea5032019373dab"},
-    "anchor5_G32": {"fwd_bf16": "16375a8cd4c0f208", "fwd_f32": "90e2f619edb7ff1c",
+    "anchor5_G32": {"fwd_bf16": "16ab3d2a4c2496e9", "fwd_f32": "90e2f619edb7ff1c",
                     "bwd_f32": "af6ea8211c316656"},
-    "anchor5_G512": {"fwd_bf16": "8d417793184664fe", "fwd_f32": "1cd395ff669282e5",
+    "anchor5_G512": {"fwd_bf16": "8a650e6a5817ab5a", "fwd_f32": "1cd395ff669282e5",
                      "bwd_f32": "d52152b246a97868"},
-    "pathC": {"fwd_bf16": "137b041edefde9ba", "fwd_f32": "c02471ed6067436a",
+    "pathC": {"fwd_bf16": "c912aad0cb378ff4", "fwd_f32": "c02471ed6067436a",
               "bwd_f32": "aad98c4b1dba2952"},
 }
+
+
+# Phase 43 holds the mode's rule over phase 21's cases (with phase 21's
+# seeds) and these narrow ones, which reach the rules' other branches: d = 4
+# (fj @ Wj and its gradients stay f32), m = 4 (the gate's product, cmsg @
+# cW1 and d_z2 @ W2^T stay f32), fourier 4 with both.
+MODE_NARROW_CASES = [
+    ("d4_m4_fourier4", dict(b=1, n=400, k=8, d=4, m=4, fourier=4)),
+    ("d4_fourier0_soft", dict(b=2, n=301, k=8, d=4, soft=True)),
+    ("m4_d32", dict(b=1, n=500, k=8, d=32, m=4)),
+]
+# A case that misses the rule outright may pass it on its tie-free rerun:
+# the same case with pv = 0 at the pairs whose result may part between two
+# summation orders (``pair_messages.mode_tie_pairs``), which then add exactly
+# zero to every output and gradient, held to the unchanged rule. The rerun
+# may take out at most this share of the case's live pairs, and three
+# controls, each with as many live pairs that are no ties taken out at
+# random, must still miss (``mode_rule``): the pass has to come from the
+# tie pairs, not from the share. The tie finder reads the plain versions
+# alone, so which pairs go is fixed before the kernel runs; a case is rerun
+# only where it misses outright, and 14 of the 18 pass with no pair taken
+# out. What the rerun cannot tell apart is a kernel that rounds a value
+# within reach of a bf16 boundary the other way: there a defect and a tie
+# look alike. Its reach has to be wide: taking out the f32 plain version's
+# own flips tightens the limit, and a kernel's flip left in then fails it.
+# At the reach used (4x the float32 orders' distance) it takes out 3.1% to
+# 18.6% of the cases' pairs, and the four that miss outright need 10.9% to
+# 16.9%; at 1x (0.8% to 5.7%) two cases fail their rerun (H100, PERF.md;
+# tools/k10_mode_probe.py reach).
+TIE_SHARE_MAX = 0.20
+
+
+def case_ties(torch, PM, case):
+    """(rounding, clamp) tie pairs of a K10 case in the mode, (b, n, k)."""
+    args, weights, opts = pair_args(torch, PM, case, False, torch.float64)
+    return PM.mode_tie_pairs(*args, weights, case["g_mi"], case["g_cd"], opts)
+
+
+def mode_rule(torch, PM, name, case):
+    """Phase 43's rule on ``case`` with the kernels now loaded: the kernel in
+    the mode outright and on the tie-free rerun (the tie pairs' pv set to 0,
+    at most TIE_SHARE_MAX of the live pairs); where it misses outright, the
+    rerun's controls, the same case with as many live pairs that are no ties
+    set to 0 (three draws), which must each still miss: taking out as many
+    pairs at random must not clear the case. Returns ``passed``
+    ("outright", "tie-free" or "no"), the reports of ``check_pair_kernels``
+    (``outright``, ``rerun``, ``controls``), the tie masks and the share
+    taken out."""
+    outright, rerun = {}, {}
+    check_pair_kernels(torch, PM, name, case, False, mxu_bf16=True, report=outright)
+    rounding, clamp = case_ties(torch, PM, case)
+    ties = rounding | clamp
+    live = case["pv"].bool()
+    share = int(ties.sum()) / max(int(live.sum()), 1)
+    check_pair_kernels(torch, PM, f"{name}, tie-free", dict(case, pv=live & ~ties), False,
+                       mxu_bf16=True, report=rerun)
+    out = dict(outright=outright, rerun=rerun, controls=[], rounding=rounding, clamp=clamp,
+               share=share, passed="outright")
+    if not outright["failed"]:
+        return out
+    others = torch.nonzero((live & ~ties).reshape(-1)).reshape(-1)
+    gen = torch.Generator().manual_seed(SEED)
+    for _ in range(3):
+        drop = others[torch.randperm(others.numel(), generator=gen)[:int(ties.sum())]
+                      .to(others.device)]
+        pv = live.reshape(-1).clone()
+        pv[drop] = False
+        out["controls"].append({})
+        check_pair_kernels(torch, PM, f"{name}, control", dict(case, pv=pv.reshape(live.shape)),
+                           False, mxu_bf16=True, report=out["controls"][-1])
+    cleared = (not rerun["failed"] and share <= TIE_SHARE_MAX
+               and all(c["failed"] for c in out["controls"]))
+    out["passed"] = "tie-free" if cleared else "no"
+    return out
+
+
+def clamp_flip(torch, PM, case, report):
+    """Whether d_cb2's error is one pair's clamp flipping: a pair that the
+    kernel and float64 take to opposite sides of the clamp adds its d_w * pv
+    to d_cb2 on one side only, and its d_cj row moves by its w * g_cd. Finds
+    the pair whose d_cj row parts most from float64. Returns (d_cb2's error,
+    that pair's d_w * pv, its wz * pv) in float64, and the pair's index."""
+    args, weights, opts = pair_args(torch, PM, case, False, torch.float64)
+    coors, cj, fj, proj_i, pv = args
+    n = coors.shape[1]
+    pv4 = PM._pairs(pv, n)
+    t = PM._tile_forward(coors, PM._pairs(cj, n), PM._mm(PM._pairs(fj, n), weights[0], opts),
+                         proj_i, pv4, weights[1:], opts._replace(mxu_bf16=True))
+    d_wz = ((case["g_cd"].double()[:, :, None, :] * t["rel_n"]).sum(-1, keepdim=True) * pv4)
+    at = {name: i for i, name in enumerate(report["names"])}
+    err = (report["kernel"][at["d_cb2"]].double() - report["ref"][at["d_cb2"]]).reshape(()).item()
+    rows = (report["kernel"][at["d_cj"]].double() - report["ref"][at["d_cj"]]).abs().sum(-1)
+    p = int(rows.reshape(-1).argmax())
+    return err, d_wz.reshape(-1)[p].item(), t["wm"].reshape(-1)[p].item(), p
 
 
 def bits_digest(tensors) -> str:
@@ -3006,17 +3155,50 @@ def mode_bound(b, n, k, c, d, h, m, fourier, soft, backward):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def mode_phase(torch, smi):
+def source_libraries(copies):
+    """Other copies of ``csrc/pair_messages.cu`` (a parent checkout's, or one
+    with probe points defined), ``{tag: (path, text placed before it)}``,
+    each built with the package's flags into ``build/`` under a name taken
+    from its text, all ``nvcc`` started together, and loaded: ``{tag:
+    library}``, to be launched through ``build.using``. What ptxas reported
+    lies beside each library as ``.log``."""
+    import ctypes
+
+    from egnn_tpu_torch.ops.cuda import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets, procs = {}, {}
+    for tag, (source, prelude) in copies.items():
+        text = prelude + Path(source).read_text()
+        digest = hashlib.sha256((text + " ".join(build.NVCC_FLAGS)).encode()).hexdigest()
+        target = targets[tag] = build.BUILD_DIR / f"copy_{digest[:16]}.so"
+        if not target.exists():
+            copy = target.with_suffix(".cu")
+            copy.write_text(text)
+            procs[tag] = subprocess.Popen(
+                [build._nvcc(), *build.NVCC_FLAGS, "-o", str(target), str(copy)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for tag, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for the copy {tag}:\n{out[-4000:]}")
+        targets[tag].with_suffix(".log").write_text(out)
+    return {tag: ctypes.CDLL(str(target)) for tag, target in targets.items()}
+
+
+def mode_phase(torch, smi, parent=None):
     """Phase 43: K10 in its tensor-core mode (``mxu_bf16``, reached by
     ``torch.set_float32_matmul_precision("medium")`` on the card): the
     kernels at anchor 3's, anchor 5's (G = 32, 512) and path C's shapes
     against their plain versions in the mode (``check_pair_kernels``; the
     mode's backward on its own tile) and K10f in the mode and the f32 K10
-    kernels against their kept bits (``MODE_KEPT_BITS``), then
-    the anchor-3 ``fused_pairs`` network and anchor 5's arm (c) served and
-    trained under "medium" (the mode's launch counts; outputs against
-    "highest"; equivariance), then the mode's kernels timed beside the f32
-    ones.
+    kernels against their kept bits (``MODE_KEPT_BITS``); the same rule
+    over phase 21's cases and the narrow ones, outright or on the tie-free
+    rerun; then the anchor-3 ``fused_pairs`` network and anchor 5's arm (c)
+    served and trained under "medium" (the mode's launch counts; outputs
+    against "highest"; equivariance), then the mode's kernels timed beside
+    the f32 ones (and K10f beside a ``parent`` checkout's source, where
+    given: ``source_libraries``).
     Returns the kernels line's two rows."""
     import numpy as np
 
@@ -3076,6 +3258,45 @@ def mode_phase(torch, smi):
                                  f"its bits")
         del case
         torch.cuda.empty_cache()
+    print(f"(phase 43 so far: {time.perf_counter() - t_start:.1f} s)")
+
+    # ---- 43a, continued: the same rule over phase 21's cases and the narrow
+    # ones, outright or on the tie-free rerun (TIE_SHARE_MAX) ----
+    missed = []
+    for i, (name, kw) in enumerate(pair_cases() + MODE_NARROW_CASES):
+        case = pair_case(torch, SEED + 200 + i, **kw)
+        rule = mode_rule(torch, PM, name, case)
+        outright, rerun, rounding, clamp = (rule[k] for k in ("outright", "rerun", "rounding",
+                                                              "clamp"))
+        ties = rounding | clamp
+        line = (f"phase 43 rule {name}: {int(rounding.sum())} rounding ties, {int(clamp.sum())} "
+                f"clamp ties, {int(ties.sum())} pairs of {int(case['pv'].sum())} live "
+                f"({rule['share']:.3%}, at most {TIE_SHARE_MAX:.0%}); outright "
+                f"{outright['ratio']:.3f} of the limit ({outright['tensor']}), an element at "
+                f"{outright['reach']:.2e} of its largest, the f32 kernel at "
+                f"{outright['miss'][0]:.2f} / {outright['miss'][1]:.2f} (forward / backward)")
+        line += (f"; tie-free {rerun['ratio']:.3f} ({rerun['tensor']}), {rerun['reach']:.2e}, "
+                 f"the f32 kernel at {rerun['miss'][0]:.2f} / {rerun['miss'][1]:.2f}")
+        if rule["controls"]:
+            line += "; controls (as many other pairs out) at " + ", ".join(
+                f"{c['ratio']:.3f} ({c['tensor']})" for c in rule["controls"])
+        print(f"{line}; passed: {rule['passed']}")
+        for what, rep in (("outright", outright), ("tie-free", rerun)):
+            if rep["failed"]:
+                print(f"  {what}: {'; '.join(rep['failed'])}")
+        if outright["failed"] and case["opts"]["clamp"] is not None:
+            err, flip, wm, p = clamp_flip(torch, PM, case, outright)
+            print(f"  d_cb2 differs from float64 by {err:+.6f}; the pair whose d_cj parts most "
+                  f"({p}; a rounding tie: {bool(rounding.reshape(-1)[p])}, a clamp tie: "
+                  f"{bool(clamp.reshape(-1)[p])}) has d_w * pv = {flip:+.6f} and wz * pv = "
+                  f"{wm:+.6f} against the clamp {case['opts']['clamp']}")
+        if rule["passed"] == "no":
+            missed.append(name)
+        del case, rule
+        torch.cuda.empty_cache()
+    if missed:
+        raise AssertionError(f"phase 43: the mode's kernels miss the rule at {missed}, outright "
+                             f"and on the tie-free rerun (or a control cleared too)")
     print(f"(phase 43 so far: {time.perf_counter() - t_start:.1f} s)")
 
     # ---- 43b. the fused layers under "medium": served and trained ----
@@ -3199,6 +3420,8 @@ def mode_phase(torch, smi):
     print(f"(phase 43 so far: {time.perf_counter() - t_start:.1f} s)")
 
     # ---- 43c. the mode's kernels timed beside the f32 ones ----
+    from egnn_tpu_torch.ops.cuda import build
+    parent_lib = source_libraries({"parent": (parent, "")})["parent"] if parent else None
     rows = []
     for name, (what, kw, (reps, trials)) in shapes.items():
         case = cases[name]
@@ -3217,10 +3440,15 @@ def mode_phase(torch, smi):
                      lambda o: PM.fused_pair_messages_backward_plain(*args, weights, *g, o))):
                 f32_a = device_ms(torch, lambda: kernel(opts), reps=reps, trials=trials)
                 mode_a = device_ms(torch, lambda: kernel(mode), reps=reps, trials=trials)
+                was = []
+                if key == "fwd" and parent_lib is not None:   # parent, parent between this one's
+                    with build.using("pair_messages", parent_lib):
+                        was = [device_ms(torch, lambda: kernel(mode), reps=reps, trials=trials)
+                               for _ in range(2)]
                 mode_b = device_ms(torch, lambda: kernel(mode), reps=reps, trials=trials)
                 f32_b = device_ms(torch, lambda: kernel(opts), reps=reps, trials=trials)
                 plain_ms = device_ms(torch, lambda: plain(mode), reps=reps, trials=trials)
-                t[key] = (min(mode_a, mode_b), (mode_a, mode_b), (f32_a, f32_b), plain_ms)
+                t[key] = (min(mode_a, mode_b), (mode_a, mode_b), (f32_a, f32_b), plain_ms, was)
         with matmul_precision(torch, "medium"):
             with torch.no_grad():
                 u_fwd = device_ms(torch, lambda: unfused_pipeline(torch, core, *args, weights,
@@ -3237,15 +3465,17 @@ def mode_phase(torch, smi):
             u_both = device_ms(torch, unfused_fwd_bwd, reps=reps, trials=trials)
         unfused = {"fwd": u_fwd, "bwd": u_both - u_fwd}
         for key, backward in (("fwd", False), ("bwd", True)):
-            ms, (m_a, m_b), (f_a, f_b), plain_ms = t[key]
+            ms, (m_a, m_b), (f_a, f_b), plain_ms, was = t[key]
             bound_ms, bound_by = mode_bound(b, n, k, 3, d, h, 16, fourier, soft, backward)
             tiles = (PM._bwd_tile_rows(k, 3, d, h, 16, 64, fourier, soft, True) if backward else
                      PM._fwd_tile_rows(b, n, k, 3, d, h, 16, 64, fourier, soft,
                                        torch.cuda.get_device_properties(0).multi_processor_count))
             per_sm = PM.kernel_blocks_per_sm(tiles, k, 3, d, h, 16, 64, fourier, soft, False,
                                              backward, mxu_bf16=True)
+            parent_ms = f"; the parent's {was[0]:.5f}/{was[1]:.5f} ms" if was else ""
             print(f"phase 43 timing fused_pair_{key}_bf16 at {what}: mode {m_a:.5f}/{m_b:.5f} ms "
-                  f"beside f32 {f_a:.5f}/{f_b:.5f} ms (CUDA graph replays, one card: {smi}); "
+                  f"beside f32 {f_a:.5f}/{f_b:.5f} ms{parent_ms} (CUDA graph replays, one card: "
+                  f"{smi}); "
                   f"plain in the mode {plain_ms:.5f} ms; the unfused pipeline under \"medium\" "
                   f"{unfused[key]:.5f} ms{' (its fwd+bwd less its forward)' if backward else ''}; "
                   f"bound {bound_ms:.6f} ms ({bound_by}); a tile of {tiles} rows, {per_sm} blocks "
@@ -4731,40 +4961,6 @@ def main() -> int:
 
 
     # ---- 21. K10 and K11 against their plain versions in float64 ----
-    pair_cases = [  # name, arguments of pair_case
-        ("anchor", dict(b=1, n=N, k=KNN)),
-        ("anchor_self_pairs_b8", dict(b=8, n=N, k=KNN, self_pairs=True)),
-        ("net65k_k16", dict(b=1, n=8190, k=KNN_A, masked=False, spread=10.0)),
-        ("net65k_kc20_winners", dict(b=1, n=3001, k=KNN_A + nb.CANDIDATE_SLACK)),
-        ("k12_soft_fourier2", dict(b=2, n=1000, k=12, d=16, fourier=2, soft=True, norm=False,
-                                   clamp=None)),
-        ("gate_feats_only_fourier4", dict(b=2, n=777, k=8, d=8, fourier=4, soft=True, clamp=1.0,
-                                          gfo=True)),
-        ("bare_k5_b3", dict(b=3, n=500, k=5, d=16, norm=False, clamp=None, masked=False)),
-        ("c5_m8_k7", dict(b=1, n=600, k=7, d=12, m=8, c=5)),
-        ("dim64_tile_of_8", dict(b=1, n=512, k=8, d=64)),    # wider weights: K10's tile is 8 rows
-        ("k64", dict(b=1, n=300, k=64, d=16)),               # one node a tile
-        # the backward's blocks at their edges at once: 30 rows of a 32-row
-        # tile (not a multiple of the 4-row group), the last tile of each
-        # graph 3 nodes of 6, odd dd; d + dd = 17 and 4m = 48 weight-gradient
-        # rows and columns (h = 54 takes one-column products)
-        ("k5_fourier3_soft_b2_partial", dict(b=2, n=333, k=5, d=10, fourier=3, soft=True, m=12)),
-        # the same edges under the five-column products: h = 134, not a
-        # multiple of five, d + dd = 35
-        ("k5_h134_fourier1_soft_b2_partial", dict(b=2, n=333, k=5, d=32, fourier=1, soft=True)),
-        # more encodings than the distance backward's eight lanes a row, and
-        # a lane a coordinate on all eight
-        ("fourier12_c8_k6", dict(b=2, n=301, k=6, d=8, fourier=12, c=8, soft=True)),
-        # the forward's tile loop: 64-row tiles, 519 of them on 264 blocks
-        # (unequal counts; a block's last tile stages nothing after it), the
-        # loop crossing batch elements, a last tile of 2 nodes of 4
-        ("k16_b3_cross_batch_partial", dict(b=3, n=690, k=16)),
-        # K11 gathering repeated ids (every row's 16 neighbours among 4 nodes)
-        # on 64-row tiles at h = 134, the h1 product's last column block cut
-        # short in its second round of items
-        ("k16_h134_repeated_ids_b2", dict(b=2, n=513, k=16, d=32, fourier=1, soft=True,
-                                          id_pool=4)),
-    ]
     pair_err = {"fused_pair_fwd": 0.0, "fused_pair_bwd": 0.0, "fused_knn_fwd": 0.0,
                 "fused_knn_bwd": 0.0}
     for layout in ((64, 3, DIM, 130, 16, 64, 0, False), (8, 3, 64, 258, 16, 64, 0, False),
@@ -4784,7 +4980,7 @@ def main() -> int:
                                "a block's tiles in two batch elements",
                                "three nodes of kc = 20 a tile", "h not a multiple of 5",
                                "a 64-row tile at h not a multiple of 5", "repeated ids"), False)
-    for i, (name, kw) in enumerate(pair_cases):
+    for i, (name, kw) in enumerate(pair_cases()):
         case = pair_case(torch, SEED + 200 + i, **kw)
         b, n, k = case["idx"].shape
         c_w, m_w = case["coors"].shape[-1], case["weights"][2].shape[-1]
@@ -5178,7 +5374,9 @@ def main() -> int:
     host_runtime_phases(torch, smi)
     parallel_phases(torch, smi)
     model_parallel_phases(torch, smi)
-    kernels.extend(mode_phase(torch, smi))
+    parent = sys.argv[sys.argv.index("--parent-source") + 1] if "--parent-source" in sys.argv \
+        else None
+    kernels.extend(mode_phase(torch, smi, parent))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

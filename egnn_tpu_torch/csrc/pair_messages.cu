@@ -98,39 +98,52 @@
 // its contraction has at least 8 elements, a backward product where the
 // contraction and every width of its operands have (the pair rows of a TPU
 // tile, ti * k, are at least 8, so the rules read the widths alone). The
-// products with a real output width run on the tensor cores with mma.sync
-// (bf16 fragments, f32 accumulators; tc_mma): the weights are rounded once
-// as they are staged, into a transposed bf16 copy that lies in the place of
-// their f32 copy (bf16_copy), the activations as their A fragments are
-// loaded from the f32 tile lines, and the widths are padded with zeros (h =
-// 130 to 144 in K and 136 in N). The one-column products (m0 @ gw, silu(cz1)
-// @ cW2) stay on the CUDA cores with rounded operands.
-// - K10f in the mode (pair_fwd_kernel<false, true>): fj @ Wj, distf @ Wd (dd
-//   >= 8), s1 @ W2 and cmsg @ cW1, m16n8k16 steps chained through the
-//   accumulators.
+// products whose weight's widths are both at least 8 run on the tensor cores
+// with mma.sync (bf16 fragments, f32 accumulators; tc_mma): the weights are
+// rounded once a block as they are staged, into a bf16 copy that lies in the
+// place of their f32 copy (bf16_copy), and the widths are padded with zeros
+// (h = 130 to 144). Both kernels sum each step of 16 as two m16n8k8 halves
+// from zero, added in round-to-nearest (the tensor cores truncate as they
+// add), segment after segment and step after step in the same order, so that
+// the forward and the backward's recomputation give the same bits for the
+// values they share (s1 and silu(cz1) as the forward reads them, m0, msg and
+// the clamped w: bit for bit at the smoke's shapes and cases on an H100,
+// tools/k10_mode_probe.py taps); the rest stays on the FMAs in the order of
+// its terms, rounding where the rules round, in both kernels alike.
+// - K10f in the mode (pair_fwd_mode_kernel, mode_products): fj @ Wj,
+//   distf @ Wd (dd >= 8), s1 @ W2 and cmsg @ cW1. Its weights' copies keep
+//   W's orientation (B by ldmatrix.trans), staged with 16-byte loads, eight
+//   in flight a thread. fj, distf, s1, cmsg and silu(cz1), which it reads
+//   only rounded, lie as bf16 rows in the place of their f32 lines
+//   (ModeRows), written once each, rounded, as packed pairs, and read as A
+//   fragments by ldmatrix.x4; m0 and msg stay f32 lines for the gate and the
+//   sums. The h1 product adds proj_i from the staging region (no per-row H),
+//   and the next tile's copies are queued after it. wz is summed a warp a
+//   row, as the recomputation sums it. The layout, its total and the gates
+//   are the f32 forward's.
 // - K10b in the mode (pair_bwd_kernel<false, 1, true, *>): the recomputation's
 //   h1, z2 and cz1, and the data gradients d_cmsg = d_cz1 @ cW1^T, d_h1 =
-//   (d_z2 @ W2^T) * silu'(h1), d_distf = d_h1 @ Wd^T and d_fj = d_h1 @ Wj^T,
-//   each step in two m16n8k8 halves summed from zero and added in
-//   round-to-nearest (tc_mma's kSplit). The four weights take one bf16 copy
-//   each, read both ways round: a product by W takes its B fragments as two
-//   words a lane from the copy's rows, a product by W^T by ldmatrix.trans from
-//   the same rows (load_b_frag). ldmatrix reads rows of 16 bytes: the
-//   backward's copy starts at the first 16-byte boundary of its place and its
-//   stride is a multiple of 8 values. A second copy, in W^T's own orientation,
-//   would not fit in the f32 copy's place beside the first at anchor 3's Wj
-//   (32 x 130: at least 8 768 values against 8 384). A weight whose two widths
-//   are not both at least 8 keeps its f32 copy, and the products that read it
-//   stay on the FMAs, rounding where the rules round. The weight gradients'
-//   outer products stay on the FMAs too (wgrad_block, rounding their lines as
+//   (d_z2 @ W2^T) * silu'(h1), d_distf = d_h1 @ Wd^T and d_fj = d_h1 @ Wj^T.
+//   The four weights take one transposed bf16 copy each, read both ways
+//   round: a product by W takes its B fragments as two words a lane from the
+//   copy's rows, a product by W^T by ldmatrix.trans from the same rows
+//   (load_b_frag). ldmatrix reads rows of 16 bytes: the copy starts at the
+//   first 16-byte boundary of its place and its stride is a multiple of 8
+//   values. A second copy, in W^T's own orientation, would not fit in the f32
+//   copy's place beside the first at anchor 3's Wj (32 x 130: at least 8 768
+//   values against 8 384). The recomputation rounds its activations as their
+//   A fragments are loaded from the f32 tile lines. The weight gradients'
+//   outer products stay on the FMAs (wgrad_block, rounding their lines as
 //   they read them); they are most of what the mode's K10b costs beyond the
-//   f32 one (PERF.md). Launches repeat bit for bit. The layouts and the gates
-//   are the f32 mode's. The mode's backward takes a tile of its own where two
+//   f32 one (PERF.md). The mode's backward takes a tile of its own where two
 //   blocks an SM hold no tile of 16 rows or more (the wrapper's
 //   _bwd_tile_rows: anchor 5's dim 64, h = 274, 32 rows at one block an SM,
 //   where the f32 mode takes 8 rows, half an m16 fragment), its grid sized by
 //   the one block, and an instance with the registers of one block an SM
 //   (bwd_kernel).
+// A weight with a width below 8 keeps its f32 copy, and the products that
+// read it stay on the FMAs, rounding where the rules round. Launches repeat
+// bit for bit.
 // wgmma and TMA are later work.
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -147,6 +160,22 @@ constexpr int kMaxSmemBytes = 232448;
 constexpr int kSmSmemBytes = 233472;   // an SM's shared memory,
 constexpr int kSmBlockReserve = 1024;  // of which the card keeps 1 KB a block
 constexpr unsigned kFull = 0xffffffffu;
+
+// Probe points, empty in the package's build. tools/k10_mode_probe.py builds
+// copies of this source that pre-include a header defining them: K10_STAGE(k)
+// reads the clock at the end of the forward's stage k (-1: the block's
+// start), K10_TAP_* write out the values that the mode's forward and the
+// backward's recomputation share, and K10_MODE_TILES sets the column tiles of
+// a warp item in mode_products.
+#ifndef K10_PROBES
+#define K10_STAGE(k)
+#define K10_TAP_W(sub, r, w)
+#define K10_TAP_FWD(s, L, mr, sm, rows, p0)
+#define K10_TAP_BWD(on, s, L, sm, rows, p0)
+#endif
+#ifndef K10_MODE_TILES
+#define K10_MODE_TILES 1
+#endif
 
 // Shape and Tensors are the launch function's arguments, C structs that the
 // wrapper fills with ctypes: they have external linkage.
@@ -681,67 +710,107 @@ __device__ void stage_matrix(float* dst, int ld, const float* src, int rows, int
   }
 }
 
-// The tensor-core mode's copy of a K x N weight (K >= 8): transposed, row j
-// holding column j's K values rounded to bf16 and zeros up to the next
-// multiple of 16, kp. It lies in the place of the f32 copy, K rows of ld32
-// >= N floats from float `off`: from `off` itself in the forward, from the
-// first 16-byte boundary after it in the backward (`aligned`: ldmatrix reads
-// rows of 16 bytes). Its row stride `ld`, in bf16 values (bf16_ld in the
-// forward), is kp + 8 where that fits there (a fragment's loads then fall on
-// 32 distinct banks, (kp + 8) / 2 words being 4 modulo 8), else kp, which
-// fits always unaligned (kp <= 2K) and aligned at every shape whose widths
-// are all at least 8 but K = 8 with N odd, which no layer gives (h and 4m are
-// even; shape_ok refuses it: ld 0). off < 0: no copy, the f32 one.
+// The tensor-core mode's copies of a K x N weight (K, N >= 8), rounded to
+// bf16 once as a block stages them, in the place of the f32 copy (K rows of
+// ld32 >= N floats from float `off`) from its first 16-byte boundary (ldmatrix
+// reads rows of 16 bytes). The backward's is transposed: row j holds column
+// j's K values and zeros up to kp, the next multiple of 16, at a stride `ld`
+// of kp + 8 values where that fits there (a fragment's loads then fall on 32
+// distinct banks, (kp + 8) / 2 words being 4 modulo 8), else kp, which fits
+// at every shape whose widths are all at least 8 but K = 8 with N odd, which
+// no layer gives (h and 4m are even; shape_ok refuses it: ld 0). The
+// forward's keeps W's own orientation (`rows`): row k holds its N values at a
+// stride of np + 8, np, or N rounded up to 8 values, the first that fits (np:
+// N rounded up to 16), and its products read B from it by ldmatrix.trans, as
+// the backward reads W^T. off < 0: no copy, the f32 one.
 struct Bf16Copy {
-  int off, ld;
+  int off = -1, ld = 0;
 };
 
-__host__ __device__ inline int bf16_ld(int K, int N, int ld32) {
-  const int kp = (K + 15) & ~15;
-  return (kp + 8) * N <= 2 * K * ld32 ? kp + 8 : kp;
-}
-
 __host__ __device__ inline Bf16Copy bf16_copy(bool on, int off, int K, int N, int ld32,
-                                              bool aligned) {
-  if (!on) return {-1, 0};
-  if (!aligned) return {off, bf16_ld(K, N, ld32)};
-  const int at = (off + 3) & ~3;
-  const int kp = (K + 15) & ~15, room = 2 * (K * ld32 - (at - off));
+                                              bool rows) {
+  if (!on) return {};
+  const int at = (off + 3) & ~3, room = 2 * (K * ld32 - (at - off));
+  if (rows) {
+    const int np = (N + 15) & ~15, n8 = (N + 7) & ~7;
+    return {at, K * (np + 8) <= room ? np + 8 : K * np <= room ? np : K * n8 <= room ? n8 : 0};
+  }
+  const int kp = (K + 15) & ~15;
   return {at, (kp + 8) * N <= room ? kp + 8 : kp * N <= room ? kp : 0};
 }
 
-// The bf16 copies of Wj, Wd, W2 and cW1. K10f in the mode takes one for
-// each product whose contraction has at least 8 elements (fj @ Wj, distf @
-// Wd, s1 @ W2, cmsg @ cW1), and K10b in the mode for each weight that every
-// product reading it rounds: the recomputation's by the forward's rule and
-// the backward's by dG's. That is where both widths of the weight are at
-// least 8, at every shape the layers give (the two rules part only at h, m or
-// m4 below 8); there both orientations of the weight go onto the tensor cores
-// (the transposed one by ldmatrix.trans) and no product needs its f32 copy.
+// The bf16 copies of Wj, Wd, W2 and cW1 in the mode: one for each weight
+// that every product reading it rounds, the forward's by the forward's rule
+// (contraction at least 8) and the backward's by dG's. That is where both
+// widths of the weight are at least 8, at every shape the layers give (the
+// two rules part only at h, m or m4 below 8); there both orientations of the
+// weight go onto the tensor cores and no product needs its f32 copy.
 // Elsewhere the f32 copy stays, and the products that read it stay on the
 // FMAs, rounding their operands as they read them where the rules round.
+// The forward and the backward take their copies by the same rule, so that
+// the forward sums each product as the backward's recomputation does.
 struct Bf16Copies {
   Bf16Copy wj, wd, w2, cw1;
 };
 
 __host__ __device__ inline Bf16Copies bf16_copies(const Shape& s, const Layout& L, bool backward) {
   const int dd = 2 * s.fourier + 1;
-  const bool on = s.mxu_bf16 != 0;
-  const bool wide_h = !backward || s.h >= 8, wide_m = !backward || s.m >= 8;
-  const bool wide_m4 = !backward || s.m4 >= 8;
-  return {bf16_copy(on && s.d >= 8 && wide_h, L.wj, s.d, s.h, L.ld_h, backward),
-          bf16_copy(on && dd >= 8 && wide_h, L.wd, dd, s.h, L.ld_h, backward),
-          bf16_copy(on && s.h >= 8 && wide_m, L.w2, s.h, s.m, L.ld_m, backward),
-          bf16_copy(on && s.m >= 8 && wide_m4, L.cw1, s.m, s.m4, L.ld_m4, backward)};
+  const bool on = s.mxu_bf16 != 0, rows = !backward;
+  return {bf16_copy(on && s.d >= 8 && s.h >= 8, L.wj, s.d, s.h, L.ld_h, rows),
+          bf16_copy(on && dd >= 8 && s.h >= 8, L.wd, dd, s.h, L.ld_h, rows),
+          bf16_copy(on && s.h >= 8 && s.m >= 8, L.w2, s.h, s.m, L.ld_m, rows),
+          bf16_copy(on && s.m >= 8 && s.m4 >= 8, L.cw1, s.m, s.m4, L.ld_m4, rows)};
+}
+
+// The forward's tile buffers in the mode that hold bf16 rows in the place of
+// f32 lines: row r holds its K values rounded to bf16, zeros from K up to
+// the next multiple of 16, at a stride `ld` that is a multiple of 8 values
+// (ldmatrix reads them as A fragments; kp + 8 where that fits the place, so
+// that a fragment's rows fall on distinct banks, else kp). fj lies in X's
+// place and distf in DISTF's where their product takes the tensor cores (Wj,
+// Wd have copies), s1 in H's (h >= 8), silu(cz1) in CZ1's (4m >= 8) and after
+// it cmsg where cmsg @ cW1 takes the tensor cores: the values that the
+// forward reads only rounded, each rounded once where it is written. Each
+// product reads the same bits that rounding on load would give. off < 0: the
+// f32 lines.
+struct ModeRows {
+  Bf16Copy x, df, s1, cs1, cm;
+};
+
+__host__ __device__ inline int rows_ld(int K, int rows, int room) {
+  const int kp = (K + 15) & ~15;
+  return rows * (kp + 8) <= room ? kp + 8 : rows * kp <= room ? kp : 0;
+}
+
+__host__ __device__ inline ModeRows mode_rows(const Shape& s, const Layout& L,
+                                              const Bf16Copies& cp) {
+  const int dd = 2 * s.fourier + 1, R = s.rows, room = 2 * L.ldr;   // bf16 values a line
+  ModeRows b;
+  b.x = cp.wj.off >= 0 ? Bf16Copy{L.X, rows_ld(s.d, R, s.d * room)} : Bf16Copy{};
+  b.df = cp.wd.off >= 0 ? Bf16Copy{L.DISTF, rows_ld(dd, R, dd * room)} : Bf16Copy{};
+  b.s1 = s.h >= 8 ? Bf16Copy{L.H, rows_ld(s.h, R, s.h * room)} : Bf16Copy{};
+  if (s.m4 >= 8) {
+    // both in CZ1's place: the wider strides first
+    const int p = (s.m4 + 15) & ~15, q = cp.cw1.off >= 0 ? (s.m + 15) & ~15 : 0;
+    const int total = s.m4 * room;
+    int lp = p, lq = q;
+    if (R * (p + 8 + (q ? q + 8 : 0)) <= total) { lp = p + 8; lq = q ? q + 8 : 0; }
+    else if (R * (p + (q ? q + 8 : 0)) <= total) { lq = q ? q + 8 : 0; }
+    else if (R * (p + 8 + q) <= total) { lp = p + 8; }
+    else if (R * (p + q) > total) { lp = 0; }
+    b.cs1 = Bf16Copy{L.CZ1, lp};
+    if (q) b.cm = Bf16Copy{L.CZ1 + R * lp / 2, lp ? lq : 0};
+  }
+  return b;
 }
 
 __device__ __forceinline__ __nv_bfloat16* bf16_at(float* p) {
   return reinterpret_cast<__nv_bfloat16*>(p);
 }
 
-// W (K x N, row-major in device memory) into its bf16 copy (bf16_copy),
-// rounded once; reads coalesced along the columns, eight of a thread's in
-// flight at once.
+// W (K x N, row-major in device memory) into the backward's bf16 copy
+// (transposed), rounded once; reads coalesced along the columns, eight of a
+// thread's in flight at once.
 __device__ void stage_bf16(__nv_bfloat16* dst, int ld, const float* src, int K, int N) {
   constexpr int kInFlight = 8;
   const int kp = (K + 15) & ~15, total = kp * N, nt = blockDim.x;
@@ -763,22 +832,71 @@ __device__ void stage_bf16(__nv_bfloat16* dst, int ld, const float* src, int K, 
   }
 }
 
+// W (K x N, row-major in device memory) into the forward's bf16 copy (rows),
+// rounded once: 16-byte loads where W is 16-byte aligned, eight of a
+// thread's in flight at once (anchor 3's four weights in one round of a
+// block), so that the block waits for one round trip to L2 and not eight.
+// The padding is left as it is: B's columns past N give outputs that are
+// never stored, and its rows past K are never read (load_b_frag).
+__device__ void stage_bf16_rows(__nv_bfloat16* dst, int ld, const float* src, int K, int N) {
+  constexpr int kInFlight = 8;
+  const int total = K * N, nt = blockDim.x;
+  const bool vec = (reinterpret_cast<uintptr_t>(src) & 15) == 0;
+  const int n4 = vec ? total >> 2 : 0;
+  const float4* src4 = reinterpret_cast<const float4*>(src);
+  for (int v0 = threadIdx.x; v0 < n4; v0 += kInFlight * nt) {
+    float4 x[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u)
+      if (v0 + u * nt < n4) x[u] = __ldg(src4 + v0 + u * nt);
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      if (v0 + u * nt >= n4) break;
+      const int e = 4 * (v0 + u * nt);
+      int k = e / N, j = e - k * N;
+      const float xs[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dst[k * ld + j] = __float2bfloat16_rn(xs[c]);
+        if (++j == N) { j = 0; ++k; }
+      }
+    }
+  }
+  for (int e0 = 4 * n4 + threadIdx.x; e0 < total; e0 += kInFlight * nt) {
+    float v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int e = e0 + u * nt;
+      v[u] = e < total ? __ldg(src + e) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int e = e0 + u * nt;
+      if (e < total) dst[(e / N) * ld + e % N] = __float2bfloat16_rn(v[u]);
+    }
+  }
+}
+
 // In the tensor-core mode (kBf16) the weights with a bf16 copy (`cp`) take it
-// in place of their f32 copy.
-template <bool kAsync = false, bool kBf16 = false>
+// in place of their f32 copy: the forward's (kRows) in W's orientation, the
+// backward's transposed.
+template <bool kAsync = false, bool kBf16 = false, bool kRows = false>
 __device__ void stage_weights(const Shape& s, const Tensors& t, const Layout& L, float* sm,
                               const Bf16Copies& cp) {
   const int dd = 2 * s.fourier + 1;
-  if (kBf16 && cp.wj.off >= 0) stage_bf16(bf16_at(sm + cp.wj.off), cp.wj.ld, t.wj, s.d, s.h);
+  auto copy = [&](const Bf16Copy& c, const float* w, int K, int N) {
+    if (kRows) stage_bf16_rows(bf16_at(sm + c.off), c.ld, w, K, N);
+    else stage_bf16(bf16_at(sm + c.off), c.ld, w, K, N);
+  };
+  if (kBf16 && cp.wj.off >= 0) copy(cp.wj, t.wj, s.d, s.h);
   else stage_matrix<kAsync>(sm + L.wj, L.ld_h, t.wj, s.d, s.h);
-  if (kBf16 && cp.wd.off >= 0) stage_bf16(bf16_at(sm + cp.wd.off), cp.wd.ld, t.wd, dd, s.h);
+  if (kBf16 && cp.wd.off >= 0) copy(cp.wd, t.wd, dd, s.h);
   else stage_matrix<kAsync>(sm + L.wd, L.ld_h, t.wd, dd, s.h);
-  if (kBf16 && cp.w2.off >= 0) stage_bf16(bf16_at(sm + cp.w2.off), cp.w2.ld, t.w2, s.h, s.m);
+  if (kBf16 && cp.w2.off >= 0) copy(cp.w2, t.w2, s.h, s.m);
   else stage_matrix<kAsync>(sm + L.w2, L.ld_m, t.w2, s.h, s.m);
   stage_matrix<kAsync>(sm + L.b2, s.m, t.b2, 1, s.m);
   if (s.soft_edges) stage_matrix<kAsync>(sm + L.gw, s.m, t.gw, 1, s.m);
-  if (kBf16 && cp.cw1.off >= 0)
-    stage_bf16(bf16_at(sm + cp.cw1.off), cp.cw1.ld, t.cw1, s.m, s.m4);
+  if (kBf16 && cp.cw1.off >= 0) copy(cp.cw1, t.cw1, s.m, s.m4);
   else stage_matrix<kAsync>(sm + L.cw1, L.ld_m4, t.cw1, s.m, s.m4);
   stage_matrix<kAsync>(sm + L.cb1, s.m4, t.cb1, 1, s.m4);
   stage_matrix<kAsync>(sm + L.cw2, s.m4, t.cw2, 1, s.m4);
@@ -790,9 +908,11 @@ __device__ void stage_weights(const Shape& s, const Tensors& t, const Layout& L,
 }
 
 // The soft gate, one thread a row, the sum over m in order: GATE, and
-// MSG = m0 * gate. The mode rounds m0 and gw at m >= 8.
-template <bool kBf16 = false>
-__device__ __forceinline__ void soft_gate(const Shape& s, const Layout& L, float* sm, int rows) {
+// MSG = m0 * gate. The mode rounds m0 and gw at m >= 8. kCm: msg also into
+// the bf16 rows `cm` (the mode's forward, where cmsg = msg feeds cmsg @ cW1).
+template <bool kBf16 = false, bool kCm = false>
+__device__ __forceinline__ void soft_gate(const Shape& s, const Layout& L, float* sm, int rows,
+                                          __nv_bfloat16* cm = nullptr, int ldc = 0) {
   const int ldr = L.ldr;
   const bool rg = s.m >= 8;
   float* row = sm + L.ROW;
@@ -802,7 +922,11 @@ __device__ __forceinline__ void soft_gate(const Shape& s, const Layout& L, float
       zg = fmaf(rnd<kBf16>(sm[L.M0 + j * ldr + r], rg), rnd<kBf16>(sm[L.gw + j], rg), zg);
     const float gate = sigmoid_f(zg);
     row[GATE * ldr + r] = gate;
-    for (int j = 0; j < s.m; ++j) sm[L.MSG + j * ldr + r] = sm[L.M0 + j * ldr + r] * gate;
+    for (int j = 0; j < s.m; ++j) {
+      const float msg = sm[L.M0 + j * ldr + r] * gate;
+      sm[L.MSG + j * ldr + r] = msg;
+      if (kCm) cm[r * ldc + j] = __float2bfloat16_rn(msg);
+    }
   }
 }
 
@@ -861,16 +985,24 @@ __device__ __forceinline__ void stage_inputs(const Shape& s, const Tensors& t, c
 
 // From the staging region (and, in K11, the gathered rows) into the tile
 // buffers: REL, DIST, PV, NRM, [fj | distf] transposed, H = proj_i[i]
-// (+ proj_j[idx]). The rows past `rows` are left as they are.
-template <bool kGather>
+// (+ proj_j[idx]). The rows past `rows` are left as they are. The mode
+// (kBf16) writes fj and distf as bf16 rows where ModeRows has them, and no H:
+// its h1 product reads proj_i from the staging region.
+template <bool kGather, bool kBf16 = false>
 __device__ __forceinline__ void unpack_inputs(const Shape& s, const Tensors& t, const Layout& L,
-                                              float* sm, int ib, int rows) {
+                                              float* sm, int ib, int rows,
+                                              const ModeRows& mr = ModeRows{}) {
   const int dd = 2 * s.fourier + 1;
   const int ldr = L.ldr;
   const int nt = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = nt >> 5;
   const Staged g = staged(s, L, sm);
   const float* coors_b = t.coors + (size_t)ib * s.n * s.c;
   float* row = sm + L.ROW;
+  const bool df_rows = kBf16 && mr.df.off >= 0;
+  auto put_df = [&](int f, int r, float v) {
+    if (df_rows) bf16_at(sm + mr.df.off)[r * mr.df.ld + f] = __float2bfloat16_rn(v);
+    else sm[L.DISTF + f * ldr + r] = v;
+  };
   // geometry: a thread a (row, encoding); item f = 0 of a row writes its
   // rel, distance and scalars, item f > 0 the encodings of scale 2^(f-1)
   for (int e = threadIdx.x; e < rows * (s.fourier + 1); e += nt) {
@@ -887,20 +1019,35 @@ __device__ __forceinline__ void unpack_inputs(const Shape& s, const Tensors& t, 
       row[DIST * ldr + r] = dist;
       row[PV * ldr + r] = g.pv[r];
       row[NRM * ldr + r] = sqrtf(fmaxf(dist, s.eps * s.eps));
-      sm[L.DISTF + (dd - 1) * ldr + r] = dist;
+      put_df(dd - 1, r, dist);
+      // the mode's h1 epilogue: where row r's proj_i starts in the staging region
+      if (kBf16) reinterpret_cast<int*>(sm + L.JDX)[r] = (r / s.k) * s.h;
     } else {
       const float xs = ldexpf(dist, -(f - 1));
-      sm[L.DISTF + (f - 1) * ldr + r] = sinf(xs);
-      sm[L.DISTF + (s.fourier + f - 1) * ldr + r] = cosf(xs);
+      put_df(f - 1, r, sinf(xs));
+      put_df(s.fourier + f - 1, r, cosf(xs));
     }
   }
-  // fj transposed: lanes over rows; the staged row stride is odd, so both
-  // the reads and the writes fall on 32 distinct banks
-  if (!kGather) {
-    const int ldf = odd(s.d);
+  const int ldf = odd(s.d);
+  if (!kGather && kBf16 && mr.x.off >= 0) {
+    // fj as bf16 rows: a warp a row, two features a lane
+    __nv_bfloat16* x = bf16_at(sm + mr.x.off);
+    for (int r = warp; r < rows; r += nwarps)
+      for (int j = 2 * lane; j < s.d; j += 64) {
+        const float* src = g.fj + r * ldf + j;
+        if (j + 1 < s.d)
+          *reinterpret_cast<__nv_bfloat162*>(x + r * mr.x.ld + j) =
+              __floats2bfloat162_rn(src[0], src[1]);
+        else
+          x[r * mr.x.ld + j] = __float2bfloat16_rn(src[0]);
+      }
+  } else if (!kGather) {
+    // fj transposed: lanes over rows; the staged row stride is odd, so both
+    // the reads and the writes fall on 32 distinct banks
     for (int j = warp; j < s.d; j += nwarps)
       for (int r = lane; r < rows; r += 32) sm[L.X + j * ldr + r] = g.fj[r * ldf + j];
   }
+  if (kBf16) return;
   // H = proj_i[i] (+ proj_j[idx]): a warp takes four rows by eight features
   // a step (32-byte pieces of the rows in device memory; 32 distinct banks,
   // ldr being four times an odd number)
@@ -917,19 +1064,9 @@ __device__ __forceinline__ void unpack_inputs(const Shape& s, const Tensors& t, 
 
 // ---- the tensor-core products (the mode) ----
 
-// d += a * b for one m16n8k16 tile: A 16 x 16 and B 16 x 8 in bf16, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a * b for one m16n8k8 tile: the first or the second half of an
-// m16n8k16 step's fragments (a0 = a[0] or a[2], a1 = a[1] or a[3], b = b0 or
-// b1).
+// d += a * b for one m16n8k8 tile, A 16 x 8 and B 8 x 8 in bf16, f32 sums:
+// the first or the second half of an m16n8k16 step's fragments (a0 = a[0] or
+// a[2], a1 = a[1] or a[3], b = b0 or b1).
 __device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
@@ -944,12 +1081,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // One operand pair of a tensor-core product: K tile lines of A (A(r, k) at
-// A[k * ldr + r], f32) against a weight's bf16 copy W at stride ld
-// (bf16_copy): B = the weight, or its transpose (tc_product_t).
+// A[k * ldr + r], f32), or in the mode's forward K values a row of bf16 rows
+// Ab (A(r, k) at Ab[r * lda + k]; ModeRows), against a weight's bf16 copy W
+// at stride ld (bf16_copy): B = the weight, or its transpose (tc_product_t).
 struct TcSeg {
   const float* A;
   const __nv_bfloat16* W;
   int K, ld;
+  const __nv_bfloat16* Ab;
+  int lda;
 };
 
 // out(r, j) = silu(sum over the segments of A @ W (+ fA @ fW, f32, K < 8)
@@ -976,25 +1116,10 @@ __device__ __forceinline__ TcArgs tc_args(int rows, int N, int ldr, float* out) 
   return m;
 }
 
-// A term of a product (K lines of A against a K x N weight staged at wsm):
-// onto the tensor cores where the mode rounds it (K >= 8), else the f32 term
-// (h1's fj @ Wj at d < 8 or distf @ Wd below fourier 4). The forward's copy
-// lies at wsm with the stride bf16_ld gives (computed here: reading it from
-// bf16_copies instead gave K10f in the mode the same bits and 3-5% more time
-// on the H100).
-__device__ __forceinline__ void tc_term(TcArgs& m, const float* A, float* wsm, int K, int ld32) {
-  if (K >= 8) {
-    const TcSeg seg{A, bf16_at(wsm), K, bf16_ld(K, m.N, ld32)};
-    if (m.nseg == 0) m.seg[0] = seg;   // fixed indices: the segments stay in registers
-    else m.seg[1] = seg;
-    ++m.nseg;
-  } else if (K > 0) {
-    m.fA = A; m.fW = wsm; m.fK = K; m.fws = ld32;
-  }
-}
-
-// The same in the backward, whose copies lie where bf16_copies places them
-// (`c`; off < 0: none, the f32 copy at float w32 of sm).
+// A term of a product of the backward's recomputation (K lines of A against
+// a K x N weight): onto the tensor cores where the weight has a bf16 copy
+// (`c`, where bf16_copies places it), else the f32 term against the f32 copy
+// at float w32 of sm (h1's fj @ Wj at d < 8 or distf @ Wd below fourier 4).
 __device__ __forceinline__ void tc_term(TcArgs& m, const float* A, float* sm, const Bf16Copy& c,
                                         int w32, int K, int ld32) {
   if (c.off >= 0) {
@@ -1020,15 +1145,30 @@ __device__ __forceinline__ void load_a_frag(const float* A, int K, int ldr, int 
   a[3] = pack_bf16(at(k0 + q + 8, r0 + g + 8), at(k0 + q + 9, r0 + g + 8));
 }
 
+// The same from bf16 rows (A(r, k) at A[r * ld + k], rows of 16 bytes, zeros
+// from K on): one ldmatrix.x4, whose four 8 x 8 blocks are the fragment's
+// (rows r0.. and r0 + 8.., contraction k0.. and k0 + 8..), on distinct banks
+// at a stride of kp + 8 values (ModeRows).
+__device__ __forceinline__ void load_a_rows(const __nv_bfloat16* A, int ld, int r0, int k0,
+                                            uint32_t (&a)[4]) {
+  const int lane = threadIdx.x & 31, blk = lane >> 3;
+  const __nv_bfloat16* p = A + (r0 + (lane & 7) + (blk & 1) * 8) * ld + k0 + (blk >> 1) * 8;
+  const uint32_t at = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3]) : "r"(at));
+}
+
 // The B fragment of contraction k0.. and column tile n0.. of a segment.
-// kTrans false: W is the copy of a K x N weight (row j holds column j), read
-// as two words a lane; columns past N read the last column. kTrans true: W is
-// the copy of an N x K weight, whose transpose B is: its rows k0.. and k0 +
-// 8.. (each a contraction index) give the two 8 x 8 blocks of the fragment
-// by ldmatrix.trans, from rows of 16 bytes (the copy's start and stride are
-// multiples of 16 bytes: bf16_copy's `aligned`), on 32 distinct banks (the
-// stride is kp + 8 values at anchor 3's and 5's widths); rows past K read row
-// K - 1 against A's zeros there, and the columns past N its zeros up to kp.
+// kTrans false: W is the backward's copy of a K x N weight (row j holds
+// column j), read as two words a lane; columns past N read the last column.
+// kTrans true: W's rows are B's (each a contraction index: the backward's
+// copy of an N x K weight, whose transpose B is, or the forward's copy of a K
+// x N weight in its own orientation); its rows k0.. and k0 + 8.. give the two
+// 8 x 8 blocks of the fragment by ldmatrix.trans, from rows of 16 bytes (the
+// copy's start and stride are multiples of 16 bytes: bf16_copy), on 32
+// distinct banks where the stride is 8 values past a multiple of 16 (anchor
+// 3's and 5's widths); rows past K read row K - 1 against A's zeros there,
+// and the columns past N give outputs that are never stored.
 template <bool kTrans>
 __device__ __forceinline__ void load_b_frag(const TcSeg& seg, int N, int k0, int n0, uint32_t& b0,
                                             uint32_t& b1) {
@@ -1055,15 +1195,19 @@ __device__ __forceinline__ void load_b_frag(const TcSeg& seg, int N, int k0, int
 // loads fall on 32 distinct banks (ldr is four times an odd number), as do
 // the epilogue's.
 // The tensor cores add a step's products to the sum they are given with
-// truncation, not rounding to nearest. The forward (K10f) chains its sums
-// through them; the backward (kSplit) sums each half of a step (m16n8k8,
-// eight products) from zero and adds it to its f32 sum in round-to-nearest,
-// which keeps its bf16 roundings of the recomputed activations nearer to the
-// plain version's. On the H100 at path C, 28 of 65 536 self pairs' d_cj
-// parted from the f32 plain version's by a bf16 step of their weight,
-// against 46 with whole m16n8k16 steps; chained, the tensor nearest
-// chip_smoke.py phase 43's limit at anchor 5 went from 0.31 to 0.51 of it.
-template <int kTiles, bool kTrans, bool kSplit, typename Epi>
+// truncation, not rounding to nearest. So both K10 kernels in the mode sum
+// each half of a step (m16n8k8, eight products) from zero and add it to the
+// f32 sum in round-to-nearest, which keeps their bf16 roundings of
+// the activations nearer to the plain version's, and the forward sums every
+// product as the backward's recomputation does (the same segments, steps and
+// halves in the same order), so that the two round each value alike. On the
+// H100 at path C, 28 of 65 536 self pairs' d_cj parted from the f32 plain
+// version's by a bf16 step of their weight, against 46 with whole m16n8k16
+// steps; chained, the tensor nearest chip_smoke.py phase 43's limit at anchor
+// 5 went from 0.31 to 0.51 of it. kRowsA: A from bf16 rows (the mode's
+// forward); kPairs: epi(r, j, v, v1) takes the two adjacent columns j and j + 1
+// that a lane holds (v1 is past N where j + 1 is), else epi(r, j, v).
+template <int kTiles, bool kTrans, bool kRowsA = false, bool kPairs = false, typename Epi>
 __device__ __forceinline__ void tc_mma(const TcSeg (&segs)[2], int nseg, int rows, int N, int ldr,
                                        Epi epi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
@@ -1088,21 +1232,18 @@ __device__ __forceinline__ void tc_mma(const TcSeg (&segs)[2], int nseg, int row
       const TcSeg seg = segs[sg];
       for (int k0 = 0; k0 < seg.K; k0 += 16) {
         uint32_t a[4];
-        load_a_frag(seg.A, seg.K, ldr, r0, k0, a);
+        if (kRowsA) load_a_rows(seg.Ab, seg.lda, r0, k0, a);
+        else load_a_frag(seg.A, seg.K, ldr, r0, k0, a);
 #pragma unroll
         for (int t = 0; t < kTiles; ++t) {
           if (t < cnt && n0 + t * 8 < N) {   // the same for the whole warp
             uint32_t b0, b1;
             load_b_frag<kTrans>(seg, N, k0, n0 + t * 8, b0, b1);
-            if (kSplit) {
-              float lo[4] = {0.f, 0.f, 0.f, 0.f}, hi[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_bf16_k8(lo, a[0], a[1], b0);
-              mma_bf16_k8(hi, a[2], a[3], b1);
+            float lo[4] = {0.f, 0.f, 0.f, 0.f}, hi[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16_k8(lo, a[0], a[1], b0);
+            mma_bf16_k8(hi, a[2], a[3], b1);
 #pragma unroll
-              for (int e = 0; e < 4; ++e) acc[t][e] = (acc[t][e] + lo[e]) + hi[e];
-            } else {
-              mma_bf16(acc[t], a, b0, b1);
-            }
+            for (int e = 0; e < 4; ++e) acc[t][e] = (acc[t][e] + lo[e]) + hi[e];
           }
         }
       }
@@ -1110,19 +1251,27 @@ __device__ __forceinline__ void tc_mma(const TcSeg (&segs)[2], int nseg, int row
 #pragma unroll
     for (int t = 0; t < kTiles; ++t) {
       if (t >= cnt) break;
+      if constexpr (kPairs) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + g + (e >> 1) * 8, j = n0 + t * 8 + q + (e & 1);
-        if (r < rows && j < N) epi(r, j, acc[t][e]);
+        for (int e = 0; e < 4; e += 2) {
+          const int r = r0 + g + (e >> 1) * 8, j = n0 + t * 8 + q;
+          if (r < rows && j < N) epi(r, j, acc[t][e], acc[t][e + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + g + (e >> 1) * 8, j = n0 + t * 8 + q + (e & 1);
+          if (r < rows && j < N) epi(r, j, acc[t][e]);
+        }
       }
     }
   }
 }
 
-// A product of TcArgs (the forward's and the recomputation's: A @ W).
-template <int kTiles, bool kSplit = false>
+// A product of TcArgs (the backward's recomputation: A @ W).
+template <int kTiles>
 __device__ __forceinline__ void tc_product(const TcArgs& m) {
-  tc_mma<kTiles, false, kSplit>(m.seg, m.nseg, m.rows, m.N, m.ldr, [&](int r, int j, float v) {
+  tc_mma<kTiles, false>(m.seg, m.nseg, m.rows, m.N, m.ldr, [&](int r, int j, float v) {
     for (int f = 0; f < m.fK; ++f) v = fmaf(m.fA[f * m.ldr + r], m.fW[f * m.fws + j], v);
     if (m.bias != nullptr) v += m.bias[j];
     if (m.add_of != nullptr) v += m.add_of[j * m.ldr + r];
@@ -1143,16 +1292,13 @@ template <int kTiles, typename Epi>
 __device__ __forceinline__ void tc_product_t(const float* A, float* sm, const Bf16Copy& c, int K,
                                              int rows, int N, int ldr, Epi epi) {
   const TcSeg segs[2] = {{A, bf16_at(sm + c.off), K, c.ld}, {A, nullptr, 0, 0}};
-  tc_mma<kTiles, true, true>(segs, 1, rows, N, ldr, epi);
+  tc_mma<kTiles, true>(segs, 1, rows, N, ldr, epi);
 }
 
 // The tile's pipeline after the unpacking: H <- silu(h1), M0, MSG (GATE),
 // CZ1 <- silu(cz1), and REL <- w * rel_n with w = clip(wz * pv). Ends on a
-// barrier.
-// In the tensor-core mode (kBf16) the products whose contraction has at
-// least 8 elements run on the tensor cores (tc_product), and the rest as in
-// the f32 mode.
-template <bool kGather, bool kBf16>
+// barrier. (The tensor-core mode's is mode_products.)
+template <bool kGather>
 __device__ __forceinline__ void forward_products(const Shape& s, const Layout& L, float* sm,
                                                  int rows) {
   const int dd = 2 * s.fourier + 1;
@@ -1162,13 +1308,7 @@ __device__ __forceinline__ void forward_products(const Shape& s, const Layout& L
   float* cmsg = sm + (s.gate_feats_only ? L.M0 : L.MSG);
 
   // h1 = H + [fj | distf] @ [Wj; Wd] (K11: distf @ Wd); H <- silu(h1)
-  if (kBf16 && (s.d >= 8 || dd >= 8)) {
-    TcArgs m = tc_args(rows, s.h, ldr, sm + L.H);
-    tc_term(m, sm + L.X, sm + L.wj, s.d, L.ld_h);
-    tc_term(m, sm + L.DISTF, sm + L.wd, dd, L.ld_h);
-    m.add_of = sm + L.H;     // each element read and rewritten by its owner
-    tc_product<4>(m);
-  } else {
+  {
     MmArgs m = kGather ? mm_args(nullptr, sm + L.DISTF, sm + L.wd, L.ld_h, 1, rows, dd, s.h, ldr)
                        : mm_args(nullptr, sm + L.X, sm + L.wj, L.ld_h, 1, rows, s.d + dd, s.h,
                                  ldr);
@@ -1177,39 +1317,33 @@ __device__ __forceinline__ void forward_products(const Shape& s, const Layout& L
     mm_blocked<5>(m);
   }
   __syncthreads();
+  K10_STAGE(5);
 
   // m0 = silu(s1 @ W2 + b2)
-  if (kBf16 && s.h >= 8) {
-    TcArgs m = tc_args(rows, s.m, ldr, sm + L.M0);
-    tc_term(m, sm + L.H, sm + L.w2, s.h, L.ld_m);
-    m.bias = sm + L.b2;
-    tc_product<4>(m);
-  } else {
+  {
     MmArgs m = mm_args(nullptr, sm + L.H, sm + L.w2, L.ld_m, 1, rows, s.h, s.m, ldr);
     m.bias = sm + L.b2;
     m.silu_out = sm + L.M0;
     mm_blocked<1>(m);
   }
   __syncthreads();
+  K10_STAGE(6);
 
   if (s.soft_edges) {
-    soft_gate<kBf16>(s, L, sm, rows);
+    soft_gate(s, L, sm, rows);
     __syncthreads();
+    K10_STAGE(7);
   }
 
   // CZ1 <- silu(cmsg @ cW1 + cb1)
-  if (kBf16 && s.m >= 8) {
-    TcArgs m = tc_args(rows, s.m4, ldr, sm + L.CZ1);
-    tc_term(m, cmsg, sm + L.cw1, s.m, L.ld_m4);
-    m.bias = sm + L.cb1;
-    tc_product<4>(m);
-  } else {
+  {
     MmArgs m = mm_args(nullptr, cmsg, sm + L.cw1, L.ld_m4, 1, rows, s.m, s.m4, ldr);
     m.bias = sm + L.cb1;
     m.silu_out = sm + L.CZ1;
     mm_blocked<2>(m);
   }
   __syncthreads();
+  K10_STAGE(8);
 
   // wz = silu(cz1) @ cW2 + cb2, w = clip(wz * pv), REL <- w * rel_n: eight
   // lanes a row, a lane every eighth feature, summed by a butterfly (each
@@ -1217,14 +1351,12 @@ __device__ __forceinline__ void forward_products(const Shape& s, const Layout& L
   {
     const int sub = threadIdx.x & 7, group = threadIdx.x >> 3, groups = nt >> 3;
     const float scale = sm[L.misc + 2];
-    const bool rc = s.m4 >= 8;
     for (int base = 0; base < rows; base += groups) {   // the same trips for every lane
       const int r = base + group;
       const bool live = r < rows;
       const int rr = live ? r : 0;
       float acc = 0.f;
-      for (int q = sub; q < s.m4; q += 8)
-        acc = fmaf(rnd<kBf16>(sm[L.CZ1 + q * ldr + rr], rc), rnd<kBf16>(sm[L.cw2 + q], rc), acc);
+      for (int q = sub; q < s.m4; q += 8) acc = fmaf(sm[L.CZ1 + q * ldr + rr], sm[L.cw2 + q], acc);
 #pragma unroll
       for (int o = 4; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
       if (live && sub < s.c) {
@@ -1237,6 +1369,287 @@ __device__ __forceinline__ void forward_products(const Shape& s, const Layout& L
     }
   }
   __syncthreads();
+  K10_STAGE(9);
+}
+
+// ---- the forward in the tensor-core mode (K10f, mxu_bf16) ----
+
+// What follows a forward product in the mode that runs on the FMAs alone
+// (its weight has no bf16 copy: a width below 8), on an output (r, j): its
+// sum, fK terms of the f32 lines fA or of the bf16 rows fAb against the f32
+// weight fW in the order of f, rounding both operands of the terms in [flo,
+// fhi) as the rules do, then bias[j]; silu of that. The sums and their order
+// are the backward's recomputation's (mm_blocked), so that the two compute
+// the same bits. out32: f32 lines; out16: bf16 rows (ld16).
+struct FwdEpi {
+  const float* fA;
+  const __nv_bfloat16* fAb;
+  int fK, flo, fhi, fald;
+  const float* fW;
+  int fws;
+  const float* bias;
+  float* out32;
+  __nv_bfloat16* out16;
+  int ld16, N, ldr;
+};
+
+__device__ __forceinline__ FwdEpi fwd_epi(int N, int ldr) {
+  FwdEpi e;
+  e.fA = nullptr; e.fAb = nullptr; e.fK = 0; e.flo = e.fhi = 0; e.fald = 0;
+  e.fW = nullptr; e.fws = 0; e.bias = nullptr;
+  e.out32 = nullptr; e.out16 = nullptr; e.ld16 = 0; e.N = N; e.ldr = ldr;
+  return e;
+}
+
+__device__ __forceinline__ float fwd_value(const FwdEpi e, int r, int j) {
+  float v = 0.f;
+  for (int f = 0; f < e.fK; ++f) {
+    float a = e.fAb != nullptr ? __bfloat162float(e.fAb[r * e.fald + f]) : e.fA[f * e.ldr + r];
+    float w = e.fW[f * e.fws + j];
+    if (f >= e.flo && f < e.fhi) { a = bf16_round(a); w = bf16_round(w); }
+    v = fmaf(a, w, v);
+  }
+  if (e.bias != nullptr) v += e.bias[j];
+  return silu_f(v);
+}
+
+// o[0], o[1] (a bf16 row's columns j, j + 1) <- v0, v1 rounded, as one
+// bf16x2 where both lie in the row (`two`)
+__device__ __forceinline__ void put_pair(__nv_bfloat16* o, float v0, float v1, bool two) {
+  if (two) *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+  else *o = __float2bfloat16_rn(v0);
+}
+
+// A forward product on the FMAs alone (FwdEpi), a thread an output: where
+// a narrow width keeps a weight off the tensor cores.
+__device__ __forceinline__ void fwd_product_fma(int rows, const FwdEpi e) {
+  for (int o = threadIdx.x; o < rows * e.N; o += blockDim.x) {
+    const int j = o / rows, r = o - j * rows;
+    const float v = fwd_value(e, r, j);
+    if (e.out32 != nullptr) e.out32[j * e.ldr + r] = v;
+    if (e.out16 != nullptr) e.out16[r * e.ld16 + j] = __float2bfloat16_rn(v);
+  }
+}
+
+// A tensor-core segment: K values a row of the bf16 rows `a` against the
+// weight's copy `c`.
+__device__ __forceinline__ TcSeg seg_rows(float* sm, const Bf16Copy& c, int K, const Bf16Copy& a) {
+  return TcSeg{nullptr, bf16_at(sm + c.off), K, c.ld, bf16_at(sm + a.off), a.ld};
+}
+
+// The bf16 rows' padding, from K to the next multiple of 16, zeroed once a
+// launch: an A fragment's last step reads it against B's row K - 1.
+__device__ __forceinline__ void zero_padding(const Shape& s, const ModeRows& mr, float* sm) {
+  auto zero = [&](const Bf16Copy& c, int K) {
+    const int w = ((K + 15) & ~15) - K;
+    if (c.off < 0 || w == 0) return;
+    __nv_bfloat16* p = bf16_at(sm + c.off);
+    for (int e = threadIdx.x; e < s.rows * w; e += blockDim.x)
+      p[(e / w) * c.ld + K + e % w] = __float2bfloat16_rn(0.f);
+  };
+  zero(mr.x, s.d);
+  zero(mr.df, 2 * s.fourier + 1);
+  zero(mr.s1, s.h);
+  zero(mr.cm, s.m);
+}
+
+// The mode's pipeline after the unpacking (K10 only): s1, m0 (MSG, GATE),
+// silu(cz1), and REL <- w * rel_n. Each product sums as the backward's
+// recomputation does: on the tensor cores where its weight has a bf16 copy,
+// else on the FMAs in the order of its terms. s1, silu(cz1) and cmsg are
+// written once as bf16 rows where the products read them rounded (ModeRows);
+// m0 and msg stay f32 lines for the gate and the sums. proj_i is read from
+// the staging region (pi), so the next tile's copies are queued
+// (issue_next) only once the h1 product is done. A warp item is one tile of
+// 16 rows by 8 columns: its A fragment is one ldmatrix.x4 a step, and items
+// of two or four column tiles, which share it, took more registers than two
+// blocks an SM leave (spills) and ran 2-21% slower on the H100
+// (tools/k10_mode_probe.py clock ...@tiles=N). Ends on a barrier.
+template <typename Next>
+__device__ __forceinline__ void mode_products(const Shape& s, const Layout& L, const Bf16Copies& cp,
+                                              const ModeRows& mr, float* sm, int rows,
+                                              const float* pi, Next issue_next) {
+  const int dd = 2 * s.fourier + 1;
+  const int ldr = L.ldr;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  float* row = sm + L.ROW;
+  const TcSeg none{nullptr, nullptr, 0, 0, nullptr, 0};
+
+  // h1 = proj_i[i] + [fj | distf] @ [Wj; Wd]; s1 = silu(h1). On the tensor
+  // cores the epilogue adds the f32 term of the operand below 8 (fj @ Wj at d
+  // < 8, distf @ Wd below fourier 4), then proj_i[i] from the staging region
+  // (node_row: row r's node's offset there), as tile_forward's does.
+  if (cp.wj.off >= 0 || cp.wd.off >= 0) {
+    // fixed indices: the segments stay in registers
+    const TcSeg sx = cp.wj.off >= 0 ? seg_rows(sm, cp.wj, s.d, mr.x) : none;
+    const TcSeg sd = cp.wd.off >= 0 ? seg_rows(sm, cp.wd, dd, mr.df) : none;
+    const TcSeg segs[2] = {cp.wj.off >= 0 ? sx : sd, sd};
+    const int nseg = (cp.wj.off >= 0) + (cp.wd.off >= 0);
+    const float* fA = sm + (cp.wj.off < 0 ? L.X : L.DISTF);
+    const float* fW = sm + (cp.wj.off < 0 ? L.wj : L.wd);
+    const int fK = cp.wj.off < 0 ? s.d : cp.wd.off < 0 ? dd : 0, fws = L.ld_h, N = s.h;
+    const int* node_row = reinterpret_cast<const int*>(sm + L.JDX);
+    __nv_bfloat16* out = bf16_at(sm + mr.s1.off);
+    const int ld16 = mr.s1.ld;
+    tc_mma<K10_MODE_TILES, true, true, true>(segs, nseg, rows, N, ldr,
+                                             [=](int r, int j, float v0, float v1) {
+      const bool two = j + 1 < N;
+      for (int f = 0; f < fK; ++f) {
+        const float a = fA[f * ldr + r];
+        v0 = fmaf(a, fW[f * fws + j], v0);
+        if (two) v1 = fmaf(a, fW[f * fws + j + 1], v1);
+      }
+      const float* p = pi + node_row[r] + j;
+      v0 = silu_f(v0 + p[0]);
+      if (two) v1 = silu_f(v1 + p[1]);
+      put_pair(out + r * ld16 + j, v0, v1, two);
+    });
+  } else {
+    // the FMAs: [fj | distf] against [Wj; Wd] in the order of i, rounding
+    // where the rules round (tile_forward's mm_blocked), then proj_i
+    int lo, hi;
+    round_range(s.d >= 8, s.d, dd >= 8, dd, &lo, &hi);
+    const int* node_row = reinterpret_cast<const int*>(sm + L.JDX);
+    for (int o = threadIdx.x; o < rows * s.h; o += blockDim.x) {
+      const int j = o / rows, r = o - j * rows;
+      float v = 0.f;
+      for (int f = 0; f < s.d + dd; ++f) {
+        float a = sm[L.X + f * ldr + r], w = sm[L.wj + f * L.ld_h + j];
+        if (f >= lo && f < hi) { a = bf16_round(a); w = bf16_round(w); }
+        v = fmaf(a, w, v);
+      }
+      v = silu_f(v + pi[node_row[r] + j]);
+      if (mr.s1.off >= 0) bf16_at(sm + mr.s1.off)[r * mr.s1.ld + j] = __float2bfloat16_rn(v);
+      else sm[L.H + j * ldr + r] = v;
+    }
+  }
+  __syncthreads();
+  K10_STAGE(5);
+  issue_next();   // the staging region's proj_i rows are read
+  K10_STAGE(4);
+
+  // m0 = silu(s1 @ W2 + b2) into M0, and cmsg's bf16 rows where cmsg is m0
+  // and its product takes the tensor cores
+  {
+    float* m0 = sm + L.M0;
+    const float* b2 = sm + L.b2;
+    __nv_bfloat16* cm = (!s.soft_edges || s.gate_feats_only) && mr.cm.off >= 0
+                            ? bf16_at(sm + mr.cm.off) : nullptr;
+    const int ldc = mr.cm.ld, N = s.m;
+    if (cp.w2.off >= 0) {
+      const TcSeg segs[2] = {seg_rows(sm, cp.w2, s.h, mr.s1), none};
+      tc_mma<K10_MODE_TILES, true, true, true>(segs, 1, rows, N, ldr,
+                                               [=](int r, int j, float v0, float v1) {
+        const bool two = j + 1 < N;
+        v0 = silu_f(v0 + b2[j]);
+        m0[j * ldr + r] = v0;
+        if (two) {
+          v1 = silu_f(v1 + b2[j + 1]);
+          m0[(j + 1) * ldr + r] = v1;
+        }
+        if (cm != nullptr) put_pair(cm + r * ldc + j, v0, v1, two);
+      });
+    } else {
+      FwdEpi e = fwd_epi(N, ldr);
+      e.fK = s.h;
+      e.fW = sm + L.w2;
+      e.fws = L.ld_m;
+      if (mr.s1.off >= 0) { e.fAb = bf16_at(sm + mr.s1.off); e.fald = mr.s1.ld; e.fhi = s.h; }
+      else e.fA = sm + L.H;     // h < 8: exact
+      e.bias = b2;
+      e.out32 = m0;
+      e.out16 = cm;
+      e.ld16 = ldc;
+      fwd_product_fma(rows, e);
+    }
+  }
+  __syncthreads();
+  K10_STAGE(6);
+
+  if (s.soft_edges) {
+    if (!s.gate_feats_only && mr.cm.off >= 0)
+      soft_gate<true, true>(s, L, sm, rows, bf16_at(sm + mr.cm.off), mr.cm.ld);
+    else
+      soft_gate<true>(s, L, sm, rows);
+    __syncthreads();
+    K10_STAGE(7);
+  }
+
+  // silu(cz1) = silu(cmsg @ cW1 + cb1)
+  {
+    const float* cb1 = sm + L.cb1;
+    const int N = s.m4;
+    if (cp.cw1.off >= 0) {   // 4m >= 8: silu(cz1) as bf16 rows
+      const TcSeg segs[2] = {seg_rows(sm, cp.cw1, s.m, mr.cm), none};
+      __nv_bfloat16* out = bf16_at(sm + mr.cs1.off);
+      const int ld16 = mr.cs1.ld;
+      tc_mma<K10_MODE_TILES, true, true, true>(segs, 1, rows, N, ldr,
+                                               [=](int r, int j, float v0, float v1) {
+        const bool two = j + 1 < N;
+        v0 = silu_f(v0 + cb1[j]);
+        if (two) v1 = silu_f(v1 + cb1[j + 1]);
+        put_pair(out + r * ld16 + j, v0, v1, two);
+      });
+    } else {
+      FwdEpi e = fwd_epi(N, ldr);
+      e.fA = sm + (s.gate_feats_only ? L.M0 : L.MSG);
+      e.fK = s.m;
+      e.fW = sm + L.cw1;
+      e.fws = L.ld_m4;
+      e.fhi = s.m >= 8 ? s.m : 0;
+      e.bias = cb1;
+      if (mr.cs1.off >= 0) { e.out16 = bf16_at(sm + mr.cs1.off); e.ld16 = mr.cs1.ld; }
+      else e.out32 = sm + L.CZ1;
+      fwd_product_fma(rows, e);
+    }
+  }
+  __syncthreads();
+  K10_STAGE(8);
+
+  // wz = silu(cz1) @ cW2 + cb2, w = clip(wz * pv), REL <- w * rel_n: eight
+  // lanes a row, summed as the backward's recomputation sums wz (a warp a
+  // row: lane l's chain over the features l, l + 32, ..., then a butterfly),
+  // so that both take each clamp alike: lane s of the eight keeps the chains
+  // of lanes s, s + 8, s + 16 and s + 24, adds them as the butterfly's first
+  // two levels do, then the last three by shuffles
+  {
+    const int sub = threadIdx.x & 7, group = threadIdx.x >> 3, groups = blockDim.x >> 3;
+    const float scale = sm[L.misc + 2];
+    const bool rc = s.m4 >= 8;
+    const __nv_bfloat16* cs = mr.cs1.off >= 0 ? bf16_at(sm + mr.cs1.off) : nullptr;
+    const int ldc = mr.cs1.ld;
+    for (int base = 0; base < rows; base += groups) {   // the same trips for every lane
+      const int r = base + group;
+      const bool live = r < rows;
+      const int rr = live ? r : 0;
+      float leaf[4] = {0.f, 0.f, 0.f, 0.f};   // the chains of lanes sub + 8 * u
+      if (cs != nullptr) {
+        const __nv_bfloat16* x = cs + rr * ldc;
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          for (int q = sub + 8 * u; q < s.m4; q += 32)
+            leaf[u] = fmaf(__bfloat162float(x[q]), bf16_round(sm[L.cw2 + q]), leaf[u]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          for (int q = sub + 8 * u; q < s.m4; q += 32)
+            leaf[u] = fmaf(sm[L.CZ1 + q * ldr + rr], rnd<true>(sm[L.cw2 + q], rc), leaf[u]);
+      }
+      float acc = (leaf[0] + leaf[2]) + (leaf[1] + leaf[3]);
+#pragma unroll
+      for (int o = 4; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+      if (live && sub < s.c) {
+        const float wm = (acc + sm[L.misc + 1]) * row[PV * ldr + r];
+        const float w = s.has_clamp ? fminf(fmaxf(wm, -s.clamp), s.clamp) : wm;
+        K10_TAP_W(sub, r, w);
+        float rel_n = sm[L.REL + sub * ldr + r];
+        if (s.norm_coors) rel_n = rel_n / row[NRM * ldr + r] * scale;
+        sm[L.REL + sub * ldr + r] = w * rel_n;
+      }
+    }
+  }
+  __syncthreads();
+  K10_STAGE(9);
 }
 
 // m_i[i] = sum_t msg * pv, coors_delta[i] = sum_t (w * rel_n): a thread an
@@ -1266,28 +1679,72 @@ __device__ __forceinline__ void forward_sums(const Shape& s, const Tensors& t, c
 
 // A block walks its tiles (tile = blockIdx.x, += gridDim.x, across batch
 // elements): it waits for the tile's staged inputs, unpacks them, queues the
-// next tile's copies (none after its last) and computes. kBf16: the
-// tensor-core mode (K10 only).
-template <bool kGather, bool kBf16>
+// next tile's copies (none after its last) and computes.
+template <bool kGather>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 pair_fwd_kernel(const Shape s, const Tensors t) {
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   const Layout L = make_layout(s, false);
   const int tiles_per_b = (s.n + s.ti - 1) / s.ti, tiles = s.b * tiles_per_b;
+  K10_STAGE(-1);
   if ((int)blockIdx.x < tiles) stage_inputs<kGather>(s, t, L, sm, blockIdx.x);
-  stage_weights<true, kBf16>(s, t, L, sm, bf16_copies(s, L, false));
+  K10_STAGE(0);
+  stage_weights<true>(s, t, L, sm, bf16_copies(s, L, false));
   __pipeline_commit();
+  K10_STAGE(1);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int ib = tile / tiles_per_b, i0 = (tile - ib * tiles_per_b) * s.ti;
     const int tn = min(s.ti, s.n - i0), rows = tn * s.k;
     __pipeline_wait_prior(0);
     __syncthreads();   // the inputs have landed; the last tile's sums are read
+    K10_STAGE(2);
     unpack_inputs<kGather>(s, t, L, sm, ib, rows);
     __syncthreads();   // the staging region is free
+    K10_STAGE(3);
     if (tile + (int)gridDim.x < tiles) stage_inputs<kGather>(s, t, L, sm, tile + gridDim.x);
-    forward_products<kGather, kBf16>(s, L, sm, rows);
+    K10_STAGE(4);
+    forward_products<kGather>(s, L, sm, rows);
     forward_sums(s, t, L, sm, (size_t)ib * s.n + i0, tn);
+    K10_STAGE(10);
+  }
+}
+
+// K10f in the tensor-core mode: pair_fwd_kernel's tile loop around
+// mode_products. Its weights' bf16 copies are staged synchronously under the
+// first tile's copies, and it queues the next tile's copies after its h1
+// product, which reads proj_i from the staging region.
+__global__ void __launch_bounds__(kFwdThreads, 2)
+pair_fwd_mode_kernel(const Shape s, const Tensors t) {
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
+  const Layout L = make_layout(s, false);
+  const Bf16Copies cp = bf16_copies(s, L, false);
+  const ModeRows mr = mode_rows(s, L, cp);
+  const int tiles_per_b = (s.n + s.ti - 1) / s.ti, tiles = s.b * tiles_per_b;
+  K10_STAGE(-1);
+  if ((int)blockIdx.x < tiles) stage_inputs<false>(s, t, L, sm, blockIdx.x);
+  K10_STAGE(0);
+  stage_weights<true, true, true>(s, t, L, sm, cp);
+  __pipeline_commit();
+  zero_padding(s, mr, sm);
+  K10_STAGE(1);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int ib = tile / tiles_per_b, i0 = (tile - ib * tiles_per_b) * s.ti;
+    const int tn = min(s.ti, s.n - i0), rows = tn * s.k;
+    const int next = tile + (int)gridDim.x;
+    __pipeline_wait_prior(0);
+    __syncthreads();   // the inputs have landed; the last tile's sums are read
+    K10_STAGE(2);
+    unpack_inputs<false, true>(s, t, L, sm, ib, rows, mr);
+    __syncthreads();   // the staging region is read, but for proj_i
+    K10_STAGE(3);
+    mode_products(s, L, cp, mr, sm, rows, staged(s, L, sm).pi, [&] {
+      if (next < tiles) stage_inputs<false>(s, t, L, sm, next);
+    });
+    K10_TAP_FWD(s, L, mr, sm, rows, ((size_t)ib * s.n + i0) * s.k);
+    forward_sums(s, t, L, sm, (size_t)ib * s.n + i0, tn);
+    K10_STAGE(10);
   }
 }
 
@@ -1370,7 +1827,7 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
     tc_term(m, sm + L.DISTF, sm, cp.wd, L.wd, dd, L.ld_h);
     m.add_of = sm + L.H;
     m.sig_out = sm + L.H;   // each element read and rewritten by its owner
-    tc_product<kBwdTcTiles, true>(m);
+    tc_product<kBwdTcTiles>(m);
   } else {
     MmArgs m = kGather ? mm_args(nullptr, sm + L.DISTF, sm + L.wd, L.ld_h, 1, rows, dd, s.h, ldr)
                        : mm_args(nullptr, sm + L.X, sm + L.wj, L.ld_h, 1, rows, s.d + dd, s.h,
@@ -1394,7 +1851,7 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
     tc_term(m, sm + L.S, sm, cp.w2, L.w2, s.h, L.ld_m);
     m.bias = sm + L.b2;
     m.sig_out = sm + L.Z2;
-    tc_product<kBwdTcTiles, true>(m);
+    tc_product<kBwdTcTiles>(m);
   } else {
     MmArgs m = mm_args(nullptr, sm + L.S, sm + L.w2, L.ld_m, 1, rows, s.h, s.m, ldr);
     m.bias = sm + L.b2;
@@ -1417,7 +1874,7 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
     tc_term(m, cmsg, sm, cp.cw1, L.cw1, s.m, L.ld_m4);
     m.bias = sm + L.cb1;
     m.sig_out = sm + L.CZ1;
-    tc_product<kBwdTcTiles, true>(m);
+    tc_product<kBwdTcTiles>(m);
   } else {
     MmArgs m = mm_args(nullptr, cmsg, sm + L.cw1, L.ld_m4, 1, rows, s.m, s.m4, ldr);
     m.bias = sm + L.cb1;
@@ -1442,6 +1899,7 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
     }
   }
   __syncthreads();
+  K10_TAP_BWD(kBf16, s, L, sm, rows, p0);
 }
 
 // The backward's offsets, computed on the host and read from the kernel's
@@ -1727,20 +2185,21 @@ bool shape_ok(const Shape& s, bool gather, bool backward) {
     return false;
   const Layout L = make_layout(s, backward);
   const Bf16Copies cp = bf16_copies(s, L, backward);
-  const Bf16Copy copies[4] = {cp.wj, cp.wd, cp.w2, cp.cw1};
+  const ModeRows mr = backward || !s.mxu_bf16 ? ModeRows{} : mode_rows(s, L, cp);
+  const Bf16Copy copies[9] = {cp.wj, cp.wd, cp.w2, cp.cw1, mr.x, mr.df, mr.s1, mr.cs1, mr.cm};
   for (const Bf16Copy& c : copies)
-    if (c.off >= 0 && c.ld == 0) return false;   // no room for a copy
+    if (c.off >= 0 && c.ld == 0) return false;   // no room for a copy or bf16 rows
   return (size_t)L.total * sizeof(float) <= (size_t)kMaxSmemBytes;
 }
 
-using FwdKernel = decltype(&pair_fwd_kernel<false, false>);
+using FwdKernel = decltype(&pair_fwd_kernel<false>);
 using BwdKernel = decltype(&pair_bwd_kernel<false, 1, false>);
 
-// K10's instances in the tensor-core mode are instantiated without the
-// gather alone (shape_ok refuses K11 in the mode).
-FwdKernel fwd_kernel(const Shape& s, bool gather) {
-  if (s.mxu_bf16) return &pair_fwd_kernel<false, true>;
-  return gather ? &pair_fwd_kernel<true, false> : &pair_fwd_kernel<false, false>;
+// The f32 forward's instance (the mode's is pair_fwd_mode_kernel). K10's
+// instances in the tensor-core mode are instantiated without the gather
+// alone (shape_ok refuses K11 in the mode).
+FwdKernel fwd_kernel(bool gather) {
+  return gather ? &pair_fwd_kernel<true> : &pair_fwd_kernel<false>;
 }
 
 // The backward's instance: five columns a thread in the h-wide products
@@ -1804,7 +2263,9 @@ int pair_messages_launch(const Shape* s, const Tensors* t, int gather, int backw
   const int tiles = s->b * ((s->n + s->ti - 1) / s->ti);
   if (!shape_ok(*s, gather != 0, backward != 0) || grid < 1 || grid > tiles)
     return (int)cudaErrorInvalidValue;
-  if (!backward) return launch_kernel(fwd_kernel(*s, gather != 0), *s, *t, false, grid, stream);
+  if (!backward && s->mxu_bf16)
+    return launch_kernel(&pair_fwd_mode_kernel, *s, *t, false, grid, stream);
+  if (!backward) return launch_kernel(fwd_kernel(gather != 0), *s, *t, false, grid, stream);
   BwdPlan plan;
   plan.L = make_layout(*s, true);
   plan.G = grad_layout(*s);
@@ -1827,7 +2288,8 @@ int pair_messages_smem_floats(const Shape* s, int backward) {
 // Blocks of the kernel an SM holds at once for this shape (-1 on an error).
 int pair_messages_blocks_per_sm(const Shape* s, int gather, int backward) {
   return backward ? occupancy(bwd_kernel(*s, gather != 0), *s, true)
-                  : occupancy(fwd_kernel(*s, gather != 0), *s, false);
+         : s->mxu_bf16 ? occupancy(&pair_fwd_mode_kernel, *s, false)
+                       : occupancy(fwd_kernel(gather != 0), *s, false);
 }
 
 }  // extern "C"

@@ -12,6 +12,7 @@ shared memory) is kept beside each library, as ``<library>.log``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -86,6 +87,19 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``."""
     lib = _libs.get(name)
     return lib if lib is not None else build_all()[name]
+
+
+@contextlib.contextmanager
+def using(name: str, lib: ctypes.CDLL):
+    """Within the block, the wrappers of ``csrc/<name>.cu`` launch from
+    ``lib``, a build of another copy of that source (a parent checkout's, say),
+    in place of this checkout's build."""
+    own = library(name)
+    _libs[name] = lib
+    try:
+        yield lib
+    finally:
+        _libs[name] = own
 
 
 def function(name: str, entry: str, argtypes: list, restype=ctypes.c_int):

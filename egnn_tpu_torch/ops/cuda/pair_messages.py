@@ -60,11 +60,17 @@ where its contraction has at least 8 elements (``_mm``), a backward one
 where the contraction and every width of both operands have (``_dG``; the
 pair rows of a JAX tile are ti * k >= 8, so the rule reads the widths
 alone). K10f takes the four wide products onto the tensor cores (bf16
-``mma.sync``); K10b takes its recomputation's three and its four data
-gradients there and keeps its weight gradients on the FMAs, rounding as it
-reads; they count under ``fused_pair_fwd_bf16`` and ``fused_pair_bwd_bf16``.
-The bf16 copies of the weights lie in the place of their float32 copies, so
-the layouts and the gates are those of the float32 mode. The mode's backward
+``mma.sync``), summed as K10b's recomputation sums them, so that the two
+kernels round every value they share alike; it keeps the values it reads
+only rounded (fj, s1, cmsg, silu(cz1)) as bf16 rows. K10b takes its
+recomputation's three products and its four data gradients there and keeps
+its weight gradients on the FMAs, rounding as it reads; they count under
+``fused_pair_fwd_bf16`` and ``fused_pair_bwd_bf16``. The bf16 copies of the
+weights and the bf16 rows lie in the place of their float32 copies and
+lines, so the layouts and the gates are those of the float32 mode
+(``_mode_fwd_fits``). ``mode_tie_pairs`` finds the pairs whose result may
+part between two summation orders in the mode (``chip_smoke.py`` phase 43
+takes them out for its tie-free rerun). The mode's backward
 fills the products' m16 fragments: where two blocks an SM hold no tile of 16
 rows or more, it takes the largest that one block holds (``_bwd_tile_rows``:
 32 rows at the sparse molecule layer's widths, where the float32 mode takes
@@ -169,6 +175,30 @@ def _smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, backward, ti=1):
         ldn = c + (d | 1) + 1 if d > 0 else 3
         total += rows * ldn + ti * (c + h)
     return total
+
+
+def _mode_fwd_fits(rows, d, h, m, m4, fourier) -> bool:
+    """Whether the tensor-core mode's forward finds room in the f32
+    forward's layout (``bf16_copies`` and ``mode_rows`` of the source, which
+    ``shape_ok`` checks): each bf16 copy of a weight whose widths are both
+    at least 8, in W's orientation from the first 16-byte boundary of its
+    f32 copy's place, and each tile's bf16 rows in the place of their f32
+    lines (rows + 4 floats a line)."""
+    dd, odd = 2 * fourier + 1, lambda x: x | 1  # noqa: E731
+    up = lambda x, q: -(-x // q) * q  # noqa: E731
+    w2 = (d + dd) * odd(h)
+    places = [(d, h, 0, odd(h)), (dd, h, d * odd(h), odd(h)), (h, m, w2, odd(m)),
+              (m, m4, w2 + h * odd(m) + 2 * m, odd(m4))]   # K, N, offset, f32 stride
+    for K, N, off, ld32 in places:
+        room = 2 * (K * ld32 - (((off + 3) & ~3) - off))
+        if K >= 8 and N >= 8 and K * up(N, 8) > room:
+            return False
+    line = 2 * (rows + 4)                  # bf16 values in an f32 line's place
+    for K, on in ((d, d >= 8 and h >= 8), (dd, dd >= 8 and h >= 8), (h, h >= 8)):
+        if on and rows * up(K, 16) > K * line:
+            return False
+    cm = up(m, 16) if m >= 8 and m4 >= 8 else 0
+    return m4 < 8 or rows * (up(m4, 16) + cm) <= m4 * line
 
 
 def _tile_rows(k, c, d, h, m, m4, fourier, soft_edges) -> Optional[int]:
@@ -360,11 +390,14 @@ def mxu_bf16_for(device) -> bool:
     ``mxu_bf16=on_tpu``, whose mode is the TPU's default precision for float32
     products. Under the default ``"highest"`` and on the CPU the layers keep
     exact float32. On an H100 80GB HBM3 at 700 W the mode's K10f takes
-    1.07-1.36x the float32 kernel's time, its K10b 1.5-1.6x at the dense
-    widths (anchor 3, path C) and 0.66-0.76x at the sparse molecule layer's
-    (``PERF.md``): "medium" buys the TPU's numbers, and speed only in the
-    sparse layer's backward. ``fused_pair_messages(..., mxu_bf16=...)``
-    takes either mode directly."""
+    0.92-1.16x the float32 kernel's time over two runs of the smoke (below
+    it at the sparse molecule layer's widths; 1.05-1.09x at anchor 3,
+    1.12-1.16x at net65k's pairs, where the float32 kernel's own readings
+    part by 6%), its K10b
+    1.5-1.6x at the dense widths and 0.66-0.76x at the sparse molecule
+    layer's (``PERF.md``): "medium" buys the TPU's numbers, and speed only
+    in the sparse layer. ``fused_pair_messages(..., mxu_bf16=...)`` takes
+    either mode directly."""
     return (torch.device(device).type == "cuda"
             and torch.get_float32_matmul_precision() == "medium")
 
@@ -405,10 +438,11 @@ def _aggregate(t, pv):
     return (t["msg"] * pv).sum(dim=2), (t["w"] * t["rel_n"]).sum(dim=2)
 
 
-def _tile_backward(t, pv, weights, g_mi, g_cd, opts: PairOptions):
+def _tile_backward(t, pv, weights, g_mi, g_cd, opts: PairOptions, keep=None):
     """The hand-derived backward of ``_tile_forward`` and ``_aggregate``:
     (d_rel (b, n, k, c), d_h1 (b, n, k, h), the gradients of the ten weights
-    without Wj), by the formulas of the kernel."""
+    without Wj), by the formulas of the kernel. ``keep``, a dict, receives
+    the pair gradients that the mode rounds: d_cz1, d_z2 and d_h1."""
     wd, w2, b2, gw, gb, cw1, cb1, cw2, cb2, scale = weights
     rows = lambda x: x.reshape(-1, x.shape[-1])  # noqa: E731
     gm_b, gc_b = g_mi[:, :, None, :], g_cd[:, :, None, :]
@@ -472,6 +506,8 @@ def _tile_backward(t, pv, weights, g_mi, g_cd, opts: PairOptions):
     d_wd = _dG(rows(t["distf"]).T, rows(d_h1), opts, dd, h)
     d_dist = d_dist + _d_fourier(t["dist"], d_distf, opts.fourier)
     d_rel = d_rel + 2.0 * t["rel"] * d_dist
+    if keep is not None:
+        keep.update(d_cz1=d_cz1, d_z2=d_z2, d_h1=d_h1)
     return d_rel, d_h1, (d_wd, d_w2, d_b2, d_gw, d_gb, d_cw1, d_cb1, d_cw2, d_cb2, d_scale)
 
 
@@ -504,6 +540,132 @@ def fused_pair_messages_backward_plain(coors, cj, fj, proj_i, pv, weights, g_mi,
     d_wj = _dG(fj4.reshape(-1, d).T, d_h1.reshape(-1, h), opts, d, h)
     return (d_rel.sum(dim=2), (-d_rel).reshape(cj.shape), d_fj.reshape(fj.shape),
             d_h1.sum(dim=2), (d_wj,) + d_w)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core mode's ties: where two summation orders may round apart
+# ---------------------------------------------------------------------------
+
+TIE_FACTOR = 4.0   # a value's reach: this many times its float32 samples' largest distance
+TIE_ORDERS = 3     # float32 samples: the plain version in three orders of its contractions
+TIE_FLOOR = 2.0 ** -16   # values below this share of their tensor's largest are no ties
+
+
+def bf16_boundary_distance(x):
+    """How far each value of ``x`` lies from the nearest bf16 rounding
+    boundary, the midpoint of two adjacent bf16 values where rounding to
+    nearest turns (float64; inf at 0, which every order rounds to 0)."""
+    a = x.double().abs()
+    _, e = torch.frexp(a)                               # a in [2**(e-1), 2**e)
+    step = torch.ldexp(torch.ones_like(a), e - 8)       # bf16's spacing there
+    u = a / step                                        # in [128, 256)
+    # the boundaries of the binade and, at 127.75, the one below 2**(e-1)
+    d = torch.minimum((u - u.floor() - 0.5).abs(), u - 127.75) * step
+    return torch.where(a > 0, d, torch.full_like(a, float("inf")))
+
+
+def within_reach(ref, samples, distance, factor=TIE_FACTOR):
+    """Where a value ``ref`` (float64) lies nearer an edge (``distance``)
+    than ``factor`` times the largest distance of its ``samples`` (the same
+    value computed in float32 in other orders) from it, at least one
+    float32 rounding of it: two summation orders may put it on either side."""
+    reach = torch.full_like(ref, 0.0)
+    for s in samples:
+        reach = torch.maximum(reach, (s.double() - ref).abs())
+    reach = torch.maximum(reach, ref.abs() * 2.0 ** -24)
+    return distance < factor * reach
+
+
+def _permuted(perm, coors, cj, fj, proj_i, pv, weights, g_mi, g_cd):
+    """The same pipeline with its features reordered (``perm`` = (d, h, m,
+    m4) orders): every contraction sums its terms in another order, and
+    each intermediate is the same one with its last axis permuted."""
+    pd, ph, pm, pm4 = perm
+    wj, wd, w2, b2, gw, gb, cw1, cb1, cw2, cb2, scale = weights
+    take = lambda w, p: w.reshape(-1)[p].reshape(w.shape)  # noqa: E731
+    weights = (wj[pd][:, ph], wd[:, ph], w2[ph][:, pm], b2[pm], take(gw, pm), gb,
+               cw1[pm][:, pm4], cb1[pm4], take(cw2, pm4), cb2, scale)
+    return coors, cj, fj[..., pd], proj_i[..., ph], pv, weights, g_mi[..., pm], g_cd
+
+
+def _mode_values(coors, cj, fj, proj_i, pv, weights, g_mi, g_cd, opts, perm=None):
+    """The values the mode rounds, where the rules round them, and the
+    clamp's wz * pv: {name: (b, n, k, width)} in the features' own order."""
+    n = coors.shape[1]
+    if perm is not None:
+        coors, cj, fj, proj_i, pv, weights, g_mi, g_cd = _permuted(
+            perm, coors, cj, fj, proj_i, pv, weights, g_mi, g_cd)
+    pv4 = _pairs(pv, n).to(coors.dtype)
+    t = _tile_forward(coors, _pairs(cj, n), _mm(_pairs(fj, n), weights[0], opts), proj_i, pv4,
+                      weights[1:], opts)
+    keep = {}
+    _tile_backward(t, pv4, weights[1:], g_mi, g_cd, opts, keep)
+    d, h = weights[0].shape
+    m, m4 = weights[6].shape
+    dd = 2 * opts.fourier + 1
+    axes = {"distf": None, "s1": 1, "m0": 2, "cmsg": 2, "cs1": 3, "d_z2": 2, "d_h1": 1,
+            "d_cz1": 3}
+    rounds = {"distf": dd >= 8, "s1": h >= 8, "m0": opts.soft_edges and m >= 8,
+              "cmsg": m >= 8, "cs1": m4 >= 8, "d_z2": h >= 8 and m >= 8,
+              "d_h1": h >= 8 and (d >= 8 or dd >= 8), "d_cz1": m >= 8 and m4 >= 8}
+    values = {}
+    for name, on in rounds.items():
+        if on:
+            x = t[name] if name in t else keep[name]
+            if perm is not None and axes[name] is not None:
+                x = x[..., torch.argsort(perm[axes[name]])]
+            values[name] = x
+    if opts.clamp is not None:
+        values["wm"] = t["wm"]
+    return values
+
+
+def mode_tie_pairs(coors, cj, fj, proj_i, pv, weights, g_mi, g_cd, opts: PairOptions,
+                   factor=TIE_FACTOR, detail=None):
+    """The live pairs of a K10 case in the tensor-core mode whose result may
+    part between two summation orders, from the plain versions alone:
+    (rounding (b, n, k), clamp (b, n, k)) booleans. A rounding tie: a value
+    that the mode rounds (forward: distf, s1, m0, cmsg, cs1; backward:
+    d_z2, d_h1, d_cz1, also the weight gradients' lines) lies within reach
+    of a bf16 rounding boundary (``within_reach``: ``factor`` times the
+    largest distance of its float32 values from float64, over the plain
+    version summed in TIE_ORDERS orders of its features), unless it is below
+    TIE_FLOOR of its tensor's largest value, where one bf16 step moves what
+    reads it by less than a float32 rounding of that tensor's largest. A
+    clamp tie: |wz * pv| within reach of the clamp. Such a pair, given pv =
+    0, adds exactly zero to every output and gradient. ``detail``, a dict,
+    receives each value's ties by name, (b, n, k, width) booleans ("wm":
+    the clamp's)."""
+    opts = opts._replace(mxu_bf16=True)
+    args = (coors, cj, fj, proj_i, pv, weights, g_mi, g_cd)
+    cast = lambda dtype: [  # noqa: E731
+        tuple(w.to(dtype) for w in a) if isinstance(a, tuple) else a.to(dtype) for a in args]
+    ref = _mode_values(*cast(torch.float64), opts)
+    d, h = weights[0].shape
+    m, m4 = weights[6].shape
+    gen = torch.Generator().manual_seed(0)
+    perms = [None] + [tuple(torch.randperm(w, generator=gen).to(coors.device)
+                            for w in (d, h, m, m4)) for _ in range(TIE_ORDERS - 1)]
+    f32 = cast(torch.float32)
+    samples = [_mode_values(*f32, opts, perm) for perm in perms]
+    n = coors.shape[1]
+    live = _pairs(pv, n)[..., 0] > 0
+    rounding = torch.zeros_like(live)
+    clamp = torch.zeros_like(live)
+    for name, r in ref.items():
+        near = within_reach(r, [s[name] for s in samples],
+                            (r.abs() - opts.clamp).abs() if name == "wm"
+                            else bf16_boundary_distance(r), factor)
+        if name != "wm":
+            near &= r.abs() >= TIE_FLOOR * r.abs().max()
+        near &= live[..., None]
+        if detail is not None:
+            detail[name] = near
+        if name == "wm":
+            clamp |= near[..., 0]
+        else:
+            rounding |= near.any(dim=-1)
+    return rounding, clamp
 
 
 def _gather_rows(x, idx):

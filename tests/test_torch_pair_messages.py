@@ -563,3 +563,27 @@ def test_wrappers_refuse_what_is_not_ported():
         PM.fused_pair_messages(*tensors, 0, False, True, 2.0, 1e-8, False, False, *weights[1:])
     with pytest.raises(ValueError, match="no fused pair kernel"):
         PM._on_card(torch.empty(1, device="meta"))
+
+
+# every shape of this grid that the gates take: (k, (h, m, d), fourier)
+MODE_FIT_SHAPES = [
+    (k, widths, fourier) for k in (1, 5, 8, 12, 16, 20, 64)
+    for widths in ((130, 16, 32), (258, 16, 64), (274, 16, 64), (18, 4, 4), (54, 12, 10),
+                   (1026, 16, 256))
+    for fourier in (0, 3, 4, 16)
+    if PM.supports_fused_pair_messages(k, widths[0], widths[1], widths[2], 3, fourier)]
+
+
+@pytest.mark.parametrize("k,widths,fourier", MODE_FIT_SHAPES,
+                         ids=lambda v: "_".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_tensor_core_mode_forward_fits_wherever_the_gates_pass(k, widths, fourier):
+    """The mode's K10f keeps its weights' bf16 copies and its bf16 rows in
+    the places of the f32 forward's copies and lines (``_mode_fwd_fits``,
+    the mirror of the source's ``bf16_copies`` and ``mode_rows``): on every
+    tile the forward may take where the gates pass, so that no shape they
+    take is refused at launch in the mode."""
+    h, m, d = widths
+    gate = PM._tile_rows(k, 3, d, h, m, 4 * m, fourier, False)
+    for rows in range(gate, 0, -8):
+        if rows >= k:
+            assert PM._mode_fwd_fits(rows, d, h, m, 4 * m, fourier), rows

@@ -342,3 +342,169 @@ def test_fused_knn_has_no_mode(monkeypatch):
     forced = [t.detach() for t in layer(feats, coors)]
     for a, b_ in zip(forced, plain):
         assert torch.equal(a, b_)
+
+
+# ---------------------------------------------------------------------------
+# the mode's ties (``pair_messages.mode_tie_pairs``), which chip_smoke.py's
+# phase 43 takes out of a case for its tie-free rerun
+# ---------------------------------------------------------------------------
+
+F64 = dict(device="cpu", dtype=torch.float64)
+
+
+def test_bf16_boundary_distance_on_hand_made_values():
+    """Exactly on a bf16 midpoint (where rounding to nearest turns): 0; on a
+    bf16 value: half a bf16 step; the boundary below a power of two lies a
+    quarter step of the binade above under it; 0 is no tie."""
+    values = torch.tensor([1.25, 1.5, -3.0, 3 * 2.0 ** -21, 1000.0], **F64)
+    step = torch.tensor([2.0 ** -7, 2.0 ** -7, 2.0 ** -6, 2.0 ** -27, 4.0], **F64)
+    mid = values + step / 2
+    assert torch.equal(PM.bf16_boundary_distance(mid), torch.zeros_like(mid))
+    assert torch.equal(PM._bf16(mid + step * 2.0 ** -10), values + step)   # the midpoint turns
+    assert torch.equal(PM.bf16_boundary_distance(values), step / 2)
+    below = torch.tensor([2.0 - 2.0 ** -8], **F64)       # the boundary under 2
+    assert PM.bf16_boundary_distance(below).item() == 0.0
+    assert PM.bf16_boundary_distance(torch.tensor([2.0], **F64)).item() == 2.0 ** -8
+    assert PM.bf16_boundary_distance(torch.zeros(1, **F64)).item() == float("inf")
+
+
+def test_within_reach_flags_midpoints_and_the_clamp_not_a_step_away():
+    """A value on a bf16 midpoint, or a weight at +-clamp, whose float32
+    samples stray from it by a float32 rounding, is flagged; the same a bf16
+    step away (half a step from the nearest midpoint) is not."""
+    gen = torch.Generator().manual_seed(0)
+    mids = (torch.randint(128, 256, (64,), generator=gen).to(torch.float64) + 0.5) * 2.0 ** -7
+    mids = mids * torch.where(torch.rand(64, generator=gen) < 0.5, -1.0, 1.0).double()
+    samples = [mids * (1 + s * 2.0 ** -23) for s in (1, -2, 3)]
+    near = PM.within_reach(mids, samples, PM.bf16_boundary_distance(mids))
+    assert bool(near.all())
+    away = mids + mids.sign() * 2.0 ** -8          # half a bf16 step: a bf16 value
+    samples_away = [away * (1 + s * 2.0 ** -23) for s in (1, -2, 3)]
+    assert not bool(PM.within_reach(away, samples_away, PM.bf16_boundary_distance(away)).any())
+    clamp = 2.0
+    wm = torch.tensor([clamp, -clamp, clamp * (1 + 2.0 ** -7), -clamp * (1 - 2.0 ** -8)], **F64)
+    jitter = [wm * (1 + s * 2.0 ** -23) for s in (1, -1)]
+    assert PM.within_reach(wm, jitter, (wm.abs() - clamp).abs()).tolist() == [
+        True, True, False, False]
+
+
+def _mode_args(x, dtype=torch.float64):
+    tensors, weights = _torch_args(x, False, dtype)
+    g = [torch.from_numpy(x[key]).to(dtype) for key in ("g_mi", "g_cd")]
+    return tensors, tuple(weights), g
+
+
+def _opts(spec):
+    return PM.PairOptions(spec["fourier"], spec["soft_edges"], spec["norm_coors"], spec["clamp"],
+                          1e-8, spec.get("gate_feats_only", False), True)
+
+
+def test_mode_tie_pairs_flags_a_value_placed_on_a_midpoint_and_the_clamp():
+    """A case whose pair p has s1 at feature j placed on a bf16 midpoint (by
+    its node's proj_i) and whose clamp is pair q's |wz * pv|: p is a
+    rounding tie there and q a clamp tie; placed a bf16 step away, neither."""
+    x, spec = _mode_case("fourier_norm_clamp", 5)
+    opts = _opts(spec)
+    tensors, weights, g = _mode_args(x)
+    coors, cj, fj, proj_i, pv = tensors
+    b, n, k = x["idx"].shape
+    live = np.flatnonzero(x["pv"].reshape(-1))
+    p, q, j = int(live[3]), int(live[11]), 5
+
+    def forward(proj):
+        return PM._tile_forward(coors, PM._pairs(cj, n),
+                                PM._mm(PM._pairs(fj, n), weights[0], opts), proj,
+                                PM._pairs(pv, n), weights[1:], opts)
+
+    def silu_inverse(y, x0):
+        for _ in range(60):   # Newton on silu(x) = y, x > 0
+            s = 1 / (1 + np.exp(-x0))
+            x0 -= (x0 * s - y) / (s * (1 + x0 * (1 - s)))
+        return x0
+
+    h1 = forward(proj_i)["h1"].reshape(b * n * k, -1)[p, j].item()
+    for offset, tie in ((0.5, True), (0.0, False)):     # a midpoint; a bf16 value
+        target = (160 + offset) * 2.0 ** -7                # in [1.25, 1.26], where s1 is
+        moved = proj_i.clone()
+        moved[0, p // k, j] += silu_inverse(target, 1.5) - h1
+        t = forward(moved)
+        assert abs(t["s1"].reshape(b * n * k, -1)[p, j].item() - target) < 1e-12
+        clamp_at = abs(t["wm"].reshape(-1)[q].item()) * (1.0 if tie else 1 + 2.0 ** -7)
+        detail = {}
+        rounding, clamp = PM.mode_tie_pairs(coors, cj, fj, moved, pv, weights, *g,
+                                            opts._replace(clamp=clamp_at), detail=detail)
+        assert bool(detail["s1"].reshape(b * n * k, -1)[p, j]) == tie
+        assert bool(detail["wm"].reshape(-1)[q]) == tie
+        assert bool(clamp.reshape(-1)[q]) == tie
+        if tie:
+            assert bool(rounding.reshape(-1)[p])
+        assert not bool((rounding | clamp)[~torch.from_numpy(x["pv"])].any())   # live pairs only
+
+
+def test_masking_the_ties_equals_the_plain_version_over_the_other_pairs():
+    """The plain version in the mode with the flagged pairs' pv set to 0
+    equals, in float64, the plain version run node by node over the other
+    pairs alone: outputs, every input gradient (zero at a flagged pair) and
+    every weight gradient (summed over the nodes)."""
+    x, spec = _mode_case("k12_b2", 6, n=24)
+    opts = _opts(spec)
+    tensors, weights, g = _mode_args(x)
+    rounding, clamp = PM.mode_tie_pairs(*tensors, weights, *g, opts, factor=20.0)
+    ties = (rounding | clamp).numpy()
+    live = x["pv"]
+    assert ties.any() and (live & ~ties).any()
+    x_masked = dict(x, pv=live & ~ties)
+    tensors_m, _, _ = _mode_args(x_masked)
+    b, n, k = x["idx"].shape
+    m_i, cd = PM.fused_pair_messages_plain(*tensors_m, weights, opts)
+    grads = PM.fused_pair_messages_backward_plain(*tensors_m, weights, *g, opts)
+    coors, cj, fj, proj_i, _ = tensors
+    d_cj = torch.zeros_like(cj)
+    d_fj = torch.zeros_like(fj)
+    d_w = [torch.zeros_like(w) for w in weights]
+    for bi in range(b):
+        for i in range(n):
+            keep = np.flatnonzero(x_masked["pv"][bi, i])
+            if keep.size == 0:
+                assert torch.equal(m_i[bi, i], torch.zeros_like(m_i[bi, i]))
+                continue
+            rows = torch.from_numpy(i * k + keep)
+            one = (coors[bi:bi + 1, i:i + 1], cj[bi:bi + 1, rows], fj[bi:bi + 1, rows],
+                   proj_i[bi:bi + 1, i:i + 1], torch.ones(1, keep.size, 1, **F64))
+            gi = (g[0][bi:bi + 1, i:i + 1], g[1][bi:bi + 1, i:i + 1])
+            om, oc = PM.fused_pair_messages_plain(*one, weights, opts)
+            torch.testing.assert_close(m_i[bi, i], om[0, 0], rtol=1e-12, atol=1e-12)
+            torch.testing.assert_close(cd[bi, i], oc[0, 0], rtol=1e-12, atol=1e-12)
+            gc, gcj, gfj, gpi, gw = PM.fused_pair_messages_backward_plain(*one, weights, *gi, opts)
+            torch.testing.assert_close(grads[0][bi, i], gc[0, 0], rtol=1e-12, atol=1e-12)
+            torch.testing.assert_close(grads[3][bi, i], gpi[0, 0], rtol=1e-12, atol=1e-12)
+            d_cj[bi, rows], d_fj[bi, rows] = gcj[0], gfj[0]
+            d_w = [a + c for a, c in zip(d_w, gw)]
+    torch.testing.assert_close(grads[1], d_cj, rtol=1e-12, atol=1e-12)
+    torch.testing.assert_close(grads[2], d_fj, rtol=1e-12, atol=1e-12)
+    for got, want in zip(grads[4], d_w):
+        torch.testing.assert_close(got, want.reshape(got.shape), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("case", ["fourier_norm_clamp", "k12_b2", "m4_soft_fourier"])
+def test_tie_masked_plain_version_in_the_mode_matches_the_pallas_kernel(case):
+    """The port's plain version in the mode on a case whose tie pairs are
+    masked (pv = 0; a wide reach, so that some are) still agrees with the
+    Pallas kernel's mode in interpret mode, forward at FWD_TOL and every
+    gradient at GRAD_TOL of its largest value."""
+    x, spec = _mode_case(case, 7, n=64)
+    tensors, weights, g = _mode_args(x)
+    rounding, clamp = PM.mode_tie_pairs(*tensors, weights, *g, _opts(spec), factor=20.0)
+    ties = (rounding | clamp).numpy()
+    assert ties.any()
+    x = dict(x, pv=x["pv"] & ~ties)
+    for name, got, want in zip(("m_i", "coors_delta"), _port(x, spec, True), _jax(x, spec, True)):
+        assert _rel(got, want) <= FWD_TOL, name
+    names = ("coors", "cj", "fj", "proj_i") + WEIGHT_NAMES
+    for name, got, want in zip(names, _port(x, spec, True, grads=True),
+                               _jax(x, spec, True, grads=True)):
+        want = want.reshape(got.shape)
+        if np.abs(want).max():
+            assert _rel(got, want) <= GRAD_TOL, name
+        else:
+            assert not np.abs(got).max(), name
