@@ -230,7 +230,8 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    gradient against the replicated layer in one process; anchor 3's step
    (b = 8) through ``make_sharded_denoise_train_step`` on a (1, 2) mesh
    against the replicated step (5e-3 for the self pairs), K1 and K2 depth
-   times a step on each rank; both timed beside their references;
+   times a step on each rank; both timed beside their references; anchor
+   5's arms (b) and (c) (phase 44's list, gradients at 1e-4);
 42. the pipeline (anchor 3's layer settings, depth 4, n = 1024, b = 8 in
    M = 4 microbatches): at S = 1 (one NCCL rank) ``pipeline_loss``, its
    gradients and ``pipeline_apply`` bitwise equal to the sequential stack
@@ -267,7 +268,31 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    K10b once a layer a step, no f32 K10; the loss falls); the mode's
    kernels timed beside the f32 ones, the plain versions and the unfused
    pipeline under "medium" (and K10f beside a parent checkout's source with
-   ``--parent-source PATH``, the path of its ``pair_messages.cu``).
+   ``--parent-source PATH``, the path of its ``pair_messages.cu``);
+44. the dense step sharded over nodes (the mesh's ``graph`` axis). 44a, one
+   process: K1, K3 and K4 in their row-block mode (the rows r0 .. r0 + R -
+   1 of the points against all n columns) bitwise against the whole
+   launch's rows and their plain versions' blocks: K1 and K3 at anchor 3's
+   shape (b = 8, a mask, a chain with random extra edges per graph) and on
+   an integer lattice (ties) for g = 2 and 4 blocks, K4 at n = 20 000 with
+   an (n, n) adjacency (400 MB) for g = 2; the row-block K1 at R = 512
+   timed (CUDA-graph replays) beside its plain version and its bound; K11
+   in its j-table form (the rows 512 .. 1023 of b = 8 clouds against the
+   whole cloud) against its float64 plain versions by phase 21's rule,
+   three launches bitwise, timed. 44b, two ranks sharing the card under
+   gloo (as phase 38): anchor 3's step at b = 8 on a (data, graph) = (1, 2)
+   mesh, unfused, with ``fused_pairs`` and with ``fused_knn``, 5 steps,
+   against one process on the card (loss rtol 1e-4, gradients 5e-3 of
+   their largest value: the self pairs), the first layer's selected
+   indices bitwise the one-process selection's rows, both ranks'
+   parameters bitwise equal, each rank launching exactly, depth times a
+   step: the row-block K1 and K2 (unfused), and K10f, K10b
+   (``fused_pairs``), or the row-block K3, K11f and K11b in their j-table
+   form and K2 (``fused_knn``); each step timed as a call beside the
+   one-process step. Phase 41 also trains
+   anchor 5's arms (b) and (c) (G = 32) at model = 2 against one process
+   (loss rtol 1e-4, gradients 1e-4: a layer's one-element coors_norm_scale
+   gradient sums every edge), K2 and (arm (c)) K10f, K10b launched.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -1974,6 +1999,12 @@ PAR_STEPS, DP_BATCH = 3, 8
 # in another order (the dense kNN rows hold their own node; the sparse kNN
 # edges hold none): the gates of phase 9 and of fused against unfused
 PAR_LOSS_RTOL, PAR_GRAD_TOL, PAR_GRAD_TOL_SELF_PAIRS = 1e-4, 1e-5, 5e-3
+# anchor 5 at model = 2 against the replicated network (phase 41): the
+# row-parallel products sum in another order in every layer, and what the
+# node update rounds reaches the next layers; the one-element gradient of
+# each layer's coors_norm_scale, a sum over every edge of terms of both
+# signs, moves by up to 1.5e-5 of itself (arm (c), H100, PERF.md)
+TP_SPARSE_GRAD_TOL = 1e-4
 # one rank against one process (phase 37): the sparse gradients, where the
 # collectives' backward nodes change the order in which autograd adds the
 # gradients that meet at a tensor. Parameters after PAR_STEPS Adam steps are
@@ -2190,10 +2221,12 @@ def run_two_ranks(torch, payload, workdir, target=None, what="phase 38",
     return [from_numpy(torch, results[0]), from_numpy(torch, results[1])]
 
 
-def compare_runs(torch, what, got, ref, grad_tol, loss_rtol=PAR_LOSS_RTOL, bitwise=False):
+def compare_runs(torch, what, got, ref, grad_tol, loss_rtol=PAR_LOSS_RTOL, bitwise=False,
+                 steps=PAR_STEPS):
     """Print and gate a run against its reference: the losses (bitwise or at
     ``loss_rtol``), the first step's gradients at ``grad_tol`` (``grad_err``)
-    and the final parameters (their largest ``grad_err``)."""
+    and the final parameters after ``steps`` steps (their largest
+    ``grad_err``)."""
     loss_err = grad_err(torch, got["losses"], ref["losses"])
     same_loss = same_bits(torch, got["losses"].cpu(), ref["losses"].cpu())
     if set(got["grads"]) != set(ref["grads"]):
@@ -2208,7 +2241,7 @@ def compare_runs(torch, what, got, ref, grad_tol, loss_rtol=PAR_LOSS_RTOL, bitwi
     print(f"{what}: losses {[round(v, 6) for v in ref['losses'].tolist()]}, bitwise={same_loss} "
           f"(largest error {loss_err:.3e}, rtol {loss_rtol}); the first step's gradients "
           f"bitwise={g_same}, largest error {g_worst[1]:.3e} of the largest value "
-          f"({g_worst[0]}; tol {grad_tol}); parameters after {PAR_STEPS} steps bitwise={p_same}, "
+          f"({g_worst[0]}; tol {grad_tol}); parameters after {steps} steps bitwise={p_same}, "
           f"largest error {p_worst[1]:.3e} ({p_worst[0]})")
     if bitwise and not (same_loss and g_same and p_same):
         raise AssertionError(f"{what}: not bitwise equal")
@@ -2514,6 +2547,51 @@ def tp_layer_run(torch, feats, coors, mesh=None):
                 sharded=sorted(layer.tp_sharded))
 
 
+def sparse_tp_run(torch, arm, mb, clean, mesh=None):
+    """PAR_STEPS anchor-5 denoising steps (``make_adam``) of arm ``arm``
+    (``SP_ARMS``) on ``mb``'s molecules, sharded over the mesh's model group
+    where ``mesh`` is given (``tp_shard_module``): the losses, the first
+    step's gradients and the final parameters (whole), the launches over
+    the steps and the step."""
+    from egnn_tpu_torch import EGNNSparseNetwork, parallel
+    from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from egnn_tpu_torch.training import make_adam
+
+    G = mb.target.shape[0]
+    net = EGNNSparseNetwork(**SP_NET, **SP_ARMS[arm], device="cuda",
+                            generator=torch.Generator().manual_seed(SEED + 413))
+    placements = None
+    if mesh is not None:
+        placements = parallel.tp_param_sharding(net, mesh)
+        parallel.tp_shard_module(net, mesh)
+    opt = make_adam(net.parameters(), LR)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        out = net(mb.x, mb.edge_index, batch=mb.batch_ids, edge_mask=mb.edge_mask,
+                  num_graphs=G, node_mask=mb.node_mask)
+        err = (out[:, :3] - clean) ** 2 * mb.node_mask[:, None].to(out.dtype)
+        loss = err.sum() / (mb.node_mask.sum().to(err.dtype) * 3).clamp(min=1.0)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    reset_launch_counts()
+    losses, grads = [], None
+    for i in range(PAR_STEPS):
+        losses.append(step())
+        if i == 0:
+            grads = {name: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                     for name, p in net.named_parameters()}
+    launches = launches_now(torch)
+    params = {name: p.detach().clone() for name, p in net.named_parameters()}
+    if mesh is not None:
+        grads = whole_tensors(torch, grads, placements, mesh.get_group("model"))
+        params = whole_tensors(torch, params, placements, mesh.get_group("model"))
+    return dict(losses=torch.stack(losses), grads=grads, launches=launches, call=step,
+                params=params, sharded=sorted(net.mpnn_0.tp_sharded) if mesh else [])
+
+
 def pipe_batch(torch, seed):
     """Anchor 3's inputs at b = 8 for the pipeline: random features of the
     layer's width, the noised chain, its clean coordinates, mask and chain
@@ -2656,6 +2734,11 @@ def model_parallel_rank_main(rank, world, init_method, payload, queue):
         step = res.pop("step")
         res["ms"] = time_fn(lambda: step(*batch), reps=10, warmup=2, stat="median") * 1e3
         out["tp_step"] = res
+        mb = type(payload["mb"])(*(t.cuda() for t in payload["mb"]))
+        for arm in ("b", "c"):
+            res = sparse_tp_run(torch, arm, mb, payload["clean"].cuda(), tp_mesh)
+            res["ms"] = time_fn(res.pop("call"), reps=5, warmup=1, stat="median") * 1e3
+            out[f"tp_sparse_{arm}"] = res
         res = pipe_run(torch, cuda(payload["pipe"]), dist.group.WORLD)
         res["loss_ms"] = time_fn(res.pop("loss_call"), reps=5, warmup=1, stat="median") * 1e3
         res["apply_ms"] = time_fn(res.pop("apply_call"), reps=5, warmup=1, stat="median") * 1e3
@@ -2708,6 +2791,7 @@ def model_parallel_phases(torch, smi):
     import torch.distributed as dist
 
     from egnn_tpu_torch import parallel
+    from egnn_tpu_torch.ops import graph as GR
     from egnn_tpu_torch.training import synthetic_chain_batch
     from egnn_tpu_torch.utils.profiling import time_fn
 
@@ -2715,6 +2799,7 @@ def model_parallel_phases(torch, smi):
     (root / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(dir=root / "build"))
     t_start = time.perf_counter()
+    mb, mb_clean = molecule_batch(torch, GR.knn_graph, SP_G, SEED + 412)
     rq = synthetic_chain_batch(np.random.default_rng(SEED + 400), 1, N, device="cuda")
     ring_batch = (rq.tokens, rq.noised_coors, rq.clean_coors, rq.mask)
     g40 = torch.Generator().manual_seed(SEED + 402)
@@ -2801,7 +2886,8 @@ def model_parallel_phases(torch, smi):
     cpu = lambda ts: tuple(t.detach().cpu() for t in ts)  # noqa: E731
     ranks = run_two_ranks(torch, dict(ring=cpu(ring_batch), ring_layer=cpu(ring_layer_in),
                                       anchor1=cpu(anchor1), dense=cpu(dense),
-                                      pipe=cpu(pipe_in)),
+                                      pipe=cpu(pipe_in), mb=type(mb)(*cpu(mb)),
+                                      clean=mb_clean.cpu()),
                           work, target=model_parallel_rank_main, what="phases 40-42",
                           timeout=MP_TIMEOUT)
     print(f"phases 40-42's two ranks: {time.perf_counter() - t_phase:.1f} s")
@@ -2867,6 +2953,28 @@ def model_parallel_phases(torch, smi):
         raise AssertionError("phase 41: the ranks' parameters differ or K1 and K2 did not run "
                              "depth times a step")
     del ref
+    for arm in ("b", "c"):
+        ref = sparse_tp_run(torch, arm, mb, mb_clean)
+        key = f"tp_sparse_{arm}"
+        for r, res in enumerate(ranks):
+            compare_runs(torch, f"phase 41 rank {r}, anchor 5's arm ({arm}) {SP_ARMS[arm]} "
+                         f"(G = {SP_G}) at model = 2 ({res[key]['sharded']} sharded) against "
+                         f"the replicated network", res[key], ref, TP_SPARSE_GRAD_TOL)
+        a, b_ = ranks[0][key], ranks[1][key]
+        same = all(same_bits(torch, a["params"][k], b_["params"][k]) for k in a["params"])
+        t_rep = call_ms(torch, ref["call"], iters=10, warmup=2)
+        print(f"phase 41 anchor 5's arm ({arm}): the two ranks' parameters (whole) after "
+              f"{PAR_STEPS} steps bitwise equal={same}; launches over the steps rank 0 "
+              f"{a['launches']}, rank 1 {b_['launches']}, replicated {ref['launches']}; a step "
+              f"{a['ms']:.4f} / {b_['ms']:.4f} ms as a call on each rank, the replicated step "
+              f"{t_rep:.4f} ms in one process, on {smi}")
+        need = ["segment_sum"] + (["fused_pair_fwd", "fused_pair_bwd"] if arm == "c" else [])
+        if not (same and all(res[key]["launches"].get(k) for res in ranks for k in need)
+                and all(res[key]["sharded"] == ["coors_mlp", "edge_mlp", "node_mlp"]
+                        for res in ranks)):
+            raise AssertionError(f"phase 41 arm ({arm}): the ranks' parameters differ, an MLP "
+                                 f"stayed whole or a kernel of the path ({need}) did not launch")
+        del ref
 
     # 42: the pipeline at S = 2
     L = PIPE_DEPTH // 2
@@ -3499,6 +3607,378 @@ def mode_phase(torch, smi, parent=None):
     print(f"phase 43 (the tensor-core mode): {time.perf_counter() - t_start:.1f} s; equivariance "
           f"{equivariance}; outputs' gap {gaps}")
     return rows
+
+
+# phase 44: the dense step sharded over nodes (the mesh's graph axis): the
+# row-block mode of K1, K3 and K4, then anchor 3's step at b = 8 on a
+# (data, graph) = (1, 2) mesh of two ranks sharing the card
+GRAPH_STEPS = 5
+N_K4_ROWS = 20000   # K4's row block: an (n, n) adjacency of 400 MB
+GRAPH_TIMEOUT = 300  # seconds for both ranks of phase 44b to report
+
+
+def knn_rows_bound(b, n, rows, c, k, tw, with_mask, adj_bytes):
+    """(bound_ms, bound_by) of a row-block selection of ``rows`` of the n
+    points: the whole table's coordinates, mask and payload read once, the
+    block's adjacency rows (``adj_bytes``) once, its outputs written once;
+    the operations of its rows * n pairs (``knn_bound_parts``' count)."""
+    nbytes = (4 * b * n * c + (b * n if with_mask else 0) + adj_bytes + 4 * b * n * tw
+              + b * rows * k * (4 + 8) + 4 * b * rows * k * tw)
+    t_bytes, t_ops = bound_parts_ms(nbytes, b * rows * n * (3 * c + 3))
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+GRAPH_FLAGS = (None, "fused_pairs", "fused_knn")   # 44b's layer paths
+
+
+def graph_run(torch, net_seed, batch, mesh=None, flag=None):
+    """GRAPH_STEPS anchor-3 steps (flat-buffer Adam) on ``batch``, the
+    layers unfused or with the fused ``flag``: with ``mesh`` a (data, graph)
+    mesh, this rank's block through ``make_sharded_denoise_train_step`` (the
+    nodes on the graph axis), else ``make_denoise_train_step`` on the whole
+    batch. The losses, the first step's gradients, the final parameters,
+    the launches over the steps, the first layer's selected indices in the
+    first step, and the step."""
+    from egnn_tpu_torch import EGNNNetwork, parallel
+    from egnn_tpu_torch.ops import neighbors as nb
+    from egnn_tpu_torch.ops.cuda import reset_launch_counts
+    from egnn_tpu_torch.training import (make_denoise_train_step, make_fused_adam,
+                                         make_sharded_denoise_train_step)
+
+    net = EGNNNetwork(depth=DEPTH, dim=DIM, num_tokens=NUM_TOKENS, num_positions=N,
+                      layer_kwargs={**LAYER_KWARGS, **({flag: True} if flag else {})},
+                      device="cuda",
+                      generator=torch.Generator().manual_seed(net_seed))
+    opt = make_fused_adam(net.parameters(), LR)
+    if mesh is None:
+        step, args = make_denoise_train_step(net, opt), batch
+    else:
+        step = make_sharded_denoise_train_step(net, opt, mesh)
+        args = [parallel.dense_batch_block(mesh, t) for t in batch[:3]] + [
+            batch[3], parallel.dense_batch_block(mesh, batch[4])]
+    # the selections of the first step, recorded as the layers make them
+    # (neighbors.knn_select goes through knn_select_gather)
+    name = "knn_select_gather" if mesh is None else "knn_select_gather_rows"
+    select, picked = getattr(nb, name), []
+
+    def recording(*a, **kw):
+        nbhd, g = select(*a, **kw)
+        picked.append(nbhd.indices.clone())
+        return nbhd, g
+
+    losses, grads = [], None
+    reset_launch_counts()
+    for i in range(GRAPH_STEPS):
+        if i == 0:
+            setattr(nb, name, recording)
+        try:
+            losses.append(step(*args))
+        finally:
+            setattr(nb, name, select)
+        if i == 0:
+            grads = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                     for k, p in net.named_parameters()}
+    launches = launches_now(torch)
+    return dict(losses=torch.stack(losses), grads=grads, launches=launches,
+                params={k: p.detach().clone() for k, p in net.named_parameters()},
+                first_indices=picked[0], call=lambda: step(*args))
+
+
+def graph_rank_main(rank, world, init_method, payload, queue):
+    """Phase 44b's rank: gloo on cuda:0 (two ranks share the card), anchor
+    3's step on a (1, 2) mesh, unfused, with ``fused_pairs`` and with
+    ``fused_knn``, each timed as a call; results to the parent as numpy
+    arrays."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from egnn_tpu_torch import parallel
+        from egnn_tpu_torch.ops.cuda import build
+        from egnn_tpu_torch.utils.profiling import time_fn
+
+        build.build_all()      # built by the parent: loads the libraries
+        parallel.initialize(backend="gloo", init_method=init_method, world_size=world,
+                            rank=rank, device="cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh = parallel.make_mesh(1, world)
+        batch = [t.cuda() for t in payload["dense"]]
+        out = {}
+        for flag in GRAPH_FLAGS:
+            res = graph_run(torch, SEED + 44, batch, mesh, flag)
+            res["ms"] = time_fn(res.pop("call"), reps=10, warmup=2, stat="median") * 1e3
+            out[str(flag)] = res
+        queue.put((rank, True, to_numpy(torch, out)))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def k11_table_check(torch, smi):
+    """K11 in its j-table form at anchor 3's rows on the graph axis: the
+    rows R .. N - 1 (R = N / 2) of b = 8 clouds, each slot 0 its row's own
+    node, against the whole cloud as the j table: forward and backward
+    against the float64 plain versions by phase 21's rule (each tensor
+    within 8x the float32 plain version's error plus 1e-5 of its largest
+    value), three launches bitwise equal; then timed beside the plain
+    versions and the bound. Returns the JSON line's entries (less their
+    launches)."""
+    from egnn_tpu_torch.ops.cuda import pair_messages as PM
+
+    case = pair_case(torch, SEED + 445, b=DP_BATCH, n=N, k=KNN, self_pairs=True)
+    R = N // 2
+    sl = slice(R, N)
+    opts = PM.PairOptions(**{**case["opts"], "gate_feats_only": False})
+
+    def args(dtype):
+        cast = lambda t: t.to(dtype)  # noqa: E731
+        weights = tuple(cast(w) for w in case["weights"])
+        coors = cast(case["coors"])
+        return ((coors[:, sl].contiguous(), cast(case["proj_i"])[:, sl].contiguous(),
+                 cast(case["feats"]) @ weights[0], case["idx"][:, sl].contiguous(),
+                 case["pv"][:, sl].contiguous()), weights[1:], coors,
+                (cast(case["g_mi"])[:, sl].contiguous(), cast(case["g_cd"])[:, sl].contiguous()))
+
+    def flat(fwd, bwd):
+        d_ci, d_pi, d_pj, d_w, d_cj = bwd
+        return list(fwd) + [d_ci, d_pi, d_pj, d_cj] + list(d_w)
+
+    names = (("m_i", "coors_delta", "d_coors_i", "d_proj_i", "d_proj_j", "d_coors_j")
+             + tuple("d_" + w for w in PAIR_WEIGHT_NAMES[1:]))
+    ref = {}
+    for dtype in (torch.float64, torch.float32):
+        a, w, cj, g = args(dtype)
+        ref[dtype] = flat(PM.fused_knn_messages_plain(*a, w, opts, coors_j=cj),
+                          PM.fused_knn_messages_backward_plain(*a, w, *g, opts, coors_j=cj))
+    a, w, cj, g = args(torch.float32)
+    runs = [flat(PM.fused_knn_messages_forward(*a, w, opts, coors_j=cj),
+                 PM.fused_knn_messages_backward(*a, w, *g, opts, coors_j=cj)) for _ in range(3)]
+    torch.cuda.synchronize()
+    repeatable = all(same_bits(torch, x, y) for run in runs[1:] for x, y in zip(run, runs[0]))
+    worst, errs = [], {"fwd": 0.0, "bwd": 0.0}
+    for i, (tname, ker, p32, r64) in enumerate(zip(names, runs[0], ref[torch.float32],
+                                                    ref[torch.float64])):
+        e_k = (ker.double() - r64).abs().max().item()
+        e_p = (p32.double() - r64).abs().max().item()
+        limit = PAIR_ERR_FACTOR * e_p + PAIR_ERR_FLOOR * max(r64.abs().max().item(), 1e-30)
+        errs["fwd" if i < 2 else "bwd"] = max(errs["fwd" if i < 2 else "bwd"], e_k)
+        worst.append((e_k / limit, tname, e_k, e_p))
+        if not (e_k <= limit and bool(torch.isfinite(ker).all())):
+            raise AssertionError(f"phase 44a K11 j table: {tname} differs from the float64 plain "
+                                 f"version by {e_k:.3e}, the float32 plain version by "
+                                 f"{e_p:.3e} (limit {limit:.3e})")
+    ratio, tname, e_k, e_p = max(worst)
+    print(f"phase 44a K11 with a j table: the rows {R}..{N - 1} of b = {DP_BATCH} clouds of {N} "
+          f"(k = {KNN}, slot 0 the row's own node) against the whole cloud: forward max err "
+          f"{errs['fwd']:.3e}, backward {errs['bwd']:.3e} against float64; nearest its limit "
+          f"{tname} ({e_k:.3e}, plain f32 {e_p:.3e}, {ratio:.3f} of the limit); 3 launches "
+          f"bitwise={repeatable}")
+    if not repeatable:
+        raise AssertionError("phase 44a K11 j table: launches are not bitwise repeatable")
+    h = a[1].shape[-1]
+    extra_ms = bound_parts_ms(4 * DP_BATCH * (N - R) * (h + 3), 0)[0]   # the rest of the table
+    out = {}
+    with torch.no_grad():
+        for key, kernel_fn, plain_fn in (
+                ("fwd", lambda: PM.fused_knn_messages_forward(*a, w, opts, coors_j=cj),
+                 lambda: PM.fused_knn_messages_plain(*a, w, opts, coors_j=cj)),
+                ("bwd", lambda: PM.fused_knn_messages_backward(*a, w, *g, opts, coors_j=cj),
+                 lambda: PM.fused_knn_messages_backward_plain(*a, w, *g, opts, coors_j=cj))):
+            p_a, k_a, k_b, p_b = (device_ms(torch, plain_fn), device_ms(torch, kernel_fn),
+                                  device_ms(torch, kernel_fn), device_ms(torch, plain_fn))
+            _, _, t_bytes, t_ops = pair_bound(DP_BATCH, R, KNN, 3, DIM, h, 16, 0, False, True,
+                                              key == "bwd")
+            t_bytes += extra_ms * (2 if key == "bwd" else 1)
+            bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                                       else "operations")
+            print(f"timing on {smi}: fused_knn_{key}_table at b = {DP_BATCH}, {R} rows of {N}, "
+                  f"k = {KNN}: kernel {k_a:.5f}/{k_b:.5f} ms"
+                  f"{' (K2 on the j-side rows included)' if key == 'bwd' else ''}, plain "
+                  f"{p_a:.5f}/{p_b:.5f} ms, bound {bound_ms:.6f} ms ({bound_by})")
+            out[key] = {
+                "name": f"fused_knn_{key}_table", "route": "cuda",
+                "source": "egnn_tpu_torch/csrc/pair_messages.cu",
+                "replaces": ("egnn_tpu/ops/pallas/knn_layer.py:380" if key == "fwd"
+                             else "egnn_tpu/ops/pallas/knn_layer.py:419"),
+                "max_abs_err": errs[key], "ms": min(k_a, k_b), "plain_ms": min(p_a, p_b),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                # no single PyTorch call computes the pipeline
+                "library_ms": None,
+            }
+    return out
+
+
+def graph_axis_phases(torch, smi):
+    """Phase 44: the row-block mode of K1, K3 and K4 on the card (44a), then
+    the slice's path, anchor 3's step sharded over nodes on two ranks (44b).
+    Returns the JSON line's entry of the row-block K1; raises on a
+    failure."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from egnn_tpu_torch.ops.cuda import knn as K
+    from egnn_tpu_torch.training import synthetic_chain_batch
+
+    t_start = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    # ---- 44a. the row blocks against the whole launches and the plain versions ----
+    max_err = 0.0
+    for ties in (False, True):
+        coors, mask, adj, table = knn_inputs(torch, DP_BATCH, N, KNN, True, True, ties,
+                                             SEED + 440 + ties)
+        vals, idx, rows = K.knn_select_gather(coors, KNN, table, mask, adj)
+        vals3, idx3 = K.knn_select(coors, KNN, mask, adj)
+        for g in (2, 4):
+            R = N // g
+            plan = K.built_plan("knn_select_gather", DP_BATCH, R, 3, KNN, sms, adjacency=True)
+            same = True
+            for r in range(g):
+                blk, sl = (r * R, R), slice(r * R, (r + 1) * R)
+                bv, bi, brows = K.knn_select_gather(coors, KNN, table, mask, adj, rows=blk)
+                pv, pi, prows = K.knn_select_gather_plain(coors, KNN, table, mask, adj, rows=blk)
+                v3, i3 = K.knn_select(coors, KNN, mask, adj, rows=blk)
+                same &= (same_bits(torch, bv, vals[:, sl]) and torch.equal(bi, idx[:, sl])
+                         and same_bits(torch, brows, rows[:, sl]) and same_bits(torch, bv, pv)
+                         and torch.equal(bi, pi) and same_bits(torch, brows, prows)
+                         and same_bits(torch, v3, vals3[:, sl]) and torch.equal(i3, idx3[:, sl])
+                         and same_bits(torch, v3, pv) and torch.equal(i3, pi))
+                max_err = max(max_err, (bv - pv).abs().max().item(),
+                              (brows - prows).abs().max().item())
+            print(f"phase 44a K1 and K3 row blocks at b = {DP_BATCH}, n = {N}, k = {KNN}, "
+                  f"{'integer lattice (ties)' if ties else 'gaussian'} coordinates, a mask and a "
+                  f"chain with random extra edges per graph, g = {g} (R = {R}; plan {plan}): "
+                  f"every block bitwise the whole launches' rows and the plain versions': {same}")
+            if not same:
+                raise AssertionError("phase 44a: a K1 or K3 row block disagrees")
+    del coors, mask, adj, table, vals, idx, rows, vals3, idx3
+
+    n4 = N_K4_ROWS
+    g4 = torch.Generator().manual_seed(SEED + 442)
+    coors4 = (3.0 * torch.randn(1, n4, 3, generator=g4)).cuda()
+    mask4 = (torch.arange(n4)[None] < int(0.9 * n4)).cuda()
+    ar = torch.arange(n4, device="cuda")
+    adj4 = ((ar[:, None] - ar[None, :]).abs() == 1)[None]
+    v4, i4 = K.knn_select_tiled(coors4, KNN, mask4, adj4)
+    same = True
+    R = n4 // 2
+    for r in range(2):
+        blk, sl = (r * R, R), slice(r * R, (r + 1) * R)
+        bv, bi = K.knn_select_tiled(coors4, KNN, mask4, adj4, rows=blk)
+        pv, pi = K.knn_select_plain(coors4, KNN, mask4, adj4,
+                                    row_chunk=K._default_row_chunk(1, n4), rows=blk)
+        same &= (same_bits(torch, bv, v4[:, sl]) and torch.equal(bi, i4[:, sl])
+                 and same_bits(torch, bv, pv) and torch.equal(bi, pi))
+    print(f"phase 44a K4 row blocks at n = {n4} (an (n, n) adjacency of {n4 * n4 / 1e6:.0f} MB, "
+          f"a mask), g = 2: every block bitwise the whole launch's rows and the plain "
+          f"version's: {same}")
+    if not same:
+        raise AssertionError("phase 44a: a K4 row block disagrees")
+    blk = (R, R)
+    fn = lambda: K.knn_select_tiled(coors4, KNN, mask4, adj4, rows=blk)  # noqa: E731
+    plain = lambda: K.knn_select_plain(  # noqa: E731
+        coors4, KNN, mask4, adj4, row_chunk=K._default_row_chunk(1, n4), rows=blk)
+    p_a, k_a, k_b, p_b = (call_ms(torch, plain, iters=3, warmup=1),
+                          device_ms(torch, fn, reps=3, trials=5),
+                          device_ms(torch, fn, reps=3, trials=5),
+                          call_ms(torch, plain, iters=3, warmup=1))
+    b4_ms, b4_by = knn_rows_bound(1, n4, R, 3, KNN, 0, True, R * n4)
+    plan = K.built_plan("knn_select_tiled", 1, R, 3, KNN, sms, adjacency=True)
+    print(f"timing on {smi}: the row-block K4 at n = {n4}, R = {R} (rows {R}..{n4 - 1}), "
+          f"k = {KNN}, a mask and the (n, n) adjacency, plan {plan}: kernel {k_a:.5f}/{k_b:.5f} "
+          f"ms (graph replays), plain {p_a:.5f}/{p_b:.5f} ms (calls), bound {b4_ms:.6f} ms ({b4_by}); no library call "
+          f"computes it; not on a main path here (beyond the full-band reach)")
+    del coors4, mask4, adj4, v4, i4, bv, bi, pv, pi
+    torch.cuda.empty_cache()
+
+    # the row-block K1 at R = 512, anchor 3's shape, timed
+    coors, mask, adj, table = knn_inputs(torch, DP_BATCH, N, KNN, True, True, False, SEED + 443)
+    R = N // 2
+    blk = (R, R)
+    fn = lambda: K.knn_select_gather(coors, KNN, table, mask, adj, rows=blk)  # noqa: E731
+    plain = lambda: K.knn_select_gather_plain(coors, KNN, table, mask, adj, rows=blk)  # noqa
+    p_a, k_a, k_b, p_b = (device_ms(torch, plain), device_ms(torch, fn), device_ms(torch, fn),
+                          device_ms(torch, plain))
+    tw = table.shape[-1]
+    bound_ms, bound_by = knn_rows_bound(DP_BATCH, N, R, 3, KNN, tw, True, DP_BATCH * R * N)
+    plan = K.built_plan("knn_select_gather", DP_BATCH, R, 3, KNN, sms, adjacency=True)
+    print(f"timing on {smi}: the row-block K1 at b = {DP_BATCH}, n = {N}, R = {R} (rows "
+          f"{R}..{N - 1}), k = {KNN}, tw = {tw}, plan {plan}: kernel {k_a:.5f}/{k_b:.5f} ms, "
+          f"plain {p_a:.5f}/{p_b:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); no library call "
+          f"computes it")
+    del coors, mask, adj, table
+    k11_table = k11_table_check(torch, smi)
+    print(f"phase 44a: {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 44b. anchor 3's step on a (data, graph) = (1, 2) mesh, two ranks ----
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=root / "build"))
+    rq = synthetic_chain_batch(np.random.default_rng(SEED + 444), DP_BATCH, N, device="cuda")
+    dense = (rq.tokens, rq.noised_coors, rq.clean_coors, rq.adj_mat, rq.mask)
+    ranks = run_two_ranks(torch, dict(dense=tuple(t.detach().cpu() for t in dense)), work,
+                          target=graph_rank_main, what="phase 44b", timeout=GRAPH_TIMEOUT)
+    print(f"phase 44b's two ranks: {time.perf_counter() - t_phase:.1f} s")
+    path_launches = {}
+    for flag in GRAPH_FLAGS:
+        ref = graph_run(torch, SEED + 44, dense, flag=flag)
+        what = f"anchor 3's step (b = {DP_BATCH}){f' with {flag}' if flag else ''}"
+        for r, res in enumerate(ranks):
+            got = res[str(flag)]
+            compare_runs(torch, f"phase 44b rank {r}, {what} on a (data, graph) = (1, 2) mesh "
+                         f"({N // 2} nodes a rank) against one process on the card", got, ref,
+                         PAR_GRAD_TOL_SELF_PAIRS, steps=GRAPH_STEPS)
+            sl = slice(r * N // 2, (r + 1) * N // 2)
+            if not torch.equal(got["first_indices"], ref["first_indices"][:, sl].cpu()):
+                raise AssertionError(f"phase 44b rank {r}: the first layer's selection is not "
+                                     f"the one-process selection's rows")
+        a, b_ = ranks[0][str(flag)], ranks[1][str(flag)]
+        same = all(same_bits(torch, a["params"][k], b_["params"][k]) for k in a["params"])
+        t_ref = [call_ms(torch, ref["call"], iters=10, warmup=2) for _ in range(2)]
+        print(f"phase 44b {what}: the first layer's selected indices on each rank bitwise the "
+              f"one-process selection's rows; the two ranks' parameters after {GRAPH_STEPS} "
+              f"steps bitwise equal={same}; launches over the steps rank 0 {a['launches']}, rank "
+              f"1 {b_['launches']}, one process {ref['launches']}")
+        print(f"timing on {smi}: {what} as a call, on each rank of the graph axis "
+              f"{a['ms']:.4f} / {b_['ms']:.4f} ms (median of 10 after 2; two ranks sharing one "
+              f"card, gloo through host memory: not a scaling number), one process on the "
+              f"whole batch {t_ref[0]:.4f}/{t_ref[1]:.4f} ms (median of 10 after 2)")
+        per_path = DEPTH * GRAPH_STEPS
+        need = ({"knn_select_rows": per_path, "fused_knn_fwd_table": per_path,
+                 "fused_knn_bwd_table": per_path} if flag == "fused_knn"
+                else {"knn_select_gather_rows": per_path})
+        need["segment_sum"] = per_path
+        if flag == "fused_pairs":
+            need.update(fused_pair_fwd=per_path, fused_pair_bwd=per_path)
+        if not (same and all(res[str(flag)]["launches"] == need for res in ranks)):
+            raise AssertionError(f"phase 44b {what}: the ranks' parameters differ or a rank "
+                                 f"launched other than {need}")
+        path_launches.update(a["launches"] if flag != "fused_pairs" else {})
+        del ref
+    del ranks
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 44b: {time.perf_counter() - t_phase:.1f} s")
+    print(f"phase 44 (the graph axis): {time.perf_counter() - t_start:.1f} s")
+    entries = [{
+        "name": "knn_select_gather_rows", "route": "cuda",
+        "source": "egnn_tpu_torch/csrc/knn_select_large.cu",
+        "replaces": "egnn_tpu/ops/pallas/knn.py:466",
+        "launches": path_launches["knn_select_gather_rows"],
+        # the gate is bitwise: the largest |kernel - plain| over vals and rows
+        "max_abs_err": max_err, "ms": min(k_a, k_b), "plain_ms": min(p_a, p_b),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }]
+    for key, e in k11_table.items():
+        entries.append({**e, "launches": path_launches[f"fused_knn_{key}_table"]})
+    return entries
 
 
 def main() -> int:
@@ -5377,6 +5857,7 @@ def main() -> int:
     parent = sys.argv[sys.argv.index("--parent-source") + 1] if "--parent-source" in sys.argv \
         else None
     kernels.extend(mode_phase(torch, smi, parent))
+    kernels.extend(graph_axis_phases(torch, smi))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

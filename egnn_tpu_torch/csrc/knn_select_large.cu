@@ -136,6 +136,13 @@
 //    order). Every column ranks as a packed value below kEmpty, a NaN
 //    ranking too (by its bits, above +inf where it is positive), so with
 //    k <= n every list ends with k real columns and every copied row exists.
+//  - K1, K3, K4 rank a row block: the points r0 .. r0 + R - 1 against all n
+//    columns (R = n, r0 = 0: every row), as the dense step sharded over
+//    nodes ranks each rank's own rows against the gathered table. A row's
+//    global id r0 + i sets its self column, its mask bit and its adjacency
+//    row; its list is the k smallest packed values of its pairs whatever
+//    the plan, so it equals the whole launch's row r0 + i bit for bit. K1's
+//    epilogue copies the winners' rows from the whole table.
 //  - K9: all rows of a block lie in one group of ti rows (block_plan halves
 //    rows a warp until the block's rows divide ti, a multiple of kWarps), so
 //    a block ranks one window [start, min(start + W, n)), start any column:
@@ -277,6 +284,7 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
     int n, int c, int k, unsigned sentinel,
     const float* __restrict__ queries,       // (b, nq, c): the rows of K8 and K9
     const unsigned char* __restrict__ qmask, // (b, nq), K8 only: given with mask
+    int r0,                                  // K1, K3, K4: the first of the nq points ranked
     int nq, int stripes,
     Window win,                              // K9
     Payload pay,                             // K1
@@ -295,13 +303,16 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
   const int stripe = kMode == kTiled ? 0 : warp % stripes;
   const int groups = kMode == kTiled ? kWarps : kWarps / stripes;
   const int stride = kMode == kTiled ? kStep : stripes * kStep;  // between a warp's steps
-  const int nrows = self_rows(kMode) ? n : nq;
+  // the rows ranked: the points r0 .. r0 + nq - 1 (K1, K3, K4: a row block,
+  // all n at r0 = 0), or the nq query rows (K8, K9); row0 counts from the first
+  const int nrows = nq;
   const int row0 = (blockIdx.x * groups + (kMode == kTiled ? warp : warp / stripes)) * kRows;
   const float* cb = coors + (size_t)b * n * c;
   // the rows' coordinates
-  const float* rb = self_rows(kMode) ? cb : queries + (size_t)b * nq * c;
+  const float* rb = self_rows(kMode) ? cb + (size_t)r0 * c : queries + (size_t)b * nq * c;
   const unsigned char* mb = has_mask ? mask + (size_t)b * n : nullptr;
-  const unsigned char* rmb = has_mask ? (kMode == kQuery ? qmask + (size_t)b * nq : mb) : nullptr;
+  const unsigned char* rmb =
+      has_mask ? (kMode == kQuery ? qmask + (size_t)b * nq : mb + r0) : nullptr;
 
   // the block's columns: all n, or (K9) the window of its rows' group
   int j_begin = 0, j_end = n;
@@ -326,7 +337,7 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
     for (int cc = 0; cc < kDims; ++cc)
       xi[r][cc] = (ok && (kC > 0 || cc < c)) ? rb[(size_t)i * c + cc] : 0.f;
     mask_i[r] = has_mask && ok && (kMode == kWindow || rmb[i] != 0);
-    adj_row[r] = has_adj && ok ? adj + (size_t)b * adj_bstride + (size_t)i * n : nullptr;
+    adj_row[r] = has_adj && ok ? adj + (size_t)b * adj_bstride + (size_t)(r0 + i) * n : nullptr;
     list[r].init(k, lane);
   }
 
@@ -334,11 +345,11 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
   const unsigned fill_key = kShift == 0 ? warp_topk::ordered_bits(1e5f) : sentinel;
   float thr[kRows];
   unsigned mthr[kRows];
-  int self_col[kRows];  // the row's own column; none for a row past n
+  int self_col[kRows];  // the row's own column; none for a row past the last
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     row_thresholds<kShift>(list[r].tau, fill_key, thr[r], mthr[r]);
-    self_col[r] = row0 + r;
+    self_col[r] = r0 + row0 + r;
     if (row0 + r >= nrows) {  // a row past the last passes no pre-test and never inserts
       thr[r] = __uint_as_float(0xff800000u);  // -inf
       mthr[r] = 0u;
@@ -441,7 +452,7 @@ __global__ void __launch_bounds__(kWarps * 32, kC == 3 ? 4 : 2) knn_select_block
         if (kShift == 0) {
           if (masked) v = 1e5f;
           if (has_adj) {
-            if (j + q == row0 + r) v = -1.f;
+            if (j + q == self_col[r]) v = -1.f;
             else if (((aword[r] >> (8 * q)) & 0xffu) != 0) v = 0.f;
           }
           hi = warp_topk::ordered_bits(v);
@@ -593,7 +604,8 @@ struct BlockArgs {
   long long* out_idx;
   const float* queries = nullptr;  // K8, K9: the query rows; K8 their mask
   const unsigned char* qmask = nullptr;
-  int nq = 0;
+  int nq = 0;                      // the rows: K8, K9 the queries; K1, K3, K4 the block's
+  int r0 = 0;                      // K1, K3, K4: the block's first point
   Window win = {nullptr, nullptr, 0, 0};
   Payload pay = {nullptr, 0, nullptr};
   Plan plan = {1, 1};
@@ -615,12 +627,11 @@ int launch_block_kernel(const BlockArgs& a, cudaStream_t stream) {
   }
   const uintptr_t m = reinterpret_cast<uintptr_t>(a.mask), j = reinterpret_cast<uintptr_t>(a.adj);
   const bool aligned4 = a.n % 4 == 0 && m % 4 == 0 && j % 4 == 0 && a.adj_bstride % 4 == 0;
-  const int nrows = self_rows(kMode) ? a.n : a.nq;
   const int per_block = kWarps / a.plan.stripes * kRows;
-  const dim3 grid((nrows + per_block - 1) / per_block, a.b);
+  const dim3 grid((a.nq + per_block - 1) / per_block, a.b);
   kernel<<<grid, kWarps * 32, smem, stream>>>(a.coors, a.mask, a.adj, a.adj_bstride, aligned4,
                                               a.n, a.c, a.k, a.sentinel, a.queries, a.qmask,
-                                              a.nq, a.plan.stripes, a.win, a.pay, a.out_hi,
+                                              a.r0, a.nq, a.plan.stripes, a.win, a.pay, a.out_hi,
                                               a.out_idx);
   return (int)cudaGetLastError();
 }
@@ -649,10 +660,11 @@ int launch_block_flags(const BlockArgs& a, cudaStream_t stream) {
 // Every kernel of this source at the plan of block_plan.
 template <int kShift, int kMode>
 int launch_rows(BlockArgs a, cudaStream_t stream) {
-  const int nrows = self_rows(kMode) ? a.n : a.nq;
-  // k <= n: every list element ends as a real column
+  const int nrows = a.nq;
+  // k <= n: every list element ends as a real column; a row block lies in the points
   if (a.b < 1 || a.n < 1 || nrows < 1 || a.c < 1 || a.c > kMaxC || a.k < 1 || a.k > kMaxK ||
-      a.k > a.n)
+      a.k > a.n || a.r0 < 0 || (self_rows(kMode) && a.r0 > a.n - nrows) ||
+      (!self_rows(kMode) && a.r0 != 0))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -678,43 +690,57 @@ int launch_rows(BlockArgs a, cudaStream_t stream) {
   return launch_block_flags<kShift, 4, 1, 3, kMode>(a, stream);
 }
 
+// The arguments of a launch over the points' rows r0 .. r0 + nrows - 1 (K8
+// and K9 set their query rows in place of the points').
 BlockArgs block_args(const void* coors, const void* mask, const void* adj, long long adj_bstride,
-                     int b, int n, int c, int k, unsigned sentinel, void* out_hi, void* out_idx) {
-  return BlockArgs{static_cast<const float*>(coors), static_cast<const unsigned char*>(mask),
-                   static_cast<const unsigned char*>(adj), adj_bstride, b, n, c, k, sentinel,
-                   static_cast<unsigned*>(out_hi), static_cast<long long*>(out_idx)};
+                     int b, int n, int c, int k, int r0, int nrows, unsigned sentinel,
+                     void* out_hi, void* out_idx) {
+  BlockArgs a{static_cast<const float*>(coors), static_cast<const unsigned char*>(mask),
+              static_cast<const unsigned char*>(adj), adj_bstride, b, n, c, k, sentinel,
+              static_cast<unsigned*>(out_hi), static_cast<long long*>(out_idx)};
+  a.r0 = r0;
+  a.nq = nrows;
+  return a;
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1: selection and the winners' payload rows; vals f32, idx i64 (b, n, k),
-// rows f32 (b, n, k, tw). mask and adj may be null.
+// K1, K3 and K4 rank the rows r0 .. r0 + nrows - 1 of the n points (a row
+// block; all of them at r0 = 0, nrows = n) against all n columns: row r0 + i
+// of the block takes its own mask bit, adjacency row and self column, and
+// equals the whole launch's row r0 + i bit for bit. The outputs are
+// (b, nrows, ...).
+//
+// K1: selection and the winners' payload rows, gathered from the whole
+// table; vals f32, idx i64 (b, nrows, k), rows f32 (b, nrows, k, tw). mask and
+// adj may be null.
 int knn_select_gather_launch(const void* coors, const void* mask, const void* adj,
                              long long adj_bstride, const void* table, int b, int n, int c,
-                             int k, int tw, void* vals, void* idx, void* rows, void* stream) {
+                             int k, int tw, int r0, int nrows, void* vals, void* idx, void* rows,
+                             void* stream) {
   if (table == nullptr || rows == nullptr || tw < 1) return (int)cudaErrorInvalidValue;
-  BlockArgs a = block_args(coors, mask, adj, adj_bstride, b, n, c, k, 0u, vals, idx);
+  BlockArgs a = block_args(coors, mask, adj, adj_bstride, b, n, c, k, r0, nrows, 0u, vals, idx);
   a.pay = Payload{static_cast<const float*>(table), tw, static_cast<float*>(rows)};
   return launch_rows<0, kPoints>(a, static_cast<cudaStream_t>(stream));
 }
 
 // K3: K1's selection alone. mask and adj may be null.
 int knn_select_launch(const void* coors, const void* mask, const void* adj,
-                      long long adj_bstride, int b, int n, int c, int k, void* vals, void* idx,
-                      void* stream) {
+                      long long adj_bstride, int b, int n, int c, int k, int r0, int nrows,
+                      void* vals, void* idx, void* stream) {
   return launch_rows<0, kPoints>(
-      block_args(coors, mask, adj, adj_bstride, b, n, c, k, 0u, vals, idx),
+      block_args(coors, mask, adj, adj_bstride, b, n, c, k, r0, nrows, 0u, vals, idx),
       static_cast<cudaStream_t>(stream));
 }
 
 // K4: exact selection at any n; vals f32 and idx i64. mask and adj may be null.
 int knn_select_tiled_launch(const void* coors, const void* mask, const void* adj,
-                            long long adj_bstride, int b, int n, int c, int k,
-                            void* vals, void* idx, void* stream) {
+                            long long adj_bstride, int b, int n, int c, int k, int r0,
+                            int nrows, void* vals, void* idx, void* stream) {
   return launch_rows<0, kTiled>(
-      block_args(coors, mask, adj, adj_bstride, b, n, c, k, 0u, vals, idx),
+      block_args(coors, mask, adj, adj_bstride, b, n, c, k, r0, nrows, 0u, vals, idx),
       static_cast<cudaStream_t>(stream));
 }
 
@@ -723,7 +749,7 @@ int knn_candidates_packed_tiled_launch(const void* coors, const void* mask, int 
                                        int c, int kc, void* keys, void* cols,
                                        void* stream) {
   return launch_rows<12, kTiled>(
-      block_args(coors, mask, nullptr, 0, b, n, c, kc, 0x7F800u, keys, cols),
+      block_args(coors, mask, nullptr, 0, b, n, c, kc, 0, n, 0x7F800u, keys, cols),
       static_cast<cudaStream_t>(stream));
 }
 
@@ -731,7 +757,7 @@ int knn_candidates_packed_tiled_launch(const void* coors, const void* mask, int 
 int knn_candidates_packed_launch(const void* coors, const void* mask, int b, int n, int c,
                                  int kc, void* keys, void* cols, void* stream) {
   return launch_rows<14, kTiled>(
-      block_args(coors, mask, nullptr, 0, b, n, c, kc, 0x1FF00u, keys, cols),
+      block_args(coors, mask, nullptr, 0, b, n, c, kc, 0, n, 0x1FF00u, keys, cols),
       static_cast<cudaStream_t>(stream));
 }
 
@@ -741,10 +767,9 @@ int knn_select_queries_launch(const void* queries, const void* qmask, const void
                               const void* pmask, int b, int r, int n, int c, int k,
                               void* vals, void* idx, void* stream) {
   if ((qmask == nullptr) != (pmask == nullptr)) return (int)cudaErrorInvalidValue;
-  BlockArgs a = block_args(points, pmask, nullptr, 0, b, n, c, k, 0u, vals, idx);
+  BlockArgs a = block_args(points, pmask, nullptr, 0, b, n, c, k, 0, r, 0u, vals, idx);
   a.queries = static_cast<const float*>(queries);
   a.qmask = static_cast<const unsigned char*>(qmask);
-  a.nq = r;
   return launch_rows<0, kQuery>(a, static_cast<cudaStream_t>(stream));
 }
 
@@ -760,9 +785,8 @@ int knn_select_window_launch(const void* queries, const void* points, const void
                              void* stream) {
   if (starts == nullptr || ids == nullptr || rows < kWarps || rows % kWarps != 0 || k > width)
     return (int)cudaErrorInvalidValue;
-  BlockArgs a = block_args(points, pmask, nullptr, 0, b, n, c, k, 0u, vals, idx);
+  BlockArgs a = block_args(points, pmask, nullptr, 0, b, n, c, k, 0, r, 0u, vals, idx);
   a.queries = static_cast<const float*>(queries);
-  a.nq = r;
   a.win = Window{static_cast<const int*>(starts), static_cast<const int*>(ids), rows, width};
   return launch_rows<0, kWindow>(a, static_cast<cudaStream_t>(stream));
 }

@@ -21,7 +21,10 @@
 //
 // K11 is K10's source with one template flag: on this card a gather is an
 // indexed load, so the rows of coors and proj_j are read at idx where K10
-// reads its pre-gathered rows and multiplies by Wj.
+// reads its pre-gathered rows and multiplies by Wj. They are the rows of a
+// j table of nj rows (coors_j, proj_j): the i side's own (nj = n), or, on
+// the dense step sharded over nodes, the whole gathered cloud while the i
+// side is the rank's own rows.
 //
 // Design. A block takes tiles of whole nodes, ti nodes x k slots pair rows,
 // in a loop (tile = blockIdx.x, += gridDim.x); the grid depends on the shape
@@ -184,6 +187,7 @@ struct Shape {
   int soft_edges, norm_coors, has_clamp, gate_feats_only;
   int mxu_bf16;  // the tensor-core mode (K10 only)
   float clamp, eps;
+  int nj;        // the gathering form's j table: its rows (n: the i side's own)
 };
 
 struct Tensors {
@@ -191,8 +195,8 @@ struct Tensors {
   const float* cj;       // (b, n*k, c)     pre-gathered form
   const float* fj;       // (b, n*k, d)     pre-gathered form
   const float* proj_i;   // (b, n, h)
-  const float* proj_j;   // (b, n, h)       gathering form
-  const long long* idx;  // (b, n, k)       gathering form
+  const float* proj_j;   // (b, nj, h)      gathering form
+  const long long* idx;  // (b, n, k)       gathering form, rows of the j table
   const float* pv;       // (b, n*k)
   const float *wj, *wd, *w2, *b2, *gw, *gb, *cw1, *cb1, *cw2, *cb2, *scale;
   float* m_i;            // (b, n, m)       forward
@@ -205,6 +209,7 @@ struct Tensors {
   float* d_pi;           // (b, n, h)
   float* d_pairs;        // (b, n*k, c + h) gathering form: [-d_rel | d_h1]
   float* partial;        // (grid, E) weight gradients by block
+  const float* coors_j;  // (b, nj, c)      gathering form: the j table's coordinates
 };
 
 namespace {
@@ -996,7 +1001,7 @@ __device__ __forceinline__ void unpack_inputs(const Shape& s, const Tensors& t, 
   const int ldr = L.ldr;
   const int nt = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = nt >> 5;
   const Staged g = staged(s, L, sm);
-  const float* coors_b = t.coors + (size_t)ib * s.n * s.c;
+  const float* coors_jb = kGather ? t.coors_j + (size_t)ib * s.nj * s.c : nullptr;  // K11
   float* row = sm + L.ROW;
   const bool df_rows = kBf16 && mr.df.off >= 0;
   auto put_df = [&](int f, int r, float v) {
@@ -1008,7 +1013,7 @@ __device__ __forceinline__ void unpack_inputs(const Shape& s, const Tensors& t, 
   for (int e = threadIdx.x; e < rows * (s.fourier + 1); e += nt) {
     const int f = e / rows, r = e - f * rows;
     const float* ci = g.ci + (r / s.k) * s.c;
-    const float* cj = kGather ? coors_b + (size_t)g.idx[r] * s.c : g.cj + r * s.c;
+    const float* cj = kGather ? coors_jb + (size_t)g.idx[r] * s.c : g.cj + r * s.c;
     float dist = 0.f;
     for (int cc = 0; cc < s.c; ++cc) {
       const float rel = ci[cc] - cj[cc];
@@ -1055,7 +1060,7 @@ __device__ __forceinline__ void unpack_inputs(const Shape& s, const Tensors& t, 
     const int r = r4 + (lane & 3);
     if (r >= rows) continue;
     const float* pi = g.pi + (r / s.k) * s.h;
-    const float* pj = kGather ? t.proj_j + ((size_t)ib * s.n + g.idx[r]) * s.h : nullptr;
+    const float* pj = kGather ? t.proj_j + ((size_t)ib * s.nj + g.idx[r]) * s.h : nullptr;
 #pragma unroll 4
     for (int j = lane >> 2; j < s.h; j += 8)
       sm[L.H + j * ldr + r] = kGather ? pi[j] + __ldg(pj + j) : pi[j];
@@ -1791,7 +1796,7 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
     if (kGather) {
       const int j = (int)t.idx[p0 + r];
       jdx[r] = j;
-      cjp = t.coors + ((size_t)ib * s.n + j) * s.c;
+      cjp = t.coors_j + ((size_t)ib * s.nj + j) * s.c;
     } else {
       cjp = t.cj + (p0 + r) * s.c;
     }
@@ -1837,7 +1842,7 @@ __device__ __forceinline__ void tile_forward(const Shape& s, const Tensors& t, c
     m.node_bias = t.proj_i + node0 * s.h;
     m.k = s.k;
     if (kGather) {
-      m.row_bias = t.proj_j + (size_t)ib * s.n * s.h;
+      m.row_bias = t.proj_j + (size_t)ib * s.nj * s.h;
       m.row_idx = jdx;
     }
     round_range(s.d >= 8, s.d, dd >= 8, dd, &m.rlo, &m.rhi);   // kGather has no mode
@@ -2179,7 +2184,7 @@ bool shape_ok(const Shape& s, bool gather, bool backward) {
   if (s.b < 1 || s.n < 1 || s.k < 1 || s.c < 1 || s.c > kMaxC || s.h < 1 || s.m < 1 ||
       s.m4 < 1 || s.fourier < 0 || s.fourier > kMaxFourier)
     return false;
-  if (gather ? s.d != 0 : s.d < 1) return false;
+  if (gather ? s.d != 0 || s.nj < 1 : s.d < 1) return false;
   if (gather && s.mxu_bf16) return false;   // K11 has no tensor-core mode
   if (s.rows < 8 || s.rows > kMaxRows || s.rows % 8 || s.ti < 1 || s.ti * s.k > s.rows)
     return false;

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.core import layer_norm
+from ..parallel.collectives import all_gather_rows
 from . import init as inits
 from .init import ParamFactory
 
@@ -63,6 +64,10 @@ class GlobalLinearAttention(nn.Module):
     streams, then a 4x exact-GELU MLP with a residual on the nodes."""
 
     attention = Attention
+    # the graph axis (parallel/mesh.py:shard_nodes sets it): the nodes are
+    # block-sharded over this group; the tokens attend over every rank's
+    # nodes, gathered, and each rank's nodes attend back locally
+    node_group = None
 
     def __init__(self, dim: int, heads: int = 8, dim_head: int = 64, *, device=None,
                  dtype: torch.dtype = torch.float32, generator: Optional[torch.Generator] = None):
@@ -89,7 +94,12 @@ class GlobalLinearAttention(nn.Module):
         -> (nodes, tokens)."""
         xn = layer_norm(x, self.norm_seq_gamma, self.norm_seq_beta)
         qn = layer_norm(queries, self.norm_queries_gamma, self.norm_queries_beta)
-        induced = self.attn1(qn, xn, mask=mask)
+        keys, key_mask = xn, mask
+        if self.node_group is not None:
+            keys = all_gather_rows(xn, self.node_group, dim=1)
+            if mask is not None:
+                key_mask = all_gather_rows(mask.to(xn.dtype), self.node_group, dim=1) > 0.5
+        induced = self.attn1(qn, keys, mask=key_mask)
         x = self.attn2(xn, induced) + x
         queries = induced + queries
         ff = layer_norm(x, self.ff_norm_gamma, self.ff_norm_beta)

@@ -74,6 +74,17 @@ Model parallelism (``egnn_tpu_torch.parallel``):
   local rows, one sum over the group, the replicated bias) on every path.
   The fused kernels take whole weights: under a fused flag the sharded
   weights are gathered whole first (``gather_from_group``).
+- ``parallel/mesh.py:shard_nodes`` (which ``make_sharded_denoise_train_step``
+  calls on a mesh with ``graph > 1``) sets ``node_group`` on the network and
+  its layers, the JAX step's node sharding: each rank holds a block of the
+  nodes and the whole adjacency. A kNN layer gathers the ranks'
+  ``[coors | mask | feats]`` rows once and selects its own rows against
+  them in the selection kernels' row-block mode
+  (``ops/neighbors.py:knn_select_gather_rows``; ``fused_knn``'s K11 reads
+  the gathered cloud as its j table), then computes its messages and node
+  update on its own rows; an all-pairs layer takes the ring over the same
+  group. Dropout in training mode raises ``ValueError``, an all-pairs layer
+  with dense ``edges`` ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -97,15 +108,15 @@ from ..ops.core import (
 )
 from ..ops.cuda import pair_messages as pm
 from ..ops.pairwise_stream import PairwiseParams, streamed_pairwise
-from ..parallel.collectives import (check_group, copy_to_group, gather_from_group,
-                                    reduce_from_group)
+from ..parallel.collectives import all_gather_rows, check_group
 from ..parallel.ring import ring_pairwise
+from ..parallel.tp import ShardedMLPs
 from . import init as inits
 from .attention import GlobalLinearAttention
 from .init import ParamFactory
 
 
-class EGNN(nn.Module):
+class EGNN(ShardedMLPs, nn.Module):
     """One E(n)-equivariant message-passing layer (egnn_pytorch.py:148-222).
 
     Keyword options keep the reference's names and defaults. ``device``
@@ -113,11 +124,11 @@ class EGNN(nn.Module):
     parameters are made.
     """
 
-    # tensor parallelism (parallel/tp.py:tp_shard_module sets both): the
-    # model group, and the MLPs ("edge_mlp", "coors_mlp", "node_mlp") whose
-    # weights this rank holds a shard of
-    tp_group = None
-    tp_sharded: frozenset = frozenset()
+    # the graph axis (parallel/mesh.py:shard_nodes sets it): the group over
+    # whose ranks the nodes are block-sharded, this rank's rows the block
+    # rank * n_local .. (rank + 1) * n_local - 1 (tensor parallelism's hooks
+    # are parallel/tp.py:ShardedMLPs')
+    node_group = None
 
     def __init__(
         self,
@@ -221,26 +232,6 @@ class EGNN(nn.Module):
         """Mixed-precision cast of the message path (identity by default)."""
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
 
-    def _col(self, mlp: str, x):
-        """The input of ``mlp``'s first (column-parallel) product: under
-        tensor parallelism its gradient is summed over the model group."""
-        return copy_to_group(x, self.tp_group) if mlp in self.tp_sharded else x
-
-    def _row(self, mlp: str, y):
-        """``mlp``'s second (row-parallel) product before its bias: under
-        tensor parallelism the ranks' partial products are summed."""
-        return reduce_from_group(y, self.tp_group) if mlp in self.tp_sharded else y
-
-    def _whole(self, name: str):
-        """A parameter whole: a shard (``<mlp>_0_w`` of columns, ``<mlp>_0_b``,
-        ``<mlp>_1_w`` of rows) gathered over the model group, for the fused
-        kernels."""
-        p = getattr(self, name)
-        mlp, part = name.rsplit("_", 2)[0], name[-3:]
-        if mlp not in self.tp_sharded or part not in ("0_w", "0_b", "1_w"):
-            return p
-        return gather_from_group(p, self.tp_group, 1 if part == "0_w" else 0)
-
     def _edge_weights(self, whole: bool = False):
         """The blocks of the edge MLP's first weight, [Wi; Wj; Wd; We], and
         its bias (this rank's columns under tensor parallelism, or whole)."""
@@ -289,30 +280,51 @@ class EGNN(nn.Module):
             return safe_div(m_sum, pv.sum(dim=-1).to(m_sum.dtype)[..., None])
         return m_sum / num_nearest
 
+    def _node_table(self, feats, coors, mask):
+        """On the graph axis: the ranks' ``[coors | mask | feats]`` rows
+        gathered once (their backward keeps this rank's block of the summed
+        cotangents) as the whole cloud's (coors, mask, feats), and this
+        rank's row block (r0, n_local) of it."""
+        group, n, c = self.node_group, coors.shape[1], coors.shape[-1]
+        table = all_gather_rows(nb._table(coors, mask, feats), group, dim=1)
+        mask_all = None if mask is None else table[..., c] > 0.5
+        return (table[..., :c], mask_all, table[..., c + (mask is not None):],
+                (dist.get_rank(group) * n, n))
+
     def _forward_fused_knn(self, feats, coors, mask, adj_b, num_nearest, valid_radius):
         """The layer through K11: selection only, then one kernel that
-        gathers its neighbours' rows itself."""
+        gathers its neighbours' rows itself. On the graph axis the rank's
+        rows are selected against the gathered cloud (K3's row block), and
+        K11 reads its j side from that cloud (its j-table form)."""
         w_i, w_j, w_d, _, b1 = self._edge_weights(whole=True)
-        nbhd = nb.knn_select(coors, num_nearest, valid_radius, mask=mask, adj_mat=adj_b)
+        if self.node_group is None:
+            nbhd = nb.knn_select(coors, num_nearest, valid_radius, mask=mask, adj_mat=adj_b)
+            coors_j, mask_j, feats_j = None, mask, feats
+        else:
+            coors_j, mask_j, feats_j, rows = self._node_table(feats, coors, mask)
+            nbhd, _ = nb.knn_select_gather_rows(coors_j, num_nearest, valid_radius, rows,
+                                                mask=mask_j, adj_mat=adj_b)
         if mask is not None:
-            pv = (mask[:, :, None] & gather_bool(mask, nbhd.indices)) & nbhd.valid
+            pv = (mask[:, :, None] & gather_bool(mask_j, nbhd.indices)) & nbhd.valid
         else:
             # the reference's quirk: validity counts only under a mask
             pv = torch.ones_like(nbhd.indices, dtype=torch.bool)
         m_sum, coors_delta = pm.fused_knn_messages(
-            coors, feats @ w_i + b1, feats @ w_j, nbhd.indices, pv,
+            coors, feats @ w_i + b1, feats_j @ w_j, nbhd.indices, pv,
             self.fourier_features, self.soft_edges, self.norm_coors,
-            self.coor_weights_clamp_value, 1e-8, *self._pair_weights(w_d, coors))
+            self.coor_weights_clamp_value, 1e-8, *self._pair_weights(w_d, coors),
+            coors_j=coors_j)
         m_i = self._pool_kernel_messages(m_sum, pv, mask, num_nearest)
         return self._node_update(feats, m_i, mp=lambda v: v), coors + coors_delta
 
-    def _forward_streamed(self, feats, coors, mask, generator, drop):
+    def _forward_streamed(self, feats, coors, mask, generator, drop, ring=None):
         """The all-pairs layer as j-chunks recomputed in the backward
-        (``ops/pairwise_stream.py``), or as the ring's j-blocks under
-        ``ring_axis`` (``parallel/ring.py``), with the reference's mean
-        divisor n without a mask (egnn_tpu/models/egnn.py:262-284): under
-        the ring n is the whole node count, n_local times the group's size.
-        ``generator`` is None unless dropout acts."""
+        (``ops/pairwise_stream.py``), or as the ring's j-blocks over the
+        group ``ring`` (``ring_axis``, or the graph axis's ``node_group``;
+        ``parallel/ring.py``), with the reference's mean divisor n without a
+        mask (egnn_tpu/models/egnn.py:262-284): under the ring n is the
+        whole node count, n_local times the group's size. ``generator`` is
+        None unless dropout acts."""
         mp = self._mp
         w_i, w_j, w_d, _, b1 = self._edge_weights()
         pp = PairwiseParams(
@@ -332,10 +344,9 @@ class EGNN(nn.Module):
                     coor_weights_clamp_value=self.coor_weights_clamp_value,
                     compute_dtype=self.compute_dtype)
         n_total = feats.shape[1]
-        if self.ring_axis is not None:
-            res = ring_pairwise(coors, proj_i, proj_j, pp, mask=mask, group=self.ring_axis,
-                                **opts)
-            n_total *= dist.get_world_size(self.ring_axis)
+        if ring is not None:
+            res = ring_pairwise(coors, proj_i, proj_j, pp, mask=mask, group=ring, **opts)
+            n_total *= dist.get_world_size(ring)
         else:
             res = streamed_pairwise(
                 coors, proj_i, proj_j, pp, mask=mask, chunk=self.pairwise_chunk,
@@ -382,16 +393,30 @@ class EGNN(nn.Module):
         if self.ring_axis is not None and (edges is not None or dropping):
             raise ValueError("ring_axis takes the all-pairs streamed layer: no dense edges "
                              "and no dropout in training mode")
+        # the graph axis: kNN selects this rank's rows against the gathered
+        # cloud; an all-pairs layer takes the ring over the same group
+        node_group = self.node_group
+        ring = self.ring_axis
+        if node_group is not None:
+            if dropping:
+                raise ValueError("dropout in training mode on the graph axis is not ported: "
+                                 "its masks would be drawn on the node blocks")
+            if not use_nearest:
+                if edges is not None:
+                    raise NotImplementedError(
+                        "an all-pairs layer with dense edges on the graph axis is not ported: "
+                        "the ring (parallel/ring.py) that computes it takes no edges")
+                ring = node_group
 
         def drop(x):
             return dropout(x, self.dropout, generator) if dropping else x
 
         # ---- the streamed all-pairs path: no (n, n) intermediates ----
-        do_stream = self.ring_axis is not None or (
+        do_stream = ring is not None or (
             self.stream_pairwise if self.stream_pairwise is not None else n >= 1024)
         if not use_nearest and edges is None and do_stream:
             return self._forward_streamed(feats, coors, mask,
-                                          generator if dropping else None, drop)
+                                          generator if dropping else None, drop, ring)
         w_i, w_j, w_d, w_e, b1 = self._edge_weights()
 
         # ---- pairwise geometry ----
@@ -404,7 +429,8 @@ class EGNN(nn.Module):
                 valid_radius = 0.0
             adj_b = None
             if adj_mat is not None:
-                adj_b = adj_mat if adj_mat.dim() == 3 else adj_mat.expand(b, n, n)
+                n_adj = adj_mat.shape[-1]   # all the nodes: n_local times the graph axis
+                adj_b = adj_mat if adj_mat.dim() == 3 else adj_mat.expand(b, n_adj, n_adj)
             # the fused paths take the whole layer: kNN, no dense edges, both
             # updates, no dropout in training mode
             fusable = edges is None and self.update_coors and self.update_feats and not dropping
@@ -413,9 +439,18 @@ class EGNN(nn.Module):
                     self.fourier_features, self.soft_edges)):
                 return self._forward_fused_knn(feats, coors, mask, adj_b, num_nearest,
                                                valid_radius)
-            nbhd, g = nb.knn_select_gather(
-                coors, num_nearest, valid_radius, mask=mask, adj_mat=adj_b,
-                payload=feats, wide=True)
+            if node_group is not None:
+                # this rank's rows against the gathered cloud (K1's row
+                # block); the gathered rows' backward sums into the whole
+                # table (K2), then the all-gather's keeps this rank's block
+                coors_all, mask_all, feats_all, rows = self._node_table(feats, coors, mask)
+                nbhd, g = nb.knn_select_gather_rows(
+                    coors_all, num_nearest, valid_radius, rows, mask=mask_all, adj_mat=adj_b,
+                    payload=feats_all)
+            else:
+                nbhd, g = nb.knn_select_gather(
+                    coors, num_nearest, valid_radius, mask=mask, adj_mat=adj_b,
+                    payload=feats, wide=True)
             c_sp = coors.shape[-1]
             coors_j = g[..., :c_sp]
             off = c_sp
@@ -545,6 +580,9 @@ class EGNNNetwork(nn.Module):
     # first call holds them; ``load_flax_params`` leaves them as they are
     # where the reference's tree has none.
     lazy_parameters = ("edge_emb", "global_tokens")
+    # the graph axis (parallel/mesh.py:shard_nodes sets it, and its layers'):
+    # the inputs are this rank's block of nodes, the adjacency whole
+    node_group = None
 
     def __init__(
         self,
@@ -616,17 +654,27 @@ class EGNNNetwork(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         """``generator``: the dropout masks' source in training mode (see
-        ``EGNN.forward``)."""
-        b = feats.shape[0]
+        ``EGNN.forward``).
+
+        On the graph axis (``node_group``, set by ``parallel.shard_nodes``)
+        ``feats``, ``coors`` and ``mask`` are this rank's block of n_local
+        nodes, rows r0 = rank * n_local on; ``adj_mat`` is whole (the JAX
+        step replicates it) and dense ``edges`` are the block's rows, (b,
+        n_local, n, e). The positions are the block's global ones, and the
+        adjacency degrees are expanded on the whole adjacency."""
+        b, n = feats.shape[:2]
+        r0, n_total = 0, n
+        if self.node_group is not None:
+            r0 = dist.get_rank(self.node_group) * n
+            n_total = n * dist.get_world_size(self.node_group)
         if self.num_tokens is not None:
             feats = self.token_emb[feats]
         if self.num_positions is not None:
-            n = feats.shape[1]
-            if n > self.num_positions:
+            if n_total > self.num_positions:
                 raise ValueError(
-                    f"given sequence length {n} must be less than the number "
+                    f"given sequence length {n_total} must be less than the number "
                     f"of positions {self.num_positions} set at init")
-            feats = feats + self.pos_emb[None, :n, :]
+            feats = feats + self.pos_emb[None, r0:r0 + n, :]
         if edges is not None and self.num_edge_tokens is not None:
             edges = self.edge_emb[edges]
 
@@ -640,7 +688,7 @@ class EGNNNetwork(nn.Module):
                 adj_mat = adj_mat.expand(b, *adj_mat.shape)
             adj_mat, adj_indices = nb.expand_adjacency_degrees(adj_mat, self.num_adj_degrees)
             if self.adj_dim > 0:
-                adj_feats = self.adj_emb[adj_indices]
+                adj_feats = self.adj_emb[adj_indices[:, r0:r0 + n]]
                 edges = torch.cat([edges, adj_feats], dim=-1) if edges is not None \
                     else adj_feats
 

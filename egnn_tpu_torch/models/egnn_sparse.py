@@ -59,6 +59,13 @@ rows); the graph LayerNorm's and the attention's statistics are summed over
 the group. ``uniform_graph_size`` is ignored under it, as in the JAX
 package; ``uniform_degree`` and ``fused_uniform`` work on the rank's own
 nodes (K10 at the local n).
+
+``parallel/tp.py:tp_shard_module`` shards the layer's three MLP pairs over
+a ``model`` group, as the dense layer's (``ShardedMLPs``): each rank holds
+the first weight's columns and the second's rows, computes the per-edge
+products on them and sums the second product over the group; under
+``fused_uniform`` K10 takes the weights gathered whole and the node MLP
+stays split. Dropout in training mode under it raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -85,6 +92,7 @@ from ..ops.segment import (
     uniform_aggregate,
 )
 from ..parallel.collectives import all_gather_rows, all_reduce_sum, check_group
+from ..parallel.tp import ShardedMLPs
 from . import init as inits
 from .attention import Attention, GlobalLinearAttention
 from .init import ParamFactory
@@ -118,7 +126,7 @@ def _check_uniform_layout(edge_index, edge_mask, batch, n, k, s) -> None:
                          "in the same graph block)")
 
 
-class EGNNSparse(nn.Module):
+class EGNNSparse(ShardedMLPs, nn.Module):
     """One COO-edge E(n)-equivariant message-passing layer
     (egnn_pytorch_geometric.py:99-271). Keyword options keep the JAX
     package's names and defaults; ``device`` (default ``"cuda"``), ``dtype``
@@ -234,6 +242,9 @@ class EGNNSparse(nn.Module):
         if dropping and generator is None:
             raise ValueError("dropout in training mode draws its masks from generator=, a "
                              "torch.Generator on the inputs' device; call .eval() to serve")
+        if dropping and self.tp_sharded:
+            raise ValueError("dropout in training mode under tensor parallelism is not "
+                             "ported: its masks would be drawn on the shards")
 
         def drop(v):
             return dropout(v, self.dropout, generator) if dropping else v
@@ -254,12 +265,14 @@ class EGNNSparse(nn.Module):
 
         coors, feats = x[:, :pos], x[:, pos:]
         j_idx, i_idx = edge_index[0], edge_index[1]
-        w1 = self.edge_mlp_0_w
+        fused = self._uses_fused() and not dropping
+        # this rank's columns under tensor parallelism; K10 takes them whole
+        w1 = self._whole("edge_mlp_0_w") if fused else self.edge_mlp_0_w
         w_i, w_j = w1[:d], w1[d:2 * d]
         w_e = w1[2 * d:2 * d + self.edge_attr_dim]
         w_d = w1[2 * d + self.edge_attr_dim:]
 
-        if self._uses_fused() and not dropping:
+        if fused:
             return self._forward_fused(x, x_full, coors, feats, j_idx, batch, edge_mask,
                                        num_graphs, node_mask, w_i, w_j, w_d)
 
@@ -279,15 +292,20 @@ class EGNNSparse(nn.Module):
             if self.fourier_features > 0 else rel_dist
 
         mp = self._mp
-        h1 = mp(feats_i_e) @ mp(w_i) + mp(feats_j_e) @ mp(w_j) \
-            + mp(dist_feats) @ mp(w_d) + mp(self.edge_mlp_0_b)
+
+        def col(v):   # an input of the edge MLP's first (column-parallel) product
+            return mp(self._col("edge_mlp", v))
+
+        h1 = col(feats_i_e) @ mp(w_i) + col(feats_j_e) @ mp(w_j) \
+            + col(dist_feats) @ mp(w_d) + mp(self.edge_mlp_0_b)
         if self.edge_attr_dim > 0:
             if edge_attr is None:
                 raise ValueError(f"layer built with edge_attr_dim={self.edge_attr_dim} but no "
                                  f"edge_attr given")
-            h1 = h1 + mp(edge_attr) @ mp(w_e)
+            h1 = h1 + col(edge_attr) @ mp(w_e)
         m_ij = F.silu(drop(h1))
-        m_ij = F.silu(m_ij @ mp(self.edge_mlp_1_w) + mp(self.edge_mlp_1_b))   # (E, m_dim)
+        m_ij = F.silu(self._row("edge_mlp", m_ij @ mp(self.edge_mlp_1_w))
+                      + mp(self.edge_mlp_1_b))                                  # (E, m_dim)
 
         def aggregate(data):
             if uk is not None:
@@ -295,9 +313,11 @@ class EGNNSparse(nn.Module):
             return segment_aggregate(self.aggr, data, i_idx, n, mask=edge_mask)
 
         if self.update_coors:
-            cw = F.silu(drop(m_ij @ mp(self.coors_mlp_0_w) + mp(self.coors_mlp_0_b)))
+            cw = F.silu(drop(self._col("coors_mlp", m_ij) @ mp(self.coors_mlp_0_w)
+                             + mp(self.coors_mlp_0_b)))
             # back to full precision before weighting the geometry
-            coor_wij = (cw @ mp(self.coors_mlp_1_w) + mp(self.coors_mlp_1_b)).to(coors.dtype)
+            coor_wij = (self._row("coors_mlp", cw @ mp(self.coors_mlp_1_w))
+                        + mp(self.coors_mlp_1_b)).to(coors.dtype)
             if self.coor_weights_clamp_value is not None:
                 clamp = self.coor_weights_clamp_value
                 coor_wij = coor_wij.clamp(-clamp, clamp)
@@ -324,7 +344,7 @@ class EGNNSparse(nn.Module):
         outside the kernel."""
         n, uk, pos = x.shape[0], self.uniform_degree, self.pos_dim
         xg_j = gather_rows(x_full, j_idx)
-        proj_i = (feats @ w_i + self.edge_mlp_0_b)[None]             # (1, N, hidden)
+        proj_i = (feats @ w_i + self._whole("edge_mlp_0_b"))[None]   # (1, N, hidden)
         pv = edge_mask.to(coors.dtype)[None, :, None] if edge_mask is not None \
             else torch.ones((1, n * uk, 1), dtype=coors.dtype, device=coors.device)
         if self.soft_edge:
@@ -338,9 +358,9 @@ class EGNNSparse(nn.Module):
             coors[None], xg_j[None, :, :pos], xg_j[None, :, pos:], proj_i, pv,
             self.fourier_features, bool(self.soft_edge), self.norm_coors,
             self.coor_weights_clamp_value, 1e-8, pm.mxu_bf16_for(coors.device), True,
-            w_j, w_d, self.edge_mlp_1_w, self.edge_mlp_1_b, gate_w, gate_b,
-            self.coors_mlp_0_w, self.coors_mlp_0_b, self.coors_mlp_1_w, self.coors_mlp_1_b,
-            scale)
+            w_j, w_d, self._whole("edge_mlp_1_w"), self.edge_mlp_1_b, gate_w, gate_b,
+            self._whole("coors_mlp_0_w"), self._whole("coors_mlp_0_b"),
+            self._whole("coors_mlp_1_w"), self.coors_mlp_1_b, scale)
         m_i, cd = m_sum[0], cd[0]
         if self.aggr == "mean":
             cnt = pv[0].reshape(n, uk).sum(dim=1, keepdim=True).clamp(min=1.0) \
@@ -360,8 +380,9 @@ class EGNNSparse(nn.Module):
                                   axis_name=self.shard_axis,
                                   uniform_size=self.uniform_graph_size) \
             if self.norm_feats else feats
-        h = F.silu(drop(torch.cat([hidden, m_i], dim=-1) @ self.node_mlp_0_w + self.node_mlp_0_b))
-        return feats + (h @ self.node_mlp_1_w + self.node_mlp_1_b)
+        h = F.silu(drop(self._col("node_mlp", torch.cat([hidden, m_i], dim=-1))
+                        @ self.node_mlp_0_w + self.node_mlp_0_b))
+        return feats + (self._row("node_mlp", h @ self.node_mlp_1_w) + self.node_mlp_1_b)
 
 
 class AttentionSparse(Attention):

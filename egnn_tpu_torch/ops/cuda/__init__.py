@@ -14,6 +14,8 @@ LAUNCH_COUNTS = {
     "grid_knn_cells": 0, "knn_select_queries": 0, "knn_select_window": 0,
     "fused_pair_fwd": 0, "fused_pair_bwd": 0, "fused_knn_fwd": 0, "fused_knn_bwd": 0,
     "fused_pair_fwd_bf16": 0, "fused_pair_bwd_bf16": 0,
+    "knn_select_gather_rows": 0, "knn_select_rows": 0, "knn_select_tiled_rows": 0,
+    "fused_knn_fwd_table": 0, "fused_knn_bwd_table": 0,
 }
 
 

@@ -124,9 +124,22 @@ def supports_knn_packed_tiled(n: int, kc: int) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _row_chunks(n: int, row_chunk: Optional[int]):
-    step = n if row_chunk is None else max(1, row_chunk)
-    return [slice(i, min(i + step, n)) for i in range(0, n, step)]
+def _row_chunks(n: int, row_chunk: Optional[int], rows: Optional[tuple[int, int]] = None):
+    """Slices of ``row_chunk`` rows over the rows r0 .. r0 + R - 1 of
+    ``rows = (r0, R)``, or over all n."""
+    r0, count = _row_block(n, rows)
+    step = count if row_chunk is None else max(1, row_chunk)
+    return [slice(i, min(i + step, r0 + count)) for i in range(r0, r0 + count, step)]
+
+
+def _row_block(n: int, rows: Optional[tuple[int, int]]) -> tuple[int, int]:
+    """(r0, R) of a row block of the n points: all of them by default."""
+    if rows is None:
+        return 0, n
+    r0, count = int(rows[0]), int(rows[1])
+    if not (0 <= r0 and 1 <= count and r0 + count <= n):
+        raise ValueError(f"a row block (r0, R) lies in the {n} points; got ({r0}, {count})")
+    return r0, count
 
 
 def _default_row_chunk(b: int, n: int) -> int:
@@ -151,19 +164,22 @@ def _ranking_rows(coors, rows: slice, mask, adj_mat):
     return ranking
 
 
-def knn_select_plain(coors, k, mask=None, adj_mat=None, row_chunk: Optional[int] = None):
+def knn_select_plain(coors, k, mask=None, adj_mat=None, row_chunk: Optional[int] = None,
+                     rows: Optional[tuple[int, int]] = None):
     """(vals, idx), each (b, n, k): the k smallest rankings per row, lowest
-    j first among ties (a stable sort), ``row_chunk`` rows at a time."""
-    parts = [nb.select_neighborhood(_ranking_rows(coors, rows, mask, adj_mat), k, math.inf)
-             for rows in _row_chunks(coors.shape[1], row_chunk)]
+    j first among ties (a stable sort), ``row_chunk`` rows at a time; with
+    ``rows = (r0, R)`` the rows r0 .. r0 + R - 1 alone, (b, R, k)."""
+    parts = [nb.select_neighborhood(_ranking_rows(coors, chunk, mask, adj_mat), k, math.inf)
+             for chunk in _row_chunks(coors.shape[1], row_chunk, rows)]
     return (torch.cat([p.ranking for p in parts], dim=1),
             torch.cat([p.indices for p in parts], dim=1))
 
 
-def knn_select_gather_plain(coors, k, table, mask=None, adj_mat=None):
-    """(vals, idx, rows): ``knn_select_plain`` plus the (b, n, k, tw) rows of
-    ``table`` at the winners."""
-    vals, idx = knn_select_plain(coors, k, mask, adj_mat)
+def knn_select_gather_plain(coors, k, table, mask=None, adj_mat=None,
+                            rows: Optional[tuple[int, int]] = None):
+    """(vals, idx, rows): ``knn_select_plain`` plus the (b, n or R, k, tw)
+    rows of the whole ``table`` at the winners."""
+    vals, idx = knn_select_plain(coors, k, mask, adj_mat, rows=rows)
     return vals, idx, gather_nodes(table, idx)
 
 
@@ -272,7 +288,8 @@ def _row_thresholds(tau, shift, fill_key):
 
 def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, rows: int = 4,
                            tile: Optional[int] = None, queries=None, q_mask=None,
-                           stripes: int = 1, window=None, table=None):
+                           stripes: int = 1, window=None, table=None,
+                           row_block: Optional[tuple[int, int]] = None):
     """The traversal of ``knn_select_block_kernel`` in torch: K3 and K4
     (``shift`` 0, (vals float32, idx int64)), K5 (12) or K6 (14) ((keys
     int32, cols int64)), each (b, n, k), and the counts of the run; with
@@ -282,7 +299,9 @@ def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, ro
     ``queries`` and ``window`` = (starts (b, groups), ti, W, ids (b, n)),
     K9: every query row, unmasked, against the columns [start, min(start +
     W, n)) of its group of ti rows (``mask`` the columns'), ranked and
-    reported by the columns' ids.
+    reported by the columns' ids. With ``row_block = (r0, R)`` (K1, K3, K4),
+    the points' rows r0 .. r0 + R - 1 alone, each with its global id's mask
+    bit, adjacency row and self column: (b, R, k).
 
     It takes the kernel's steps: ``rows`` rows a warp and 8 warps a block
     (rows past the last in the last block rank nothing), ``stripes`` warps a
@@ -308,11 +327,13 @@ def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, ro
     dev = x.device
     if queries is None and (q_mask is not None or window is not None):
         raise ValueError("q_mask and window come with the query rows")
-    if queries is not None and (adj_mat is not None or table is not None):
-        raise ValueError("the query rows take no adjacency and no payload")
+    if queries is not None and (adj_mat is not None or table is not None
+                                or row_block is not None):
+        raise ValueError("the query rows take no adjacency, no payload and no row block")
     if (BLOCK_WARPS // stripes) * stripes != BLOCK_WARPS:
         raise ValueError(f"stripes must divide {BLOCK_WARPS}; got {stripes}")
-    xq = x if queries is None else queries.float()
+    r0, nq = _row_block(n, row_block)
+    xq = x[:, r0:r0 + nq] if queries is None else queries.float()
     nq = xq.shape[1]
     tile = block_tile(c, window is not None) if tile is None else tile
     per_block = BLOCK_WARPS // stripes * rows
@@ -323,7 +344,7 @@ def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, ro
     xi[:, :nq] = xq
     mask_i = torch.ones(b, n_rows, dtype=torch.bool, device=dev)
     if mask is not None and window is None:
-        mask_i[:, :nq] = mask if queries is None else q_mask
+        mask_i[:, :nq] = mask[:, r0:r0 + nq] if queries is None else q_mask
     # each row's columns, [start, start + length) of the points (one row of
     # each broadcasts over all rows but K9's); K9: their ids
     bi = torch.arange(b, device=dev)[:, None, None]
@@ -377,9 +398,9 @@ def knn_select_block_model(coors, k, mask=None, adj_mat=None, shift: int = 0, ro
             special = torch.zeros_like(masked)
             fv = torch.where(masked, nb.MASKED_RANK_FILL, v)
             if adj_mat is not None:
-                eye = ar[:, None] == cols[0]
+                eye = (ar + r0)[:, None] == cols[0]
                 a = torch.zeros_like(special)
-                a[:, :n] = adj_mat[:, :, cj[0, 0]].bool() & valid[0]
+                a[:, :nq] = adj_mat[:, r0:r0 + nq][:, :, cj[0, 0]].bool() & valid[0]
                 special = eye | a
                 fv = torch.where(eye, -1.0, torch.where(a, 0.0, fv))
             # the low words of the packed values: the columns, K9 their ids
@@ -516,11 +537,11 @@ def knn_select_window_plain(queries, ranks, points_sorted, orig_ids, k, W,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SELECT_ARGS = [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P]
+_SELECT_ARGS = [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _I, _I, _P, _P, _P]
 _CANDIDATE_ARGS = [_P, _P, _I, _I, _I, _I, _P, _P, _P]
 _ENTRIES = {  # launch function -> argument types, all in csrc/knn_select_large.cu
-    "knn_select_gather_launch": [_P, _P, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _P, _P,
-                                 _P, _P],
+    "knn_select_gather_launch": [_P, _P, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _P],
     "knn_select_launch": _SELECT_ARGS,
     "knn_select_tiled_launch": _SELECT_ARGS,
     "knn_candidates_packed_tiled_launch": _CANDIDATE_ARGS,
@@ -583,41 +604,50 @@ def _check_inputs(coors, k, mask, adj_mat):
     return mask_ptr, adj_ptr, adj_bstride, keep
 
 
-def _launch_knn_select_gather(coors, k, table, mask, adj_mat):
+def _count_name(name: str, rows) -> str:
+    """The launch count of ``name``: a row-block launch counts apart
+    (``<name>_rows``), so that a run shows which mode its path took."""
+    return name if rows is None else f"{name}_rows"
+
+
+def _launch_knn_select_gather(coors, k, table, mask, adj_mat, rows=None):
     # `keep` holds any contiguous copies behind the pointers until the launch
     mask_ptr, adj_ptr, adj_bstride, keep = _check_inputs(coors, k, mask, adj_mat)
     b, n, c = coors.shape
+    r0, count = _row_block(n, rows)
     if (table.dim() != 3 or table.shape[:2] != (b, n) or table.dtype != torch.float32
             or table.device != coors.device or not table.is_contiguous()):
         raise ValueError("table must be a contiguous (b, n, tw) float32 tensor "
                          "on the coors' device")
     tw = table.shape[2]
-    vals = torch.empty((b, n, k), dtype=torch.float32, device=coors.device)
-    idx = torch.empty((b, n, k), dtype=torch.int64, device=coors.device)
-    rows = torch.empty((b, n, k, tw), dtype=torch.float32, device=coors.device)
+    vals = torch.empty((b, count, k), dtype=torch.float32, device=coors.device)
+    idx = torch.empty((b, count, k), dtype=torch.int64, device=coors.device)
+    out = torch.empty((b, count, k, tw), dtype=torch.float32, device=coors.device)
     with torch.cuda.device(coors.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry("knn_select_gather_launch")(
             coors.data_ptr(), mask_ptr, adj_ptr, adj_bstride, table.data_ptr(),
-            b, n, c, k, tw, vals.data_ptr(), idx.data_ptr(), rows.data_ptr(), stream)
+            b, n, c, k, tw, r0, count, vals.data_ptr(), idx.data_ptr(), out.data_ptr(), stream)
     _raise_on(err, "knn_select_gather")
-    LAUNCH_COUNTS["knn_select_gather"] += 1
-    return vals, idx, rows
+    LAUNCH_COUNTS[_count_name("knn_select_gather", rows)] += 1
+    return vals, idx, out
 
 
-def _launch_select(name, coors, k, mask, adj_mat):
-    """K3 or K4: the selection-only kernel behind the entry ``name``_launch."""
+def _launch_select(name, coors, k, mask, adj_mat, rows=None):
+    """K3 or K4: the selection-only kernel behind the entry ``name``_launch,
+    over the row block ``rows = (r0, R)`` or every row."""
     mask_ptr, adj_ptr, adj_bstride, keep = _check_inputs(coors, k, mask, adj_mat)
     b, n, c = coors.shape
-    vals = torch.empty((b, n, k), dtype=torch.float32, device=coors.device)
-    idx = torch.empty((b, n, k), dtype=torch.int64, device=coors.device)
+    r0, count = _row_block(n, rows)
+    vals = torch.empty((b, count, k), dtype=torch.float32, device=coors.device)
+    idx = torch.empty((b, count, k), dtype=torch.int64, device=coors.device)
     with torch.cuda.device(coors.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _entry(f"{name}_launch")(
-            coors.data_ptr(), mask_ptr, adj_ptr, adj_bstride, b, n, c, k,
+            coors.data_ptr(), mask_ptr, adj_ptr, adj_bstride, b, n, c, k, r0, count,
             vals.data_ptr(), idx.data_ptr(), stream)
     _raise_on(err, name)
-    LAUNCH_COUNTS[name] += 1
+    LAUNCH_COUNTS[_count_name(name, rows)] += 1
     return vals, idx
 
 
@@ -647,18 +677,20 @@ def _on_card(coors: torch.Tensor) -> bool:
 @torch.library.custom_op("egnn_tpu_torch::knn_select_gather", mutates_args=())
 def _knn_select_gather_op(coors: torch.Tensor, k: int, table: torch.Tensor,
                           mask: Optional[torch.Tensor],
-                          adj_mat: Optional[torch.Tensor]
+                          adj_mat: Optional[torch.Tensor], r0: int, nrows: int
                           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    rows = None if nrows < 0 else (r0, nrows)
     if _on_card(coors):
-        return _launch_knn_select_gather(coors, k, table, mask, adj_mat)
-    return knn_select_gather_plain(coors, k, table, mask, adj_mat)
+        return _launch_knn_select_gather(coors, k, table, mask, adj_mat, rows)
+    return knn_select_gather_plain(coors, k, table, mask, adj_mat, rows)
 
 
 @_knn_select_gather_op.register_fake
-def _knn_select_gather_shapes(coors, k, table, mask, adj_mat):
+def _knn_select_gather_shapes(coors, k, table, mask, adj_mat, r0, nrows):
     b, n, _ = coors.shape
-    return (coors.new_empty((b, n, k)), coors.new_empty((b, n, k), dtype=torch.int64),
-            table.new_empty((b, n, k, table.shape[-1])))
+    r = n if nrows < 0 else nrows
+    return (coors.new_empty((b, r, k)), coors.new_empty((b, r, k), dtype=torch.int64),
+            table.new_empty((b, r, k, table.shape[-1])))
 
 
 def knn_select_gather(
@@ -667,6 +699,7 @@ def knn_select_gather(
     table: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     adj_mat: Optional[torch.Tensor] = None,
+    rows: Optional[tuple[int, int]] = None,
 ):
     """K1: (vals (b, n, k), idx (b, n, k) int64, rows (b, n, k, tw)).
 
@@ -674,13 +707,19 @@ def knn_select_gather(
     (b, n, n) bool (an expanded (n, n) is read without a copy). A CUDA tensor
     launches the kernel; a CPU tensor runs ``knn_select_gather_plain``.
 
+    ``rows = (r0, R)``: the row-block mode, the rows r0 .. r0 + R - 1 of the
+    points alone against all n columns, each equal to the whole launch's row
+    bit for bit; the outputs are (b, R, ...), the payload rows gathered from
+    the whole table. Its launches count as ``knn_select_gather_rows``.
+
     The call goes through the operator ``torch.ops.egnn_tpu_torch.
     knn_select_gather``, whose fake implementation gives the output shapes,
     so that ``torch.export`` can trace a forward that selects through K1
     (``examples/export_serving.py``) and the exported program launches the
     kernel on the card.
     """
-    return _knn_select_gather_op(coors, k, table, mask, adj_mat)
+    r0, nrows = (0, -1) if rows is None else rows
+    return _knn_select_gather_op(coors, k, table, mask, adj_mat, r0, nrows)
 
 
 def knn_select(
@@ -688,11 +727,13 @@ def knn_select(
     k: int,
     mask: Optional[torch.Tensor] = None,
     adj_mat: Optional[torch.Tensor] = None,
+    rows: Optional[tuple[int, int]] = None,
 ):
-    """K3: (vals, idx), the selection of ``knn_select_gather`` without rows."""
+    """K3: (vals, idx), the selection of ``knn_select_gather`` without rows;
+    ``rows = (r0, R)`` its row-block mode (counted as ``knn_select_rows``)."""
     if _on_card(coors):
-        return _launch_select("knn_select", coors, k, mask, adj_mat)
-    return knn_select_plain(coors, k, mask, adj_mat)
+        return _launch_select("knn_select", coors, k, mask, adj_mat, rows)
+    return knn_select_plain(coors, k, mask, adj_mat, rows=rows)
 
 
 def knn_select_tiled(
@@ -700,14 +741,17 @@ def knn_select_tiled(
     k: int,
     mask: Optional[torch.Tensor] = None,
     adj_mat: Optional[torch.Tensor] = None,
+    rows: Optional[tuple[int, int]] = None,
 ):
     """K4: (vals float32, idx int64), K3's selection at any n. Like the TPU
     kernel it ranks in float32 whatever the coordinates' type; a CPU tensor
-    runs ``knn_select_plain`` over row chunks."""
+    runs ``knn_select_plain`` over row chunks. ``rows = (r0, R)``: the
+    row-block mode (counted as ``knn_select_tiled_rows``)."""
     if _on_card(coors):
-        return _launch_select("knn_select_tiled", coors, k, mask, adj_mat)
+        return _launch_select("knn_select_tiled", coors, k, mask, adj_mat, rows)
     b, n, _ = coors.shape
-    return knn_select_plain(coors.float(), k, mask, adj_mat, _default_row_chunk(b, n))
+    return knn_select_plain(coors.float(), k, mask, adj_mat, _default_row_chunk(b, n),
+                            rows=rows)
 
 
 def knn_candidates_packed_tiled(

@@ -6,7 +6,9 @@ forward and backward), their plain PyTorch versions and their gates.
   ``_bwd_kernel``): the pipeline on pre-gathered neighbour rows.
 - K11f / K11b ``fused_knn_messages`` replace those of
   ``egnn_tpu/ops/pallas/knn_layer.py:fused_knn_messages``: the same pipeline
-  reading ``coors[idx]`` and ``proj_j[idx]`` itself.
+  reading ``coors[idx]`` and ``proj_j[idx]`` itself, from the i side's own
+  rows or from a j table of its own (``coors_j``: the node-sharded layer's
+  gathered cloud; launches ``fused_knn_{fwd,bwd}_table``).
 
 For each pair row r = (node i, slot t)::
 
@@ -106,13 +108,14 @@ class _Shape(ctypes.Structure):
     _fields_ = [(name, _I) for name in (
         "b", "n", "k", "c", "d", "h", "m", "m4", "fourier", "ti", "rows",
         "soft_edges", "norm_coors", "has_clamp", "gate_feats_only", "mxu_bf16")] + [
-        ("clamp", _F), ("eps", _F)]
+        ("clamp", _F), ("eps", _F), ("nj", _I)]
 
 
 _TENSOR_FIELDS = (
     "coors", "cj", "fj", "proj_i", "proj_j", "idx", "pv",
     "wj", "wd", "w2", "b2", "gw", "gb", "cw1", "cb1", "cw2", "cb2", "scale",
-    "m_i", "cd", "g_mi", "g_cd", "d_ci", "d_cj", "d_fj", "d_pi", "d_pairs", "partial")
+    "m_i", "cd", "g_mi", "g_cd", "d_ci", "d_cj", "d_fj", "d_pi", "d_pairs", "partial",
+    "coors_j")
 
 
 class _Tensors(ctypes.Structure):
@@ -675,27 +678,34 @@ def _gather_rows(x, idx):
     return torch.gather(x, 1, flat).reshape(b, n, k, x.shape[-1])
 
 
-def fused_knn_messages_plain(coors, proj_i, proj_j, idx, pv, weights, opts: PairOptions):
-    """K11f's plain version."""
+def fused_knn_messages_plain(coors, proj_i, proj_j, idx, pv, weights, opts: PairOptions,
+                             coors_j=None):
+    """K11f's plain version; ``coors_j`` (b, nj, c), with ``proj_j`` (b, nj,
+    h), a j table of its own that ``idx`` indexes (the i side's by
+    default)."""
     pv4 = pv[..., None].to(coors.dtype)
-    t = _tile_forward(coors, _gather_rows(coors, idx), _gather_rows(proj_j, idx), proj_i, pv4,
-                      weights, opts)
+    cj = _gather_rows(coors if coors_j is None else coors_j, idx)
+    t = _tile_forward(coors, cj, _gather_rows(proj_j, idx), proj_i, pv4, weights, opts)
     return _aggregate(t, pv4)
 
 
 def fused_knn_messages_backward_plain(coors, proj_i, proj_j, idx, pv, weights, g_mi, g_cd,
-                                      opts: PairOptions):
+                                      opts: PairOptions, coors_j=None):
     """K11b's plain version: (d_coors, d_proj_i, d_proj_j, the ten weight
     gradients); the j-side rows [-d_rel | d_h1] summed per node by K2's
-    plain version."""
+    plain version. With a j table ``coors_j`` (b, nj, c), d_coors is the i
+    side's alone, and the j table's follows the weight gradients."""
     b, n, c = coors.shape
+    table = coors if coors_j is None else coors_j
     pv4 = pv[..., None].to(coors.dtype)
-    t = _tile_forward(coors, _gather_rows(coors, idx), _gather_rows(proj_j, idx), proj_i, pv4,
+    t = _tile_forward(coors, _gather_rows(table, idx), _gather_rows(proj_j, idx), proj_i, pv4,
                       weights, opts)
     d_rel, d_h1, d_w = _tile_backward(t, pv4, weights, g_mi, g_cd, opts)
     j_side = seg_kernels.segment_sum_plain(
         torch.cat([-d_rel, d_h1], dim=-1).reshape(b, -1, c + d_h1.shape[-1]),
-        idx.reshape(b, -1), n)
+        idx.reshape(b, -1), table.shape[1])
+    if coors_j is not None:
+        return d_rel.sum(dim=2), d_h1.sum(dim=2), j_side[..., c:], d_w, j_side[..., :c]
     return d_rel.sum(dim=2) + j_side[..., :c], d_h1.sum(dim=2), j_side[..., c:], d_w
 
 
@@ -709,10 +719,13 @@ def _f32(x):
 
 
 def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx, pv, weights,
-            grads=None):
+            grads=None, coors_j=None):
     """One launch of csrc/pair_messages.cu: the forward, or with ``grads`` =
     (g_mi, g_cd) the backward and its reduction of the weight gradients.
-    ``weights`` are the eleven of K10 (Wj None for K11); pv is (b, n, k)."""
+    ``weights`` are the eleven of K10 (Wj None for K11); pv is (b, n, k).
+    K11's j table: ``coors_j`` (b, nj, c) with ``proj_j`` (b, nj, h), or
+    ``coors`` itself (nj = n); its launches count under
+    ``fused_knn_{fwd,bwd}_table``."""
     backward = grads is not None
     dev = coors.device
     b, n, c = coors.shape
@@ -734,8 +747,11 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
     expect = {"coors": ((b, n, c), coors), "proj_i": ((b, n, h), proj_i),
               "pv": ((b, n, k), pv), "wd": ((dd, h), wd), "w2": ((h, m), w2),
               "cw1": ((m, m4), cw1)}
+    table = coors if coors_j is None else coors_j
+    nj = table.shape[1]
     if gather:
-        expect.update(proj_j=((b, n, h), proj_j), idx=((b, n, k), idx))
+        expect.update(proj_j=((b, nj, h), proj_j), idx=((b, n, k), idx),
+                      coors_j=((b, nj, c), table))
     else:
         expect.update(cj=((b, n * k, c), cj), fj=((b, n * k, d), fj), wj=((d, h), wj))
     for name, (shape, x) in expect.items():
@@ -758,11 +774,12 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
                    rows=rows, soft_edges=int(opts.soft_edges), norm_coors=int(opts.norm_coors),
                    has_clamp=int(opts.clamp is not None),
                    gate_feats_only=int(opts.gate_feats_only), mxu_bf16=int(opts.mxu_bf16),
-                   clamp=float(opts.clamp or 0.0), eps=float(opts.eps))
+                   clamp=float(opts.clamp or 0.0), eps=float(opts.eps), nj=nj)
     # float32 contiguous copies live until the launch has been queued
     held = {"coors": _f32(coors), "proj_i": _f32(proj_i), "pv": _f32(pv)}
     if gather:
         held.update(proj_j=_f32(proj_j), idx=idx.detach().to(torch.int64).contiguous())
+        held["coors_j"] = held["coors"] if coors_j is None else _f32(coors_j)
     else:
         held.update(cj=_f32(cj), fj=_f32(fj))
     for name, w in zip(_TENSOR_FIELDS[7:18], weights):
@@ -784,7 +801,7 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
             out.update(d_cj=new(b, n * k, c), d_fj=new(b, n * k, d))
     tensors = _Tensors(**{name: t.data_ptr() for name, t in {**held, **out}.items()})
     name = (("fused_knn_" if gather else "fused_pair_") + ("bwd" if backward else "fwd")
-            + ("_bf16" if opts.mxu_bf16 else ""))
+            + ("_bf16" if opts.mxu_bf16 else "") + ("_table" if coors_j is not None else ""))
     with torch.cuda.device(dev):
         # read here, not cached: autograd runs backward on its own thread
         stream = torch.cuda.current_stream().cuda_stream
@@ -844,27 +861,35 @@ def fused_pair_messages_backward(coors, cj, fj, proj_i, pv, weights, g_mi, g_cd,
             out["d_pi"].to(proj_i.dtype), d_w)
 
 
-def fused_knn_messages_forward(coors, proj_i, proj_j, idx, pv, weights, opts: PairOptions):
-    """K11f, as ``fused_pair_messages_forward``."""
+def fused_knn_messages_forward(coors, proj_i, proj_j, idx, pv, weights, opts: PairOptions,
+                               coors_j=None):
+    """K11f, as ``fused_pair_messages_forward``; ``coors_j``: a j table of
+    its own (``fused_knn_messages_plain``)."""
     if not _on_card(coors):
-        return fused_knn_messages_plain(coors, proj_i, proj_j, idx, pv, weights, opts)
+        return fused_knn_messages_plain(coors, proj_i, proj_j, idx, pv, weights, opts, coors_j)
     m_i, cd = _launch(True, opts, coors, None, None, proj_i, proj_j, idx, pv,
-                      (None,) + tuple(weights))
+                      (None,) + tuple(weights), coors_j=coors_j)
     return m_i.to(proj_i.dtype), cd.to(coors.dtype)
 
 
 def fused_knn_messages_backward(coors, proj_i, proj_j, idx, pv, weights, g_mi, g_cd,
-                                opts: PairOptions):
+                                opts: PairOptions, coors_j=None):
     """K11b: (d_coors, d_proj_i, d_proj_j, the ten weight gradients). The
     kernel leaves the j-side rows [-d_rel | d_h1] in pair layout; K2 sums
-    them per node, order-free."""
+    them per node of the j table, order-free. With a j table ``coors_j``,
+    d_coors is the i side's alone and the j table's follows (as
+    ``fused_knn_messages_backward_plain``)."""
     if not _on_card(coors):
         return fused_knn_messages_backward_plain(coors, proj_i, proj_j, idx, pv, weights, g_mi,
-                                                 g_cd, opts)
+                                                 g_cd, opts, coors_j)
     b, n, c = coors.shape
     out, d_w = _launch(True, opts, coors, None, None, proj_i, proj_j, idx, pv,
-                       (None,) + tuple(weights), grads=(g_mi, g_cd))
-    j_side = seg_kernels.segment_sum(out["d_pairs"], idx.reshape(b, -1).contiguous(), n)
+                       (None,) + tuple(weights), grads=(g_mi, g_cd), coors_j=coors_j)
+    nj = n if coors_j is None else coors_j.shape[1]
+    j_side = seg_kernels.segment_sum(out["d_pairs"], idx.reshape(b, -1).contiguous(), nj)
+    if coors_j is not None:
+        return (out["d_ci"].to(coors.dtype), out["d_pi"].to(proj_i.dtype),
+                j_side[..., c:].to(proj_j.dtype), d_w[1:], j_side[..., :c].to(coors_j.dtype))
     return ((out["d_ci"] + j_side[..., :c]).to(coors.dtype), out["d_pi"].to(proj_i.dtype),
             j_side[..., c:].to(proj_j.dtype), d_w[1:])
 
@@ -888,19 +913,20 @@ class _FusedPairMessages(torch.autograd.Function):
 
 class _FusedKnnMessages(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, opts, coors, proj_i, proj_j, idx, pv, *weights):
-        ctx.opts = opts
-        ctx.save_for_backward(coors, proj_i, proj_j, idx, pv, *weights)
-        return fused_knn_messages_forward(coors, proj_i, proj_j, idx, pv, weights, opts)
+    def forward(ctx, opts, coors, proj_i, proj_j, idx, pv, coors_j, *weights):
+        ctx.opts, ctx.table = opts, coors_j is not None
+        ctx.save_for_backward(coors, proj_i, proj_j, idx, pv, coors_j, *weights)
+        return fused_knn_messages_forward(coors, proj_i, proj_j, idx, pv, weights, opts, coors_j)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g_mi, g_cd):
-        coors, proj_i, proj_j, idx, pv, *weights = ctx.saved_tensors
-        d_coors, d_pi, d_pj, d_w = fused_knn_messages_backward(
-            coors, proj_i, proj_j, idx, pv, weights, g_mi, g_cd, ctx.opts)
+        coors, proj_i, proj_j, idx, pv, coors_j, *weights = ctx.saved_tensors
+        out = fused_knn_messages_backward(coors, proj_i, proj_j, idx, pv, weights, g_mi, g_cd,
+                                          ctx.opts, coors_j if ctx.table else None)
+        d_coors, d_pi, d_pj, d_w = out[:4]
         d_w = tuple(g.reshape(w.shape) for g, w in zip(d_w, weights))
-        return (None, d_coors, d_pi, d_pj, None, None) + d_w
+        return (None, d_coors, d_pi, d_pj, None, None, out[4] if ctx.table else None) + d_w
 
 
 def fused_pair_messages(coors, cj, fj, proj_i, pv, fourier: int, soft_edges: bool,
@@ -928,14 +954,19 @@ def fused_pair_messages(coors, cj, fj, proj_i, pv, fourier: int, soft_edges: boo
 
 
 def fused_knn_messages(coors, proj_i, proj_j, idx, pv, fourier: int, soft_edges: bool,
-                       norm_coors: bool, clamp: Optional[float], eps: float, *weights):
+                       norm_coors: bool, clamp: Optional[float], eps: float, *weights,
+                       coors_j=None):
     """K11, differentiable: the same pipeline gathering ``coors[idx]`` and
     ``proj_j[idx]`` itself. proj_i, proj_j (b, n, h); idx (b, n, k) integer
     neighbour ids and pv (b, n, k) pair validity (bool or integer), neither
     with a gradient. ``weights`` = (wd, w2, b2, gw, gb, cw1, cb1, cw2, cb2,
     scale), dummies as in ``fused_pair_messages``. Returns (m_i, coors_delta).
+
+    ``coors_j`` (b, nj, c): a j table of its own, whose rows ``idx`` and
+    ``proj_j`` (b, nj, h) index: the node-sharded layer's gathered cloud,
+    while coors and proj_i are the rank's own rows; it gets its gradient.
     """
     if len(weights) != 10:
         raise ValueError(f"expected 10 weights, got {len(weights)}")
     opts = PairOptions(fourier, soft_edges, norm_coors, clamp, eps, False)
-    return _FusedKnnMessages.apply(opts, coors, proj_i, proj_j, idx, pv, *weights)
+    return _FusedKnnMessages.apply(opts, coors, proj_i, proj_j, idx, pv, coors_j, *weights)

@@ -158,26 +158,29 @@ def knn_select(
 
 class _KnnSelectGather(torch.autograd.Function):
     """K1 (or its plain version) with the table's backward: the rows'
-    cotangents summed into the table's rows at the saved indices."""
+    cotangents summed into the table's rows at the saved indices. With
+    ``rows = (r0, R)`` (the row-block mode) the R rows' cotangents are summed
+    into all n rows of the table."""
 
     @staticmethod
-    def forward(ctx, table, coors_sg, k, mask, adj_mat):
+    def forward(ctx, table, coors_sg, k, mask, adj_mat, rows=None):
         from .cuda import knn as knn_kernels
 
-        vals, idx, rows = knn_kernels.knn_select_gather(
-            coors_sg, k, table, mask=mask, adj_mat=adj_mat)
+        vals, idx, out = knn_kernels.knn_select_gather(
+            coors_sg, k, table, mask=mask, adj_mat=adj_mat, rows=rows)
         ctx.mark_non_differentiable(vals, idx)
         ctx.save_for_backward(idx)
-        return vals, idx, rows
+        ctx.num_nodes = table.shape[1]
+        return vals, idx, out
 
     @staticmethod
     def backward(ctx, d_vals, d_idx, d_rows):
         (idx,) = ctx.saved_tensors
-        b, n, k = idx.shape
+        b, r, k = idx.shape
         tw = d_rows.shape[-1]
         d_table = batched_segment_sum(
-            d_rows.contiguous().reshape(b, n * k, tw), idx.reshape(b, n * k), n)
-        return d_table, None, None, None, None
+            d_rows.contiguous().reshape(b, r * k, tw), idx.reshape(b, r * k), ctx.num_nodes)
+        return d_table, None, None, None, None, None
 
 
 def _table(coors, mask, payload):
@@ -496,6 +499,54 @@ def knn_select_gather(
     else:
         vals, indices, gathered = _KnnSelectGather.apply(
             _table(coors, mask, payload), coors_sg, k, mask, adj_mat)
+    nbhd = Neighborhood(indices=indices, ranking=vals, valid=vals <= valid_radius)
+    return nbhd, gathered
+
+
+def knn_select_gather_rows(
+    coors: torch.Tensor,
+    num_nearest: int,
+    valid_radius: float,
+    rows: tuple[int, int],
+    mask: Optional[torch.Tensor] = None,
+    adj_mat: Optional[torch.Tensor] = None,
+    payload: Optional[torch.Tensor] = None,
+) -> tuple[Neighborhood, Optional[torch.Tensor]]:
+    """``knn_select_gather`` for the rows r0 .. r0 + R - 1 of ``rows = (r0,
+    R)`` alone: the selection of a node-sharded layer, whose rank ranks its
+    own rows against the whole (gathered) cloud. ``coors`` (b, n, c),
+    ``mask`` (b, n), ``adj_mat`` (b, n, n) and ``payload`` (b, n, w) are
+    whole; the result is (b, R, k) and the gathered rows (b, R, k, tw) of
+    ``[coors | mask | payload]``, each row equal to the whole call's row of
+    the same node on the exact route.
+
+    It takes the exact route in the kernels' row-block mode: within the
+    full-band reach K1 with a payload (K3 without), beyond it K4 and
+    ``gather_nodes``. Either backward sums the gathered rows' cotangents into
+    all n rows of the table (K2 on the card). The grid and packed routes
+    select the same neighbours and are not given a row block: a node-sharded
+    call ranks its R rows against all n columns at any n."""
+    from .cuda import knn as knn_kernels
+
+    coors_sg = coors.detach().contiguous()
+    n = coors.shape[1]
+    k = num_nearest
+    if k > n:
+        raise ValueError(f"num_nearest {k} is larger than the {n} nodes to select from")
+    rows = (int(rows[0]), int(rows[1]))
+    if not knn_kernels.supports_knn_shapes(n):
+        vals, indices = knn_kernels.knn_select_tiled(
+            coors_sg.float(), k, mask=mask, adj_mat=adj_mat, rows=rows)
+        vals = vals.to(coors.dtype)
+        gathered = None if payload is None else gather_nodes(
+            _table(coors, mask, payload), indices)
+    elif payload is None:
+        vals, indices = knn_kernels.knn_select(coors_sg, k, mask=mask, adj_mat=adj_mat,
+                                               rows=rows)
+        gathered = None
+    else:
+        vals, indices, gathered = _KnnSelectGather.apply(
+            _table(coors, mask, payload), coors_sg, k, mask, adj_mat, rows)
     nbhd = Neighborhood(indices=indices, ranking=vals, valid=vals <= valid_radius)
     return nbhd, gathered
 

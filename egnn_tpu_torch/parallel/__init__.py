@@ -13,7 +13,7 @@ JAX package takes a mesh axis name (``shard_axis="graph"``), the port takes
 that axis's process group (``mesh.get_group("graph")``).
 """
 from .distributed import MetricLogger, initialize, is_coordinator, log0, sync_global_devices
-from .mesh import dense_batch_block, make_mesh, sparse_node_block
+from .mesh import dense_batch_block, make_mesh, shard_nodes, sparse_node_block
 from .pipeline import (make_pipelined_apply, make_pipelined_loss, pipeline_apply, pipeline_loss,
                        stack_layer_params, stage_block, to_stages)
 from .ring import ring_pairwise
@@ -28,6 +28,7 @@ __all__ = [
     "sync_global_devices",
     "dense_batch_block",
     "make_mesh",
+    "shard_nodes",
     "sparse_node_block",
     "ring_pairwise",
     "make_pipelined_apply",

@@ -10,9 +10,10 @@ of the ``lax`` collectives that the JAX package calls inline under
 - ``all_reduce_max``: ``lax.pmax``, without a gradient (the JAX code
   applies it under ``stop_gradient``, ``egnn_tpu/ops/segment.py:156-161``).
 - ``all_gather_rows``: ``lax.all_gather(..., axis=0, tiled=True)``, the
-  ranks' blocks of rows in rank order. Its backward sums the cotangents
-  over the group and keeps this rank's block: ``reduce_scatter`` under
-  NCCL, an ``all_reduce`` and a slice under gloo (the same sums).
+  ranks' blocks of rows in rank order (``dim=1``: of a batch's nodes, the
+  node-sharded dense layer's table). Its backward sums the cotangents over
+  the group and keeps this rank's block: ``reduce_scatter`` under NCCL, an
+  ``all_reduce`` and a slice under gloo (the same sums).
 - ``ring_permute``: ``lax.ppermute`` around the ring (rank r sends to r + 1
   and receives from r - 1), for one tensor or several in one message. Its
   backward is the reverse permute. Point to point only: no rank ever holds
@@ -135,11 +136,14 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
         return all_reduce_(x.detach().contiguous().clone(), group, dist.ReduceOp.MAX)
 
 
-def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """(rows, ...) on each rank -> (size * rows, ...), rank r's rows at
     [r * rows, (r + 1) * rows); the backward keeps this rank's block of the
-    summed cotangents."""
-    return _AllGatherRows.apply(x, group)
+    summed cotangents. ``dim``: the dimension gathered (1: the nodes of a
+    (b, n_local, ...) block)."""
+    if dim == 0:
+        return _AllGatherRows.apply(x, group)
+    return _AllGatherRows.apply(x.movedim(dim, 0), group).movedim(0, dim)
 
 
 def shard_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -12,6 +12,10 @@ so where the JAX package gives a ``NamedSharding`` for each input
 rank's block of the global tensor: ``dense_batch_block`` (batch on
 ``data``, nodes on ``graph``) and ``sparse_node_block`` (packed nodes or
 edge slots on the flattened (data, graph) axes).
+
+``shard_nodes`` sets a dense network up for the ``graph`` axis, where the
+JAX package lets GSPMD split its kNN: each rank ranks its own rows against
+the gathered cloud (``models/egnn.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..utils.device import resolve_device
+from .collectives import check_group
 
 
 def make_mesh(data: int = 1, graph: int = 1, device=None) -> DeviceMesh:
@@ -68,3 +73,22 @@ def sparse_node_block(mesh_or_group, t: torch.Tensor) -> torch.Tensor:
     the mesh's flattened (data, graph) axes or a process group's ranks."""
     index, count = rank_block_index(mesh_or_group)
     return _block(t, 0, index, count)
+
+
+def shard_nodes(module: torch.nn.Module, group) -> torch.nn.Module:
+    """Set up a dense ``EGNNNetwork`` or ``EGNN`` (in place) to run with its
+    nodes block-sharded over ``group``, a process group (the mesh's
+    ``graph`` axis): every layer, attention block and the network take this
+    rank's block of nodes (``dense_batch_block``) and the whole adjacency.
+    A kNN layer gathers the ranks' node rows once and selects its own rows
+    against them (the row-block selection); an all-pairs layer takes the
+    ring over ``group``; global attention attends over the gathered nodes.
+    ``group=None`` undoes it. Returns ``module``."""
+    check_group(group, "group")
+    if not hasattr(module, "node_group"):
+        raise ValueError(f"{type(module).__name__} is not a dense EGNN network or layer: the "
+                         "graph axis shards their nodes")
+    for sub in module.modules():
+        if hasattr(sub, "node_group"):
+            sub.node_group = group
+    return module

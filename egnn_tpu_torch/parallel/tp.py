@@ -21,14 +21,19 @@ gradients unscaled where every rank holds the whole loss. Every rank of the
 model group runs the whole forward and backward on the same inputs; a
 parameter's gradient is this rank's shard of the replicated module's.
 
+The sparse layer (``models/egnn_sparse.py:EGNNSparse``: edge MLP ein ->
+2*ein -> m_dim, coordinate MLP m_dim -> 4*m_dim -> 1, node MLP dim + m_dim
+-> 2*dim -> dim) takes the same split through the same hooks
+(``ShardedMLPs``); its per-edge products split as the dense layer's pair
+products do, and ``fused_uniform`` (K10) takes the weights gathered whole.
+
 Divisibility: the edge MLP's hidden width is ``2*(2*dim + 2F + 1 + e)``,
 2 mod 4 for even dim with F = e = 0, so it shards at most 2 ways; a
 parameter whose sharded dimension the axis does not divide stays
 replicated (``tp_hidden_multiple`` pads the width to shard). Worth it only
 at wide layers (dim 512 and up): at dim 32 the sums cost more than the
-products save. Only the dense family is sharded: ``tp_shard_module``
-raises for a module whose sharded parameters belong to another kind of
-layer (the sparse family's MLPs, whose names the rule also matches).
+products save. ``tp_shard_module`` raises for a module whose sharded
+parameters belong to a layer without the hooks.
 """
 from __future__ import annotations
 
@@ -38,7 +43,38 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
 
 from ..utils.device import resolve_device
-from .collectives import shard_along
+from .collectives import copy_to_group, gather_from_group, reduce_from_group, shard_along
+
+
+class ShardedMLPs:
+    """The hooks of a layer whose MLP pairs ``tp_shard_module`` may shard
+    (the dense ``EGNN`` and the sparse ``EGNNSparse``): the model group and
+    the MLPs (``"edge_mlp"``, ``"coors_mlp"``, ``"node_mlp"``) whose weights
+    this rank holds a shard of, both set by ``tp_shard_module``; with none
+    sharded every hook is the identity."""
+
+    tp_group = None
+    tp_sharded: frozenset = frozenset()
+
+    def _col(self, mlp: str, x):
+        """The input of ``mlp``'s first (column-parallel) product: under
+        tensor parallelism its gradient is summed over the model group."""
+        return copy_to_group(x, self.tp_group) if mlp in self.tp_sharded else x
+
+    def _row(self, mlp: str, y):
+        """``mlp``'s second (row-parallel) product before its bias: under
+        tensor parallelism the ranks' partial products are summed."""
+        return reduce_from_group(y, self.tp_group) if mlp in self.tp_sharded else y
+
+    def _whole(self, name: str):
+        """A parameter whole: a shard (``<mlp>_0_w`` of columns, ``<mlp>_0_b``,
+        ``<mlp>_1_w`` of rows) gathered over the model group, for the fused
+        kernels."""
+        p = getattr(self, name)
+        mlp, part = name.rsplit("_", 2)[0], name[-3:]
+        if mlp not in self.tp_sharded or part not in ("0_w", "0_b", "1_w"):
+            return p
+        return gather_from_group(p, self.tp_group, 1 if part == "0_w" else 0)
 
 
 def make_tp_mesh(data: int = 1, model: int = 1, device=None) -> DeviceMesh:
@@ -95,7 +131,8 @@ def tp_shard_module(module: nn.Module, mesh: DeviceMesh) -> nn.Module:
     layer's MLP is sharded where its three sharded parameters are (an
     indivisible width leaves the MLP replicated, with no collective).
     Raises ``NotImplementedError`` where a sharded parameter belongs to a
-    module other than the dense ``EGNN`` layer."""
+    module other than a layer with the hooks (``ShardedMLPs``: the dense
+    ``EGNN``, the sparse ``EGNNSparse``)."""
     group = mesh.get_group("model")
     placements = tp_param_sharding(module, mesh)
     for prefix, sub in module.named_modules():
@@ -104,10 +141,10 @@ def tp_shard_module(module: nn.Module, mesh: DeviceMesh) -> nn.Module:
                    if isinstance(placements[f"{prefix}.{name}" if prefix else name], Shard)}
         if not sharded:
             continue
-        if not hasattr(sub, "tp_sharded"):
+        if not isinstance(sub, ShardedMLPs):
             raise NotImplementedError(
-                f"tensor parallelism covers the dense EGNN layer; {type(sub).__name__} "
-                f"({prefix or 'the module'}) holds {sorted(sharded)}")
+                f"tensor parallelism covers the EGNN and EGNNSparse layers; "
+                f"{type(sub).__name__} ({prefix or 'the module'}) holds {sorted(sharded)}")
         for name in sharded:
             spec = tp_param_spec(name)
             p = own[name]

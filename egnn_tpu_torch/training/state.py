@@ -14,7 +14,9 @@ Two multi-process steps (``egnn_tpu/training/state.py:135-164, 229-304``)
 run one process a rank over ``torch.distributed``: the data-parallel dense
 step, ``make_sharded_denoise_train_step`` (the batch split over the mesh's
 ``data`` axis, parameters replicated), and the edge-partitioned sparse step,
-``make_partitioned_sparse_train_step``. Each rank differentiates its share
+``make_partitioned_sparse_train_step``; the dense step also shards the nodes
+over a ``graph`` axis, where each kNN layer ranks its rank's rows against
+the gathered cloud. Each rank differentiates its share
 of the global loss, the gradients are summed over the group in one
 ``all_reduce``, and every rank's optimizer takes the same step. The ring
 step, ``make_ring_denoise_train_step`` (``egnn_tpu/training/state.py:
@@ -32,6 +34,7 @@ from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..parallel.collectives import all_reduce_, all_reduce_sum, broadcast_
+from ..parallel.mesh import shard_nodes
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor,
@@ -327,17 +330,25 @@ def make_sharded_denoise_train_step(
     ``make_denoise_train_step`` (``step.state``); on a mesh of one rank the
     two steps give the same bits.
 
-    A mesh whose ``graph`` axis is longer than 1 raises
-    ``NotImplementedError``: the node-sharded all-pairs network trains with
-    ``make_ring_denoise_train_step``; the node-sharded kNN route (a
-    row-sharded selection) is not ported.
+    A (data, graph) mesh whose ``graph`` axis is longer than 1 adds the
+    node sharding of the JAX step's ``P("data", "graph")`` inputs: the step
+    sets ``net`` up for the axis (``parallel.shard_nodes`` with the axis's
+    group), each rank's tokens, coordinates and mask are its block of the
+    batch and of the nodes (``dense_batch_block``) and the adjacency is
+    whole. A kNN layer ranks the rank's rows against the gathered cloud
+    (the row-block selection), an all-pairs layer takes the ring, global
+    attention attends over the gathered nodes. The loss's denominator and
+    the gradients are then summed over both axes; the mesh must span every
+    process.
     """
     if mesh.mesh_dim_names[1] == "graph" and mesh.size(1) > 1:
-        raise NotImplementedError(
-            "a dense mesh with graph > 1: an all-pairs network (layers built with ring_axis) "
-            "trains with make_ring_denoise_train_step; the node-sharded kNN route (a "
-            "row-sharded selection) is not ported")
-    group = mesh.get_group("data")
+        if mesh.size() != dist.get_world_size():
+            raise ValueError("the node-sharded step sums over the whole mesh: it must span "
+                             "every process")
+        shard_nodes(net, mesh.get_group("graph"))
+        group = dist.group.WORLD
+    else:
+        group = mesh.get_group("data")
 
     def local_loss(tokens, noised_coors, target_coors, adj_mat, mask):
         _, denoised = net(tokens, noised_coors, adj_mat=adj_mat, mask=mask)

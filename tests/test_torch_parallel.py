@@ -14,8 +14,9 @@ Held here: the collectives' forwards and backwards; ``make_sharded_denoise
 _train_step`` at 2 ranks against ``egnn_tpu``'s on a (data=2, graph=1)
 mesh (loss and parameters, with masks whose counts differ between the
 ranks' halves), the ranks' parameters and optimizer state bitwise equal,
-and at 1 rank bitwise equal to ``make_denoise_train_step``; the
-``graph > 1`` refusal; ``MetricLogger``, ``initialize``,
+and at 1 rank bitwise equal to ``make_denoise_train_step``; the step on a
+(data=1, graph=2) mesh (``test_torch_graph_axis.py`` holds that axis in
+full); ``MetricLogger``, ``initialize``,
 ``is_coordinator``, ``log0`` as ``tests/test_utils_subsystems.py`` holds
 the JAX ones; ``PrefetchLoader(shard=...)``; and the two examples,
 ``migrate_from_torch`` (on a stand-in with the reference's layout) and
@@ -136,7 +137,8 @@ def collective_cases(rank, world, payload):
 
 def dense_dp_cases(rank, world, p):
     """``make_sharded_denoise_train_step`` on a (world, 1) mesh, each rank on
-    its block of the batch; also the refusal of a graph axis."""
+    its block of the batch; also on a (1, world) mesh, the nodes sharded
+    over the graph axis, from the same weights."""
     from egnn_tpu_torch import EGNNNetwork, parallel, training
     from egnn_tpu_torch.utils import finite_or_skip_step
     from egnn_tpu_torch.utils.port_weights import load_flax_params
@@ -153,14 +155,18 @@ def dense_dp_cases(rank, world, p):
 
     losses = [step(block(tokens), block(noised), block(clean), adj, block(mask)).item()
               for _ in range(p["steps"])]
-    refused = ""
-    try:
-        training.make_sharded_denoise_train_step(net, opt, parallel.make_mesh(1, world,
-                                                                              device="cpu"))
-    except NotImplementedError as e:
-        refused = str(e)
+    graph_mesh = parallel.make_mesh(1, world, device="cpu")
+    graph_net = EGNNNetwork(**p["net_kw"], **F64)
+    load_flax_params(graph_net, p["params"])
+    graph_step = training.make_sharded_denoise_train_step(
+        graph_net, training.make_adam(graph_net.parameters(), 1e-3), graph_mesh)
+    graph_losses = [graph_step(*(parallel.dense_batch_block(graph_mesh, t)
+                                 for t in (tokens, noised, clean)), adj,
+                               parallel.dense_batch_block(graph_mesh, mask)).item()
+                    for _ in range(p["steps"])]
     return dict(losses=losses, params=_named(net), opt_state=_optimizer_state(opt),
-                steps=step.state.step, refused=refused)
+                steps=step.state.step, graph_losses=graph_losses,
+                graph_params=_named(graph_net))
 
 
 Batch = namedtuple("Batch", "tokens coors adj_mat")
@@ -365,8 +371,14 @@ def test_sharded_denoise_step_ranks_bitwise_equal(dense_dp):
 
 
 def test_sharded_denoise_step_refuses_a_graph_axis(dense_dp):
+    """A graph axis was refused until the node-sharded kNN route was ported;
+    now the step on a (data=1, graph=2) mesh runs and gives the losses and
+    parameters of JAX's data-parallel step (the same function)."""
     for res in dense_dp["ranks"]:
-        assert "graph > 1" in res["refused"]
+        np.testing.assert_allclose(res["graph_losses"], dense_dp["jlosses"], rtol=1e-10, atol=0)
+        for name, value in dense_dp["jparams"].items():
+            np.testing.assert_allclose(res["graph_params"][name], value, rtol=1e-8, atol=1e-10,
+                                       err_msg=name)
 
 
 @pytest.fixture

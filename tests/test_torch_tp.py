@@ -13,9 +13,15 @@ which shards 4 ways; the streamed all-pairs layer and the fused kernels'
 plain versions (``fused_pairs``, ``fused_knn``: the weights gathered whole)
 against the replicated module; ``make_sharded_denoise_train_step`` on a
 (data=2, model=2) mesh against the one-process step on the whole batch;
-the refusals (the sparse family, dropout in training mode). A sharded
-gradient is this rank's block of the replicated module's, and no gradient
-is scaled by the axis size.
+the sparse family at model = 2 (``EGNNSparse`` with fourier features, both
+norms and the soft gate; ``uniform_degree`` with the mean and the clamp;
+``fused_uniform`` through K10's plain version, the JAX side on its per-edge
+path; an ``EGNNSparseNetwork`` with an embedding over the fused layers):
+placements, output and every gradient against JAX's ``tp_param_sharding``
+run and the replicated module; the refusals (dropout in training mode in
+both families, a module without the hooks whose parameters the rule
+matches). A sharded gradient is this rank's block of the replicated
+module's, and no gradient is scaled by the axis size.
 
 Float64 throughout, at 1e-9 times the tensor's largest magnitude where that
 exceeds 1 (the products split in another order). One spawn of 4 ranks runs
@@ -46,6 +52,19 @@ EXTRA = {   # checked against the replicated module (and the JAX layer where it 
 STEP_KW = dict(depth=2, dim=16, num_tokens=7,
                layer_kwargs=dict(num_nearest_neighbors=4, norm_coors=True))
 STEPS = 2
+SPARSE_K = 4
+SPARSE = {   # (network?, options); the JAX side runs fused_uniform=False
+    "sparse_fourier": (False, dict(feats_dim=8, fourier_features=2, norm_feats=True,
+                                   norm_coors=True, soft_edge=1)),
+    "sparse_uniform": (False, dict(feats_dim=8, uniform_degree=SPARSE_K, aggr="mean",
+                                   norm_coors=True, coor_weights_clamp_value=2.0)),
+    "sparse_fused": (False, dict(feats_dim=8, uniform_degree=SPARSE_K, fused_uniform=True,
+                                 norm_coors=True, soft_edge=1)),
+    "sparse_network": (True, dict(n_layers=2, feats_dim=1, embedding_nums=[5],
+                                  embedding_dims=[8], fourier_features=2, norm_feats=True,
+                                  norm_coors=True, uniform_degree=SPARSE_K,
+                                  fused_uniform=True)),
+}
 
 
 def _close(actual, desired, atol=ATOL, name=""):
@@ -132,24 +151,71 @@ def tp_step_case(mesh, p):
                 ref_params={k: _np(v) for k, v in nets[0].named_parameters()})
 
 
+def sparse_tp_cases(mesh, p):
+    """The sparse family's cases: output and the gradients of <out, cot>
+    (the parameters', this rank's shards; x's) of the replicated module and
+    of the sharded one."""
+    from egnn_tpu_torch import EGNNSparse, EGNNSparseNetwork, parallel
+    from egnn_tpu_torch.utils.port_weights import load_flax_params
+
+    out = {}
+    for name, (network, kw) in SPARSE.items():
+        case = p[name]
+        module = (EGNNSparseNetwork if network else EGNNSparse)(**kw, **F64)
+        load_flax_params(module, case["params"])
+        args = [torch.from_numpy(case["edge_index"])]
+        kwargs = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                  for k, v in case["kwargs"].items()}
+        placements = {k: _placement(v)
+                      for k, v in parallel.tp_param_sharding(module, mesh).items()}
+
+        def run():
+            x = torch.from_numpy(case["x"]).requires_grad_()
+            y = module(x, *args, **kwargs)
+            (y * torch.from_numpy(case["cot"])).sum().backward()
+            res = dict(out=_np(y.detach()), x_grad=_np(x.grad),
+                       grads={k: _np(v.grad) for k, v in module.named_parameters()})
+            module.zero_grad(set_to_none=True)
+            return res
+
+        replicated = run()
+        parallel.tp_shard_module(module, mesh)
+        res = run()
+        layer = module.mpnn_0 if network else module
+        res.update(placements=placements, replicated=replicated,
+                   sharded=sorted(layer.tp_sharded))
+        out[name] = res
+    return out
+
+
 def tp_refusals(mesh):
+    """What tensor parallelism runs and refuses: the sparse layer shards and
+    runs (it was refused before its hooks); dropout in training mode in
+    either family and a module without the hooks raise."""
     from egnn_tpu_torch import EGNN, EGNNSparse, parallel
 
-    refused = {}
+    def outcome(fn):
+        try:
+            fn()
+            return "runs"
+        except (NotImplementedError, ValueError) as e:
+            return type(e).__name__
+
+    x, ei = torch.randn(4, 3 + 8, **F64), torch.tensor([[1, 2, 3, 0], [0, 1, 2, 3]])
     sparse = EGNNSparse(feats_dim=8, m_dim=16, **F64)
-    try:
-        parallel.tp_shard_module(sparse, mesh)
-        refused["sparse"] = None
-    except NotImplementedError:
-        refused["sparse"] = "NotImplementedError"
-    layer = parallel.tp_shard_module(EGNN(dim=8, dropout=0.1, **F64), mesh)
-    try:
-        layer(torch.zeros(1, 4, 8, **F64), torch.zeros(1, 4, 3, **F64),
-              generator=torch.Generator())
-        refused["dropout"] = None
-    except ValueError:
-        refused["dropout"] = "ValueError"
-    return refused
+    sparse_drop = EGNNSparse(feats_dim=8, m_dim=16, dropout=0.1, **F64)
+    layer = EGNN(dim=8, dropout=0.1, **F64)
+    other = torch.nn.Module()
+    other.register_parameter("proj_0_w", torch.nn.Parameter(torch.zeros(4, 8, **F64)))
+    return {
+        "sparse": outcome(lambda: parallel.tp_shard_module(sparse, mesh)(x, ei)),
+        "dropout": outcome(lambda: parallel.tp_shard_module(layer, mesh)(
+            torch.zeros(1, 4, 8, **F64), torch.zeros(1, 4, 3, **F64),
+            generator=torch.Generator())),
+        "sparse_dropout": outcome(lambda: parallel.tp_shard_module(sparse_drop, mesh)(
+            x, ei, generator=torch.Generator())),
+        "other": outcome(lambda: parallel.tp_shard_module(other, mesh)),
+    }
 
 
 def tp_cases(rank, world, p):
@@ -157,7 +223,8 @@ def tp_cases(rank, world, p):
 
     mesh2 = parallel.make_tp_mesh(2, 2, device="cpu")
     mesh4 = parallel.make_tp_mesh(1, 4, device="cpu")
-    return {2: dict(cases=tp_mesh_cases(mesh2, p[2]), step=tp_step_case(mesh2, p["step"])),
+    return {2: dict(cases=tp_mesh_cases(mesh2, p[2]), step=tp_step_case(mesh2, p["step"]),
+                    sparse=sparse_tp_cases(mesh2, p["sparse"])),
             4: dict(cases=tp_mesh_cases(mesh4, p[4]), refused=tp_refusals(mesh4))}
 
 
@@ -221,6 +288,51 @@ def _jax_case(name, model, seed):
     return case, ref
 
 
+def _jax_sparse_case(name, seed):
+    """The sparse module's parameters, inputs and cotangent, and on a (1, 2)
+    mesh with ``tp_param_sharding`` its output and gradients (the per-edge
+    path: ``fused_uniform`` computes the same function)."""
+    import jax
+    import jax.numpy as jnp
+
+    import egnn_tpu
+    from egnn_tpu.parallel.tp import make_tp_mesh, tp_param_sharding
+
+    from test_torch_sparse import G, _molecules
+
+    network, kw = SPARSE[name]
+    jkw = {**kw, "fused_uniform": False} if "fused_uniform" in kw else kw
+    module = (egnn_tpu.EGNNSparseNetwork if network else egnn_tpu.EGNNSparse)(**jkw)
+    mol = _molecules(seed, 0 if network else kw["feats_dim"])
+    x = mol["x"]
+    if network:
+        x = np.concatenate([x, np.random.RandomState(seed).randint(0, 5, (x.shape[0], 1))],
+                           axis=-1).astype(np.float64)
+    kwargs = dict(batch=mol["batch"], edge_mask=mol["edge_mask"], num_graphs=G,
+                  node_mask=mol["node_mask"])
+    jkwargs = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v for k, v in kwargs.items()}
+    ei = jnp.asarray(mol["edge_index"])
+    params = module.init(jax.random.PRNGKey(seed), jnp.asarray(x), ei, **jkwargs)["params"]
+    out0 = module.apply({"params": params}, jnp.asarray(x), ei, **jkwargs)
+    cot = np.random.RandomState(seed + 1).randn(*out0.shape)
+
+    def loss(prm, xx):
+        out = module.apply({"params": prm}, xx, ei, **jkwargs)
+        return (out * jnp.asarray(cot)).sum(), out
+
+    mesh = make_tp_mesh(data=1, model=2, devices=jax.devices()[:2])
+    placed = jax.device_put({"params": params}, tp_param_sharding({"params": params}, mesh))
+    (_, out), (gp, gx) = jax.jit(jax.value_and_grad(loss, argnums=(0, 1), has_aux=True))(
+        placed["params"], jnp.asarray(x))
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    case = dict(params=to_np(params), x=x, edge_index=mol["edge_index"], kwargs=kwargs, cot=cot)
+    ref = dict(out=np.asarray(out), x_grad=np.asarray(gx), grads=_flat(to_np(gp)),
+               specs=_flat(jax.tree_util.tree_map(lambda s: tuple(s.spec),
+                                                  tp_param_sharding({"params": params},
+                                                                    mesh)["params"])))
+    return case, ref
+
+
 def _step_payload():
     import jax
     import jax.numpy as jnp
@@ -255,14 +367,17 @@ CASES = ["layer", "network", "padded", *EXTRA]
 
 @pytest.fixture(scope="module")
 def tp_runs(tmp_path_factory):
-    payload, refs = {"step": _step_payload()}, {}
+    payload, refs = {"step": _step_payload(), "sparse": {}}, {}
+    sparse_refs = {}
+    for i, name in enumerate(SPARSE):
+        payload["sparse"][name], sparse_refs[name] = _jax_sparse_case(name, 20 + i)
     for model in (2, 4):
         payload[model], refs[model] = {}, {}
         for i, name in enumerate(CASES):
             payload[model][name], refs[model][name] = _jax_case(name, model, i)
     ranks = run_ranks(tp_cases, 4, tmp_path_factory.mktemp("tp"), payload)
     # model = 2: ranks 0 and 1 form one model group (ranks 2 and 3 the other)
-    return {2: dict(ranks=[r[2] for r in ranks[:2]], refs=refs[2]),
+    return {2: dict(ranks=[r[2] for r in ranks[:2]], refs=refs[2], sparse_refs=sparse_refs),
             4: dict(ranks=[r[4] for r in ranks], refs=refs[4])}
 
 
@@ -375,5 +490,48 @@ def test_tp_data_parallel_step_matches_one_process(tp_runs):
 
 
 def test_tp_refusals(tp_runs):
-    assert tp_runs[4]["ranks"][0]["refused"] == {"sparse": "NotImplementedError",
-                                                 "dropout": "ValueError"}
+    """The sparse layer, refused before it had the hooks, now shards and
+    runs; dropout in training mode (both families) and a module without the
+    hooks are refused."""
+    assert tp_runs[4]["ranks"][0]["refused"] == {"sparse": "runs", "dropout": "ValueError",
+                                                 "sparse_dropout": "ValueError",
+                                                 "other": "NotImplementedError"}
+
+
+@pytest.mark.parametrize("name", list(SPARSE))
+def test_sparse_placements_match_jax(tp_runs, name):
+    """``tp_param_sharding`` on the sparse family: the edge, coordinate and
+    node MLPs' first weights by columns, their biases and second weights by
+    rows, everything else replicated, as JAX places them."""
+    jspecs = tp_runs[2]["sparse_refs"][name]["specs"]
+    res = tp_runs[2]["ranks"][0]["sparse"][name]
+    assert sorted(res["placements"]) == sorted(jspecs)
+    for k, spec in jspecs.items():
+        dims = [i for i, ax in enumerate(spec) if ax == "model"]
+        assert res["placements"][k] == (("shard", dims[0]) if dims else ("replicate", None)), k
+    assert res["sharded"] == ["coors_mlp", "edge_mlp", "node_mlp"]
+
+
+@pytest.mark.parametrize("name", list(SPARSE))
+def test_sparse_tp_matches_jax_and_replicated(tp_runs, name):
+    """Output and the gradients of x and of every parameter (the shards
+    concatenated) at model = 2 against JAX's sharded run and the replicated
+    module, at 1e-9 of the largest value."""
+    ranks, ref = tp_runs[2]["ranks"], tp_runs[2]["sparse_refs"][name]
+    res0 = ranks[0]["sparse"][name]
+    for r in ranks:
+        res = r["sparse"][name]
+        for field in ("out", "x_grad"):
+            _close(res[field], ref[field], name=field)
+            _close(res[field], res["replicated"][field], name=f"replicated {field}")
+    assert sorted(res0["grads"]) == sorted(ref["grads"])
+    for k, g in ref["grads"].items():
+        kind, dim = res0["placements"][k]
+        parts = [r["sparse"][name]["grads"][k] for r in ranks]
+        if kind == "shard":
+            whole = np.concatenate(parts, axis=dim)
+        else:
+            whole = parts[0]
+            np.testing.assert_array_equal(parts[1], whole, err_msg=k)
+        _close(whole, g, name=k)
+        _close(whole, res0["replicated"]["grads"][k], name=f"replicated {k}")
