@@ -16,7 +16,8 @@ on a one-rank NCCL group and on two ranks sharing the card) and the last two
 examples (``export_serving``, ``denoise --metrics``), then model parallelism
 (the ring, tensor parallelism and the pipeline, on the same two set-ups),
 then the fused pair kernel's tensor-core mode (``mxu_bf16``, under
-``torch.set_float32_matmul_precision("medium")``), checks the outputs,
+``torch.set_float32_matmul_precision("medium")``), then the dense step
+sharded over nodes, then anchor 4 and the sharded dropout, checks the outputs,
 and times the kernels, the forwards and the train steps (with
 ``egnn_tpu_torch/utils/profiling.py``'s timers and the H100 peaks of its
 ``Roofline``).
@@ -293,6 +294,28 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    anchor 5's arms (b) and (c) (G = 32) at model = 2 against one process
    (loss rtol 1e-4, gradients 1e-4: a layer's one-element coors_norm_scale
    gradient sums every edge), K2 and (arm (c)) K10f, K10b launched.
+45. the last options. 45a: anchor 4 (``benchmarks/bench_all.py:106-124``:
+   depth 2, dim 32, 21 tokens, 3 adjacency degrees, adj_dim 8,
+   ``only_sparse_neighbors``, n = 512, b = 1, a chain) served and
+   differentiated (fwd+bwd of (coors_out^2).mean() wrt the coordinates)
+   against the CPU (forward 1e-4, loss rtol 1e-4, gradient 1e-5), its
+   equivariance, K1 depth times a forward and K2 depth times a fwd+bwd,
+   both timed as calls and as CUDA-graph replays (``max_degree``'s host
+   read hoisted out of the capture). 45b: its all-pairs variant, the
+   degrees' dense (1, 512, 512, 8) edges in both layers, against the CPU
+   (forward 1e-4 of its largest value); then both trained 3 steps on a
+   (data, graph) = (1, 2) mesh of two gloo ranks sharing the card against
+   one process (loss rtol 1e-4, gradients 1e-5, the all-pairs variant
+   1e-4), the ranks' parameters bitwise equal, the row-block K1 and K2
+   depth times a step. 45c, on the same two ranks: dropout 0.1 in
+   training mode, anchor 3's network at b = 8 on the (1, 2) graph mesh,
+   phase 40's all-pairs denoiser on the ring at g = 2 against the streamed
+   layer at pairwise_chunk = n / 2, anchor 1's layer and anchor 5's arm (b)
+   at model = 2, each against one process with the generator on cuda:0
+   seeded alike: every rank's masks bitwise its part of the one-process
+   masks, then the loss (rtol 1e-4) and the gradients (5e-3 self pairs,
+   1e-5, 1e-5, 1e-4); then the whole-mask draw timed beside the part's own
+   draw.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -3981,6 +4004,472 @@ def graph_axis_phases(torch, smi):
     return entries
 
 
+# phase 45: the last options. Anchor 4 (benchmarks/bench_all.py:106-124) at
+# full width on the card, its all-pairs variant (the degrees' dense edges in
+# every layer), both on the graph axis, and dropout in training mode sharded
+# against one process with the same generator seed: on the graph axis (kNN,
+# the ring) and under tensor parallelism (dense, sparse)
+N4, DEPTH4, DIM4, DEGREES4, ADJ_DIM4, KNN4 = 512, 2, 32, 3, 8, 7
+ANCHOR4_LAYER = dict(only_sparse_neighbors=True, num_nearest_neighbors=KNN4)
+LAST_TIMEOUT = 300   # seconds for both ranks of phases 45b-45c to report
+# 45b's all-pairs variant on two ranks against one process: without kNN its
+# coordinates reach |x| ~ 1e4 (a loss of 1e7), and each gradient of the
+# adjacency embedding sums 2.6e5 pair terms of both signs. On the CPU the
+# f32 one-process gradient is 2.7e-6 of its largest value from float64,
+# and the two-rank f32 step's 3.7e-6 to 1.0e-5 from the one-process step's
+# (gloo ranks on the CPU, two runs): the sums' order alone. Anchor 4 itself
+# is held to PAR_ONE_RANK_TOL.
+ANCHOR4_AP_GRAD_TOL = 1e-4
+# 45c's rows: (what, the tolerance of its gradients against one process)
+LAST_DROPOUT_ROWS = {
+    "graph_knn": (f"anchor 3's network (b = {DP_BATCH}) on a (data, graph) = (1, 2) mesh",
+                  PAR_GRAD_TOL_SELF_PAIRS),
+    "graph_ring": (f"phase 40's all-pairs denoiser (depth {RING_DEPTH}, dim {RING_DIM}) on the "
+                   f"ring at g = 2, against the streamed layer at pairwise_chunk = {N // 2}",
+                   PAR_GRAD_TOL),
+    "tp_anchor1": (f"anchor 1's layer (dim {DIM_ANCHOR12}, n = {N_ANCHOR12}) at model = 2",
+                   PAR_GRAD_TOL),
+    "tp_anchor5b": (f"anchor 5's arm (b) at model = 2", TP_SPARSE_GRAD_TOL),
+}
+
+
+def anchor4_net(torch, all_pairs=False):
+    """Anchor 4's network on the card, weights from SEED; ``all_pairs``:
+    without ``only_sparse_neighbors`` and kNN, so that the degrees' dense
+    (b, n, n, adj_dim) edges reach every all-pairs layer."""
+    from egnn_tpu_torch import EGNNNetwork
+
+    return EGNNNetwork(depth=DEPTH4, dim=DIM4, num_tokens=NUM_TOKENS, num_adj_degrees=DEGREES4,
+                       adj_dim=ADJ_DIM4, layer_kwargs={} if all_pairs else ANCHOR4_LAYER,
+                       device="cuda", generator=torch.Generator().manual_seed(SEED))
+
+
+@contextlib.contextmanager
+def constant_max_degree(k):
+    """``neighbors.max_degree`` answering ``k`` without its host read, so
+    that a CUDA graph can capture ``only_sparse_neighbors``' forward; ``k``
+    is the value the first call read."""
+    from egnn_tpu_torch.ops import neighbors as nb
+
+    real = nb.max_degree
+    nb.max_degree = lambda adj_mat: k
+    try:
+        yield
+    finally:
+        nb.max_degree = real
+
+
+@contextlib.contextmanager
+def recorded_masks(torch, masks, keep=None):
+    """Every dropout mask the layers draw, appended to ``masks`` as ((the
+    whole shape, the slices), the digest of the keep mask of the part):
+    the draw is replayed on a copy of the generator's state before it.
+    ``keep``: a dict that also takes each keep mask by its digest."""
+    from egnn_tpu_torch.models import egnn as E
+    from egnn_tpu_torch.models import egnn_sparse as S
+    from egnn_tpu_torch.ops import core
+    from egnn_tpu_torch.ops import pairwise_stream as PS
+
+    real = core.dropout
+
+    def recording(x, rate, generator, *part):
+        state = generator.get_state()
+        out = real(x, rate, generator, *part)
+        again = torch.Generator(device=generator.device)
+        again.set_state(state)
+        kept = real(torch.ones_like(x), rate, again, *part) != 0
+        digest = bits_digest([kept])
+        masks.append((tuple(part) if part else (tuple(x.shape), ()), digest))
+        if keep is not None:
+            keep[digest] = kept
+        return out
+
+    mods = (E, S, PS)
+    for m in mods:
+        m.dropout = recording
+    try:
+        yield masks
+    finally:
+        for m in mods:
+            m.dropout = real
+
+
+def anchor4_step_run(torch, all_pairs, batch, mesh=None):
+    """PAR_STEPS denoise steps (flat-buffer Adam) of anchor 4's network or
+    its all-pairs variant on ``batch``: with ``mesh`` this rank's block on
+    the graph axis (``make_sharded_denoise_train_step``), else the whole
+    batch. The losses, the first step's gradients, the final parameters,
+    the launches over the steps and the call."""
+    from egnn_tpu_torch import parallel
+    from egnn_tpu_torch.ops.cuda import reset_launch_counts
+    from egnn_tpu_torch.training import (make_denoise_train_step, make_fused_adam,
+                                         make_sharded_denoise_train_step)
+
+    net = anchor4_net(torch, all_pairs)
+    opt = make_fused_adam(net.parameters(), LR)
+    if mesh is None:
+        step, args = make_denoise_train_step(net, opt), batch
+    else:
+        step = make_sharded_denoise_train_step(net, opt, mesh)
+        args = [parallel.dense_batch_block(mesh, t) for t in batch[:3]] + [
+            batch[3], parallel.dense_batch_block(mesh, batch[4])]
+    reset_launch_counts()
+    losses, grads = [], None
+    for i in range(PAR_STEPS):
+        losses.append(step(*args))
+        if i == 0:
+            grads = {k: torch.zeros_like(p) if p.grad is None else p.grad.detach().clone()
+                     for k, p in net.named_parameters()}
+    return dict(losses=torch.stack(losses), grads=grads, launches=launches_now(torch),
+                params={k: p.detach().clone() for k, p in net.named_parameters()},
+                call=lambda: step(*args))
+
+
+def dropout_row(torch, name, inputs, mesh=None, keep=None):
+    """One fwd+bwd of 45c's row ``name`` in training mode at DROPOUT, the
+    generator on cuda:0 seeded SEED + 45: in one process on the whole
+    inputs, or sharded over ``mesh`` (the graph axis: this rank's node
+    block, its loss and gradients a share of the whole; tensor parallelism:
+    the whole loss, the gradients gathered whole). The loss, the named
+    gradients, the masks drawn (``recorded_masks``) and the launches."""
+    from egnn_tpu_torch import EGNN, EGNNNetwork, EGNNSparseNetwork, parallel
+    from egnn_tpu_torch.ops.cuda import reset_launch_counts
+
+    graph = name.startswith("graph")
+    if name == "graph_knn":
+        net = EGNNNetwork(depth=DEPTH, dim=DIM, num_tokens=NUM_TOKENS, num_positions=N,
+                          layer_kwargs={**LAYER_KWARGS, "dropout": DROPOUT}, device="cuda",
+                          generator=torch.Generator().manual_seed(SEED + 451))
+    elif name == "graph_ring":
+        net = EGNNNetwork(depth=RING_DEPTH, dim=RING_DIM, num_tokens=NUM_TOKENS,
+                          layer_kwargs=dict(dropout=DROPOUT, stream_pairwise=True,
+                                            pairwise_chunk=N // 2),
+                          device="cuda", generator=torch.Generator().manual_seed(SEED + 452))
+    elif name == "tp_anchor1":
+        net = EGNN(dim=DIM_ANCHOR12, dropout=DROPOUT, device="cuda",
+                   generator=torch.Generator().manual_seed(SEED + 453))
+    else:
+        net = EGNNSparseNetwork(**SP_NET, **SP_ARMS["b"], dropout=DROPOUT, device="cuda",
+                                generator=torch.Generator().manual_seed(SEED + 454))
+    placements = None
+    if mesh is not None and graph:
+        parallel.shard_nodes(net, mesh.get_group("graph"))
+        inputs = [parallel.dense_batch_block(mesh, t) for t in inputs[:4]] + inputs[4:]
+    elif mesh is not None:
+        placements = parallel.tp_param_sharding(net, mesh)
+        parallel.tp_shard_module(net, mesh)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 45)
+    masks = []
+    reset_launch_counts()
+    with recorded_masks(torch, masks, keep):
+        if graph:
+            tokens, noised, clean, mask = inputs[:4]
+            adj = inputs[4] if len(inputs) > 4 else None
+            _, c = net(tokens, noised, adj_mat=adj, mask=mask, generator=gen)
+            loss = (((c - clean) ** 2).sum(dim=-1) * mask).sum()
+            wrt = []
+        elif name == "tp_anchor1":
+            feats = inputs[0].detach().requires_grad_()
+            fo, co = net(feats, inputs[1], generator=gen)
+            loss = (fo ** 2).mean() + (co ** 2).mean()
+            wrt = [feats]
+        else:
+            mb, clean = inputs
+            out = net(mb.x, mb.edge_index, batch=mb.batch_ids, edge_mask=mb.edge_mask,
+                      num_graphs=mb.target.shape[0], node_mask=mb.node_mask, generator=gen)
+            err = (out[:, :3] - clean) ** 2 * mb.node_mask[:, None].to(out.dtype)
+            loss = err.sum() / (mb.node_mask.sum().to(err.dtype) * 3).clamp(min=1.0)
+            wrt = []
+        grads = torch.autograd.grad(loss, wrt + list(net.parameters()), allow_unused=True)
+    named = {k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(net.named_parameters(), grads[len(wrt):])}
+    if placements is not None:
+        named = whole_tensors(torch, named, placements, mesh.get_group("model"))
+    res = dict(loss=loss.detach(), grads=named, masks=masks, launches=launches_now(torch),
+               sharded=sorted(getattr(net, "tp_sharded", None) or
+                              getattr(getattr(net, "mpnn_0", None), "tp_sharded", ())))
+    if wrt:
+        res["grads"]["<features>"] = grads[0]
+    return res
+
+
+def last_rank_main(rank, world, init_method, payload, queue):
+    """Phase 45's rank: gloo on cuda:0 (two ranks share the card), 45b's
+    steps of anchor 4 and its all-pairs variant on the graph axis, then
+    45c's sharded dropout rows; results to the parent as numpy arrays."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        from egnn_tpu_torch import parallel
+        from egnn_tpu_torch.ops.cuda import build
+        from egnn_tpu_torch.utils.profiling import time_fn
+
+        build.build_all()      # built by the parent: loads the libraries
+        parallel.initialize(backend="gloo", init_method=init_method, world_size=world,
+                            rank=rank, device="cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cuda = lambda ts: [t.cuda() for t in ts]  # noqa: E731
+        mesh = parallel.make_mesh(1, world)
+        tp_mesh = parallel.make_tp_mesh(1, world)
+        out = {}
+        for all_pairs in (False, True):
+            res = anchor4_step_run(torch, all_pairs, cuda(payload["anchor4"]), mesh)
+            res["ms"] = time_fn(res.pop("call"), reps=5, warmup=1, stat="median") * 1e3
+            out[f"anchor4_{all_pairs}"] = res
+        for name in LAST_DROPOUT_ROWS:
+            inputs = payload[name]
+            inputs = ([type(inputs[0])(*cuda(inputs[0])), inputs[1].cuda()]
+                      if name == "tp_anchor5b" else cuda(inputs))
+            out[name] = dropout_row(torch, name, inputs,
+                                    mesh if name.startswith("graph") else tp_mesh)
+        queue.put((rank, True, to_numpy(torch, out)))
+    except BaseException:
+        queue.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def last_options_phase(torch, smi):
+    """Phase 45: anchor 4 at full width served and differentiated on the card
+    (45a); its all-pairs variant, and both on the graph axis of two ranks
+    sharing the card (45b); dropout in training mode sharded against one
+    process with the same generator seed (45c). Raises on a failure."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from egnn_tpu_torch.ops import graph as GR
+    from egnn_tpu_torch.ops import neighbors as nb
+    from egnn_tpu_torch.ops.cuda import reset_launch_counts
+    from egnn_tpu_torch.training import synthetic_chain_batch
+
+    t_start = time.perf_counter()
+    # ---- 45a. anchor 4, one process ----
+    g = torch.Generator().manual_seed(SEED + 45)
+    tokens = torch.randint(0, NUM_TOKENS, (1, N4), generator=g).cuda()
+    coors = torch.randn(1, N4, 3, generator=g).cuda()
+    adj = chain_adj(torch, N4)[0]
+    k4 = nb.max_degree(nb.expand_adjacency_degrees(adj[None], DEGREES4)[0])
+    net = anchor4_net(torch).eval()
+    net_cpu = copy.deepcopy(net).to("cpu")
+
+    def serve(c, model=net, t=tokens, a=adj):
+        return model(t, c, adj_mat=a)
+
+    def fb(c, model=net, t=tokens, a=adj):
+        c = c.detach().requires_grad_()
+        _, co = model(t, c, adj_mat=a)
+        loss = (co ** 2).mean()
+        return loss.detach(), torch.autograd.grad(loss, c)[0]
+
+    reset_launch_counts()
+    with torch.inference_mode():
+        f, c = serve(coors)
+    served = launches_now(torch)
+    reset_launch_counts()
+    loss, grad = fb(coors)
+    both = launches_now(torch)
+    check_outputs(torch, (f, c, grad), ((1, N4, DIM4), (1, N4, 3), (1, N4, 3)), "phase 45a")
+    host = (tokens.cpu(), adj.cpu())
+    with torch.inference_mode():
+        f_cpu, c_cpu = serve(coors.cpu(), net_cpu, *host)
+    loss_cpu, grad_cpu = with_k2_sums(fb, coors.cpu(), net_cpu, *host)
+    ef = max((f.cpu() - f_cpu).abs().max().item(), (c.cpu() - c_cpu).abs().max().item())
+    el = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    eg = rel_err(torch, grad, grad_cpu)
+    print(f"phase 45a anchor 4 (depth {DEPTH4}, dim {DIM4}, n = {N4}, {DEGREES4} adjacency "
+          f"degrees, adj_dim {ADJ_DIM4}, only_sparse_neighbors; num_nearest_neighbors={KNN4} "
+          f"given, k = {k4}, the expanded chain's largest row degree, taken): launches in a "
+          f"forward {served}, in a fwd+bwd {both}; card vs CPU forward max err {ef:.3e} (atol "
+          f"{GPU_VS_CPU_ATOL}), loss {el:.3e} (rtol {TRAIN_LOSS_RTOL}), the coordinates' "
+          f"gradient {eg:.3e} relative (tol {TRAIN_GRAD_TOL}; the CPU's segment sums in K2's "
+          f"arithmetic)")
+    if served.get("knn_select_gather") != DEPTH4 or both.get("knn_select_gather") != DEPTH4 \
+            or both.get("segment_sum") != DEPTH4:
+        raise AssertionError(f"phase 45a: K1 and K2 did not launch depth ({DEPTH4}) times a "
+                             f"forward and a fwd+bwd")
+    if ef > GPU_VS_CPU_ATOL or el > TRAIN_LOSS_RTOL or eg > TRAIN_GRAD_TOL:
+        raise AssertionError("phase 45a: anchor 4 on the card and the CPU disagree")
+    check_equivariance(torch, serve, coors, "phase 45a anchor 4")
+    with torch.inference_mode():
+        fwd_call = [call_ms(torch, lambda: serve(coors)) for _ in range(2)]
+        with constant_max_degree(k4):
+            fwd_replay = [device_ms(torch, lambda: serve(coors)) for _ in range(2)]
+    fb_call = [call_ms(torch, lambda: fb(coors)) for _ in range(2)]
+    with constant_max_degree(k4):
+        fb_replay = [device_ms(torch, lambda: fb(coors)) for _ in range(2)]
+    print(f"timing on {smi}: anchor 4's forward {fwd_call[0]:.4f}/{fwd_call[1]:.4f} ms a call "
+          f"(max_degree's host read included), {fwd_replay[0]:.4f}/{fwd_replay[1]:.4f} ms "
+          f"replayed (k fixed at {k4} for the capture); fwd+bwd of (coors_out^2).mean() "
+          f"{fb_call[0]:.4f}/{fb_call[1]:.4f} ms a call, {fb_replay[0]:.4f}/{fb_replay[1]:.4f} "
+          f"ms replayed; {N4 * k4 * DEPTH4 / (min(fb_call) / 1e3):.4e} edges/s a fwd+bwd call "
+          f"(b n k depth / latency)")
+    profile_forward(torch, lambda: fb(coors), label="anchor-4 fwd+bwd calls", unit="fwd+bwd")
+
+    # ---- 45b. the all-pairs variant: the degrees' dense edges in every layer ----
+    net_ap = anchor4_net(torch, all_pairs=True).eval()
+    net_ap_cpu = copy.deepcopy(net_ap).to("cpu")
+    reset_launch_counts()
+    with torch.inference_mode():
+        f, c = serve(coors, net_ap)
+    ap_served = launches_now(torch)
+    loss, grad = fb(coors, net_ap)
+    with torch.inference_mode():
+        f_cpu, c_cpu = serve(coors.cpu(), net_ap_cpu, *host)
+    loss_cpu, grad_cpu = fb(coors.cpu(), net_ap_cpu, *host)
+    check_outputs(torch, (f, c, grad), ((1, N4, DIM4), (1, N4, 3), (1, N4, 3)), "phase 45b")
+    # without kNN the coordinates reach |x| ~ 1e4 (sums over 512 pairs): the
+    # forward is held at GPU_VS_CPU_ATOL of its largest value, as the CPU
+    # tests scale their atol
+    ef = max((f.cpu() - f_cpu).abs().max().item() / max(1.0, f_cpu.abs().max().item()),
+             (c.cpu() - c_cpu).abs().max().item() / max(1.0, c_cpu.abs().max().item()))
+    el = abs(loss.item() - loss_cpu.item()) / abs(loss_cpu.item())
+    eg = rel_err(torch, grad, grad_cpu)
+    with torch.inference_mode():
+        ap_call = call_ms(torch, lambda: serve(coors, net_ap))
+        ap_replay = device_ms(torch, lambda: serve(coors, net_ap))
+    print(f"phase 45b anchor 4's all-pairs variant (dense (1, {N4}, {N4}, {ADJ_DIM4}) edges in "
+          f"both layers): launches in a forward {ap_served} (no kernel of the port's: plain "
+          f"torch over all pairs); card vs CPU forward max err {ef:.3e} of the largest value "
+          f"(|coors| up to {c_cpu.abs().max().item():.1f}; tol {GPU_VS_CPU_ATOL}), loss {el:.3e} (rtol {TRAIN_LOSS_RTOL}), the coordinates' "
+          f"gradient {eg:.3e} relative (tol {TRAIN_GRAD_TOL}); timing on {smi}: a forward "
+          f"{ap_call:.4f} ms a call, {ap_replay:.4f} ms replayed")
+    if ef > GPU_VS_CPU_ATOL or el > TRAIN_LOSS_RTOL or eg > TRAIN_GRAD_TOL:
+        raise AssertionError("phase 45b: the all-pairs variant on the card and the CPU disagree")
+    del net, net_cpu, net_ap, net_ap_cpu
+    torch.cuda.empty_cache()
+    print(f"phase 45a and 45b's one process: {time.perf_counter() - t_start:.1f} s")
+
+    # ---- 45b and 45c on two ranks sharing the card ----
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    (root / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(dir=root / "build"))
+    rq4 = synthetic_chain_batch(np.random.default_rng(SEED + 450), 1, N4, device="cuda")
+    batch4 = [rq4.tokens, rq4.noised_coors, rq4.clean_coors, rq4.adj_mat, rq4.mask]
+    rq8 = synthetic_chain_batch(np.random.default_rng(SEED + 455), DP_BATCH, N, device="cuda")
+    rq1 = synthetic_chain_batch(np.random.default_rng(SEED + 456), 1, N, device="cuda")
+    g41 = torch.Generator().manual_seed(SEED + 457)
+    mb, mb_clean = molecule_batch(torch, GR.knn_graph, SP_G, SEED + 458)
+    inputs = {
+        "graph_knn": [rq8.tokens, rq8.noised_coors, rq8.clean_coors, rq8.mask, rq8.adj_mat],
+        "graph_ring": [rq1.tokens, rq1.noised_coors, rq1.clean_coors, rq1.mask],
+        "tp_anchor1": [torch.randn(1, N_ANCHOR12, DIM_ANCHOR12, generator=g41).cuda(),
+                       torch.randn(1, N_ANCHOR12, 3, generator=g41).cuda()],
+        "tp_anchor5b": [mb, mb_clean],
+    }
+    cpu = lambda ts: [t.detach().cpu() for t in ts]  # noqa: E731
+    payload = {"anchor4": cpu(batch4), "tp_anchor5b": [type(mb)(*cpu(mb)), mb_clean.cpu()],
+               **{k: cpu(v) for k, v in inputs.items() if k != "tp_anchor5b"}}
+    ranks = run_two_ranks(torch, payload, work, target=last_rank_main, what="phase 45",
+                          timeout=LAST_TIMEOUT)
+    print(f"phase 45's two ranks: {time.perf_counter() - t_phase:.1f} s")
+
+    for all_pairs in (False, True):
+        key = f"anchor4_{all_pairs}"
+        ref = anchor4_step_run(torch, all_pairs, batch4)
+        what = "anchor 4's all-pairs variant" if all_pairs else "anchor 4"
+        for r, res in enumerate(ranks):
+            compare_runs(torch, f"phase 45b rank {r}, {what}'s step on a (data, graph) = (1, 2) "
+                         f"mesh ({N4 // 2} nodes a rank) against one process on the card",
+                         res[key], ref, ANCHOR4_AP_GRAD_TOL if all_pairs else PAR_ONE_RANK_TOL)
+        a, b_ = ranks[0][key], ranks[1][key]
+        same = all(same_bits(torch, a["params"][k], b_["params"][k]) for k in a["params"])
+        t_ref = [call_ms(torch, ref["call"], iters=5, warmup=1) for _ in range(2)]
+        need = {} if all_pairs else {"knn_select_gather_rows": DEPTH4 * PAR_STEPS,
+                                     "segment_sum": DEPTH4 * PAR_STEPS}
+        print(f"phase 45b {what}: the two ranks' parameters after {PAR_STEPS} steps bitwise "
+              f"equal={same}; launches over the steps rank 0 {a['launches']}, rank 1 "
+              f"{b_['launches']}, one process {ref['launches']}; timing on {smi}: a step "
+              f"{a['ms']:.4f} / {b_['ms']:.4f} ms as a call on each rank (two ranks sharing one "
+              f"card, gloo through host memory: not a scaling number), one process "
+              f"{t_ref[0]:.4f}/{t_ref[1]:.4f} ms")
+        if not (same and all(res[key]["launches"] == need for res in ranks)):
+            raise AssertionError(f"phase 45b {what}: the ranks' parameters differ or a rank "
+                                 f"launched other than {need}")
+        profile_forward(torch, ref["call"], iters=3, label=f"{what}'s one-process steps",
+                        unit="step")
+        del ref
+
+    for name, (what, tol) in LAST_DROPOUT_ROWS.items():
+        keep = {}
+        ref = dropout_row(torch, name, inputs[name], keep=keep)
+        # each rank's masks against the one-process masks cut as it cut them
+        parts = {part for res in ranks for part, _ in res[name]["masks"]}
+        cuts = set()
+        for kept in keep.values():
+            for whole, slices in parts:
+                if tuple(kept.shape) == whole:
+                    cut = kept
+                    for dim, start, length in slices:
+                        cut = cut.narrow(dim, start, length)
+                    cuts.add((whole, slices, bits_digest([cut])))
+        matched = [all((*part, digest) in cuts for part, digest in res[name]["masks"])
+                   for res in ranks]
+        del keep, cuts
+        graph = name.startswith("graph")
+        losses = ([sum(res[name]["loss"] for res in ranks)] if graph
+                  else [res[name]["loss"] for res in ranks])
+        el = max(abs(v.item() - ref["loss"].item()) / abs(ref["loss"].item()) for v in losses)
+        # graph axis: each rank's gradients a share of the whole
+        gots = ([{k: ranks[0][name]["grads"][k] + ranks[1][name]["grads"][k]
+                  for k in ref["grads"]}] if graph else [res[name]["grads"] for res in ranks])
+        worst = max(max((grad_err(torch, got[k], ref["grads"][k]), k) for k in ref["grads"])
+                    for got in gots)
+        print(f"phase 45c dropout {DROPOUT} in training mode, {what}: every rank's masks "
+              f"bitwise its part of the one-process masks (generator on cuda:0, seed "
+              f"{SEED + 45}): {matched} ({len(ranks[0][name]['masks'])} draws a rank, "
+              f"{len(ref['masks'])} in one process); then the loss {el:.3e} (rtol "
+              f"{PAR_LOSS_RTOL}) and the gradients up to {worst[0]:.3e} of their largest value "
+              f"({worst[1]}; tol {tol}) against one process"
+              + ("" if graph else f"; sharded {ranks[0][name]['sharded']}")
+              + f"; launches rank 0 {ranks[0][name]['launches']}, one process {ref['launches']}")
+        if not all(matched):
+            raise AssertionError(f"phase 45c {name}: a rank's masks are not its part of the "
+                                 f"one-process masks")
+        if el > PAR_LOSS_RTOL or worst[0] > tol:
+            raise AssertionError(f"phase 45c {name}: out of tolerance")
+        if name == "graph_knn" and not all(
+                res[name]["launches"].get("knn_select_gather_rows") == DEPTH for res in ranks):
+            raise AssertionError("phase 45c graph_knn: K1's row block did not run depth times")
+        del ref
+    del ranks
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+
+    # the cost of the whole-mask draw: a rank's part drawn alone (what a
+    # counter-based draw would cost), the part cut from the whole draw, and
+    # the one-process draw of the whole, as calls
+    from egnn_tpu_torch.ops import core
+    h3, h_ring = 2 * (2 * DIM + 1), 2 * (2 * RING_DIM + 1)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 459)
+    for what, part, dim, count in (
+            (f"anchor 3's edge hidden at b = {DP_BATCH}, g = 2", (DP_BATCH, N // 2, KNN, h3), 1, 2),
+            (f"the ring's edge hidden, one block of {N // 2} x {N // 2}, g = 2",
+             (1, N // 2, N // 2, h_ring), 1, 2),
+            (f"anchor 1's edge hidden at model = 2", (1, N_ANCHOR12, N_ANCHOR12, 2050), 3, 2)):
+        x = torch.randn(part, device="cuda")
+        whole = list(part)
+        whole[dim] *= count
+        xw = torch.randn(whole, device="cuda")
+        slices = ((dim, part[dim], part[dim]),)
+        t = [call_ms(torch, fn) for fn in (
+            lambda: core.dropout(x, DROPOUT, gen),
+            lambda: core.dropout(x, DROPOUT, gen, tuple(whole), slices),
+            lambda: core.dropout(xw, DROPOUT, gen))]
+        print(f"timing on {smi}: the dropout mask of {what}, as calls (median of 30 after 5): "
+              f"the part {tuple(part)} drawn alone {t[0]:.5f} ms, cut from the whole "
+              f"{tuple(whole)}'s draw {t[1]:.5f} ms ({t[1] / t[0]:.2f}x), the one-process draw "
+              f"of the whole {t[2]:.5f} ms")
+        del x, xw
+    print(f"phase 45 (the last options): {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -5858,6 +6347,7 @@ def main() -> int:
         else None
     kernels.extend(mode_phase(torch, smi, parent))
     kernels.extend(graph_axis_phases(torch, smi))
+    last_options_phase(torch, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

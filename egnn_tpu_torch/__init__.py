@@ -37,12 +37,16 @@ roofline (``utils``), weights carried from egnn-pytorch
 plain PyTorch path); multi-process training (``egnn_tpu_torch.parallel``:
 the process runtime, the (data, graph) mesh, the edge-partitioned sparse
 layout, and in ``training`` the data-parallel dense and edge-partitioned
-sparse steps) and model parallelism (the ring of node blocks,
+sparse steps, the dense step also sharded over nodes,
+``parallel.shard_nodes``) and model parallelism (the ring of node blocks,
 ``EGNN(ring_axis=group)`` and ``training.make_ring_denoise_train_step``;
-tensor parallelism of the dense MLPs, ``parallel.tp_shard_module``; the
-pipeline, ``parallel.make_pipelined_apply`` / ``make_pipelined_loss``), run
-by gloo ranks on the CPU and on the card. See ROADMAP.md for what is still
-to be ported.
+tensor parallelism of the dense and sparse MLPs, ``parallel.tp_shard_module``;
+the pipeline, ``parallel.make_pipelined_apply`` / ``make_pipelined_loss``),
+run by gloo ranks on the CPU and on the card. A network sharded over nodes
+or by tensor parallelism runs every option of the unsharded one, dense
+edges and dropout in training mode included (its masks are the
+one-process call's); ``ring_axis`` refuses kNN, dense edges and dropout,
+as the JAX layer does. See ROADMAP.md for what the trainers leave out.
 """
 
 from .models.attention import Attention, GlobalLinearAttention

@@ -65,15 +65,18 @@ Model parallelism (``egnn_tpu_torch.parallel``):
   around the ring (``parallel/ring.py:ring_pairwise``); without a mask the
   mean divisor is n_local times the group's size. kNN,
   ``only_sparse_neighbors``, dense ``edges`` and dropout in training mode
-  are refused with ``ValueError``: each would compute shard-local
-  neighbourhoods only.
+  are refused with ``ValueError``, as the JAX layer asserts: each would
+  compute shard-local neighbourhoods only (the graph axis below runs them
+  all).
 - ``parallel/tp.py:tp_shard_module`` leaves each rank of a ``model`` group
   its shards of the MLPs' weights (``tp_group``, ``tp_sharded``); the
   layer then computes the Megatron split of each sharded MLP pair (the
   first product on the local columns, the nonlinearity, the second on the
   local rows, one sum over the group, the replicated bias) on every path.
   The fused kernels take whole weights: under a fused flag the sharded
-  weights are gathered whole first (``gather_from_group``).
+  weights are gathered whole first (``gather_from_group``). Dropout draws
+  a sharded MLP's hidden mask at the whole (padded) width and keeps the
+  rank's columns, so that it is the replicated module's mask.
 - ``parallel/mesh.py:shard_nodes`` (which ``make_sharded_denoise_train_step``
   calls on a mesh with ``graph > 1``) sets ``node_group`` on the network and
   its layers, the JAX step's node sharding: each rank holds a block of the
@@ -83,8 +86,20 @@ Model parallelism (``egnn_tpu_torch.parallel``):
   (``ops/neighbors.py:knn_select_gather_rows``; ``fused_knn``'s K11 reads
   the gathered cloud as its j table), then computes its messages and node
   update on its own rows; an all-pairs layer takes the ring over the same
-  group. Dropout in training mode raises ``ValueError``, an all-pairs layer
-  with dense ``edges`` ``NotImplementedError``.
+  group, or with dense ``edges`` (the rank's (b, n_local, n, e) rows) the
+  materialised pairs of its rows against the gathered cloud.
+- Dropout on the graph axis: every rank draws the masks of the whole
+  (b, n, ...) tensor from its generator, in the one-process layer's order,
+  and keeps its rows (``ops/core.py:dropout``, ``sharded_part``). With
+  every rank's generator in the one-process call's state the masks are
+  that call's wherever both take the same route: kNN where the one-process
+  layer selects k slots by K1 or K4 (with an adjacency; without one below
+  8192 nodes in 3-D and up to 16 384 otherwise; beyond, it takes the grid
+  or the kc-slot packed route while the sharded layer ranks k slots), dense
+  edges at any n, and the ring against the streamed layer at
+  ``pairwise_chunk = n_local`` (``parallel/ring.py``), not against the
+  materialised pairs that the one-process layer takes below n = 1024. Each
+  rank draws g times its share of random numbers.
 """
 from __future__ import annotations
 
@@ -105,6 +120,7 @@ from ..ops.core import (
     gather_bool,
     layer_norm,
     safe_div,
+    sharded_part,
 )
 from ..ops.cuda import pair_messages as pm
 from ..ops.pairwise_stream import PairwiseParams, streamed_pairwise
@@ -245,13 +261,14 @@ class EGNN(ShardedMLPs, nn.Module):
         """LayerNorm? -> concat with the pooled message -> node MLP ->
         residual (egnn_pytorch.py:335-337). ``mp`` is the mixed-precision
         cast: the layer's by default, the identity on the fused paths;
-        ``drop`` the dropout after the first layer (none by default)."""
+        ``drop(x, mlp)`` the dropout after the first layer (none by
+        default)."""
         mp = self._mp if mp is None else mp
         normed = layer_norm(feats, self.node_norm_gamma, self.node_norm_beta) \
             if self.norm_feats else feats
         h = self._col("node_mlp", torch.cat([mp(normed), m_i.to(mp(normed).dtype)], dim=-1))
         h = h @ mp(self.node_mlp_0_w) + mp(self.node_mlp_0_b)
-        h = F.silu(h if drop is None else drop(h))
+        h = F.silu(h if drop is None else drop(h, "node_mlp"))
         return (self._row("node_mlp", h @ mp(self.node_mlp_1_w))
                 + mp(self.node_mlp_1_b)).to(feats.dtype) + feats
 
@@ -324,7 +341,8 @@ class EGNN(ShardedMLPs, nn.Module):
         ``parallel/ring.py``), with the reference's mean divisor n without a
         mask (egnn_tpu/models/egnn.py:262-284): under the ring n is the
         whole node count, n_local times the group's size. ``generator`` is
-        None unless dropout acts."""
+        None unless dropout acts; the ring then draws the masks of the
+        streamed layer at ``pairwise_chunk = n_local``."""
         mp = self._mp
         w_i, w_j, w_d, _, b1 = self._edge_weights()
         pp = PairwiseParams(
@@ -343,16 +361,16 @@ class EGNN(ShardedMLPs, nn.Module):
                     norm_coors=self.norm_coors,
                     coor_weights_clamp_value=self.coor_weights_clamp_value,
                     compute_dtype=self.compute_dtype)
+        opts.update(dropout_rate=self.dropout, generator=generator,
+                    edge_group=self.tp_group if "edge_mlp" in self.tp_sharded else None,
+                    coors_group=self.tp_group if "coors_mlp" in self.tp_sharded else None)
         n_total = feats.shape[1]
         if ring is not None:
             res = ring_pairwise(coors, proj_i, proj_j, pp, mask=mask, group=ring, **opts)
             n_total *= dist.get_world_size(ring)
         else:
-            res = streamed_pairwise(
-                coors, proj_i, proj_j, pp, mask=mask, chunk=self.pairwise_chunk,
-                dropout_rate=self.dropout, generator=generator,
-                edge_group=self.tp_group if "edge_mlp" in self.tp_sharded else None,
-                coors_group=self.tp_group if "coors_mlp" in self.tp_sharded else None, **opts)
+            res = streamed_pairwise(coors, proj_i, proj_j, pp, mask=mask,
+                                    chunk=self.pairwise_chunk, **opts)
         coors_out = coors + res.coors_delta if self.update_coors else coors
         if not self.update_feats:
             return feats, coors_out
@@ -375,7 +393,11 @@ class EGNN(ShardedMLPs, nn.Module):
         from ``generator`` (on the inputs' device), which is then required;
         a fixed generator state gives bit-identical outputs. In eval mode, or
         at ``dropout=0``, no mask is drawn (the JAX package's
-        ``deterministic=True``)."""
+        ``deterministic=True``). A sharded layer (the graph axis, tensor
+        parallelism) draws each mask at the whole tensor's shape and keeps
+        its part: with every rank's generator in the state the one-process
+        call's would hold, the masks are that call's (see the module's
+        docstring for where the routes differ)."""
         b, n, d = feats.shape
         if d != self.dim:
             raise ValueError(f"feats dim {d} != configured dim {self.dim}")
@@ -387,29 +409,25 @@ class EGNN(ShardedMLPs, nn.Module):
         if dropping and generator is None:
             raise ValueError("dropout in training mode draws its masks from generator=, a "
                              "torch.Generator on the inputs' device; call .eval() to serve")
-        if dropping and self.tp_sharded:
-            raise ValueError("dropout in training mode under tensor parallelism is not "
-                             "ported: its masks would be drawn on the shards")
         if self.ring_axis is not None and (edges is not None or dropping):
             raise ValueError("ring_axis takes the all-pairs streamed layer: no dense edges "
                              "and no dropout in training mode")
         # the graph axis: kNN selects this rank's rows against the gathered
-        # cloud; an all-pairs layer takes the ring over the same group
+        # cloud; an all-pairs layer takes the ring over the same group, or
+        # with dense edges its rows against the gathered cloud
         node_group = self.node_group
         ring = self.ring_axis
+        node_rows = None    # this rank's rows (r0, n_total) of the dropout masks
         if node_group is not None:
-            if dropping:
-                raise ValueError("dropout in training mode on the graph axis is not ported: "
-                                 "its masks would be drawn on the node blocks")
-            if not use_nearest:
-                if edges is not None:
-                    raise NotImplementedError(
-                        "an all-pairs layer with dense edges on the graph axis is not ported: "
-                        "the ring (parallel/ring.py) that computes it takes no edges")
+            node_rows = (dist.get_rank(node_group) * n, n * dist.get_world_size(node_group))
+            if not use_nearest and edges is None:
                 ring = node_group
 
-        def drop(x):
-            return dropout(x, self.dropout, generator) if dropping else x
+        def drop(x, mlp):
+            if not dropping:
+                return x
+            return dropout(x, self.dropout, generator,
+                           *sharded_part(x.shape, node_rows, self._cols(mlp, x.shape[-1])))
 
         # ---- the streamed all-pairs path: no (n, n) intermediates ----
         do_stream = ring is not None or (
@@ -485,6 +503,13 @@ class EGNN(ShardedMLPs, nn.Module):
             rel_dist = (rel_coors**2).sum(dim=-1)
             if edges is not None:
                 edges = batched_index_select(edges, nbhd.indices, axis=2)
+        elif node_group is not None:
+            # dense edges on the graph axis: this rank's rows against the
+            # gathered cloud, (b, n_local, n_total, ·); the all-gather's
+            # backward keeps this rank's block of the summed cotangents
+            coors_all, mask_all, feats_all, _ = self._node_table(feats, coors, mask)
+            feats_all = feats_all.to(feats.dtype)
+            rel_coors, rel_dist = nb.pairwise_geometry(coors, coors_all)
         else:
             rel_coors, rel_dist = nb.pairwise_geometry(coors)   # (b,n,n,c), (b,n,n)
 
@@ -503,13 +528,14 @@ class EGNN(ShardedMLPs, nn.Module):
             proj_i = xf[:, :, None, :].expand(b, n, kk, d) @ mp(w_i)
             h1 = proj_i + proj_j + dist_term + mp(b1)
         else:
+            xf_j = xf if node_group is None else mp(self._col("edge_mlp", feats_all))
             proj_i = xf @ mp(w_i)                               # (b, n, hidden)
-            proj_j = (xf @ mp(w_j))[:, None, :, :]              # (b, 1, n, hidden)
+            proj_j = (xf_j @ mp(w_j))[:, None, :, :]            # (b, 1, n, hidden)
             h1 = proj_i[:, :, None, :] + proj_j + dist_term + mp(b1)
         if edges is not None:
             h1 = h1 + mp(self._col("edge_mlp", edges)) @ mp(w_e)
 
-        m_ij = F.silu(drop(h1))
+        m_ij = F.silu(drop(h1, "edge_mlp"))
         m_ij = F.silu(self._row("edge_mlp", m_ij @ mp(self.edge_mlp_1_w))
                       + mp(self.edge_mlp_1_b))
         if self.soft_edges:
@@ -521,7 +547,8 @@ class EGNN(ShardedMLPs, nn.Module):
             if use_nearest:
                 pair_mask = (mask[:, :, None] & mask_j) & nbhd.valid
             else:
-                pair_mask = mask[:, :, None] & mask[:, None, :]
+                pair_mask = mask[:, :, None] & (
+                    mask if node_group is None else mask_all)[:, None, :]
         elif use_nearest and nbhd.winner is not None:
             # a wide kc-slot result without a node mask: the reference sums
             # its k selected slots whatever their radius, so exactly the
@@ -531,7 +558,7 @@ class EGNN(ShardedMLPs, nn.Module):
         # ---- coordinate update (equivariant) ----
         if self.update_coors:
             cw = F.silu(drop(self._col("coors_mlp", m_ij) @ mp(self.coors_mlp_0_w)
-                             + mp(self.coors_mlp_0_b)))
+                             + mp(self.coors_mlp_0_b), "coors_mlp"))
             coor_weights = (self._row("coors_mlp", cw @ mp(self.coors_mlp_1_w))
                             + mp(self.coors_mlp_1_b)).to(coors.dtype)
             rel_coors_n = coors_norm(rel_coors, self.coors_norm_scale) \

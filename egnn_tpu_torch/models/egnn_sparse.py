@@ -65,7 +65,8 @@ a ``model`` group, as the dense layer's (``ShardedMLPs``): each rank holds
 the first weight's columns and the second's rows, computes the per-edge
 products on them and sums the second product over the group; under
 ``fused_uniform`` K10 takes the weights gathered whole and the node MLP
-stays split. Dropout in training mode under it raises ``ValueError``.
+stays split. Dropout in training mode draws a sharded MLP's hidden mask at
+the whole width and keeps the rank's columns: the replicated layer's mask.
 """
 from __future__ import annotations
 
@@ -82,6 +83,7 @@ from ..ops.core import (
     fourier_encode_dist,
     gather_rows,
     layer_norm,
+    sharded_part,
 )
 from ..ops.cuda import pair_messages as pm
 from ..ops.segment import (
@@ -242,12 +244,14 @@ class EGNNSparse(ShardedMLPs, nn.Module):
         if dropping and generator is None:
             raise ValueError("dropout in training mode draws its masks from generator=, a "
                              "torch.Generator on the inputs' device; call .eval() to serve")
-        if dropping and self.tp_sharded:
-            raise ValueError("dropout in training mode under tensor parallelism is not "
-                             "ported: its masks would be drawn on the shards")
 
-        def drop(v):
-            return dropout(v, self.dropout, generator) if dropping else v
+        def drop(v, mlp):
+            # under tensor parallelism v holds this rank's columns of the
+            # hidden: the whole width's mask is drawn and the columns kept
+            if not dropping:
+                return v
+            return dropout(v, self.dropout, generator,
+                           *sharded_part(v.shape, cols=self._cols(mlp, v.shape[-1])))
 
         n, d, pos = x.shape[0], self.feats_dim, self.pos_dim
         # under shard_axis: n is this rank's node count, senders index x_full
@@ -303,7 +307,7 @@ class EGNNSparse(ShardedMLPs, nn.Module):
                 raise ValueError(f"layer built with edge_attr_dim={self.edge_attr_dim} but no "
                                  f"edge_attr given")
             h1 = h1 + col(edge_attr) @ mp(w_e)
-        m_ij = F.silu(drop(h1))
+        m_ij = F.silu(drop(h1, "edge_mlp"))
         m_ij = F.silu(self._row("edge_mlp", m_ij @ mp(self.edge_mlp_1_w))
                       + mp(self.edge_mlp_1_b))                                  # (E, m_dim)
 
@@ -314,7 +318,7 @@ class EGNNSparse(ShardedMLPs, nn.Module):
 
         if self.update_coors:
             cw = F.silu(drop(self._col("coors_mlp", m_ij) @ mp(self.coors_mlp_0_w)
-                             + mp(self.coors_mlp_0_b)))
+                             + mp(self.coors_mlp_0_b), "coors_mlp"))
             # back to full precision before weighting the geometry
             coor_wij = (self._row("coors_mlp", cw @ mp(self.coors_mlp_1_w))
                         + mp(self.coors_mlp_1_b)).to(coors.dtype)
@@ -371,7 +375,7 @@ class EGNNSparse(ShardedMLPs, nn.Module):
         return torch.cat([coors_out, self._feature_update(
             feats, m_i.to(feats.dtype), batch, num_graphs, node_mask)], dim=-1)
 
-    def _feature_update(self, feats, m_i, batch, num_graphs, node_mask, drop=lambda v: v):
+    def _feature_update(self, feats, m_i, batch, num_graphs, node_mask, drop=lambda v, mlp: v):
         """Graph LayerNorm (padding left out of its statistics), then the node
         MLP residual (egnn_pytorch_geometric.py:259-266), ``drop`` after its
         first layer."""
@@ -381,7 +385,7 @@ class EGNNSparse(ShardedMLPs, nn.Module):
                                   uniform_size=self.uniform_graph_size) \
             if self.norm_feats else feats
         h = F.silu(drop(self._col("node_mlp", torch.cat([hidden, m_i], dim=-1))
-                        @ self.node_mlp_0_w + self.node_mlp_0_b))
+                        @ self.node_mlp_0_w + self.node_mlp_0_b, "node_mlp"))
         return feats + (self._row("node_mlp", h @ self.node_mlp_1_w) + self.node_mlp_1_b)
 
 

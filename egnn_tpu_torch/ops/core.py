@@ -26,14 +26,45 @@ def safe_div(num: torch.Tensor, den: torch.Tensor, eps: float = 1e-8) -> torch.T
     return torch.where(den == 0, torch.zeros((), dtype=res.dtype, device=res.device), res)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            whole: Optional[tuple] = None, slices=()) -> torch.Tensor:
     """Inverted dropout, Flax's ``nn.Dropout``: each entry kept with
     probability 1 - rate and then divided by it, else 0. The mask is drawn
-    from ``generator``, never from the global one."""
+    from ``generator``, never from the global one.
+
+    A sharded call passes ``whole``, the shape of the tensor of which ``x``
+    is a part, and ``slices``, the part as ``(dim, start, length)`` triples:
+    the mask of the whole is drawn, as the one-process call draws it from
+    the same generator state, and the part kept (``sharded_part`` gives
+    both)."""
     keep_p = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=torch.float32) < keep_p
-    return torch.where(keep, x / keep_p, torch.zeros((), dtype=x.dtype, device=x.device))
+    u = torch.rand(x.shape if whole is None else whole, generator=generator, device=x.device,
+                   dtype=torch.float32)
+    for dim, start, length in slices:
+        u = u.narrow(dim, start, length)
+    if u.shape != x.shape:
+        raise ValueError(f"the part {tuple(u.shape)} of the whole {whole} is not x's "
+                         f"{tuple(x.shape)}")
+    return torch.where(u < keep_p, x / keep_p, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def sharded_part(shape, rows: Optional[tuple[int, int]] = None,
+                 cols: Optional[tuple[int, int]] = None) -> tuple:
+    """``(whole, slices)`` for ``dropout`` of a tensor of ``shape`` that holds
+    the rows r0 .. on dim 1 of a whole of n rows (``rows = (r0, n)``, the
+    graph axis) and the columns c0 .. on its last dim of a whole of w
+    (``cols = (c0, w)``, tensor parallelism); ``()`` with neither, which
+    leaves ``dropout`` its one-process draw."""
+    if rows is None and cols is None:
+        return ()
+    whole, slices = list(shape), []
+    if rows is not None:
+        whole[1] = rows[1]
+        slices.append((1, rows[0], shape[1]))
+    if cols is not None:
+        whole[-1] = cols[1]
+        slices.append((len(shape) - 1, cols[0], shape[-1]))
+    return tuple(whole), tuple(slices)
 
 
 def fourier_encode_dist(

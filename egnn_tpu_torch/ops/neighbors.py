@@ -85,15 +85,19 @@ def max_degree(adj_mat: torch.Tensor) -> int:
     return int(adj_mat.float().sum(dim=-1).max().item())
 
 
-def pairwise_geometry(coors: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def pairwise_geometry(
+    coors: torch.Tensor, coors_j: Optional[torch.Tensor] = None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """(b, n, c) -> rel_coors (b, n, n, c) = x_i - x_j and squared distances
-    rel_dist (b, n, n) (egnn_pytorch.py:232-233).
+    rel_dist (b, n, n) (egnn_pytorch.py:232-233); against ``coors_j`` (b, m,
+    c), the j side of a node-sharded layer's rows, (b, n, m, c) and (b, n, m).
 
     The squares are summed one coordinate at a time, ((d0^2 + d1^2) + d2^2),
     which is the order the CUDA kernel rounds in: the kernel's ranking values
     then equal these bitwise.
     """
-    rel_coors = coors[:, :, None, :] - coors[:, None, :, :]
+    cj = coors if coors_j is None else coors_j
+    rel_coors = coors[:, :, None, :] - cj[:, None, :, :]
     return rel_coors, sum_of_squares(rel_coors)
 
 

@@ -28,8 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.collectives import copy_to_group, reduce_from_group
-from .core import dropout, fourier_encode_dist
+from ..parallel.collectives import copy_to_group, reduce_from_group, shard_cols
+from .core import dropout, fourier_encode_dist, sharded_part
 
 
 class PairwiseParams(NamedTuple):
@@ -82,6 +82,7 @@ def pairwise_block(
     generator: Optional[torch.Generator] = None,
     edge_group=None,
     coors_group=None,
+    rows: Optional[tuple[int, int]] = None,
 ):
     """One (i-block x j-block) of the dense pairwise pipeline: distance
     features -> edge MLP -> [gate] -> coordinate weights and message sums.
@@ -98,17 +99,22 @@ def pairwise_block(
     (``params``' widths are then the shards', ``proj_i`` and ``proj_j`` this
     rank's columns): the second product's partial sums are summed over the
     group (``reduce_from_group``) and the first product's input gradient
-    too (``copy_to_group``)."""
+    too (``copy_to_group``). ``rows = (r0, n)``: the i-block is the rows r0
+    .. r0 + ni - 1 of n (the ring's). A sharded block draws each dropout
+    mask at the whole block's shape (all n rows, the whole hidden width)
+    and keeps its part, so that its masks are those of the unsharded
+    block."""
     # the caller sums these partials over many blocks: keep them >= f32 even
     # when compute_dtype (and so proj_i) is bf16, whose integers stop at 256
     acc_dtype = torch.promote_types(proj_i.dtype, torch.float32)
     b, ni, c = coors_i.shape
     mp = (lambda x: x) if compute_dtype is None else (lambda x: x.to(compute_dtype))
     if dropout_rate > 0.0 and generator is not None:
-        def drop(x):
-            return dropout(x, dropout_rate, generator)
+        def drop(x, group):
+            cols = None if group is None else shard_cols(group, x.shape[-1])
+            return dropout(x, dropout_rate, generator, *sharded_part(x.shape, rows, cols))
     else:
-        def drop(x):
+        def drop(x, group):
             return x
 
     rel = coors_i[:, :, None, :] - coors_j[:, None, :, :]   # (b, ni, nj, c)
@@ -120,7 +126,7 @@ def pairwise_block(
         dist_feats = copy_to_group(dist_feats, edge_group)
     h1 = (mp(proj_i)[:, :, None, :] + mp(proj_j)[:, None, :, :]
           + mp(dist_feats) @ mp(params.w_d))
-    m_ij = F.silu(drop(h1))
+    m_ij = F.silu(drop(h1, edge_group))
     m_ij = m_ij @ mp(params.edge_w2)
     if edge_group is not None:
         m_ij = reduce_from_group(m_ij, edge_group)
@@ -130,7 +136,7 @@ def pairwise_block(
 
     if update_coors:
         m_c = m_ij if coors_group is None else copy_to_group(m_ij, coors_group)
-        cw = F.silu(drop(m_c @ mp(params.coors_w1) + mp(params.coors_b1)))
+        cw = F.silu(drop(m_c @ mp(params.coors_w1) + mp(params.coors_b1), coors_group))
         w_ij = cw @ mp(params.coors_w2)
         if coors_group is not None:
             w_ij = reduce_from_group(w_ij, coors_group)

@@ -152,6 +152,12 @@ def shard_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return x.narrow(dim, dist.get_rank(group) * size, size)
 
 
+def shard_cols(group, width: int) -> tuple[int, int]:
+    """Where this rank holds ``width`` columns of a tensor split evenly over
+    ``group``: its first column and the whole width, ``(c0, w)``."""
+    return dist.get_rank(group) * width, width * dist.get_world_size(group)
+
+
 class _CopyToGroup(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):

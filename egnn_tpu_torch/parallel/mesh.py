@@ -82,7 +82,10 @@ def shard_nodes(module: torch.nn.Module, group) -> torch.nn.Module:
     rank's block of nodes (``dense_batch_block``) and the whole adjacency.
     A kNN layer gathers the ranks' node rows once and selects its own rows
     against them (the row-block selection); an all-pairs layer takes the
-    ring over ``group``; global attention attends over the gathered nodes.
+    ring over ``group``, or with dense edges (this rank's rows of them) its
+    rows against the gathered nodes; global attention attends over the
+    gathered nodes. Dropout in training mode draws the whole tensor's masks
+    on every rank and keeps this rank's rows (``models/egnn.py``).
     ``group=None`` undoes it. Returns ``module``."""
     check_group(group, "group")
     if not hasattr(module, "node_group"):

@@ -43,7 +43,8 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
 
 from ..utils.device import resolve_device
-from .collectives import copy_to_group, gather_from_group, reduce_from_group, shard_along
+from .collectives import (copy_to_group, gather_from_group, reduce_from_group, shard_along,
+                          shard_cols)
 
 
 class ShardedMLPs:
@@ -65,6 +66,13 @@ class ShardedMLPs:
         """``mlp``'s second (row-parallel) product before its bias: under
         tensor parallelism the ranks' partial products are summed."""
         return reduce_from_group(y, self.tp_group) if mlp in self.tp_sharded else y
+
+    def _cols(self, mlp: str, width: int):
+        """Where ``mlp`` is sharded, its hidden's columns on this rank out of
+        the whole (padded) width, ``(c0, w)``, for a sharded dropout
+        (``ops/core.py:sharded_part``), given the rank's ``width``; else
+        None."""
+        return shard_cols(self.tp_group, width) if mlp in self.tp_sharded else None
 
     def _whole(self, name: str):
         """A parameter whole: a shard (``<mlp>_0_w`` of columns, ``<mlp>_0_b``,

@@ -3,8 +3,11 @@ inverted scaling at every site of the materialised layer, the streamed block
 and the sparse layer (``tests/test_dropout_stats.py``'s statistics); eval
 mode equal to dropout 0; the fused flags giving way; masks fixed by the
 caller's generator, also through the streamed path's recompute, whose
-gradients equal the materialised path's under the same masks; and the
-train step, which applies no dropout, against the JAX step."""
+gradients equal the materialised path's under the same masks; a sharded
+call's mask, its part of the whole draw (the graph axis and tensor
+parallelism hold the layers in ``test_torch_graph_axis.py`` and
+``test_torch_tp.py``); and the train step, which applies no dropout,
+against the JAX step."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -249,6 +252,29 @@ def test_streamed_gradients_equal_the_materialised_path_under_the_same_masks(
     assert masks == []
     for a, b_ in zip(out_s, out_m):
         torch.testing.assert_close(a, b_, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("rows,cols", [((4, 12), None), (None, (8, 24)), ((8, 12), (16, 24))],
+                         ids=["rows", "cols", "both"])
+def test_sharded_dropout_is_its_part_of_the_whole_draw(rows, cols):
+    """A sharded call (``whole`` and ``slices`` from ``sharded_part``: rows
+    on dim 1, columns on the last dim) keeps bitwise its part of the mask
+    that the unsharded call draws from the same generator state, and leaves
+    the generator where that call leaves it."""
+    x = torch.randn(2, 12, 5, 24, generator=_gen(3), dtype=torch.float64)
+    part = x[:, rows[0]:rows[0] + 4] if rows else x
+    part = part[..., cols[0]:cols[0] + 8] if cols else part
+    g_whole, g_part = _gen(9), _gen(9)
+    want = core.dropout(x, RATE, g_whole)
+    got = core.dropout(part, RATE, g_part, *core.sharded_part(part.shape, rows, cols))
+    if rows:
+        want = want[:, rows[0]:rows[0] + 4]
+    if cols:
+        want = want[..., cols[0]:cols[0] + 8]
+    assert torch.equal(got, want)
+    assert torch.equal(g_whole.get_state(), g_part.get_state())
+    with pytest.raises(ValueError, match="not x's"):
+        core.dropout(part, RATE, g_part, (2, 12, 5, 24), ((1, 0, 3),))
 
 
 def test_train_step_applies_no_dropout_as_the_jax_step():

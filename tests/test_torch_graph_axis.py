@@ -17,17 +17,21 @@ Held here:
   JAX's ``make_sharded_denoise_train_step`` (losses rtol 1e-10, parameters
   rtol 1e-8 / atol 1e-10, the ranks' parameters bitwise equal) for the kNN
   network of ``test_torch_parallel.DENSE_KW``, with ``num_adj_degrees=2,
-  adj_dim=4``, with global attention and as an all-pairs network (the ring
-  over the graph group);
+  adj_dim=4``, with global attention, as an all-pairs network (the ring
+  over the graph group), as an all-pairs network with the degrees' dense
+  edges (each rank's rows against the gathered cloud) and with
+  ``only_sparse_neighbors`` over the degrees;
 - ``fused_pairs`` (K10 on the rank's rows) and ``fused_knn`` (K11 with a
   j table: the gathered cloud) under the graph axis against the port's
   one-process fused step and JAX's unfused sharded step (1e-9 of the
   largest value); K11's j-table form in its plain versions against the
   whole-table form and its backward against autograd;
-- a network with dense ``edges`` (each rank its rows' block) against the
-  JAX network, outputs and every gradient;
-- the refusals: dropout in training mode (``ValueError``), an all-pairs
-  layer with dense edges (``NotImplementedError``).
+- a network with dense ``edges`` (each rank its rows' block), kNN and
+  all-pairs, against the JAX network, outputs and every gradient;
+- dropout in training mode on the kNN, dense-edge and ring routes at g = 2
+  and 4: outputs and every gradient against the port's one-process network
+  with the same generator state (the ring's against the streamed layer at
+  ``pairwise_chunk = n / g``), at 1e-9 of the largest value.
 
 Ranks are spawned processes under gloo (``test_torch_parallel.run_ranks``):
 one spawn of two ranks, one of four. Float64 throughout with explicit
@@ -54,12 +58,36 @@ CONFIGS = {
                   "global_linear_attn_dim_head": 4, "num_global_tokens": 2},
     "all_pairs": {**DENSE_KW, "layer_kwargs": dict(norm_coors=True, coor_weights_clamp_value=2.0,
                                                    init_eps=0.1)},
+    # the degrees' (b, n, n, adj_dim) edges reach every all-pairs layer
+    "all_pairs_degrees": {**DENSE_KW, "num_adj_degrees": 2, "adj_dim": 4,
+                          "layer_kwargs": dict(norm_coors=True, coor_weights_clamp_value=2.0,
+                                               init_eps=0.1)},
+    # k: JAX's jitted step takes num_nearest_neighbors (its adjacency is
+    # traced), the port the expanded adjacency's largest row degree; on the
+    # 2-degree chain that is 3 (each node, i - 2 and i + 2), so both take 3
+    "sparse_neighbors": {**DENSE_KW, "num_adj_degrees": 2, "adj_dim": 4,
+                         "layer_kwargs": dict(only_sparse_neighbors=True, num_nearest_neighbors=3,
+                                              norm_coors=True, coor_weights_clamp_value=2.0,
+                                              init_eps=0.1)},
 }
+SPARSE_NEIGHBORS_K = 3
 MESHES = {2: [(1, 2)], 4: [(2, 2), (1, 4)]}
 FUSED = {flag: {**DENSE_KW, "layer_kwargs": {**DENSE_KW["layer_kwargs"], flag: True}}
          for flag in ("fused_pairs", "fused_knn")}
 EDGES_KW = dict(depth=2, dim=8, edge_dim=2, layer_kwargs=dict(num_nearest_neighbors=4,
                                                               norm_coors=True, init_eps=0.1))
+EDGES_ALL_PAIRS_KW = dict(depth=2, dim=8, edge_dim=2, layer_kwargs=dict(norm_coors=True,
+                                                                        init_eps=0.1))
+DROPOUT = 0.1
+DROPOUT_ROUTES = {   # the graph axis's routes of a network in training mode
+    "knn": {**CONFIGS["knn"], "layer_kwargs": {**CONFIGS["knn"]["layer_kwargs"],
+                                               "dropout": DROPOUT}},
+    "edges": {**CONFIGS["all_pairs_degrees"],
+              "layer_kwargs": {**CONFIGS["all_pairs_degrees"]["layer_kwargs"],
+                               "dropout": DROPOUT}},
+    "ring": {**CONFIGS["all_pairs"], "layer_kwargs": {**CONFIGS["all_pairs"]["layer_kwargs"],
+                                                      "dropout": DROPOUT}},
+}
 
 
 def _close(actual, desired, atol=ATOL, name=""):
@@ -287,7 +315,7 @@ def _step(net, mesh, batch, steps):
     return losses, step
 
 
-def _edges_case(mesh, p):
+def _edges_case(mesh, p, kw=EDGES_KW):
     """The network with dense edges on the graph axis: each rank its block
     of nodes and its rows of the edges; the output rows and the gradients of
     sum(f^2) + sum(c^2) (the parameters', this rank's share; the inputs',
@@ -295,7 +323,7 @@ def _edges_case(mesh, p):
     from egnn_tpu_torch import EGNNNetwork, parallel
     from egnn_tpu_torch.utils.port_weights import load_flax_params
 
-    net = EGNNNetwork(**EDGES_KW, **F64)
+    net = EGNNNetwork(**kw, **F64)
     load_flax_params(net, p["params"])
     parallel.shard_nodes(net, mesh.get_group("graph"))
     feats, coors, edges, mask, adj = (torch.from_numpy(a) for a in p["inputs"])
@@ -310,25 +338,40 @@ def _edges_case(mesh, p):
                 grads={k: _np(v.grad) for k, v in net.named_parameters()})
 
 
-def _refusals(mesh):
-    from egnn_tpu_torch import EGNN, parallel
+def _dropout_case(mesh, p, route):
+    """A network of ``DROPOUT_ROUTES[route]`` in training mode, in one
+    process on the whole batch and on the graph axis on this rank's block,
+    each with a generator seeded alike: the outputs (the sharded call's
+    rows) and the gradients of sum(f^2) + sum(c^2) (the parameters', the
+    sharded call's share). The ring is held against the streamed layer at
+    ``pairwise_chunk = n / g``, whose masks it draws."""
+    from egnn_tpu_torch import EGNNNetwork, parallel
+    from egnn_tpu_torch.utils.port_weights import load_flax_params
 
     group = mesh.get_group("graph")
-    x, co = torch.zeros(1, 8, 8, **F64), torch.randn(1, 8, 3, **F64)
-    out = {}
-    for name, kw, call in (
-            ("dropout", dict(num_nearest_neighbors=4, dropout=0.1),
-             dict(generator=torch.Generator())),
-            ("all_pairs_edges", dict(edge_dim=2), dict(edges=torch.zeros(1, 8, 16, 2, **F64)))):
-        layer = parallel.shard_nodes(EGNN(dim=8, **kw, **F64), group)
-        if name != "dropout":
-            layer.eval()
-        try:
-            layer(x, co, **call)
-            out[name] = None
-        except (NotImplementedError, ValueError) as e:
-            out[name] = (type(e).__name__, str(e))
-    return out
+    tokens, coors, _, adj, mask = (torch.from_numpy(a) for a in p["batch"])
+    n = tokens.shape[1]
+    kw = DROPOUT_ROUTES[route]
+    if route == "ring":
+        kw = {**kw, "layer_kwargs": {**kw["layer_kwargs"], "stream_pairwise": True,
+                                     "pairwise_chunk": n // dist.get_world_size(group)}}
+
+    def run(sharded):
+        net = EGNNNetwork(**kw, **F64)
+        load_flax_params(net, p["params"][{"knn": "knn", "edges": "all_pairs_degrees",
+                                           "ring": "all_pairs"}[route]])
+        args = (tokens, coors, mask)
+        if sharded:
+            parallel.shard_nodes(net, group)
+            args = tuple(parallel.dense_batch_block(mesh, t) for t in args)
+        c0 = args[1].clone().requires_grad_()
+        f, c = net(args[0], c0, adj_mat=adj, mask=args[2],
+                   generator=torch.Generator().manual_seed(17))
+        ((f ** 2).sum() + (c ** 2).sum()).backward()
+        return dict(f=_np(f), c=_np(c), coors_grad=_np(c0.grad),
+                    grads={k: _np(v.grad) for k, v in net.named_parameters()})
+
+    return dict(sharded=run(True), one=run(False))
 
 
 def graph_cases(rank, world, p):
@@ -361,7 +404,10 @@ def graph_cases(rank, world, p):
                                               params=_named(net))
         mesh = parallel.make_mesh(1, 2, device="cpu")
         out["edges"] = _edges_case(mesh, p["edges"])
-        out["refused"] = _refusals(mesh)
+        out["edges_all_pairs"] = _edges_case(mesh, p["edges_all_pairs"], EDGES_ALL_PAIRS_KW)
+    mesh = parallel.make_mesh(1, world, device="cpu")
+    for route in DROPOUT_ROUTES:
+        out[("dropout", route)] = _dropout_case(mesh, p, route)
     return out
 
 
@@ -404,7 +450,7 @@ def _jax_steps(jnet, params_np, batch, data, graph):
     return losses, _flat(jax.tree_util.tree_map(np.asarray, state.params))
 
 
-def _jax_edges(params_np, inputs):
+def _jax_edges(params_np, inputs, kw=EDGES_KW):
     """The JAX network with dense edges on the whole input: outputs, the
     gradients of sum(f^2) + sum(c^2) wrt the parameters and the inputs."""
     import jax
@@ -414,7 +460,7 @@ def _jax_edges(params_np, inputs):
 
     from test_torch_parallel import _flat
 
-    jnet = egnn_tpu.EGNNNetwork(**EDGES_KW)
+    jnet = egnn_tpu.EGNNNetwork(**kw)
     feats, coors, edges, mask, adj = (jnp.asarray(a) for a in inputs)
 
     def loss(prm, f0, c0, e0):
@@ -427,21 +473,21 @@ def _jax_edges(params_np, inputs):
                 grads=_flat(jax.tree_util.tree_map(np.asarray, grads[0])))
 
 
-def _edges_payload():
+def _edges_payload(kw=EDGES_KW, seed=12):
     import jax
     import jax.numpy as jnp
 
     import egnn_tpu
 
-    rng = np.random.RandomState(12)
+    rng = np.random.RandomState(seed)
     b, n = 2, 16
     inputs = (rng.randn(b, n, 8), np.cumsum(rng.randn(b, n, 3), axis=1), rng.randn(b, n, n, 2),
               rng.rand(b, n) > 0.2, np.abs(np.arange(n)[:, None] - np.arange(n)[None]) == 1)
-    params = egnn_tpu.EGNNNetwork(**EDGES_KW).init(
+    params = egnn_tpu.EGNNNetwork(**kw).init(
         jax.random.PRNGKey(3), *map(jnp.asarray, inputs[:2]), adj_mat=jnp.asarray(inputs[4]),
         edges=jnp.asarray(inputs[2]), mask=jnp.asarray(inputs[3]))["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
-    return dict(params=params, inputs=inputs), _jax_edges(params, inputs)
+    return dict(params=params, inputs=inputs), _jax_edges(params, inputs, kw)
 
 
 @pytest.fixture(scope="module")
@@ -453,10 +499,12 @@ def graph_runs(tmp_path_factory):
     refs = {(name, d, g): _jax_steps(jnets[name], params[name], batch, d, g)
             for name in CONFIGS for world in MESHES for d, g in MESHES[world]}
     edges_payload, edges_ref = _edges_payload()
-    payload = dict(params=params, batch=batch, edges=edges_payload)
+    all_pairs_payload, all_pairs_ref = _edges_payload(EDGES_ALL_PAIRS_KW, 13)
+    payload = dict(params=params, batch=batch, edges=edges_payload,
+                   edges_all_pairs=all_pairs_payload)
     tmp = tmp_path_factory.mktemp("graph")
     ranks = {world: run_ranks(graph_cases, world, tmp, payload) for world in MESHES}
-    return dict(refs=refs, ranks=ranks, edges_ref=edges_ref)
+    return dict(refs=refs, ranks=ranks, edges_ref=edges_ref, all_pairs_ref=all_pairs_ref)
 
 
 STEP_CASES = [(name, d, g) for name in CONFIGS for w in MESHES for d, g in MESHES[w]]
@@ -511,12 +559,7 @@ def test_graph_step_fused_matches_one_process_and_jax(graph_runs, flag, d, g):
             _close(got["params"][key], value, name=f"jax {key}")
 
 
-def test_graph_axis_dense_edges_match_jax(graph_runs):
-    """The network with dense edges (each rank its rows' block of them):
-    outputs, the inputs' gradients (this rank's rows) and the parameters'
-    (summed over the ranks) against the JAX network on the whole input."""
-    ref = graph_runs["edges_ref"]
-    ranks = [r["edges"] for r in graph_runs["ranks"][2]]
+def _edges_match(ref, ranks):
     for field in ("f", "c"):
         _close(np.concatenate([r[field] for r in ranks], axis=1), ref[field], name=field)
     for i, want in enumerate(ref["input_grads"]):
@@ -527,8 +570,48 @@ def test_graph_axis_dense_edges_match_jax(graph_runs):
         _close(sum(r["grads"][key] for r in ranks), want, name=key)
 
 
-@pytest.mark.parametrize("name,kind", [("dropout", "ValueError"),
-                                       ("all_pairs_edges", "NotImplementedError")])
-def test_graph_axis_refusals(graph_runs, name, kind):
-    for res in graph_runs["ranks"][2]:
-        assert res["refused"][name] is not None and res["refused"][name][0] == kind, name
+def test_graph_axis_dense_edges_match_jax(graph_runs):
+    """The network with dense edges (each rank its rows' block of them):
+    outputs, the inputs' gradients (this rank's rows) and the parameters'
+    (summed over the ranks) against the JAX network on the whole input."""
+    _edges_match(graph_runs["edges_ref"], [r["edges"] for r in graph_runs["ranks"][2]])
+
+
+def test_graph_axis_all_pairs_dense_edges_match_jax(graph_runs):
+    """An all-pairs network with dense edges: each rank's rows against the
+    gathered cloud (the materialised route), outputs and every gradient
+    against the JAX network on the whole input."""
+    _edges_match(graph_runs["all_pairs_ref"],
+                 [r["edges_all_pairs"] for r in graph_runs["ranks"][2]])
+
+
+def test_sparse_neighbors_k_agrees_with_jax():
+    """The ``sparse_neighbors`` config's num_nearest_neighbors (JAX's k under
+    jit) is the port's k, the expanded adjacency's largest row degree."""
+    from egnn_tpu_torch.ops import neighbors as tnb
+
+    adj = torch.from_numpy(_dense_batch()[3])[None]
+    expanded, _ = tnb.expand_adjacency_degrees(adj, CONFIGS["sparse_neighbors"]["num_adj_degrees"])
+    assert tnb.max_degree(expanded) == SPARSE_NEIGHBORS_K == \
+        CONFIGS["sparse_neighbors"]["layer_kwargs"]["num_nearest_neighbors"]
+
+
+@pytest.mark.parametrize("world", list(MESHES))
+@pytest.mark.parametrize("route", list(DROPOUT_ROUTES))
+def test_graph_axis_dropout_matches_one_process(graph_runs, route, world):
+    """Dropout in training mode on the graph axis (g = world): every rank
+    draws the whole tensor's masks and keeps its rows, so that the output
+    rows and the gradients (the parameters' summed over the ranks, the
+    coordinates' rows) equal the one-process network's with the same
+    generator state, at 1e-9 of the largest value."""
+    ranks = [r[("dropout", route)] for r in graph_runs["ranks"][world]]
+    one = ranks[0]["one"]
+    for res in ranks[1:]:
+        for field in ("f", "c"):
+            np.testing.assert_array_equal(res["one"][field], one[field])
+    for field in ("f", "c", "coors_grad"):
+        _close(np.concatenate([r["sharded"][field] for r in ranks], axis=1), one[field],
+               name=field)
+    assert sorted(ranks[0]["sharded"]["grads"]) == sorted(one["grads"])
+    for key, want in one["grads"].items():
+        _close(sum(r["sharded"]["grads"][key] for r in ranks), want, name=key)

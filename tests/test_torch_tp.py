@@ -18,10 +18,13 @@ norms and the soft gate; ``uniform_degree`` with the mean and the clamp;
 ``fused_uniform`` through K10's plain version, the JAX side on its per-edge
 path; an ``EGNNSparseNetwork`` with an embedding over the fused layers):
 placements, output and every gradient against JAX's ``tp_param_sharding``
-run and the replicated module; the refusals (dropout in training mode in
-both families, a module without the hooks whose parameters the rule
-matches). A sharded gradient is this rank's block of the replicated
-module's, and no gradient is scaled by the axis size.
+run and the replicated module; dropout in training mode (the dense layer
+materialised, streamed and over kNN, the sparse layer) at model = 2 and 4
+against the replicated module with the same generator state: each rank
+draws the whole hidden width's masks and keeps its columns; the refusal of
+a module without the hooks whose parameters the rule matches. A sharded
+gradient is this rank's block of the replicated module's, and no gradient
+is scaled by the axis size.
 
 Float64 throughout, at 1e-9 times the tensor's largest magnitude where that
 exceeds 1 (the products split in another order). One spawn of 4 ranks runs
@@ -52,6 +55,14 @@ EXTRA = {   # checked against the replicated module (and the JAX layer where it 
 STEP_KW = dict(depth=2, dim=16, num_tokens=7,
                layer_kwargs=dict(num_nearest_neighbors=4, norm_coors=True))
 STEPS = 2
+DROPOUT = {   # in training mode at rate 0.1, against the replicated module
+    "dense_materialised": dict(dim=16, norm_coors=True, init_eps=0.1),
+    "dense_streamed": dict(dim=16, stream_pairwise=True, pairwise_chunk=8, norm_coors=True,
+                           init_eps=0.1),
+    "dense_knn": dict(dim=16, num_nearest_neighbors=4, norm_coors=True, init_eps=0.1),
+    "sparse": dict(feats_dim=8, fourier_features=2, norm_feats=True, norm_coors=True,
+                   soft_edge=1),
+}
 SPARSE_K = 4
 SPARSE = {   # (network?, options); the JAX side runs fused_uniform=False
     "sparse_fourier": (False, dict(feats_dim=8, fourier_features=2, norm_feats=True,
@@ -188,11 +199,60 @@ def sparse_tp_cases(mesh, p):
     return out
 
 
+def tp_dropout_cases(mesh):
+    """``DROPOUT``'s modules in training mode, replicated and then sharded,
+    each called with a generator seeded alike: the outputs and the
+    gradients of <out, cot> (the inputs', the parameters': this rank's
+    shards), and the placements."""
+    from egnn_tpu_torch import EGNN, EGNNSparse, parallel
+    from egnn_tpu_torch.ops.graph import knn_graph
+
+    rng = np.random.RandomState(31)
+    out = {}
+    for name, kw in DROPOUT.items():
+        gen = torch.Generator().manual_seed(7)
+        if name == "sparse":
+            module = EGNNSparse(**kw, dropout=0.1, **F64, generator=gen)
+            coors = torch.from_numpy(1.5 * rng.randn(24, 3))
+            es = knn_graph(coors, SPARSE_K, graph_size=12)
+            x = torch.cat([coors, torch.from_numpy(rng.randn(24, 8))], dim=-1)
+            inputs, kwargs = [x], dict(edge_index=es.edge_index, edge_mask=es.mask,
+                                       batch=torch.arange(24) // 12, num_graphs=2)
+        else:
+            module = EGNN(**kw, dropout=0.1, **F64, generator=gen)
+            feats, coors, mask = _inputs(40, 2, 16, kw["dim"])
+            inputs = [torch.from_numpy(feats), torch.from_numpy(coors)]
+            kwargs = dict(mask=torch.from_numpy(mask))
+        placements = {k: _placement(v)
+                      for k, v in parallel.tp_param_sharding(module, mesh).items()}
+
+        def run():
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            res = module(*leaves, **kwargs, generator=torch.Generator().manual_seed(11))
+            res = res if isinstance(res, tuple) else (res,)
+            loss = sum((r * torch.from_numpy(np.random.RandomState(i).randn(*r.shape))).sum()
+                       for i, r in enumerate(res))
+            loss.backward()
+            got = dict(outs=[_np(r.detach()) for r in res],
+                       input_grads=[_np(t.grad) for t in leaves],
+                       grads={k: _np(v.grad) for k, v in module.named_parameters()})
+            module.zero_grad(set_to_none=True)
+            return got
+
+        replicated = run()
+        parallel.tp_shard_module(module, mesh)
+        res = run()
+        res.update(placements=placements, replicated=replicated,
+                   sharded=sorted(module.tp_sharded))
+        out[name] = res
+    return out
+
+
 def tp_refusals(mesh):
     """What tensor parallelism runs and refuses: the sparse layer shards and
-    runs (it was refused before its hooks); dropout in training mode in
-    either family and a module without the hooks raise."""
-    from egnn_tpu_torch import EGNN, EGNNSparse, parallel
+    runs (it was refused before its hooks); a module without the hooks
+    raises."""
+    from egnn_tpu_torch import EGNNSparse, parallel
 
     def outcome(fn):
         try:
@@ -203,17 +263,10 @@ def tp_refusals(mesh):
 
     x, ei = torch.randn(4, 3 + 8, **F64), torch.tensor([[1, 2, 3, 0], [0, 1, 2, 3]])
     sparse = EGNNSparse(feats_dim=8, m_dim=16, **F64)
-    sparse_drop = EGNNSparse(feats_dim=8, m_dim=16, dropout=0.1, **F64)
-    layer = EGNN(dim=8, dropout=0.1, **F64)
     other = torch.nn.Module()
     other.register_parameter("proj_0_w", torch.nn.Parameter(torch.zeros(4, 8, **F64)))
     return {
         "sparse": outcome(lambda: parallel.tp_shard_module(sparse, mesh)(x, ei)),
-        "dropout": outcome(lambda: parallel.tp_shard_module(layer, mesh)(
-            torch.zeros(1, 4, 8, **F64), torch.zeros(1, 4, 3, **F64),
-            generator=torch.Generator())),
-        "sparse_dropout": outcome(lambda: parallel.tp_shard_module(sparse_drop, mesh)(
-            x, ei, generator=torch.Generator())),
         "other": outcome(lambda: parallel.tp_shard_module(other, mesh)),
     }
 
@@ -224,8 +277,10 @@ def tp_cases(rank, world, p):
     mesh2 = parallel.make_tp_mesh(2, 2, device="cpu")
     mesh4 = parallel.make_tp_mesh(1, 4, device="cpu")
     return {2: dict(cases=tp_mesh_cases(mesh2, p[2]), step=tp_step_case(mesh2, p["step"]),
-                    sparse=sparse_tp_cases(mesh2, p["sparse"])),
-            4: dict(cases=tp_mesh_cases(mesh4, p[4]), refused=tp_refusals(mesh4))}
+                    sparse=sparse_tp_cases(mesh2, p["sparse"]),
+                    dropout=tp_dropout_cases(mesh2)),
+            4: dict(cases=tp_mesh_cases(mesh4, p[4]), refused=tp_refusals(mesh4),
+                    dropout=tp_dropout_cases(mesh4))}
 
 
 # ---------------------------------------------------------------------------
@@ -491,11 +546,33 @@ def test_tp_data_parallel_step_matches_one_process(tp_runs):
 
 def test_tp_refusals(tp_runs):
     """The sparse layer, refused before it had the hooks, now shards and
-    runs; dropout in training mode (both families) and a module without the
-    hooks are refused."""
-    assert tp_runs[4]["ranks"][0]["refused"] == {"sparse": "runs", "dropout": "ValueError",
-                                                 "sparse_dropout": "ValueError",
+    runs; a module without the hooks is refused."""
+    assert tp_runs[4]["ranks"][0]["refused"] == {"sparse": "runs",
                                                  "other": "NotImplementedError"}
+
+
+@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("name", list(DROPOUT))
+def test_tp_dropout_matches_replicated(tp_runs, model, name):
+    """Dropout in training mode under tensor parallelism: a sharded MLP's
+    hidden mask is the replicated module's, drawn at the whole width and
+    cut to the rank's columns, so that the outputs and every gradient (the
+    shards concatenated) equal the replicated module's with the same
+    generator state at 1e-9 of the largest value. At model = 4 the edge
+    MLP (hidden 66 dense, 42 sparse) stays replicated and draws as
+    before."""
+    ranks = [r["dropout"][name] for r in tp_runs[model]["ranks"]]
+    res0 = ranks[0]
+    assert res0["sharded"] == (["coors_mlp", "edge_mlp", "node_mlp"] if model == 2
+                               else ["coors_mlp", "node_mlp"])
+    for res in ranks:
+        for got, want in zip(res["outs"] + res["input_grads"],
+                             res["replicated"]["outs"] + res["replicated"]["input_grads"]):
+            _close(got, want)
+    for k, want in res0["replicated"]["grads"].items():
+        kind, dim = res0["placements"][k]
+        parts = [r["grads"][k] for r in ranks]
+        _close(np.concatenate(parts, axis=dim) if kind == "shard" else parts[0], want, name=k)
 
 
 @pytest.mark.parametrize("name", list(SPARSE))
