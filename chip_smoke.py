@@ -17,7 +17,8 @@ examples (``export_serving``, ``denoise --metrics``), then model parallelism
 (the ring, tensor parallelism and the pipeline, on the same two set-ups),
 then the fused pair kernel's tensor-core mode (``mxu_bf16``, under
 ``torch.set_float32_matmul_precision("medium")``), then the dense step
-sharded over nodes, then anchor 4 and the sharded dropout, checks the outputs,
+sharded over nodes, then anchor 4 and the sharded dropout, then the trainers'
+blocks of CUDA-graph replays, checks the outputs,
 and times the kernels, the forwards and the train steps (with
 ``egnn_tpu_torch/utils/profiling.py``'s timers and the H100 peaks of its
 ``Roofline``).
@@ -194,9 +195,11 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    128 residues (n = 384), 64 micro-steps: one run uninterrupted in this
    process, one in a subprocess (the CPU fault test's runner) that SIGKILLs
    itself right after the checkpoint of micro-step 24 (inside an
-   accumulation window), and one in this process that resumes it; the
-   final parameters and optimizer state bitwise equal, the held-out loss
-   falling; micro-steps/s and edges/s as calls;
+   accumulation window), and one in this process that resumes it, all
+   under the default ``--block`` (blocks of CUDA-graph replays, each ended
+   at a checkpoint); the final parameters and optimizer state bitwise
+   equal, the held-out loss falling; micro-steps/s and edges/s; a
+   micro-step as an eager call, with and without the guard;
 37. a one-rank NCCL group in this process (``parallel.initialize`` over a
    ``file://`` store): the data-parallel anchor-3 step
    (``make_sharded_denoise_train_step``, b = 8) bitwise against
@@ -301,7 +304,9 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    against the CPU (forward 1e-4, loss rtol 1e-4, gradient 1e-5), its
    equivariance, K1 depth times a forward and K2 depth times a fwd+bwd,
    both timed as calls and as CUDA-graph replays (``max_degree``'s host
-   read hoisted out of the capture). 45b: its all-pairs variant, the
+   read hoisted out of the capture); one train step at the step's k = 7
+   (the given ``num_nearest_neighbors``, as the JAX package's jitted step)
+   against the CPU (loss rtol 1e-4, gradients by phase 9's rule). 45b: its all-pairs variant, the
    degrees' dense (1, 512, 512, 8) edges in both layers, against the CPU
    (forward 1e-4 of its largest value); then both trained 3 steps on a
    (data, graph) = (1, 2) mesh of two gloo ranks sharing the card against
@@ -316,6 +321,21 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    masks, then the loss (rtol 1e-4) and the gradients (5e-3 self pairs,
    1e-5, 1e-5, 1e-4); then the whole-mask draw timed beside the part's own
    draw.
+46. the trainers' blocks (``--block``: the step captured once by
+   ``training.capture_step`` and replayed a micro-step, the losses read
+   once a block): the denoise trainer at phase 36's configuration (its
+   file, 64 micro-steps, checkpoints every 8) in blocks of 8, and on
+   synthetic chains in blocks of 10, each against blocks of 1: losses and
+   the final parameters and optimizer state bitwise; K2 launched only by
+   the warm-up and the capture (depth times each) where eager calls launch
+   it depth times a micro-step; micro-steps/s and edges/s after the first
+   block beside eager calls (``--block 0``) and phase 36's micro-step as a
+   call; one block of 8 replays timed, its kernel time, busy share and
+   launches (torch.profiler); the molecule trainer's default path (G = 32,
+   NA = 32, k = 8, dim 64, 4 layers; the edge build and the step captured
+   together), 40 steps in blocks of 10 against blocks of 1: losses and
+   MAEs bitwise, K3 only at the warm-up and the capture, the loss falling;
+   steps/s beside eager calls.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -1748,7 +1768,8 @@ FAULT_RUNNER = Path("tests") / "test_torch_fault_recovery.py"
 def host_runtime_phases(torch, smi):
     """Phases 34-36: the native host graph builder and the molecule trainer
     fed through ``PrefetchLoader``, k-hop lists on the card, and the denoise
-    trainer killed and resumed from its checkpoint. Raises on a failure."""
+    trainer killed and resumed from its checkpoint. Raises on a failure;
+    returns the trainers' steps timed as calls (phase 46 prints them)."""
     import shutil
 
     import numpy as np
@@ -2003,6 +2024,181 @@ def host_runtime_phases(torch, smi):
         raise AssertionError("denoise trainer: the held-out loss did not fall")
     shutil.rmtree(work, ignore_errors=True)
     print(f"phase 36: {time.perf_counter() - t_phase:.1f} s")
+    return {"denoise_call_ms": guarded_ms, "denoise_kernel_ms": kernel_ms,
+            "denoise_launches": launches, "molecule_call_ms": step_ms}
+
+
+# phase 46: the trainers' blocks. The denoise trainer at phase 36's
+# configuration (its file, 64 micro-steps, checkpoints every 8) in blocks of
+# 8 against blocks of 1, and on synthetic chains in blocks of 10 against 1;
+# the molecule trainer's default path at its example's width, 40 steps in
+# blocks of 10 against 1. Block 0 (eager calls) runs beside them for the
+# times
+BLOCK_DATA, BLOCK_SYNTH, BLOCK_MOLECULE, MOLECULE_STEPS = 8, 10, 10, 40
+BLOCK_PROFILE_ITERS = 4
+
+
+def final_state_diffs(torch, a, b):
+    """The names of the tensors (and ``mini_step``) of two trainer
+    checkpoints that are not bitwise equal."""
+    pairs = ([(f"model.{k}", a["model"][k], b["model"][k]) for k in a["model"]]
+             + [(f"optimizer.{k}.{n}", t, b["optimizer"]["state"][k][n])
+                for k, st in a["optimizer"]["state"].items() for n, t in st.items()])
+    diffs = [name for name, x, y in pairs if not same_bits(torch, x, y)]
+    if a["optimizer"]["mini_step"] != b["optimizer"]["mini_step"]:
+        diffs.append("mini_step")
+    return len(pairs), diffs
+
+
+def trainer_block_phase(torch, smi, eager):
+    """Phase 46: the trainers' ``--block`` as CUDA-graph replays of the
+    captured step (``training.capture_step``): each trainer in blocks
+    against blocks of one, bitwise, beside eager calls (``--block 0``) and
+    phase 36's step as a call (``eager``, host_runtime_phases' numbers);
+    one block's kernels profiled. Raises on a failure."""
+    import shutil
+
+    import numpy as np
+
+    from egnn_tpu_torch.examples import denoise
+    from egnn_tpu_torch.examples import molecule_regression as mr
+    from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from egnn_tpu_torch.training import capture_step, to_tensors
+    from egnn_tpu_torch.training.datasets import BackboneDataset, make_synthetic_backbone_dataset
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke_blocks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data = make_synthetic_backbone_dataset(str(work / "backbone.npz"),
+                                           num_proteins=DENOISE_PROTEINS,
+                                           seq_len=DENOISE_RESIDUES, seed=SEED)
+    n_atoms, depth = 3 * DENOISE_RESIDUES, 5
+    example = ["--device", "cuda", "--steps", str(DENOISE_STEPS), "--depth", str(depth),
+               "--dim", "32", "--knn", "16", "--grad-accum", "16", "--lr", "1e-3"]
+    edges = n_atoms * 16 * depth
+
+    def steady(s):
+        """Micro-steps a second after the first block (its capture)."""
+        left = len(s["losses"]) - s["first_block_steps"]
+        return left / (s["seconds"] - s["first_block_seconds"]) if left else float("nan")
+
+    def denoise_runs(what, extra, blocks):
+        runs = {}
+        for block in blocks:
+            ckpt = work / f"{what}_{block}"
+            reset_launch_counts()
+            with contextlib.redirect_stdout(io.StringIO()):
+                s = denoise.main(example + extra + ["--block", str(block), "--ckpt-dir",
+                                                    str(ckpt)])
+            torch.cuda.synchronize()
+            s["launches"] = {k: v for k, v in LAUNCH_COUNTS.items() if v}
+            s["final"] = torch.load(ckpt / f"ckpt_{DENOISE_STEPS:09d}.pt", weights_only=True)
+            runs[block] = s
+            print(f"phase 46 denoise trainer, {what}, --block {block}: "
+                  f"{s['steps_per_s']:.3f} micro-steps/s over the run "
+                  f"({s['edges_per_s']:.4e} edges/s), {steady(s):.3f} after the first block "
+                  f"({s['first_block_steps']} micro-steps in {s['first_block_seconds']:.3f} s"
+                  f"{', the capture included' if block else ''}), {steady(s) * edges:.4e} "
+                  f"edges/s; launches counted {s['launches']}")
+        return runs
+
+    # ---- 46a. the denoise trainer in blocks ----
+    file_args = ["--data", data, "--ckpt-every", str(DENOISE_CKPT_EVERY)]
+    by_file = denoise_runs("phase 36's file", file_args, (BLOCK_DATA, 1, 0))
+    synth = denoise_runs("synthetic chains", [], (BLOCK_SYNTH, 1, 0))
+    failures = []
+    for what, runs, block in (("phase 36's file", by_file, BLOCK_DATA),
+                              ("synthetic chains", synth, BLOCK_SYNTH)):
+        count, diffs = final_state_diffs(torch, runs[block]["final"], runs[1]["final"])
+        _, eager_diffs = final_state_diffs(torch, runs[block]["final"], runs[0]["final"])
+        same_losses = runs[block]["losses"] == runs[1]["losses"]
+        # each block run launched the step twice (the warm-up and the
+        # capture) and replayed it for every micro-step; two held-out
+        # forwards launch K1 depth times each
+        k2 = {b: runs[b]["launches"].get("segment_sum", 0) for b in (block, 1, 0)}
+        replayed = k2[block] == k2[1] == 2 * depth and k2[0] == DENOISE_STEPS * depth
+        finite = all(math.isfinite(v) for v in runs[block]["losses"])
+        print(f"phase 46a denoise trainer on {what} (depth {depth}, dim 32, kNN 16, n = "
+              f"{n_atoms}, grad_accum 16, {DENOISE_STEPS} micro-steps): --block {block} against "
+              f"--block 1, losses bitwise={same_losses}, final state {count - len(diffs)} of "
+              f"{count} tensors bitwise (differing: {diffs[:8]}), mini_step "
+              f"{runs[block]['final']['optimizer']['mini_step']}; against eager calls (--block "
+              f"0): losses bitwise={runs[block]['losses'] == runs[0]['losses']}, final state "
+              f"{count - len(eager_diffs)} of {count} bitwise (not gated); K2 launches counted "
+              f"{k2} (a block run: the warm-up and the capture, {2 * depth}; eager: "
+              f"{DENOISE_STEPS * depth}); the losses finite={finite}")
+        if not (same_losses and not diffs and replayed and finite):
+            failures.append(f"denoise on {what}")
+
+    # one block of the captured guarded step on phase 36's first batches,
+    # already on the card: its wall time, kernel time and launches
+    dargs = denoise.parse_args(example)
+    dargs.nodes = n_atoms
+    net, _, guarded = denoise.build(dargs, torch.device("cuda"))
+    dataset = BackboneDataset.load(data)
+    batches = [to_tensors(dataset.denoise_batch(np.random.RandomState([denoise.SEED, i]), 1),
+                          "cuda") for i in range(BLOCK_DATA)]
+    captured = capture_step(guarded, guarded.state)
+
+    def one_block():
+        losses = [captured(b.tokens, b.noised_coors, b.clean_coors, b.adj_mat, b.mask)
+                  for b in batches]
+        return torch.stack(losses).tolist()
+
+    one_block()
+    block_ms = call_ms(torch, one_block, iters=10, warmup=2)
+    kernel_ms, launches = profile_forward(torch, one_block, iters=BLOCK_PROFILE_ITERS,
+                                          label=f"denoise blocks of {BLOCK_DATA} replays",
+                                          unit="block")
+    print(f"timing on {smi}: a block of {BLOCK_DATA} denoise micro-steps replayed (the batches "
+          f"on the card, copied into the graph's inputs; the losses read once) "
+          f"{block_ms:.4f} ms, {block_ms / BLOCK_DATA:.4f} ms a micro-step "
+          f"({BLOCK_DATA / block_ms * 1e3:.3f} micro-steps/s, "
+          f"{BLOCK_DATA * edges / block_ms * 1e3:.4e} edges/s); kernel time {kernel_ms:.4f} ms, "
+          f"busy {kernel_ms / block_ms:.3f}, {launches:.1f} launches a block "
+          f"({launches / BLOCK_DATA:.1f} a micro-step); phase 36's micro-step as a call "
+          f"{eager['denoise_call_ms']:.4f} ms, kernel time {eager['denoise_kernel_ms']:.4f} ms, "
+          f"{eager['denoise_launches']:.1f} launches")
+    del net, guarded, captured, batches
+
+    # ---- 46b. the molecule trainer's default path in blocks ----
+    mol = {}
+    for block in (BLOCK_MOLECULE, 1, 0):
+        reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            s = mr.main(["--device", "cuda", "--steps", str(MOLECULE_STEPS), "--block",
+                         str(block)])
+        torch.cuda.synchronize()
+        s["launches"] = {k: v for k, v in LAUNCH_COUNTS.items() if v}
+        mol[block] = s
+        print(f"phase 46b molecule trainer --block {block}: {MOLECULE_STEPS / s['seconds']:.3f} "
+              f"steps/s over the run ({s['edges_per_s']:.4e} edges/s, the graph build "
+              f"included), {steady(s):.3f} after the first block ({s['first_block_steps']} "
+              f"steps in {s['first_block_seconds']:.3f} s); launches counted {s['launches']}")
+    args = mr.parse_args([])
+    same = (mol[BLOCK_MOLECULE]["losses"] == mol[1]["losses"]
+            and mol[BLOCK_MOLECULE]["maes"] == mol[1]["maes"])
+    k3 = {b: mol[b]["launches"].get("knn_select", 0) for b in mol}
+    replayed = k3[BLOCK_MOLECULE] == k3[1] == 2 and k3[0] == MOLECULE_STEPS
+    falling = (np.mean(mol[BLOCK_MOLECULE]["losses"][-10:])
+               < np.mean(mol[BLOCK_MOLECULE]["losses"][:10]))
+    print(f"phase 46b molecule trainer (G = {args.graphs} molecules of {args.na} slots, k = "
+          f"{args.knn}, {args.layers} layers, dim {args.dim}, {MOLECULE_STEPS} steps): --block "
+          f"{BLOCK_MOLECULE} against --block 1, losses and MAEs bitwise={same}; against eager "
+          f"calls: {mol[BLOCK_MOLECULE]['losses'] == mol[0]['losses']} (not gated); K3 launches "
+          f"counted {k3} (a block run: the warm-up and the capture; eager: one a step); the "
+          f"loss falling={falling}; on {smi}: {steady(mol[BLOCK_MOLECULE]) :.3f} steps/s in "
+          f"blocks after the first, {steady(mol[0]):.3f} as eager calls; phase 34's step as a "
+          f"call {eager['molecule_call_ms']:.4f} ms")
+    if not (same and replayed and falling):
+        failures.append("molecule")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 46: {time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError(f"phase 46: blocks differ from blocks of one, or did not replay: "
+                             f"{failures}")
 
 
 # phases 37-39: multi-process training and the last two examples
@@ -4296,6 +4492,45 @@ def last_options_phase(torch, smi):
     if ef > GPU_VS_CPU_ATOL or el > TRAIN_LOSS_RTOL or eg > TRAIN_GRAD_TOL:
         raise AssertionError("phase 45a: anchor 4 on the card and the CPU disagree")
     check_equivariance(torch, serve, coors, "phase 45a anchor 4")
+    # the train step takes the given num_nearest_neighbors as k, as the JAX
+    # package's jitted step does (ops/neighbors.py:static_k): one step on
+    # the card against the CPU, each gradient by phase 9's rule; no mask, as
+    # above, so that every slot counts and the two more slots add messages
+    from egnn_tpu_torch.training import make_denoise_train_step, make_fused_adam
+    rq = synthetic_chain_batch(np.random.default_rng(SEED + 451), 1, N4, device="cuda")
+    step_batch = (rq.tokens, rq.noised_coors, rq.clean_coors, rq.adj_mat, None)
+    cpu_batch = [None if t is None else t.cpu() for t in step_batch]
+    step_nets = [anchor4_net(torch)]
+    step_nets.append(copy.deepcopy(step_nets[0]).to("cpu"))
+    with torch.no_grad():   # the coordinates at a direct call's k and at the step's
+        _, direct = step_nets[1](cpu_batch[0], cpu_batch[1], adj_mat=cpu_batch[3])
+        with nb.static_k():
+            _, static = step_nets[1](cpu_batch[0], cpu_batch[1], adj_mat=cpu_batch[3])
+        k_moves = (static - direct).abs().max().item()
+    steps = [make_denoise_train_step(m, make_fused_adam(m.parameters(), LR)) for m in step_nets]
+    reset_launch_counts()
+    step_loss = steps[0](*step_batch).item()
+    stepped = launches_now(torch)
+    step_loss_cpu = with_k2_sums(steps[1], *cpu_batch).item()
+    grad_errs = []
+    for (name, p), q in zip(step_nets[0].named_parameters(), step_nets[1].parameters()):
+        if p.grad is not None and q.grad is not None:
+            diff, norm = (torch.linalg.vector_norm(x).item()
+                          for x in (p.grad.cpu().double() - q.grad.double(), q.grad.double()))
+            grad_errs.append((diff - TRAIN_GRAD_TOL * norm - 1e-12, diff / max(norm, 1e-300),
+                              name))
+    el_step = abs(step_loss - step_loss_cpu) / abs(step_loss_cpu)
+    worst = max(grad_errs)
+    print(f"phase 45a anchor 4's train step, k = {KNN4} (the given num_nearest_neighbors, as "
+          f"the JAX package's jitted step): launches {stepped}; loss card {step_loss:.8f} "
+          f"against CPU {step_loss_cpu:.8f} ({el_step:.3e}, rtol {TRAIN_LOSS_RTOL}), the "
+          f"gradients' largest relative error {max(e for _, e, _ in grad_errs):.3e} (tol "
+          f"{TRAIN_GRAD_TOL}); the initial weights' output coordinates at k = {KNN4} "
+          f"against a direct call's k = {k4}: {k_moves:.3e} apart at most")
+    if el_step > TRAIN_LOSS_RTOL or worst[0] > 0 or stepped.get("knn_select_gather") != DEPTH4:
+        raise AssertionError(f"phase 45a: anchor 4's train step on the card and the CPU "
+                             f"disagree ({worst[2]}), or K1 did not run depth times")
+    del step_nets, steps
     with torch.inference_mode():
         fwd_call = [call_ms(torch, lambda: serve(coors)) for _ in range(2)]
         with constant_max_degree(k4):
@@ -6340,7 +6575,7 @@ def main() -> int:
 
     sparse_phases(torch)
     dense_option_phases(torch)
-    host_runtime_phases(torch, smi)
+    eager_trainers = host_runtime_phases(torch, smi)
     parallel_phases(torch, smi)
     model_parallel_phases(torch, smi)
     parent = sys.argv[sys.argv.index("--parent-source") + 1] if "--parent-source" in sys.argv \
@@ -6348,6 +6583,7 @@ def main() -> int:
     kernels.extend(mode_phase(torch, smi, parent))
     kernels.extend(graph_axis_phases(torch, smi))
     last_options_phase(torch, smi)
+    trainer_block_phase(torch, smi, eager_trainers)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,20 +11,25 @@ the padding.
 
 Three ways to feed it:
 - by default each step draws its molecules on the host and builds their kNN
-  edges on the card (``ops.graph.knn_graph``, one K3 launch a batch);
+  edges on the card (``ops.graph.knn_graph``, one K3 launch a batch). The
+  steps run in blocks of ``--block`` (10), as the JAX example runs a block
+  as one jitted ``lax.scan``: a block's molecules are drawn on the host and
+  copied to the card at once, the edge build and the step are captured
+  together as one CUDA graph (``training.capture_step``) replayed for each
+  step, and the block's losses are read back once (``--block 0``: eager
+  calls; on the CPU the steps always run as calls);
 - ``--qm9 FILE`` (``--make-qm9 FILE`` writes a synthetic one first): a
   QM9-format file through ``QM9Dataset``, edges built on the card;
 - ``--host-graphs``: ``synthetic_molecule_batch_np`` builds whole batches,
   edges included, with the native host builder on a ``PrefetchLoader``
   worker, which copies them to the card while it steps.
-The batch of step i comes from a ``RandomState`` seeded by (``SEED``, i),
+
+``--qm9`` and ``--host-graphs`` step by calls and ignore ``--block``, as the
+JAX example does. The batch of step i comes from a ``RandomState`` seeded by (``SEED``, i),
 the weights from ``SEED``.
 
 Run: python -m egnn_tpu_torch.examples.molecule_regression --steps 200
-     [--device cpu] [--host-graphs | --qm9 FILE | --make-qm9 FILE]
-
-Left out of the JAX example: ``--block`` (steps fused into one jitted
-``lax.scan``, a knob against a TPU's dispatch cost).
+     [--device cpu] [--block 10] [--host-graphs | --qm9 FILE | --make-qm9 FILE]
 """
 from __future__ import annotations
 
@@ -43,6 +48,8 @@ from egnn_tpu_torch.ops.graph import knn_graph
 from egnn_tpu_torch.ops.segment import segment_mean
 from egnn_tpu_torch.training import (
     PrefetchLoader,
+    TrainState,
+    capture_step,
     make_adam,
     synthetic_molecule_batch_np,
     to_tensors,
@@ -65,6 +72,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--layers", type=int, default=4)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--block", type=int, default=10,
+                    help="steps a block on the default path: on the card the edge build and "
+                    "step's CUDA graph replayed, the losses read once a block; 0 calls the "
+                    "step eagerly")
     ap.add_argument("--host-graphs", action="store_true",
                     help="build batches on the host (native kNN, a prefetch thread)")
     ap.add_argument("--qm9", default=None, help="a QM9-format npz file")
@@ -109,7 +120,9 @@ class Regressor(nn.Module):
 
 def make_train_step(model: Regressor, optimizer: torch.optim.Optimizer):
     """``step(batch) -> (mse, mae)``: zero-grad, forward, the MSE against
-    ``batch.target``, backward, optimizer step. Nothing is read back."""
+    ``batch.target``, backward, optimizer step (its ``TrainState`` is
+    ``step.state``). Nothing is read back."""
+    state = TrainState(model, optimizer)
 
     def step(batch: MoleculeBatch):
         optimizer.zero_grad(set_to_none=True)
@@ -118,9 +131,10 @@ def make_train_step(model: Regressor, optimizer: torch.optim.Optimizer):
         err = pred - batch.target
         loss = (err ** 2).mean()
         loss.backward()
-        optimizer.step()
+        state.apply_gradients()
         return loss.detach(), err.detach().abs().mean()
 
+    step.state = state
     return step
 
 
@@ -138,14 +152,27 @@ def pack_on_device(coors, types, node_mask, target, k: int) -> MoleculeBatch:
                          batch_ids=batch_ids, node_mask=nm, target=target)
 
 
-def device_batch(step: int, G: int, NA: int, k: int, device) -> MoleculeBatch:
-    """Step ``step``'s ``random_molecules`` (drawn on the host from
-    RandomState((SEED, step))), packed with edges built on ``device``."""
+def raw_molecules(step: int, G: int, NA: int) -> tuple:
+    """Step ``step``'s ``random_molecules``, drawn on the host from
+    RandomState((SEED, step)): (coors, types, node_mask, target) arrays."""
     types, sizes, coors, target = random_molecules(np.random.RandomState([SEED, step]), G, NA,
                                                    len(CHARGES), CHARGES)
-    node_mask = np.arange(NA)[None, :] < sizes[:, None]
-    coors, types, node_mask, target = to_tensors((coors, types, node_mask, target), device)
-    return pack_on_device(coors, types, node_mask, target, k)
+    return coors, types, np.arange(NA)[None, :] < sizes[:, None], target
+
+
+def device_batch(step: int, G: int, NA: int, k: int, device) -> MoleculeBatch:
+    """Step ``step``'s molecules, packed with edges built on ``device``."""
+    return pack_on_device(*to_tensors(raw_molecules(step, G, NA), device), k)
+
+
+def device_blocks(steps: range, block: int, G: int, NA: int, device):
+    """The raw molecules of ``steps`` in blocks of ``block`` steps: each
+    block's arrays stacked on the host and copied to ``device`` at once;
+    yields one list of (coors, types, node_mask, target) tensors a block."""
+    for first in range(steps.start, steps.stop, block):
+        host = [raw_molecules(i, G, NA) for i in range(first, min(first + block, steps.stop))]
+        fields = to_tensors([np.stack(f) for f in zip(*host)], device)
+        yield [tuple(f[j] for f in fields) for j in range(len(host))]
 
 
 def host_batch(step: int, G: int, NA: int, k: int) -> MoleculeBatch:
@@ -174,6 +201,7 @@ def main(argv=None) -> dict:
     model = Regressor(args.layers, args.dim, num_types, G, NA, K, device=device,
                       generator=torch.Generator().manual_seed(SEED))
     step = make_train_step(model, make_adam(model.parameters(), args.lr))
+    blocks = qm9 is None and not args.host_graphs
     print(f"device {device}; params: {sum(p.numel() for p in model.parameters()):,}")
 
     loader = None
@@ -194,17 +222,38 @@ def main(argv=None) -> dict:
                                 depth=2, num_batches=args.steps, device=device)
         source = loader
     else:
-        source = (device_batch(i, G, NA, K, device) for i in range(args.steps))
+        def packed_step(coors, types, node_mask, target):
+            return step(pack_on_device(coors, types, node_mask, target, K))
 
-    losses, maes = [], []
+        run_step = packed_step if args.block == 0 else capture_step(packed_step, step.state)
+        source = ([run_step(*raw) for raw in block]
+                  for block in device_blocks(range(args.steps), max(1, args.block), G, NA,
+                                             device))
+
+    every = max(1, args.steps // 10)
+    losses, maes, pending = [], [], []
+    first_block = (0.0, 0)   # (seconds, steps) of the first block: a capture's cost
     t0 = time.perf_counter()
+    groups = iter(source if blocks else ([step(batch)] for batch in source))
     try:
-        for i, batch in enumerate(source):
-            loss, mae = step(batch)
-            losses.append(loss)
-            maes.append(mae)
-            if i % max(1, args.steps // 10) == 0 or i == args.steps - 1:
-                print(f"step {i:5d}  mse {loss.item():9.4f}  mae {mae.item():8.4f}")
+        following = next(groups, None)
+        while following is not None:
+            # the next block is queued on the card before this one is read
+            outs, following = following, next(groups, None)
+            pending += outs
+            last = len(losses) + len(pending) - 1
+            if not (blocks or last % every == 0 or last == args.steps - 1):
+                continue
+            # a block's (or, by calls, a printed step's) one read
+            values = torch.stack([torch.stack(o) for o in pending]).tolist()
+            pending = []
+            if not losses:
+                first_block = (time.perf_counter() - t0, len(values))
+            for i, (loss, mae) in enumerate(values, start=len(losses)):
+                losses.append(loss)
+                maes.append(mae)
+                if i % every == 0 or i == args.steps - 1:
+                    print(f"step {i:5d}  mse {loss:9.4f}  mae {mae:8.4f}")
     finally:
         if loader is not None:
             loader.close()
@@ -214,9 +263,10 @@ def main(argv=None) -> dict:
     eps = args.steps * G * NA * K * args.layers / seconds
     print(f"{args.steps} steps in {seconds:.2f} s ({eps / 1e6:.3f} M edges/s, the graph "
           f"build included)")
-    summary = {"device": str(device), "steps": args.steps, "seconds": seconds,
-               "edges_per_s": eps, "losses": torch.stack(losses).tolist(),
-               "maes": torch.stack(maes).tolist()}
+    summary = {"device": str(device), "steps": args.steps,
+               "block": args.block if blocks else None, "seconds": seconds,
+               "edges_per_s": eps, "first_block_seconds": first_block[0],
+               "first_block_steps": first_block[1], "losses": losses, "maes": maes}
     print("SUMMARY " + json.dumps(summary))
     return summary
 

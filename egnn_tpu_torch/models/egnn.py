@@ -55,8 +55,10 @@ names and (in, out) weight layout:
 
 Reference quirks kept on purpose: ``valid_radius`` acts only with a
 ``mask``; with ``only_sparse_neighbors`` k is the max row degree including
-the self slot; without a mask the mean divisor is k (n on the all-pairs
-paths).
+the self slot (in a direct call; under a train step, as under the JAX
+package's ``jax.jit``, k is the given ``num_nearest_neighbors``:
+``ops/neighbors.py:static_k``); without a mask the mean divisor is k (n on
+the all-pairs paths).
 
 Model parallelism (``egnn_tpu_torch.parallel``):
 - ``ring_axis=group`` (a ``torch.distributed`` process group, where the JAX
@@ -442,8 +444,14 @@ class EGNN(ShardedMLPs, nn.Module):
             if self.only_sparse_neighbors:
                 if adj_mat is None:
                     raise ValueError("only_sparse_neighbors requires adj_mat")
-                # the reference overrides k with the max row degree
-                num_nearest = nb.max_degree(adj_mat)
+                # the reference overrides k with the max row degree; under a
+                # train step (a jitted call in the JAX package) k is static
+                derived = nb.try_max_degree(adj_mat)
+                if derived is not None:
+                    num_nearest = derived
+                elif num_nearest == 0:
+                    raise ValueError("only_sparse_neighbors under a train step needs a static "
+                                     "k: pass num_nearest_neighbors explicitly")
                 valid_radius = 0.0
             adj_b = None
             if adj_mat is not None:

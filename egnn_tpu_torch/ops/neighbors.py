@@ -6,7 +6,9 @@ the reference's selection rules (egnn_pytorch.py:230-268, 414-432):
 - masked pairs are filled with 1e5 in the ranking,
 - with an adjacency matrix, self pairs rank -1 and adjacent pairs 0, so they
   always win the top-k,
-- ``only_sparse_neighbors`` sets k to the max row degree,
+- ``only_sparse_neighbors`` sets k to the max row degree in a direct call,
+  and to ``num_nearest_neighbors`` under a train step (``static_k``), as the
+  JAX package's eager and jitted calls do,
 - neighbourhood validity is ``ranking <= valid_radius``,
 - among equal rankings the lowest j wins (a stable sort; ``torch.topk``
   promises no tie order).
@@ -41,8 +43,10 @@ differentiated.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import torch
 
@@ -79,10 +83,34 @@ class Neighborhood(NamedTuple):
 
 def max_degree(adj_mat: torch.Tensor) -> int:
     """Max row degree of a (possibly batched) boolean adjacency
-    (``int(adj_mat.float().sum(dim=-1).max().item())``, egnn_pytorch.py:249).
-    A torch adjacency is always concrete, so this also stands for the JAX
-    package's ``try_max_degree``."""
+    (``int(adj_mat.float().sum(dim=-1).max().item())``, egnn_pytorch.py:249):
+    one host read."""
     return int(adj_mat.float().sum(dim=-1).max().item())
+
+
+_STATIC_K = contextvars.ContextVar("static_k", default=False)
+
+
+@contextlib.contextmanager
+def static_k() -> Iterator[None]:
+    """The rule of the JAX package's jitted calls, where the adjacency is
+    traced: inside, ``try_max_degree`` answers ``None`` and a layer with
+    ``only_sparse_neighbors`` takes its given ``num_nearest_neighbors`` as k.
+    The step factories (``training/state.py``) and the pipelined functions
+    (``parallel/pipeline.py``), the counterparts of ``jax.jit``, run under
+    it; so such a step reads no adjacency degree back, and a CUDA graph can
+    capture it."""
+    token = _STATIC_K.set(True)
+    try:
+        yield
+    finally:
+        _STATIC_K.reset(token)
+
+
+def try_max_degree(adj_mat: torch.Tensor) -> Optional[int]:
+    """``max_degree``, or ``None`` under ``static_k`` (the JAX package's
+    ``try_max_degree`` on a traced adjacency)."""
+    return None if _STATIC_K.get() else max_degree(adj_mat)
 
 
 def pairwise_geometry(

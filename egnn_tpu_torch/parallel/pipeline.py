@@ -207,14 +207,18 @@ def make_pipelined_apply(layer: nn.Module, group, n_microbatches: int) -> Callab
     """``apply(stage_params, feats, coors, mask=None, adj_mat=None)`` over
     whole batches (b divisible by ``n_microbatches``), ``stage_params`` this
     rank's block: the sequential stack's (feats (b, n, d), coors (b, n, c))
-    on every rank."""
+    on every rank. Under it, as under the JAX package's jitted apply, a
+    layer with ``only_sparse_neighbors`` takes its given k
+    (``ops/neighbors.py:static_k``)."""
+    from ..ops.neighbors import static_k   # ops imports parallel
     check_group(group, "group")
 
     def apply(stage_params, feats, coors, mask=None, adj_mat=None):
         M = n_microbatches
-        fo, co = pipeline_apply(layer, stage_params, _microbatches(feats, M),
-                                _microbatches(coors, M), _microbatches(mask, M), adj_mat,
-                                group=group)
+        with static_k():
+            fo, co = pipeline_apply(layer, stage_params, _microbatches(feats, M),
+                                    _microbatches(coors, M), _microbatches(mask, M), adj_mat,
+                                    group=group)
         return fo.reshape(feats.shape), co.reshape(coors.shape)
 
     return apply
@@ -225,13 +229,16 @@ def make_pipelined_loss(layer: nn.Module, group, n_microbatches: int,
     """``loss(stage_params, feats, coors, target, mask=None, adj_mat=None)``
     over whole batches: the mean of the microbatches' ``loss_fn`` (the
     sequential stack's batch-mean loss where ``loss_fn`` is a mean and the
-    batch splits evenly), on every rank; differentiate it on every rank."""
+    batch splits evenly), on every rank; differentiate it on every rank.
+    Static k as in ``make_pipelined_apply``."""
+    from ..ops.neighbors import static_k   # ops imports parallel
     check_group(group, "group")
 
     def loss(stage_params, feats, coors, target, mask=None, adj_mat=None):
         M = n_microbatches
-        return pipeline_loss(layer, stage_params, _microbatches(feats, M),
-                             _microbatches(coors, M), loss_fn, _microbatches(target, M),
-                             _microbatches(mask, M), adj_mat, group=group)
+        with static_k():
+            return pipeline_loss(layer, stage_params, _microbatches(feats, M),
+                                 _microbatches(coors, M), loss_fn, _microbatches(target, M),
+                                 _microbatches(mask, M), adj_mat, group=group)
 
     return loss

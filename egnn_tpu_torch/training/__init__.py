@@ -1,5 +1,6 @@
 """Training: loss, optimizers, train state and step builders, the
-data-parallel, ring and edge-partitioned steps among them (``state.py``), the
+data-parallel, ring and edge-partitioned steps among them, and the captured
+step (``state.py``), the
 input pipeline (``data.py``: synthetic chain and molecule batches,
 ``PrefetchLoader``), dataset files (``datasets.py``) and checkpoints
 (``checkpoint.py``)."""
@@ -9,6 +10,7 @@ from .state import (
     Adam,
     FusedAdam,
     TrainState,
+    capture_step,
     make_adam,
     make_denoise_train_step,
     make_fused_adam,
@@ -24,6 +26,7 @@ __all__ = [
     "FusedAdam",
     "PrefetchLoader",
     "TrainState",
+    "capture_step",
     "make_adam",
     "make_denoise_train_step",
     "make_fused_adam",

@@ -6,9 +6,10 @@ optax computes it (with global-norm clipping and ``optax.MultiSteps``
 gradient accumulation), the flat-buffer Adam, and a train step that runs
 zero-grad, forward, loss, backward and the optimizer step. The optimizers
 are ``torch.optim.Optimizer`` subclasses whose update is the JAX code's
-arithmetic, step for step. They keep their Adam step counts on the
-parameters' device, so a step syncs nothing to the host, and a step with
-``FusedAdam`` can be captured in a CUDA graph.
+arithmetic, step for step. They keep their Adam step counts and the
+accumulation counter on the parameters' device, so a step syncs nothing to
+the host. ``capture_step``, the counterpart of ``jax.jit``, replays a step
+as a CUDA graph on the card.
 
 Two multi-process steps (``egnn_tpu/training/state.py:135-164, 229-304``)
 run one process a rank over ``torch.distributed``: the data-parallel dense
@@ -25,7 +26,7 @@ nodes on ``graph``, the layers' all-pairs messages around the ring.
 """
 from __future__ import annotations
 
-import dataclasses
+import math
 from typing import Callable, Iterable, Optional
 
 import torch
@@ -33,6 +34,7 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..ops.neighbors import static_k
 from ..parallel.collectives import all_reduce_, all_reduce_sum, broadcast_
 from ..parallel.mesh import shard_nodes
 
@@ -132,14 +134,35 @@ def make_fused_adam(params: Iterable[torch.Tensor], learning_rate: float = 1e-3,
     return FusedAdam(params, lr=learning_rate, b1=b1, b2=b2, eps=eps)
 
 
+def _flat(tensors: list[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors])
+
+
+def _unflat(flat: torch.Tensor, like: list[torch.Tensor]) -> list[torch.Tensor]:
+    """``flat`` cut into views shaped as the tensors of ``like``."""
+    return [v.view_as(t) for v, t in zip(flat.split([t.numel() for t in like]), like)]
+
+
 class Adam(torch.optim.Optimizer):
     """``optax.adam`` with optional ``optax.clip_by_global_norm`` before it
-    and ``optax.MultiSteps`` around it (``make_adam``): the gradients of
-    ``grad_accum`` calls are averaged (Welford: ``acc += (g - acc) / (i + 1)``)
-    and the parameters move on every ``grad_accum``-th call only. The
-    accumulation counter (``mini_step``, a host int, so that a step reads
-    nothing back from the card) travels in ``state_dict()``, so a run
-    resumed inside an accumulation window goes on as if never stopped."""
+    and ``optax.MultiSteps`` around it (``make_adam``), all on the device.
+
+    Every call averages its gradients into ``acc`` (Welford, as optax:
+    ``acc + (g - acc) / (mini_step + 1)``, a division by a device tensor),
+    computes the Adam update of the average, and applies it where the
+    window closes (``mini_step == grad_accum - 1``): the moments and counts
+    by a select, the parameters by adding the update times the flag, ``acc``
+    kept times its complement, as ``MultiSteps`` does. No Python branch
+    reads the counter, so a call reads nothing back from the card and a
+    CUDA graph can capture it.
+
+    The accumulation counter lives on the device (``state["multisteps"]``);
+    ``mini_step`` reads it (one host read, only when a caller asks), and
+    ``state_dict()`` carries it as an int, so a run resumed inside an
+    accumulation window goes on as if never stopped. The parameters keep
+    one Adam count each, as saved; they move together, as optax's one count
+    does, and the update reads the first. The arithmetic runs over one flat
+    buffer of all the parameters, a fixed number of launches a call."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr: float = 1e-3,
                  grad_accum: int = 1, clip_norm: Optional[float] = None,
@@ -149,12 +172,22 @@ class Adam(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
         self.grad_accum = grad_accum
         self.clip_norm = clip_norm
-        self.mini_step = 0
         for group in self.param_groups:
             for p in group["params"]:
                 self.state[p] = dict(count=torch.zeros((), dtype=torch.int32, device=p.device),
                                      m=torch.zeros_like(p), v=torch.zeros_like(p),
                                      acc=torch.zeros_like(p))
+        self._new_counter(0)
+
+    def _new_counter(self, value: int) -> None:
+        device = self.param_groups[0]["params"][0].device
+        self.state["multisteps"] = dict(
+            mini_step=torch.tensor(value, dtype=torch.int32, device=device))
+
+    @property
+    def mini_step(self) -> int:
+        """The accumulation counter: micro-steps into the open window."""
+        return int(self.state["multisteps"]["mini_step"])
 
     @torch.no_grad()
     def step(self, closure: Optional[Callable[[], torch.Tensor]] = None):
@@ -162,41 +195,53 @@ class Adam(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        items = [(group, p) for group in self.param_groups for p in group["params"]]
-        params = [p for _, p in items]
+        params = [p for group in self.param_groups for p in group["params"]]
         grads = _grads(params)
+        emit = None
         if self.grad_accum > 1:
-            i = self.mini_step
-            for p, g in zip(params, grads):
-                acc = self.state[p]["acc"]
-                acc.add_((g - acc) / (i + 1))
-            self.mini_step = (i + 1) % self.grad_accum
-            if self.mini_step != 0:
-                return loss
-            grads = [self.state[p]["acc"].clone() for p in params]
-            for p in params:
-                self.state[p]["acc"].zero_()
+            mini = self.state["multisteps"]["mini_step"]
+            accs = [self.state[p]["acc"] for p in params]
+            acc = _flat(accs)
+            acc = acc + (_flat(grads) - acc) / (mini + 1)
+            grads = _unflat(acc, params)
+            emit = mini == self.grad_accum - 1
         if self.clip_norm is not None:
             norm = torch.sqrt(sum((g * g).sum() for g in grads))
             grads = [torch.where(norm < self.clip_norm, g, g / norm * self.clip_norm)
                      for g in grads]
-        for (group, p), g in zip(items, grads):
+        first = 0
+        for group in self.param_groups:
+            ps = group["params"]
+            g = _flat(grads[first:first + len(ps)])
+            first += len(ps)
             b1, b2 = group["b1"], group["b2"]
-            st = self.state[p]
-            st["count"] += 1
-            m = st["m"].mul_(b1).add_((1.0 - b1) * g)
-            v = st["v"].mul_(b2).add_((1.0 - b2) * g * g)
-            c = st["count"].to(g.dtype)
-            upd = (m / (1.0 - b1 ** c)) / (torch.sqrt(v / (1.0 - b2 ** c)) + group["eps"])
-            p.add_((-group["lr"]) * upd)
+            sts = [self.state[p] for p in ps]
+            ms, vs, counts = ([st[k] for st in sts] for k in ("m", "v", "count"))
+            m_old, v_old = _flat(ms), _flat(vs)
+            m = m_old.mul(b1).add_((1.0 - b1) * g)
+            v = v_old.mul(b2).add_((1.0 - b2) * g * g)
+            c = (counts[0] + 1).to(g.dtype)
+            upd = (-group["lr"]) * ((m / (1.0 - b1 ** c))
+                                    / (torch.sqrt(v / (1.0 - b2 ** c)) + group["eps"]))
+            if emit is not None:
+                m, v, upd = torch.where(emit, m, m_old), torch.where(emit, v, v_old), upd * emit
+            torch._foreach_copy_(ps + ms + vs, _unflat(_flat(ps) + upd, ps) + _unflat(m, ms)
+                                 + _unflat(v, vs))
+            count = counts[0] + (1 if emit is None else emit.to(torch.int32))
+            torch._foreach_copy_(counts, [count] * len(counts))
+        if emit is not None:
+            torch._foreach_copy_(accs, _unflat(acc * ~emit, accs))
+            mini.copy_((mini + 1) % self.grad_accum)
         return loss
 
     def state_dict(self) -> dict:
-        return {**super().state_dict(), "mini_step": self.mini_step}
+        sd = super().state_dict()
+        sd["state"] = {k: v for k, v in sd["state"].items() if k != "multisteps"}
+        return {**sd, "mini_step": self.mini_step}
 
     def load_state_dict(self, state_dict: dict) -> None:
         _load_state_exactly(self, state_dict)
-        self.mini_step = int(state_dict["mini_step"])
+        self._new_counter(int(state_dict["mini_step"]))
 
 
 def make_adam(params: Iterable[torch.Tensor], learning_rate: float = 1e-3,
@@ -207,25 +252,75 @@ def make_adam(params: Iterable[torch.Tensor], learning_rate: float = 1e-3,
     return Adam(params, lr=learning_rate, grad_accum=grad_accum, clip_norm=clip_norm)
 
 
-@dataclasses.dataclass
+def _group_by_dtype(tensors: list[torch.Tensor]) -> dict[torch.dtype, list[torch.Tensor]]:
+    groups: dict[torch.dtype, list[torch.Tensor]] = {}
+    for t in tensors:
+        groups.setdefault(t.dtype, []).append(t)
+    return groups
+
+
 class TrainState:
     """A module, its optimizer and the count of optimizer steps taken.
-    ``gate``, where set, decides from the loss whether the optimizer steps
-    (``utils.finite_or_skip_step`` sets it for the length of a call)."""
 
-    module: nn.Module
-    optimizer: torch.optim.Optimizer
-    step: int = 0
-    gate: Optional[Callable[[torch.Tensor], bool]] = None
+    ``step`` counts the calls of ``apply_gradients`` (micro-steps, as the
+    JAX ``TrainState.step`` does under ``optax.MultiSteps``) in a 0-d tensor
+    on the module's device; reading ``step`` reads it back, setting it
+    writes it. ``guarded`` (set by ``utils.finite_or_skip_step`` for the
+    length of a call) turns on the finite-step guard of
+    ``apply_gradients``."""
 
-    def apply_gradients(self, loss: Optional[torch.Tensor] = None) -> bool:
-        """One optimizer step on the gradients the module holds, unless
-        ``gate(loss)`` says no; returns whether the optimizer stepped."""
-        if self.gate is not None and not self.gate(loss):
-            return False
+    def __init__(self, module: nn.Module, optimizer: torch.optim.Optimizer, step: int = 0):
+        self.module = module
+        self.optimizer = optimizer
+        params = list(module.parameters())
+        device = params[0].device if params else torch.device("cpu")
+        self._step = torch.tensor(step, dtype=torch.int32, device=device)
+        self.guarded = False
+
+    @property
+    def step(self) -> int:
+        return int(self._step)
+
+    @step.setter
+    def step(self, value: int) -> None:
+        self._step.fill_(int(value))
+
+    def tensors(self) -> list[torch.Tensor]:
+        """What an optimizer step changes: the parameters, every tensor of
+        the optimizer's state and the step count."""
+        opt = [v for st in self.optimizer.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor)]
+        return [*self.module.parameters(), *opt, self._step]
+
+    @torch.no_grad()
+    def apply_gradients(self, loss: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+        """One optimizer step on the gradients the module holds; returns
+        ``loss``.
+
+        Guarded, it is ``egnn_tpu.utils.finite_or_skip_step``'s rule on the
+        device: ``ok`` = the new parameters, the new optimizer state and the
+        loss all finite; where not ``ok`` every tensor of ``tensors()`` (the
+        accumulation counter and the step count too) keeps its old value,
+        by a select, and the loss comes back as NaN, the skip marker.
+        Nothing is read back to the host."""
+        if not self.guarded:
+            self.optimizer.step()
+            self._step += 1
+            return loss
+        groups = _group_by_dtype(self.tensors())
+        old = {dtype: _flat(ts) for dtype, ts in groups.items()}
         self.optimizer.step()
-        self.step += 1
-        return True
+        self._step += 1
+        new = {dtype: _flat(ts) for dtype, ts in groups.items()}
+        ok = torch.ones((), dtype=torch.bool, device=self._step.device)
+        if loss is not None:
+            ok = ok & torch.isfinite(loss).all()
+        for dtype, flat in new.items():
+            if dtype.is_floating_point:
+                ok = ok & torch.isfinite(flat).all()
+        for dtype, ts in groups.items():
+            torch._foreach_copy_(ts, _unflat(torch.where(ok, new[dtype], old[dtype]), ts))
+        return None if loss is None else torch.where(ok, loss, math.nan)
 
 
 def make_denoise_train_step(
@@ -240,8 +335,14 @@ def make_denoise_train_step(
     Returns ``step(tokens, noised_coors, target_coors, adj_mat, mask)``,
     which runs zero-grad, forward, loss, backward and ``optimizer.step()``
     and returns the loss as a 0-d tensor without waiting for the device.
-    The step's ``TrainState`` is ``step.state``; where its gate skips the
-    optimizer, the step returns a NaN loss.
+    The step's ``TrainState`` is ``step.state``; under
+    ``utils.finite_or_skip_step`` a skipped step returns a NaN loss.
+
+    The step is the counterpart of the JAX package's jitted step: a layer
+    with ``only_sparse_neighbors`` takes its given ``num_nearest_neighbors``
+    as k (``ops/neighbors.py:static_k``), where a direct call of the
+    network takes the adjacency's largest row degree. It reads nothing back
+    from the card, so ``capture_step`` can capture it.
 
     The forward and backward run in eval mode, and the module's mode is
     restored after: the JAX step calls the network without
@@ -274,13 +375,13 @@ def _sum_grads(params: list[torch.Tensor], group) -> None:
 
 def _make_step(net: nn.Module, optimizer: torch.optim.Optimizer, local_loss: Callable,
                group=None) -> Callable:
-    """``step(*batch)``: zero-grad, ``local_loss(*batch)`` in eval mode,
-    backward, then the optimizer step through ``TrainState`` and its gate;
-    the loss comes back detached. Under a process group ``local_loss`` is
-    this rank's share of the global loss, and the loss and the gradients are
-    summed over the group before the gate reads them (so that every rank
-    decides alike); the parameters are made equal to the group's first
-    rank's when the step is built."""
+    """``step(*batch)``: zero-grad, ``local_loss(*batch)`` in eval mode
+    under ``static_k``, backward, then ``TrainState.apply_gradients``; the
+    loss comes back detached. Under a process group ``local_loss`` is this
+    rank's share of the global loss, and the loss and the gradients are
+    summed over the group before the optimizer and the guard see them (so
+    that every rank selects alike); the parameters are made equal to the
+    group's first rank's when the step is built."""
     state = TrainState(net, optimizer)
     params = list(net.parameters())
     if group is not None:
@@ -291,7 +392,8 @@ def _make_step(net: nn.Module, optimizer: torch.optim.Optimizer, local_loss: Cal
         mode = net.training
         net.eval()
         try:
-            loss = local_loss(*batch)
+            with static_k():
+                loss = local_loss(*batch)
             loss.backward()
         finally:
             net.train(mode)
@@ -299,10 +401,76 @@ def _make_step(net: nn.Module, optimizer: torch.optim.Optimizer, local_loss: Cal
         if group is not None:
             loss = all_reduce_(loss.clone(), group)
             _sum_grads(params, group)
-        return loss if state.apply_gradients(loss) else torch.full_like(loss, float("nan"))
+        return state.apply_gradients(loss)
 
     step.state = state
     return step
+
+
+def _signature(args: tuple) -> tuple:
+    return tuple((tuple(a.shape), a.dtype, a.device) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+
+
+def _copy_out(out):
+    if isinstance(out, torch.Tensor):
+        return out.clone()
+    return type(out)(_copy_out(o) for o in out)
+
+
+def capture_step(step: Callable, state: TrainState) -> Callable:
+    """``step`` as the JAX package runs a jitted step: ``captured(*batch)``
+    computes ``step(*batch)`` and returns a copy of its outputs (a tensor,
+    or a tuple or list of them).
+
+    On a CUDA device the first call with a new signature (the tensors'
+    shapes, dtypes and devices, the other arguments' values) runs ``step``
+    once on its batch on a side stream (the lazy set-up, and the host
+    checks that a capture skips), puts back what that call changed
+    (``state.tensors()``: parameters, optimizer state, step count),
+    then captures one call into a ``torch.cuda.CUDAGraph`` over static
+    copies of the batch. Each call copies its batch into those copies and
+    replays the graph; no Python of ``step`` runs, so ``step`` must update
+    nothing but ``state.tensors()`` in place, read nothing back from the
+    card and keep its tensors: state loaded into new tensors after the
+    first call is not seen. A capture that fails raises; nothing falls back
+    to eager calls. Other threads may use the card meanwhile (the capture
+    is thread-local). On the CPU ``step`` runs as it is, call by call.
+    """
+    device = state._step.device
+    if device.type != "cuda":
+        return step
+    graphs: dict = {}
+
+    def capture(args):
+        inputs = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        tensors = state.tensors()
+        saved = [t.detach().clone() for t in tensors]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            step(*inputs)
+        torch.cuda.current_stream(device).wait_stream(side)
+        with torch.no_grad():
+            torch._foreach_copy_(tensors, saved)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            outputs = step(*inputs)
+        return graph, inputs, outputs
+
+    def captured(*args):
+        key = _signature(args)
+        if key not in graphs:
+            graphs[key] = capture(args)
+        graph, inputs, outputs = graphs[key]
+        for buf, a in zip(inputs, args):
+            if isinstance(buf, torch.Tensor):
+                buf.copy_(a)
+        graph.replay()
+        return _copy_out(outputs)
+
+    captured.state = state
+    return captured
 
 
 def make_sharded_denoise_train_step(
@@ -326,7 +494,7 @@ def make_sharded_denoise_train_step(
     global loss (``masked_mse`` divides by the mask count summed over the
     group); the gradients are summed over the group, so that the step is the
     one-process step on the whole batch, and the returned loss is the global
-    masked MSE. The same ``TrainState`` and gate as
+    masked MSE. The same ``TrainState``, guard and static k as
     ``make_denoise_train_step`` (``step.state``); on a mesh of one rank the
     two steps give the same bits.
 
@@ -376,7 +544,7 @@ def make_ring_denoise_train_step(
     the mask count summed over both axes; loss and gradients are then
     summed over both axes (one ``all_reduce`` of a flat buffer), the
     psum-after-grad rule of the other steps, and every rank's optimizer
-    takes the same step. The same ``TrainState`` and gate as
+    takes the same step. The same ``TrainState`` and guard as
     ``make_denoise_train_step`` (``step.state``).
 
     The network may hold no kNN (the layers refuse it with ``ring_axis``),

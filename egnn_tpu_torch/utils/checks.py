@@ -10,13 +10,14 @@ These helpers make both loud:
   ``checkify`` so that the guards inside raise on the host; here the guards
   raise where they run, and there is nothing to wrap;
 - ``tree_all_finite(tree)``: a 0-d bool tensor, read by nobody;
-- ``finite_or_skip_step(step)``: a train step whose optimizer does not step
-  when the loss or a gradient is not finite.
+- ``finite_or_skip_step(step)``: a train step that keeps its old state
+  where its new state or its loss is not finite.
 
-``guard_finite``, ``assert_in_bounds`` and ``finite_or_skip_step`` decide on
-the host: on a CUDA tensor each costs one device-to-host read (and a wait
-for the work before it). Keep them out of a step that should run ahead of
-the host, or out of one that a CUDA graph captures.
+``guard_finite`` and ``assert_in_bounds`` decide on the host: on a CUDA
+tensor each costs one device-to-host read (and a wait for the work before
+it). Keep them out of a step that should run ahead of the host, or out of
+one that a CUDA graph captures. ``finite_or_skip_step`` decides on the
+device, as the JAX guard does under ``jax.jit``, and reads nothing back.
 """
 from __future__ import annotations
 
@@ -87,41 +88,29 @@ def finite_or_skip_step(step_fn: Callable) -> Callable:
     """Wrap a train step ``step_fn(*batch) -> loss`` that names its
     ``TrainState`` in ``step_fn.state`` and steps its optimizer through
     ``TrainState.apply_gradients(loss)`` (``make_denoise_train_step``'s
-    step): where the loss or a gradient is not finite, the optimizer does
-    not step and the call returns a NaN loss as the skip marker, as
-    ``egnn_tpu.utils.finite_or_skip_step`` does.
+    step): where the new parameters, the new optimizer state or the loss are
+    not finite, the old state is kept and the call returns a NaN loss as the
+    skip marker, as ``egnn_tpu.utils.finite_or_skip_step`` does.
 
-    The wrapper decides after the backward and before the optimizer moves
-    anything, with one host read of one flag a call, so nothing is rolled
-    back: the parameters, the optimizer's tensors, its accumulation counter
-    (``Adam.mini_step``) and ``TrainState.step`` stay as they were, and a
-    skipped micro-step leaves its accumulation window as if it had not been
-    called, as the JAX guard's rollback of ``optax.MultiSteps``' counter
-    does. From a finite state the JAX guard's test (the new state finite)
-    and this one (the gradients finite) skip the same steps: a non-finite
-    gradient makes Adam's new state non-finite, through either optimizer,
-    with or without clipping and accumulation. The one case apart is a
-    finite gradient whose update overflows the float type (a squared
-    gradient above its largest value), which the JAX guard skips and this
-    one applies.
+    The guard is the JAX guard's arithmetic on the device
+    (``TrainState.apply_gradients``): the state before the optimizer step is
+    kept in flat buffers, ``ok`` is computed after it, and every tensor of
+    the state takes ``where(ok, new, old)``: the parameters, the
+    optimizer's tensors, its accumulation counter (``Adam.mini_step``) and
+    ``TrainState.step``. So a skipped micro-step leaves its accumulation
+    window as if it had not been called, a finite gradient whose update
+    overflows is skipped too, and nothing is read back: a CUDA graph can
+    capture the guarded step.
     """
     state = step_fn.state
-    params = list(state.module.parameters())
-
-    def gate(loss: torch.Tensor) -> bool:
-        flat = [p.grad.reshape(-1) for p in params if p.grad is not None]
-        ok = torch.isfinite(loss).all()
-        if flat:
-            ok = ok & torch.isfinite(torch.cat(flat)).all()
-        return bool(ok)
 
     @functools.wraps(step_fn)
     def wrapper(*args, **kwargs):
-        state.gate = gate
+        state.guarded = True
         try:
             return step_fn(*args, **kwargs)
         finally:
-            state.gate = None
+            state.guarded = False
 
     wrapper.state = state
     return wrapper
