@@ -156,7 +156,10 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    arm as a call (CUDA events) and as a CUDA graph replay, a step's kernel
    time by name and busy share; K3, K2, K10f and K10b at anchor 5's shapes
    beside their bounds, plain versions and ``index_add_`` or the unfused
-   pipeline;
+   pipeline; K10b's tile (32 rows), grid and blocks an SM (one), and the
+   registers and spills of its one-block instances (none may spill);
+   K10b beside a parent checkout's source and wrapper with
+   ``--parent-source PATH``;
 30. anchor 3 with global attention every second layer (8 heads of 64, 4
    global tokens): served at b=1 and b=8 (K1 depth times a forward, card
    against CPU, equivariance), trained (K1 and K2 depth times a step, the
@@ -336,6 +339,12 @@ Phases (any failure raises and exits non-zero; nothing is skipped):
    together), 40 steps in blocks of 10 against blocks of 1: losses and
    MAEs bitwise, K3 only at the warm-up and the capture, the loss falling;
    steps/s beside eager calls.
+47. anchor 3's network at dim 64 with 4 Fourier encodings (h = 274, the
+   widths at which K10b takes its one-block tile) trained with
+   ``fused_pairs`` beside the unfused network at b = 1 and b = 8: one step
+   each against the other (loss rtol 1e-4, gradients 5e-3), K10f and K10b
+   depth times a step; both steps timed as CUDA-graph replays, with their
+   kernel time and K10b's share of it.
 
 The last lines: a JSON line of the kernels, the card's ``nvidia-smi`` line,
 then ``{"ok": true, "device": {...}}``.
@@ -358,6 +367,7 @@ from pathlib import Path
 
 # anchor configuration 3 (bench.py:23-24, examples/export_serving.py:34-38)
 DEPTH, DIM, N, KNN, NUM_TOKENS = 3, 32, 1024, 8, 21
+DIM64 = 64   # phase 47: anchor 3 at dim 64 with 4 Fourier encodings (h = 274)
 LAYER_KWARGS = dict(num_nearest_neighbors=KNN, norm_coors=True, coor_weights_clamp_value=2.0)
 SEED = 0
 
@@ -523,9 +533,10 @@ def call_ms(torch, fn, iters=30, warmup=5) -> float:
     return time_fn(fn, reps=iters, warmup=warmup, stat="median") * 1e3
 
 
-def profile_forward(torch, fn, iters=10, label="b=1 forwards", unit="forward"):
+def profile_forward(torch, fn, iters=10, label="b=1 forwards", unit="forward", by_name=None):
     """Device time by kernel over ``iters`` calls (torch.profiler); returns
-    (kernel time of one call in ms, kernel launches of one call)."""
+    (kernel time of one call in ms, kernel launches of one call). A dict
+    ``by_name`` receives each kernel's ms a call by its name."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     # one warm-up step inside the profiler, left out of the sums: without it
@@ -544,6 +555,8 @@ def profile_forward(torch, fn, iters=10, label="b=1 forwards", unit="forward"):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
     total = sum(e.self_device_time_total for e in events)
+    if by_name is not None:
+        by_name.update({e.key: e.self_device_time_total / iters / 1e3 for e in events})
     print(f"profile of {iters} {label}: kernel time {total / iters / 1e3:.4f} ms "
           f"per {unit} over {len(events)} kernels, "
           f"{sum(e.count for e in events) / iters:.1f} launches per {unit}")
@@ -799,7 +812,7 @@ def pair_cases():
                                           gfo=True)),
         ("bare_k5_b3", dict(b=3, n=500, k=5, d=16, norm=False, clamp=None, masked=False)),
         ("c5_m8_k7", dict(b=1, n=600, k=7, d=12, m=8, c=5)),
-        ("dim64_tile_of_8", dict(b=1, n=512, k=8, d=64)),    # wider weights: K10's tile is 8 rows
+        ("dim64_tile_of_8", dict(b=1, n=512, k=8, d=64)),    # wider weights: K10b's one-block tile
         ("k64", dict(b=1, n=300, k=64, d=16)),               # one node a tile
         # the backward's blocks at their edges at once: 30 rows of a 32-row
         # tile (not a multiple of the 4-row group), the last tile of each
@@ -1049,10 +1062,11 @@ def molecule_batch(torch, knn_graph, G, seed, lattice=False):
             coors.reshape(n, 3).cuda())
 
 
-def sparse_phases(torch):
+def sparse_phases(torch, parent=None):
     """Phases 25-29: anchor 5, the sparse family, on the card; each kernel's
     time at the sparse shapes is printed (the kernels line keeps anchor 3's
-    rows). Raises on a failure."""
+    rows), the f32 K10b's beside a ``parent`` checkout's (the path of its
+    ``csrc/pair_messages.cu``), where given. Raises on a failure."""
     from egnn_tpu_torch import EGNNSparseNetwork
     from egnn_tpu_torch.ops import core
     from egnn_tpu_torch.ops import graph as GR
@@ -1299,7 +1313,7 @@ def sparse_phases(torch):
                   f"{s_kernel / s_call:.3f}, {s_launches:.1f} launches")
             del net, step
         sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, sparse_counts,
-                             step_counts)
+                             step_counts, parent)
     print(f"phases 25-29 (anchor 5): {time.perf_counter() - t_start:.1f} s")
 
 
@@ -2231,6 +2245,79 @@ TP_SPARSE_GRAD_TOL = 1e-4
 # and a gradient entry below the rounding of its tensor may take either sign
 PAR_ONE_RANK_TOL = 1e-5
 TWO_RANK_TIMEOUT = 420     # seconds for both ranks of phase 38 to report
+
+
+def dense_dim64_phase(torch, smi):
+    """Phase 47: anchor 3's network at dim 64 with ``fourier_features=4``
+    (h = 274, the widths at which K10b takes its one-block tile), trained
+    with ``fused_pairs`` beside the unfused network at b = 1 and b = 8: one
+    step each from the same weights on the same batch (loss rtol
+    TRAIN_LOSS_RTOL, gradients FUSED_VS_UNFUSED_GRAD_TOL), K10f and K10b
+    depth times a fused step; then both steps timed as CUDA-graph replays
+    (unfused, fused, fused, unfused), each step's kernel time and K10b's
+    share of it (torch.profiler). Raises on a failure."""
+    import numpy as np
+
+    from egnn_tpu_torch import EGNNNetwork
+    from egnn_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from egnn_tpu_torch.training import make_denoise_train_step, make_fused_adam
+    from egnn_tpu_torch.training.data import synthetic_chain_batch
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 47)
+
+    def trainer(**extra):   # one seed: the same weights fused and unfused
+        net = EGNNNetwork(depth=DEPTH, dim=DIM64, num_tokens=NUM_TOKENS, num_positions=N,
+                          layer_kwargs={**LAYER_KWARGS, "fourier_features": 4, **extra},
+                          device="cuda", generator=torch.Generator().manual_seed(SEED + 47))
+        return net, make_denoise_train_step(net, make_fused_adam(net.parameters(), LR))
+
+    for b in (1, 8):
+        rq = synthetic_chain_batch(rng, b, N, device="cuda")
+        args = (rq.tokens, rq.noised_coors, rq.clean_coors, rq.adj_mat, rq.mask)
+        (net_f, step_f), (net_u, step_u) = trainer(fused_pairs=True), trainer()
+        if net_f.egnn_0.hidden != 274:
+            raise AssertionError(f"phase 47: h = {net_f.egnn_0.hidden}, not 274")
+        reset_launch_counts()
+        loss_f = step_f(*args).item()
+        counts = dict(LAUNCH_COUNTS)
+        loss_u = step_u(*args).item()
+        if counts["fused_pair_fwd"] != DEPTH or counts["fused_pair_bwd"] != DEPTH:
+            raise AssertionError(f"phase 47 b={b}: K10f/K10b did not run depth times a step: "
+                                 f"{counts}")
+        errs = []
+        for (name, p), u in zip(net_f.named_parameters(), net_u.parameters()):
+            if (p.grad is None) != (u.grad is None):
+                raise AssertionError(f"phase 47: {name} has a gradient on one path only")
+            if p.grad is not None:
+                errs.append((rel_err(torch, p.grad, u.grad), name))
+        worst = max(errs)
+        print(f"phase 47 dim {DIM64}, fourier 4 (h = 274), b={b}: one step fused loss "
+              f"{loss_f:.8f}, unfused {loss_u:.8f} (rtol {TRAIN_LOSS_RTOL}); gradients "
+              f"||g - g_unfused|| / ||g_unfused|| largest {worst[0]:.3e} ({worst[1]}) (tol "
+              f"{FUSED_VS_UNFUSED_GRAD_TOL}); launches { {k: v for k, v in counts.items() if v} }")
+        if abs(loss_f - loss_u) > TRAIN_LOSS_RTOL * abs(loss_u) or \
+                worst[0] > FUSED_VS_UNFUSED_GRAD_TOL:
+            raise AssertionError(f"phase 47 b={b}: the fused and unfused steps disagree")
+        (_, step_f), (_, step_u) = trainer(fused_pairs=True), trainer()
+        u_a, f_a = (device_ms(torch, lambda s=s: s(*args), reps=5) for s in (step_u, step_f))
+        f_b, u_b = (device_ms(torch, lambda s=s: s(*args), reps=5) for s in (step_f, step_u))
+        kernels = {}
+        for kind, step in (("unfused", step_u), ("fused", step_f)):
+            names = {}
+            total, launches = profile_forward(
+                torch, lambda: step(*args), iters=5, unit="step", by_name=names,
+                label=f"phase 47 dim {DIM64} {kind} b={b} train steps")
+            k10b = sum(ms for key, ms in names.items() if "pair_bwd_kernel" in key)
+            kernels[kind] = (total, launches, k10b)
+        (ku, lu, _), (kf, lf, kb) = kernels["unfused"], kernels["fused"]
+        print(f"phase 47 dim {DIM64} b={b} train step (CUDA graph replays, one card: {smi}): "
+              f"fused_pairs {f_a:.4f}/{f_b:.4f} ms beside unfused {u_a:.4f}/{u_b:.4f} ms; "
+              f"kernel time fused {kf:.4f} ms ({lf:.1f} launches), of which K10b {kb:.4f} ms "
+              f"({kb / kf:.3f}), unfused {ku:.4f} ms ({lu:.1f} launches)")
+        del net_f, net_u, step_f, step_u
+        torch.cuda.empty_cache()
+    print(f"phase 47 (the dense layer at dim {DIM64}): {time.perf_counter() - t_start:.1f} s")
 
 
 def host_ops(torch, fn, iters, label):
@@ -3224,11 +3311,16 @@ def model_parallel_phases(torch, smi):
     print(f"phases 40-42: {time.perf_counter() - t_start:.1f} s")
 
 
-def sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, serving, steps):
+def sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, serving, steps,
+                         parent=None):
     """K3, K2, K10f and K10b at the shapes anchor 5 gives them, each beside
     its plain version, its bound and the library call or the unfused
     pipeline, and its launches on the main path (arm (a)'s and (c)'s serving
-    of four batches, their five steps)."""
+    of four batches, their five steps); K10b's one-block instances' registers
+    and spills (raises if one spills), and K10b beside a ``parent``
+    checkout's source and wrapper (``parent_pair_messages``), where given."""
+    from egnn_tpu_torch.ops.cuda import build
+
     n, e = G * SP_NA, G * SP_NA * SP_K
     # K3: knn_graph's selection, b = G molecules of SP_NA atoms, k + 1 slots
     cg = mb.x[:, :3].reshape(G, SP_NA, 3).contiguous()
@@ -3286,8 +3378,17 @@ def sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, serving, st
             "bwd": (lambda: PM.fused_pair_messages_backward(*args, weights, *g, opts),
                     lambda: PM.fused_pair_messages_backward_plain(*args, weights, *g, opts)),
         }
-        res = {key: [device_ms(torch, f, reps=5) for f in (p, k, k, p)]
-               for key, (k, p) in timed.items()}
+        res = {}
+        for key, (k, p) in timed.items():
+            p_a, k_a = device_ms(torch, p, reps=5), device_ms(torch, k, reps=5)
+            was = []
+            if key == "bwd" and parent is not None:   # parent, parent between this one's
+                parent_pm = parent_pair_messages(parent)
+                with build.using("pair_messages",
+                                 source_libraries({"parent": (parent, "")})["parent"]):
+                    was = [device_ms(torch, lambda: parent_pm.fused_pair_messages_backward(
+                        *args, weights, *g, opts), reps=5) for _ in range(2)]
+            res[key] = (p_a, k_a, device_ms(torch, k, reps=5), device_ms(torch, p, reps=5), was)
         u_fwd = device_ms(torch, lambda: unfused_pipeline(torch, core, *args, weights, opts),
                           reps=5)
     u_both = device_ms(torch, unfused_fwd_bwd, reps=5)
@@ -3295,10 +3396,12 @@ def sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, serving, st
     for key, backward in (("fwd", False), ("bwd", True)):
         rows = (PM._bwd_tile_rows(SP_K, 3, SP_DIM, SP_HIDDEN, 16, 64, 4, False) if backward else
                 PM._fwd_tile_rows(1, n, SP_K, 3, SP_DIM, SP_HIDDEN, 16, 64, 4, False, sms))
-        _, grid = PM.launch_grid(1, n, SP_K, rows, backward, "cuda")
+        by_layout = (PM._bwd_blocks_per_sm(rows, 3, SP_DIM, SP_HIDDEN, 16, 64, 4, False)
+                     if backward else None)
+        _, grid = PM.launch_grid(1, n, SP_K, rows, backward, "cuda", by_layout)
         per_sm = PM.kernel_blocks_per_sm(rows, SP_K, 3, SP_DIM, SP_HIDDEN, 16, 64, 4, False,
                                          False, backward)
-        p_a, k_a, k_b, p_b = res[key]
+        p_a, k_a, k_b, p_b, was = res[key]
         bound_ms, bound_by, t_bytes, t_ops = pair_bound(1, n, SP_K, 3, SP_DIM, SP_HIDDEN, 16, 4,
                                                         False, False, backward)
         name = f"fused_pair_{key}"
@@ -3310,7 +3413,20 @@ def sparse_kernel_timing(torch, K, SK, PM, core, mb, G, sms, sp_err, serving, st
               f"{' (its fwd+bwd less its forward)' if backward else ''}; {steps['c'][name]} "
               f"launches in arm (c)'s {SP_STEPS} steps; max err against float64 "
               f"{sp_err[name]:.3e}; a tile of {rows} rows, a grid of {grid} blocks, {per_sm} "
-              f"blocks an SM")
+              f"blocks an SM" + (f"; the parent's {was[0]:.5f}/{was[1]:.5f} ms (its own tile "
+                                 f"and grid)" if was else ""))
+        if backward and (by_layout != per_sm or (rows, per_sm) != (32, 1)):
+            raise AssertionError(f"K10b at anchor 5's widths: a tile of {rows} rows at {per_sm} "
+                                 f"blocks an SM ({by_layout} by the layout), not 32 rows at one")
+    if G != SP_G:
+        return
+    # the f32 K10b's instances of one block an SM (this one among them)
+    one_block = ptxas_kernels(build, "pair_messages", r"pair_bwd_kernelILb.ELi.ELb0ELi1ELi\d+EE")
+    for kname, regs, st, ld in one_block:
+        print(f"ptxas {kname}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    if len(one_block) != 4 or any(st or ld for _, _, st, ld in one_block):
+        raise AssertionError("the f32 K10b's four one-block instances are not all built "
+                             "without spills")
 
 
 # phase 43 (K10's tensor-core mode). Served outputs under "medium" against
@@ -3335,14 +3451,17 @@ MODE_STEPS = 5
 # of the outputs' bytes in the wrappers' order (K10f: m_i, coors_delta; K10b:
 # d_coors, d_cj, d_fj, d_proj_i, the eleven weight gradients). H100 80GB
 # HBM3, torch 2.11.0+cu128, CUDA 12.8; the cases come from the card's own
-# generator.
+# generator. Anchor 5's two f32 K10b hashes are those of its 32-row tiles on
+# a grid of one block an SM: the weight gradients' sums run over other tiles
+# and grid rows than on the 8-row tiles at two blocks an SM they replace (the
+# same at 4-7 register slots and at one or five h-wide columns).
 MODE_KEPT_BITS = {
     "anchor3": {"fwd_bf16": "a71b8b40ddd818f8", "fwd_f32": "6e7c7768f9fb6295",
                 "bwd_f32": "8ea5032019373dab"},
     "anchor5_G32": {"fwd_bf16": "16ab3d2a4c2496e9", "fwd_f32": "90e2f619edb7ff1c",
-                    "bwd_f32": "af6ea8211c316656"},
+                    "bwd_f32": "2ad96cd6726a2ec0"},
     "anchor5_G512": {"fwd_bf16": "8a650e6a5817ab5a", "fwd_f32": "1cd395ff669282e5",
-                     "bwd_f32": "d52152b246a97868"},
+                     "bwd_f32": "a0e80f9f4639a88d"},
     "pathC": {"fwd_bf16": "c912aad0cb378ff4", "fwd_f32": "c02471ed6067436a",
               "bwd_f32": "aad98c4b1dba2952"},
 }
@@ -3513,6 +3632,22 @@ def source_libraries(copies):
     return {tag: ctypes.CDLL(str(target)) for tag, target in targets.items()}
 
 
+def parent_pair_messages(source):
+    """A parent checkout's ``ops/cuda/pair_messages.py``, found beside its
+    ``csrc/pair_messages.cu`` (``source``) and loaded as a module of this
+    package: its wrappers size the parent's launches by the parent's own
+    rules (tile, grid). Launch them inside ``build.using`` with the parent's
+    library (``source_libraries``)."""
+    import importlib.util
+
+    path = Path(source).resolve().parents[1] / "ops" / "cuda" / "pair_messages.py"
+    spec = importlib.util.spec_from_file_location(
+        "egnn_tpu_torch.ops.cuda.parent_pair_messages", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def mode_phase(torch, smi, parent=None):
     """Phase 43: K10 in its tensor-core mode (``mxu_bf16``, reached by
     ``torch.set_float32_matmul_precision("medium")`` on the card): the
@@ -3557,24 +3692,24 @@ def mode_phase(torch, smi, parent=None):
     cases, mode_err = {}, {}
     for i, (name, (what, kw, _)) in enumerate(shapes.items()):
         cases[name] = pair_case(torch, SEED + 1900 + i, **kw)
-        # the mode's K10b on its own tile: the f32 tile wherever two blocks an
-        # SM hold one of 16 rows or more, else the largest that one block holds
+        # the backward's tile, the f32 one's too: two blocks an SM where they
+        # hold one of 16 rows or more, else the largest that one block holds
         case = cases[name]
         b, n, k = case["idx"].shape
         d, h = case["feats"].shape[-1], case["proj_i"].shape[-1]
         widths = (3, d, h, 16, 64, case["opts"]["fourier"], case["opts"]["soft_edges"])
-        rows_m, rows_f = PM._bwd_tile_rows(k, *widths, True), PM._bwd_tile_rows(k, *widths)
-        per_sm = PM._bwd_blocks_per_sm(rows_m, *widths, True)
+        rows_m = PM._bwd_tile_rows(k, *widths)
+        per_sm = PM._bwd_blocks_per_sm(rows_m, *widths)
         _, grid = PM.launch_grid(b, n, k, rows_m, True, "cuda", per_sm)
         layout = (rows_m, *widths)
         if PM._smem_floats(*layout, True) != PM.kernel_smem_floats(*layout, True):
             raise AssertionError(f"phase 43 {name}: the wrapper's layout {layout} differs from "
                                  f"the source's")
         occupancy = PM.kernel_blocks_per_sm(rows_m, k, *widths, False, True, mxu_bf16=True)
-        print(f"phase 43 {name}: the mode's K10b on {rows_m}-row tiles ({rows_f} in f32), "
+        print(f"phase 43 {name}: the mode's K10b on {rows_m}-row tiles (as the f32 one), "
               f"{per_sm} blocks an SM by the layout ({occupancy} by the occupancy calculator), "
               f"a grid of {grid}")
-        if per_sm != occupancy or (name.startswith("anchor5") and (rows_m, rows_f) != (32, 8)):
+        if per_sm != occupancy or (name.startswith("anchor5") and (rows_m, per_sm) != (32, 1)):
             raise AssertionError(f"phase 43 {name}: the mode's backward tile is not the rule's")
         mode_err[name] = check_pair_kernels(torch, PM, what, case, False, mxu_bf16=True)
         bits = kept_bits(torch, PM, case)
@@ -3794,7 +3929,7 @@ def mode_phase(torch, smi, parent=None):
         for key, backward in (("fwd", False), ("bwd", True)):
             ms, (m_a, m_b), (f_a, f_b), plain_ms, was = t[key]
             bound_ms, bound_by = mode_bound(b, n, k, 3, d, h, 16, fourier, soft, backward)
-            tiles = (PM._bwd_tile_rows(k, 3, d, h, 16, 64, fourier, soft, True) if backward else
+            tiles = (PM._bwd_tile_rows(k, 3, d, h, 16, 64, fourier, soft) if backward else
                      PM._fwd_tile_rows(b, n, k, 3, d, h, 16, 64, fourier, soft,
                                        torch.cuda.get_device_properties(0).multi_processor_count))
             per_sm = PM.kernel_blocks_per_sm(tiles, k, 3, d, h, 16, 64, fourier, soft, False,
@@ -6539,7 +6674,9 @@ def main() -> int:
             for key, backward in (("fwd", False), ("bwd", True)):
                 rows_t = (PM._bwd_tile_rows(k, 3, d_k, h_k, 16, 64, 0, False) if backward else
                           PM._fwd_tile_rows(b, n, k, 3, d_k, h_k, 16, 64, 0, False, sms))
-                _, grid_t = PM.launch_grid(b, n, k, rows_t, backward, "cuda")
+                by_layout = (PM._bwd_blocks_per_sm(rows_t, 3, d_k, h_k, 16, 64, 0, False)
+                             if backward else None)
+                _, grid_t = PM.launch_grid(b, n, k, rows_t, backward, "cuda", by_layout)
                 per_sm = PM.kernel_blocks_per_sm(rows_t, k, 3, d_k, h_k, 16, 64, 0, False,
                                                  gather, backward)
                 tile_line[key] = (f"a tile of {rows_t} rows, a grid of {grid_t} blocks, "
@@ -6573,17 +6710,18 @@ def main() -> int:
         del case
         torch.cuda.empty_cache()
 
-    sparse_phases(torch)
+    parent = sys.argv[sys.argv.index("--parent-source") + 1] if "--parent-source" in sys.argv \
+        else None
+    sparse_phases(torch, parent)
     dense_option_phases(torch)
     eager_trainers = host_runtime_phases(torch, smi)
     parallel_phases(torch, smi)
     model_parallel_phases(torch, smi)
-    parent = sys.argv[sys.argv.index("--parent-source") + 1] if "--parent-source" in sys.argv \
-        else None
     kernels.extend(mode_phase(torch, smi, parent))
     kernels.extend(graph_axis_phases(torch, smi))
     last_options_phase(torch, smi)
     trainer_block_phase(torch, smi, eager_trainers)
+    dense_dim64_phase(torch, smi)
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

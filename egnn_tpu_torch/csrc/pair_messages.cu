@@ -58,6 +58,18 @@
 // The backward (K10b, K11b): 256 threads, two blocks an SM, tiles of about 32
 // rows (the wrapper's _bwd_tile_rows), so that two blocks' layouts fit an
 // SM's shared memory and one block's barrier leaves the SM the other's work.
+// Where two blocks fit no tile of 16 rows or more (dim 64, h = 274: one node
+// of 8 rows takes 140 KiB), a tile of up to 32 rows that one block holds
+// (222 400 B at those widths), the grid sized by one block an SM and an
+// instance bounded by it (bwd_kernel), which keeps every weight-gradient
+// block of those widths in registers (kOneBlockWgSlots): a tile of one node
+// (8 rows) would pay its barriers and its pass over all 1685 weight-gradient
+// blocks for 8 rows, and three slots leave 917 of them to device memory.
+// Measured on the H100 at anchor 5 (G = 512, 131 072 pairs;
+// tools/k10b_variants.py): 4.34 ms on 8-row tiles at three slots, 2.15 ms
+// on 32-row ones with 7 slots (254 registers, no spills; 2.29 ms with 4). The h-wide products keep
+// wide_cost's choice there, five columns: one measured 1.3% slower at
+// G = 512 and 2.7% at G = 32 (PERF.md).
 // It recomputes the tile's forward with its own products, keeping each
 // sigmoid it evaluates (of h1, z2, cz1) so that silu' = sg + silu * (1 - sg)
 // needs no second exponential. Its products are register-blocked: a thread
@@ -138,12 +150,8 @@
 //   A fragments are loaded from the f32 tile lines. The weight gradients'
 //   outer products stay on the FMAs (wgrad_block, rounding their lines as
 //   they read them); they are most of what the mode's K10b costs beyond the
-//   f32 one (PERF.md). The mode's backward takes a tile of its own where two
-//   blocks an SM hold no tile of 16 rows or more (the wrapper's
-//   _bwd_tile_rows: anchor 5's dim 64, h = 274, 32 rows at one block an SM,
-//   where the f32 mode takes 8 rows, half an m16 fragment), its grid sized by
-//   the one block, and an instance with the registers of one block an SM
-//   (bwd_kernel).
+//   f32 one (PERF.md). It takes the f32 backward's tile, grid and one-block
+//   rule (a tile below 16 rows would half fill an m16 fragment).
 // A weight with a width below 8 keeps its f32 copy, and the products that
 // read it stay on the FMAs, rounding where the rules round. Launches repeat
 // bit for bit.
@@ -572,12 +580,18 @@ inline int wide_cost(const Shape& s, int cols) {
 // ceil(J/4)), so that the threads of a warp, which take consecutive blocks,
 // read consecutive lines, on distinct banks. Block b of the concatenated list
 // belongs to thread b % blockDim.x, in slot b / blockDim.x; a thread keeps its
-// first kWgSlots blocks in registers for the whole tile loop, adds each tile's
+// first kSlots blocks in registers for the whole tile loop, adds each tile's
 // sum over its rows (in row order) to them, and writes them to its block's row
 // of `partial` at the end. Blocks beyond those slots (widths past the ones the
 // kernel is tuned for) add their tile sums to `partial` in device memory in
-// the same order. No two threads share an entry: the result repeats.
+// the same order, so where a block lives does not change its bits. No two
+// threads share an entry: the result repeats. The slots are an instance's
+// (bwd_kernel): kWgSlots where two blocks share an SM's registers (768
+// blocks: all of anchor 3's 527), kOneBlockWgSlots in the f32 instances of
+// one block an SM, which may take 255 registers a thread (1792 blocks: all
+// of anchor 5's 1685).
 constexpr int kWgSlots = 3;
+constexpr int kOneBlockWgSlots = 7;
 constexpr int kMaxWgMats = 6;
 constexpr int kBwdTcTiles = 4;   // column tiles a warp item of the mode's h-wide products
 
@@ -1919,8 +1933,9 @@ struct BwdPlan {
 // kBf16: the tensor-core mode (K10 only), its operands rounded where dG
 // rounds them: the products with a real output width on the tensor cores
 // wherever their weight has a bf16 copy (p.cp), the rest on the FMAs.
-// kMinBlocks: the blocks an SM holds (bwd_kernel), which bound the registers.
-template <bool kGather, int kWideCols, bool kBf16, int kMinBlocks = 2>
+// kMinBlocks: the blocks an SM holds (bwd_kernel), which bound the registers;
+// kSlots: the weight-gradient blocks a thread keeps in registers.
+template <bool kGather, int kWideCols, bool kBf16, int kMinBlocks = 2, int kSlots = kWgSlots>
 __global__ void __launch_bounds__(kBwdThreads, kMinBlocks)
 pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan p) {
   extern __shared__ float4 sm4[];
@@ -1937,15 +1952,15 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
   const Bf16Copies& cp = p.cp;
   stage_weights<false, kBf16>(s, t, L, sm, cp);
   for (int r = threadIdx.x; r < ldr; r += nt) sm[L.ONES + r] = 1.f;
-  float acc[kWgSlots][4][4];
+  float acc[kSlots][4][4];
 #pragma unroll
-  for (int sl = 0; sl < kWgSlots; ++sl)
+  for (int sl = 0; sl < kSlots; ++sl)
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[sl][a][c] = 0.f;
   // the blocks past the register slots sum in the block's row of `partial`
-  for (int b = kWgSlots * nt + threadIdx.x; b < plan.blocks; b += nt)
+  for (int b = kSlots * nt + threadIdx.x; b < plan.blocks; b += nt)
     for_block_entries(find_mat(plan, b), b, [&](int, int, int o) { mine[o] = 0.f; });
   __syncthreads();
   const float scale = sm[L.misc + 2];
@@ -2102,7 +2117,7 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
       t.d_pi[(node0 + i) * s.h + j] = sum;
     }
 #pragma unroll
-    for (int sl = 0; sl < kWgSlots; ++sl) {
+    for (int sl = 0; sl < kSlots; ++sl) {
       const int b = sl * nt + threadIdx.x;
       if (b < plan.blocks) {
         float v[4][4];
@@ -2113,7 +2128,7 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
           for (int c = 0; c < 4; ++c) acc[sl][a][c] += v[a][c];
       }
     }
-    for (int b = kWgSlots * nt + threadIdx.x; b < plan.blocks; b += nt) {
+    for (int b = kSlots * nt + threadIdx.x; b < plan.blocks; b += nt) {
       const WgMat M = find_mat(plan, b);
       float v[4][4];
       wgrad_block<kBf16>(sm, M, b, rows, ldr, L.ONES, v);
@@ -2158,7 +2173,7 @@ pair_bwd_kernel(const Shape s, const Tensors t, const __grid_constant__ BwdPlan 
     __syncthreads();  // the next tile rewrites the buffers
   }
 #pragma unroll
-  for (int sl = 0; sl < kWgSlots; ++sl) {
+  for (int sl = 0; sl < kSlots; ++sl) {
     const int b = sl * nt + threadIdx.x;
     if (b < plan.blocks)
       for_block_entries(find_mat(plan, b), b,
@@ -2210,17 +2225,24 @@ FwdKernel fwd_kernel(bool gather) {
 // The backward's instance: five columns a thread in the h-wide products
 // where that gives the threads no longer a path (wide_cost), else one. The
 // tensor-core mode takes one: its h-wide products run on the tensor cores
-// wherever h is at least 8. Where two of its blocks fit no SM's shared
-// memory (anchor 5's tile), it takes the instance bounded by one block an
-// SM: with 128 registers its fragments spilled some of the weight-gradient
-// sums (228 bytes), with 234 none, 8% off its time there (H100).
+// wherever h is at least 8. Where two blocks fit no SM's shared memory (the
+// wrapper's one-block tiles: anchor 5's 32 rows), both modes take the
+// instance bounded by one block an SM. The mode's fragments spilled some of
+// its weight-gradient sums with 128 registers (228 bytes) and none with 234,
+// 8% off its time there; the f32 instance keeps kOneBlockWgSlots blocks in
+// registers (H100).
 BwdKernel bwd_kernel(const Shape& s, bool gather) {
+  const size_t block = (size_t)make_layout(s, true).total * sizeof(float) + kSmBlockReserve;
+  const bool one = 2 * block > (size_t)kSmSmemBytes;
+  if (s.mxu_bf16)
+    return one ? &pair_bwd_kernel<false, 1, true, 1> : &pair_bwd_kernel<false, 1, true, 2>;
   const bool wide = wide_cost(s, 5) <= wide_cost(s, 1);
-  if (s.mxu_bf16) {
-    const size_t block = (size_t)make_layout(s, true).total * sizeof(float) + kSmBlockReserve;
-    return 2 * block <= (size_t)kSmSmemBytes ? &pair_bwd_kernel<false, 1, true, 2>
-                                             : &pair_bwd_kernel<false, 1, true, 1>;
-  }
+  if (one && wide)
+    return gather ? &pair_bwd_kernel<true, 5, false, 1, kOneBlockWgSlots>
+                  : &pair_bwd_kernel<false, 5, false, 1, kOneBlockWgSlots>;
+  if (one)
+    return gather ? &pair_bwd_kernel<true, 1, false, 1, kOneBlockWgSlots>
+                  : &pair_bwd_kernel<false, 1, false, 1, kOneBlockWgSlots>;
   if (wide) return gather ? &pair_bwd_kernel<true, 5, false> : &pair_bwd_kernel<false, 5, false>;
   return gather ? &pair_bwd_kernel<true, 1, false> : &pair_bwd_kernel<false, 1, false>;
 }

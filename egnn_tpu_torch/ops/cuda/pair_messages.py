@@ -28,7 +28,8 @@ anchor 3's 8192 pairs, 64 at path C's million) and loads the next tile's
 inputs while it computes. The backward recomputes the pipeline from the
 inputs and saves nothing of pair size; it keeps its weight gradients in
 registers, one owner thread an entry, on tiles of its own
-(``_bwd_tile_rows``, about 32 pair rows, two blocks an SM). K11b
+(``_bwd_tile_rows``, about 32 pair rows, two blocks an SM where they fit,
+else one). K11b
 writes its j-side gradients in pair layout and sums them per node with the
 segment-sum kernel K2 (order-free, bitwise equal to its model), so both
 backwards repeat bit for bit.
@@ -49,10 +50,11 @@ rows, the backward's on its least tile, one node. Anchor 3 (dim = 32,
 h = 130, m = 16) takes a 64-row forward tile (110 KiB with its staging
 region) and a 32-row backward one (99 KiB); the sparse molecule layer
 (dim = 64, fourier 4, h = 274) forward tiles of up to 48 rows (176 KiB at
-32), one block an SM, and 8-row backward tiles (140 KiB; 32-row ones, 217 KiB,
-in the tensor-core mode). The backward keeps the weight
-gradients of the widths it is tuned for in registers and the rest in device
-memory (``csrc/pair_messages.cu``, ``kWgSlots``).
+32), one block an SM, and 32-row backward tiles (217 KiB), one block an SM,
+in both modes. The backward keeps the weight gradients of the widths it is
+tuned for in registers and the rest in device memory
+(``csrc/pair_messages.cu``, ``kWgSlots``; ``kOneBlockWgSlots`` in the
+float32 instance of one block an SM).
 
 The tensor-core mode of K10 (``mxu_bf16``, the TPU kernel's ``_mm_maker``
 and ``dG``): the MLP products round their operands to bfloat16 (to nearest,
@@ -72,11 +74,11 @@ weights and the bf16 rows lie in the place of their float32 copies and
 lines, so the layouts and the gates are those of the float32 mode
 (``_mode_fwd_fits``). ``mode_tie_pairs`` finds the pairs whose result may
 part between two summation orders in the mode (``chip_smoke.py`` phase 43
-takes them out for its tie-free rerun). The mode's backward
-fills the products' m16 fragments: where two blocks an SM hold no tile of 16
-rows or more, it takes the largest that one block holds (``_bwd_tile_rows``:
-32 rows at the sparse molecule layer's widths, where the float32 mode takes
-8) and sizes its grid by that one block (``_bwd_blocks_per_sm``). The layers
+takes them out for its tie-free rerun). Both modes' backwards take
+one tile: where two blocks an SM hold no tile of 16 rows or more, the
+largest that one block holds (``_bwd_tile_rows``: 32 rows at the sparse
+molecule layer's widths, which fill the mode's m16 fragments), their grid
+sized by that one block (``_bwd_blocks_per_sm``). The layers
 ask ``mxu_bf16_for(device)``; K11 has no such mode, in either package.
 """
 from __future__ import annotations
@@ -232,37 +234,33 @@ def _fits_sm(floats: int, blocks: int) -> bool:
     return 4 * floats <= MAX_SMEM_BYTES and blocks * (4 * floats + 1024) <= SM_SMEM_BYTES
 
 
-def _bwd_tile_rows(k, c, d, h, m, m4, fourier, soft_edges, mxu_bf16=False) -> Optional[int]:
-    """The backward's tile: whole nodes, as many as fit in ``_BWD_ROWS`` pair
-    rows (at least one), rounded up to a multiple of 8, and fewer nodes
-    until ``_BWD_BLOCKS_PER_SM`` blocks fit an SM's shared memory; one node
-    whose layout fits a block alone is the last resort. In the tensor-core
-    mode (``mxu_bf16``) a tile below 16 rows half fills the products' m16
-    fragments: where two blocks an SM fit no tile of 16 rows or more, the
-    mode takes the largest tile of whole nodes up to ``_BWD_ROWS`` rows that
-    one block holds (anchor 5's widths: 32 rows, where the float32 mode
-    takes 8). None where the gates refuse the shape (or no tile fits)."""
+def _bwd_tile_rows(k, c, d, h, m, m4, fourier, soft_edges) -> Optional[int]:
+    """The backward's tile, in both modes: whole nodes, as many as fit in
+    ``_BWD_ROWS`` pair rows (at least one), rounded up to a multiple of 8,
+    and fewer nodes until ``_BWD_BLOCKS_PER_SM`` blocks fit an SM's shared
+    memory. Where two blocks an SM fit no tile of 16 rows or more, the
+    largest tile of whole nodes up to ``_BWD_ROWS`` rows that one block
+    holds: a smaller tile pays the block's fixed costs (barriers, the
+    weight-gradient pass) for few rows and half fills the tensor-core
+    mode's m16 fragments (anchor 5's widths: 32 rows at one block an SM,
+    where one node of 8 rows already takes 140 KiB). None where the gates
+    refuse the shape (or no tile fits)."""
     if _tile_rows(k, c, d, h, m, m4, fourier, soft_edges) is None:
         return None
     floats = lambda rows: _smem_floats(  # noqa: E731
         rows, c, d, h, m, m4, fourier, soft_edges, True)
     tiles = [-(-ti * k // 8) * 8 for ti in range(max(1, _BWD_ROWS // k), 0, -1)]
     two = [rows for rows in tiles if _fits_sm(floats(rows), _BWD_BLOCKS_PER_SM)]
-    if two and (two[0] >= 16 or not mxu_bf16):
+    if two and two[0] >= 16:
         return two[0]
     one = [rows for rows in tiles if _fits_sm(floats(rows), 1)]
-    if mxu_bf16:
-        return one[0] if one else None
-    return tiles[-1] if tiles[-1] in one else None
+    return one[0] if one else None
 
 
-def _bwd_blocks_per_sm(rows, c, d, h, m, m4, fourier, soft_edges, mxu_bf16=False) -> int:
-    """The blocks an SM the backward's grid is sized by (``launch_grid``):
-    in the tensor-core mode the blocks one SM holds at this tile; in the
-    float32 mode two, also where one block fills an SM (anchor 5's 8-row
-    tile), as before, so that its weight-gradient sums keep their bits."""
-    if not mxu_bf16:
-        return _BWD_BLOCKS_PER_SM
+def _bwd_blocks_per_sm(rows, c, d, h, m, m4, fourier, soft_edges) -> int:
+    """The blocks an SM the backward's grid is sized by (``launch_grid``),
+    in both modes: those that one SM holds at this tile, two or one (the
+    instance ``bwd_kernel`` of the source picks by the same test)."""
     floats = _smem_floats(rows, c, d, h, m, m4, fourier, soft_edges, True)
     return _BWD_BLOCKS_PER_SM if _fits_sm(floats, _BWD_BLOCKS_PER_SM) else 1
 
@@ -396,11 +394,9 @@ def mxu_bf16_for(device) -> bool:
     0.92-1.16x the float32 kernel's time over two runs of the smoke (below
     it at the sparse molecule layer's widths; 1.05-1.09x at anchor 3,
     1.12-1.16x at net65k's pairs, where the float32 kernel's own readings
-    part by 6%), its K10b
-    1.5-1.6x at the dense widths and 0.66-0.76x at the sparse molecule
-    layer's (``PERF.md``): "medium" buys the TPU's numbers, and speed only
-    in the sparse layer. ``fused_pair_messages(..., mxu_bf16=...)`` takes
-    either mode directly."""
+    part by 6%), its K10b 1.4-1.6x at every width now that both take one
+    tile (``PERF.md``): "medium" buys the TPU's numbers, not speed.
+    ``fused_pair_messages(..., mxu_bf16=...)`` takes either mode directly."""
     return (torch.device(device).type == "cuda"
             and torch.get_float32_matmul_precision() == "medium")
 
@@ -735,7 +731,7 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
     d = 0 if gather else fj.shape[-1]
     dd = 2 * opts.fourier + 1
     if backward:
-        rows = _bwd_tile_rows(k, c, d, h, m, m4, opts.fourier, opts.soft_edges, opts.mxu_bf16)
+        rows = _bwd_tile_rows(k, c, d, h, m, m4, opts.fourier, opts.soft_edges)
     else:
         rows = _fwd_tile_rows(b, n, k, c, d, h, m, m4, opts.fourier, opts.soft_edges,
                               _sm_count(dev))
@@ -767,8 +763,8 @@ def _launch(gather: bool, opts: PairOptions, coors, cj, fj, proj_i, proj_j, idx,
         if x.numel() != count or x.device != dev:
             raise ValueError(f"{name} must hold {count} elements on {dev}")
 
-    per_sm = (_bwd_blocks_per_sm(rows, c, d, h, m, m4, opts.fourier, opts.soft_edges,
-                                 opts.mxu_bf16) if backward else None)
+    per_sm = (_bwd_blocks_per_sm(rows, c, d, h, m, m4, opts.fourier, opts.soft_edges)
+              if backward else None)
     ti, grid = launch_grid(b, n, k, rows, backward, dev, per_sm)
     shape = _Shape(b=b, n=n, k=k, c=c, d=d, h=h, m=m, m4=m4, fourier=opts.fourier, ti=ti,
                    rows=rows, soft_edges=int(opts.soft_edges), norm_coors=int(opts.norm_coors),

@@ -354,7 +354,7 @@ LAYOUTS = [  # rows, c, d, h, m, m4, fourier, soft_edges: anchor 3 and the paths
     (64, 3, 32, 130, 16, 64, 0, False), (32, 3, 0, 130, 16, 64, 0, False),
     (8, 3, 64, 258, 16, 64, 0, False), (24, 5, 0, 74, 8, 32, 2, True),
     (32, 3, 10, 54, 12, 48, 3, True), (64, 8, 16, 66, 16, 64, 16, True),
-    (32, 3, 64, 274, 16, 64, 4, False)]  # anchor 5's backward tile in the tensor-core mode
+    (32, 3, 64, 274, 16, 64, 4, False)]  # anchor 5's backward tile, both modes
 
 
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda v: "_".join(map(str, v)))
@@ -447,21 +447,37 @@ ANCHOR5 = (3, 64, 274, 16, 64, 4, False)   # c, d, h, m, 4m, fourier, soft_edges
 DIM32 = (3, 32, 130, 16, 64, 0, False)
 
 
+def _bwd_tile_then(k, c, d, h, m, m4, fourier, soft_edges, mxu_bf16):
+    """The backward's tile before both modes took one rule, frozen here: the
+    float32 mode fell to one node where two blocks an SM held no tile, the
+    tensor-core mode took the largest tile one block holds where two held
+    none of 16 rows or more."""
+    if PM._tile_rows(k, c, d, h, m, m4, fourier, soft_edges) is None:
+        return None
+    floats = lambda rows: PM._smem_floats(  # noqa: E731
+        rows, c, d, h, m, m4, fourier, soft_edges, True)
+    tiles = [-(-ti * k // 8) * 8 for ti in range(max(1, 32 // k), 0, -1)]
+    two = [rows for rows in tiles if PM._fits_sm(floats(rows), 2)]
+    if two and (two[0] >= 16 or not mxu_bf16):
+        return two[0]
+    one = [rows for rows in tiles if PM._fits_sm(floats(rows), 1)]
+    if mxu_bf16:
+        return one[0] if one else None
+    return tiles[-1] if tiles[-1] in one else None
+
+
 @pytest.mark.parametrize("k,widths,rows_f32,rows_mode,blocks_mode", [
-    (8, ANCHOR5, 8, 32, 1), (8, DIM32, 32, 32, 2), (16, DIM32, 32, 32, 2),
+    (8, ANCHOR5, 32, 32, 1), (8, DIM32, 32, 32, 2), (16, DIM32, 32, 32, 2),
     (20, DIM32, 24, 24, 2)], ids=["anchor5", "anchor3", "pathC_k16", "pathA_kc20"])
 def test_backward_tile_in_the_tensor_core_mode(k, widths, rows_f32, rows_mode, blocks_mode,
                                                monkeypatch):
-    """The mode's K10b fills the m16 fragments of its products: where two
-    blocks an SM hold no tile of 16 rows or more (anchor 5's widths), it
-    takes the largest tile of whole nodes up to 32 rows that one block holds,
-    and its grid is sized by the one block an SM; elsewhere the float32
-    tile. The float32 mode's tile and grid stay as they were."""
-    assert PM._bwd_tile_rows(k, *widths) == rows_f32
-    assert PM._bwd_tile_rows(k, *widths, False) == rows_f32
-    assert PM._bwd_tile_rows(k, *widths, True) == rows_mode
-    assert PM._bwd_blocks_per_sm(rows_mode, *widths, True) == blocks_mode
-    assert PM._bwd_blocks_per_sm(rows_f32, *widths) == PM._BWD_BLOCKS_PER_SM
+    """Both modes' K10b take one tile: where two blocks an SM hold no tile of
+    16 rows or more (anchor 5's widths), the largest tile of whole nodes up
+    to 32 rows that one block holds, the grid sized by the one block an SM
+    (the mode's m16 fragments full; the float32 mode's fixed costs a tile
+    paid for 32 rows, not 8); elsewhere the tile both had."""
+    assert PM._bwd_tile_rows(k, *widths) == rows_f32 == rows_mode
+    assert PM._bwd_blocks_per_sm(rows_mode, *widths) == blocks_mode
     floats = PM._smem_floats(rows_mode, *widths, True)
     assert floats == _source_layout_total(rows_mode, *widths, True)
     assert 4 * floats <= PM.MAX_SMEM_BYTES
@@ -474,16 +490,17 @@ def test_backward_tile_in_the_tensor_core_mode(k, widths, rows_f32, rows_mode, b
     tiles = -(-n // (rows_mode // k))
     assert PM.launch_grid(1, n, k, rows_mode, True, "cuda", blocks_mode) == (
         rows_mode // k, min(tiles, 132 * blocks_mode))
-    assert PM.launch_grid(1, n, k, rows_f32, True, "cuda") == (
-        rows_f32 // k, min(-(-n // (rows_f32 // k)), 264))
+    # the float32 grid by the blocks one SM holds: 132 at anchor 5, 264 elsewhere
+    assert PM.launch_grid(1, n, k, rows_f32, True, "cuda", blocks_mode)[1] == (
+        132 if widths == ANCHOR5 else 264)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS, ids=lambda v: "_".join(map(str, v)))
 @pytest.mark.parametrize("k", [8, 16])
 def test_tensor_core_mode_keeps_the_float32_tile_where_two_blocks_hold_16_rows(layout, k):
     widths = layout[1:]
-    f32 = PM._bwd_tile_rows(k, *widths)
-    mode = PM._bwd_tile_rows(k, *widths, True)
+    f32 = _bwd_tile_then(k, *widths, False)
+    mode = PM._bwd_tile_rows(k, *widths)
     assert (f32 is None) == (mode is None)
     if f32 is None:
         return
@@ -496,6 +513,37 @@ def test_tensor_core_mode_keeps_the_float32_tile_where_two_blocks_hold_16_rows(l
         assert mode >= f32
     assert mode % 8 == 0 and k <= mode <= PM.MAX_ROWS
     assert floats(mode) == _source_layout_total(mode, *widths, True)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS, ids=lambda v: "_".join(map(str, v)))
+@pytest.mark.parametrize("k", [1, 5, 8, 12, 16, 20])
+def test_one_backward_tile_rule_for_both_modes(layout, k):
+    """One rule for the backward's tile and grid in both modes: where two
+    blocks an SM hold no tile of 16 rows or more, the float32 tile and its
+    blocks an SM are what the tensor-core mode's were (the largest tile one
+    block holds, one block an SM); everywhere else the float32 tile is what
+    it was (anchor 3's 32 rows, path C's 32, path A's 24), at two blocks an
+    SM. The source picks its one-block instance by the same test."""
+    widths = layout[1:]
+    rows = PM._bwd_tile_rows(k, *widths)
+    f32, mode = _bwd_tile_then(k, *widths, False), _bwd_tile_then(k, *widths, True)
+    assert (rows is None) == (f32 is None) == (mode is None)
+    if rows is None:
+        return
+    floats = lambda r: PM._smem_floats(r, *widths, True)  # noqa: E731
+    two = [r for r in (-(-ti * k // 8) * 8 for ti in range(max(1, 32 // k), 0, -1))
+           if PM._fits_sm(floats(r), 2)]
+    per_sm = PM._bwd_blocks_per_sm(rows, *widths)
+    assert rows == mode
+    if two and two[0] >= 16:
+        assert rows == f32 and per_sm == 2
+    else:
+        assert per_sm == (2 if PM._fits_sm(floats(rows), 2) else 1)
+    # bwd_kernel's test: two blocks and the card's 1 KB each in an SM's shared memory
+    assert (per_sm == 1) == (2 * (4 * floats(rows) + 1024) > PM.SM_SMEM_BYTES)
+    assert floats(rows) == _source_layout_total(rows, *widths, True)
+    if widths == DIM32 and k in (8, 16, 20):
+        assert rows == {8: 32, 16: 32, 20: 24}[k]
 
 
 @pytest.mark.parametrize("shape,rows,nodes", [

@@ -337,7 +337,7 @@ def test_fused_gate_takes_the_molecule_widths():
                                       **F64)
     assert layer.hidden == 274 and layer._uses_fused()
     assert PM._tile_rows(8, 3, 64, 274, 16, 64, 4, False) == 48
-    assert PM._bwd_tile_rows(8, 3, 64, 274, 16, 64, 4, False) == 8
+    assert PM._bwd_tile_rows(8, 3, 64, 274, 16, 64, 4, False) == 32
     assert PM._fwd_tile_rows(1, 1024, 8, 3, 64, 274, 16, 64, 4, False, 132) == 32
     # anchor 3, path C (k 16) and path A (kc 20): the tiles they had
     for k, fwd, bwd in ((8, 32, 32), (16, 64, 32), (20, 64, 24)):
