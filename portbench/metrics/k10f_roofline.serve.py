@@ -1,0 +1,6 @@
+"""K10f's least time over its device time, in % (portbench/counts.py)."""
+from portbench.readers import pair_roofline
+
+
+def read(reading):
+    return pair_roofline(reading, backward=False)
